@@ -1,0 +1,58 @@
+"""Map the JAX package's flax variables onto the port's ``state_dict``.
+
+``state_dict_from_jax(params, batch_stats)`` takes the variables of a JAX
+``MaskingObjective`` (or of its ``gnn`` trunk alone) as nested dicts of
+numpy arrays and returns reference-layout keys (``gnn.gnns.0.mlp.0.weight``
+...). Dense kernels are ``[in, out]`` in flax and ``[out, in]`` in torch,
+so they are transposed; batch-norm ``scale``/``bias`` become
+``weight``/``bias`` and ``mean``/``var`` become ``running_mean``/
+``running_var``, with ``num_batches_tracked = 0``. It is the port's own
+copy of the mapping the JAX package's trunk export applies."""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+
+def _torch_name(name: str) -> str:
+    """flax module name -> reference state-dict path component."""
+    for prefix in ("gnns_", "batch_norms_", "mlp_"):
+        if name.startswith(prefix) and name[len(prefix):].isdigit():
+            return prefix[:-1] + "." + name[len(prefix):]
+    return name
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def state_dict_from_jax(params: Mapping[str, Any],
+                        batch_stats: Mapping[str, Any]
+                        ) -> "OrderedDict[str, torch.Tensor]":
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+
+    def emit(prefix: str, p: Mapping[str, Any], s: Mapping[str, Any]):
+        for name, sub in p.items():
+            base = prefix + _torch_name(name)
+            if not isinstance(sub, Mapping):  # embedding table
+                out[f"{base}.weight"] = _tensor(sub)
+            elif "kernel" in sub:  # Dense
+                out[f"{base}.weight"] = _tensor(np.asarray(sub["kernel"]).T)
+                out[f"{base}.bias"] = _tensor(sub["bias"])
+            elif "scale" in sub:  # MaskedBatchNorm
+                st = s[name]
+                out[f"{base}.weight"] = _tensor(sub["scale"])
+                out[f"{base}.bias"] = _tensor(sub["bias"])
+                out[f"{base}.running_mean"] = _tensor(st["mean"])
+                out[f"{base}.running_var"] = _tensor(st["var"])
+                out[f"{base}.num_batches_tracked"] = torch.tensor(
+                    0, dtype=torch.long)
+            else:
+                emit(base + ".", sub, s.get(name, {}))
+
+    emit("", params, batch_stats)
+    return out

@@ -1,0 +1,431 @@
+// Fused GIN conv (K1) for Hopper (sm_90a), forward and backward.
+//
+// Replaces the Pallas TPU kernel pretrain_gnns_tpu/ops/pallas_gin.py
+// (_fwd_kernel via _call_fwd, _bwd_kernel via _call_bwd, wrapped by the
+// custom_vjp fused_gin_conv). One GIN layer on the block-diagonal batch:
+//
+//   msg_e  = w_e * (x[snd_e] + ein_e @ We)
+//   aggr_i = sum_{rcv_e = i} msg_e + (x_i + e_self) * nm_i
+//   z      = relu(aggr @ W1 + b1)          (saved for the backward)
+//   out    = z @ W2 + b2
+//
+// Backward from the saved aggr and z (not recomputed):
+//   dzr = (g @ W2^T) * (z > 0); dW2 = z^T g; db2 = sum g;
+//   dW1 = aggr^T dzr; db1 = sum dzr; da = dzr @ W1^T;
+//   dx_n = sum_{snd_e = n} w_e * da[rcv_e] + da_n * nm_n;
+//   dWe  = sum_e (w_e * ein_e)^T da[rcv_e];  de_self = sum_n da_n * nm_n.
+//
+// What bounds it on the card: at the main path's shapes (N = 8192 rows,
+// F = 300, 2F = 600, about 14 k valid edges) the two forward and four
+// backward products are about 5.9 and 11.8 GFLOP per layer against
+// about 50-60 MB of device-memory traffic per direction, so in float32 on
+// the CUDA cores the layer is bound by operations (67 TFLOP/s peak), not
+// by bytes (3.35 TB/s). The aggregation is a small share of the work.
+//
+// Design (simple and right first; wgmma/TMA on bf16 are later work):
+// - The TPU kernel gathered and scattered with one-hot matmuls on the MXU.
+//   Here the aggregation is a gather with per-edge shared-memory atomics:
+//   one CTA per (node block, 32-wide feature tile) keeps the block's
+//   receiver rows in a shared f32 tile. Padded edge slots (w == 0) and any
+//   slot whose endpoints fall outside its block are skipped, so a padded
+//   slot's global index 0 never indexes shared memory out of bounds.
+// - The MLP products go through one tiled FMA GEMM (64x64x16 tiles, 4x4
+//   outputs per thread, full float32, no TF32) with a bias/ReLU/(z > 0)
+//   epilogue. Operand strides are arguments, so transposed operands need
+//   no copies. Weight gradients contract over all N rows; they split K
+//   into partial products that a second pass sums in a fixed order.
+// - The TPU carried the cross-block sums (dWe, de_self) in VMEM across a
+//   sequential grid. Hopper's blocks run in no order, so each node block
+//   writes its partial and a second pass sums the partials in block order.
+// Summation order: the shared-memory atomics of the two aggregation
+// kernels make aggr and dx sums of a few terms in an order that varies
+// from run to run (a relative error of a few float32 ulps); everything
+// else is summed in a fixed order.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int FT = 32;                    // feature tile: one warp wide
+constexpr int AGG_THREADS = 256;
+constexpr int AGG_WARPS = AGG_THREADS / FT;
+constexpr int MAX_BN = 256;               // node rows per block
+constexpr int MAX_K = 16;                 // one-hot edge feature width
+
+constexpr int TM = 64, TN = 64, TK = 16;  // GEMM tile
+constexpr int GEMM_THREADS = 256;         // 16 x 16 threads, 4 x 4 each
+constexpr int NUM_SMS = 132;              // H100 SXM
+constexpr int COLSUM_ROWS = 128;          // rows per column-sum partial
+
+typedef long long ll;
+
+__global__ void __launch_bounds__(AGG_THREADS)
+gin_aggr_fwd_kernel(const float* __restrict__ x, const float* __restrict__ ein,
+                    const float* __restrict__ We, const float* __restrict__ e_self,
+                    const int* __restrict__ snd, const int* __restrict__ rcv,
+                    const float* __restrict__ w, const float* __restrict__ nm,
+                    float* __restrict__ aggr, int F, int K, int block_nodes,
+                    int block_edges) {
+  __shared__ float acc[MAX_BN * FT];
+  __shared__ float We_s[MAX_K * FT];
+  const int b = blockIdx.x;
+  const int f0 = blockIdx.y * FT;
+  const int lane = threadIdx.x % FT;
+  const int warp = threadIdx.x / FT;
+  const int f = f0 + lane;
+  const bool fok = f < F;
+  for (int i = threadIdx.x; i < block_nodes * FT; i += AGG_THREADS) acc[i] = 0.f;
+  for (int i = threadIdx.x; i < K * FT; i += AGG_THREADS) {
+    const int k = i / FT, l = i % FT;
+    We_s[i] = (f0 + l < F) ? We[(ll)k * F + f0 + l] : 0.f;
+  }
+  __syncthreads();
+
+  const int base = b * block_nodes;
+  const ll e0 = (ll)b * block_edges;
+  for (int e = warp; e < block_edges; e += AGG_WARPS) {
+    const float we = w[e0 + e];
+    if (we == 0.f) continue;
+    const int s = snd[e0 + e] - base;
+    const int r = rcv[e0 + e] - base;
+    if (s < 0 || s >= block_nodes || r < 0 || r >= block_nodes) continue;
+    float m = fok ? x[(ll)(base + s) * F + f] : 0.f;
+    const float* ee = ein + (e0 + e) * K;
+    for (int k = 0; k < K; ++k) m = fmaf(ee[k], We_s[k * FT + lane], m);
+    atomicAdd(&acc[r * FT + lane], we * m);
+  }
+  __syncthreads();
+
+  if (!fok) return;
+  const float es = e_self[f];
+  for (int r = warp; r < block_nodes; r += AGG_WARPS) {
+    const ll n = base + r;
+    aggr[n * F + f] = acc[r * FT + lane] + (x[n * F + f] + es) * nm[n];
+  }
+}
+
+__global__ void __launch_bounds__(AGG_THREADS)
+gin_aggr_bwd_kernel(const float* __restrict__ da, const float* __restrict__ ein,
+                    const int* __restrict__ snd, const int* __restrict__ rcv,
+                    const float* __restrict__ w, const float* __restrict__ nm,
+                    float* __restrict__ dx, float* __restrict__ dWe_part,
+                    float* __restrict__ des_part, int F, int K, int block_nodes,
+                    int block_edges) {
+  __shared__ float acc[MAX_BN * FT];
+  const int b = blockIdx.x;
+  const int f0 = blockIdx.y * FT;
+  const int lane = threadIdx.x % FT;
+  const int warp = threadIdx.x / FT;
+  const int f = f0 + lane;
+  const bool fok = f < F;
+  for (int i = threadIdx.x; i < block_nodes * FT; i += AGG_THREADS) acc[i] = 0.f;
+  __syncthreads();
+
+  const int base = b * block_nodes;
+  const ll e0 = (ll)b * block_edges;
+  float dwe[MAX_K];
+#pragma unroll
+  for (int k = 0; k < MAX_K; ++k) dwe[k] = 0.f;
+  for (int e = warp; e < block_edges; e += AGG_WARPS) {
+    const float we = w[e0 + e];
+    if (we == 0.f) continue;
+    const int s = snd[e0 + e] - base;
+    const int r = rcv[e0 + e] - base;
+    if (s < 0 || s >= block_nodes || r < 0 || r >= block_nodes) continue;
+    const float dm = fok ? da[(ll)(base + r) * F + f] : 0.f;
+    atomicAdd(&acc[s * FT + lane], we * dm);
+    const float* ee = ein + (e0 + e) * K;
+    const float wdm = we * dm;
+#pragma unroll
+    for (int k = 0; k < MAX_K; ++k)
+      if (k < K) dwe[k] = fmaf(ee[k], wdm, dwe[k]);
+  }
+  __syncthreads();
+
+  float des = 0.f;
+  for (int r = warp; r < block_nodes; r += AGG_WARPS) {
+    const ll n = base + r;
+    const float dn = fok ? da[n * F + f] * nm[n] : 0.f;
+    des += dn;
+    if (fok) dx[n * F + f] = acc[r * FT + lane] + dn;
+  }
+  __syncthreads();  // acc is reused below for the cross-warp sums
+
+  float* red_we = acc;                          // [AGG_WARPS][MAX_K][FT]
+  float* red_es = acc + AGG_WARPS * MAX_K * FT;  // [AGG_WARPS][FT]
+#pragma unroll
+  for (int k = 0; k < MAX_K; ++k)
+    if (k < K) red_we[(warp * MAX_K + k) * FT + lane] = dwe[k];
+  red_es[warp * FT + lane] = des;
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < K * FT; i += AGG_THREADS) {
+    const int k = i / FT, l = i % FT;
+    float s = 0.f;
+    for (int v = 0; v < AGG_WARPS; ++v) s += red_we[(v * MAX_K + k) * FT + l];
+    if (f0 + l < F) dWe_part[((ll)b * K + k) * F + f0 + l] = s;
+  }
+  const int t = threadIdx.x;
+  if (t < FT && f0 + t < F) {
+    float s = 0.f;
+    for (int v = 0; v < AGG_WARPS; ++v) s += red_es[v * FT + t];
+    des_part[(ll)b * F + f0 + t] = s;
+  }
+}
+
+__device__ __forceinline__ float epilogue(float v, ll i, ll j, ll N,
+                                          const float* bias,
+                                          const float* pos_mask, int relu) {
+  if (bias) v += bias[j];
+  if (relu) v = fmaxf(v, 0.f);
+  if (pos_mask) v = pos_mask[i * N + j] > 0.f ? v : 0.f;
+  return v;
+}
+
+// C[M, N] = epilogue(sum_k A(i, k) * B(k, j)), A(i, k) = A[i*sa0 + k*sa1],
+// B(k, j) = B[k*sb0 + j*sb1]. With gridDim.z > 1, slice z of K writes its
+// raw partial product to C + z*M*N and the epilogue is left to the sum.
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_kernel(const float* __restrict__ A, ll sa0, ll sa1,
+            const float* __restrict__ B, ll sb0, ll sb1,
+            float* __restrict__ C, int M, int N, int K, int k_chunk,
+            const float* __restrict__ bias, const float* __restrict__ pos_mask,
+            int relu) {
+  __shared__ float As[TK][TM + 1];
+  __shared__ float Bs[TK][TN + 1];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
+  const int kb = blockIdx.z * k_chunk;
+  const int ke = min(K, kb + k_chunk);
+  const bool a_rowfast = (sa0 == 1);  // consecutive rows adjacent in memory
+  const bool b_colfast = (sb1 == 1);  // consecutive columns adjacent
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = kb; k0 < ke; k0 += TK) {
+    for (int l = tid; l < TM * TK; l += GEMM_THREADS) {
+      int r, kk;
+      if (a_rowfast) { r = l % TM; kk = l / TM; } else { kk = l % TK; r = l / TK; }
+      const int gi = m0 + r, gk = k0 + kk;
+      As[kk][r] = (gi < M && gk < ke) ? A[gi * sa0 + gk * sa1] : 0.f;
+    }
+    for (int l = tid; l < TN * TK; l += GEMM_THREADS) {
+      int c, kk;
+      if (b_colfast) { c = l % TN; kk = l / TN; } else { kk = l % TK; c = l / TK; }
+      const int gj = n0 + c, gk = k0 + kk;
+      Bs[kk][c] = (gj < N && gk < ke) ? B[gk * sb0 + gj * sb1] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < TK; ++kk) {
+      float a[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  const bool raw = gridDim.z > 1;
+  float* out = C + (ll)blockIdx.z * M * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gi = m0 + ty + 16 * i;
+    if (gi >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gj = n0 + tx + 16 * j;
+      if (gj >= N) continue;
+      float v = acc[i][j];
+      if (!raw) v = epilogue(v, gi, gj, N, bias, pos_mask, relu);
+      out[(ll)gi * N + gj] = v;
+    }
+  }
+}
+
+// out[i] = epilogue(sum_p part[p*MN + i]), summed in order p = 0, 1, ...
+__global__ void sum_partials_kernel(const float* __restrict__ part, int S,
+                                    ll MN, int N, float* __restrict__ out,
+                                    const float* __restrict__ bias,
+                                    const float* __restrict__ pos_mask,
+                                    int relu) {
+  for (ll idx = blockIdx.x * (ll)blockDim.x + threadIdx.x; idx < MN;
+       idx += (ll)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int p = 0; p < S; ++p) s += part[p * MN + idx];
+    out[idx] = epilogue(s, idx / N, idx % N, N, bias, pos_mask, relu);
+  }
+}
+
+// part[chunk, c] = sum of X[r, c] over the chunk's COLSUM_ROWS rows
+__global__ void colsum_partial_kernel(const float* __restrict__ X, int R,
+                                      int Cc, float* __restrict__ part) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= Cc) return;
+  const int r0 = blockIdx.y * COLSUM_ROWS;
+  const int r1 = min(R, r0 + COLSUM_ROWS);
+  float s = 0.f;
+  for (int r = r0; r < r1; ++r) s += X[(ll)r * Cc + c];
+  part[(ll)blockIdx.y * Cc + c] = s;
+}
+
+int sum_partials(const float* part, int S, ll MN, int N, float* out,
+                 const float* bias, const float* pos_mask, int relu,
+                 cudaStream_t st) {
+  const ll want = (MN + 255) / 256;
+  const int blocks = (int)(want < 4 * NUM_SMS ? want : 4 * NUM_SMS);
+  sum_partials_kernel<<<blocks, 256, 0, st>>>(part, S, MN, N, out, bias, pos_mask, relu);
+  return (int)cudaGetLastError();
+}
+
+// Splits of K for a weight-gradient product: about two waves of CTAs.
+int wgrad_splits(int M, int N, int K) {
+  const int tiles = ((M + TM - 1) / TM) * ((N + TN - 1) / TN);
+  int s = (2 * NUM_SMS + tiles - 1) / tiles;
+  const int cap = K / 256 > 1 ? K / 256 : 1;
+  if (s > cap) s = cap;
+  return s > 1 ? s : 1;
+}
+
+int gemm(const float* A, ll sa0, ll sa1, const float* B, ll sb0, ll sb1,
+         float* C, int M, int N, int K, int splits, float* part,
+         const float* bias, const float* pos_mask, int relu, cudaStream_t st) {
+  const int k_chunk = ((K + splits - 1) / splits + TK - 1) / TK * TK;
+  splits = (K + k_chunk - 1) / k_chunk;
+  dim3 grid((N + TN - 1) / TN, (M + TM - 1) / TM, splits);
+  if (splits <= 1) {
+    grid.z = 1;
+    gemm_kernel<<<grid, GEMM_THREADS, 0, st>>>(A, sa0, sa1, B, sb0, sb1, C, M, N, K, K, bias, pos_mask, relu);
+    return (int)cudaGetLastError();
+  }
+  gemm_kernel<<<grid, GEMM_THREADS, 0, st>>>(A, sa0, sa1, B, sb0, sb1, part, M, N, K, k_chunk, nullptr, nullptr, 0);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  return sum_partials(part, splits, (ll)M * N, N, C, bias, pos_mask, relu, st);
+}
+
+int colsum(const float* X, int R, int Cc, float* part, float* out,
+           cudaStream_t st) {
+  dim3 grid((Cc + 127) / 128, (R + COLSUM_ROWS - 1) / COLSUM_ROWS);
+  colsum_partial_kernel<<<grid, 128, 0, st>>>(X, R, Cc, part);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  return sum_partials(part, (int)grid.y, Cc, Cc, out, nullptr, nullptr, 0, st);
+}
+
+struct BwdWork {
+  float* dzr;       // [N, F2]
+  float* da;        // [N, F]
+  float* part;      // split-K partials of dW1 / dW2
+  float* cpart;     // column-sum partials of db1 / db2
+  float* dWe_part;  // [n_blocks, K, F]
+  float* des_part;  // [n_blocks, F]
+  ll total;
+};
+
+BwdWork carve(float* base, int N, int F, int F2, int K, int n_blocks) {
+  BwdWork w;
+  ll off = 0;
+  auto take = [&](ll n) { float* p = base ? base + off : nullptr; off += (n + 3) / 4 * 4; return p; };
+  const ll s2 = (ll)wgrad_splits(F2, F, N) * F2 * F;
+  const ll s1 = (ll)wgrad_splits(F, F2, N) * F * F2;
+  const ll chunks = (N + COLSUM_ROWS - 1) / COLSUM_ROWS;
+  w.dzr = take((ll)N * F2);
+  w.da = take((ll)N * F);
+  w.part = take(s1 > s2 ? s1 : s2);
+  w.cpart = take(chunks * (F2 > F ? F2 : F));
+  w.dWe_part = take((ll)n_blocks * K * F);
+  w.des_part = take((ll)n_blocks * F);
+  w.total = off;
+  return w;
+}
+
+bool bad_shape(int N, int K, int block_nodes, int block_edges) {
+  return block_nodes <= 0 || block_nodes > MAX_BN || block_edges <= 0 ||
+         K > MAX_K || N % block_nodes != 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Float32 elements of scratch that pgt_gin_conv_bwd needs.
+long long pgt_gin_conv_bwd_workspace(int N, int F, int F2, int K,
+                                     int n_blocks) {
+  return carve(nullptr, N, F, F2, K, n_blocks).total;
+}
+
+int pgt_gin_conv_max_block_nodes() { return MAX_BN; }
+int pgt_gin_conv_max_k() { return MAX_K; }
+
+// Forward: writes out [N, F], aggr [N, F] and z [N, F2]. W1 is [F, F2] and
+// W2 [F2, F] with any strides. Returns the first CUDA error, 0 if none.
+int pgt_gin_conv_fwd(const float* x, const float* ein, const float* We,
+                     const float* e_self, const float* W1, ll w1s0, ll w1s1,
+                     const float* b1, const float* W2, ll w2s0, ll w2s1,
+                     const float* b2, const int* snd, const int* rcv,
+                     const float* w, const float* nm, float* out, float* aggr,
+                     float* z, int N, int F, int F2, int K, int block_nodes,
+                     int block_edges, void* stream) {
+  if (bad_shape(N, K, block_nodes, block_edges)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_blocks = N / block_nodes;
+  dim3 grid(n_blocks, (F + FT - 1) / FT);
+  gin_aggr_fwd_kernel<<<grid, AGG_THREADS, 0, st>>>(x, ein, We, e_self, snd, rcv, w, nm, aggr, F, K, block_nodes, block_edges);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  err = gemm(aggr, F, 1, W1, w1s0, w1s1, z, N, F2, F, 1, nullptr, b1, nullptr, 1, st);
+  if (err) return err;
+  return gemm(z, F2, 1, W2, w2s0, w2s1, out, N, F, F2, 1, nullptr, b2, nullptr, 0, st);
+}
+
+// Backward: writes dx [N, F], dWe [K, F], des [F], dW1 [F, F2], db1 [F2],
+// dW2 [F2, F], db2 [F]. ``work`` holds pgt_gin_conv_bwd_workspace floats.
+int pgt_gin_conv_bwd(const float* g, const float* aggr, const float* z,
+                     const float* ein, const float* W1, ll w1s0, ll w1s1,
+                     const float* W2, ll w2s0, ll w2s1, const int* snd,
+                     const int* rcv, const float* w, const float* nm,
+                     float* dx, float* dWe, float* des, float* dW1,
+                     float* db1, float* dW2, float* db2, float* work, int N,
+                     int F, int F2, int K, int block_nodes, int block_edges,
+                     void* stream) {
+  if (bad_shape(N, K, block_nodes, block_edges)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_blocks = N / block_nodes;
+  const BwdWork wk = carve(work, N, F, F2, K, n_blocks);
+  int err;
+  // dzr = (g @ W2^T) * (z > 0): B(k = f, j = c) = W2[c, f]
+  err = gemm(g, F, 1, W2, w2s1, w2s0, wk.dzr, N, F2, F, 1, nullptr, nullptr, z, 0, st);
+  if (err) return err;
+  // dW2 = z^T g: A(i = c, k = n) = z[n, c]
+  err = gemm(z, 1, F2, g, F, 1, dW2, F2, F, N, wgrad_splits(F2, F, N), wk.part, nullptr, nullptr, 0, st);
+  if (err) return err;
+  err = colsum(g, N, F, wk.cpart, db2, st);
+  if (err) return err;
+  // dW1 = aggr^T dzr
+  err = gemm(aggr, 1, F, wk.dzr, F2, 1, dW1, F, F2, N, wgrad_splits(F, F2, N), wk.part, nullptr, nullptr, 0, st);
+  if (err) return err;
+  err = colsum(wk.dzr, N, F2, wk.cpart, db1, st);
+  if (err) return err;
+  // da = dzr @ W1^T: B(k = c, j = f) = W1[f, c]
+  err = gemm(wk.dzr, F2, 1, W1, w1s1, w1s0, wk.da, N, F, F2, 1, nullptr, nullptr, nullptr, 0, st);
+  if (err) return err;
+  dim3 grid(n_blocks, (F + FT - 1) / FT);
+  gin_aggr_bwd_kernel<<<grid, AGG_THREADS, 0, st>>>(wk.da, ein, snd, rcv, w, nm, dx, wk.dWe_part, wk.des_part, F, K, block_nodes, block_edges);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  err = sum_partials(wk.dWe_part, n_blocks, (ll)K * F, F, dWe, nullptr, nullptr, 0, st);
+  if (err) return err;
+  return sum_partials(wk.des_part, n_blocks, F, F, des, nullptr, nullptr, 0, st);
+}
+
+}  // extern "C"

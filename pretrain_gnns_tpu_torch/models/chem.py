@@ -1,0 +1,121 @@
+"""Chem GIN trunk (port of ``GINConv`` and ``GNN`` of
+``pretrain_gnns_tpu.models.chem``).
+
+The self-loop the reference appends inside every conv (bond type 4,
+direction 0) is added analytically: ``aggr += (x + e_self) * node_mask``.
+Bond embeddings go to the fused GIN conv in one-hot form: ``ein = [
+one_hot(bond, 6) | one_hot(dir, 3)]`` and ``We = [e1; e2]``, so that
+``ein @ We == e1[bond] + e2[dir]``.
+
+Module and parameter names follow the reference state dict
+(``x_embedding1``, ``gnns.{k}.mlp.{0,2}``, ``gnns.{k}.edge_embedding{1,2}``,
+``batch_norms.{k}``)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from pretrain_gnns_tpu_torch.core.graphs import PackedGraphs
+from pretrain_gnns_tpu_torch.models import inits
+from pretrain_gnns_tpu_torch.models.norm import MaskedBatchNorm
+from pretrain_gnns_tpu_torch.ops import gin_conv
+
+NUM_ATOM_TYPE = 120  # incl. the mask token 119
+NUM_CHIRALITY_TAG = 3
+NUM_BOND_TYPE = 6  # incl. self-loop 4 and mask token 5
+NUM_BOND_DIRECTION = 3
+SELF_LOOP_BOND_TYPE = 4
+
+
+class GINConv(nn.Module):
+    """GIN conv: sum of ``x_j + e`` messages plus the self loop, then the
+    MLP Linear(D, 2D) -> ReLU -> Linear(2D, D), as one fused GIN conv call.
+    On CUDA the batch must have the block-diagonal layout."""
+
+    def __init__(self, emb_dim: int):
+        super().__init__()
+        self.mlp = nn.Sequential(
+            nn.Linear(emb_dim, 2 * emb_dim), nn.ReLU(),
+            nn.Linear(2 * emb_dim, emb_dim),
+        )
+        self.edge_embedding1 = nn.Embedding(NUM_BOND_TYPE, emb_dim)
+        self.edge_embedding2 = nn.Embedding(NUM_BOND_DIRECTION, emb_dim)
+
+    def conv_inputs(self, h: torch.Tensor, g: PackedGraphs) -> tuple:
+        """The arguments of ``gin_conv.fused_gin_conv`` for this layer."""
+        e1 = self.edge_embedding1.weight
+        e2 = self.edge_embedding2.weight
+        # one-hot by comparison: F.one_hot checks its input's range on
+        # the host, a device synchronisation per call on CUDA
+        ef = g.edge_feat
+        ein = torch.cat([
+            ef[:, :1] == torch.arange(NUM_BOND_TYPE, device=ef.device),
+            ef[:, 1:2] == torch.arange(NUM_BOND_DIRECTION, device=ef.device),
+        ], dim=1).to(h.dtype)
+        We = torch.cat([e1, e2], dim=0)
+        e_self = e1[SELF_LOOP_BOND_TYPE] + e2[0]
+        lin0, lin2 = self.mlp[0], self.mlp[2]
+        return (h, ein, We, e_self, lin0.weight.t(), lin0.bias,
+                lin2.weight.t(), lin2.bias, g.senders, g.receivers,
+                g.edge_mask.to(h.dtype), g.node_mask, g.block_nodes,
+                g.block_edges)
+
+    def forward(self, h: torch.Tensor, g: PackedGraphs) -> torch.Tensor:
+        blocked = g.block_nodes > 0 and g.block_edges > 0
+        if h.is_cuda and not blocked:
+            raise ValueError(
+                "GINConv on CUDA needs a block-diagonal batch "
+                "(packing='blocked' or 'auto')"
+            )
+        return gin_conv.fused_gin_conv(*self.conv_inputs(h, g))
+
+
+class GNN(nn.Module):
+    """Node-representation trunk: atom embeddings, ``num_layer`` GIN convs
+    each followed by masked BatchNorm (and ReLU except after the last),
+    padded rows zeroed after every layer, then the JK combination."""
+
+    def __init__(self, num_layer: int = 5, emb_dim: int = 300,
+                 jk: str = "last", drop_ratio: float = 0.0,
+                 gnn_type: str = "gin"):
+        super().__init__()
+        if num_layer < 2:
+            raise ValueError("Number of GNN layers must be greater than 1.")
+        if gnn_type != "gin":
+            raise NotImplementedError(f"gnn_type={gnn_type!r} is not ported")
+        if drop_ratio > 0:
+            raise NotImplementedError("dropout is not ported")
+        if jk not in ("last", "concat", "max", "sum"):
+            raise ValueError(f"unknown JK mode {jk!r}")
+        self.num_layer = num_layer
+        self.jk = jk
+        self.x_embedding1 = nn.Embedding(NUM_ATOM_TYPE, emb_dim)
+        self.x_embedding2 = nn.Embedding(NUM_CHIRALITY_TAG, emb_dim)
+        self.gnns = nn.ModuleList(GINConv(emb_dim) for _ in range(num_layer))
+        self.batch_norms = nn.ModuleList(
+            MaskedBatchNorm(emb_dim) for _ in range(num_layer)
+        )
+
+    def forward(self, g: PackedGraphs, train: bool = False) -> torch.Tensor:
+        nmask = g.node_mask[:, None]
+        x = (self.x_embedding1(g.node_feat[:, 0].long())
+             + self.x_embedding2(g.node_feat[:, 1].long()))
+        # padded rows exactly zero; activations flow in the compute dtype
+        h = (x * nmask).to(inits.activation_dtype())
+        h_list = [h]
+        for layer in range(self.num_layer):
+            h = self.gnns[layer](h, g)
+            h = self.batch_norms[layer](h, g.node_mask, train)
+            if layer != self.num_layer - 1:
+                h = torch.relu(h)
+            h = h * nmask
+            h_list.append(h)
+        if self.jk == "last":
+            return h_list[-1]
+        if self.jk == "concat":
+            return torch.cat(h_list, dim=1)
+        stack = torch.stack(h_list, dim=0)
+        if self.jk == "max":
+            return stack.max(dim=0).values
+        return stack.sum(dim=0)

@@ -1,0 +1,38 @@
+"""Parameter initializers matching the reference's torch defaults (port of
+``pretrain_gnns_tpu.models.inits``).
+
+``nn.Linear`` weights and biases draw from U(-1/sqrt(fan_in),
+1/sqrt(fan_in)); embedding tables are xavier-uniform. Every draw comes
+from an explicit ``torch.Generator``, so a seed fixes the weights on any
+device."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def activation_dtype() -> torch.dtype:
+    """Dtype activations flow in: float32 (the JAX package's default
+    ``float32`` mode; its ``bfloat16_act`` mode is not ported yet)."""
+    return torch.float32
+
+
+@torch.no_grad()
+def reset_linear_(linear: nn.Linear, generator: torch.Generator) -> None:
+    bound = 1.0 / math.sqrt(linear.in_features)
+    linear.weight.uniform_(-bound, bound, generator=generator)
+    if linear.bias is not None:
+        linear.bias.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """Re-draw every Linear and Embedding of ``module`` in module order."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            reset_linear_(m, generator)
+        elif isinstance(m, nn.Embedding):
+            nn.init.xavier_uniform_(m.weight, generator=generator)

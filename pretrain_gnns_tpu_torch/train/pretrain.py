@@ -1,0 +1,161 @@
+"""Pretraining entry (port of ``pretrain_gnns_tpu.train.pretrain`` for chem
+attribute masking).
+
+The loop follows the reference's chem/pretrain_masking.py: a seeded
+model, one Adam over every parameter, shuffled batches of ``batch_size``
+molecules with the masking transform applied per batch, the trunk saved
+at the end. Packing and the masking transform run in a prefetch thread
+while the GPU runs the previous step; the loss is read back once per
+epoch."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Sequence
+
+import torch
+
+from pretrain_gnns_tpu_torch.core.graphs import Graph
+from pretrain_gnns_tpu_torch.data.batch_transforms import BatchMaskAtom
+from pretrain_gnns_tpu_torch.data.packing import (
+    PackedLoader, buffer_sizes, choose_blocks,
+)
+from pretrain_gnns_tpu_torch.data.prefetch import prefetch
+from pretrain_gnns_tpu_torch.device import resolve_device
+from pretrain_gnns_tpu_torch.models.inits import init_parameters
+from pretrain_gnns_tpu_torch.objectives.masking import MaskingObjective
+from pretrain_gnns_tpu_torch.train import optim
+from pretrain_gnns_tpu_torch.train.state import TrainState
+from pretrain_gnns_tpu_torch.train.telemetry import ThroughputMeter
+
+
+@dataclasses.dataclass
+class PretrainConfig:
+    """The masking subset of the JAX package's ``PretrainConfig``."""
+
+    objective: str = "masking"
+    domain: str = "chem"
+    num_layer: int = 5
+    emb_dim: int = 300
+    jk: str = "last"
+    dropout_ratio: float = 0.0
+    gnn_type: str = "gin"
+    lr: float = 1e-3
+    decay: float = 0.0
+    batch_size: int = 256
+    epochs: int = 100
+    seed: int = 0
+    mask_rate: float = 0.15
+    mask_edge: bool = True
+    num_atom_type: int = 119
+    num_edge_type: int = 5
+    # batch layout: auto = block-diagonal (the fused GIN kernel) on CUDA
+    packing: str = "auto"  # auto | standard | blocked
+
+
+def build_objective(cfg: PretrainConfig) -> MaskingObjective:
+    """The objective module, its weights drawn from ``cfg.seed`` on the
+    CPU (so the seed fixes them whatever the device)."""
+    if cfg.objective != "masking" or cfg.domain != "chem":
+        raise NotImplementedError(
+            f"objective={cfg.objective!r} domain={cfg.domain!r} is not "
+            "ported; this port runs chem masking"
+        )
+    model = MaskingObjective(
+        num_layer=cfg.num_layer, emb_dim=cfg.emb_dim, jk=cfg.jk,
+        drop_ratio=cfg.dropout_ratio, gnn_type=cfg.gnn_type,
+        mask_edge=cfg.mask_edge,
+    )
+    init_parameters(model, torch.Generator().manual_seed(cfg.seed))
+    return model
+
+
+def build_loader(cfg: PretrainConfig, graphs: Sequence[Graph],
+                 device: torch.device, drop_last: bool = True
+                 ) -> PackedLoader:
+    """Packed batches with the vectorized masking pass applied to each."""
+    mn, me = buffer_sizes(graphs, cfg.batch_size)
+    blocks = choose_blocks(graphs, cfg.batch_size, cfg.packing, device)
+    if blocks is not None:
+        n_blocks, bn, be = blocks
+        mn, me = n_blocks * bn, n_blocks * be
+    post = BatchMaskAtom(
+        num_atom_type=cfg.num_atom_type, num_edge_type=cfg.num_edge_type,
+        mask_rate=cfg.mask_rate, mask_edge=cfg.mask_edge,
+        node_budget=int(mn * cfg.mask_rate) + cfg.batch_size + 8,
+        edge_budget=me // 2,
+    )
+    return PackedLoader(graphs, cfg.batch_size, mn, me, seed=cfg.seed,
+                        blocks=blocks, drop_last=drop_last,
+                        post_transform=post)
+
+
+def train_step(state: TrainState, batch):
+    """One forward, backward and optimizer step; returns the detached loss
+    and metrics (no host synchronisation)."""
+    loss, metrics = state.model(batch, train=True)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    state.optimizer.step()
+    state.step += 1
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+
+def run_pretrain(
+    cfg: PretrainConfig,
+    graphs: Sequence[Graph],
+    log: Optional[Callable[[str], None]] = print,
+    epochs: Optional[int] = None,
+    device=None,
+) -> Dict[str, Any]:
+    """Train the masking objective. ``device`` defaults to ``"cuda"``;
+    without CUDA that raises ``RuntimeError`` unless ``device="cpu"``.
+    History rows: ``epoch``, ``loss`` and the metrics (means over the
+    epoch's steps), ``edges`` (valid edges, each directed edge once per
+    step) and ``steps``."""
+    dev = resolve_device(device)
+    model = build_objective(cfg).to(dev)
+    loader = build_loader(cfg, graphs, dev)
+    state = TrainState(model, optim.adam(model.parameters(), cfg.lr,
+                                         cfg.decay))
+    meter = ThroughputMeter()
+
+    pin = dev.type == "cuda"
+
+    def batches():  # runs on the prefetch thread
+        for b in loader:
+            # page-locked leaves make the copy to the card asynchronous:
+            # the host goes on launching while the previous step runs
+            yield (b.pin_memory() if pin else b,
+                   ThroughputMeter.counts_of(b))
+
+    history = []
+    for epoch in range(1, (epochs or cfg.epochs) + 1):
+        meter.reset()
+        losses, agg = [], {}
+        for batch, counts in prefetch(batches(), depth=2):
+            loss, metrics = train_step(state, batch.to(dev, non_blocking=pin))
+            losses.append(loss)
+            for k, v in metrics.items():
+                agg.setdefault(k, []).append(v)
+            meter.tick(**counts)
+        nb = max(len(losses), 1)
+        row = {"epoch": epoch,
+               "loss": float(torch.stack(losses).sum()) / nb if losses
+               else 0.0}
+        row.update({k: float(torch.stack(v).sum()) / nb
+                    for k, v in agg.items()})
+        row["edges"] = meter.edges
+        row["steps"] = meter.steps
+        history.append(row)
+        if log:
+            if epoch == 1:
+                st = loader.last_epoch_stats
+                log(f"loader: {st['batches']} batches, "
+                    f"{st['graphs_per_batch']:.1f} graphs/batch "
+                    f"(batch_size={cfg.batch_size}, blocks={loader.blocks})")
+            log(" ".join(f"{k}={v:.4f}" if isinstance(v, float) else
+                         f"{k}={v}" for k, v in row.items())
+                + f" edges/s={meter.edges_per_sec():.1f}")
+    return {"state": state, "model": model, "history": history,
+            "loader": loader}

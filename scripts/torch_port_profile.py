@@ -1,0 +1,156 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch port's main path goes, on one GPU.
+
+Run from the repository root:
+
+    python3 scripts/torch_port_profile.py
+
+Configuration: chem attribute masking, GIN 5 x 300, batch 256 molecules
+(synthetic, 23 atoms on average), mask_edge off, float32 - the workload of
+chip_smoke.py's main path. It prints, for the card named on its first
+line:
+  - host: ms to pack and mask one batch (the loader, on one thread);
+  - device-only step: ms per train step over batches already on the card,
+    and the host's time to enqueue one step on an idle card;
+  - the main path: ``run_pretrain`` for EPOCHS epochs, its ms per step and
+    valid edges/s over epochs 2 onward, from the epoch log lines;
+  - ``run_pretrain`` once more with torch.profiler on over epochs 2 onward
+    (started and stopped by the epoch log hook): device time per kernel
+    name and per step, and the device's busy share against the
+    unprofiled run's step time (the profiler slows the host);
+and one JSON line with those numbers.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import sys
+import time
+
+sys.path.insert(
+    0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from pretrain_gnns_tpu_torch.data.synthetic import molecule_dataset  # noqa: E402
+from pretrain_gnns_tpu_torch.device import resolve_device  # noqa: E402
+from pretrain_gnns_tpu_torch.train import optim, pretrain  # noqa: E402
+from pretrain_gnns_tpu_torch.train.state import TrainState  # noqa: E402
+
+STEPS = 20
+EPOCHS = 3  # epoch 1 warms up; epochs 2-3 are measured
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def run_main_path(cfg, graphs, prof=None):
+    """``run_pretrain`` on the card; returns (seconds, steps, valid edges)
+    over epochs 2 to EPOCHS, with ``prof`` running over just those."""
+    stamps = []
+
+    def log(msg):
+        if not msg.startswith("epoch="):
+            return
+        stamps.append(time.perf_counter())
+        if prof is not None and len(stamps) == 1:
+            prof.start()
+        elif prof is not None and len(stamps) == EPOCHS:
+            prof.stop()  # the epoch's loss readback has synchronised
+
+    res = pretrain.run_pretrain(cfg, graphs, log=log, epochs=EPOCHS,
+                                device="cuda")
+    hist = res["history"][1:]
+    return (stamps[-1] - stamps[0], sum(h["steps"] for h in hist),
+            sum(h["edges"] for h in hist))
+
+
+def main() -> int:
+    dev = resolve_device("cuda")
+    graphs, _ = molecule_dataset(4096, seed=0, mean_atoms=23)
+    cfg = pretrain.PretrainConfig(num_layer=5, emb_dim=300, batch_size=256,
+                                  mask_edge=False, seed=0)
+    loader = pretrain.build_loader(cfg, graphs, dev)
+
+    # host: pack + mask, one thread
+    it = iter(loader)
+    host_ms = []
+    for _ in range(8):
+        t = time.perf_counter()
+        host_batch = next(it)
+        host_ms.append((time.perf_counter() - t) * 1e3)
+    batches = [b.to(dev) for b in list(loader)[:4]]
+
+    # device-only step: train_step over batches already on the card
+    model = pretrain.build_objective(cfg).to(dev)
+    state = TrainState(model, optim.adam(model.parameters(), cfg.lr))
+    for b in batches:  # warm up
+        pretrain.train_step(state, b)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(STEPS):
+        pretrain.train_step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    device_step_ms = (time.perf_counter() - t) / STEPS * 1e3
+    enqueue_ms = []
+    for i in range(5):  # host time to launch one step on an idle card
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pretrain.train_step(state, batches[i % len(batches)])
+        enqueue_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+
+    # the main path, then the main path under the profiler
+    secs, steps, edges = run_main_path(cfg, graphs)
+    step_ms = secs / steps * 1e3
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    p_secs, p_steps, _ = run_main_path(cfg, graphs, prof)
+    events = prof.key_averages()
+    # ranges annotated on the host (autograd nodes, Optimizer.step) are
+    # mirrored on the device timeline over the kernels they launch: count
+    # only the kernels, copies and memsets themselves
+    host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
+    kernels = [(e.key, _device_us(e) / 1e3, e.count) for e in events
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+               and e.key not in host_keys]
+    kernels.sort(key=lambda r: -r[1])
+    busy_step_ms = sum(r[1] for r in kernels) / p_steps
+    card = torch.cuda.get_device_name(0)
+    print(f"card: {card}")
+    print(f"host pack+mask: median {statistics.median(host_ms):.3f} ms per "
+          f"batch ({int(host_batch.edge_mask.sum())} valid edges)")
+    print(f"device-only step: {device_step_ms:.3f} ms; host enqueue of one "
+          f"step: median {statistics.median(enqueue_ms):.3f} ms")
+    print(f"run_pretrain: {step_ms:.3f} ms/step, {edges / secs:.1f} valid "
+          f"edges/s over {steps} steps (epochs 2-{EPOCHS})")
+    print(f"run_pretrain profiled: {p_secs / p_steps * 1e3:.3f} ms/step; "
+          f"device busy {busy_step_ms:.3f} ms/step = "
+          f"{100 * busy_step_ms / step_ms:.1f}% of the unprofiled step")
+    print(f"device time by kernel (ms over {p_steps} steps, launches):")
+    for name, ms, count in kernels[:25]:
+        print(f"  {ms:9.3f}  {count:6d}  {name[:110]}")
+    print(json.dumps({
+        "card": card, "host_pack_mask_ms": statistics.median(host_ms),
+        "device_step_ms": device_step_ms,
+        "enqueue_ms": statistics.median(enqueue_ms),
+        "main_path_step_ms": step_ms,
+        "main_path_edges_per_s": edges / secs,
+        "profiled_step_ms": p_secs / p_steps * 1e3,
+        "device_busy_ms_per_step": busy_step_ms,
+        "device_busy_share": busy_step_ms / step_ms,
+        "top_kernels_ms_per_step": {n[:80]: ms / p_steps
+                                    for n, ms, _ in kernels[:10]},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

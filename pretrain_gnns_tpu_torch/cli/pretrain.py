@@ -1,9 +1,14 @@
-"""Pretraining CLI of the port: chem attribute masking, with the flag names
-of the JAX package's CLI plus ``--device``.
+"""Pretraining CLI of the port: attribute masking in the chem and bio
+domains, with the flag names of the JAX package's CLI plus ``--device``.
 
-Example:
+Examples:
   python -m pretrain_gnns_tpu_torch.cli.pretrain --dataset synthetic \
       --epochs 5 --output_model_file trunk
+  python -m pretrain_gnns_tpu_torch.cli.pretrain --domain bio \
+      --dataset synthetic --epochs 5 --output_model_file bio_trunk
+
+With ``--dataset synthetic``, chem trains on ``n_synthetic`` molecules
+and bio on ``max(n_synthetic // 4, 64)`` ego-networks, as the JAX CLI.
 
 Saves the trunk ``state_dict`` (reference key layout) with ``torch.save``
 to ``<output_model_file>.pth``.
@@ -48,10 +53,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.objective != "masking" or args.domain != "chem":
+    if args.objective != "masking" or args.domain not in ("chem", "bio"):
         raise SystemExit(
             f"--objective {args.objective} --domain {args.domain} is not "
-            "ported yet; this CLI runs --objective masking --domain chem"
+            "ported yet; this CLI runs --objective masking with --domain "
+            "chem or bio"
         )
     if args.gnn_type != "gin":
         raise SystemExit(f"--gnn_type {args.gnn_type} is not ported yet")
@@ -62,13 +68,18 @@ def main(argv=None):
             f"--dataset {args.dataset} is not ported yet; use synthetic"
         )
 
-    from pretrain_gnns_tpu_torch.data.synthetic import molecule_dataset
+    from pretrain_gnns_tpu_torch.data import synthetic
     from pretrain_gnns_tpu_torch.train import pretrain
 
-    graphs, _ = molecule_dataset(args.n_synthetic, seed=args.seed)
+    if args.domain == "bio":
+        graphs = synthetic.bio_dataset(max(args.n_synthetic // 4, 64),
+                                       seed=args.seed)
+    else:
+        graphs, _ = synthetic.molecule_dataset(args.n_synthetic,
+                                               seed=args.seed)
     cfg = pretrain.PretrainConfig(
-        num_layer=args.num_layer, emb_dim=args.emb_dim, jk=args.jk,
-        dropout_ratio=args.dropout_ratio, gnn_type=args.gnn_type,
+        domain=args.domain, num_layer=args.num_layer, emb_dim=args.emb_dim,
+        jk=args.jk, dropout_ratio=args.dropout_ratio, gnn_type=args.gnn_type,
         lr=args.lr, decay=args.decay, batch_size=args.batch_size,
         epochs=args.epochs, seed=args.seed, mask_rate=args.mask_rate,
         mask_edge=bool(args.mask_edge), packing=args.packing,

@@ -61,7 +61,7 @@ class PackedGraphs:
 
     With ``block_nodes > 0`` the batch has the block-diagonal layout of
     :func:`pack_graphs_blocked`: every edge in edge block ``b`` has both
-    endpoints in node block ``b``. The fused GIN kernel requires it."""
+    endpoints in node block ``b``. The CUDA kernels require it."""
 
     node_feat: Any  # [N_pad, Fn]
     edge_feat: Any  # [E_pad, Fe]

@@ -1,12 +1,12 @@
 """Vectorized masking over a packed batch (port of
-``pretrain_gnns_tpu.data.batch_transforms``: ``sample_per_group_np`` and
-``BatchMaskAtom``). The same ``np.random.Generator`` state gives the same
-masks and extras as the JAX package.
+``pretrain_gnns_tpu.data.batch_transforms``: ``sample_per_group_np``,
+``BatchMaskAtom`` and ``BatchMaskEdge``). The same ``np.random.Generator``
+state gives the same masks and extras as the JAX package.
 
 One numpy pass per batch samples each graph's ``int(n * rate) + 1``
-distinct atoms, writes the mask tokens and emits the compact extras that
-``objectives.masking.MaskingObjective`` reads. It runs in the prefetch
-thread."""
+distinct atoms (chem) or bonds (bio), writes the mask features and emits
+the compact extras that ``objectives.masking`` reads. It runs in the
+prefetch thread."""
 
 from __future__ import annotations
 
@@ -42,6 +42,56 @@ def sample_per_group_np(
     return out
 
 
+def _pad1(vals: np.ndarray, budget: int, name: str):
+    """``vals`` padded to ``budget`` rows, and the mask of its real rows."""
+    if len(vals) > budget:
+        raise ValueError(f"{len(vals)} {name} exceed budget {budget}")
+    out = np.zeros((budget,) + vals.shape[1:], vals.dtype)
+    out[: len(vals)] = vals
+    m = np.zeros(budget, bool)
+    m[: len(vals)] = True
+    return out, m
+
+
+@dataclasses.dataclass
+class BatchMaskEdge:
+    """bio MaskEdge as a packed-batch transform: per graph, sample
+    ``int(bonds * rate) + 1`` distinct bonds (even slots represent them),
+    keep their 9-dim features as labels and overwrite both directions with
+    the mask feature ``[0, ..., 0, 1]``. Emits ``masked_edge_idx`` (slot
+    indices) and ``mask_edge_label``, padded to ``budget``."""
+
+    mask_rate: float = 0.15
+    budget: int = 0
+
+    def __call__(self, p: PackedGraphs,
+                 rng: np.random.Generator) -> PackedGraphs:
+        G = p.max_graphs
+        emask = np.asarray(p.edge_mask)
+        rcv = np.asarray(p.receivers)
+        node_graph = np.asarray(p.node_graph)
+        sel = sample_per_group_np(rng, node_graph[rcv[::2]], emask[::2], G,
+                                  self.mask_rate)
+        eidx = (np.flatnonzero(sel) * 2).astype(np.int32)
+
+        edge_feat = np.array(p.edge_feat)
+        labels = edge_feat[eidx].copy()
+        mask_feat = np.zeros(edge_feat.shape[1], edge_feat.dtype)
+        mask_feat[-1] = 1
+        edge_feat[eidx] = mask_feat
+        edge_feat[eidx + 1] = mask_feat
+
+        budget = self.budget or (
+            int(p.max_edges // 2 * self.mask_rate) + G + 8)
+        vals, m = _pad1(eidx, budget, "masked bonds")
+        extras = dict(p.extras or {})
+        extras["masked_edge_idx"] = vals
+        extras["masked_edge_idx_mask"] = m
+        extras["mask_edge_label"] = _pad1(labels, budget, "masked bonds")[0]
+        extras["mask_edge_label_mask"] = m
+        return p.replace(edge_feat=edge_feat, extras=extras)
+
+
 @dataclasses.dataclass
 class BatchMaskAtom:
     """chem MaskAtom as a packed-batch transform. ``node_budget`` and
@@ -65,23 +115,16 @@ class BatchMaskAtom:
         nb = self.node_budget or (
             int(p.max_nodes * self.mask_rate) + p.max_graphs + 8
         )
-        if len(idx) > nb:
-            raise ValueError(f"{len(idx)} masked nodes exceed budget {nb}")
+        pad_i, m = _pad1(idx, nb, "masked nodes")
 
         node_feat = np.array(p.node_feat)
         labels = node_feat[idx].copy()
         node_feat[idx] = [self.num_atom_type, 0]
 
         extras = dict(p.extras or {})
-        pad_i = np.zeros(nb, np.int32)
-        pad_i[: len(idx)] = idx
-        pad_l = np.zeros((nb,) + labels.shape[1:], labels.dtype)
-        pad_l[: len(idx)] = labels
-        m = np.zeros(nb, bool)
-        m[: len(idx)] = True
         extras["masked_atom_indices"] = pad_i
         extras["masked_atom_indices_mask"] = m
-        extras["mask_node_label"] = pad_l
+        extras["mask_node_label"] = _pad1(labels, nb, "masked nodes")[0]
         extras["mask_node_label_mask"] = m
 
         edge_feat = p.edge_feat
@@ -94,22 +137,13 @@ class BatchMaskAtom:
             # even offset, so even slots represent the bonds
             conn = np.nonzero(edge_masked[::2])[0].astype(np.int32) * 2
             eb = self.edge_budget or p.max_edges // 2
-            if len(conn) > eb:
-                raise ValueError(
-                    f"{len(conn)} masked bonds exceed budget {eb}"
-                )
+            pe, em = _pad1(conn, eb, "masked bonds")
             edge_feat = np.array(p.edge_feat)
             elabels = edge_feat[conn].copy()
             edge_feat[edge_masked] = [self.num_edge_type, 0]
-            pe = np.zeros(eb, np.int32)
-            pe[: len(conn)] = conn
-            pl = np.zeros((eb,) + elabels.shape[1:], elabels.dtype)
-            pl[: len(conn)] = elabels
-            em = np.zeros(eb, bool)
-            em[: len(conn)] = True
             extras["connected_edge_indices"] = pe
             extras["connected_edge_indices_mask"] = em
-            extras["mask_edge_label"] = pl
+            extras["mask_edge_label"] = _pad1(elabels, eb, "masked bonds")[0]
             extras["mask_edge_label_mask"] = em
 
         return p.replace(node_feat=node_feat, edge_feat=edge_feat,

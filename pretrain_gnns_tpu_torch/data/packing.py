@@ -22,7 +22,7 @@ def choose_blocks(graphs, batch_size: int, packing: str = "auto",
                   device: Optional[torch.device] = None):
     """Resolve ``packing`` to a block layout, or None for the standard
     padded layout. "auto" is blocked (128/384) on a CUDA device, which the
-    fused GIN kernel needs, and standard elsewhere."""
+    kernels (fused GIN conv, blocked SpMM) need, and standard elsewhere."""
     if packing == "standard":
         return None
     if packing == "blocked":

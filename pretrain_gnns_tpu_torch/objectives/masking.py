@@ -1,10 +1,14 @@
-"""Attribute-masking pretraining objective (port of
-``pretrain_gnns_tpu.objectives.masking.MaskingObjective``).
+"""Attribute-masking pretraining objectives (port of ``MaskingObjective``
+and ``BioMaskEdgeObjective`` of ``pretrain_gnns_tpu.objectives.masking``).
 
-Node side: predict the original atom type (119 classes) of the masked
-atoms from their representation. Edge side (``mask_edge``): predict the
-bond type (4 classes) of masked bonds from ``h[src] + h[dst]``. Batches
-carry the extras of ``data.batch_transforms.BatchMaskAtom``."""
+Chem: predict the original atom type (119 classes) of the masked atoms
+from their representation and, with ``mask_edge``, the bond type (4
+classes) of masked bonds from ``h[src] + h[dst]``. Batches carry the
+extras of ``data.batch_transforms.BatchMaskAtom``.
+
+Bio: predict the dominant evidence channel (the argmax of the first 7
+label dims) of each masked edge from ``h[src] + h[dst]``. Batches carry
+the extras of ``data.batch_transforms.BatchMaskEdge``."""
 
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import torch
 from torch import nn
 
 from pretrain_gnns_tpu_torch.core.graphs import PackedGraphs
+from pretrain_gnns_tpu_torch.models import bio
 from pretrain_gnns_tpu_torch.models.chem import GNN
 from pretrain_gnns_tpu_torch.objectives import losses
 
@@ -58,3 +63,26 @@ class MaskingObjective(nn.Module):
             metrics["acc_edge"] = _masked_accuracy(pred_edge, edge_labels,
                                                    emask)
         return loss, metrics
+
+
+class BioMaskEdgeObjective(nn.Module):
+    def __init__(self, num_layer: int = 5, emb_dim: int = 300,
+                 jk: str = "last", drop_ratio: float = 0.0,
+                 gnn_type: str = "gin", num_edge_classes: int = 7):
+        super().__init__()
+        self.num_edge_classes = num_edge_classes
+        self.gnn = bio.GNN(num_layer, emb_dim, jk, drop_ratio, gnn_type)
+        self.linear_pred_edges = nn.Linear(emb_dim, num_edge_classes)
+
+    def forward(self, g: PackedGraphs, train: bool = False
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        h = self.gnn(g, train=train)
+        eidx = g.extras["masked_edge_idx"].long()
+        emask = g.extras["masked_edge_idx_mask"]
+        labels = g.extras["mask_edge_label"][:, : self.num_edge_classes
+                                             ].argmax(dim=1)
+        src = g.receivers[eidx].long()
+        dst = g.senders[eidx].long()
+        pred = self.linear_pred_edges(h[src] + h[dst])
+        loss = losses.masked_softmax_xent(pred, labels, emask)
+        return loss, {"acc_edge": _masked_accuracy(pred, labels, emask)}

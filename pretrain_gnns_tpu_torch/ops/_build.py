@@ -4,6 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by its own
 ``nvcc`` process into ``_build/lib<name>_<hash>.so`` inside the package
 (a directory that ``.gitignore`` lists); the hash covers the source and
 the flags, so an unchanged source is not rebuilt. A failed build raises.
+:func:`check_tensors` and :func:`stream` serve the wrappers that hand
+tensors to those libraries.
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Iterable, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -85,3 +89,24 @@ def load(name: str) -> ctypes.CDLL:
                 build([name])
             lib = _libs[name] = ctypes.CDLL(str(out))
         return lib
+
+
+def check_tensors(dev: torch.device, tensors: Iterable[tuple]) -> None:
+    """Raise ``ValueError`` unless every ``(tensor, name, shape, dtype,
+    must_be_contiguous)`` entry lies on ``dev`` with that shape and dtype
+    (and is contiguous where asked): the kernels trust their pointers."""
+    for t, name, shape, dtype, contiguous in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if contiguous and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def stream(t: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream

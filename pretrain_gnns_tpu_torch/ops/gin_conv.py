@@ -81,16 +81,7 @@ def _check(lib, dev, block_nodes: int, block_edges: int, N: int, K: int,
     if N % block_nodes or E != (N // block_nodes) * block_edges:
         raise ValueError(f"N={N}, E={E} do not form blocks of "
                          f"({block_nodes}, {block_edges})")
-    for t, name, shape, dtype, contiguous in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {tuple(shape)}")
-        if contiguous and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _build.check_tensors(dev, tensors)
 
 
 _F32, _I32 = torch.float32, torch.int32
@@ -101,10 +92,6 @@ def _edge_tensors(E, K, ein, senders, receivers, w):
             (senders, "senders", (E,), _I32, True),
             (receivers, "receivers", (E,), _I32, True),
             (w, "w", (E,), _F32, True)]
-
-
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def gin_conv_fwd(x, ein, We, e_self, W1, b1, W2, b2, senders, receivers, w,
@@ -133,7 +120,7 @@ def gin_conv_fwd(x, ein, We, e_self, W1, b1, W2, b2, senders, receivers, w,
         W2.data_ptr(), W2.stride(0), W2.stride(1), b2.data_ptr(),
         senders.data_ptr(), receivers.data_ptr(), w.data_ptr(),
         nmask.data_ptr(), out.data_ptr(), aggr.data_ptr(), z.data_ptr(),
-        N, F, F2, K, block_nodes, block_edges, _stream(x),
+        N, F, F2, K, block_nodes, block_edges, _build.stream(x),
     )
     if err:
         raise RuntimeError(
@@ -169,7 +156,8 @@ def gin_conv_bwd(g, aggr, z, ein, W1, W2, senders, receivers, w, nmask,
         senders.data_ptr(), receivers.data_ptr(), w.data_ptr(),
         nmask.data_ptr(), dx.data_ptr(), dWe.data_ptr(), des.data_ptr(),
         dW1.data_ptr(), db1.data_ptr(), dW2.data_ptr(), db2.data_ptr(),
-        work.data_ptr(), N, F, F2, K, block_nodes, block_edges, _stream(g),
+        work.data_ptr(), N, F, F2, K, block_nodes, block_edges,
+        _build.stream(g),
     )
     if err:
         raise RuntimeError(
@@ -212,8 +200,8 @@ def fused_gin_conv_plain(x, ein, We, e_self, W1, b1, W2, b2, senders,
                          return_residuals: bool = False):
     """The plain PyTorch version of K1 (any layout; autograd gives the
     backward). With ``return_residuals`` returns ``(out, aggr, z)``."""
-    aggr = spmm.gather_scatter(x, senders, receivers, w, x.shape[0],
-                               edge_in=ein, edge_kernel=We)
+    aggr = spmm.gather_scatter_plain(x, senders, receivers, w, x.shape[0],
+                                     edge_in=ein, edge_kernel=We)
     aggr = aggr + (x + e_self) * nmask.to(x.dtype)[:, None]
     z = torch.relu(aggr @ W1 + b1)
     out = z @ W2 + b2

@@ -1,13 +1,18 @@
-"""Gather -> message -> segment sum (port of the sum form of
+"""Gather -> message -> segment sum (port of the sum forms of
 ``pretrain_gnns_tpu.ops.spmm.gather_scatter``).
 
 For each node ``i``::
 
-    out[i] = sum_{e : receivers[e] == i}
-                 w_e * (x[senders[e]] + edge_in[e] @ edge_kernel)
+    out[i] = sum_{e : receivers[e] == i} w_e * msg_e
+    msg_e  = x[senders[e]] + edge_in[e] @ edge_kernel      (combine="add")
+    msg_e  = [x[senders[e]] | edge_in[e] @ edge_kernel]    (combine="concat")
 
-with ``w_e = edge_mask[e]``. This is the plain building block of the
-fused GIN conv's plain version (``ops/gin_conv.py``)."""
+with ``w_e = edge_mask[e] * edge_weight[e]``. Dispatch: a CUDA tensor on a
+block-diagonal batch goes to the fused edge-transform SpMM kernel (K2,
+``ops/blocked_spmm.py``), the concat form as two calls
+``[K2(x; has_x) | K2(edge_in, edge_kernel; has_ein)]``; a CUDA tensor on
+any other batch raises ``ValueError``; a CPU tensor takes the plain path
+:func:`gather_scatter_plain`."""
 
 from __future__ import annotations
 
@@ -15,10 +20,11 @@ from typing import Optional
 
 import torch
 
+from pretrain_gnns_tpu_torch.ops import blocked_spmm
 from pretrain_gnns_tpu_torch.ops import segment as seg
 
 
-def gather_scatter(
+def gather_scatter_plain(
     x: torch.Tensor,  # [N, F]
     senders: torch.Tensor,  # [E] int
     receivers: torch.Tensor,  # [E] int
@@ -26,9 +32,66 @@ def gather_scatter(
     num_nodes: int,
     edge_in: Optional[torch.Tensor] = None,  # [E, K]
     edge_kernel: Optional[torch.Tensor] = None,  # [K, F]
+    combine: str = "add",
+    edge_weight: Optional[torch.Tensor] = None,  # [E]
 ) -> torch.Tensor:
-    """Sum aggregation of ``x_j + edge_in @ edge_kernel`` messages."""
+    """The plain PyTorch form of :func:`gather_scatter`, for any layout and
+    device (autograd gives the backward)."""
     msg = x.index_select(0, senders.long())
     if edge_in is not None:
-        msg = msg + edge_in @ edge_kernel
+        e = edge_in @ edge_kernel
+        if combine == "add":
+            msg = msg + e
+        elif combine == "concat":
+            msg = torch.cat([msg, e], dim=-1)
+        else:
+            raise ValueError(combine)
+    elif combine != "add":
+        raise ValueError(f"combine={combine!r} needs edge_in")
+    if edge_weight is not None:
+        msg = msg * edge_weight[:, None]
     return seg.segment_sum(msg, receivers, num_nodes, mask=edge_mask)
+
+
+def gather_scatter(
+    x: torch.Tensor,  # [N, F]
+    senders: torch.Tensor,  # [E] int32
+    receivers: torch.Tensor,  # [E] int32
+    edge_mask: torch.Tensor,  # [E] bool
+    num_nodes: int,
+    edge_in: Optional[torch.Tensor] = None,  # [E, K]
+    edge_kernel: Optional[torch.Tensor] = None,  # [K, F]
+    combine: str = "add",  # "add" | "concat"
+    edge_weight: Optional[torch.Tensor] = None,  # [E]
+    block_nodes: int = 0,
+    block_edges: int = 0,
+) -> torch.Tensor:
+    """Sum aggregation of the messages; returns [N, F] ([N, 2F] for
+    concat). See the module docstring for the dispatch."""
+    if not x.is_cuda:
+        return gather_scatter_plain(x, senders, receivers, edge_mask,
+                                    num_nodes, edge_in, edge_kernel,
+                                    combine, edge_weight)
+    if not (block_nodes > 0 and block_edges > 0):
+        raise ValueError(
+            "gather_scatter on CUDA needs a block-diagonal batch "
+            "(packing='blocked' or 'auto')"
+        )
+    if combine not in ("add", "concat"):
+        raise ValueError(combine)
+    fused = edge_in is not None
+    if combine == "concat" and not fused:
+        raise ValueError("combine='concat' needs edge_in")
+    w = edge_mask.to(torch.float32)
+    if edge_weight is not None:
+        w = w * edge_weight
+    k2 = (senders, receivers, w, block_nodes, block_edges)
+    if combine == "add":
+        return blocked_spmm.blocked_spmm_fused(
+            x, edge_in, edge_kernel, *k2, has_x=True, has_ein=fused)
+    left = blocked_spmm.blocked_spmm_fused(x, None, None, *k2, has_x=True,
+                                           has_ein=False)
+    # x only gives the row count here: detached, it gets no zero gradient
+    right = blocked_spmm.blocked_spmm_fused(x.detach(), edge_in, edge_kernel,
+                                            *k2, has_x=False, has_ein=True)
+    return torch.cat([left, right], dim=-1)

@@ -1,7 +1,8 @@
-"""Pretraining entry (port of ``pretrain_gnns_tpu.train.pretrain`` for chem
-attribute masking).
+"""Pretraining entry (port of ``pretrain_gnns_tpu.train.pretrain`` for
+attribute masking: chem ``MaskingObjective`` and bio
+``BioMaskEdgeObjective``).
 
-The loop follows the reference's chem/pretrain_masking.py: a seeded
+The loop follows the reference's {chem,bio}/pretrain_masking.py: a seeded
 model, one Adam over every parameter, shuffled batches of ``batch_size``
 molecules with the masking transform applied per batch, the trunk saved
 at the end. Packing and the masking transform run in a prefetch thread
@@ -14,16 +15,21 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
+from torch import nn
 
 from pretrain_gnns_tpu_torch.core.graphs import Graph
-from pretrain_gnns_tpu_torch.data.batch_transforms import BatchMaskAtom
+from pretrain_gnns_tpu_torch.data.batch_transforms import (
+    BatchMaskAtom, BatchMaskEdge,
+)
 from pretrain_gnns_tpu_torch.data.packing import (
     PackedLoader, buffer_sizes, choose_blocks,
 )
 from pretrain_gnns_tpu_torch.data.prefetch import prefetch
 from pretrain_gnns_tpu_torch.device import resolve_device
 from pretrain_gnns_tpu_torch.models.inits import init_parameters
-from pretrain_gnns_tpu_torch.objectives.masking import MaskingObjective
+from pretrain_gnns_tpu_torch.objectives.masking import (
+    BioMaskEdgeObjective, MaskingObjective,
+)
 from pretrain_gnns_tpu_torch.train import optim
 from pretrain_gnns_tpu_torch.train.state import TrainState
 from pretrain_gnns_tpu_torch.train.telemetry import ThroughputMeter
@@ -49,23 +55,28 @@ class PretrainConfig:
     mask_edge: bool = True
     num_atom_type: int = 119
     num_edge_type: int = 5
-    # batch layout: auto = block-diagonal (the fused GIN kernel) on CUDA
+    # batch layout: auto = block-diagonal (what the kernels take) on CUDA
     packing: str = "auto"  # auto | standard | blocked
 
 
-def build_objective(cfg: PretrainConfig) -> MaskingObjective:
-    """The objective module, its weights drawn from ``cfg.seed`` on the
-    CPU (so the seed fixes them whatever the device)."""
-    if cfg.objective != "masking" or cfg.domain != "chem":
+def _check_ported(cfg: PretrainConfig) -> None:
+    if cfg.objective != "masking" or cfg.domain not in ("chem", "bio"):
         raise NotImplementedError(
             f"objective={cfg.objective!r} domain={cfg.domain!r} is not "
-            "ported; this port runs chem masking"
+            "ported; this port runs masking in the chem and bio domains"
         )
-    model = MaskingObjective(
-        num_layer=cfg.num_layer, emb_dim=cfg.emb_dim, jk=cfg.jk,
-        drop_ratio=cfg.dropout_ratio, gnn_type=cfg.gnn_type,
-        mask_edge=cfg.mask_edge,
-    )
+
+
+def build_objective(cfg: PretrainConfig) -> nn.Module:
+    """The objective module, its weights drawn from ``cfg.seed`` on the
+    CPU (so the seed fixes them whatever the device)."""
+    _check_ported(cfg)
+    common = dict(num_layer=cfg.num_layer, emb_dim=cfg.emb_dim, jk=cfg.jk,
+                  drop_ratio=cfg.dropout_ratio, gnn_type=cfg.gnn_type)
+    if cfg.domain == "bio":
+        model = BioMaskEdgeObjective(**common)
+    else:
+        model = MaskingObjective(mask_edge=cfg.mask_edge, **common)
     init_parameters(model, torch.Generator().manual_seed(cfg.seed))
     return model
 
@@ -73,21 +84,32 @@ def build_objective(cfg: PretrainConfig) -> MaskingObjective:
 def build_loader(cfg: PretrainConfig, graphs: Sequence[Graph],
                  device: torch.device, drop_last: bool = True
                  ) -> PackedLoader:
-    """Packed batches with the vectorized masking pass applied to each."""
+    """Packed batches with the vectorized masking pass applied to each
+    (``BatchMaskAtom`` for chem, ``BatchMaskEdge`` for bio)."""
+    _check_ported(cfg)
     mn, me = buffer_sizes(graphs, cfg.batch_size)
     blocks = choose_blocks(graphs, cfg.batch_size, cfg.packing, device)
     if blocks is not None:
         n_blocks, bn, be = blocks
         mn, me = n_blocks * bn, n_blocks * be
-    post = BatchMaskAtom(
-        num_atom_type=cfg.num_atom_type, num_edge_type=cfg.num_edge_type,
-        mask_rate=cfg.mask_rate, mask_edge=cfg.mask_edge,
-        node_budget=int(mn * cfg.mask_rate) + cfg.batch_size + 8,
-        edge_budget=me // 2,
-    )
+    extra_pad = None
+    if cfg.domain == "bio":
+        # bio graphs carry a per-graph center_node_idx (a node index)
+        extra_pad = {"center_node_idx": cfg.batch_size}
+        post = BatchMaskEdge(
+            cfg.mask_rate,
+            budget=int(me // 2 * cfg.mask_rate) + cfg.batch_size + 8)
+    else:
+        post = BatchMaskAtom(
+            num_atom_type=cfg.num_atom_type,
+            num_edge_type=cfg.num_edge_type, mask_rate=cfg.mask_rate,
+            mask_edge=cfg.mask_edge,
+            node_budget=int(mn * cfg.mask_rate) + cfg.batch_size + 8,
+            edge_budget=me // 2,
+        )
     return PackedLoader(graphs, cfg.batch_size, mn, me, seed=cfg.seed,
-                        blocks=blocks, drop_last=drop_last,
-                        post_transform=post)
+                        extra_pad=extra_pad, blocks=blocks,
+                        drop_last=drop_last, post_transform=post)
 
 
 def train_step(state: TrainState, batch):
@@ -108,8 +130,9 @@ def run_pretrain(
     epochs: Optional[int] = None,
     device=None,
 ) -> Dict[str, Any]:
-    """Train the masking objective. ``device`` defaults to ``"cuda"``;
-    without CUDA that raises ``RuntimeError`` unless ``device="cpu"``.
+    """Train the masking objective of ``cfg.domain``. ``device`` defaults
+    to ``"cuda"``; without CUDA that raises ``RuntimeError`` unless
+    ``device="cpu"``.
     History rows: ``epoch``, ``loss`` and the metrics (means over the
     epoch's steps), ``edges`` (valid edges, each directed edge once per
     step) and ``steps``."""

@@ -3,12 +3,15 @@
 
 Run from the repository root:
 
-    python3 scripts/torch_port_profile.py
+    python3 scripts/torch_port_profile.py [--domain chem|bio]
 
-Configuration: chem attribute masking, GIN 5 x 300, batch 256 molecules
-(synthetic, 23 atoms on average), mask_edge off, float32 - the workload of
-chip_smoke.py's main path. It prints, for the card named on its first
-line:
+Configurations (float32, GIN 5 x 300, batch 256), the workloads of
+chip_smoke.py's two main paths:
+  - chem (default): attribute masking of synthetic molecules (23 atoms on
+    average), mask_edge off;
+  - bio: bio attribute masking of synthetic ego-networks
+    (``bio_dataset(4096, seed=0)``, about 60 nodes on average).
+It prints, for the card named on its first line:
   - host: ms to pack and mask one batch (the loader, on one thread);
   - device-only step: ms per train step over batches already on the card,
     and the host's time to enqueue one step on an idle card;
@@ -23,6 +26,7 @@ and one JSON line with those numbers.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -36,7 +40,9 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from pretrain_gnns_tpu_torch.data.synthetic import molecule_dataset  # noqa: E402
+from pretrain_gnns_tpu_torch.data.synthetic import (  # noqa: E402
+    bio_dataset, molecule_dataset,
+)
 from pretrain_gnns_tpu_torch.device import resolve_device  # noqa: E402
 from pretrain_gnns_tpu_torch.train import optim, pretrain  # noqa: E402
 from pretrain_gnns_tpu_torch.train.state import TrainState  # noqa: E402
@@ -73,11 +79,22 @@ def run_main_path(cfg, graphs, prof=None):
             sum(h["edges"] for h in hist))
 
 
-def main() -> int:
-    dev = resolve_device("cuda")
+def workload(domain: str):
+    """(graphs, config) of chip_smoke.py's main path in ``domain``."""
+    if domain == "bio":
+        return bio_dataset(4096, seed=0), pretrain.PretrainConfig(
+            domain="bio", num_layer=5, emb_dim=300, batch_size=256, seed=0)
     graphs, _ = molecule_dataset(4096, seed=0, mean_atoms=23)
-    cfg = pretrain.PretrainConfig(num_layer=5, emb_dim=300, batch_size=256,
-                                  mask_edge=False, seed=0)
+    return graphs, pretrain.PretrainConfig(
+        num_layer=5, emb_dim=300, batch_size=256, mask_edge=False, seed=0)
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--domain", default="chem", choices=["chem", "bio"])
+    args = p.parse_args()
+    dev = resolve_device("cuda")
+    graphs, cfg = workload(args.domain)
     loader = pretrain.build_loader(cfg, graphs, dev)
 
     # host: pack + mask, one thread
@@ -124,7 +141,7 @@ def main() -> int:
     kernels.sort(key=lambda r: -r[1])
     busy_step_ms = sum(r[1] for r in kernels) / p_steps
     card = torch.cuda.get_device_name(0)
-    print(f"card: {card}")
+    print(f"card: {card}; {args.domain} masking")
     print(f"host pack+mask: median {statistics.median(host_ms):.3f} ms per "
           f"batch ({int(host_batch.edge_mask.sum())} valid edges)")
     print(f"device-only step: {device_step_ms:.3f} ms; host enqueue of one "
@@ -138,7 +155,8 @@ def main() -> int:
     for name, ms, count in kernels[:25]:
         print(f"  {ms:9.3f}  {count:6d}  {name[:110]}")
     print(json.dumps({
-        "card": card, "host_pack_mask_ms": statistics.median(host_ms),
+        "card": card, "domain": args.domain,
+        "host_pack_mask_ms": statistics.median(host_ms),
         "device_step_ms": device_step_ms,
         "enqueue_ms": statistics.median(enqueue_ms),
         "main_path_step_ms": step_ms,

@@ -13,8 +13,11 @@ import pytest
 import torch
 
 from pretrain_gnns_tpu_torch.data.packing import PackedLoader, block_layout
-from pretrain_gnns_tpu_torch.data.synthetic import molecule_dataset
-from pretrain_gnns_tpu_torch.ops import gin_conv
+from pretrain_gnns_tpu_torch.data.synthetic import (
+    bio_dataset, molecule_dataset,
+)
+from pretrain_gnns_tpu_torch.models import bio
+from pretrain_gnns_tpu_torch.ops import blocked_spmm, gin_conv, spmm
 from pretrain_gnns_tpu_torch.train import pretrain
 
 # max |kernel - plain| / max(1, max |plain|): full f32 on both sides, only
@@ -26,8 +29,8 @@ DIFF = ("x", "We", "e_self", "W1", "b1", "W2", "b2")
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the gin_conv kernels run only "
-                    "on the card")
+        pytest.skip("needs a CUDA device: the gin_conv and blocked_spmm "
+                    "kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -102,6 +105,133 @@ def test_masking_step_on_card_matches_cpu(cuda_device):
     graphs, _ = molecule_dataset(64, seed=2)
     cfg = pretrain.PretrainConfig(num_layer=3, emb_dim=48, batch_size=32,
                                   mask_edge=True, packing="blocked")
+    batch = next(iter(pretrain.build_loader(cfg, graphs, cuda_device)))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = pretrain.build_objective(cfg).to(dev)
+        loss, _ = model(batch.to(dev), train=True)
+        loss.backward()
+        out[dev.type] = (float(loss.detach()),
+                         {n: p.grad.cpu() for n, p in
+                          model.named_parameters()})
+    assert np.isclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for n, gc in out["cuda"][1].items():
+        assert _rel(gc, out["cpu"][1][n]) <= 1e-3, n
+
+
+K2_VARIANTS = [(True, True), (True, False), (False, True)]
+
+
+def _k2_case(dev, F, block_nodes, block_edges, n_graphs=24, seed=0):
+    """A blocked bio batch and K2 inputs: x, ein = [edge_feat | 1], W,
+    signed edge weights (0 on padded slots) and a cotangent g."""
+    graphs = bio_dataset(n_graphs, seed=seed)
+    blocks = block_layout(graphs, n_graphs, block_nodes, block_edges)
+    b = next(iter(PackedLoader(graphs, n_graphs, shuffle=False,
+                               blocks=blocks,
+                               extra_pad={"center_node_idx": n_graphs})))
+    b = b.to(dev)
+    gen = torch.Generator().manual_seed(seed)
+    N, E = b.max_nodes, b.max_edges
+    r = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    nm = b.node_mask.float()
+    w = b.edge_mask.float() * (torch.rand(E, generator=gen) * 2 - 0.5).to(dev)
+    t = dict(x=r(N, F) * nm[:, None], ein=bio.edge_inputs(b, torch.float32),
+             W=r(bio.EDGE_FEAT_DIM + 1, F), w=w, g=r(N, F))
+    return t, b, blocks
+
+
+def _k2_plain(t, b, blocks, has_x, has_ein):
+    x = t["x"].detach().clone().requires_grad_(True)
+    W = t["W"].detach().clone().requires_grad_(True)
+    out = blocked_spmm.blocked_spmm_fused_plain(
+        x, t["ein"], W, b.senders, b.receivers, t["w"], blocks[1],
+        blocks[2], has_x, has_ein)
+    dx, dW = torch.autograd.grad(out, [x, W], t["g"], allow_unused=True)
+    return out.detach(), dx, dW
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_x,has_ein", K2_VARIANTS)
+@pytest.mark.parametrize("F,bn,be", [(45, 128, 384), (300, 512, 1536)])
+def test_k2_kernels_match_plain_version(cuda_device, has_x, has_ein, F, bn,
+                                        be):
+    """K2's forward and backward; blocks of 512 nodes need 64 KB of shared
+    memory, above the 48 KB a launch gets without opting in."""
+    t, b, blocks = _k2_case(cuda_device, F, bn, be)
+    assert blocks[1] == bn
+    name = blocked_spmm.variant(has_x, has_ein)
+    before = dict(blocked_spmm.launches)
+    out = blocked_spmm.spmm_fwd(t["x"], t["ein"], t["W"], b.senders,
+                                b.receivers, t["w"], bn, be, has_x, has_ein)
+    dx, dW = blocked_spmm.spmm_bwd(t["g"], t["ein"], b.senders, b.receivers,
+                                   t["w"], t["W"].shape[0], bn, be, has_x,
+                                   has_ein)
+    torch.cuda.synchronize()
+    after = dict(blocked_spmm.launches)
+    for d in ("fwd", "bwd"):
+        key = f"blocked_spmm_{d}[{name}]"
+        assert after.pop(key) == before.pop(key) + 1
+    assert after == before
+    out_p, dx_p, dW_p = _k2_plain(t, b, blocks, has_x, has_ein)
+    assert _rel(out, out_p) <= FWD_TOL
+    assert not out[~b.node_mask].any()
+    assert (dx is None) == (not has_x) and (dW is None) == (not has_ein)
+    if has_x:
+        assert _rel(dx, dx_p) <= GRAD_TOL
+    if has_ein:
+        assert dW.dtype == torch.float32
+        assert _rel(dW, dW_p) <= GRAD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_x,has_ein", K2_VARIANTS)
+def test_k2_autograd_function_gradients(cuda_device, has_x, has_ein):
+    """Through autograd: dx is zeros without has_x, ein and w get zero
+    gradients, and dx/dW match the plain version."""
+    t, b, blocks = _k2_case(cuda_device, 64, 128, 384, seed=1)
+    leaves = {k: t[k].detach().clone().requires_grad_(True)
+              for k in ("x", "ein", "W", "w")}
+    out = blocked_spmm.blocked_spmm_fused(
+        leaves["x"], leaves["ein"], leaves["W"], b.senders, b.receivers,
+        leaves["w"], blocks[1], blocks[2], has_x, has_ein)
+    (out * t["g"]).sum().backward()
+    _, dx_p, dW_p = _k2_plain(t, b, blocks, has_x, has_ein)
+    assert not leaves["ein"].grad.any() and not leaves["w"].grad.any()
+    if has_x:
+        assert _rel(leaves["x"].grad, dx_p) <= GRAD_TOL
+    else:
+        assert not leaves["x"].grad.any()
+    if has_ein:
+        assert _rel(leaves["W"].grad, dW_p) <= GRAD_TOL
+
+
+@pytest.mark.cuda
+def test_gather_scatter_dispatch_on_cuda(cuda_device):
+    """A blocked batch goes to K2 (the concat as two calls); an unblocked
+    one raises."""
+    t, b, blocks = _k2_case(cuda_device, 32, 128, 384, seed=2)
+    args = (t["x"], b.senders, b.receivers, b.edge_mask, b.max_nodes)
+    kw = dict(edge_in=t["ein"], edge_kernel=t["W"], combine="concat")
+    before = dict(blocked_spmm.launches)
+    got = spmm.gather_scatter(*args, block_nodes=blocks[1],
+                              block_edges=blocks[2], **kw)
+    assert blocked_spmm.launches["blocked_spmm_fwd[x]"] == \
+        before["blocked_spmm_fwd[x]"] + 1
+    assert blocked_spmm.launches["blocked_spmm_fwd[ein]"] == \
+        before["blocked_spmm_fwd[ein]"] + 1
+    want = spmm.gather_scatter_plain(*args, **kw)
+    assert _rel(got, want) <= FWD_TOL
+    with pytest.raises(ValueError, match="block-diagonal"):
+        spmm.gather_scatter(*args, **kw)
+
+
+@pytest.mark.cuda
+def test_bio_masking_step_on_card_matches_cpu(cuda_device):
+    """One train-mode step of a small bio masking model: card vs CPU."""
+    graphs = bio_dataset(64, seed=2)
+    cfg = pretrain.PretrainConfig(domain="bio", num_layer=3, emb_dim=48,
+                                  batch_size=32, packing="blocked")
     batch = next(iter(pretrain.build_loader(cfg, graphs, cuda_device)))
     out = {}
     for dev in (cuda_device, torch.device("cpu")):

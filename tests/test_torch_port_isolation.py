@@ -84,6 +84,9 @@ def test_standard_packing_and_unported_options():
             pretrain.PretrainConfig(objective="edgepred"))
     with pytest.raises(NotImplementedError):
         GNN(num_layer=2, emb_dim=16, drop_ratio=0.5)
+    with pytest.raises(NotImplementedError):
+        pretrain.build_objective(
+            pretrain.PretrainConfig(domain="bio", gnn_type="gcn"))
 
 
 def test_cli_trains_one_epoch_on_cpu(tmp_path):
@@ -100,7 +103,8 @@ def test_cli_trains_one_epoch_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--objective", "edgepred"],
-                                   ["--domain", "bio"],
+                                   ["--domain", "bio", "--objective",
+                                    "edgepred"],
                                    ["--dataset", "bbbp"]])
 def test_cli_rejects_what_is_not_ported(flags):
     with pytest.raises(SystemExit, match="not ported"):

@@ -33,9 +33,37 @@ Phases, in order (any failure exits non-zero):
   7. bio main path: ``run_pretrain(domain="bio")`` on ``cuda`` at full
      width (GIN 5 x 300, batch 256) for 48 steps, with K2's
      ``fwd[x]``, ``fwd[ein]``, ``bwd[x]`` and ``bwd[ein]`` at 5 x steps and
-     every other count at 0.
-Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` from the
-main path that runs it), the card line and, last, the result line
+     every other count at 0;
+  8. pair-dot kernel phase: on the first batch of the chem and of the bio
+     edge-prediction path (blocks of 128 nodes, F = 300, float32) the
+     blocked pair-dot head K3 is held against its plain version for both
+     scoring heads (positives: every edge slot, 384 a block; negatives:
+     the C++ sampler's block-aligned pairs, 192 a block): scores and
+     ``dx``, padded pairs and untouched rows exactly 0, ``dx`` equal bit
+     for bit between two runs; timed beside the plain version and its
+     bound (no single PyTorch call computes it);
+  9. GCN kernel phase: K2's ``has_x`` + ``has_ein`` variant again, at the
+     shapes the chem GCN trunk gives it (first batch of the chem
+     edge-prediction path, K = 9, edge weights ``deg^-1/2[r] *
+     deg^-1/2[s]``), against its plain version, timed, with its bound;
+  10. edge-prediction agreement, for each trunk that a path below drives
+     (chem GIN, chem GCN, bio GIN, bio GraphSAGE): one train-mode step at
+     full width on the card, on the CPU in float32 and on the CPU in
+     float64; the card's gradients must lie no further from the float64
+     ones than REFEREE_K times the float32 noise measured on the CPU
+     (the median of three steps on the card, 1 + NOISE_SAMPLES on the
+     CPU);
+  11. edge-prediction main path: ``run_pretrain(objective="edgepred")`` on
+     ``cuda`` at full width (chem GIN 5 x 300, batch 256) for 48 steps:
+     K1 at 5 a step and K3 at 2 a step in each direction, every other
+     count 0;
+  12. three short paths of 16 steps at full width: chem edge prediction
+     on a GCN trunk (K2's ``fwd[x+ein]`` and ``bwd[x+ein]`` at 5 a step,
+     K3 at 2, K1 at 0), bio edge prediction on GIN (K2's ``[x]`` and
+     ``[ein]`` at 5 a step, K3 at 2) and bio edge prediction on GraphSAGE
+     (K2's ``[x+ein]`` at 5 a step, K3 at 2).
+Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` and
+``launches_per_step`` from the path that runs it at the entry's ``shape``), the card line and, last, the result line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this script, it exits non-zero and prints no result.
 """
@@ -55,10 +83,15 @@ LAYERS = 5
 MEAN_ATOMS = 23
 MAIN_GRAPHS = 4096  # 16 steps per epoch at batch 256, both domains
 MAIN_EPOCHS = 3  # epoch 1 warms up; epochs 2-3 are timed
-# the bio path's four K2 launches per layer and step
-BIO_K2 = ("blocked_spmm_fwd[x]", "blocked_spmm_fwd[ein]",
-          "blocked_spmm_bwd[x]", "blocked_spmm_bwd[ein]")
+# launches per step of each path, by counter; every other count stays 0
+K1 = {"gin_conv_fwd": LAYERS, "gin_conv_bwd": LAYERS}
+BIO_K2 = {"blocked_spmm_fwd[x]": LAYERS, "blocked_spmm_fwd[ein]": LAYERS,
+          "blocked_spmm_bwd[x]": LAYERS, "blocked_spmm_bwd[ein]": LAYERS}
+GCN_K2 = {"blocked_spmm_fwd[x+ein]": LAYERS,
+          "blocked_spmm_bwd[x+ein]": LAYERS}
+K3 = {"blocked_edge_dot_fwd": 2, "blocked_edge_dot_bwd": 2}  # both heads
 WARMUP, TRIALS, REPS = 5, 20, 10
+SPIN_CYCLES = 3_500_000  # about 2 ms of the card's clock, see time_ms
 
 # NVIDIA H100 SXM data sheet: float32 on the CUDA cores (dense), HBM3 rate
 PEAK_F32_FLOPS = 67e12
@@ -67,14 +100,36 @@ PEAK_BYTES_PER_S = 3.35e12
 # Tolerances, as max |kernel - plain| / max(1, max |plain|). Both sides
 # are full float32 (no TF32); they differ only in summation order (tiled
 # FMA GEMMs vs cuBLAS, shared-memory atomics vs index_add_ atomics, per-
-# block partials summed in block order). The same for K1 and K2.
+# block partials summed in block order, a warp's shuffle tree vs a row
+# reduction). The same for K1, K2 and K3.
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
-# One full-width masking step, card (kernels) vs CPU (plain version):
-# five layers of batch norm amplify the summation-order differences. The
-# same for chem and bio.
+# One full-width train step, card (kernels) vs CPU (plain version): five
+# layers of batch norm amplify the summation-order differences. The same
+# for chem and bio.
 STEP_LOSS_TOL = 1e-4
 STEP_GRAD_TOL = 2e-3
+# The edge-prediction step is worse conditioned at its random start: the
+# scores are 300-term dot products of batch-norm outputs, so the loss
+# starts near 64 with dL/dscore = +-1 on half the pairs, and a rounding
+# error that flips one ReLU gate with a large cotangent moves a weight
+# gradient by 3e-3 of its largest entry. Such flips are rare and come and
+# go between two runs on the card (its atomics sum in a changing order),
+# so no constant limit and no single float32 step says what float32 may
+# do there. A float64 step on the CPU referees, and the float32 noise is
+# measured: the largest distance from the float64 gradients of 1 +
+# NOISE_SAMPLES float32 steps on the CPU, the samples from parameters
+# scaled by 1 + NOISE_EPS * N(0, 1), one float32 rounding each. The
+# card's gradients may lie REFEREE_K times that far from the float64
+# ones, or STEP_GRAD_TOL if that is more (all by rel_err, the maximum
+# over the parameters). The card takes the step three times, twice from
+# parameters scaled in the same way, and the median distance is held:
+# one rare flip on the card while no noise sample caught one must not
+# fail a right kernel, and a wrong one is wrong in all three. Loss and
+# batch-norm statistics keep the limits above.
+REFEREE_K = 4.0
+NOISE_SAMPLES = 16
+NOISE_EPS = 1e-7
 
 
 def card_line() -> str:
@@ -93,8 +148,10 @@ def rel_err(a, b) -> float:
 def time_ms(fn, torch) -> float:
     """Device ms per call: after WARMUP calls, the median over TRIALS of
     one CUDA event pair around REPS back-to-back calls, divided by REPS.
-    The host enqueues ahead of the card, so its time between launches
-    (checks, allocation, argument marshalling, dispatch) does not count."""
+    The card first spins for about 2 ms, so that the host has enqueued
+    the calls before the first one starts: its time between launches
+    (checks, allocation, argument marshalling, dispatch; 20-30 us a call)
+    then does not count, which it would for a kernel shorter than that."""
     for _ in range(WARMUP):
         fn()
     times = []
@@ -102,6 +159,7 @@ def time_ms(fn, torch) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for _ in range(REPS):
             fn()
@@ -216,7 +274,7 @@ def kernel_phase(torch, batch, model):
         + nbytes(g, W1, W2, nm, *grads_k))
     src = "pretrain_gnns_tpu_torch/csrc/gin_conv.cu"
     common = dict(route="cuda", source=src, library_ms=None,
-                  launches_per_step=LAYERS)
+                  shape="chem masking first batch")
     fwd = dict(name="gin_conv_fwd",
                replaces="pretrain_gnns_tpu/ops/pallas_gin.py:47",
                tpu_counterpart="ops/pallas_gin.py::_fwd_kernel via _call_fwd",
@@ -240,48 +298,85 @@ def kernel_phase(torch, batch, model):
     return [fwd, bwd]
 
 
-def agreement_phase(torch, batch, cfg):
-    """One train-mode masking step on the card and on the CPU."""
-    tag = f"[{cfg.domain} agreement]"
+def path_name(cfg) -> str:
+    return f"{cfg.domain} {cfg.objective} {cfg.gnn_type}"
+
+
+def agreement_phase(torch, batch, cfg, referee=False):
+    """One train-mode step of ``cfg``'s objective on the card and on the
+    CPU. With ``referee``, a float64 step on the CPU and the measured
+    float32 noise set the gradients' limit (see REFEREE_K)."""
+    tag = f"[{path_name(cfg)} agreement]"
+    from pretrain_gnns_tpu_torch.models import inits
     from pretrain_gnns_tpu_torch.train.pretrain import build_objective
 
-    results = []
-    for dev in ("cuda", "cpu"):
-        model = build_objective(cfg).to(dev)
-        loss, _ = model(batch.to(dev), train=True)
+    def step(dev, dtype=torch.float32, noise_seed=None):
+        model = build_objective(cfg)  # same seed, same weights
+        if noise_seed is not None:
+            gen = torch.Generator().manual_seed(noise_seed)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1 + NOISE_EPS * torch.randn(p.shape,
+                                                       generator=gen))
+        model = model.to(dev, dtype)
+        was = inits.activation_dtype
+        inits.activation_dtype = lambda: dtype
+        try:
+            loss, _ = model(batch.to(dev), train=True)
+        finally:
+            inits.activation_dtype = was
         loss.backward()
-        results.append((
-            float(loss.detach()),
-            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
-            {n: b.detach().cpu() for n, b in model.named_buffers()},
-        ))
-    (lc, gc, bc), (lp, gp, bp) = results
+        grads = {n: p.grad.detach().cpu()
+                 for n, p in model.named_parameters()}
+        stats = {n: b.detach().cpu() for n, b in model.named_buffers()}
+        if not all(t.dtype == dtype for t in (loss, *grads.values())):
+            raise AssertionError(f"{tag} step did not run in {dtype}")
+        return float(loss.detach()), grads, stats
+
+    def grad_err(got, want):
+        return max(rel_err(got[n].to(want[n].dtype), want[n]) for n in want)
+
+    (lc, gc, bc), (lp, gp, bp) = step("cuda"), step("cpu")
     loss_err = abs(lc - lp) / max(1.0, abs(lp))
-    grad_err = max(rel_err(gc[n], gp[n]) for n in gp)
-    stat_err = max(rel_err(bc[n].float(), bp[n].float()) for n in bp)
+    stat_err = max((rel_err(bc[n].float(), bp[n].float()) for n in bp),
+                   default=0.0)  # a GraphSAGE bio trunk has no batch norm
+    if referee:
+        l64, g64, _ = step("cpu", torch.float64)
+        card = [grad_err(gc, g64)] + [
+            grad_err(step("cuda", noise_seed=1000 + i)[1], g64)
+            for i in range(2)]
+        card_err = statistics.median(card)
+        noise = [grad_err(gp, g64)] + [
+            grad_err(step("cpu", noise_seed=i)[1], g64)
+            for i in range(NOISE_SAMPLES)]
+        limit = max(STEP_GRAD_TOL, REFEREE_K * max(noise))
+        fmt = lambda errs: " ".join(f"{e:.3e}" for e in errs)
+        print(f"{tag} float64 referee on the CPU: loss {l64:.9f}; max grad "
+              f"rel err from it: card {fmt(card[:1])} and, parameters "
+              f"scaled by 1 + {NOISE_EPS:.0e} * N(0, 1), {fmt(card[1:])}; "
+              f"CPU float32 {fmt(noise[:1])} and, scaled, {fmt(noise[1:])}; "
+              f"card vs CPU float32 {grad_err(gc, gp):.3e}", flush=True)
+    else:
+        card_err, limit = grad_err(gc, gp), STEP_GRAD_TOL
     print(f"{tag} loss cuda={lc:.6f} cpu={lp:.6f} rel err "
-          f"{loss_err:.3e}; max grad rel err {grad_err:.3e}; max BN stat "
-          f"rel err {stat_err:.3e}", flush=True)
-    if not (loss_err <= STEP_LOSS_TOL and grad_err <= STEP_GRAD_TOL
+          f"{loss_err:.3e}; max grad rel err{' (median)' * referee} "
+          f"{card_err:.3e} (limit "
+          f"{limit:.3e}); max BN stat rel err {stat_err:.3e}", flush=True)
+    if not (loss_err <= STEP_LOSS_TOL and card_err <= limit
             and stat_err <= STEP_GRAD_TOL and math.isfinite(lc)):
-        raise AssertionError(f"{cfg.domain} masking step on the card "
+        raise AssertionError(f"{path_name(cfg)} step on the card "
                              "disagrees with the CPU reference")
 
 
-def launch_counts():
-    from pretrain_gnns_tpu_torch.ops import blocked_spmm, gin_conv
-
-    return {**gin_conv.launches, **blocked_spmm.launches}
-
-
-def main_path_phase(torch, graphs, cfg, card, kernels):
+def main_path_phase(torch, graphs, cfg, card, per_step,
+                    epochs=MAIN_EPOCHS):
     """``run_pretrain`` on the card; every launch count is set to 0 just
-    before and read just after. ``kernels`` name the counts that must be
-    LAYERS x steps; every other count must stay 0."""
-    from pretrain_gnns_tpu_torch.ops import blocked_spmm, gin_conv
+    before and read just after. ``per_step`` gives the launches a step of
+    each counter that must move; every other count must stay 0."""
+    from pretrain_gnns_tpu_torch.ops import blocked_spmm, edge_dot, gin_conv
     from pretrain_gnns_tpu_torch.train import pretrain
 
-    tag = f"[{cfg.domain} main]"
+    tag = f"[{path_name(cfg)} path]"
     stamps = []
 
     def log(msg):
@@ -289,35 +384,49 @@ def main_path_phase(torch, graphs, cfg, card, kernels):
         if msg.startswith("epoch="):
             stamps.append(time.perf_counter())
 
+    modules = (gin_conv, blocked_spmm, edge_dot)
     torch.cuda.reset_peak_memory_stats()
-    gin_conv.reset_launches()
-    blocked_spmm.reset_launches()
-    res = pretrain.run_pretrain(cfg, graphs, log=log, epochs=MAIN_EPOCHS,
+    for m in modules:
+        m.reset_launches()
+    res = pretrain.run_pretrain(cfg, graphs, log=log, epochs=epochs,
                                 device="cuda")
-    counts = launch_counts()
+    counts = {k: v for m in modules for k, v in m.launches.items()}
     hist = res["history"]
     steps = sum(h["steps"] for h in hist)
-    want = {k: (LAYERS * steps if k in kernels else 0) for k in counts}
-    if counts != want or not steps:
-        raise AssertionError(f"{cfg.domain} path launches {counts} != "
-                             f"{want} ({LAYERS} x {steps} steps)")
+    want = {k: per_step.get(k, 0) * steps for k in counts}
+    if counts != want or not steps or set(per_step) - set(counts):
+        raise AssertionError(f"{path_name(cfg)} path launches {counts} != "
+                             f"{want} ({per_step} x {steps} steps)")
     if not all(math.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"non-finite loss: {hist}")
-    edges = sum(h["edges"] for h in hist[1:])
-    rate = edges / (stamps[-1] - stamps[0])
+    rate = ""
+    if epochs > 1:  # epoch 1 warms up
+        edges = sum(h["edges"] for h in hist[1:])
+        rate = (f"{edges / (stamps[-1] - stamps[0]):.1f} valid edges/s over "
+                f"epochs 2-{epochs} ({sum(h['steps'] for h in hist[1:])} "
+                "steps, float32); ")
     print(f"{tag} {steps} steps, launches "
-          f"{ {k: counts[k] for k in kernels} }; "
-          f"{rate:.1f} valid edges/s over epochs 2-{MAIN_EPOCHS} "
-          f"({sum(h['steps'] for h in hist[1:])} steps, float32) on "
-          f"{card}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
-    return counts
+          f"{ {k: counts[k] for k in per_step} }; {rate}on {card}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+          "MiB", flush=True)
+    return counts, steps
 
 
-def k2_phase(torch, batch, model):
-    """Each K2 variant against its plain version on the bio path's first
-    batch, at the widths of the trunk's first layer."""
-    from pretrain_gnns_tpu_torch.models import bio
+def record_launches(entries, counts_steps, names=None):
+    """Writes a path's counts into the entries of the kernels it ran: the
+    launches of the whole run and, from them, the launches a step."""
+    counts, steps = counts_steps
+    for k in entries:
+        if names is None or k["name"] in names:
+            k["launches"] = counts[k["name"]]
+            k["launches_per_step"] = counts[k["name"]] // steps
+
+
+def k2_phase(torch, batch, ein, W, w, variants, shape):
+    """K2 against its plain version on a path's first batch, for each
+    ``(has_x, has_ein)`` of ``variants``, with the edge inputs ``ein``
+    [E, K], the edge kernel ``W`` [K, F] and the edge weights ``w`` [E]
+    that the path's trunk gives it in its first layer."""
     from pretrain_gnns_tpu_torch.ops import blocked_spmm as bs
 
     dev = batch.node_mask.device
@@ -326,30 +435,30 @@ def k2_phase(torch, batch, model):
     nm = batch.node_mask.to(torch.float32)
     x = torch.randn(N, EMB, generator=gen).to(dev) * nm[:, None]
     g = torch.randn(N, EMB, generator=gen).to(dev)
-    ein = bio.edge_inputs(batch, torch.float32)
-    enc = model.gnn.gnns[0].edge_encoder
-    W = torch.cat([enc.weight.t(), enc.bias[None]], 0).detach().contiguous()
-    w = batch.edge_mask.to(torch.float32)
+    W = W.detach().contiguous()
     snd, rcv = batch.senders, batch.receivers
     bn, be, K, F = batch.block_nodes, batch.block_edges, W.shape[0], EMB
     valid = batch.edge_mask
     e_valid = int(valid.sum())
     n_snd = int(torch.unique(snd[valid]).numel())  # x rows the sum reads
     n_rcv = int(torch.unique(rcv[valid]).numel())  # g rows dmsg reads
-    # the library's yardstick for the has_x variant: out = A x and
-    # dx = A^T g with A[r, s] = w over the valid edges, built untimed
-    pairs = torch.stack([rcv[valid].long(), snd[valid].long()])
-    csr = {name: torch.sparse_coo_tensor(idx, w[valid], (N, N)).coalesce()
-           .to_sparse_csr()
-           for name, idx in (("A", pairs), ("At", pairs.flip(0)))}
-    lib_err = rel_err(torch.sparse.mm(csr["A"], x),
-                      bs.blocked_spmm_fused_plain(x, None, None, snd, rcv, w,
-                                                  bn, be, True, False))
-    if not lib_err <= FWD_TOL:
-        raise AssertionError(f"torch.sparse.mm yardstick disagrees: {lib_err}")
+    csr = {}
+    if any(not has_ein for _, has_ein in variants):
+        # the library's yardstick for the has_x variant: out = A x and
+        # dx = A^T g with A[r, s] = w over the valid edges, built untimed
+        pairs = torch.stack([rcv[valid].long(), snd[valid].long()])
+        csr = {name: torch.sparse_coo_tensor(idx, w[valid], (N, N))
+               .coalesce().to_sparse_csr()
+               for name, idx in (("A", pairs), ("At", pairs.flip(0)))}
+        lib_err = rel_err(torch.sparse.mm(csr["A"], x),
+                          bs.blocked_spmm_fused_plain(x, None, None, snd, rcv,
+                                                      w, bn, be, True, False))
+        if not lib_err <= FWD_TOL:
+            raise AssertionError("torch.sparse.mm yardstick disagrees: "
+                                 f"{lib_err}")
     src = "pretrain_gnns_tpu_torch/csrc/spmm.cu"
     entries = []
-    for has_x, has_ein in ((True, False), (False, True), (True, True)):
+    for has_x, has_ein in variants:
         v = bs.variant(has_x, has_ein)
         fwd_args = (x, ein, W, snd, rcv, w, bn, be, has_x, has_ein)
         bwd_args = (g, ein, snd, rcv, w, K, bn, be, has_x, has_ein)
@@ -418,9 +527,8 @@ def k2_phase(torch, batch, model):
                 tpu_counterpart=(f"ops/pallas_spmm.py::_fused_{d}_kernel via "
                                  f"_fused_call_{d} (blocked_spmm_fused)"),
                 max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
-                bound_by=by, library_ms=lms, library=library,
-                launches_per_step=LAYERS))
-    print(f"[kernels] K2 shapes N={N} F={F} K={K} E={E} valid_edges="
+                bound_by=by, library_ms=lms, library=library, shape=shape))
+    print(f"[kernels] K2 at the {shape}: N={N} F={F} K={K} E={E} valid_edges="
           f"{e_valid} senders={n_snd} receivers={n_rcv}", flush=True)
     for k in entries:
         lib = ("none" if k["library_ms"] is None
@@ -428,6 +536,134 @@ def k2_phase(torch, batch, model):
         print(f"[kernels] {k['name']}: kernel {k['ms']:.4f} ms, plain "
               f"{k['plain_ms']:.4f} ms, library {lib}, bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']})", flush=True)
+    return entries
+
+
+def k3_phase(torch, batch, tag):
+    """K3 against its plain version on an edge-prediction path's first
+    batch, for both scoring heads. Returns ``{(direction, head): dict}``
+    with the measured times, errors and bounds."""
+    from pretrain_gnns_tpu_torch.ops import edge_dot as ed
+
+    dev = batch.node_mask.device
+    gen = torch.Generator().manual_seed(3)
+    N, F, bn = batch.max_nodes, EMB, batch.block_nodes
+    x = (torch.randn(N, F, generator=gen).to(dev)
+         * batch.node_mask[:, None])
+    neg = batch.extras["negative_edges_blocked"]
+    heads = {
+        # every edge slot; the loss keeps the even ones, so the backward's
+        # cotangent is 0 on the odd slots
+        "pos": (batch.receivers, batch.senders, batch.edge_mask,
+                batch.block_edges, 2),
+        "neg": (neg[:, 0].contiguous(), neg[:, 1].contiguous(),
+                batch.extras["negative_edges_blocked_mask"],
+                batch.block_edges // 2, 1),
+    }
+    results = {}
+    for head, (a_idx, b_idx, valid, ppb, stride) in heads.items():
+        w = valid.to(torch.float32)
+        P = a_idx.shape[0]
+        g = torch.randn(P, generator=gen).to(dev)
+        g_path = torch.zeros_like(g)
+        g_path[::stride] = g[::stride]
+        with torch.no_grad():
+            out = ed.edot_fwd(x, a_idx, b_idx, w, bn, ppb)
+            dx = ed.edot_bwd(g, x, a_idx, b_idx, w, bn, ppb)
+            dx_again = ed.edot_bwd(g, x, a_idx, b_idx, w, bn, ppb)
+            dx_path = ed.edot_bwd(g_path, x, a_idx, b_idx, w, bn, ppb)
+        torch.cuda.synchronize()
+        xl = x.detach().clone().requires_grad_(True)
+        out_p = ed.edge_dot_plain(xl, a_idx, b_idx, w)
+        (dx_p,) = torch.autograd.grad(out_p, [xl], g, retain_graph=True)
+        (dx_path_p,) = torch.autograd.grad(out_p, [xl], g_path,
+                                           retain_graph=True)
+        fwd_err = rel_err(out, out_p.detach())
+        bwd_err = max(rel_err(dx, dx_p), rel_err(dx_path, dx_path_p))
+        touched = torch.zeros(N, dtype=torch.bool, device=dev)
+        touched[a_idx[valid].long()] = True
+        touched[b_idx[valid].long()] = True
+        rerun = float((dx - dx_again).abs().max())
+        print(f"[kernels] K3 {tag} {head}: P={P} ({ppb} a block, "
+              f"{int(valid.sum())} valid) forward rel err {fwd_err:.3e}, dx "
+              f"rel err {bwd_err:.3e}; padded pairs max "
+              f"{float(out[~valid].abs().max()):.1e}, untouched rows max "
+              f"{float(dx[~touched].abs().max()):.1e}; dx run-to-run max "
+              f"abs difference {rerun:.1e}", flush=True)
+        if not (fwd_err <= FWD_TOL and bwd_err <= GRAD_TOL
+                and not out[~valid].any() and not dx[~touched].any()
+                and rerun == 0.0):
+            raise AssertionError(f"K3 {tag} {head} disagrees with its plain "
+                                 "version")
+        if not (ed.launches["blocked_edge_dot_fwd"] > 0
+                and ed.launches["blocked_edge_dot_bwd"] > 0):
+            raise AssertionError(f"K3 launch counter did not move: "
+                                 f"{ed.launches}")
+
+        # timings (device ms per call, see time_ms), the backward with the
+        # cotangent the path gives it
+        plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            out_p, [xl], g_path, retain_graph=True), torch)
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: ed.edot_fwd(x, a_idx, b_idx, w, bn, ppb),
+                             torch)
+            bwd_ms = time_ms(lambda: ed.edot_bwd(g_path, x, a_idx, b_idx, w,
+                                                 bn, ppb), torch)
+            plain_fwd_ms = time_ms(
+                lambda: ed.edge_dot_plain(x, a_idx, b_idx, w), torch)
+
+        # The bound counts the work this batch needs: the distinct x rows
+        # that the contributing pairs read, their index, weight (and
+        # cotangent) entries, every score written once; the backward also
+        # writes dx [N, F] once. A pair costs 2F operations forward and 4F
+        # backward.
+        live = valid & (g_path != 0)
+        rows_f = int(touched.sum())
+        rows_b = int(torch.unique(torch.cat(
+            [a_idx[live], b_idx[live]])).numel())
+        nv, nl = int(valid.sum()), int(live.sum())
+        fwd_b, fwd_by = bound(2 * F * nv, rows_f * F * 4 + nv * 12 + P * 4)
+        bwd_b, bwd_by = bound(4 * F * nl,
+                              rows_b * F * 4 + nl * 16 + N * F * 4)
+        for d, ms, pms, b_ms, by, err in (
+                ("fwd", fwd_ms, plain_fwd_ms, fwd_b, fwd_by,
+                 float((out - out_p.detach()).abs().max())),
+                ("bwd", bwd_ms, plain_bwd_ms, bwd_b, bwd_by,
+                 float((dx - dx_p).abs().max()))):
+            results[d, head] = dict(ms=ms, plain_ms=pms, bound_ms=b_ms,
+                                    bound_by=by, max_abs_err=err, pairs=P,
+                                    valid_pairs=nv if d == "fwd" else nl)
+            print(f"[kernels] blocked_edge_dot_{d} {tag} {head}: kernel "
+                  f"{ms:.4f} ms, plain {pms:.4f} ms, library none (no single "
+                  f"call), bound {b_ms:.4f} ms ({by})", flush=True)
+    return results
+
+
+def k3_entries(chem, bio):
+    """The ``kernels`` entries of K3: one per direction, with the times of
+    the positive head (every edge slot) at the chem path's first batch
+    under the contract's keys, and the other head and the bio batch
+    beside them."""
+    src = "pretrain_gnns_tpu_torch/csrc/edge_dot.cu"
+    entries = []
+    for d, line in (("fwd", 587), ("bwd", 610)):
+        main = chem[d, "pos"]
+        others = {f"{tag}_{head}": r[d, head]
+                  for tag, r in (("chem", chem), ("bio", bio))
+                  for head in ("pos", "neg") if (tag, head) != ("chem", "pos")}
+        entries.append(dict(
+            name=f"blocked_edge_dot_{d}", route="cuda", source=src,
+            replaces=f"pretrain_gnns_tpu/ops/pallas_spmm.py:{line}",
+            tpu_counterpart=(f"ops/pallas_spmm.py::_edot_{d}_kernel via "
+                             "_edot_call (blocked_edge_dot)"),
+            max_abs_err=max(r[d, h]["max_abs_err"] for r in (chem, bio)
+                            for h in ("pos", "neg")),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=None,
+            library="none: no single PyTorch call computes it",
+            shape="chem edge-prediction first batch, positive head",
+            other_shapes=others))
     return entries
 
 
@@ -449,10 +685,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
+        from pretrain_gnns_tpu_torch import native
         from pretrain_gnns_tpu_torch.data.synthetic import (
             bio_dataset, molecule_dataset,
         )
         from pretrain_gnns_tpu_torch.device import resolve_device
+        from pretrain_gnns_tpu_torch.models import bio, chem
         from pretrain_gnns_tpu_torch.ops import _build
         from pretrain_gnns_tpu_torch.train import pretrain
     except ImportError as e:
@@ -465,7 +703,8 @@ def main() -> int:
     dev = resolve_device("cuda")
     print(f"[card] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    reports = _build.build(["gin_conv", "spmm"])
+    reports = _build.build(["gin_conv", "spmm", "edge_dot"])
+    native.load()  # the C++ negative sampler, g++
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
     for name, text in reports.items():
         print(f"[build] {name}.cu:\n{text.strip()}", flush=True)
@@ -482,10 +721,8 @@ def main() -> int:
     model = pretrain.build_objective(cfg).to(dev)
     kernels = kernel_phase(torch, batch.to(dev), model)
     agreement_phase(torch, batch, cfg)
-    counts = main_path_phase(torch, graphs, cfg, card,
-                             ("gin_conv_fwd", "gin_conv_bwd"))
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
+    record_launches(kernels, main_path_phase(torch, graphs, cfg, card, K1))
+    chem_graphs = graphs
 
     # bio: K2 on the bio masking path
     graphs = bio_dataset(MAIN_GRAPHS, seed=0)
@@ -496,13 +733,74 @@ def main() -> int:
     batch = next(iter(pretrain.build_loader(cfg, graphs, dev)))
     print(f"[data] {len(graphs)} ego-networks", flush=True)
     describe("data", batch)
-    model = pretrain.build_objective(cfg).to(dev)
-    k2 = k2_phase(torch, batch.to(dev), model)
+    conv = pretrain.build_objective(cfg).to(dev).gnn.gnns[0]
+    on_card = batch.to(dev)
+    k2 = k2_phase(torch, on_card, bio.edge_inputs(on_card, torch.float32),
+                  conv.edge_kernel()[0],
+                  on_card.edge_mask.to(torch.float32),
+                  ((True, False), (False, True), (True, True)),
+                  "bio masking first batch")
     agreement_phase(torch, batch, cfg)
-    counts = main_path_phase(torch, graphs, cfg, card, BIO_K2)
-    for k in k2:
-        k["launches"] = counts[k["name"]]
-    kernels += [k for k in k2 if k["name"] in BIO_K2]
+    record_launches(k2, main_path_phase(torch, graphs, cfg, card, BIO_K2))
+    bio_graphs = graphs
+
+    # edge prediction: K3 in both scoring heads, K1 or K2 in the trunk
+    def edgepred(domain, gnn_type="gin"):
+        graphs = bio_graphs if domain == "bio" else chem_graphs
+        cfg = pretrain.PretrainConfig(
+            objective="edgepred", domain=domain, gnn_type=gnn_type,
+            num_layer=LAYERS, emb_dim=EMB, batch_size=BATCH, seed=0,
+            packing="auto")
+        return graphs, cfg
+
+    first = {}
+    for domain in ("chem", "bio"):
+        graphs, cfg = edgepred(domain)
+        first[domain] = next(iter(pretrain.build_loader(cfg, graphs, dev)))
+        describe(f"data {domain} edgepred", first[domain])
+    k3 = k3_entries(*(k3_phase(torch, first[d].to(dev), d)
+                      for d in ("chem", "bio")))
+
+    # K2[x+ein] as the chem GCN trunk calls it: the bond one-hots (K = 9)
+    # and the symmetric normalisation as edge weights. These entries take
+    # the place of the bio batch's, which stay beside them.
+    _, cfg = edgepred("chem", "gcn")
+    conv = pretrain.build_objective(cfg).to(dev).gnn.gnns[0]
+    on_card = first["chem"].to(dev)
+    dis = chem.inv_sqrt_degree(on_card)
+    norm = dis[on_card.receivers.long()] * dis[on_card.senders.long()]
+    gcn_k2 = k2_phase(torch, on_card,
+                      chem.bond_one_hot(on_card, torch.float32),
+                      conv.edge_kernel()[0],
+                      on_card.edge_mask.to(torch.float32) * norm,
+                      ((True, True),),
+                      "chem edge-prediction first batch, GCN edge weights")
+    measured = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    for at_gcn in gcn_k2:
+        i = next(i for i, k in enumerate(k2) if k["name"] == at_gcn["name"])
+        at_gcn["other_shapes"] = {k2[i]["shape"]: {
+            key: k2[i][key] for key in measured}}
+        k2[i] = at_gcn
+
+    paths = {name: edgepred(*name) for name in (
+        ("chem", "gin"), ("chem", "gcn"), ("bio", "gin"),
+        ("bio", "graphsage"))}
+    for (domain, _), (_, cfg) in paths.items():
+        agreement_phase(torch, first[domain], cfg, referee=True)
+    graphs, cfg = paths["chem", "gin"]
+    record_launches(k3, main_path_phase(torch, graphs, cfg, card,
+                                        {**K1, **K3}))
+    graphs, cfg = paths["chem", "gcn"]
+    record_launches(k2, main_path_phase(torch, graphs, cfg, card,
+                                        {**GCN_K2, **K3}, epochs=1), GCN_K2)
+    graphs, cfg = paths["bio", "gin"]
+    main_path_phase(torch, graphs, cfg, card, {**BIO_K2, **K3}, epochs=1)
+    graphs, cfg = paths["bio", "graphsage"]
+    main_path_phase(torch, graphs, cfg, card, {**GCN_K2, **K3}, epochs=1)
+    kernels += k2 + k3
+    missing = [k["name"] for k in kernels if not k.get("launches")]
+    if missing:
+        raise AssertionError(f"no path launched {missing}")
 
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,14 @@
-"""Pretraining CLI of the port: attribute masking in the chem and bio
-domains, with the flag names of the JAX package's CLI plus ``--device``.
+"""Pretraining CLI of the port: attribute masking and edge prediction in
+the chem and bio domains, on a GIN, GCN or GraphSAGE trunk, with the flag
+names of the JAX package's CLI plus ``--device``.
 
 Examples:
   python -m pretrain_gnns_tpu_torch.cli.pretrain --dataset synthetic \
       --epochs 5 --output_model_file trunk
   python -m pretrain_gnns_tpu_torch.cli.pretrain --domain bio \
       --dataset synthetic --epochs 5 --output_model_file bio_trunk
+  python -m pretrain_gnns_tpu_torch.cli.pretrain --objective edgepred \
+      --gnn_type gcn --epochs 5 --output_model_file edgepred_trunk
 
 With ``--dataset synthetic``, chem trains on ``n_synthetic`` molecules
 and bio on ``max(n_synthetic // 4, 64)`` ego-networks, as the JAX CLI.
@@ -53,13 +56,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.objective != "masking" or args.domain not in ("chem", "bio"):
+    if (args.objective not in ("masking", "edgepred")
+            or args.domain not in ("chem", "bio")):
         raise SystemExit(
             f"--objective {args.objective} --domain {args.domain} is not "
-            "ported yet; this CLI runs --objective masking with --domain "
-            "chem or bio"
+            "ported yet; this CLI runs --objective masking or edgepred "
+            "with --domain chem or bio"
         )
-    if args.gnn_type != "gin":
+    if args.gnn_type not in ("gin", "gcn", "graphsage"):
         raise SystemExit(f"--gnn_type {args.gnn_type} is not ported yet")
     if args.dropout_ratio > 0:
         raise SystemExit("--dropout_ratio > 0 is not ported yet")
@@ -78,7 +82,8 @@ def main(argv=None):
         graphs, _ = synthetic.molecule_dataset(args.n_synthetic,
                                                seed=args.seed)
     cfg = pretrain.PretrainConfig(
-        domain=args.domain, num_layer=args.num_layer, emb_dim=args.emb_dim,
+        objective=args.objective, domain=args.domain,
+        num_layer=args.num_layer, emb_dim=args.emb_dim,
         jk=args.jk, dropout_ratio=args.dropout_ratio, gnn_type=args.gnn_type,
         lr=args.lr, decay=args.decay, batch_size=args.batch_size,
         epochs=args.epochs, seed=args.seed, mask_rate=args.mask_rate,

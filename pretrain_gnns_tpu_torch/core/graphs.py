@@ -91,6 +91,25 @@ class PackedGraphs:
     def replace(self, **changes) -> "PackedGraphs":
         return dataclasses.replace(self, **changes)
 
+    def nodes_per_graph(self) -> torch.Tensor:
+        """[G_pad] int32 number of valid nodes per graph slot (tensor
+        leaves, i.e. after :meth:`to`)."""
+        out = torch.zeros(self.max_graphs, dtype=torch.int32,
+                          device=self.node_mask.device)
+        return out.index_add(0, self.node_graph.long(),
+                             self.node_mask.to(torch.int32))
+
+    def in_degree(self, include_self_loop: bool = False) -> torch.Tensor:
+        """[N_pad] int32 count of valid incoming edges per node, on the
+        receiver side (tensor leaves, i.e. after :meth:`to`)."""
+        out = torch.zeros(self.max_nodes, dtype=torch.int32,
+                          device=self.edge_mask.device)
+        deg = out.index_add(0, self.receivers.long(),
+                            self.edge_mask.to(torch.int32))
+        if include_self_loop:
+            deg = deg + self.node_mask.to(torch.int32)
+        return deg
+
     def _map(self, fn) -> "PackedGraphs":
         """Apply ``fn`` to every array leaf, as a torch tensor."""
 

@@ -1,12 +1,22 @@
-"""Vectorized masking over a packed batch (port of
+"""Vectorized transforms over a packed batch (port of
 ``pretrain_gnns_tpu.data.batch_transforms``: ``sample_per_group_np``,
-``BatchMaskAtom`` and ``BatchMaskEdge``). The same ``np.random.Generator``
-state gives the same masks and extras as the JAX package.
+``BatchMaskAtom``, ``BatchMaskEdge`` and ``BatchNegativeEdge`` with its
+selection helpers). The same ``np.random.Generator`` state gives the same
+masks, pairs and extras as the JAX package.
 
-One numpy pass per batch samples each graph's ``int(n * rate) + 1``
-distinct atoms (chem) or bonds (bio), writes the mask features and emits
-the compact extras that ``objectives.masking`` reads. It runs in the
-prefetch thread."""
+Masking: one numpy pass per batch samples each graph's ``int(n * rate) +
+1`` distinct atoms (chem) or bonds (bio), writes the mask features and
+emits the compact extras that ``objectives.masking`` reads.
+
+Negative edges, for ``objectives.edgepred``: per graph, ``E_g // 2`` node
+pairs that are not self-loops, existing directed edges or repeats.
+:class:`BatchNegativeEdge` samples them in numpy into a compact
+``negative_edges`` list; :class:`NativeNegativeEdge` calls the C++
+sampler of ``pretrain_gnns_tpu_torch.native``, which on a blocked batch
+writes each graph's pairs into its block's region of ``block_edges // 2``
+slots (``negative_edges_blocked``), the layout the pair-dot kernel takes.
+
+Every transform runs in the prefetch thread."""
 
 from __future__ import annotations
 
@@ -14,6 +24,7 @@ import dataclasses
 
 import numpy as np
 
+from pretrain_gnns_tpu_torch import native
 from pretrain_gnns_tpu_torch.core.graphs import PackedGraphs
 
 
@@ -148,3 +159,216 @@ class BatchMaskAtom:
 
         return p.replace(node_feat=node_feat, edge_feat=edge_feat,
                          extras=extras)
+
+
+def negative_candidates_np(rng: np.random.Generator,
+                           n_per_group: np.ndarray,
+                           e_per_group: np.ndarray):
+    """Candidate pool of the rejection sampling: per group draw
+    ``5 * E_g`` uniform (a, b) local-node pairs. Returns
+    (group_id, a_local, b_local, cand_per)."""
+    cand_per = 5 * e_per_group
+    C = int(cand_per.sum())
+    gid = np.repeat(np.arange(len(e_per_group)), cand_per)
+    u = rng.random((C, 2))
+    n = n_per_group[gid]
+    a = (u[:, 0] * n).astype(np.int64)
+    b = (u[:, 1] * n).astype(np.int64)
+    return gid, a, b, cand_per
+
+
+# dense tables up to this many keys: a bool exists-table (1 B) and an
+# int32 first-index table (4 B) per key, about 80 MB at the cap
+_DENSE_KEYSPACE_CAP = 1 << 24
+
+
+def select_first_valid_np(key: np.ndarray, exist_keys: np.ndarray,
+                          keyspace: int, selfloop: np.ndarray,
+                          cand_per: np.ndarray, want: np.ndarray,
+                          gid: np.ndarray) -> np.ndarray:
+    """The acceptance loop of the reference's NegativeEdge, vectorized:
+    reject self-loops, existing directed edges and duplicates (first
+    occurrence: an identical earlier candidate that was itself invalid
+    makes the later copy invalid too, so dedup over all candidates equals
+    dedup over the accepted ones), then keep each group's first ``want``
+    survivors in candidate order. Returns the take mask.
+
+    ``key`` must be below ``keyspace``; small keyspaces use dense tables:
+    membership is one indexed load, and first occurrence is a reversed
+    duplicate-index write (the last write wins, so writing in reverse
+    candidate order leaves each key's first index)."""
+    C = len(key)
+    if C == 0:
+        return np.zeros(0, bool)
+    if keyspace <= _DENSE_KEYSPACE_CAP:
+        table = np.zeros(keyspace, bool)
+        table[exist_keys] = True
+        exists = table[key]
+        first = np.empty(keyspace, np.int32)  # only written slots read
+        idx = np.arange(C, dtype=np.int32)
+        first[key[::-1]] = idx[::-1]
+        is_first = first[key] == idx
+    else:
+        exist_sorted = np.sort(exist_keys)
+        pos = np.minimum(np.searchsorted(exist_sorted, key),
+                         max(len(exist_sorted) - 1, 0))
+        exists = (
+            (exist_sorted[pos] == key) if len(exist_sorted)
+            else np.zeros(C, bool)
+        )
+        first_idx = np.unique(key, return_index=True)[1]
+        is_first = np.zeros(C, bool)
+        is_first[first_idx] = True
+    ok = ~selfloop & ~exists & is_first
+
+    csum = np.cumsum(ok)
+    run_start = np.concatenate([[0], np.cumsum(cand_per)[:-1]])
+    cum_before = np.where(run_start > 0,
+                          csum[np.maximum(run_start - 1, 0)], 0)
+    rank = csum - np.repeat(cum_before, cand_per) - 1
+    return ok & (rank < want[gid])
+
+
+def select_negatives_np(key: np.ndarray, exist_keys: np.ndarray,
+                        keyspace: int, selfloop: np.ndarray,
+                        cand_per: np.ndarray, want: np.ndarray,
+                        gid: np.ndarray) -> np.ndarray:
+    """:func:`select_first_valid_np` with prefix escalation: nine in ten
+    candidates are accepted, so each group's first ``3 * want + 8``
+    candidates almost always hold the full quota, and since keys embed
+    the group id a group's take mask depends only on its own candidates:
+    the prefix result equals the full result whenever every quota is met.
+    Otherwise the full ``5 * E`` pool is evaluated."""
+    prefix = np.minimum(cand_per, 3 * want + 8)
+    if int(prefix.sum()) < len(key):
+        run_start = np.concatenate([[0], np.cumsum(cand_per)[:-1]])
+        tot = int(prefix.sum())
+        within = np.arange(tot) - np.repeat(
+            np.cumsum(prefix) - prefix, prefix
+        )
+        pos = np.repeat(run_start, prefix) + within
+        gid_p = np.repeat(np.arange(len(want)), prefix)
+        take_p = select_first_valid_np(
+            key[pos], exist_keys, keyspace, selfloop[pos], prefix,
+            want, gid_p,
+        )
+        got = np.bincount(gid_p[take_p], minlength=len(want))
+        if (got >= want).all():
+            take = np.zeros(len(key), bool)
+            take[pos[take_p]] = True
+            return take
+    return select_first_valid_np(key, exist_keys, keyspace, selfloop,
+                                 cand_per, want, gid)
+
+
+def _graph_slot_ranges(p: PackedGraphs):
+    """(start, count) of each graph's contiguous node-slot run. Both
+    packers place a graph's nodes contiguously (within one block for the
+    blocked layout), so the run is [start, start + count)."""
+    node_graph = np.asarray(p.node_graph)
+    node_mask = np.asarray(p.node_mask)
+    G = p.max_graphs
+    idx = np.flatnonzero(node_mask)
+    gids = node_graph[idx]
+    counts = np.bincount(gids, minlength=G)
+    starts = np.zeros(G, np.int64)
+    order = np.argsort(gids, kind="stable")
+    first = np.searchsorted(gids[order], np.arange(G))
+    has = counts > 0
+    starts[has] = idx[order[first[has]]]
+    return starts, counts
+
+
+@dataclasses.dataclass
+class BatchNegativeEdge:
+    """The reference's NegativeEdge as one vectorized pass over the packed
+    batch: per graph, draw ``5 * E_g`` uniform node pairs and keep the
+    first ``E_g // 2`` that are not self-loops, existing directed edges or
+    earlier picks. Emits the slot-space ``negative_edges`` [budget, 2] and
+    its mask (the compact layout)."""
+
+    edge_budget: int = 0
+
+    def __call__(self, p: PackedGraphs,
+                 rng: np.random.Generator) -> PackedGraphs:
+        G = p.max_graphs
+        snd = np.asarray(p.senders)
+        rcv = np.asarray(p.receivers)
+        emask = np.asarray(p.edge_mask)
+        node_graph = np.asarray(p.node_graph)
+        starts, counts_n = _graph_slot_ranges(p)
+
+        e_counts = np.bincount(node_graph[rcv[emask]], minlength=G)
+        gid_c, a_loc, b_loc, cand_per = negative_candidates_np(
+            rng, counts_n, e_counts
+        )
+        a = starts[gid_c] + a_loc
+        b = starts[gid_c] + b_loc
+        # graph-local keys keep the keyspace inside the dense tables
+        M = int(counts_n.max(initial=1))
+        er, es = rcv[emask], snd[emask]
+        eg = node_graph[er]
+        keys_exist = (
+            eg.astype(np.int64) * (M * M)
+            + (er - starts[eg]).astype(np.int64) * M + (es - starts[eg])
+        )
+        take = select_negatives_np(
+            gid_c * (M * M) + a_loc * M + b_loc, keys_exist,
+            G * M * M, a_loc == b_loc, cand_per, e_counts // 2, gid_c,
+        )
+
+        pairs = np.stack([a[take], b[take]], axis=1).astype(np.int32)
+        budget = self.edge_budget or p.max_edges // 2
+        vals, m = _pad1(pairs, budget, "negative edges")
+        extras = dict(p.extras or {})
+        extras["negative_edges"] = vals
+        extras["negative_edges_mask"] = m
+        return p.replace(extras=extras)
+
+
+@dataclasses.dataclass
+class NativeNegativeEdge:
+    """NegativeEdge through the C++ sampler (``native/negatives.cpp``),
+    fed from the packed batch: per graph in batch order, the graph-local
+    endpoints of its valid edges, its node count, its first node row and
+    its first edge slot. One 63-bit seed is drawn from the generator per
+    batch; the sampler derives each graph's stream from it.
+
+    It takes a blocked batch and emits ``negative_edges_blocked``
+    ``[n_blocks * block_edges // 2, 2]`` and its mask, each graph's pairs
+    in its block's region; a standard batch raises
+    (:class:`BatchNegativeEdge` samples for those)."""
+
+    def __call__(self, p: PackedGraphs,
+                 rng: np.random.Generator) -> PackedGraphs:
+        if not (p.block_nodes > 0 and p.block_edges > 0):
+            raise ValueError("NativeNegativeEdge needs a blocked batch; "
+                             "use BatchNegativeEdge on a standard one")
+        G = p.max_graphs
+        snd = np.asarray(p.senders)
+        rcv = np.asarray(p.receivers)
+        node_graph = np.asarray(p.node_graph)
+        nstarts, lens_n = _graph_slot_ranges(p)
+
+        # a graph's edges fill consecutive slots: a stable sort by graph
+        # keeps their slot order
+        slots = np.flatnonzero(np.asarray(p.edge_mask))
+        eg = node_graph[rcv[slots]]
+        order = np.argsort(eg, kind="stable")
+        slots, eg = slots[order], eg[order]
+        lens_e = np.bincount(eg, minlength=G)
+        edge_off = np.concatenate([[0], np.cumsum(lens_e)]).astype(np.int64)
+        send = (snd[slots] - nstarts[eg]).astype(np.int32)
+        recv = (rcv[slots] - nstarts[eg]).astype(np.int32)
+        estarts = np.zeros(G, np.int64)
+        has = lens_e > 0
+        estarts[has] = slots[edge_off[:-1][has]]
+        seed = int(rng.integers(np.uint64(2**63)))
+
+        pairs, m = native.sample_negatives_blocked(
+            send, recv, edge_off, lens_n, nstarts, estarts,
+            p.block_edges, p.max_edges // p.block_edges, seed)
+        extras = dict(p.extras or {})
+        extras["negative_edges_blocked"] = pairs
+        extras["negative_edges_blocked_mask"] = m
+        return p.replace(extras=extras)

@@ -1,21 +1,24 @@
-"""Bio GIN trunk (port of ``GINConv`` and ``GNN`` of
-``pretrain_gnns_tpu.models.bio``), for protein ego-networks.
+"""Bio trunk (port of ``GINConv``, ``GCNConv``, ``SAGEConv`` and ``GNN`` of
+``pretrain_gnns_tpu.models.bio``; ``gnn_type="gat"`` is not ported), for
+protein ego-networks.
 
 Edge features are 9-dim floats ``[w1..w7, self_loop, mask]``; every conv
 encodes them with ``edge_encoder = Linear(9, D)``, fed to the aggregation
 in fused form: ``ein = [edge_feat | 1]`` and ``W = [weight^T; bias]``, so
-that ``ein @ W == edge_encoder(edge_feat)``. The message is
+that ``ein @ W == edge_encoder(edge_feat)``. GIN's message is
 ``[x_j | e]``; its sum per receiver splits into a neighbour sum and an
 edge-embedding sum (``ops/spmm.gather_scatter(combine="concat")``, the
 fused edge-transform SpMM K2 on CUDA). The self loop (feature one-hot at
 dim 7) is added analytically: ``aggr += [h | e_self] * node_mask`` with
-``e_self = edge_encoder.weight[:, 7] + bias``.
+``e_self = edge_encoder.weight[:, 7] + bias``. GCN and GraphSAGE apply
+``Linear(D, D)`` first and send ``x_j + e`` (K2's ``x + ein`` variant),
+with the normalisations of the chem convs.
 
 Module and parameter names follow the reference state dict
 (``gnns.0.input_node_embeddings``, ``gnns.{k}.edge_encoder``,
-``gnns.{k}.mlp.{0,1,3}`` with the batch norm at ``mlp.1``). Only the GIN
-conv and ``drop_ratio = 0`` are ported; the JK modes are ``last`` and the
-intended layer ``sum``."""
+``gnns.{k}.mlp.{0,1,3}`` with the batch norm at ``mlp.1``, or
+``gnns.{k}.linear``). Only ``drop_ratio = 0`` is ported; the JK modes are
+``last`` and the intended layer ``sum``."""
 
 from __future__ import annotations
 
@@ -24,6 +27,9 @@ from torch import nn
 
 from pretrain_gnns_tpu_torch.core.graphs import PackedGraphs
 from pretrain_gnns_tpu_torch.models import inits
+from pretrain_gnns_tpu_torch.models.chem import (
+    inv_sqrt_degree, l2_normalize_rows,
+)
 from pretrain_gnns_tpu_torch.models.norm import MaskedBatchNorm
 from pretrain_gnns_tpu_torch.ops import spmm
 
@@ -37,7 +43,39 @@ def edge_inputs(g: PackedGraphs, dtype: torch.dtype) -> torch.Tensor:
     return torch.cat([ef, torch.ones_like(ef[:, :1])], dim=1)
 
 
-class GINConv(nn.Module):
+class _BioConv(nn.Module):
+    """What every bio conv owns: the edge encoder in fused form and, in
+    layer 0, the embedding of the uniform node labels. A conv creates
+    them after its own layers, the reference's order."""
+
+    def add_encoders(self, emb_dim: int, input_layer: bool) -> None:
+        self.edge_encoder = nn.Linear(EDGE_FEAT_DIM, emb_dim)
+        self.input_layer = input_layer
+        if input_layer:
+            self.input_node_embeddings = nn.Embedding(2, emb_dim)
+
+    def embed_input(self, h: torch.Tensor, g: PackedGraphs) -> torch.Tensor:
+        if not self.input_layer:
+            return h
+        return (self.input_node_embeddings(h[:, 0].long())
+                * g.node_mask[:, None])
+
+    def edge_kernel(self):
+        """``(W [10, D], e_self [D])``: ``[weight^T; bias]`` and the self
+        loop's embedding."""
+        enc = self.edge_encoder
+        return (torch.cat([enc.weight.t(), enc.bias[None]], dim=0),
+                enc.weight[:, SELF_LOOP_DIM] + enc.bias)
+
+    @staticmethod
+    def aggregate(x, g: PackedGraphs, ein, W, **kw) -> torch.Tensor:
+        return spmm.gather_scatter(
+            x, g.senders, g.receivers, g.edge_mask, g.max_nodes,
+            edge_in=ein, edge_kernel=W, block_nodes=g.block_nodes,
+            block_edges=g.block_edges, **kw)
+
+
+class GINConv(_BioConv):
     """GIN conv with the ``[x_j | e]`` message, then the MLP
     Linear(2D, 2D) -> masked BatchNorm -> ReLU -> Linear(2D, D). Layer 0
     first embeds the uniform node labels with Embedding(2, D). On CUDA the
@@ -50,33 +88,69 @@ class GINConv(nn.Module):
             nn.Linear(2 * D, 2 * D), MaskedBatchNorm(2 * D), nn.ReLU(),
             nn.Linear(2 * D, D),
         )
-        self.edge_encoder = nn.Linear(EDGE_FEAT_DIM, D)
-        self.input_layer = input_layer
-        if input_layer:
-            self.input_node_embeddings = nn.Embedding(2, D)
+        self.add_encoders(D, input_layer)
 
     def forward(self, h: torch.Tensor, g: PackedGraphs, ein: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
-        nmask = g.node_mask[:, None]
-        if self.input_layer:
-            h = self.input_node_embeddings(h[:, 0].long()) * nmask
-        enc = self.edge_encoder
-        W = torch.cat([enc.weight.t(), enc.bias[None]], dim=0)
-        e_self = enc.weight[:, SELF_LOOP_DIM] + enc.bias
-        aggr = spmm.gather_scatter(
-            h, g.senders, g.receivers, g.edge_mask, g.max_nodes,
-            edge_in=ein, edge_kernel=W, combine="concat",
-            block_nodes=g.block_nodes, block_edges=g.block_edges,
-        )
+        h = self.embed_input(h, g)
+        W, e_self = self.edge_kernel()
+        aggr = self.aggregate(h, g, ein, W, combine="concat")
         self_msg = torch.cat([h, e_self.to(h.dtype).expand_as(h)], dim=1)
-        aggr = aggr + self_msg * nmask
+        aggr = aggr + self_msg * g.node_mask[:, None]
         lin0, bn, _, lin3 = self.mlp
         z = torch.relu(bn(lin0(aggr), g.node_mask, train))
         return lin3(z)
 
 
+class GCNConv(_BioConv):
+    """GCN conv: ``Linear(D, D)``, then the symmetric-normalised sum of
+    ``x_j + e`` messages with the self loop in the degree and as the term
+    ``deg^-1 * (x + e_self)``."""
+
+    def __init__(self, emb_dim: int, input_layer: bool = False):
+        super().__init__()
+        self.linear = nn.Linear(emb_dim, emb_dim)
+        self.add_encoders(emb_dim, input_layer)
+
+    def forward(self, h: torch.Tensor, g: PackedGraphs, ein: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        h = self.embed_input(h, g)
+        W, e_self = self.edge_kernel()
+        dis = inv_sqrt_degree(g)
+        norm = dis[g.receivers.long()] * dis[g.senders.long()]
+        x = self.linear(h)
+        aggr = self.aggregate(x, g, ein, W, edge_weight=norm)
+        self_w = (dis * dis * g.node_mask)[:, None]
+        return aggr + self_w * (x + e_self)
+
+
+class SAGEConv(_BioConv):
+    """GraphSAGE conv: ``Linear(D, D)``, the mean of the ``x_j + e``
+    messages and the self loop (which counts in the denominator), then L2
+    normalisation of every row."""
+
+    def __init__(self, emb_dim: int, input_layer: bool = False):
+        super().__init__()
+        self.linear = nn.Linear(emb_dim, emb_dim)
+        self.add_encoders(emb_dim, input_layer)
+
+    def forward(self, h: torch.Tensor, g: PackedGraphs, ein: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        h = self.embed_input(h, g)
+        W, e_self = self.edge_kernel()
+        x = self.linear(h)
+        s = self.aggregate(x, g, ein, W)
+        s = s + (x + e_self) * g.node_mask[:, None]
+        deg = g.in_degree(include_self_loop=True).to(torch.float32)
+        return l2_normalize_rows(s / torch.clamp(deg, min=1.0)[:, None])
+
+
+CONVS = {"gin": GINConv, "gcn": GCNConv, "graphsage": SAGEConv}
+
+
 class GNN(nn.Module):
-    """Node-representation trunk: ``num_layer`` GIN convs (no trunk-level
+    """Node-representation trunk: ``num_layer`` convs of ``gnn_type`` (no
+    trunk-level
     embeddings or batch norm), ReLU after every layer but the last, padded
     rows zeroed after every layer, then the JK combination."""
 
@@ -86,7 +160,7 @@ class GNN(nn.Module):
         super().__init__()
         if num_layer < 2:
             raise ValueError("Number of GNN layers must be greater than 1.")
-        if gnn_type != "gin":
+        if gnn_type not in CONVS:
             raise NotImplementedError(
                 f"bio gnn_type={gnn_type!r} is not ported")
         if drop_ratio > 0:
@@ -96,7 +170,7 @@ class GNN(nn.Module):
         self.num_layer = num_layer
         self.jk = jk
         self.gnns = nn.ModuleList(
-            GINConv(emb_dim, input_layer=(layer == 0))
+            CONVS[gnn_type](emb_dim, input_layer=(layer == 0))
             for layer in range(num_layer)
         )
 

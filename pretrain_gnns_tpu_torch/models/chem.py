@@ -1,15 +1,18 @@
-"""Chem GIN trunk (port of ``GINConv`` and ``GNN`` of
-``pretrain_gnns_tpu.models.chem``).
+"""Chem trunk (port of ``GINConv``, ``GCNConv``, ``SAGEConv`` and ``GNN`` of
+``pretrain_gnns_tpu.models.chem``; ``gnn_type="gat"`` is not ported).
 
 The self-loop the reference appends inside every conv (bond type 4,
 direction 0) is added analytically: ``aggr += (x + e_self) * node_mask``.
 Bond embeddings go to the fused GIN conv in one-hot form: ``ein = [
 one_hot(bond, 6) | one_hot(dir, 3)]`` and ``We = [e1; e2]``, so that
-``ein @ We == e1[bond] + e2[dir]``.
+``ein @ We == e1[bond] + e2[dir]``. GIN runs as one fused GIN conv call
+(K1 on CUDA); GCN and GraphSAGE aggregate through
+``ops/spmm.gather_scatter`` with ``edge_in``/``edge_kernel`` (the fused
+edge-transform SpMM K2 on CUDA, its ``x + ein`` variant).
 
 Module and parameter names follow the reference state dict
-(``x_embedding1``, ``gnns.{k}.mlp.{0,2}``, ``gnns.{k}.edge_embedding{1,2}``,
-``batch_norms.{k}``)."""
+(``x_embedding1``, ``gnns.{k}.mlp.{0,2}`` or ``gnns.{k}.linear``,
+``gnns.{k}.edge_embedding{1,2}``, ``batch_norms.{k}``)."""
 
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from torch import nn
 from pretrain_gnns_tpu_torch.core.graphs import PackedGraphs
 from pretrain_gnns_tpu_torch.models import inits
 from pretrain_gnns_tpu_torch.models.norm import MaskedBatchNorm
-from pretrain_gnns_tpu_torch.ops import gin_conv
+from pretrain_gnns_tpu_torch.ops import gin_conv, spmm
 
 NUM_ATOM_TYPE = 120  # incl. the mask token 119
 NUM_CHIRALITY_TAG = 3
@@ -28,7 +31,53 @@ NUM_BOND_DIRECTION = 3
 SELF_LOOP_BOND_TYPE = 4
 
 
-class GINConv(nn.Module):
+def bond_one_hot(g: PackedGraphs, dtype: torch.dtype) -> torch.Tensor:
+    """``ein [E, 9]``: the bond type and direction of every edge slot, one
+    hot. By comparison: ``F.one_hot`` checks its input's range on the
+    host, a device synchronisation per call on CUDA."""
+    ef = g.edge_feat
+    return torch.cat([
+        ef[:, :1] == torch.arange(NUM_BOND_TYPE, device=ef.device),
+        ef[:, 1:2] == torch.arange(NUM_BOND_DIRECTION, device=ef.device),
+    ], dim=1).to(dtype)
+
+
+def inv_sqrt_degree(g: PackedGraphs) -> torch.Tensor:
+    """GCN's ``deg^-1/2`` per node, the self loop counted; 0 where the
+    degree is 0 (padded rows), the reference's inf -> 0 clamp."""
+    deg = g.in_degree(include_self_loop=True).to(torch.float32)
+    pos = deg > 0
+    return torch.where(pos, torch.where(pos, deg, 1.0) ** -0.5, 0.0)
+
+
+def l2_normalize_rows(mean: torch.Tensor) -> torch.Tensor:
+    """``F.normalize(mean, dim=-1)`` with all-zero rows left 0. The double
+    ``where`` keeps ``sqrt``'s infinite slope at 0 out of the backward:
+    a padded row's zero cotangent times inf would be NaN and poison every
+    gradient."""
+    sq = mean.square().sum(dim=-1, keepdim=True)
+    pos = sq > 0
+    norm = torch.where(pos, sq, 1.0).sqrt()
+    return torch.where(pos, mean / torch.clamp(norm, min=1e-12), 0.0)
+
+
+class _ChemConv(nn.Module):
+    """The bond embedding tables every chem conv owns, in fused form. A
+    conv creates them after its own layers, the reference's order."""
+
+    def add_edge_embeddings(self, emb_dim: int) -> None:
+        self.edge_embedding1 = nn.Embedding(NUM_BOND_TYPE, emb_dim)
+        self.edge_embedding2 = nn.Embedding(NUM_BOND_DIRECTION, emb_dim)
+
+    def edge_kernel(self):
+        """``(We [9, D], e_self [D])``: the stacked tables and the self
+        loop's embedding (bond type 4, direction 0)."""
+        e1 = self.edge_embedding1.weight
+        e2 = self.edge_embedding2.weight
+        return torch.cat([e1, e2], dim=0), e1[SELF_LOOP_BOND_TYPE] + e2[0]
+
+
+class GINConv(_ChemConv):
     """GIN conv: sum of ``x_j + e`` messages plus the self loop, then the
     MLP Linear(D, 2D) -> ReLU -> Linear(2D, D), as one fused GIN conv call.
     On CUDA the batch must have the block-diagonal layout."""
@@ -39,22 +88,12 @@ class GINConv(nn.Module):
             nn.Linear(emb_dim, 2 * emb_dim), nn.ReLU(),
             nn.Linear(2 * emb_dim, emb_dim),
         )
-        self.edge_embedding1 = nn.Embedding(NUM_BOND_TYPE, emb_dim)
-        self.edge_embedding2 = nn.Embedding(NUM_BOND_DIRECTION, emb_dim)
+        self.add_edge_embeddings(emb_dim)
 
     def conv_inputs(self, h: torch.Tensor, g: PackedGraphs) -> tuple:
         """The arguments of ``gin_conv.fused_gin_conv`` for this layer."""
-        e1 = self.edge_embedding1.weight
-        e2 = self.edge_embedding2.weight
-        # one-hot by comparison: F.one_hot checks its input's range on
-        # the host, a device synchronisation per call on CUDA
-        ef = g.edge_feat
-        ein = torch.cat([
-            ef[:, :1] == torch.arange(NUM_BOND_TYPE, device=ef.device),
-            ef[:, 1:2] == torch.arange(NUM_BOND_DIRECTION, device=ef.device),
-        ], dim=1).to(h.dtype)
-        We = torch.cat([e1, e2], dim=0)
-        e_self = e1[SELF_LOOP_BOND_TYPE] + e2[0]
+        ein = bond_one_hot(g, h.dtype)
+        We, e_self = self.edge_kernel()
         lin0, lin2 = self.mlp[0], self.mlp[2]
         return (h, ein, We, e_self, lin0.weight.t(), lin0.bias,
                 lin2.weight.t(), lin2.bias, g.senders, g.receivers,
@@ -71,10 +110,63 @@ class GINConv(nn.Module):
         return gin_conv.fused_gin_conv(*self.conv_inputs(h, g))
 
 
+class GCNConv(_ChemConv):
+    """GCN conv: ``Linear(D, D)``, then the symmetric-normalised sum of
+    ``x_j + e`` messages with the self loop in the degree and as the term
+    ``deg^-1 * (x + e_self)``. On CUDA the batch must have the
+    block-diagonal layout (``gather_scatter`` raises otherwise)."""
+
+    def __init__(self, emb_dim: int):
+        super().__init__()
+        self.linear = nn.Linear(emb_dim, emb_dim)
+        self.add_edge_embeddings(emb_dim)
+
+    def forward(self, h: torch.Tensor, g: PackedGraphs) -> torch.Tensor:
+        We, e_self = self.edge_kernel()
+        dis = inv_sqrt_degree(g)
+        norm = dis[g.receivers.long()] * dis[g.senders.long()]
+        x = self.linear(h)
+        aggr = spmm.gather_scatter(
+            x, g.senders, g.receivers, g.edge_mask, g.max_nodes,
+            edge_in=bond_one_hot(g, x.dtype), edge_kernel=We,
+            edge_weight=norm, block_nodes=g.block_nodes,
+            block_edges=g.block_edges,
+        )
+        self_w = (dis * dis * g.node_mask)[:, None]
+        return aggr + self_w * (x + e_self)
+
+
+class SAGEConv(_ChemConv):
+    """GraphSAGE conv: ``Linear(D, D)``, the mean of the ``x_j + e``
+    messages and the self loop (which counts in the denominator), then L2
+    normalisation of every row."""
+
+    def __init__(self, emb_dim: int):
+        super().__init__()
+        self.linear = nn.Linear(emb_dim, emb_dim)
+        self.add_edge_embeddings(emb_dim)
+
+    def forward(self, h: torch.Tensor, g: PackedGraphs) -> torch.Tensor:
+        We, e_self = self.edge_kernel()
+        x = self.linear(h)
+        s = spmm.gather_scatter(
+            x, g.senders, g.receivers, g.edge_mask, g.max_nodes,
+            edge_in=bond_one_hot(g, x.dtype), edge_kernel=We,
+            block_nodes=g.block_nodes, block_edges=g.block_edges,
+        )
+        s = s + (x + e_self) * g.node_mask[:, None]
+        deg = g.in_degree(include_self_loop=True).to(torch.float32)
+        return l2_normalize_rows(s / torch.clamp(deg, min=1.0)[:, None])
+
+
+CONVS = {"gin": GINConv, "gcn": GCNConv, "graphsage": SAGEConv}
+
+
 class GNN(nn.Module):
-    """Node-representation trunk: atom embeddings, ``num_layer`` GIN convs
-    each followed by masked BatchNorm (and ReLU except after the last),
-    padded rows zeroed after every layer, then the JK combination."""
+    """Node-representation trunk: atom embeddings, ``num_layer`` convs of
+    ``gnn_type`` each followed by masked BatchNorm (and ReLU except after
+    the last), padded rows zeroed after every layer, then the JK
+    combination."""
 
     def __init__(self, num_layer: int = 5, emb_dim: int = 300,
                  jk: str = "last", drop_ratio: float = 0.0,
@@ -82,7 +174,7 @@ class GNN(nn.Module):
         super().__init__()
         if num_layer < 2:
             raise ValueError("Number of GNN layers must be greater than 1.")
-        if gnn_type != "gin":
+        if gnn_type not in CONVS:
             raise NotImplementedError(f"gnn_type={gnn_type!r} is not ported")
         if drop_ratio > 0:
             raise NotImplementedError("dropout is not ported")
@@ -92,7 +184,8 @@ class GNN(nn.Module):
         self.jk = jk
         self.x_embedding1 = nn.Embedding(NUM_ATOM_TYPE, emb_dim)
         self.x_embedding2 = nn.Embedding(NUM_CHIRALITY_TAG, emb_dim)
-        self.gnns = nn.ModuleList(GINConv(emb_dim) for _ in range(num_layer))
+        self.gnns = nn.ModuleList(
+            CONVS[gnn_type](emb_dim) for _ in range(num_layer))
         self.batch_norms = nn.ModuleList(
             MaskedBatchNorm(emb_dim) for _ in range(num_layer)
         )

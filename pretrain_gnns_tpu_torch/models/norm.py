@@ -2,7 +2,8 @@
 ``BatchNorm1d`` semantics over valid rows only. ``nn.BatchNorm1d`` cannot
 be used, because it would count the padded rows.
 
-- train: normalize by the biased variance of the valid rows, in f32;
+- train: normalize by the biased variance of the valid rows, in f32 (in
+  f64 on f64 input);
 - running stats: ``running = (1 - momentum) * running + momentum * stat``
   with the unbiased variance entering ``running_var``;
 - eval: normalize by the running stats. eps = 1e-5, momentum = 0.1.
@@ -33,7 +34,7 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 train: bool) -> torch.Tensor:
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if not train:
             mean, var = self.running_mean, self.running_var
         else:
@@ -42,7 +43,7 @@ class MaskedBatchNorm(nn.Module):
                 mean = xf.mean(0)
                 var = torch.square(xf - mean).mean(0)
             else:
-                m = mask.to(torch.float32)[:, None]
+                m = mask.to(xf.dtype)[:, None]
                 n = torch.clamp(m.sum(), min=1.0)
                 mean = (xf * m).sum(0) / n
                 var = (torch.square(xf - mean) * m).sum(0) / n

@@ -1,5 +1,6 @@
-"""Gather -> message -> segment sum (port of the sum forms of
-``pretrain_gnns_tpu.ops.spmm.gather_scatter``).
+"""Gather -> message -> segment sum, and the per-pair dot scores (port of
+the sum forms of ``gather_scatter`` and of ``edge_dot`` of
+``pretrain_gnns_tpu.ops.spmm``).
 
 For each node ``i``::
 
@@ -12,7 +13,7 @@ block-diagonal batch goes to the fused edge-transform SpMM kernel (K2,
 ``ops/blocked_spmm.py``), the concat form as two calls
 ``[K2(x; has_x) | K2(edge_in, edge_kernel; has_ein)]``; a CUDA tensor on
 any other batch raises ``ValueError``; a CPU tensor takes the plain path
-:func:`gather_scatter_plain`."""
+:func:`gather_scatter_plain`. :func:`edge_dot` states its own dispatch."""
 
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from typing import Optional
 import torch
 
 from pretrain_gnns_tpu_torch.ops import blocked_spmm
+from pretrain_gnns_tpu_torch.ops import edge_dot as edge_dot_ops
 from pretrain_gnns_tpu_torch.ops import segment as seg
 
 
@@ -95,3 +97,32 @@ def gather_scatter(
     right = blocked_spmm.blocked_spmm_fused(x.detach(), edge_in, edge_kernel,
                                             *k2, has_x=False, has_ein=True)
     return torch.cat([left, right], dim=-1)
+
+
+def edge_dot(
+    x: torch.Tensor,  # [N, F]
+    a_idx: torch.Tensor,  # [P] int32
+    b_idx: torch.Tensor,  # [P] int32
+    mask: torch.Tensor,  # [P] bool
+    block_nodes: int = 0,
+    pairs_per_block: int = 0,
+) -> torch.Tensor:
+    """Masked per-pair dot scores ``mask * <x[a], x[b]>``, the scoring
+    head of edge prediction. Dispatch: a CPU tensor takes the plain
+    version, whatever the layout; a CUDA tensor with a block-aligned pair
+    list (``block_nodes``, ``pairs_per_block`` > 0) goes to the blocked
+    pair-dot kernel (K3, ``ops/edge_dot.py``); a CUDA tensor with an
+    unblocked pair list raises ``ValueError``, as :func:`gather_scatter`
+    does. (The JAX package scores such a list, the compact negatives,
+    through two gathers; on the card every loader gives block-aligned
+    pairs.)"""
+    w = mask.to(torch.float32)
+    if not x.is_cuda:
+        return edge_dot_ops.edge_dot_plain(x, a_idx, b_idx, w)
+    if not (block_nodes > 0 and pairs_per_block > 0):
+        raise ValueError(
+            "edge_dot on CUDA needs a block-aligned pair list "
+            "(packing='blocked' or 'auto')"
+        )
+    return edge_dot_ops.blocked_edge_dot(x, a_idx, b_idx, w, block_nodes,
+                                         pairs_per_block)

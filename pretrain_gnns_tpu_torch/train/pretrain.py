@@ -1,13 +1,14 @@
 """Pretraining entry (port of ``pretrain_gnns_tpu.train.pretrain`` for
-attribute masking: chem ``MaskingObjective`` and bio
-``BioMaskEdgeObjective``).
+attribute masking, chem ``MaskingObjective`` and bio
+``BioMaskEdgeObjective``, and for edge prediction, ``EdgePredObjective``
+on either trunk).
 
-The loop follows the reference's {chem,bio}/pretrain_masking.py: a seeded
-model, one Adam over every parameter, shuffled batches of ``batch_size``
-molecules with the masking transform applied per batch, the trunk saved
-at the end. Packing and the masking transform run in a prefetch thread
-while the GPU runs the previous step; the loss is read back once per
-epoch."""
+The loop follows the reference's {chem,bio}/pretrain_{masking,edgepred}.py:
+a seeded model, one Adam over every parameter, shuffled batches of
+``batch_size`` graphs with the objective's transform (masking or negative
+sampling) applied per batch, the trunk saved at the end. Packing and the
+transform run in a prefetch thread while the GPU runs the previous step;
+the loss is read back once per epoch."""
 
 from __future__ import annotations
 
@@ -19,14 +20,16 @@ from torch import nn
 
 from pretrain_gnns_tpu_torch.core.graphs import Graph
 from pretrain_gnns_tpu_torch.data.batch_transforms import (
-    BatchMaskAtom, BatchMaskEdge,
+    BatchMaskAtom, BatchMaskEdge, BatchNegativeEdge, NativeNegativeEdge,
 )
 from pretrain_gnns_tpu_torch.data.packing import (
     PackedLoader, buffer_sizes, choose_blocks,
 )
 from pretrain_gnns_tpu_torch.data.prefetch import prefetch
 from pretrain_gnns_tpu_torch.device import resolve_device
+from pretrain_gnns_tpu_torch.models import bio as bio_models
 from pretrain_gnns_tpu_torch.models.inits import init_parameters
+from pretrain_gnns_tpu_torch.objectives.edgepred import EdgePredObjective
 from pretrain_gnns_tpu_torch.objectives.masking import (
     BioMaskEdgeObjective, MaskingObjective,
 )
@@ -37,7 +40,8 @@ from pretrain_gnns_tpu_torch.train.telemetry import ThroughputMeter
 
 @dataclasses.dataclass
 class PretrainConfig:
-    """The masking subset of the JAX package's ``PretrainConfig``."""
+    """The masking and edge-prediction subset of the JAX package's
+    ``PretrainConfig``."""
 
     objective: str = "masking"
     domain: str = "chem"
@@ -60,10 +64,12 @@ class PretrainConfig:
 
 
 def _check_ported(cfg: PretrainConfig) -> None:
-    if cfg.objective != "masking" or cfg.domain not in ("chem", "bio"):
+    if (cfg.objective not in ("masking", "edgepred")
+            or cfg.domain not in ("chem", "bio")):
         raise NotImplementedError(
             f"objective={cfg.objective!r} domain={cfg.domain!r} is not "
-            "ported; this port runs masking in the chem and bio domains"
+            "ported; this port runs masking and edgepred in the chem and "
+            "bio domains"
         )
 
 
@@ -73,7 +79,10 @@ def build_objective(cfg: PretrainConfig) -> nn.Module:
     _check_ported(cfg)
     common = dict(num_layer=cfg.num_layer, emb_dim=cfg.emb_dim, jk=cfg.jk,
                   drop_ratio=cfg.dropout_ratio, gnn_type=cfg.gnn_type)
-    if cfg.domain == "bio":
+    if cfg.objective == "edgepred":
+        model = (EdgePredObjective(**common, trunk=bio_models.GNN)
+                 if cfg.domain == "bio" else EdgePredObjective(**common))
+    elif cfg.domain == "bio":
         model = BioMaskEdgeObjective(**common)
     else:
         model = MaskingObjective(mask_edge=cfg.mask_edge, **common)
@@ -84,18 +93,25 @@ def build_objective(cfg: PretrainConfig) -> nn.Module:
 def build_loader(cfg: PretrainConfig, graphs: Sequence[Graph],
                  device: torch.device, drop_last: bool = True
                  ) -> PackedLoader:
-    """Packed batches with the vectorized masking pass applied to each
-    (``BatchMaskAtom`` for chem, ``BatchMaskEdge`` for bio)."""
+    """Packed batches with the objective's vectorized pass applied to
+    each: masking (``BatchMaskAtom`` for chem, ``BatchMaskEdge`` for bio)
+    or negative sampling for edge prediction, where the batch's layout
+    picks the sampler: a blocked batch gets the C++ sampler's
+    block-aligned pairs (``NativeNegativeEdge``), which the pair-dot
+    kernel takes, a standard one the compact ``BatchNegativeEdge``."""
     _check_ported(cfg)
     mn, me = buffer_sizes(graphs, cfg.batch_size)
     blocks = choose_blocks(graphs, cfg.batch_size, cfg.packing, device)
     if blocks is not None:
         n_blocks, bn, be = blocks
         mn, me = n_blocks * bn, n_blocks * be
-    extra_pad = None
-    if cfg.domain == "bio":
-        # bio graphs carry a per-graph center_node_idx (a node index)
-        extra_pad = {"center_node_idx": cfg.batch_size}
+    # bio graphs carry a per-graph center_node_idx (a node index)
+    extra_pad = ({"center_node_idx": cfg.batch_size}
+                 if cfg.domain == "bio" else None)
+    if cfg.objective == "edgepred":
+        post = (NativeNegativeEdge() if blocks is not None
+                else BatchNegativeEdge(edge_budget=me // 2))
+    elif cfg.domain == "bio":
         post = BatchMaskEdge(
             cfg.mask_rate,
             budget=int(me // 2 * cfg.mask_rate) + cfg.batch_size + 8)
@@ -130,7 +146,7 @@ def run_pretrain(
     epochs: Optional[int] = None,
     device=None,
 ) -> Dict[str, Any]:
-    """Train the masking objective of ``cfg.domain``. ``device`` defaults
+    """Train ``cfg.objective`` in ``cfg.domain``. ``device`` defaults
     to ``"cuda"``; without CUDA that raises ``RuntimeError`` unless
     ``device="cpu"``.
     History rows: ``epoch``, ``loss`` and the metrics (means over the

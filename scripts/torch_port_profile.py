@@ -4,23 +4,29 @@
 Run from the repository root:
 
     python3 scripts/torch_port_profile.py [--domain chem|bio]
+        [--objective masking|edgepred] [--gnn_type gin|gcn|graphsage]
 
-Configurations (float32, GIN 5 x 300, batch 256), the workloads of
-chip_smoke.py's two main paths:
-  - chem (default): attribute masking of synthetic molecules (23 atoms on
-    average), mask_edge off;
-  - bio: bio attribute masking of synthetic ego-networks
-    (``bio_dataset(4096, seed=0)``, about 60 nodes on average).
+Configurations (float32, 5 x 300, batch 256), the workloads of
+chip_smoke.py's main paths:
+  - chem (default): synthetic molecules (23 atoms on average); masking
+    runs with mask_edge off;
+  - bio: synthetic ego-networks (``bio_dataset(4096, seed=0)``, about 60
+    nodes on average);
+  - masking (default) or edge prediction, whose batches carry the C++
+    sampler's block-aligned negative pairs.
 It prints, for the card named on its first line:
-  - host: ms to pack and mask one batch (the loader, on one thread);
+  - host: ms to pack one batch and apply its transform (masking or
+    negative sampling; the loader, on one thread), and the transform's
+    share alone;
   - device-only step: ms per train step over batches already on the card,
     and the host's time to enqueue one step on an idle card;
   - the main path: ``run_pretrain`` for EPOCHS epochs, its ms per step and
     valid edges/s over epochs 2 onward, from the epoch log lines;
   - ``run_pretrain`` once more with torch.profiler on over epochs 2 onward
     (started and stopped by the epoch log hook): device time per kernel
-    name and per step, and the device's busy share against the
-    unprofiled run's step time (the profiler slows the host);
+    name and per step, the share of the port's own kernels among it, and
+    the device's busy share against the unprofiled run's step time (the
+    profiler slows the host);
 and one JSON line with those numbers.
 """
 
@@ -36,6 +42,7 @@ import time
 sys.path.insert(
     0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
@@ -79,31 +86,49 @@ def run_main_path(cfg, graphs, prof=None):
             sum(h["edges"] for h in hist))
 
 
-def workload(domain: str):
-    """(graphs, config) of chip_smoke.py's main path in ``domain``."""
+# name fragments of the port's own kernels (csrc/*.cu); both K1 and K2
+# sum their per-block partials with a kernel of the same name
+OWN_KERNELS = {"K1": ("gin_aggr_", "::gemm_kernel", "colsum_partial_"),
+               "K2": ("spmm_fwd_kernel", "spmm_bwd_kernel"),
+               "K3": ("edot_",), "partial sums (K1, K2)": ("sum_partials_",)}
+
+
+def workload(domain: str, objective: str, gnn_type: str):
+    """(graphs, config) of chip_smoke.py's path of that name."""
     if domain == "bio":
-        return bio_dataset(4096, seed=0), pretrain.PretrainConfig(
-            domain="bio", num_layer=5, emb_dim=300, batch_size=256, seed=0)
-    graphs, _ = molecule_dataset(4096, seed=0, mean_atoms=23)
+        graphs = bio_dataset(4096, seed=0)
+    else:
+        graphs, _ = molecule_dataset(4096, seed=0, mean_atoms=23)
     return graphs, pretrain.PretrainConfig(
-        num_layer=5, emb_dim=300, batch_size=256, mask_edge=False, seed=0)
+        objective=objective, domain=domain, gnn_type=gnn_type, num_layer=5,
+        emb_dim=300, batch_size=256, mask_edge=False, seed=0)
 
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--domain", default="chem", choices=["chem", "bio"])
+    p.add_argument("--objective", default="masking",
+                   choices=["masking", "edgepred"])
+    p.add_argument("--gnn_type", default="gin",
+                   choices=["gin", "gcn", "graphsage"])
     args = p.parse_args()
     dev = resolve_device("cuda")
-    graphs, cfg = workload(args.domain)
+    graphs, cfg = workload(args.domain, args.objective, args.gnn_type)
+    path = f"{args.domain} {args.objective} {args.gnn_type}"
     loader = pretrain.build_loader(cfg, graphs, dev)
 
-    # host: pack + mask, one thread
+    # host: pack + transform, one thread; then the transform alone
     it = iter(loader)
-    host_ms = []
+    host_ms, transform_ms = [], []
     for _ in range(8):
         t = time.perf_counter()
         host_batch = next(it)
         host_ms.append((time.perf_counter() - t) * 1e3)
+    rng = np.random.default_rng(0)
+    for _ in range(8):
+        t = time.perf_counter()
+        loader.post_transform(host_batch, rng)
+        transform_ms.append((time.perf_counter() - t) * 1e3)
     batches = [b.to(dev) for b in list(loader)[:4]]
 
     # device-only step: train_step over batches already on the card
@@ -140,23 +165,31 @@ def main() -> int:
                and e.key not in host_keys]
     kernels.sort(key=lambda r: -r[1])
     busy_step_ms = sum(r[1] for r in kernels) / p_steps
+    own = {k: sum(ms for n, ms, _ in kernels
+                  if any(f in n for f in frags)) / p_steps
+           for k, frags in OWN_KERNELS.items()}
     card = torch.cuda.get_device_name(0)
-    print(f"card: {card}; {args.domain} masking")
-    print(f"host pack+mask: median {statistics.median(host_ms):.3f} ms per "
-          f"batch ({int(host_batch.edge_mask.sum())} valid edges)")
+    print(f"card: {card}; {path}")
+    print(f"host pack+transform: median {statistics.median(host_ms):.3f} ms "
+          f"per batch ({int(host_batch.edge_mask.sum())} valid edges), the "
+          f"transform alone {statistics.median(transform_ms):.3f} ms")
     print(f"device-only step: {device_step_ms:.3f} ms; host enqueue of one "
           f"step: median {statistics.median(enqueue_ms):.3f} ms")
     print(f"run_pretrain: {step_ms:.3f} ms/step, {edges / secs:.1f} valid "
           f"edges/s over {steps} steps (epochs 2-{EPOCHS})")
     print(f"run_pretrain profiled: {p_secs / p_steps * 1e3:.3f} ms/step; "
           f"device busy {busy_step_ms:.3f} ms/step = "
-          f"{100 * busy_step_ms / step_ms:.1f}% of the unprofiled step")
+          f"{100 * busy_step_ms / step_ms:.1f}% of the unprofiled step; "
+          "of it the port's kernels "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in own.items()))
     print(f"device time by kernel (ms over {p_steps} steps, launches):")
     for name, ms, count in kernels[:25]:
         print(f"  {ms:9.3f}  {count:6d}  {name[:110]}")
     print(json.dumps({
-        "card": card, "domain": args.domain,
-        "host_pack_mask_ms": statistics.median(host_ms),
+        "card": card, "path": path,
+        "host_pack_transform_ms": statistics.median(host_ms),
+        "host_transform_ms": statistics.median(transform_ms),
+        "own_kernels_ms_per_step": own,
         "device_step_ms": device_step_ms,
         "enqueue_ms": statistics.median(enqueue_ms),
         "main_path_step_ms": step_ms,

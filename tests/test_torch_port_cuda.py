@@ -12,12 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from pretrain_gnns_tpu_torch.data.batch_transforms import NativeNegativeEdge
 from pretrain_gnns_tpu_torch.data.packing import PackedLoader, block_layout
 from pretrain_gnns_tpu_torch.data.synthetic import (
     bio_dataset, molecule_dataset,
 )
-from pretrain_gnns_tpu_torch.models import bio
-from pretrain_gnns_tpu_torch.ops import blocked_spmm, gin_conv, spmm
+from pretrain_gnns_tpu_torch.models import bio, chem
+from pretrain_gnns_tpu_torch.ops import blocked_spmm, edge_dot, gin_conv, spmm
 from pretrain_gnns_tpu_torch.train import pretrain
 
 # max |kernel - plain| / max(1, max |plain|): full f32 on both sides, only
@@ -29,8 +30,8 @@ DIFF = ("x", "We", "e_self", "W1", "b1", "W2", "b2")
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the gin_conv and blocked_spmm "
-                    "kernels run only on the card")
+        pytest.skip("needs a CUDA device: the gin_conv, blocked_spmm and "
+                    "edge_dot kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -243,4 +244,148 @@ def test_bio_masking_step_on_card_matches_cpu(cuda_device):
                           model.named_parameters()})
     assert np.isclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
     for n, gc in out["cuda"][1].items():
+        assert _rel(gc, out["cpu"][1][n]) <= 1e-3, n
+
+
+@pytest.mark.cuda
+def test_k2_with_gcn_edge_weight_matches_plain_version(cuda_device):
+    """K2's x+ein variant as GCN drives it: ``gather_scatter`` with the
+    edge product and the inverse-sqrt-degree weights of both endpoints."""
+    t, b, blocks = _k2_case(cuda_device, 48, 128, 384, seed=3)
+    dis = chem.inv_sqrt_degree(b)
+    norm = dis[b.receivers.long()] * dis[b.senders.long()]
+    assert 0 < float(norm[b.edge_mask].min()) < float(norm.max()) < 1
+    results = []
+    before = dict(blocked_spmm.launches)
+    for fn, kw in ((spmm.gather_scatter, dict(block_nodes=blocks[1],
+                                              block_edges=blocks[2])),
+                   (spmm.gather_scatter_plain, {})):
+        x = t["x"].detach().clone().requires_grad_(True)
+        W = t["W"].detach().clone().requires_grad_(True)
+        out = fn(x, b.senders, b.receivers, b.edge_mask, b.max_nodes,
+                 edge_in=t["ein"], edge_kernel=W, edge_weight=norm, **kw)
+        (out * t["g"]).sum().backward()
+        results.append((out.detach(), x.grad, W.grad))
+    for d in ("fwd", "bwd"):
+        key = f"blocked_spmm_{d}[x+ein]"
+        assert blocked_spmm.launches[key] == before[key] + 1
+    (out, dx, dW), (out_p, dx_p, dW_p) = results
+    assert _rel(out, out_p) <= FWD_TOL
+    assert _rel(dx, dx_p) <= GRAD_TOL and _rel(dW, dW_p) <= GRAD_TOL
+
+
+def _k3_case(dev, F, block_nodes, block_edges, head, n_graphs=24, seed=0):
+    """A blocked bio batch with its last blocks all padding, and K3's
+    inputs for one scoring head: "pos" = every edge slot, "neg" = the C++
+    sampler's block-aligned pairs (block_edges // 2 a block)."""
+    graphs = bio_dataset(n_graphs, seed=seed)
+    n_blocks, bn, be = block_layout(graphs, n_graphs, block_nodes,
+                                    block_edges)
+    blocks = (n_blocks + 2, bn, be)
+    b = next(iter(PackedLoader(
+        graphs, n_graphs, shuffle=False, blocks=blocks, seed=seed,
+        extra_pad={"center_node_idx": n_graphs},
+        post_transform=NativeNegativeEdge()))).to(dev)
+    assert not b.node_mask.reshape(blocks[0], bn)[-1].any()
+    gen = torch.Generator().manual_seed(seed)
+    if head == "pos":
+        a_idx, b_idx, mask, ppb = b.receivers, b.senders, b.edge_mask, be
+    else:
+        neg = b.extras["negative_edges_blocked"]
+        a_idx, b_idx = neg[:, 0].contiguous(), neg[:, 1].contiguous()
+        mask, ppb = b.extras["negative_edges_blocked_mask"], be // 2
+    assert mask.any() and not mask.all()
+    x = (torch.randn(b.max_nodes, F, generator=gen).to(dev)
+         * b.node_mask[:, None])
+    g = torch.randn(a_idx.shape[0], generator=gen).to(dev)
+    return x, a_idx, b_idx, mask.float(), g, b, bn, ppb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", ["pos", "neg"])
+@pytest.mark.parametrize("F,bn,be", [(45, 128, 384), (300, 512, 1536)])
+def test_k3_kernels_match_plain_version(cuda_device, F, bn, be, head):
+    """K3's forward and backward at an odd width and at blocks of 512
+    nodes (64 KB of shared memory, above the 48 KB a launch gets without
+    opting in), with all-padding blocks: padded pairs score exactly 0,
+    rows no valid pair touches get exactly 0, and dx is the same bits from
+    run to run."""
+    x, a_idx, b_idx, w, g, b, bn_, ppb = _k3_case(cuda_device, F, bn, be,
+                                                  head)
+    assert bn_ == bn
+    before = dict(edge_dot.launches)
+    out = edge_dot.edot_fwd(x, a_idx, b_idx, w, bn, ppb)
+    dx = edge_dot.edot_bwd(g, x, a_idx, b_idx, w, bn, ppb)
+    torch.cuda.synchronize()
+    assert edge_dot.launches == {k: v + 1 for k, v in before.items()}
+    xl = x.detach().clone().requires_grad_(True)
+    out_p = edge_dot.edge_dot_plain(xl, a_idx, b_idx, w)
+    (dx_p,) = torch.autograd.grad(out_p, [xl], g)
+    assert _rel(out, out_p.detach()) <= FWD_TOL
+    assert _rel(dx, dx_p) <= GRAD_TOL
+    assert not out[w == 0].any()
+    touched = torch.zeros(b.max_nodes, dtype=torch.bool, device=x.device)
+    touched[a_idx[w != 0].long()] = True
+    touched[b_idx[w != 0].long()] = True
+    assert not dx[~touched].any() and not dx[~b.node_mask].any()
+    again = edge_dot.edot_bwd(g, x, a_idx, b_idx, w, bn, ppb)
+    assert torch.equal(dx, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", ["pos", "neg"])
+def test_k3_autograd_function_and_dispatch(cuda_device, head):
+    """Through ``spmm.edge_dot`` and autograd, with a non-contiguous
+    cotangent, against the plain version; ``w`` gets a zero gradient; an
+    unblocked pair list on CUDA raises and launches nothing."""
+    x, a_idx, b_idx, w, g, b, bn, ppb = _k3_case(cuda_device, 64, 128, 384,
+                                                 head, seed=1)
+    g_strided = torch.stack([g, -g], dim=1)[:, 0]
+    assert not g_strided.is_contiguous()
+    before = dict(edge_dot.launches)
+    xl = x.detach().clone().requires_grad_(True)
+    out = spmm.edge_dot(xl, a_idx, b_idx, w != 0, bn, ppb)
+    out.backward(g_strided)
+    assert edge_dot.launches == {k: v + 1 for k, v in before.items()}
+    xp = x.detach().clone().requires_grad_(True)
+    out_p = edge_dot.edge_dot_plain(xp, a_idx, b_idx, w)
+    out_p.backward(g_strided)
+    assert _rel(out.detach(), out_p.detach()) <= FWD_TOL
+    assert _rel(xl.grad, xp.grad) <= GRAD_TOL
+    with pytest.raises(ValueError, match="block-aligned pair list"):
+        spmm.edge_dot(xl, a_idx, b_idx, w != 0)
+    assert edge_dot.launches == {k: v + 1 for k, v in before.items()}
+    wl = w.detach().clone().requires_grad_(True)
+    edge_dot.blocked_edge_dot(x, a_idx, b_idx, wl, bn, ppb).sum().backward()
+    assert not wl.grad.any()
+    with pytest.raises(ValueError, match="contiguous"):
+        edge_dot.edot_fwd(x.t().contiguous().t(), a_idx, b_idx, w, bn, ppb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain,gnn_type", [("chem", "gin"), ("chem", "gcn"),
+                                             ("bio", "gin"),
+                                             ("bio", "graphsage")])
+def test_edgepred_step_on_card_matches_cpu(cuda_device, domain, gnn_type):
+    """One train-mode step of a small edge-prediction model: card (K1 or
+    K2 in the trunk, K3 in both heads) vs CPU."""
+    graphs = (bio_dataset(64, seed=2) if domain == "bio"
+              else molecule_dataset(64, seed=2)[0])
+    cfg = pretrain.PretrainConfig(objective="edgepred", domain=domain,
+                                  gnn_type=gnn_type, num_layer=3, emb_dim=48,
+                                  batch_size=32, packing="blocked")
+    batch = next(iter(pretrain.build_loader(cfg, graphs, cuda_device)))
+    out = {}
+    before = dict(edge_dot.launches)
+    for dev in (cuda_device, torch.device("cpu")):
+        model = pretrain.build_objective(cfg).to(dev)
+        loss, _ = model(batch.to(dev), train=True)
+        loss.backward()
+        out[dev.type] = (float(loss.detach()),
+                         {n: p.grad.cpu() for n, p in
+                          model.named_parameters()})
+    assert edge_dot.launches == {k: v + 2 for k, v in before.items()}
+    assert np.isclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for n, gc in out["cuda"][1].items():
+        assert torch.isfinite(gc).all(), n
         assert _rel(gc, out["cpu"][1][n]) <= 1e-3, n

@@ -61,7 +61,26 @@ Phases, in order (any failure exits non-zero):
      on a GCN trunk (K2's ``fwd[x+ein]`` and ``bwd[x+ein]`` at 5 a step,
      K3 at 2, K1 at 0), bio edge prediction on GIN (K2's ``[x]`` and
      ``[ein]`` at 5 a step, K3 at 2) and bio edge prediction on GraphSAGE
-     (K2's ``[x+ein]`` at 5 a step, K3 at 2).
+     (K2's ``[x+ein]`` at 5 a step, K3 at 2);
+  13. GAT kernel phase: on the first batch of the chem and of the bio GAT
+     masking path (H = 2, D = 300, K = 9 or 10, float32) the fused GAT conv
+     K4 (``out``, the saved ``x`` and all eight gradients) and the blocked
+     GAT attention K5 on ``x`` and ``e`` as the unfused conv forms them
+     (``out`` and its five gradients) are held against their plain
+     versions: padded edge slots exactly 0 in ``alpha`` and ``de``, every
+     output equal bit for bit between two runs; timed beside the plain
+     version, ``torch.matmul`` for K4's products and the bound (no single
+     PyTorch call computes either);
+  14. GAT agreement: one train-mode masking step at full width, card vs
+     CPU, for chem GAT fused, bio GAT fused and chem GAT unfused, at the
+     masking steps' limits;
+  15. GAT main path: ``run_pretrain(gnn_type="gat")`` on ``cuda`` at full
+     width (chem masking, GAT 5 x 300, 2 heads, batch 256, mask_edge off)
+     for 48 steps: K4 at 5 a step in each direction, every other count 0;
+  16. two short GAT paths of 16 steps at full width: bio masking (K4 at
+     K = 10, 160 blocks) and chem edge prediction with
+     ``gat_conv.set_fused("off")`` (K5 at 5 a step in each direction, K3
+     at 2, K4 at 0).
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` and
 ``launches_per_step`` from the path that runs it at the entry's ``shape``), the card line and, last, the result line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -70,6 +89,7 @@ beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -90,6 +110,9 @@ BIO_K2 = {"blocked_spmm_fwd[x]": LAYERS, "blocked_spmm_fwd[ein]": LAYERS,
 GCN_K2 = {"blocked_spmm_fwd[x+ein]": LAYERS,
           "blocked_spmm_bwd[x+ein]": LAYERS}
 K3 = {"blocked_edge_dot_fwd": 2, "blocked_edge_dot_bwd": 2}  # both heads
+K4 = {"gat_conv_fwd": LAYERS, "gat_conv_bwd": LAYERS}
+K5 = {"blocked_gat_attention_fwd": LAYERS,
+      "blocked_gat_attention_bwd": LAYERS}
 WARMUP, TRIALS, REPS = 5, 20, 10
 SPIN_CYCLES = 3_500_000  # about 2 ms of the card's clock, see time_ms
 
@@ -101,7 +124,8 @@ PEAK_BYTES_PER_S = 3.35e12
 # are full float32 (no TF32); they differ only in summation order (tiled
 # FMA GEMMs vs cuBLAS, shared-memory atomics vs index_add_ atomics, per-
 # block partials summed in block order, a warp's shuffle tree vs a row
-# reduction). The same for K1, K2 and K3.
+# reduction, a segment softmax walked in slot order vs scatter_reduce and
+# index_add_). The same for K1 to K5.
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
 # One full-width train step, card (kernels) vs CPU (plain version): five
@@ -298,15 +322,33 @@ def kernel_phase(torch, batch, model):
     return [fwd, bwd]
 
 
-def path_name(cfg) -> str:
-    return f"{cfg.domain} {cfg.objective} {cfg.gnn_type}"
+def path_name(cfg, gat_fused="on") -> str:
+    unfused = " unfused" * (gat_fused == "off")
+    return f"{cfg.domain} {cfg.objective} {cfg.gnn_type}{unfused}"
 
 
-def agreement_phase(torch, batch, cfg, referee=False):
+@contextlib.contextmanager
+def gat_fused_as(mode):
+    """``gat_conv.set_fused(mode)`` for the block, "on" again after it."""
+    from pretrain_gnns_tpu_torch.ops import gat_conv
+
+    gat_conv.set_fused(mode)
+    try:
+        yield
+    finally:
+        gat_conv.set_fused("on")
+
+
+def agreement_phase(torch, batch, cfg, referee=False, gat_fused="on"):
     """One train-mode step of ``cfg``'s objective on the card and on the
     CPU. With ``referee``, a float64 step on the CPU and the measured
     float32 noise set the gradients' limit (see REFEREE_K)."""
-    tag = f"[{path_name(cfg)} agreement]"
+    with gat_fused_as(gat_fused):
+        _agreement(torch, batch, cfg, referee, path_name(cfg, gat_fused))
+
+
+def _agreement(torch, batch, cfg, referee, name):
+    tag = f"[{name} agreement]"
     from pretrain_gnns_tpu_torch.models import inits
     from pretrain_gnns_tpu_torch.train.pretrain import build_objective
 
@@ -364,19 +406,22 @@ def agreement_phase(torch, batch, cfg, referee=False):
           f"{limit:.3e}); max BN stat rel err {stat_err:.3e}", flush=True)
     if not (loss_err <= STEP_LOSS_TOL and card_err <= limit
             and stat_err <= STEP_GRAD_TOL and math.isfinite(lc)):
-        raise AssertionError(f"{path_name(cfg)} step on the card "
-                             "disagrees with the CPU reference")
+        raise AssertionError(f"{name} step on the card disagrees with "
+                             "the CPU reference")
 
 
 def main_path_phase(torch, graphs, cfg, card, per_step,
-                    epochs=MAIN_EPOCHS):
+                    epochs=MAIN_EPOCHS, gat_fused="on"):
     """``run_pretrain`` on the card; every launch count is set to 0 just
     before and read just after. ``per_step`` gives the launches a step of
     each counter that must move; every other count must stay 0."""
-    from pretrain_gnns_tpu_torch.ops import blocked_spmm, edge_dot, gin_conv
+    from pretrain_gnns_tpu_torch.ops import (
+        attention, blocked_spmm, edge_dot, gat_conv, gin_conv,
+    )
     from pretrain_gnns_tpu_torch.train import pretrain
 
-    tag = f"[{path_name(cfg)} path]"
+    name = path_name(cfg, gat_fused)
+    tag = f"[{name} path]"
     stamps = []
 
     def log(msg):
@@ -384,18 +429,19 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
         if msg.startswith("epoch="):
             stamps.append(time.perf_counter())
 
-    modules = (gin_conv, blocked_spmm, edge_dot)
+    modules = (gin_conv, blocked_spmm, edge_dot, gat_conv, attention)
     torch.cuda.reset_peak_memory_stats()
-    for m in modules:
-        m.reset_launches()
-    res = pretrain.run_pretrain(cfg, graphs, log=log, epochs=epochs,
-                                device="cuda")
-    counts = {k: v for m in modules for k, v in m.launches.items()}
+    with gat_fused_as(gat_fused):
+        for m in modules:
+            m.reset_launches()
+        res = pretrain.run_pretrain(cfg, graphs, log=log, epochs=epochs,
+                                    device="cuda")
+        counts = {k: v for m in modules for k, v in m.launches.items()}
     hist = res["history"]
     steps = sum(h["steps"] for h in hist)
     want = {k: per_step.get(k, 0) * steps for k in counts}
     if counts != want or not steps or set(per_step) - set(counts):
-        raise AssertionError(f"{path_name(cfg)} path launches {counts} != "
+        raise AssertionError(f"{name} path launches {counts} != "
                              f"{want} ({per_step} x {steps} steps)")
     if not all(math.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"non-finite loss: {hist}")
@@ -667,6 +713,221 @@ def k3_entries(chem, bio):
     return entries
 
 
+def gat_phase(torch, batch, conv, ein, tag):
+    """K4 and K5 against their plain versions on a GAT masking path's
+    first batch, with the first layer's parameters (``conv``) and edge
+    inputs ``ein`` [E, K]. Returns ``{kernel name: dict}`` with the
+    measured times, errors and bounds."""
+    from pretrain_gnns_tpu_torch.ops import attention as at
+    from pretrain_gnns_tpu_torch.ops import gat_conv as gc
+
+    dev = batch.node_mask.device
+    gen = torch.Generator().manual_seed(4)
+    N, E, bn, be = (batch.max_nodes, batch.max_edges, batch.block_nodes,
+                    batch.block_edges)
+    H, D, K, slope = conv.heads, conv.emb_dim, ein.shape[1], 0.2
+    HD = H * D
+    nm = batch.node_mask.to(torch.float32)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    h = rnd(N, D) * nm[:, None]
+    # the trunk zeroes padded rows after the conv, so their cotangent is 0
+    g, g3 = rnd(N, D) * nm[:, None], rnd(N, H, D) * nm[:, None, None]
+    with torch.no_grad():
+        We, e_self = conv.edge_kernel()
+        Wl, bl = conv.weight_linear.weight.t(), conv.weight_linear.bias
+        par = [We.contiguous(), e_self.reshape(H, D).contiguous(),
+               conv.att[0, :, :D].contiguous(),
+               conv.att[0, :, D:].contiguous()]
+        bias = rnd(D) * 0.1  # the parameter starts at 0
+    graph = (batch.senders, batch.receivers,
+             batch.edge_mask.to(torch.float32))
+    pad = ~batch.edge_mask
+
+    def check(name, fwd_errs, grad_errs, zeros, same):
+        print(f"[kernels] {name} {tag}: forward rel err {fwd_errs}, backward "
+              f"rel err {grad_errs}; padded slots max "
+              f"{max(float(z.abs().max()) for z in zeros):.1e}; equal bits "
+              f"in two runs: {same}", flush=True)
+        bad = {**{k: v for k, v in fwd_errs.items() if not v <= FWD_TOL},
+               **{k: v for k, v in grad_errs.items() if not v <= GRAD_TOL}}
+        if bad or any(z.any() for z in zeros) or not same:
+            raise AssertionError(f"{name} {tag} disagrees with its plain "
+                                 f"version: {bad}")
+
+    # K4: the whole layer
+    k4_fwd = lambda: gc.gat_conv_fwd(h, Wl, bl, ein, *par, bias, *graph, bn,
+                                     be, slope)
+    with torch.no_grad():
+        out, x, saved = k4_fwd()
+        k4_bwd = lambda: gc.gat_conv_bwd(g, h, Wl, x, ein, *par, *graph,
+                                         saved, bn, be, slope)
+        grads_k = k4_bwd()
+        out2, x2, _ = k4_fwd()
+        grads_k2 = k4_bwd()
+    torch.cuda.synchronize()
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (h, Wl, bl, *par, bias)]
+    lh, lWl, lbl, lWe, les, lai, laj, lbias = leaves
+    k4_plain = lambda: gc.fused_gat_conv_plain(
+        lh, lWl, lbl, ein, lWe, les, lai, laj, lbias, *graph, H, bn, be,
+        slope, return_residuals=True)
+    out_p, x_p = k4_plain()
+    grads_p = torch.autograd.grad(out_p, leaves, g, retain_graph=True)
+    names = ("dh", "dWl", "dbl", "dWe", "de_self", "da_i", "da_j", "dbias")
+    check("K4",
+          {"out": rel_err(out, out_p.detach()), "x": rel_err(x, x_p.detach())},
+          {n: rel_err(a, b) for n, a, b in zip(names, grads_k, grads_p)},
+          [saved[0][pad]],
+          all(torch.equal(a, b) for a, b in
+              zip((out, x, *grads_k), (out2, x2, *grads_k2))))
+    k4_err = (max(float((a - b.detach()).abs().max())
+                  for a, b in ((out, out_p), (x, x_p))),
+              max(float((a - b).abs().max())
+                  for a, b in zip(grads_k, grads_p)))
+
+    # K5: the attention alone, on x and e as the unfused conv forms them
+    with torch.no_grad():
+        x5 = x_p.detach().reshape(N, H, D)
+        e5 = (ein @ par[0]).reshape(E, H, D)
+        k5_fwd = lambda: at.gat_attn_fwd(x5, e5, *par[1:], *graph, slope, bn,
+                                         be)
+        out5, saved5 = k5_fwd()
+        k5_bwd = lambda: at.gat_attn_bwd(g3, x5, e5, *par[1:], *graph, saved5,
+                                         slope, bn, be)
+        grads5 = k5_bwd()
+        out5_2, grads5_2 = k5_fwd()[0], k5_bwd()
+    torch.cuda.synchronize()
+    leaves5 = [t.detach().clone().requires_grad_(True)
+               for t in (x5, e5, *par[1:])]
+    k5_plain = lambda: at.blocked_gat_attention_plain(*leaves5, *graph, slope)
+    out5_p = k5_plain()
+    grads5_p = torch.autograd.grad(out5_p, leaves5, g3, retain_graph=True)
+    names5 = ("dx", "de", "de_self", "da_i", "da_j")
+    check("K5", {"out": rel_err(out5, out5_p.detach())},
+          {n: rel_err(a, b) for n, a, b in zip(names5, grads5, grads5_p)},
+          [saved5[0][pad], grads5[1][pad]],
+          all(torch.equal(a, b) for a, b in
+              zip((out5, *grads5), (out5_2, *grads5_2))))
+    k5_err = (float((out5 - out5_p.detach()).abs().max()),
+              max(float((a - b).abs().max())
+                  for a, b in zip(grads5, grads5_p)))
+    if not all(v > 0 for m in (gc, at) for v in m.launches.values()):
+        raise AssertionError(f"a GAT launch counter did not move: "
+                             f"{gc.launches} {at.launches}")
+
+    # timings (device ms per call, see time_ms): (kernel, plain version)
+    plain_bwd4 = time_ms(lambda: torch.autograd.grad(
+        out_p, leaves, g, retain_graph=True), torch)
+    plain_bwd5 = time_ms(lambda: torch.autograd.grad(
+        out5_p, leaves5, g3, retain_graph=True), torch)
+    with torch.no_grad():
+        ms = {
+            "gat_conv_fwd": (time_ms(k4_fwd, torch), time_ms(k4_plain, torch)),
+            "gat_conv_bwd": (time_ms(k4_bwd, torch), plain_bwd4),
+            "blocked_gat_attention_fwd": (time_ms(k5_fwd, torch),
+                                          time_ms(k5_plain, torch)),
+            "blocked_gat_attention_bwd": (time_ms(k5_bwd, torch), plain_bwd5),
+        }
+        dx = x.clone()
+        matmul = {"gat_conv_fwd": time_ms(lambda: torch.matmul(h, Wl), torch),
+                  "gat_conv_bwd": time_ms(lambda: (
+                      torch.matmul(h.t(), dx), torch.matmul(dx, Wl.t())),
+                      torch)}
+
+    # The bounds count what the function needs on this batch, never what
+    # the kernels recompute or choose to save: V valid rows (a padded row
+    # of x is the constant bl, one more row through the projection; with a
+    # zero cotangent it adds nothing to the backward's products), Ev valid
+    # edges with their index, weight and input entries, the parameters, and
+    # every output written once. The saved x is an output of K4's forward
+    # and an input of its backward, as in the TPU kernel; the saved softmax
+    # scalars are this port's choice and count nowhere. K4 needs
+    # e = ein @ We (2K operations a feature) once in each direction: the
+    # edge logit is ein . (We a_j), 2K operations an edge and head, and the
+    # e term of da_j is (sum_e dz_e ein_e) @ We, the same again.
+    V, Ev = int(nm.sum()), int(batch.edge_mask.sum())
+    f4 = 4  # bytes
+    small = nbytes(*par, bias, bl)
+    edge_b4 = Ev * (K + 3) * f4
+    node_ops, edge_ops = V * HD, Ev * HD
+    edge_scalar_ops = Ev * H * 2 * K + 2 * K * HD
+    k4_fwd_b = bound(
+        2 * (V + 1) * D * HD      # x = h @ Wl + bl
+        + node_ops * 7            # ps, pd, the self message
+        + edge_scalar_ops         # pe = ein . (We a_j)
+        + edge_ops * (2 * K + 3)  # e once, alpha (x_j + e) summed
+        + N * D * 2,              # head mean, + bias
+        rows_nbytes(h, V) + nbytes(Wl) + small + edge_b4 + nbytes(out, x))
+    k4_bwd_b = bound(
+        2 * 2 * V * D * HD        # dWl = h^T dx, dh = dx Wl^T
+        + edge_ops * (2 * K + 3)  # e once, dalpha = <g, x_j + e>
+        + node_ops * 3            # the self loop's dalpha
+        + edge_ops * 2            # de = alpha g, scattered into dx
+        + node_ops * 12           # dx's other terms, de_self, da_i, da_j
+        + edge_ops * 2 * K        # dWe = ein^T de
+        + edge_scalar_ops         # da_j's e term
+        + N * D + node_ops,       # dbias, the 1/H
+        rows_nbytes(g, V) + rows_nbytes(h, V) + rows_nbytes(x, V)
+        + nbytes(Wl) + small + edge_b4 + nbytes(*grads_k))
+    edge_b5 = Ev * 3 * f4 + Ev * HD * f4
+    k5_fwd_b = bound(
+        node_ops * 7 + edge_ops * 5,
+        V * HD * f4 + edge_b5 + nbytes(*par[1:]) + nbytes(out5))
+    k5_bwd_b = bound(
+        edge_ops * 3 + node_ops * 3 + edge_ops * 2 + node_ops * 12
+        + edge_ops * 2,           # da_j's e term: e is an input here
+        2 * V * HD * f4 + edge_b5 + nbytes(*par[1:]) + nbytes(*grads5))
+    bounds = {"gat_conv_fwd": k4_fwd_b, "gat_conv_bwd": k4_bwd_b,
+              "blocked_gat_attention_fwd": k5_fwd_b,
+              "blocked_gat_attention_bwd": k5_bwd_b}
+    errs = {"gat_conv_fwd": k4_err[0], "gat_conv_bwd": k4_err[1],
+            "blocked_gat_attention_fwd": k5_err[0],
+            "blocked_gat_attention_bwd": k5_err[1]}
+    print(f"[kernels] GAT at the {tag}: N={N} E={E} H={H} D={D} K={K} "
+          f"valid_nodes={V} valid_edges={Ev}", flush=True)
+    results = {}
+    for name, (kern_ms, plain_ms) in ms.items():
+        b_ms, by = bounds[name]
+        results[name] = dict(ms=kern_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=by, max_abs_err=errs[name])
+        extra = ""
+        if name in matmul:
+            results[name]["matmul_ms"] = matmul[name]
+            extra = f", torch.matmul products {matmul[name]:.4f} ms"
+        print(f"[kernels] {name} {tag}: kernel {kern_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms{extra}, library none (no single call), "
+              f"bound {b_ms:.4f} ms ({by})", flush=True)
+    return results
+
+
+def gat_entries(chem, bio, chem_shape):
+    """The ``kernels`` entries of K4 and K5: one per direction, with the
+    times at the chem GAT paths' first batch (``chem_shape`` names it)
+    under the contract's keys and the bio batch beside them."""
+    src = "pretrain_gnns_tpu_torch/csrc/gat.cu"
+    where = {
+        "gat_conv_fwd": ("pallas_gat_conv.py", 101, "_fwd_kernel via "
+                         "_call_fwd (fused_gat_conv)"),
+        "gat_conv_bwd": ("pallas_gat_conv.py", 149, "_bwd_kernel via "
+                         "_call_bwd (fused_gat_conv)"),
+        "blocked_gat_attention_fwd": ("pallas_attention.py", 136,
+                                      "_fwd_kernel via blocked_gat_forward"),
+        "blocked_gat_attention_bwd": ("pallas_attention.py", 258,
+                                      "_bwd_kernel via blocked_gat_backward"),
+    }
+    entries = []
+    for name, (file, line, body) in where.items():
+        entries.append(dict(
+            name=name, route="cuda", source=src,
+            replaces=f"pretrain_gnns_tpu/ops/{file}:{line}",
+            tpu_counterpart=f"ops/{file}::{body}", **chem[name],
+            library_ms=None,
+            library="none: no single PyTorch call computes it",
+            shape=chem_shape,
+            other_shapes={"bio GAT masking first batch": bio[name]}))
+    return entries
+
+
 def describe(tag, batch):
     print(f"[{tag}] first batch: {int(batch.graph_mask.sum())} graphs, "
           f"{int(batch.node_mask.sum())} nodes, "
@@ -703,7 +964,7 @@ def main() -> int:
     dev = resolve_device("cuda")
     print(f"[card] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    reports = _build.build(["gin_conv", "spmm", "edge_dot"])
+    reports = _build.build(["gin_conv", "spmm", "edge_dot", "gat"])
     native.load()  # the C++ negative sampler, g++
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
     for name, text in reports.items():
@@ -797,7 +1058,55 @@ def main() -> int:
     main_path_phase(torch, graphs, cfg, card, {**BIO_K2, **K3}, epochs=1)
     graphs, cfg = paths["bio", "graphsage"]
     main_path_phase(torch, graphs, cfg, card, {**GCN_K2, **K3}, epochs=1)
-    kernels += k2 + k3
+
+    # GAT: K4 (the fused conv) and K5 (the attention of the unfused conv)
+    def gat_path(domain, objective="masking"):
+        graphs = bio_graphs if domain == "bio" else chem_graphs
+        cfg = pretrain.PretrainConfig(
+            objective=objective, domain=domain, gnn_type="gat",
+            num_layer=LAYERS, emb_dim=EMB, batch_size=BATCH, mask_edge=False,
+            seed=0, packing="auto")
+        return graphs, cfg
+
+    gat_first, gat_results = {}, {}
+    for domain in ("chem", "bio"):
+        graphs, cfg = gat_path(domain)
+        gat_first[domain] = next(iter(pretrain.build_loader(cfg, graphs,
+                                                            dev)))
+        describe(f"data {domain} GAT masking", gat_first[domain])
+        conv = pretrain.build_objective(cfg).to(dev).gnn.gnns[0]
+        on_card = gat_first[domain].to(dev)
+        ein = (bio.edge_inputs(on_card, torch.float32) if domain == "bio"
+               else chem.bond_one_hot(on_card, torch.float32))
+        gat_results[domain] = gat_phase(
+            torch, on_card, conv, ein, f"{domain} GAT masking first batch")
+    # K4 is launched by the chem masking path and K5 by the chem
+    # edge-prediction path: both start from the same packed batch, so one
+    # set of tensors stands for both.
+    unfused_first = next(iter(pretrain.build_loader(
+        gat_path("chem", "edgepred")[1], chem_graphs, dev)))
+    for field in ("senders", "receivers", "edge_mask", "node_mask"):
+        if not torch.equal(
+                torch.as_tensor(getattr(unfused_first, field)),
+                torch.as_tensor(getattr(gat_first["chem"], field))):
+            raise AssertionError(
+                f"the chem GAT masking and edge-prediction first batches "
+                f"differ in {field}")
+    k45 = gat_entries(
+        gat_results["chem"], gat_results["bio"],
+        "chem GAT first batch: the masking path (K4) and the unfused "
+        "edge-prediction path (K5) pack the same graphs; senders, "
+        "receivers and masks checked equal")
+    for domain, mode in (("chem", "on"), ("bio", "on"), ("chem", "off")):
+        agreement_phase(torch, gat_first[domain], gat_path(domain)[1],
+                        gat_fused=mode)
+    record_launches(k45, main_path_phase(torch, *gat_path("chem"), card, K4),
+                    K4)
+    main_path_phase(torch, *gat_path("bio"), card, K4, epochs=1)
+    record_launches(k45, main_path_phase(
+        torch, *gat_path("chem", "edgepred"), card, {**K5, **K3}, epochs=1,
+        gat_fused="off"), K5)
+    kernels += k2 + k3 + k45
     missing = [k["name"] for k in kernels if not k.get("launches")]
     if missing:
         raise AssertionError(f"no path launched {missing}")

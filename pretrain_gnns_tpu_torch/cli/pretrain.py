@@ -1,6 +1,6 @@
 """Pretraining CLI of the port: attribute masking and edge prediction in
-the chem and bio domains, on a GIN, GCN or GraphSAGE trunk, with the flag
-names of the JAX package's CLI plus ``--device``.
+the chem and bio domains, on a GIN, GCN, GAT or GraphSAGE trunk, with the
+flag names of the JAX package's CLI plus ``--device``.
 
 Examples:
   python -m pretrain_gnns_tpu_torch.cli.pretrain --dataset synthetic \
@@ -9,6 +9,8 @@ Examples:
       --dataset synthetic --epochs 5 --output_model_file bio_trunk
   python -m pretrain_gnns_tpu_torch.cli.pretrain --objective edgepred \
       --gnn_type gcn --epochs 5 --output_model_file edgepred_trunk
+  python -m pretrain_gnns_tpu_torch.cli.pretrain --gnn_type gat \
+      --domain bio --epochs 5 --output_model_file gat_trunk
 
 With ``--dataset synthetic``, chem trains on ``n_synthetic`` molecules
 and bio on ``max(n_synthetic // 4, 64)`` ego-networks, as the JAX CLI.
@@ -63,7 +65,7 @@ def main(argv=None):
             "ported yet; this CLI runs --objective masking or edgepred "
             "with --domain chem or bio"
         )
-    if args.gnn_type not in ("gin", "gcn", "graphsage"):
+    if args.gnn_type not in ("gin", "gcn", "gat", "graphsage"):
         raise SystemExit(f"--gnn_type {args.gnn_type} is not ported yet")
     if args.dropout_ratio > 0:
         raise SystemExit("--dropout_ratio > 0 is not ported yet")

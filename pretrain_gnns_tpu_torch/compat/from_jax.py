@@ -6,7 +6,8 @@ numpy arrays and returns reference-layout keys (``gnn.gnns.0.mlp.0.weight``
 ...). Dense kernels are ``[in, out]`` in flax and ``[out, in]`` in torch,
 so they are transposed; batch-norm ``scale``/``bias`` become
 ``weight``/``bias`` and ``mean``/``var`` become ``running_mean``/
-``running_var``, with ``num_batches_tracked = 0``. It is the port's own
+``running_var``, with ``num_batches_tracked = 0``; a GAT conv's raw
+``att`` and ``bias`` arrays keep their own names. It is the port's own
 copy of the mapping the JAX package's trunk export applies."""
 
 from __future__ import annotations
@@ -38,8 +39,11 @@ def state_dict_from_jax(params: Mapping[str, Any],
     def emit(prefix: str, p: Mapping[str, Any], s: Mapping[str, Any]):
         for name, sub in p.items():
             base = prefix + _torch_name(name)
-            if not isinstance(sub, Mapping):  # embedding table
-                out[f"{base}.weight"] = _tensor(sub)
+            if not isinstance(sub, Mapping):
+                # a GAT conv's raw leaves keep their names; any other raw
+                # array is an embedding table
+                key = base if name in ("att", "bias") else f"{base}.weight"
+                out[key] = _tensor(sub)
             elif "kernel" in sub:  # Dense
                 out[f"{base}.weight"] = _tensor(np.asarray(sub["kernel"]).T)
                 out[f"{base}.bias"] = _tensor(sub["bias"])

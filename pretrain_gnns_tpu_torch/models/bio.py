@@ -1,6 +1,6 @@
-"""Bio trunk (port of ``GINConv``, ``GCNConv``, ``SAGEConv`` and ``GNN`` of
-``pretrain_gnns_tpu.models.bio``; ``gnn_type="gat"`` is not ported), for
-protein ego-networks.
+"""Bio trunk (port of ``GINConv``, ``GCNConv``, ``GATConv``, ``SAGEConv``
+and ``GNN`` of ``pretrain_gnns_tpu.models.bio``), for protein
+ego-networks.
 
 Edge features are 9-dim floats ``[w1..w7, self_loop, mask]``; every conv
 encodes them with ``edge_encoder = Linear(9, D)``, fed to the aggregation
@@ -12,12 +12,16 @@ fused edge-transform SpMM K2 on CUDA). The self loop (feature one-hot at
 dim 7) is added analytically: ``aggr += [h | e_self] * node_mask`` with
 ``e_self = edge_encoder.weight[:, 7] + bias``. GCN and GraphSAGE apply
 ``Linear(D, D)`` first and send ``x_j + e`` (K2's ``x + ein`` variant),
-with the normalisations of the chem convs.
+with the normalisations of the chem convs. GAT is the chem GAT layer with
+the encoder ``Linear(9, H*D)`` as its edge embedding (the fused GAT conv
+K4 on CUDA, or the GAT attention K5 under
+``ops/gat_conv.set_fused("off")``).
 
 Module and parameter names follow the reference state dict
 (``gnns.0.input_node_embeddings``, ``gnns.{k}.edge_encoder``,
-``gnns.{k}.mlp.{0,1,3}`` with the batch norm at ``mlp.1``, or
-``gnns.{k}.linear``). Only ``drop_ratio = 0`` is ported; the JK modes are
+``gnns.{k}.mlp.{0,1,3}`` with the batch norm at ``mlp.1``,
+``gnns.{k}.linear``, or ``gnns.{k}.weight_linear`` with ``gnns.{k}.att``
+and ``gnns.{k}.bias``). Only ``drop_ratio = 0`` is ported; the JK modes are
 ``last`` and the intended layer ``sum``."""
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from torch import nn
 from pretrain_gnns_tpu_torch.core.graphs import PackedGraphs
 from pretrain_gnns_tpu_torch.models import inits
 from pretrain_gnns_tpu_torch.models.chem import (
-    inv_sqrt_degree, l2_normalize_rows,
+    _GatParams, inv_sqrt_degree, l2_normalize_rows,
 )
 from pretrain_gnns_tpu_torch.models.norm import MaskedBatchNorm
 from pretrain_gnns_tpu_torch.ops import spmm
@@ -48,8 +52,9 @@ class _BioConv(nn.Module):
     layer 0, the embedding of the uniform node labels. A conv creates
     them after its own layers, the reference's order."""
 
-    def add_encoders(self, emb_dim: int, input_layer: bool) -> None:
-        self.edge_encoder = nn.Linear(EDGE_FEAT_DIM, emb_dim)
+    def add_encoders(self, emb_dim: int, input_layer: bool,
+                     edge_dim: int = 0) -> None:
+        self.edge_encoder = nn.Linear(EDGE_FEAT_DIM, edge_dim or emb_dim)
         self.input_layer = input_layer
         if input_layer:
             self.input_node_embeddings = nn.Embedding(2, emb_dim)
@@ -145,7 +150,25 @@ class SAGEConv(_BioConv):
         return l2_normalize_rows(s / torch.clamp(deg, min=1.0)[:, None])
 
 
-CONVS = {"gin": GINConv, "gcn": GCNConv, "graphsage": SAGEConv}
+class GATConv(_BioConv, _GatParams):
+    """GAT conv: the chem GAT layer on the encoded edge features, the self
+    loop's embedding being ``edge_encoder.weight[:, 7] + bias``."""
+
+    def __init__(self, emb_dim: int, input_layer: bool = False,
+                 heads: int = 2, negative_slope: float = 0.2):
+        super().__init__()
+        self.add_gat_params(emb_dim, heads, negative_slope)
+        self.add_encoders(emb_dim, input_layer, edge_dim=heads * emb_dim)
+
+    def forward(self, h: torch.Tensor, g: PackedGraphs, ein: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        h = self.embed_input(h, g)
+        return self.gat_layer(h, g, ein,
+                              lambda: self.edge_encoder(ein[:, :-1]))
+
+
+CONVS = {"gin": GINConv, "gcn": GCNConv, "gat": GATConv,
+         "graphsage": SAGEConv}
 
 
 class GNN(nn.Module):

@@ -1,5 +1,5 @@
-"""Chem trunk (port of ``GINConv``, ``GCNConv``, ``SAGEConv`` and ``GNN`` of
-``pretrain_gnns_tpu.models.chem``; ``gnn_type="gat"`` is not ported).
+"""Chem trunk (port of ``GINConv``, ``GCNConv``, ``GATConv``, ``SAGEConv``
+and ``GNN`` of ``pretrain_gnns_tpu.models.chem``).
 
 The self-loop the reference appends inside every conv (bond type 4,
 direction 0) is added analytically: ``aggr += (x + e_self) * node_mask``.
@@ -8,10 +8,15 @@ one_hot(bond, 6) | one_hot(dir, 3)]`` and ``We = [e1; e2]``, so that
 ``ein @ We == e1[bond] + e2[dir]``. GIN runs as one fused GIN conv call
 (K1 on CUDA); GCN and GraphSAGE aggregate through
 ``ops/spmm.gather_scatter`` with ``edge_in``/``edge_kernel`` (the fused
-edge-transform SpMM K2 on CUDA, its ``x + ein`` variant).
+edge-transform SpMM K2 on CUDA, its ``x + ein`` variant). GAT runs as one
+fused GAT conv call (K4 on CUDA) or, under
+``ops/gat_conv.set_fused("off")``, as ``weight_linear``, the embedding sum
+and the GAT attention (K5 on CUDA); its self loop is one more logit per
+node inside the softmax.
 
 Module and parameter names follow the reference state dict
-(``x_embedding1``, ``gnns.{k}.mlp.{0,2}`` or ``gnns.{k}.linear``,
+(``x_embedding1``, ``gnns.{k}.mlp.{0,2}``, ``gnns.{k}.linear`` or
+``gnns.{k}.weight_linear`` with ``gnns.{k}.att`` and ``gnns.{k}.bias``,
 ``gnns.{k}.edge_embedding{1,2}``, ``batch_norms.{k}``)."""
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from torch import nn
 from pretrain_gnns_tpu_torch.core.graphs import PackedGraphs
 from pretrain_gnns_tpu_torch.models import inits
 from pretrain_gnns_tpu_torch.models.norm import MaskedBatchNorm
-from pretrain_gnns_tpu_torch.ops import gin_conv, spmm
+from pretrain_gnns_tpu_torch.ops import attention, gat_conv, gin_conv, spmm
 
 NUM_ATOM_TYPE = 120  # incl. the mask token 119
 NUM_CHIRALITY_TAG = 3
@@ -159,7 +164,70 @@ class SAGEConv(_ChemConv):
         return l2_normalize_rows(s / torch.clamp(deg, min=1.0)[:, None])
 
 
-CONVS = {"gin": GINConv, "gcn": GCNConv, "graphsage": SAGEConv}
+class _GatParams:
+    """What a GAT conv owns beside its edge embedding: ``weight_linear``
+    (D -> H*D), the attention vector ``att`` [1, H, 2D] (``a_i`` its first
+    half, ``a_j`` its second) and the output ``bias`` [D]; and the layer
+    itself, shared by the chem and bio convs."""
+
+    def add_gat_params(self, emb_dim: int, heads: int,
+                       negative_slope: float) -> None:
+        self.emb_dim, self.heads = emb_dim, heads
+        self.negative_slope = negative_slope
+        self.weight_linear = nn.Linear(emb_dim, heads * emb_dim)
+        self.att = nn.Parameter(inits.pyg_glorot((1, heads, 2 * emb_dim)))
+        self.bias = nn.Parameter(torch.zeros(emb_dim))
+
+    def gat_layer(self, h: torch.Tensor, g: PackedGraphs, ein: torch.Tensor,
+                  edge_embedding) -> torch.Tensor:
+        """``ein`` [E, K] and ``self.edge_kernel()`` feed the fused conv;
+        ``edge_embedding()`` gives the unfused path its ``[E, H*D]``."""
+        H, D = self.heads, self.emb_dim
+        blocked = g.block_nodes > 0 and g.block_edges > 0
+        if h.is_cuda and not blocked:
+            raise ValueError(
+                "GATConv on CUDA needs a block-diagonal batch "
+                "(packing='blocked' or 'auto')"
+            )
+        We, e_self = self.edge_kernel()
+        e_self = e_self.reshape(H, D)
+        a_i, a_j = self.att[0, :, :D], self.att[0, :, D:]
+        lin = self.weight_linear
+        if gat_conv.fused_enabled():
+            return gat_conv.fused_gat_conv(
+                h, lin.weight.t(), lin.bias, ein, We, e_self, a_i, a_j,
+                self.bias, g.senders, g.receivers, g.edge_mask.to(h.dtype),
+                H, g.block_nodes, g.block_edges, self.negative_slope)
+        out = attention.gat_attention(
+            lin(h).reshape(-1, H, D), edge_embedding().reshape(-1, H, D),
+            e_self, a_i[None], a_j[None], g.senders, g.receivers,
+            g.edge_mask, g.max_nodes, self.negative_slope,
+            block_nodes=g.block_nodes, block_edges=g.block_edges)
+        return out.mean(dim=1) + self.bias  # head mean
+
+
+class GATConv(_ChemConv, _GatParams):
+    """GAT conv: ``Linear(D, H*D)``, additive attention over the ``x_j +
+    e`` messages and the self loop (segment softmax over the receivers),
+    head mean, ``+ bias``. On CUDA the batch must have the block-diagonal
+    layout."""
+
+    def __init__(self, emb_dim: int, heads: int = 2,
+                 negative_slope: float = 0.2):
+        super().__init__()
+        self.add_gat_params(emb_dim, heads, negative_slope)
+        self.add_edge_embeddings(heads * emb_dim)
+
+    def forward(self, h: torch.Tensor, g: PackedGraphs) -> torch.Tensor:
+        ef = g.edge_feat
+        return self.gat_layer(
+            h, g, bond_one_hot(g, h.dtype),
+            lambda: (self.edge_embedding1(ef[:, 0].long())
+                     + self.edge_embedding2(ef[:, 1].long())))
+
+
+CONVS = {"gin": GINConv, "gcn": GCNConv, "gat": GATConv,
+         "graphsage": SAGEConv}
 
 
 class GNN(nn.Module):

@@ -2,13 +2,15 @@
 ``pretrain_gnns_tpu.models.inits``).
 
 ``nn.Linear`` weights and biases draw from U(-1/sqrt(fan_in),
-1/sqrt(fan_in)); embedding tables are xavier-uniform. Every draw comes
+1/sqrt(fan_in)); embedding tables are xavier-uniform; GAT's attention
+vector is PyG's glorot and its output bias zero. Every draw comes
 from an explicit ``torch.Generator``, so a seed fixes the weights on any
 device."""
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -28,11 +30,24 @@ def reset_linear_(linear: nn.Linear, generator: torch.Generator) -> None:
         linear.bias.uniform_(-bound, bound, generator=generator)
 
 
+def pyg_glorot(shape, generator: Optional[torch.Generator] = None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """PyG ``inits.glorot``: U(-b, b), b = sqrt(6 / (shape[-2] +
+    shape[-1]))."""
+    bound = math.sqrt(6.0 / (shape[-2] + shape[-1]))
+    return torch.empty(tuple(shape), dtype=dtype).uniform_(
+        -bound, bound, generator=generator)
+
+
 @torch.no_grad()
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
-    """Re-draw every Linear and Embedding of ``module`` in module order."""
+    """Re-draw every Linear, Embedding and GAT attention vector (``att``,
+    with its zero ``bias``) of ``module`` in module order."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             reset_linear_(m, generator)
         elif isinstance(m, nn.Embedding):
             nn.init.xavier_uniform_(m.weight, generator=generator)
+        elif isinstance(getattr(m, "att", None), nn.Parameter):
+            m.att.copy_(pyg_glorot(m.att.shape, generator, m.att.dtype))
+            m.bias.zero_()

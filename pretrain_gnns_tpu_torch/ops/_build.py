@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by its own
 ``nvcc`` process into ``_build/lib<name>_<hash>.so`` inside the package
-(a directory that ``.gitignore`` lists); the hash covers the source and
-the flags, so an unchanged source is not rebuilt. A failed build raises.
+(a directory that ``.gitignore`` lists); the hash covers the source, every
+header of ``csrc/`` it includes and the flags, so an unchanged source is
+not rebuilt and a changed header is. A failed build raises.
 :func:`check_tensors` and :func:`stream` serve the wrappers that hand
 tensors to those libraries.
 """
@@ -13,11 +14,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import torch
 
@@ -43,12 +45,30 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def _with_headers(src: Path) -> List[Path]:
+    """``src`` and every file it includes with ``#include "..."``, directly
+    or through another such file, in the order first met."""
+    files, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / m.decode()
+                 for m in _INCLUDE.findall(path.read_bytes())]
+    return files
+
+
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+    digest = hashlib.sha256()
+    for path in _with_headers(src):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> Dict[str, str]:

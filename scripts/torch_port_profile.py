@@ -4,7 +4,8 @@
 Run from the repository root:
 
     python3 scripts/torch_port_profile.py [--domain chem|bio]
-        [--objective masking|edgepred] [--gnn_type gin|gcn|graphsage]
+        [--objective masking|edgepred] [--gnn_type gin|gcn|gat|graphsage]
+        [--gat_fused on|off]
 
 Configurations (float32, 5 x 300, batch 256), the workloads of
 chip_smoke.py's main paths:
@@ -13,7 +14,9 @@ chip_smoke.py's main paths:
   - bio: synthetic ego-networks (``bio_dataset(4096, seed=0)``, about 60
     nodes on average);
   - masking (default) or edge prediction, whose batches carry the C++
-    sampler's block-aligned negative pairs.
+    sampler's block-aligned negative pairs;
+  - with ``--gnn_type gat``, ``--gat_fused off`` takes the unfused GATConv
+    (the blocked GAT attention K5) instead of the fused GAT conv K4.
 It prints, for the card named on its first line:
   - host: ms to pack one batch and apply its transform (masking or
     negative sampling; the loader, on one thread), and the transform's
@@ -51,6 +54,7 @@ from pretrain_gnns_tpu_torch.data.synthetic import (  # noqa: E402
     bio_dataset, molecule_dataset,
 )
 from pretrain_gnns_tpu_torch.device import resolve_device  # noqa: E402
+from pretrain_gnns_tpu_torch.ops import gat_conv  # noqa: E402
 from pretrain_gnns_tpu_torch.train import optim, pretrain  # noqa: E402
 from pretrain_gnns_tpu_torch.train.state import TrainState  # noqa: E402
 
@@ -86,11 +90,15 @@ def run_main_path(cfg, graphs, prof=None):
             sum(h["edges"] for h in hist))
 
 
-# name fragments of the port's own kernels (csrc/*.cu); both K1 and K2
-# sum their per-block partials with a kernel of the same name
-OWN_KERNELS = {"K1": ("gin_aggr_", "::gemm_kernel", "colsum_partial_"),
+# name fragments of the port's own kernels (csrc/*.cu); K1 and K4 share
+# the GEMM and the column sums of gemm.cuh, and K1, K2 and K4 sum their
+# per-block partials with a kernel of the same name
+OWN_KERNELS = {"K1 aggregation": ("gin_aggr_",),
+               "GEMM and column sums (K1, K4)": ("::gemm_kernel",
+                                                 "colsum_partial_"),
                "K2": ("spmm_fwd_kernel", "spmm_bwd_kernel"),
-               "K3": ("edot_",), "partial sums (K1, K2)": ("sum_partials_",)}
+               "K3": ("edot_",), "K4/K5 attention": ("gat_",),
+               "partial sums (K1, K2, K4)": ("sum_partials_",)}
 
 
 def workload(domain: str, objective: str, gnn_type: str):
@@ -110,11 +118,14 @@ def main() -> int:
     p.add_argument("--objective", default="masking",
                    choices=["masking", "edgepred"])
     p.add_argument("--gnn_type", default="gin",
-                   choices=["gin", "gcn", "graphsage"])
+                   choices=["gin", "gcn", "gat", "graphsage"])
+    p.add_argument("--gat_fused", default="on", choices=["on", "off"])
     args = p.parse_args()
+    gat_conv.set_fused(args.gat_fused)
     dev = resolve_device("cuda")
     graphs, cfg = workload(args.domain, args.objective, args.gnn_type)
-    path = f"{args.domain} {args.objective} {args.gnn_type}"
+    path = (f"{args.domain} {args.objective} {args.gnn_type}"
+            + " unfused" * (args.gat_fused == "off"))
     loader = pretrain.build_loader(cfg, graphs, dev)
 
     # host: pack + transform, one thread; then the transform alone

@@ -273,7 +273,8 @@ def test_state_dict_from_jax_matches_bio_trunk_export(batches):
 
 def test_unported_bio_options_raise():
     with pytest.raises(NotImplementedError):
-        tbio.GNN(num_layer=2, emb_dim=16, gnn_type="gat")
+        tpretrain.build_objective(
+            tpretrain.PretrainConfig(domain="bio", objective="infomax"))
     with pytest.raises(NotImplementedError):
         tbio.GNN(num_layer=2, emb_dim=16, drop_ratio=0.5)
     with pytest.raises(ValueError, match="JK"):

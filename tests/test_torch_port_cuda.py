@@ -18,7 +18,9 @@ from pretrain_gnns_tpu_torch.data.synthetic import (
     bio_dataset, molecule_dataset,
 )
 from pretrain_gnns_tpu_torch.models import bio, chem
-from pretrain_gnns_tpu_torch.ops import blocked_spmm, edge_dot, gin_conv, spmm
+from pretrain_gnns_tpu_torch.ops import (
+    attention, blocked_spmm, edge_dot, gat_conv, gin_conv, spmm,
+)
 from pretrain_gnns_tpu_torch.train import pretrain
 
 # max |kernel - plain| / max(1, max |plain|): full f32 on both sides, only
@@ -30,8 +32,8 @@ DIFF = ("x", "We", "e_self", "W1", "b1", "W2", "b2")
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the gin_conv, blocked_spmm and "
-                    "edge_dot kernels run only on the card")
+        pytest.skip("needs a CUDA device: the gin_conv, blocked_spmm, "
+                    "edge_dot and gat kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -386,6 +388,240 @@ def test_edgepred_step_on_card_matches_cpu(cuda_device, domain, gnn_type):
                           model.named_parameters()})
     assert edge_dot.launches == {k: v + 2 for k, v in before.items()}
     assert np.isclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for n, gc in out["cuda"][1].items():
+        assert torch.isfinite(gc).all(), n
+        assert _rel(gc, out["cpu"][1][n]) <= 1e-3, n
+
+
+GAT_DIFF = ("h", "Wl", "bl", "We", "e_self", "a_i", "a_j", "bias")
+GAT_GRADS = ("dh", "dWl", "dbl", "dWe", "de_self", "da_i", "da_j", "dbias")
+H = 2
+
+
+def _gat_case(dev, domain, D, block_nodes, block_edges, n_graphs=24, seed=0):
+    """A blocked batch whose last two blocks are all padding, and the
+    inputs of K4 (h, Wl as a transposed view, ein, We, ...) from which K5's
+    x and e follow. Chem: bond one-hots, K = 9; bio: [edge_feat | 1],
+    K = 10."""
+    if domain == "bio":
+        graphs = bio_dataset(n_graphs, seed=seed)
+        extra = {"center_node_idx": n_graphs}
+    else:
+        graphs, extra = molecule_dataset(n_graphs, seed=seed,
+                                         mean_atoms=20)[0], None
+    n_blocks, bn, be = block_layout(graphs, n_graphs, block_nodes,
+                                    block_edges)
+    b = next(iter(PackedLoader(graphs, n_graphs, shuffle=False,
+                               blocks=(n_blocks + 2, bn, be),
+                               extra_pad=extra))).to(dev)
+    assert not b.node_mask.reshape(-1, bn)[-1].any()
+    assert b.edge_mask.any() and not b.edge_mask.all()
+    ein = (bio.edge_inputs(b, torch.float32) if domain == "bio"
+           else chem.bond_one_hot(b, torch.float32))
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(dev)
+    N, K = b.max_nodes, ein.shape[1]
+    t = dict(h=r(N, D) * b.node_mask[:, None],
+             Wl=r(H * D, D, scale=D ** -0.5).t(), bl=r(H * D, scale=0.1),
+             We=r(K, H * D, scale=0.5), e_self=r(H, D, scale=0.5),
+             a_i=r(H, D, scale=D ** -0.5), a_j=r(H, D, scale=D ** -0.5),
+             bias=r(D, scale=0.1), g=r(N, D), g3=r(N, H, D))
+    return t, ein, b, bn, be
+
+
+def _graph(b):
+    return b.senders, b.receivers, b.edge_mask.float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain", ["chem", "bio"])
+@pytest.mark.parametrize("D,bn,be", [(45, 128, 384), (300, 512, 1536)])
+def test_k4_kernels_match_plain_version(cuda_device, domain, D, bn, be):
+    """K4's forward (out and the saved x) and all eight gradients at an odd
+    width and at blocks of 512 nodes (above 48 KB of shared memory), with
+    all-padding blocks: nothing is NaN, padded rows get (bl + e_self) head
+    averaged + bias, and every output is the same bits from run to run."""
+    t, ein, b, bn_, be_ = _gat_case(cuda_device, domain, D, bn, be)
+    assert (bn_, be_) == (bn, be)
+    before = dict(gat_conv.launches)
+    run = lambda: gat_conv.gat_conv_fwd(
+        t["h"], t["Wl"], t["bl"], ein, t["We"], t["e_self"], t["a_i"],
+        t["a_j"], t["bias"], *_graph(b), bn, be)
+    out, x, saved = run()
+    back = lambda: gat_conv.gat_conv_bwd(
+        t["g"], t["h"], t["Wl"], x, ein, t["We"], t["e_self"], t["a_i"],
+        t["a_j"], *_graph(b), saved, bn, be)
+    grads = back()
+    torch.cuda.synchronize()
+    assert gat_conv.launches == {k: v + 1 for k, v in before.items()}
+    leaves = [t[k].detach().clone().requires_grad_(True) for k in GAT_DIFF]
+    lh, lWl, lbl, lWe, les, lai, laj, lbias = leaves
+    out_p, x_p = gat_conv.fused_gat_conv_plain(
+        lh, lWl, lbl, ein, lWe, les, lai, laj, lbias, *_graph(b), H,
+        return_residuals=True)
+    grads_p = torch.autograd.grad(out_p, leaves, t["g"])
+    assert torch.isfinite(out).all()
+    assert _rel(out, out_p.detach()) <= FWD_TOL
+    assert _rel(x, x_p.detach()) <= FWD_TOL
+    pad = (t["bl"].reshape(H, D) + t["e_self"]).mean(0) + t["bias"]
+    assert _rel(out[~b.node_mask], pad.expand(int((~b.node_mask).sum()), D)) \
+        <= FWD_TOL
+    alpha = saved[0]
+    assert not alpha[~b.edge_mask].any()
+    for name, a, p in zip(GAT_GRADS, grads, grads_p):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, p) <= GRAD_TOL, name
+    out2, x2, _ = run()
+    assert torch.equal(out, out2) and torch.equal(x, x2)
+    for name, a, a2 in zip(GAT_GRADS, grads, back()):
+        assert torch.equal(a, a2), name
+
+
+def _k5_inputs(t, ein, D):
+    """x and e as the unfused GATConv forms them."""
+    x = (t["h"] @ t["Wl"] + t["bl"]).reshape(-1, H, D).contiguous()
+    e = (ein @ t["We"]).reshape(-1, H, D).contiguous()
+    return x, e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain", ["chem", "bio"])
+@pytest.mark.parametrize("D,bn,be", [(45, 128, 384), (300, 512, 1536)])
+def test_k5_kernels_match_plain_version(cuda_device, domain, D, bn, be):
+    """K5's forward and its five gradients, as above; a padded slot's de
+    row is exactly 0."""
+    t, ein, b, bn_, be_ = _gat_case(cuda_device, domain, D, bn, be, seed=1)
+    x, e = _k5_inputs(t, ein, D)
+    par = (t["e_self"], t["a_i"], t["a_j"])
+    before = dict(attention.launches)
+    out, saved = attention.gat_attn_fwd(x, e, *par, *_graph(b), 0.2, bn, be)
+    back = lambda: attention.gat_attn_bwd(t["g3"], x, e, *par, *_graph(b),
+                                          saved, 0.2, bn, be)
+    grads = back()
+    torch.cuda.synchronize()
+    assert attention.launches == {k: v + 1 for k, v in before.items()}
+    leaves = [v.detach().clone().requires_grad_(True) for v in (x, e, *par)]
+    out_p = attention.blocked_gat_attention_plain(*leaves, *_graph(b), 0.2)
+    grads_p = torch.autograd.grad(out_p, leaves, t["g3"])
+    assert torch.isfinite(out).all()
+    assert _rel(out, out_p.detach()) <= FWD_TOL
+    for name, a, p in zip(("dx", "de", "de_self", "da_i", "da_j"), grads,
+                          grads_p):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, p) <= GRAD_TOL, name
+    assert not grads[1][~b.edge_mask].any()
+    for a, a2 in zip(grads, back()):
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", ["on", "off"])
+def test_gat_autograd_functions_and_dispatch(cuda_device, fused):
+    """Through ``fused_gat_conv`` (K4) or ``gat_attention`` (K5) and
+    autograd, ``a_i`` and ``a_j`` as slices of one ``att``, with a
+    non-contiguous cotangent, against the plain version; ``ein``/``w`` get
+    zero gradients; an unblocked batch on CUDA raises and launches
+    nothing."""
+    D = 40
+    t, ein, b, bn, be = _gat_case(cuda_device, "chem", D, 128, 384, seed=2)
+    att = torch.cat([t["a_i"], t["a_j"]], dim=1)[None]  # [1, H, 2D]
+    g = torch.stack([t["g"], -t["g"]], dim=2)[:, :, 0]
+    assert not g.is_contiguous()
+    mod = gat_conv if fused == "on" else attention
+    before = dict(mod.launches)
+
+    def run(on_card):
+        lv = {k: t[k].detach().clone().requires_grad_(True)
+              for k in ("h", "Wl", "bl", "We", "e_self", "bias")}
+        lv["att"] = att.detach().clone().requires_grad_(True)
+        lv["w"] = b.edge_mask.float().requires_grad_(True)
+        lv["ein"] = ein.detach().clone().requires_grad_(True)
+        a_i, a_j = lv["att"][0, :, :D], lv["att"][0, :, D:]
+        if fused == "on":
+            fn = (gat_conv.fused_gat_conv if on_card
+                  else gat_conv.fused_gat_conv_plain)
+            out = fn(lv["h"], lv["Wl"], lv["bl"], lv["ein"], lv["We"],
+                     lv["e_self"], a_i, a_j, lv["bias"], b.senders,
+                     b.receivers, lv["w"], H, bn, be)
+        else:
+            x = (lv["h"] @ lv["Wl"] + lv["bl"]).reshape(-1, H, D)
+            e = (lv["ein"] @ lv["We"]).reshape(-1, H, D)
+            if on_card:
+                out = attention.blocked_gat_attention(
+                    x, e, lv["e_self"], a_i, a_j, b.senders, b.receivers,
+                    lv["w"], 0.2, bn, be)
+            else:
+                out = attention.blocked_gat_attention_plain(
+                    x, e, lv["e_self"], a_i, a_j, b.senders, b.receivers,
+                    lv["w"], 0.2)
+            out = out.mean(1) + lv["bias"]
+        out.backward(g)
+        return out.detach(), {k: v.grad for k, v in lv.items()}
+
+    out, grads = run(True)
+    assert mod.launches == {k: v + 1 for k, v in before.items()}
+    out_p, grads_p = run(False)
+    assert _rel(out, out_p) <= FWD_TOL
+    assert not grads["w"].any()
+    if fused == "on":
+        assert not grads["ein"].any()
+    for k in ("h", "Wl", "bl", "We", "e_self", "bias", "att"):
+        assert _rel(grads[k], grads_p[k]) <= GRAD_TOL, k
+
+    x, e = _k5_inputs(t, ein, D)
+    launched = dict(mod.launches)
+    with pytest.raises(ValueError, match="block-diagonal"):
+        if fused == "on":
+            gat_conv.fused_gat_conv(
+                t["h"], t["Wl"], t["bl"], ein, t["We"], t["e_self"],
+                t["a_i"], t["a_j"], t["bias"], *_graph(b), H, 0, 0)
+        else:
+            attention.gat_attention(x, e, t["e_self"], t["a_i"][None],
+                                    t["a_j"][None], b.senders, b.receivers,
+                                    b.edge_mask, b.max_nodes)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.gat_attn_fwd(x.transpose(0, 1).contiguous().transpose(0, 1),
+                               e, t["e_self"], t["a_i"], t["a_j"],
+                               *_graph(b), 0.2, bn, be)
+    assert mod.launches == launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain,fused", [("chem", "on"), ("chem", "off"),
+                                          ("bio", "on"), ("bio", "off")])
+def test_gat_masking_step_on_card_matches_cpu(cuda_device, domain, fused):
+    """One train-mode step of a small GAT masking model: card (K4, or K5
+    under set_fused("off")) vs CPU; an unblocked batch on CUDA raises."""
+    graphs = (bio_dataset(64, seed=2) if domain == "bio"
+              else molecule_dataset(64, seed=2)[0])
+    cfg = pretrain.PretrainConfig(domain=domain, gnn_type="gat", num_layer=3,
+                                  emb_dim=48, batch_size=32,
+                                  packing="blocked")
+    batch = next(iter(pretrain.build_loader(cfg, graphs, cuda_device)))
+    mod = gat_conv if fused == "on" else attention
+    before = dict(mod.launches)
+    gat_conv.set_fused(fused)
+    try:
+        out = {}
+        for dev in (cuda_device, torch.device("cpu")):
+            model = pretrain.build_objective(cfg).to(dev)
+            loss, _ = model(batch.to(dev), train=True)
+            loss.backward()
+            out[dev.type] = (float(loss.detach()),
+                             {n: p.grad.cpu() for n, p in
+                              model.named_parameters()})
+        assert mod.launches == {k: v + 3 for k, v in before.items()}
+        std = pretrain.PretrainConfig(domain=domain, gnn_type="gat",
+                                      num_layer=3, emb_dim=48, batch_size=32,
+                                      packing="standard")
+        flat = next(iter(pretrain.build_loader(std, graphs, cuda_device)))
+        with pytest.raises(ValueError, match="block-diagonal"):
+            model = pretrain.build_objective(std).to(cuda_device)
+            model(flat.to(cuda_device), train=True)
+    finally:
+        gat_conv.set_fused("on")
+    assert np.isclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    assert any("att" in n for n in out["cuda"][1])
     for n, gc in out["cuda"][1].items():
         assert torch.isfinite(gc).all(), n
         assert _rel(gc, out["cpu"][1][n]) <= 1e-3, n

@@ -44,6 +44,8 @@ def test_no_forbidden_imports_in_sources():
     assert {"pretrain_gnns_tpu_torch/native/__init__.py",
             "pretrain_gnns_tpu_torch/ops/edge_dot.py",
             "pretrain_gnns_tpu_torch/objectives/edgepred.py",
+            "pretrain_gnns_tpu_torch/ops/attention.py",
+            "pretrain_gnns_tpu_torch/ops/gat_conv.py",
             "chip_smoke.py"} <= scanned
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN)
            for p in files}
@@ -91,7 +93,7 @@ def test_standard_packing_and_unported_options():
         GNN(num_layer=2, emb_dim=16, drop_ratio=0.5)
     with pytest.raises(NotImplementedError):
         pretrain.build_objective(
-            pretrain.PretrainConfig(domain="bio", gnn_type="gat"))
+            pretrain.PretrainConfig(domain="bio", objective="supervised"))
 
 
 def test_cli_trains_one_epoch_on_cpu(tmp_path):
@@ -108,7 +110,7 @@ def test_cli_trains_one_epoch_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--objective", "infomax"],
-                                   ["--domain", "bio", "--gnn_type", "gat"],
+                                   ["--domain", "bio", "--objective", "supervised"],
                                    ["--dataset", "bbbp"],
                                    ["--objective", "edgepred",
                                     "--dropout_ratio", "0.5"]])

@@ -80,7 +80,38 @@ Phases, in order (any failure exits non-zero):
   16. two short GAT paths of 16 steps at full width: bio masking (K4 at
      K = 10, 160 blocks) and chem edge prediction with
      ``gat_conv.set_fused("off")`` (K5 at 5 a step in each direction, K3
-     at 2, K4 at 0).
+     at 2, K4 at 0);
+  17. probe phase (run right after phase 2): the build-and-launch probe P
+     must have been launched exactly once by then, by the first kernel
+     library that was loaded; its kernel is held against ``2 * x`` on
+     ``[8, 300]`` exactly and timed;
+  18. precomputed-edge-embedding phase: on the chem and the bio masking
+     first batch (F = 300, float32, fractional and negative edge weights)
+     the blocked SpMM K6 (forward with and without ``ee``; backward ``dx``
+     and ``dee``, each also alone) and its receiver-sorted variant K7
+     (after ``sort_block_edges``) are held against their plain versions
+     and K7 against K6 on the unsorted edges: padded rows and slots
+     exactly 0, every output equal bit for bit between two runs; timed (K7
+     with and without the sort) beside the plain version,
+     ``torch.sparse.mm`` for the ``x`` term (the whole function only
+     without ``ee``) and the bound;
+  19. the op-level path of K6: ``ops.spmm.gather_scatter(..., edge_emb=
+     ...)`` in its add and concat forms and ``blocked_spmm`` without an
+     edge embedding, forward and backward on the card, against the plain
+     path, with every launch count checked (add: K6 ``[x+ee]`` once each
+     way; concat: K2 ``[x]`` and K6 ``[x+ee]`` once each way);
+  20. the kernel micro-benchmark ``scripts/torch_port_kernel_micro.py``
+     (K7's path), run at a reduced number of trials, with K7's, K6's,
+     K2's and K5's counts read after it;
+  21. supervised agreement: one train-mode step (dropout 0) at full width,
+     card vs CPU, for chem (1,310 tasks) and bio (5,000 tasks), mean
+     pooling, at the masking steps' limits;
+  22. supervised main path: ``run_pretrain(objective="supervised")`` on
+     ``cuda`` at full width (chem GIN 5 x 300, batch 256, mean pooling,
+     dropout 0.2, 1,310 tasks) for 48 steps: K1 at 5 a step in each
+     direction, the probe once (the libraries are loaded anew for this
+     run), every other count 0; then 16 steps of the bio supervised path
+     (5,000 tasks; K2's ``[x]`` and ``[ein]`` at 5 a step).
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` and
 ``launches_per_step`` from the path that runs it at the entry's ``shape``), the card line and, last, the result line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -113,6 +144,8 @@ K3 = {"blocked_edge_dot_fwd": 2, "blocked_edge_dot_bwd": 2}  # both heads
 K4 = {"gat_conv_fwd": LAYERS, "gat_conv_bwd": LAYERS}
 K5 = {"blocked_gat_attention_fwd": LAYERS,
       "blocked_gat_attention_bwd": LAYERS}
+CHEM_TASKS = 1310  # the reference's ChEMBL task count
+BIO_TASKS = 5000  # the reference's coarse GO terms
 WARMUP, TRIALS, REPS = 5, 20, 10
 SPIN_CYCLES = 3_500_000  # about 2 ms of the card's clock, see time_ms
 
@@ -125,7 +158,8 @@ PEAK_BYTES_PER_S = 3.35e12
 # FMA GEMMs vs cuBLAS, shared-memory atomics vs index_add_ atomics, per-
 # block partials summed in block order, a warp's shuffle tree vs a row
 # reduction, a segment softmax walked in slot order vs scatter_reduce and
-# index_add_). The same for K1 to K5.
+# index_add_). The same for K1 to K7; every output of K6 and K7 is held to
+# FWD_TOL (their sums have a few terms, and dmsg is one product).
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
 # One full-width train step, card (kernels) vs CPU (plain version): five
@@ -410,14 +444,30 @@ def _agreement(torch, batch, cfg, referee, name):
                              "the CPU reference")
 
 
+def counted_modules():
+    """Every module of the port that holds a ``launches`` dict."""
+    from pretrain_gnns_tpu_torch.ops import (
+        _build, attention, blocked_spmm, edge_dot, gat_conv, gin_conv,
+        sorted_spmm,
+    )
+
+    return (gin_conv, blocked_spmm, edge_dot, gat_conv, attention,
+            sorted_spmm, _build)
+
+
+def read_counts(modules):
+    return {k: v for m in modules for k, v in m.launches.items()}
+
+
 def main_path_phase(torch, graphs, cfg, card, per_step,
-                    epochs=MAIN_EPOCHS, gat_fused="on"):
+                    epochs=MAIN_EPOCHS, gat_fused="on", reprobe=False):
     """``run_pretrain`` on the card; every launch count is set to 0 just
     before and read just after. ``per_step`` gives the launches a step of
-    each counter that must move; every other count must stay 0."""
-    from pretrain_gnns_tpu_torch.ops import (
-        attention, blocked_spmm, edge_dot, gat_conv, gin_conv,
-    )
+    each counter that must move; every other count must stay 0. With
+    ``reprobe`` the probe's answer and the GIN library's handle are
+    forgotten first, so the run's first kernel launch must load the
+    library anew and launch the probe: exactly once in the run."""
+    from pretrain_gnns_tpu_torch.ops import _build, gin_conv
     from pretrain_gnns_tpu_torch.train import pretrain
 
     name = path_name(cfg, gat_fused)
@@ -429,17 +479,21 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
         if msg.startswith("epoch="):
             stamps.append(time.perf_counter())
 
-    modules = (gin_conv, blocked_spmm, edge_dot, gat_conv, attention)
+    modules = counted_modules()
     torch.cuda.reset_peak_memory_stats()
+    if reprobe:
+        _build.probe.cache_clear()
+        gin_conv._lib.cache_clear()
     with gat_fused_as(gat_fused):
         for m in modules:
             m.reset_launches()
         res = pretrain.run_pretrain(cfg, graphs, log=log, epochs=epochs,
                                     device="cuda")
-        counts = {k: v for m in modules for k, v in m.launches.items()}
+        counts = read_counts(modules)
     hist = res["history"]
     steps = sum(h["steps"] for h in hist)
     want = {k: per_step.get(k, 0) * steps for k in counts}
+    want["probe_scale2"] = int(reprobe)
     if counts != want or not steps or set(per_step) - set(counts):
         raise AssertionError(f"{name} path launches {counts} != "
                              f"{want} ({per_step} x {steps} steps)")
@@ -452,7 +506,7 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
                 f"epochs 2-{epochs} ({sum(h['steps'] for h in hist[1:])} "
                 "steps, float32); ")
     print(f"{tag} {steps} steps, launches "
-          f"{ {k: counts[k] for k in per_step} }; {rate}on {card}; peak "
+          f"{ {k: v for k, v in counts.items() if v} }; {rate}on {card}; peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
           "MiB", flush=True)
     return counts, steps
@@ -465,7 +519,8 @@ def record_launches(entries, counts_steps, names=None):
     for k in entries:
         if names is None or k["name"] in names:
             k["launches"] = counts[k["name"]]
-            k["launches_per_step"] = counts[k["name"]] // steps
+            if steps:
+                k["launches_per_step"] = counts[k["name"]] // steps
 
 
 def k2_phase(torch, batch, ein, W, w, variants, shape):
@@ -928,6 +983,310 @@ def gat_entries(chem, bio, chem_shape):
     return entries
 
 
+def probe_phase(torch):
+    """P: launched exactly once so far (by the first library load), held
+    against ``2 * x`` exactly at its own shape, and timed."""
+    from pretrain_gnns_tpu_torch.ops import _build
+
+    if _build.launches["probe_scale2"] != 1 or _build.probe() is not True:
+        raise AssertionError("the probe was not launched exactly once by "
+                             f"the first kernel load: {_build.launches}")
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(*_build.PROBE_SHAPE, generator=gen).to("cuda")
+    out, want = _build.probe_scale2(x), _build.probe_scale2_plain(x)
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise AssertionError("the probe kernel disagrees with 2 * x")
+    ms = time_ms(lambda: _build.probe_scale2(x), torch)
+    plain_ms = time_ms(lambda: _build.probe_scale2_plain(x), torch)
+    lib_ms = time_ms(lambda: torch.mul(x, 2.0), torch)
+    b_ms, by = bound(x.numel(), 2 * nbytes(x))
+    print(f"[kernels] P probe_scale2 at {tuple(x.shape)}: equal to 2 * x; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.mul "
+          f"{lib_ms:.4f} ms, bound {b_ms:.2e} ms ({by}): launch latency",
+          flush=True)
+    return [dict(
+        name="probe_scale2", route="cuda",
+        source="pretrain_gnns_tpu_torch/csrc/probe.cu",
+        replaces="pretrain_gnns_tpu/ops/pallas_spmm.py:76",
+        tpu_counterpart="ops/pallas_spmm.py::_nopad_ok (the lowering probe)",
+        max_abs_err=float((out - want).abs().max()), ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=by, library_ms=lib_ms, library="torch.mul",
+        shape="[8, 300] float32, the TPU probe's")]
+
+
+def spmm_ee_phase(torch, batch, tag):
+    """K6 and K7 against their plain versions on a path's first batch,
+    with a random edge embedding and fractional, partly negative edge
+    weights. Returns ``{kernel name: dict}`` with the measured times,
+    errors and bounds; ``sorted_blocked_spmm_fwd`` also carries the time
+    with the sort inside."""
+    from pretrain_gnns_tpu_torch.ops import blocked_spmm as bs
+    from pretrain_gnns_tpu_torch.ops import sorted_spmm as ss
+
+    dev = batch.node_mask.device
+    gen = torch.Generator().manual_seed(6)
+    N, E, F = batch.max_nodes, batch.max_edges, EMB
+    bn, be = batch.block_nodes, batch.block_edges
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    x = rnd(N, F) * batch.node_mask[:, None]
+    ee, g = rnd(E, F), rnd(N, F)
+    valid = batch.edge_mask
+    w = valid.to(torch.float32) * (torch.rand(E, generator=gen) * 2
+                                   - 0.5).to(dev)
+    snd, rcv = batch.senders, batch.receivers
+    edges = (snd, rcv, w, bn, be)
+    e_valid = int(valid.sum())
+    n_snd = int(torch.unique(snd[valid]).numel())
+    n_rcv = int(torch.unique(rcv[valid]).numel())
+    pad_rows, pad_slots = ~batch.node_mask, ~valid
+
+    # the library's yardstick covers the x term only: out = A x, dx = A^T g
+    pairs = torch.stack([rcv[valid].long(), snd[valid].long()])
+    csr = {name: torch.sparse_coo_tensor(idx, w[valid], (N, N))
+           .coalesce().to_sparse_csr()
+           for name, idx in (("A", pairs), ("At", pairs.flip(0)))}
+    lib_fwd_ms = time_ms(lambda: torch.sparse.mm(csr["A"], x), torch)
+    lib_bwd_ms = time_ms(lambda: torch.sparse.mm(csr["At"], g), torch)
+
+    results = {}
+    for has_ee in (True, False):
+        v = bs.ee_variant(has_ee)
+        e_in = ee if has_ee else None
+        fwd = lambda: bs.spmm_ee_fwd(x, e_in, *edges)
+        bwd = lambda: bs.spmm_ee_bwd(g, *edges, has_ee, True, has_ee)
+        with torch.no_grad():
+            out, (dx, dmsg) = fwd(), bwd()
+            out2, (dx2, dmsg2) = fwd(), bwd()
+            dx_alone = bs.spmm_ee_bwd(g, *edges, has_ee, True, False)[0]
+        torch.cuda.synchronize()
+        xl = x.detach().clone().requires_grad_(True)
+        el = ee.detach().clone().requires_grad_(True)
+        out_p = bs.blocked_spmm_plain(xl, el if has_ee else None, *edges)
+        leaves = [xl, el] if has_ee else [xl]
+        grads_p = torch.autograd.grad(out_p, leaves, g, retain_graph=True)
+        grads_k = [dx, dmsg] if has_ee else [dx]
+        errs = {"out": rel_err(out, out_p.detach()),
+                **{n: rel_err(a, b) for n, a, b in
+                   zip(("dx", "dee"), grads_k, grads_p)}}
+        zeros = [out[pad_rows], dx[pad_rows]] + (
+            [dmsg[pad_slots]] if has_ee else [])
+        same = (torch.equal(out, out2) and torch.equal(dx, dx2)
+                and torch.equal(dx, dx_alone)
+                and (not has_ee or torch.equal(dmsg, dmsg2)))
+        print(f"[kernels] K6[{v}] {tag}: rel err {errs}; padded rows and "
+              f"slots max {max(float(z.abs().max()) for z in zeros):.1e}; "
+              f"equal bits in two runs: {same}", flush=True)
+        if (not all(e <= FWD_TOL for e in errs.values())
+                or any(z.any() for z in zeros) or not same):
+            raise AssertionError(f"K6[{v}] {tag} disagrees with its plain "
+                                 "version")
+        plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            out_p, leaves, g, retain_graph=True), torch)
+        with torch.no_grad():
+            fwd_ms, bwd_ms = time_ms(fwd, torch), time_ms(bwd, torch)
+            plain_fwd_ms = time_ms(
+                lambda: bs.blocked_spmm_plain(x, e_in, *edges), torch)
+        # The bound counts what the function needs on this batch: each x
+        # (or g) row a valid edge reads once, the valid edges' index,
+        # weight and ee entries, and every output once at full size
+        # (dmsg has a row for every slot).
+        row = F * 4
+        fwd_b = bound(e_valid * F * (2 + has_ee),
+                      n_snd * row + e_valid * (12 + row * has_ee)
+                      + nbytes(out))
+        bwd_b = bound(e_valid * F * 2,
+                      n_rcv * row + e_valid * 12 + nbytes(*grads_k))
+        library = ("torch.sparse.mm, CSR adjacency of w" if not has_ee else
+                   "partial: torch.sparse.mm covers the x term only, no "
+                   "single call adds ee or writes dee")
+        for d, ms, pms, (b_ms, by), lms, err in (
+                ("fwd", fwd_ms, plain_fwd_ms, fwd_b, lib_fwd_ms,
+                 float((out - out_p.detach()).abs().max())),
+                ("bwd", bwd_ms, plain_bwd_ms, bwd_b, lib_bwd_ms,
+                 max(float((a - b).abs().max())
+                     for a, b in zip(grads_k, grads_p)))):
+            results[f"blocked_spmm_ee_{d}[{v}]"] = dict(
+                ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
+                library_ms=lms, library=library, max_abs_err=err)
+        if has_ee:
+            k6_out, k6_fwd_b = out, fwd_b
+
+    # K7 on the per-block sorted edges, against its plain version and
+    # against K6 on the unsorted ones
+    n_blocks = N // bn
+    sort = lambda: ss.sort_block_edges(snd, rcv, w, ee, n_blocks, be)
+    s2, r2, w2, ee2 = sort()
+    k7 = lambda: ss.sorted_blocked_spmm(x, ee2, s2, r2, w2, bn, be)
+
+    def k7_with_sort():
+        a, b, c, d = sort()
+        return ss.sorted_blocked_spmm(x, d, a, b, c, bn, be)
+
+    with torch.no_grad():
+        out7, out7_2, out7_s = k7(), k7(), k7_with_sort()
+        want7 = ss.sorted_blocked_spmm_plain(x, ee2, s2, r2, w2, bn, be)
+    torch.cuda.synchronize()
+    errs = {"plain": rel_err(out7, want7), "K6": rel_err(out7, k6_out)}
+    same = torch.equal(out7, out7_2) and torch.equal(out7, out7_s)
+    print(f"[kernels] K7 {tag}: rel err vs {errs}; padded rows max "
+          f"{float(out7[pad_rows].abs().max()):.1e}; equal bits in two "
+          f"runs: {same}", flush=True)
+    if (not all(e <= FWD_TOL for e in errs.values())
+            or out7[pad_rows].any() or not same):
+        raise AssertionError(f"K7 {tag} disagrees with its plain version "
+                             "or with K6")
+    with torch.no_grad():
+        results["sorted_blocked_spmm_fwd"] = dict(
+            ms=time_ms(k7, torch), with_sort_ms=time_ms(k7_with_sort, torch),
+            plain_ms=time_ms(lambda: ss.sorted_blocked_spmm_plain(
+                x, ee2, s2, r2, w2, bn, be), torch),
+            bound_ms=k6_fwd_b[0], bound_by=k6_fwd_b[1],
+            library_ms=lib_fwd_ms,
+            library="partial: torch.sparse.mm covers the x term only",
+            max_abs_err=float((out7 - want7).abs().max()))
+    print(f"[kernels] K6 and K7 at the {tag}: N={N} F={F} E={E} valid_edges="
+          f"{e_valid} senders={n_snd} receivers={n_rcv}", flush=True)
+    for name, r in results.items():
+        extra = (f" ({r['with_sort_ms']:.4f} ms with sort_block_edges)"
+                 if "with_sort_ms" in r else "")
+        print(f"[kernels] {name} {tag}: kernel {r['ms']:.4f} ms{extra}, "
+              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+              f"ms ({r['library'].split(':')[0]}), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return results
+
+
+def spmm_ee_entries(chem, bio):
+    """The ``kernels`` entries of K6 and K7, with the times at the chem
+    masking first batch under the contract's keys and the bio batch
+    beside them."""
+    where = {"fwd": (195, "_fwd_kernel via _call_fwd (blocked_spmm)"),
+             "bwd": (217, "_bwd_kernel via _call_bwd (blocked_spmm)")}
+    entries = []
+    for name in chem:
+        if name == "sorted_blocked_spmm_fwd":
+            replaces = "pretrain_gnns_tpu/ops/pallas_spmm_sorted.py:160"
+            body = ("ops/pallas_spmm_sorted.py::_sorted_fwd_kernel via "
+                    "sorted_blocked_spmm")
+        else:
+            line, fn = where[name.split("_")[3][:3]]
+            replaces = f"pretrain_gnns_tpu/ops/pallas_spmm.py:{line}"
+            body = f"ops/pallas_spmm.py::{fn}"
+        entries.append(dict(
+            name=name, route="cuda",
+            source="pretrain_gnns_tpu_torch/csrc/spmm_ee.cu",
+            replaces=replaces, tpu_counterpart=body, **chem[name],
+            shape="chem masking first batch, random edge embedding and "
+                  "fractional edge weights",
+            other_shapes={"bio masking first batch": bio[name]}))
+    return entries
+
+
+def edge_emb_path_phase(torch, batch):
+    """K6's path: the op-level API. ``gather_scatter`` with a precomputed
+    edge embedding in its add and concat forms, and ``blocked_spmm``
+    without one, forward and backward on the card; every launch count is
+    set to 0 just before and read just after, and each result is held
+    against the plain path."""
+    from pretrain_gnns_tpu_torch.ops import blocked_spmm as bs
+    from pretrain_gnns_tpu_torch.ops import spmm
+
+    dev = batch.node_mask.device
+    gen = torch.Generator().manual_seed(7)
+    N, E, F = batch.max_nodes, batch.max_edges, EMB
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    x0 = rnd(N, F) * batch.node_mask[:, None]
+    ee0 = rnd(E, F)
+    ew = torch.rand(E, generator=gen).to(dev) + 0.5
+    graph = (batch.senders, batch.receivers, batch.edge_mask, N)
+    layout = dict(block_nodes=batch.block_nodes,
+                  block_edges=batch.block_edges)
+
+    def run(fn):
+        x = x0.clone().requires_grad_(True)
+        ee = ee0.clone().requires_grad_(True)
+        out = fn(x, ee)
+        g = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            8)).to(dev)
+        out.backward(g)
+        return [out.detach(), x.grad] + ([] if ee.grad is None
+                                         else [ee.grad])
+
+    w = batch.edge_mask.to(torch.float32) * ew
+    # (on the card through the entry point, the plain path)
+    forms = {
+        "add": (
+            lambda x, ee: spmm.gather_scatter(
+                x, *graph, edge_emb=ee, combine="add", edge_weight=ew,
+                **layout),
+            lambda x, ee: spmm.gather_scatter_plain(
+                x, *graph, edge_emb=ee, combine="add", edge_weight=ew)),
+        "concat": (
+            lambda x, ee: spmm.gather_scatter(
+                x, *graph, edge_emb=ee, combine="concat", edge_weight=ew,
+                **layout),
+            lambda x, ee: spmm.gather_scatter_plain(
+                x, *graph, edge_emb=ee, combine="concat", edge_weight=ew)),
+        "no edge embedding": (
+            lambda x, ee: bs.blocked_spmm(x, None, *graph[:2], w, **layout),
+            lambda x, ee: bs.blocked_spmm_plain(x, None, *graph[:2], w)),
+    }
+    one = lambda *names: {n: 1 for n in names}
+    want = {
+        "add": one("blocked_spmm_ee_fwd[x+ee]", "blocked_spmm_ee_bwd[x+ee]"),
+        "concat": one("blocked_spmm_fwd[x]", "blocked_spmm_bwd[x]",
+                      "blocked_spmm_ee_fwd[x+ee]",
+                      "blocked_spmm_ee_bwd[x+ee]"),
+        "no edge embedding": one("blocked_spmm_ee_fwd[x]",
+                                 "blocked_spmm_ee_bwd[x]"),
+    }
+    modules = counted_modules()
+    total = {}
+    for name, (on_card, plain) in forms.items():
+        for m in modules:
+            m.reset_launches()
+        got = run(on_card)
+        torch.cuda.synchronize()
+        counts = read_counts(modules)
+        moved = {k: v for k, v in counts.items() if v}
+        ref = run(plain)
+        errs = [rel_err(a, b) for a, b in zip(got, ref)]
+        print(f"[edge_emb path] {name}: out {tuple(got[0].shape)}, launches "
+              f"{moved}; rel err vs the plain path (out, dx, dee) "
+              f"{[f'{e:.1e}' for e in errs]}", flush=True)
+        if (moved != want[name] or len(got) != len(ref)
+                or not all(e <= FWD_TOL for e in errs)
+                or not all(bool(torch.isfinite(t).all()) for t in got)):
+            raise AssertionError(f"edge_emb path {name}: launches {moved} "
+                                 f"(want {want[name]}), errors {errs}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total, 0
+
+
+def micro_phase(torch, micro_main):
+    """K7's path: the kernel micro-benchmark at a reduced number of
+    trials; every launch count is set to 0 just before and read just
+    after."""
+    modules = counted_modules()
+    for m in modules:
+        m.reset_launches()
+    rows = micro_main(["--trials", "5"])
+    counts = read_counts(modules)
+    moved = {k: v for k, v in counts.items() if v}
+    print(f"[kernel micro] launches {moved}", flush=True)
+    must = {"sorted_blocked_spmm_fwd", "blocked_spmm_ee_fwd[x+ee]",
+            "blocked_spmm_fwd[x+ein]", "blocked_spmm_bwd[x+ein]",
+            "blocked_gat_attention_fwd", "blocked_gat_attention_bwd"}
+    if (set(moved) != must or len(rows) != 6
+            or not all(math.isfinite(r["us"]) and r["us"] > 0
+                       for r in rows)):
+        raise AssertionError(f"kernel micro-benchmark: launches {moved}, "
+                             f"rows {rows}")
+    return counts, 0
+
+
 def describe(tag, batch):
     print(f"[{tag}] first batch: {int(batch.graph_mask.sum())} graphs, "
           f"{int(batch.node_mask.sum())} nodes, "
@@ -954,6 +1313,7 @@ def main() -> int:
         from pretrain_gnns_tpu_torch.models import bio, chem
         from pretrain_gnns_tpu_torch.ops import _build
         from pretrain_gnns_tpu_torch.train import pretrain
+        from scripts.torch_port_kernel_micro import main as micro_main
     except ImportError as e:
         print(f"chip_smoke: the port package is missing ({e})",
               file=sys.stderr)
@@ -964,7 +1324,8 @@ def main() -> int:
     dev = resolve_device("cuda")
     print(f"[card] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    reports = _build.build(["gin_conv", "spmm", "edge_dot", "gat"])
+    reports = _build.build(["gin_conv", "spmm", "edge_dot", "gat", "spmm_ee",
+                            "probe"])
     native.load()  # the C++ negative sampler, g++
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
     for name, text in reports.items():
@@ -981,9 +1342,10 @@ def main() -> int:
     describe("data", batch)
     model = pretrain.build_objective(cfg).to(dev)
     kernels = kernel_phase(torch, batch.to(dev), model)
+    probe = probe_phase(torch)
     agreement_phase(torch, batch, cfg)
     record_launches(kernels, main_path_phase(torch, graphs, cfg, card, K1))
-    chem_graphs = graphs
+    chem_graphs, chem_first = graphs, batch
 
     # bio: K2 on the bio masking path
     graphs = bio_dataset(MAIN_GRAPHS, seed=0)
@@ -1003,7 +1365,7 @@ def main() -> int:
                   "bio masking first batch")
     agreement_phase(torch, batch, cfg)
     record_launches(k2, main_path_phase(torch, graphs, cfg, card, BIO_K2))
-    bio_graphs = graphs
+    bio_graphs, bio_first = graphs, batch
 
     # edge prediction: K3 in both scoring heads, K1 or K2 in the trunk
     def edgepred(domain, gnn_type="gin"):
@@ -1106,7 +1468,45 @@ def main() -> int:
     record_launches(k45, main_path_phase(
         torch, *gat_path("chem", "edgepred"), card, {**K5, **K3}, epochs=1,
         gat_fused="off"), K5)
-    kernels += k2 + k3 + k45
+
+    # K6 and K7: the precomputed-edge-embedding aggregation, through the
+    # op-level API and the kernel micro-benchmark
+    k67 = spmm_ee_entries(*(spmm_ee_phase(torch, b.to(dev),
+                                          f"{d} masking first batch")
+                            for d, b in (("chem", chem_first),
+                                         ("bio", bio_first))))
+    k6 = {k["name"] for k in k67 if k["name"] != "sorted_blocked_spmm_fwd"}
+    record_launches(k67, edge_emb_path_phase(torch, chem_first.to(dev)), k6)
+    record_launches(k67, micro_phase(torch, micro_main),
+                    {"sorted_blocked_spmm_fwd"})
+
+    # supervised pretraining: the graph-level heads over K1 (chem) and K2
+    # (bio), mean pooling; the agreement steps without dropout
+    def supervised(domain, dropout):
+        if domain == "bio":
+            graphs = bio_dataset(MAIN_GRAPHS, seed=0, num_pretrain=BIO_TASKS)
+        else:
+            graphs, _ = molecule_dataset(MAIN_GRAPHS, num_tasks=CHEM_TASKS,
+                                         seed=0, mean_atoms=MEAN_ATOMS)
+        graphs, tasks = pretrain.supervised_graphs(graphs, domain)
+        return graphs, pretrain.PretrainConfig(
+            objective="supervised", domain=domain, num_layer=LAYERS,
+            emb_dim=EMB, batch_size=BATCH, num_tasks=tasks,
+            graph_pooling="mean", dropout_ratio=dropout, seed=0,
+            packing="auto")
+
+    sup = {}
+    for domain in ("chem", "bio"):
+        graphs, cfg = supervised(domain, 0.0)
+        first = next(iter(pretrain.build_loader(cfg, graphs, dev)))
+        describe(f"data {domain} supervised, {cfg.num_tasks} tasks", first)
+        agreement_phase(torch, first, cfg)
+        sup[domain] = graphs, pretrain.PretrainConfig(
+            **{**cfg.__dict__, "dropout_ratio": 0.2})
+    record_launches(probe, main_path_phase(torch, *sup["chem"], card, K1,
+                                           reprobe=True))
+    main_path_phase(torch, *sup["bio"], card, BIO_K2, epochs=1)
+    kernels += k2 + k3 + k45 + k67 + probe
     missing = [k["name"] for k in kernels if not k.get("launches")]
     if missing:
         raise AssertionError(f"no path launched {missing}")

@@ -1,6 +1,7 @@
-"""Pretraining CLI of the port: attribute masking and edge prediction in
-the chem and bio domains, on a GIN, GCN, GAT or GraphSAGE trunk, with the
-flag names of the JAX package's CLI plus ``--device``.
+"""Pretraining CLI of the port: attribute masking, edge prediction and
+supervised pretraining in the chem and bio domains, on a GIN, GCN, GAT or
+GraphSAGE trunk, with the flag names of the JAX package's CLI plus
+``--device``.
 
 Examples:
   python -m pretrain_gnns_tpu_torch.cli.pretrain --dataset synthetic \
@@ -11,9 +12,18 @@ Examples:
       --gnn_type gcn --epochs 5 --output_model_file edgepred_trunk
   python -m pretrain_gnns_tpu_torch.cli.pretrain --gnn_type gat \
       --domain bio --epochs 5 --output_model_file gat_trunk
+  python -m pretrain_gnns_tpu_torch.cli.pretrain --objective supervised \
+      --graph_pooling attention --epochs 5 --output_model_file sup_trunk
 
 With ``--dataset synthetic``, chem trains on ``n_synthetic`` molecules
 and bio on ``max(n_synthetic // 4, 64)`` ego-networks, as the JAX CLI.
+The supervised objective trains the domain's graph-level head
+(``--graph_pooling sum|mean|max|attention|set2setN``, the last for chem
+only) on the dataset's labels: the molecules' two synthetic tasks, as the
+JAX package's ``synthetic`` dataset has them, or the ego-networks'
+``go_target_pretrain`` extra. On the synthetic
+bio dataset it trains on every graph: the species split of the JAX CLI
+(``--split``) is not ported, nor is ``--input_model_file``.
 
 Saves the trunk ``state_dict`` (reference key layout) with ``torch.save``
 to ``<output_model_file>.pth``.
@@ -37,7 +47,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--decay", type=float, default=0.0)
     p.add_argument("--num_layer", type=int, default=5)
     p.add_argument("--emb_dim", type=int, default=300)
-    p.add_argument("--dropout_ratio", type=float, default=0.0)
+    p.add_argument("--dropout_ratio", type=float, default=None,
+                   help="default: 0.2 for supervised, else 0.0")
+    p.add_argument("--graph_pooling", default="mean",
+                   help="supervised: sum | mean | max | attention | set2setN")
+    p.add_argument("--input_model_file", default="",
+                   help="not ported yet")
+    p.add_argument("--split", default="",
+                   help="not ported yet (bio supervised species split)")
     p.add_argument("--JK", dest="jk", default="last",
                    choices=["last", "concat", "max", "sum"])
     p.add_argument("--gnn_type", default="gin")
@@ -56,19 +73,29 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def resolve_dropout(args) -> float:
+    """The reference's defaults: 0.2 for supervised pretraining, 0.0 for
+    every self-supervised objective."""
+    if args.dropout_ratio is not None:
+        return args.dropout_ratio
+    return 0.2 if args.objective == "supervised" else 0.0
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if (args.objective not in ("masking", "edgepred")
+    args.dropout_ratio = resolve_dropout(args)
+    if (args.objective not in ("masking", "edgepred", "supervised")
             or args.domain not in ("chem", "bio")):
         raise SystemExit(
             f"--objective {args.objective} --domain {args.domain} is not "
-            "ported yet; this CLI runs --objective masking or edgepred "
-            "with --domain chem or bio"
+            "ported yet; this CLI runs --objective masking, edgepred or "
+            "supervised with --domain chem or bio"
         )
     if args.gnn_type not in ("gin", "gcn", "gat", "graphsage"):
         raise SystemExit(f"--gnn_type {args.gnn_type} is not ported yet")
-    if args.dropout_ratio > 0:
-        raise SystemExit("--dropout_ratio > 0 is not ported yet")
+    for flag in ("input_model_file", "split"):
+        if getattr(args, flag):
+            raise SystemExit(f"--{flag} is not ported yet")
     if args.dataset != "synthetic":
         raise SystemExit(
             f"--dataset {args.dataset} is not ported yet; use synthetic"
@@ -81,15 +108,19 @@ def main(argv=None):
         graphs = synthetic.bio_dataset(max(args.n_synthetic // 4, 64),
                                        seed=args.seed)
     else:
-        graphs, _ = synthetic.molecule_dataset(args.n_synthetic,
+        graphs, _ = synthetic.molecule_dataset(args.n_synthetic, num_tasks=2,
                                                seed=args.seed)
+    num_tasks = 1
+    if args.objective == "supervised":
+        graphs, num_tasks = pretrain.supervised_graphs(graphs, args.domain)
     cfg = pretrain.PretrainConfig(
         objective=args.objective, domain=args.domain,
         num_layer=args.num_layer, emb_dim=args.emb_dim,
         jk=args.jk, dropout_ratio=args.dropout_ratio, gnn_type=args.gnn_type,
         lr=args.lr, decay=args.decay, batch_size=args.batch_size,
         epochs=args.epochs, seed=args.seed, mask_rate=args.mask_rate,
-        mask_edge=bool(args.mask_edge), packing=args.packing,
+        mask_edge=bool(args.mask_edge), num_tasks=num_tasks,
+        graph_pooling=args.graph_pooling, packing=args.packing,
     )
     res = pretrain.run_pretrain(
         cfg, graphs, log=lambda s: print(s, flush=True), device=args.device)

@@ -7,8 +7,12 @@ numpy arrays and returns reference-layout keys (``gnn.gnns.0.mlp.0.weight``
 so they are transposed; batch-norm ``scale``/``bias`` become
 ``weight``/``bias`` and ``mean``/``var`` become ``running_mean``/
 ``running_var``, with ``num_batches_tracked = 0``; a GAT conv's raw
-``att`` and ``bias`` arrays keep their own names. It is the port's own
-copy of the mapping the JAX package's trunk export applies."""
+``att`` and ``bias`` arrays and the set2set readout's LSTM arrays
+(``weight_ih``, ``weight_hh``, ``bias_ih``, ``bias_hh``, kept ``[in, 4H]``)
+keep their own names. The variables of a ``SupervisedObjective`` map the
+same way (``pred.gnn.*``, ``pred.pool.*``, ``pred.graph_pred_linear.*``).
+It is the port's own copy of the mapping the JAX package's trunk export
+applies."""
 
 from __future__ import annotations
 
@@ -27,6 +31,9 @@ def _torch_name(name: str) -> str:
     return name
 
 
+_RAW_LEAVES = ("att", "bias", "weight_ih", "weight_hh", "bias_ih", "bias_hh")
+
+
 def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
@@ -40,9 +47,9 @@ def state_dict_from_jax(params: Mapping[str, Any],
         for name, sub in p.items():
             base = prefix + _torch_name(name)
             if not isinstance(sub, Mapping):
-                # a GAT conv's raw leaves keep their names; any other raw
-                # array is an embedding table
-                key = base if name in ("att", "bias") else f"{base}.weight"
+                # a GAT conv's and an LSTM cell's raw leaves keep their
+                # names; any other raw array is an embedding table
+                key = base if name in _RAW_LEAVES else f"{base}.weight"
                 out[key] = _tensor(sub)
             elif "kernel" in sub:  # Dense
                 out[f"{base}.weight"] = _tensor(np.asarray(sub["kernel"]).T)

@@ -1,6 +1,6 @@
-"""Bio trunk (port of ``GINConv``, ``GCNConv``, ``GATConv``, ``SAGEConv``
-and ``GNN`` of ``pretrain_gnns_tpu.models.bio``), for protein
-ego-networks.
+"""Bio trunk and graph-level head (port of ``GINConv``, ``GCNConv``,
+``GATConv``, ``SAGEConv``, ``GNN`` and ``GNNGraphPred`` of
+``pretrain_gnns_tpu.models.bio``), for protein ego-networks.
 
 Edge features are 9-dim floats ``[w1..w7, self_loop, mask]``; every conv
 encodes them with ``edge_encoder = Linear(9, D)``, fed to the aggregation
@@ -21,8 +21,10 @@ Module and parameter names follow the reference state dict
 (``gnns.0.input_node_embeddings``, ``gnns.{k}.edge_encoder``,
 ``gnns.{k}.mlp.{0,1,3}`` with the batch norm at ``mlp.1``,
 ``gnns.{k}.linear``, or ``gnns.{k}.weight_linear`` with ``gnns.{k}.att``
-and ``gnns.{k}.bias``). Only ``drop_ratio = 0`` is ported; the JK modes are
-``last`` and the intended layer ``sum``."""
+and ``gnns.{k}.bias``; the head adds ``gnn.*``, ``pool.gate_nn`` and
+``graph_pred_linear``). The JK modes are ``last`` and the intended layer
+``sum``. Dropout follows every layer's ReLU in train mode, as in the chem
+trunk; the convs take ``train`` for their batch norm only."""
 
 from __future__ import annotations
 
@@ -30,9 +32,9 @@ import torch
 from torch import nn
 
 from pretrain_gnns_tpu_torch.core.graphs import PackedGraphs
-from pretrain_gnns_tpu_torch.models import inits
+from pretrain_gnns_tpu_torch.models import inits, pools
 from pretrain_gnns_tpu_torch.models.chem import (
-    _GatParams, inv_sqrt_degree, l2_normalize_rows,
+    TrunkDropout, _GatParams, inv_sqrt_degree, l2_normalize_rows,
 )
 from pretrain_gnns_tpu_torch.models.norm import MaskedBatchNorm
 from pretrain_gnns_tpu_torch.ops import spmm
@@ -171,11 +173,11 @@ CONVS = {"gin": GINConv, "gcn": GCNConv, "gat": GATConv,
          "graphsage": SAGEConv}
 
 
-class GNN(nn.Module):
+class GNN(nn.Module, TrunkDropout):
     """Node-representation trunk: ``num_layer`` convs of ``gnn_type`` (no
-    trunk-level
-    embeddings or batch norm), ReLU after every layer but the last, padded
-    rows zeroed after every layer, then the JK combination."""
+    trunk-level embeddings or batch norm), ReLU after every layer but the
+    last, then dropout, padded rows zeroed after every layer, then the JK
+    combination."""
 
     def __init__(self, num_layer: int = 5, emb_dim: int = 300,
                  jk: str = "last", drop_ratio: float = 0.0,
@@ -186,12 +188,12 @@ class GNN(nn.Module):
         if gnn_type not in CONVS:
             raise NotImplementedError(
                 f"bio gnn_type={gnn_type!r} is not ported")
-        if drop_ratio > 0:
-            raise NotImplementedError("dropout is not ported")
         if jk not in ("last", "sum"):
             raise ValueError(f"bio trunk supports JK last|sum, got {jk!r}")
         self.num_layer = num_layer
         self.jk = jk
+        self.drop_ratio = drop_ratio
+        self.seed_dropout(0)
         self.gnns = nn.ModuleList(
             CONVS[gnn_type](emb_dim, input_layer=(layer == 0))
             for layer in range(num_layer)
@@ -207,8 +209,35 @@ class GNN(nn.Module):
             h = conv(h, g, ein, train)
             if layer != self.num_layer - 1:
                 h = torch.relu(h)
+            h = self.dropout(h, train)
             h = h * nmask
             h_list.append(h)
         if self.jk == "last":
             return h_list[-1]
         return sum(h_list[1:], h_list[0])
+
+
+class GNNGraphPred(nn.Module):
+    """Graph-level prediction head: the trunk under ``gnn``, a readout
+    (``graph_pooling``: sum, mean, max or attention, the last a module
+    under ``pool``), the center node's representation
+    (``g.extras["center_node_idx"]``, one node index per graph slot)
+    concatenated to it, and ``graph_pred_linear`` from ``2 * emb_dim`` to
+    ``num_tasks`` logits per graph slot."""
+
+    def __init__(self, num_layer: int = 5, emb_dim: int = 300,
+                 num_tasks: int = 1, jk: str = "last",
+                 drop_ratio: float = 0.0, graph_pooling: str = "mean",
+                 gnn_type: str = "gin"):
+        super().__init__()
+        self.gnn = GNN(num_layer, emb_dim, jk, drop_ratio, gnn_type)
+        self.pool, _ = pools.make_pool(graph_pooling, emb_dim,
+                                       allow_set2set=False)
+        self.graph_pred_linear = nn.Linear(2 * emb_dim, num_tasks)
+
+    def forward(self, g: PackedGraphs, train: bool = False) -> torch.Tensor:
+        h = self.gnn(g, train=train)
+        center = g.extras["center_node_idx"].long()
+        graph_rep = torch.cat([self.pool(h, g), h.index_select(0, center)],
+                              dim=1)
+        return self.graph_pred_linear(graph_rep)

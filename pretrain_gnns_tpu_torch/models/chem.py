@@ -1,5 +1,6 @@
-"""Chem trunk (port of ``GINConv``, ``GCNConv``, ``GATConv``, ``SAGEConv``
-and ``GNN`` of ``pretrain_gnns_tpu.models.chem``).
+"""Chem trunk and graph-level head (port of ``GINConv``, ``GCNConv``,
+``GATConv``, ``SAGEConv``, ``GNN`` and ``GNNGraphPred`` of
+``pretrain_gnns_tpu.models.chem``).
 
 The self-loop the reference appends inside every conv (bond type 4,
 direction 0) is added analytically: ``aggr += (x + e_self) * node_mask``.
@@ -17,7 +18,13 @@ node inside the softmax.
 Module and parameter names follow the reference state dict
 (``x_embedding1``, ``gnns.{k}.mlp.{0,2}``, ``gnns.{k}.linear`` or
 ``gnns.{k}.weight_linear`` with ``gnns.{k}.att`` and ``gnns.{k}.bias``,
-``gnns.{k}.edge_embedding{1,2}``, ``batch_norms.{k}``)."""
+``gnns.{k}.edge_embedding{1,2}``, ``batch_norms.{k}``; the head adds
+``gnn.*``, ``pool.*`` and ``graph_pred_linear``).
+
+Dropout (``drop_ratio``) follows every layer's ReLU in train mode, before
+the padded rows are zeroed. Its masks come from a ``torch.Generator`` on
+the activations' device, seeded by :meth:`TrunkDropout.seed_dropout`, so a
+seed fixes them on a given device."""
 
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ import torch
 from torch import nn
 
 from pretrain_gnns_tpu_torch.core.graphs import PackedGraphs
-from pretrain_gnns_tpu_torch.models import inits
+from pretrain_gnns_tpu_torch.models import inits, pools
 from pretrain_gnns_tpu_torch.models.norm import MaskedBatchNorm
 from pretrain_gnns_tpu_torch.ops import attention, gat_conv, gin_conv, spmm
 
@@ -230,11 +237,39 @@ CONVS = {"gin": GINConv, "gcn": GCNConv, "gat": GATConv,
          "graphsage": SAGEConv}
 
 
-class GNN(nn.Module):
+class TrunkDropout:
+    """The trunks' dropout: inverted dropout with rate ``drop_ratio`` in
+    train mode, the identity otherwise. The keep masks are drawn from a
+    generator of the tensor's device, created at first use from the seed
+    that :meth:`seed_dropout` set (a trunk's ``__init__`` sets 0)."""
+
+    drop_ratio: float = 0.0
+
+    def seed_dropout(self, seed: int) -> None:
+        """Start the dropout masks over from ``seed``, on every device."""
+        self._dropout_seed = int(seed)
+        self._dropout_generators = {}
+
+    def dropout(self, h: torch.Tensor, train: bool) -> torch.Tensor:
+        p = self.drop_ratio
+        if not train or p <= 0:
+            return h
+        if p >= 1:
+            return torch.zeros_like(h)
+        gen = self._dropout_generators.get(h.device)
+        if gen is None:
+            gen = torch.Generator(device=h.device)
+            gen.manual_seed(self._dropout_seed)
+            self._dropout_generators[h.device] = gen
+        keep = torch.rand(h.shape, generator=gen, device=h.device) >= p
+        return torch.where(keep, h / (1.0 - p), 0.0)
+
+
+class GNN(nn.Module, TrunkDropout):
     """Node-representation trunk: atom embeddings, ``num_layer`` convs of
     ``gnn_type`` each followed by masked BatchNorm (and ReLU except after
-    the last), padded rows zeroed after every layer, then the JK
-    combination."""
+    the last) and dropout, padded rows zeroed after every layer, then the
+    JK combination."""
 
     def __init__(self, num_layer: int = 5, emb_dim: int = 300,
                  jk: str = "last", drop_ratio: float = 0.0,
@@ -244,12 +279,12 @@ class GNN(nn.Module):
             raise ValueError("Number of GNN layers must be greater than 1.")
         if gnn_type not in CONVS:
             raise NotImplementedError(f"gnn_type={gnn_type!r} is not ported")
-        if drop_ratio > 0:
-            raise NotImplementedError("dropout is not ported")
         if jk not in ("last", "concat", "max", "sum"):
             raise ValueError(f"unknown JK mode {jk!r}")
         self.num_layer = num_layer
         self.jk = jk
+        self.drop_ratio = drop_ratio
+        self.seed_dropout(0)
         self.x_embedding1 = nn.Embedding(NUM_ATOM_TYPE, emb_dim)
         self.x_embedding2 = nn.Embedding(NUM_CHIRALITY_TAG, emb_dim)
         self.gnns = nn.ModuleList(
@@ -270,6 +305,7 @@ class GNN(nn.Module):
             h = self.batch_norms[layer](h, g.node_mask, train)
             if layer != self.num_layer - 1:
                 h = torch.relu(h)
+            h = self.dropout(h, train)
             h = h * nmask
             h_list.append(h)
         if self.jk == "last":
@@ -280,3 +316,27 @@ class GNN(nn.Module):
         if self.jk == "max":
             return stack.max(dim=0).values
         return stack.sum(dim=0)
+
+
+class GNNGraphPred(nn.Module):
+    """Graph-level prediction head: the trunk under ``gnn``, a readout
+    (``graph_pooling``: sum, mean, max, attention or set2setN; a module
+    under ``pool`` for the last two) and ``graph_pred_linear`` to
+    ``num_tasks`` logits per graph slot."""
+
+    def __init__(self, num_layer: int = 5, emb_dim: int = 300,
+                 num_tasks: int = 1, jk: str = "last",
+                 drop_ratio: float = 0.0, graph_pooling: str = "mean",
+                 gnn_type: str = "gin"):
+        super().__init__()
+        self.gnn = GNN(num_layer, emb_dim, jk, drop_ratio, gnn_type)
+        self.pool, d = pools.make_pool(graph_pooling, self.jk_dim())
+        self.graph_pred_linear = nn.Linear(d, num_tasks)
+
+    def jk_dim(self) -> int:
+        mult = self.gnn.num_layer + 1 if self.gnn.jk == "concat" else 1
+        return mult * self.gnn.x_embedding1.embedding_dim
+
+    def forward(self, g: PackedGraphs, train: bool = False) -> torch.Tensor:
+        h = self.gnn(g, train=train)
+        return self.graph_pred_linear(self.pool(h, g))

@@ -41,13 +41,16 @@ def pyg_glorot(shape, generator: Optional[torch.Generator] = None,
 
 @torch.no_grad()
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
-    """Re-draw every Linear, Embedding and GAT attention vector (``att``,
+    """Re-draw every Linear, Embedding, LSTM cell (``reset_parameters``
+    of ``models.pools.TorchLSTMCell``) and GAT attention vector (``att``,
     with its zero ``bias``) of ``module`` in module order."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             reset_linear_(m, generator)
         elif isinstance(m, nn.Embedding):
             nn.init.xavier_uniform_(m.weight, generator=generator)
+        elif isinstance(getattr(m, "weight_ih", None), nn.Parameter):
+            m.reset_parameters(generator)
         elif isinstance(getattr(m, "att", None), nn.Parameter):
             m.att.copy_(pyg_glorot(m.att.shape, generator, m.att.dtype))
             m.bias.zero_()

@@ -1,5 +1,7 @@
-"""Loss primitives (port of ``masked_softmax_xent``, ``bce_with_logits``
-and ``sign_accuracy`` of ``pretrain_gnns_tpu.objectives.losses``)."""
+"""Loss primitives (port of ``pretrain_gnns_tpu.objectives.losses``:
+``masked_softmax_xent``, ``bce_with_logits``, ``masked_task_bce``,
+``plain_bce`` and ``sign_accuracy``). Every reduction respects its
+validity mask, so padded graph, node and edge slots never contribute."""
 
 from __future__ import annotations
 
@@ -34,6 +36,33 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor
     targets = targets.to(logits.dtype)
     return (torch.clamp(logits, min=0.0) - logits * targets
             + torch.log1p(torch.exp(-logits.abs())))
+
+
+def masked_task_bce(
+    logits: torch.Tensor,  # [G, T]
+    y: torch.Tensor,  # [G, T] labels in {-1, 0, +1}, 0 = missing
+    graph_mask: torch.Tensor,  # [G] bool
+) -> torch.Tensor:
+    """The reference's masked multi-task BCE: an entry is valid where
+    ``y != 0`` in a valid graph, its target is ``(y + 1) / 2``, and the loss
+    is the sum over the valid entries over their count (at least 1)."""
+    is_valid = (y.square() > 0) & graph_mask[:, None]
+    loss_mat = bce_with_logits(logits, (y + 1.0) / 2.0)
+    denom = torch.clamp(is_valid.sum(), min=1)
+    return torch.where(is_valid, loss_mat, 0.0).sum() / denom
+
+
+def plain_bce(
+    logits: torch.Tensor,  # [G, T]
+    y01: torch.Tensor,  # [G, T] labels in {0, 1}
+    graph_mask: torch.Tensor,  # [G] bool
+) -> torch.Tensor:
+    """The bio BCE over all entries: the mean over every (graph, task) cell
+    of the valid graphs."""
+    loss_mat = bce_with_logits(logits, y01)
+    m = graph_mask[:, None].to(loss_mat.dtype)
+    denom = torch.clamp(m.sum() * y01.shape[1], min=1.0)
+    return (loss_mat * m).sum() / denom
 
 
 def sign_accuracy(pos_pred: torch.Tensor, neg_pred: torch.Tensor,

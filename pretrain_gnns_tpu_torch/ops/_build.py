@@ -7,11 +7,21 @@ header of ``csrc/`` it includes and the flags, so an unchanged source is
 not rebuilt and a changed header is. A failed build raises.
 :func:`check_tensors` and :func:`stream` serve the wrappers that hand
 tensors to those libraries.
+
+:func:`probe` is the port of the TPU package's lowering probe
+(``pretrain_gnns_tpu/ops/pallas_spmm.py::_nopad_ok``): once per process,
+before :func:`load` hands out the first kernel library, it builds
+``csrc/probe.cu``, doubles an ``[8, 300]`` float32 matrix on the card with
+:func:`probe_scale2` and compares with ``2 * x`` exactly. The TPU probe
+chose between an unpadded and a padded feature layout; every kernel here
+takes unpadded 300-wide rows, so a failed probe raises and stops the run.
+``launches["probe_scale2"]`` counts the probe kernel's launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -30,8 +40,16 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+PROBE_SHAPE = (8, 300)  # the TPU probe's: rows no multiple of 32 lanes wide
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+launches: Dict[str, int] = {"probe_scale2": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
 
 
 def nvcc_path() -> str:
@@ -100,7 +118,10 @@ def build(names: Sequence[str]) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    Every library but the probe's own waits for :func:`probe`."""
+    if name != "probe":
+        probe()
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -130,3 +151,56 @@ def check_tensors(dev: torch.device, tensors: Iterable[tuple]) -> None:
 def stream(t: torch.Tensor) -> int:
     """The handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def probe_scale2_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the probe kernel."""
+    return 2 * x
+
+
+def probe_scale2(x: torch.Tensor) -> torch.Tensor:
+    """``2 * x`` for a float32 matrix: the probe kernel of
+    ``csrc/probe.cu`` on a CUDA tensor (or raises), the plain version on a
+    CPU tensor."""
+    if not x.is_cuda:
+        return probe_scale2_plain(x)
+    if x.dim() != 2:
+        raise ValueError(f"x must be [rows, F], got {tuple(x.shape)}")
+    check_tensors(x.device, [(x, "x", x.shape, torch.float32, True)])
+    lib = load("probe")
+    lib.pgt_probe_scale2.argtypes = ([ctypes.c_void_p] * 2
+                                     + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.pgt_probe_scale2.restype = ctypes.c_int
+    out = torch.empty_like(x)
+    err = lib.pgt_probe_scale2(x.data_ptr(), out.data_ptr(), x.shape[0],
+                               x.shape[1], stream(x))
+    if err:
+        raise RuntimeError(f"probe launch failed (CUDA error {err})")
+    launches["probe_scale2"] += 1
+    return out
+
+
+@functools.cache
+def probe() -> bool:
+    """Build the probe kernel, launch it once on the current CUDA device
+    and compare with ``2 * x`` exactly (one synchronisation a process: a
+    success is cached, a failure is not). Raises ``RuntimeError`` naming
+    the compiler's report or the CUDA error when the build, the launch or
+    the comparison fails."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the kernel probe needs a CUDA device")
+    rows, F = PROBE_SHAPE
+    x = (torch.arange(rows * F, dtype=torch.float32, device="cuda")
+         .reshape(rows, F) / 7 - 100)
+    out = probe_scale2(x)  # a failed build or launch raises RuntimeError
+    try:
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        raise RuntimeError(f"probe kernel failed on the card: {e}") from e
+    want = probe_scale2_plain(x)
+    if not torch.equal(out, want):
+        bad = int((out != want).sum())
+        raise RuntimeError(
+            f"probe kernel disagrees with 2 * x on {bad} of {rows * F} "
+            f"entries of a [{rows}, {F}] float32 matrix")
+    return True

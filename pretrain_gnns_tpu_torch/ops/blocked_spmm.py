@@ -1,5 +1,6 @@
 """Fused edge-transform SpMM (K2): the aggregation of every conv that is
-not a fused GIN or GAT layer, forward and backward.
+not a fused GIN or GAT layer, forward and backward; and the blocked SpMM
+on a precomputed edge embedding (K6, :func:`blocked_spmm`, below).
 
 Replaces ``pretrain_gnns_tpu/ops/pallas_spmm.py::blocked_spmm_fused``
 (the Pallas TPU kernels ``_fused_fwd_kernel``/``_fused_bwd_kernel``). On
@@ -19,6 +20,21 @@ the card and how they are built) or raises; on a CPU tensor it runs the
 plain PyTorch version :func:`blocked_spmm_fused_plain`. ``launches``
 counts the kernel launches by direction and variant, e.g.
 ``blocked_spmm_fwd[x]``, ``blocked_spmm_bwd[x+ein]``.
+
+K6 replaces ``pretrain_gnns_tpu/ops/pallas_spmm.py::blocked_spmm`` (the
+Pallas TPU kernels ``_fwd_kernel``/``_bwd_kernel``)::
+
+    out[r] = sum_{rcv_e = r} w_e * (x[snd_e] + edge_emb_e [if given])
+
+Its backward forms ``dmsg_e = w_e * g[rcv_e]`` for every edge slot (exact
+zeros on padded slots and on slots with an endpoint outside their block)
+and returns ``dx`` (``dmsg`` scattered onto the senders), ``dee = dmsg``
+when an edge embedding was given, and a zero gradient for ``w``, as the
+JAX custom VJP does; each of ``dx`` and ``dee`` is computed only when
+autograd asks for it. On a CUDA tensor :func:`blocked_spmm` launches the
+kernels of ``csrc/spmm_ee.cu`` or raises; on a CPU tensor it runs
+:func:`blocked_spmm_plain`. Its counters are
+``blocked_spmm_ee_{fwd,bwd}[x+ee]`` and ``blocked_spmm_ee_{fwd,bwd}[x]``.
 """
 
 from __future__ import annotations
@@ -34,8 +50,10 @@ from pretrain_gnns_tpu_torch.ops import segment as seg
 
 _VARIANTS = {(True, False): "x", (False, True): "ein", (True, True): "x+ein"}
 launches: Dict[str, int] = {
-    f"blocked_spmm_{d}[{v}]": 0 for d in ("fwd", "bwd")
-    for v in _VARIANTS.values()
+    **{f"blocked_spmm_{d}[{v}]": 0 for d in ("fwd", "bwd")
+       for v in _VARIANTS.values()},
+    **{f"blocked_spmm_ee_{d}[{v}]": 0 for d in ("fwd", "bwd")
+       for v in ("x+ee", "x")},
 }
 
 
@@ -222,3 +240,167 @@ def blocked_spmm_fused(x, ein, W, senders, receivers, w, block_nodes: int,
                                        has_ein)
     return blocked_spmm_fused_plain(x, ein, W, senders, receivers, w,
                                     block_nodes, block_edges, has_x, has_ein)
+
+
+# --- K6: the edge embedding precomputed, [E, F] ---------------------------
+
+
+@functools.cache
+def _ee_lib() -> ctypes.CDLL:
+    lib = _build.load("spmm_ee")
+    lib.pgt_spmm_ee_fwd.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+    lib.pgt_spmm_ee_fwd.restype = _I
+    lib.pgt_spmm_ee_bwd.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+    lib.pgt_spmm_ee_bwd.restype = _I
+    lib.pgt_spmm_sorted_fwd.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+    lib.pgt_spmm_sorted_fwd.restype = _I
+    lib.pgt_spmm_ee_smem.argtypes = [_I]
+    lib.pgt_spmm_ee_smem.restype = _I
+    lib.pgt_spmm_sorted_smem.argtypes = [_I]
+    lib.pgt_spmm_sorted_smem.restype = _I
+    lib.pgt_spmm_ee_max_smem.restype = _I
+    return lib
+
+
+def ee_variant(has_ee: bool) -> str:
+    """The launch-counter suffix of K6 with or without an edge embedding."""
+    return "x+ee" if has_ee else "x"
+
+
+def check_ee_layout(dev, block_nodes: int, block_edges: int, N: int, E: int,
+                    smem_of, tensors) -> ctypes.CDLL:
+    """Raise on what the kernels of ``csrc/spmm_ee.cu`` do not take
+    (``tensors`` lists ``(tensor, name, shape, dtype)``, each to be
+    contiguous; ``smem_of(lib)`` gives the launch's shared memory in
+    bytes); returns the library."""
+    if dev.type != "cuda":
+        raise ValueError("the blocked_spmm kernels take CUDA tensors")
+    if block_nodes <= 0 or block_edges <= 0:
+        raise ValueError("the blocked_spmm kernels need the block-diagonal "
+                         "layout (block_nodes, block_edges > 0)")
+    if N % block_nodes or E != (N // block_nodes) * block_edges:
+        raise ValueError(f"N={N}, E={E} do not form blocks of "
+                         f"({block_nodes}, {block_edges})")
+    _build.check_tensors(dev, [t + (True,) for t in tensors])
+    lib = _ee_lib()
+    smem = smem_of(lib)
+    if smem > lib.pgt_spmm_ee_max_smem():
+        raise ValueError(f"blocks of ({block_nodes}, {block_edges}) need "
+                         f"{smem} bytes of shared memory, more than "
+                         f"{lib.pgt_spmm_ee_max_smem()}")
+    return lib
+
+
+def ee_fwd_tensors(x, ee, senders, receivers, w):
+    """The ``(tensor, name, shape, dtype)`` list of a K6 or K7 forward."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be [N, F], got {tuple(x.shape)}")
+    (N, F), E = x.shape, senders.shape[0]
+    tensors = [(x, "x", (N, F), _F32), (senders, "senders", (E,), _I32),
+               (receivers, "receivers", (E,), _I32), (w, "w", (E,), _F32)]
+    if ee is not None:
+        tensors.append((ee, "edge_emb", (E, F), _F32))
+    return tensors
+
+
+def spmm_ee_fwd(x, ee, senders, receivers, w, block_nodes: int,
+                block_edges: int) -> torch.Tensor:
+    """Launch K6's forward; returns ``out [N, F]``. ``ee`` may be None."""
+    tensors = ee_fwd_tensors(x, ee, senders, receivers, w)
+    (N, F), E = x.shape, senders.shape[0]
+    lib = check_ee_layout(x.device, block_nodes, block_edges, N, E,
+                          lambda lib: lib.pgt_spmm_ee_smem(block_nodes),
+                          tensors)
+    out = torch.empty((N, F), dtype=_F32, device=x.device)
+    err = lib.pgt_spmm_ee_fwd(
+        x.data_ptr(), _ptr(ee), senders.data_ptr(), receivers.data_ptr(),
+        w.data_ptr(), out.data_ptr(), N, F, block_nodes, block_edges,
+        int(ee is not None), _build.stream(x))
+    if err:
+        raise RuntimeError(
+            f"blocked_spmm (edge_emb) forward launch failed (CUDA error "
+            f"{err})")
+    launches[f"blocked_spmm_ee_fwd[{ee_variant(ee is not None)}]"] += 1
+    return out
+
+
+def spmm_ee_bwd(g, senders, receivers, w, block_nodes: int, block_edges: int,
+                has_ee: bool, need_dx: bool = True, need_dmsg: bool = True
+                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Launch K6's backward from ``g [N, F]``; returns ``(dx [N, F],
+    dmsg [E, F])``, every row written, each None where not needed.
+    ``has_ee`` only names the counter."""
+    if not (need_dx or need_dmsg):
+        raise ValueError("need_dx and need_dmsg cannot both be false")
+    if g.dim() != 2:
+        raise ValueError(f"g must be [N, F], got {tuple(g.shape)}")
+    (N, F), E = g.shape, senders.shape[0]
+    tensors = [(g, "g", (N, F), _F32), (senders, "senders", (E,), _I32),
+               (receivers, "receivers", (E,), _I32), (w, "w", (E,), _F32)]
+    lib = check_ee_layout(
+        g.device, block_nodes, block_edges, N, E,
+        lambda lib: lib.pgt_spmm_ee_smem(block_nodes) if need_dx else 0,
+        tensors)
+    dx = (torch.empty((N, F), dtype=_F32, device=g.device)
+          if need_dx else None)
+    dmsg = (torch.empty((E, F), dtype=_F32, device=g.device)
+            if need_dmsg else None)
+    err = lib.pgt_spmm_ee_bwd(
+        g.data_ptr(), senders.data_ptr(), receivers.data_ptr(), w.data_ptr(),
+        _ptr(dx), _ptr(dmsg), N, F, block_nodes, block_edges, int(need_dx),
+        int(need_dmsg), _build.stream(g))
+    if err:
+        raise RuntimeError(
+            f"blocked_spmm (edge_emb) backward launch failed (CUDA error "
+            f"{err})")
+    launches[f"blocked_spmm_ee_bwd[{ee_variant(has_ee)}]"] += 1
+    return dx, dmsg
+
+
+class _BlockedSpmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ee, senders, receivers, w, block_nodes, block_edges):
+        out = spmm_ee_fwd(x, ee, senders, receivers, w, block_nodes,
+                          block_edges)
+        ctx.save_for_backward(senders, receivers, w)
+        ctx.cfg = (block_nodes, block_edges, ee is not None)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        senders, receivers, w = ctx.saved_tensors
+        bn, be, has_ee = ctx.cfg
+        need = ctx.needs_input_grad
+        need_dx, need_dee = need[0], has_ee and need[1]
+        dx = dee = None
+        if need_dx or need_dee:
+            dx, dee = spmm_ee_bwd(g.contiguous(), senders, receivers, w, bn,
+                                  be, has_ee, need_dx, need_dee)
+        dw = torch.zeros_like(w) if need[4] else None  # as the JAX VJP
+        return dx, dee, None, None, dw, None, None
+
+
+def blocked_spmm_plain(x, edge_emb, senders, receivers, edge_weight,
+                       block_nodes: int = 0, block_edges: int = 0
+                       ) -> torch.Tensor:
+    """The plain PyTorch version of K6 (any layout; autograd gives the
+    backward): a gather, the sum with the edge embedding, a weighted
+    segment sum. ``edge_weight`` counts as data: it gets no gradient."""
+    msg = x.index_select(0, senders.long())
+    if edge_emb is not None:
+        msg = msg + edge_emb
+    return seg.segment_sum(msg, receivers, x.shape[0],
+                           mask=edge_weight.detach())
+
+
+def blocked_spmm(x, edge_emb, senders, receivers, edge_weight,
+                 block_nodes: int, block_edges: int) -> torch.Tensor:
+    """K6 on CUDA tensors (kernel forward and backward), the plain version
+    on CPU tensors. ``edge_emb`` is ``[E, F]`` or None; ``edge_weight`` is
+    the f32 edge weight with the mask folded in (0 on padded slots)."""
+    if x.is_cuda:
+        return _BlockedSpmm.apply(x, edge_emb, senders, receivers,
+                                  edge_weight, block_nodes, block_edges)
+    return blocked_spmm_plain(x, edge_emb, senders, receivers, edge_weight,
+                              block_nodes, block_edges)

@@ -1,19 +1,30 @@
-"""Gather -> message -> segment sum, and the per-pair dot scores (port of
-the sum forms of ``gather_scatter`` and of ``edge_dot`` of
+"""Gather -> message -> segment aggregation, and the per-pair dot scores
+(port of ``gather_scatter`` and ``edge_dot`` of
 ``pretrain_gnns_tpu.ops.spmm``).
 
 For each node ``i``::
 
-    out[i] = sum_{e : receivers[e] == i} w_e * msg_e
-    msg_e  = x[senders[e]] + edge_in[e] @ edge_kernel      (combine="add")
-    msg_e  = [x[senders[e]] | edge_in[e] @ edge_kernel]    (combine="concat")
+    out[i] = aggr_{e : receivers[e] == i} w_e * msg_e
+    msg_e  = x[senders[e]] + e_e          (combine="add")
+    msg_e  = [x[senders[e]] | e_e]        (combine="concat")
 
-with ``w_e = edge_mask[e] * edge_weight[e]``. Dispatch: a CUDA tensor on a
-block-diagonal batch goes to the fused edge-transform SpMM kernel (K2,
-``ops/blocked_spmm.py``), the concat form as two calls
-``[K2(x; has_x) | K2(edge_in, edge_kernel; has_ein)]``; a CUDA tensor on
-any other batch raises ``ValueError``; a CPU tensor takes the plain path
-:func:`gather_scatter_plain`. :func:`edge_dot` states its own dispatch."""
+with ``w_e = edge_mask[e] * edge_weight[e]``, ``aggr`` the sum or the mean
+over the valid edges, and the per-edge embedding ``e_e`` either given
+(``edge_emb [E, F]``) or formed as ``edge_in[e] @ edge_kernel`` (not both;
+without either, ``msg_e = x[senders[e]]``).
+
+Dispatch of :func:`gather_scatter`, as in the JAX package: only the sum on
+a block-diagonal batch reaches a kernel. A CUDA tensor there goes, with
+``edge_in``/``edge_kernel`` or no edge term, to the fused edge-transform
+SpMM (K2, ``ops/blocked_spmm.blocked_spmm_fused``), the concat form as two
+calls ``[K2(x; has_x) | K2(edge_in, edge_kernel; has_ein)]``; with
+``edge_emb``, to the blocked SpMM on a precomputed edge embedding (K6,
+``ops/blocked_spmm.blocked_spmm``), the concat form as
+``[K2(x; has_x) | K6(zeros, edge_emb)]``. ``aggr="mean"`` takes the plain
+path on either device, whatever the layout. A CUDA tensor with
+``aggr="sum"`` on any other batch raises ``ValueError``; a CPU tensor takes
+the plain path :func:`gather_scatter_plain`. :func:`edge_dot` states its
+own dispatch."""
 
 from __future__ import annotations
 
@@ -36,12 +47,16 @@ def gather_scatter_plain(
     edge_kernel: Optional[torch.Tensor] = None,  # [K, F]
     combine: str = "add",
     edge_weight: Optional[torch.Tensor] = None,  # [E]
+    edge_emb: Optional[torch.Tensor] = None,  # [E, F]
+    aggr: str = "sum",
 ) -> torch.Tensor:
     """The plain PyTorch form of :func:`gather_scatter`, for any layout and
     device (autograd gives the backward)."""
+    if edge_in is not None and edge_emb is not None:
+        raise ValueError("give edge_emb or edge_in/edge_kernel, not both")
     msg = x.index_select(0, senders.long())
-    if edge_in is not None:
-        e = edge_in @ edge_kernel
+    e = edge_in @ edge_kernel if edge_in is not None else edge_emb
+    if e is not None:
         if combine == "add":
             msg = msg + e
         elif combine == "concat":
@@ -49,10 +64,14 @@ def gather_scatter_plain(
         else:
             raise ValueError(combine)
     elif combine != "add":
-        raise ValueError(f"combine={combine!r} needs edge_in")
+        raise ValueError(f"combine={combine!r} needs edge_in or edge_emb")
     if edge_weight is not None:
         msg = msg * edge_weight[:, None]
-    return seg.segment_sum(msg, receivers, num_nodes, mask=edge_mask)
+    if aggr == "sum":
+        return seg.segment_sum(msg, receivers, num_nodes, mask=edge_mask)
+    if aggr == "mean":
+        return seg.segment_mean(msg, receivers, num_nodes, mask=edge_mask)
+    raise ValueError(aggr)
 
 
 def gather_scatter(
@@ -67,13 +86,20 @@ def gather_scatter(
     edge_weight: Optional[torch.Tensor] = None,  # [E]
     block_nodes: int = 0,
     block_edges: int = 0,
+    edge_emb: Optional[torch.Tensor] = None,  # [E, F]
+    aggr: str = "sum",  # "sum" | "mean"
 ) -> torch.Tensor:
-    """Sum aggregation of the messages; returns [N, F] ([N, 2F] for
+    """Aggregation of the messages; returns [N, F] ([N, F + F_e] for
     concat). See the module docstring for the dispatch."""
-    if not x.is_cuda:
+    fused = edge_in is not None
+    if fused and edge_emb is not None:
+        raise ValueError("give edge_emb or edge_in/edge_kernel, not both")
+    if aggr not in ("sum", "mean"):
+        raise ValueError(aggr)
+    if not x.is_cuda or aggr == "mean":
         return gather_scatter_plain(x, senders, receivers, edge_mask,
                                     num_nodes, edge_in, edge_kernel,
-                                    combine, edge_weight)
+                                    combine, edge_weight, edge_emb, aggr)
     if not (block_nodes > 0 and block_edges > 0):
         raise ValueError(
             "gather_scatter on CUDA needs a block-diagonal batch "
@@ -81,21 +107,30 @@ def gather_scatter(
         )
     if combine not in ("add", "concat"):
         raise ValueError(combine)
-    fused = edge_in is not None
-    if combine == "concat" and not fused:
-        raise ValueError("combine='concat' needs edge_in")
+    if combine == "concat" and not fused and edge_emb is None:
+        raise ValueError("combine='concat' needs edge_in or edge_emb")
     w = edge_mask.to(torch.float32)
     if edge_weight is not None:
         w = w * edge_weight
-    k2 = (senders, receivers, w, block_nodes, block_edges)
+    graph = (senders, receivers, w, block_nodes, block_edges)
+    if combine == "add" and edge_emb is not None:
+        return blocked_spmm.blocked_spmm(x, edge_emb, *graph)
     if combine == "add":
         return blocked_spmm.blocked_spmm_fused(
-            x, edge_in, edge_kernel, *k2, has_x=True, has_ein=fused)
-    left = blocked_spmm.blocked_spmm_fused(x, None, None, *k2, has_x=True,
+            x, edge_in, edge_kernel, *graph, has_x=True, has_ein=fused)
+    left = blocked_spmm.blocked_spmm_fused(x, None, None, *graph, has_x=True,
                                            has_ein=False)
-    # x only gives the row count here: detached, it gets no zero gradient
-    right = blocked_spmm.blocked_spmm_fused(x.detach(), edge_in, edge_kernel,
-                                            *k2, has_x=False, has_ein=True)
+    if fused:
+        # x only gives the row count here: detached, it gets no zero
+        # gradient
+        right = blocked_spmm.blocked_spmm_fused(
+            x.detach(), edge_in, edge_kernel, *graph, has_x=False,
+            has_ein=True)
+    else:
+        # the edge embedding alone, aggregated over an all-zero x of its
+        # width, which asks for no gradient
+        zeros = x.new_zeros((x.shape[0], edge_emb.shape[1]))
+        right = blocked_spmm.blocked_spmm(zeros, edge_emb, *graph)
     return torch.cat([left, right], dim=-1)
 
 

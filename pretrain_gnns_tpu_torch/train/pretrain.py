@@ -1,12 +1,14 @@
 """Pretraining entry (port of ``pretrain_gnns_tpu.train.pretrain`` for
 attribute masking, chem ``MaskingObjective`` and bio
-``BioMaskEdgeObjective``, and for edge prediction, ``EdgePredObjective``
-on either trunk).
+``BioMaskEdgeObjective``, for edge prediction, ``EdgePredObjective`` on
+either trunk, and for supervised pretraining, ``SupervisedObjective`` with
+the domain's graph-level head).
 
 The loop follows the reference's {chem,bio}/pretrain_{masking,edgepred}.py:
 a seeded model, one Adam over every parameter, shuffled batches of
 ``batch_size`` graphs with the objective's transform (masking or negative
-sampling) applied per batch, the trunk saved at the end. Packing and the
+sampling; none for the supervised objective, whose batches carry the
+labels ``y``) applied per batch, the trunk saved at the end. Packing and the
 transform run in a prefetch thread while the GPU runs the previous step;
 the loss is read back once per epoch."""
 
@@ -15,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -33,6 +36,7 @@ from pretrain_gnns_tpu_torch.objectives.edgepred import EdgePredObjective
 from pretrain_gnns_tpu_torch.objectives.masking import (
     BioMaskEdgeObjective, MaskingObjective,
 )
+from pretrain_gnns_tpu_torch.objectives.supervised import SupervisedObjective
 from pretrain_gnns_tpu_torch.train import optim
 from pretrain_gnns_tpu_torch.train.state import TrainState
 from pretrain_gnns_tpu_torch.train.telemetry import ThroughputMeter
@@ -40,8 +44,8 @@ from pretrain_gnns_tpu_torch.train.telemetry import ThroughputMeter
 
 @dataclasses.dataclass
 class PretrainConfig:
-    """The masking and edge-prediction subset of the JAX package's
-    ``PretrainConfig``."""
+    """The masking, edge-prediction and supervised subset of the JAX
+    package's ``PretrainConfig``."""
 
     objective: str = "masking"
     domain: str = "chem"
@@ -59,27 +63,35 @@ class PretrainConfig:
     mask_edge: bool = True
     num_atom_type: int = 119
     num_edge_type: int = 5
+    # supervised: the width of the labels y and the head's readout
+    num_tasks: int = 1
+    graph_pooling: str = "mean"
     # batch layout: auto = block-diagonal (what the kernels take) on CUDA
     packing: str = "auto"  # auto | standard | blocked
 
 
 def _check_ported(cfg: PretrainConfig) -> None:
-    if (cfg.objective not in ("masking", "edgepred")
+    if (cfg.objective not in ("masking", "edgepred", "supervised")
             or cfg.domain not in ("chem", "bio")):
         raise NotImplementedError(
             f"objective={cfg.objective!r} domain={cfg.domain!r} is not "
-            "ported; this port runs masking and edgepred in the chem and "
-            "bio domains"
+            "ported; this port runs masking, edgepred and supervised in "
+            "the chem and bio domains"
         )
 
 
 def build_objective(cfg: PretrainConfig) -> nn.Module:
     """The objective module, its weights drawn from ``cfg.seed`` on the
-    CPU (so the seed fixes them whatever the device)."""
+    CPU (so the seed fixes them whatever the device) and its trunk's
+    dropout masks seeded from it too."""
     _check_ported(cfg)
     common = dict(num_layer=cfg.num_layer, emb_dim=cfg.emb_dim, jk=cfg.jk,
                   drop_ratio=cfg.dropout_ratio, gnn_type=cfg.gnn_type)
-    if cfg.objective == "edgepred":
+    if cfg.objective == "supervised":
+        model = SupervisedObjective(
+            num_tasks=cfg.num_tasks, graph_pooling=cfg.graph_pooling,
+            domain=cfg.domain, **common)
+    elif cfg.objective == "edgepred":
         model = (EdgePredObjective(**common, trunk=bio_models.GNN)
                  if cfg.domain == "bio" else EdgePredObjective(**common))
     elif cfg.domain == "bio":
@@ -87,6 +99,7 @@ def build_objective(cfg: PretrainConfig) -> nn.Module:
     else:
         model = MaskingObjective(mask_edge=cfg.mask_edge, **common)
     init_parameters(model, torch.Generator().manual_seed(cfg.seed))
+    model.gnn.seed_dropout(cfg.seed)
     return model
 
 
@@ -98,7 +111,9 @@ def build_loader(cfg: PretrainConfig, graphs: Sequence[Graph],
     or negative sampling for edge prediction, where the batch's layout
     picks the sampler: a blocked batch gets the C++ sampler's
     block-aligned pairs (``NativeNegativeEdge``), which the pair-dot
-    kernel takes, a standard one the compact ``BatchNegativeEdge``."""
+    kernel takes, a standard one the compact ``BatchNegativeEdge``. The
+    supervised objective has no transform: its batches carry the graphs'
+    labels ``y [G, T]`` (see :func:`supervised_graphs` for bio)."""
     _check_ported(cfg)
     mn, me = buffer_sizes(graphs, cfg.batch_size)
     blocks = choose_blocks(graphs, cfg.batch_size, cfg.packing, device)
@@ -108,7 +123,9 @@ def build_loader(cfg: PretrainConfig, graphs: Sequence[Graph],
     # bio graphs carry a per-graph center_node_idx (a node index)
     extra_pad = ({"center_node_idx": cfg.batch_size}
                  if cfg.domain == "bio" else None)
-    if cfg.objective == "edgepred":
+    if cfg.objective == "supervised":
+        post = None
+    elif cfg.objective == "edgepred":
         post = (NativeNegativeEdge() if blocks is not None
                 else BatchNegativeEdge(edge_budget=me // 2))
     elif cfg.domain == "bio":
@@ -126,6 +143,24 @@ def build_loader(cfg: PretrainConfig, graphs: Sequence[Graph],
     return PackedLoader(graphs, cfg.batch_size, mn, me, seed=cfg.seed,
                         extra_pad=extra_pad, blocks=blocks,
                         drop_last=drop_last, post_transform=post)
+
+
+def supervised_graphs(graphs: Sequence[Graph], domain: str):
+    """The graphs of the supervised objective and the width of their
+    labels. Chem graphs carry their {-1, 0, +1} task labels in ``y``
+    already. A bio graph's ``y`` is the downstream target: the pretraining
+    labels are its ``go_target_pretrain`` extra, which moves into ``y``,
+    and of the extras only ``center_node_idx`` stays, which the head
+    reads."""
+    if domain == "bio":
+        graphs = [
+            dataclasses.replace(
+                g, y=np.asarray(g.extras["go_target_pretrain"][0],
+                                np.float32),
+                extras={"center_node_idx": g.extras["center_node_idx"]})
+            for g in graphs
+        ]
+    return graphs, int(np.asarray(graphs[0].y).shape[0])
 
 
 def train_step(state: TrainState, batch):

@@ -4,7 +4,8 @@
 Run from the repository root:
 
     python3 scripts/torch_port_profile.py [--domain chem|bio]
-        [--objective masking|edgepred] [--gnn_type gin|gcn|gat|graphsage]
+        [--objective masking|edgepred|supervised]
+        [--gnn_type gin|gcn|gat|graphsage]
         [--gat_fused on|off]
 
 Configurations (float32, 5 x 300, batch 256), the workloads of
@@ -13,8 +14,11 @@ chip_smoke.py's main paths:
     runs with mask_edge off;
   - bio: synthetic ego-networks (``bio_dataset(4096, seed=0)``, about 60
     nodes on average);
-  - masking (default) or edge prediction, whose batches carry the C++
-    sampler's block-aligned negative pairs;
+  - masking (default), edge prediction, whose batches carry the C++
+    sampler's block-aligned negative pairs, or supervised pretraining
+    (mean pooling, dropout 0.2; chem on 1,310 synthetic tasks, bio on
+    5,000 ``go_target_pretrain`` labels, the reference's label widths;
+    its loader has no transform);
   - with ``--gnn_type gat``, ``--gat_fused off`` takes the unfused GATConv
     (the blocked GAT attention K5) instead of the fused GAT conv K4.
 It prints, for the card named on its first line:
@@ -103,20 +107,28 @@ OWN_KERNELS = {"K1 aggregation": ("gin_aggr_",),
 
 def workload(domain: str, objective: str, gnn_type: str):
     """(graphs, config) of chip_smoke.py's path of that name."""
+    supervised = objective == "supervised"
     if domain == "bio":
-        graphs = bio_dataset(4096, seed=0)
+        graphs = bio_dataset(4096, seed=0,
+                             **({"num_pretrain": 5000} if supervised else {}))
     else:
-        graphs, _ = molecule_dataset(4096, seed=0, mean_atoms=23)
+        graphs, _ = molecule_dataset(4096, num_tasks=1310 if supervised else 1,
+                                     seed=0, mean_atoms=23)
+    extra = {}
+    if supervised:
+        graphs, tasks = pretrain.supervised_graphs(graphs, domain)
+        extra = dict(num_tasks=tasks, graph_pooling="mean",
+                     dropout_ratio=0.2)
     return graphs, pretrain.PretrainConfig(
         objective=objective, domain=domain, gnn_type=gnn_type, num_layer=5,
-        emb_dim=300, batch_size=256, mask_edge=False, seed=0)
+        emb_dim=300, batch_size=256, mask_edge=False, seed=0, **extra)
 
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--domain", default="chem", choices=["chem", "bio"])
     p.add_argument("--objective", default="masking",
-                   choices=["masking", "edgepred"])
+                   choices=["masking", "edgepred", "supervised"])
     p.add_argument("--gnn_type", default="gin",
                    choices=["gin", "gcn", "gat", "graphsage"])
     p.add_argument("--gat_fused", default="on", choices=["on", "off"])
@@ -138,7 +150,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     for _ in range(8):
         t = time.perf_counter()
-        loader.post_transform(host_batch, rng)
+        if loader.post_transform is not None:  # supervised has none
+            loader.post_transform(host_batch, rng)
         transform_ms.append((time.perf_counter() - t) * 1e3)
     batches = [b.to(dev) for b in list(loader)[:4]]
 

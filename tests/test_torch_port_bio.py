@@ -276,7 +276,8 @@ def test_unported_bio_options_raise():
         tpretrain.build_objective(
             tpretrain.PretrainConfig(domain="bio", objective="infomax"))
     with pytest.raises(NotImplementedError):
-        tbio.GNN(num_layer=2, emb_dim=16, drop_ratio=0.5)
+        tpretrain.build_objective(
+            tpretrain.PretrainConfig(domain="bio", objective="contextpred"))
     with pytest.raises(ValueError, match="JK"):
         tbio.GNN(num_layer=2, emb_dim=16, jk="concat")
 

@@ -8,6 +8,8 @@ not installed:
 
 (``--noconftest`` keeps the JAX package's tests/conftest.py out.)"""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +21,8 @@ from pretrain_gnns_tpu_torch.data.synthetic import (
 )
 from pretrain_gnns_tpu_torch.models import bio, chem
 from pretrain_gnns_tpu_torch.ops import (
-    attention, blocked_spmm, edge_dot, gat_conv, gin_conv, spmm,
+    _build, attention, blocked_spmm, edge_dot, gat_conv, gin_conv,
+    sorted_spmm, spmm,
 )
 from pretrain_gnns_tpu_torch.train import pretrain
 
@@ -625,3 +628,250 @@ def test_gat_masking_step_on_card_matches_cpu(cuda_device, domain, fused):
     for n, gc in out["cuda"][1].items():
         assert torch.isfinite(gc).all(), n
         assert _rel(gc, out["cpu"][1][n]) <= 1e-3, n
+
+
+def _k6_case(dev, F, block_nodes, block_edges, n_graphs=24, seed=0):
+    """A blocked bio batch with its last two blocks all padding, and K6's
+    inputs: x, a precomputed edge embedding ee, fractional and negative
+    edge weights (0 on padded slots) and a cotangent g."""
+    graphs = bio_dataset(n_graphs, seed=seed)
+    n_blocks, bn, be = block_layout(graphs, n_graphs, block_nodes,
+                                    block_edges)
+    blocks = (n_blocks + 2, bn, be)
+    b = next(iter(PackedLoader(
+        graphs, n_graphs, shuffle=False, blocks=blocks, seed=seed,
+        extra_pad={"center_node_idx": n_graphs}))).to(dev)
+    assert not b.edge_mask.reshape(blocks[0], be)[-1].any()
+    gen = torch.Generator().manual_seed(seed)
+    N, E = b.max_nodes, b.max_edges
+    r = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    w = b.edge_mask.float() * (torch.rand(E, generator=gen) * 2 - 0.5).to(dev)
+    t = dict(x=r(N, F) * b.node_mask[:, None], ee=r(E, F), w=w, g=r(N, F))
+    return t, b, blocks
+
+
+def _k6_plain(t, b, blocks, has_ee, g=None):
+    x = t["x"].detach().clone().requires_grad_(True)
+    ee = t["ee"].detach().clone().requires_grad_(True)
+    out = blocked_spmm.blocked_spmm_plain(
+        x, ee if has_ee else None, b.senders, b.receivers, t["w"],
+        blocks[1], blocks[2])
+    dx, dee = torch.autograd.grad(out, [x, ee], t["g"] if g is None else g,
+                                  allow_unused=True)
+    return out.detach(), dx, dee
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_ee", [True, False])
+@pytest.mark.parametrize("F,bn,be", [(45, 128, 384), (300, 512, 1536)])
+def test_k6_kernels_match_plain_version(cuda_device, has_ee, F, bn, be):
+    """K6's forward and backward at an odd width and at blocks of 512
+    nodes (64 KB of shared memory, above the 48 KB a launch gets without
+    opting in), with all-padding blocks: padded rows and padded slots come
+    out exactly 0, and every output is the same bits from run to run."""
+    t, b, blocks = _k6_case(cuda_device, F, bn, be)
+    assert blocks[1] == bn
+    ee = t["ee"] if has_ee else None
+    edges = (b.senders, b.receivers, t["w"], bn, be)
+    name = blocked_spmm.ee_variant(has_ee)
+    before = dict(blocked_spmm.launches)
+    out = blocked_spmm.spmm_ee_fwd(t["x"], ee, *edges)
+    dx, dmsg = blocked_spmm.spmm_ee_bwd(t["g"], *edges, has_ee)
+    torch.cuda.synchronize()
+    after = dict(blocked_spmm.launches)
+    for d in ("fwd", "bwd"):
+        key = f"blocked_spmm_ee_{d}[{name}]"
+        assert after.pop(key) == before.pop(key) + 1
+    assert after == before
+    out_p, dx_p, dee_p = _k6_plain(t, b, blocks, True)
+    if not has_ee:
+        out_p = _k6_plain(t, b, blocks, False)[0]
+    assert _rel(out, out_p) <= FWD_TOL
+    assert _rel(dx, dx_p) <= GRAD_TOL and _rel(dmsg, dee_p) <= GRAD_TOL
+    assert not out[~b.node_mask].any() and not dx[~b.node_mask].any()
+    assert not dmsg[~b.edge_mask].any() and dmsg[b.edge_mask].any()
+    # each output alone, and the same bits again
+    dx_only, none = blocked_spmm.spmm_ee_bwd(t["g"], *edges, has_ee,
+                                             need_dmsg=False)
+    none2, dmsg_only = blocked_spmm.spmm_ee_bwd(t["g"], *edges, has_ee,
+                                                need_dx=False)
+    assert none is None and none2 is None
+    assert torch.equal(dx_only, dx) and torch.equal(dmsg_only, dmsg)
+    assert torch.equal(blocked_spmm.spmm_ee_fwd(t["x"], ee, *edges), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_ee", [True, False])
+def test_k6_autograd_function_gradients(cuda_device, has_ee):
+    """Through autograd, with a strided cotangent: dx and dee match the
+    plain version, w gets a zero gradient, and a leaf that asks for no
+    gradient gets none."""
+    t, b, blocks = _k6_case(cuda_device, 64, 128, 384, seed=1)
+    leaves = {k: t[k].detach().clone().requires_grad_(True)
+              for k in ("x", "ee", "w")}
+    out = blocked_spmm.blocked_spmm(
+        leaves["x"], leaves["ee"] if has_ee else None, b.senders,
+        b.receivers, leaves["w"], blocks[1], blocks[2])
+    g2 = torch.randn(out.shape[0], 2 * out.shape[1], device=out.device)
+    g = g2[:, ::2]  # not contiguous
+    assert not g.is_contiguous()
+    out.backward(g)
+    _, dx_p, dee_p = _k6_plain(t, b, blocks, has_ee, g)
+    assert _rel(leaves["x"].grad, dx_p) <= GRAD_TOL
+    assert not leaves["w"].grad.any()
+    if has_ee:
+        assert _rel(leaves["ee"].grad, dee_p) <= GRAD_TOL
+    else:
+        assert leaves["ee"].grad is None
+    # only the edge embedding asks: one backward launch, no dx
+    ee = t["ee"].detach().clone().requires_grad_(True)
+    before = dict(blocked_spmm.launches)
+    blocked_spmm.blocked_spmm(t["x"], ee, b.senders, b.receivers, t["w"],
+                              blocks[1], blocks[2]).backward(g)
+    assert blocked_spmm.launches["blocked_spmm_ee_bwd[x+ee]"] == \
+        before["blocked_spmm_ee_bwd[x+ee]"] + 1
+    assert _rel(ee.grad, _k6_plain(t, b, blocks, True, g)[2]) <= GRAD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_ee", [True, False])
+@pytest.mark.parametrize("F,bn,be", [(45, 128, 384), (300, 512, 1536)])
+def test_k7_kernel_matches_plain_version_and_k6(cuda_device, has_ee, F, bn,
+                                                be):
+    """K7 on the per-block sorted edges against its plain version and
+    against K6 on the unsorted ones; padded rows exactly 0, the same bits
+    from run to run, and no backward."""
+    t, b, blocks = _k6_case(cuda_device, F, bn, be)
+    s2, r2, w2, ee2 = sorted_spmm.sort_block_edges(
+        b.senders, b.receivers, t["w"], t["ee"] if has_ee else None,
+        blocks[0], be)
+    assert bool((r2.reshape(-1, be).diff(dim=1) >= 0).all())
+    before = dict(sorted_spmm.launches)
+    out = sorted_spmm.sorted_blocked_spmm(t["x"], ee2, s2, r2, w2, bn, be)
+    torch.cuda.synchronize()
+    assert sorted_spmm.launches["sorted_blocked_spmm_fwd"] == \
+        before["sorted_blocked_spmm_fwd"] + 1
+    want = sorted_spmm.sorted_blocked_spmm_plain(t["x"], ee2, s2, r2, w2)
+    k6 = blocked_spmm.spmm_ee_fwd(t["x"], t["ee"] if has_ee else None,
+                                  b.senders, b.receivers, t["w"], bn, be)
+    assert _rel(out, want) <= FWD_TOL and _rel(out, k6) <= FWD_TOL
+    assert not out[~b.node_mask].any()
+    assert torch.equal(
+        sorted_spmm.sorted_blocked_spmm(t["x"], ee2, s2, r2, w2, bn, be), out)
+    x = t["x"].detach().clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        sorted_spmm.sorted_blocked_spmm(x, ee2, s2, r2, w2, bn,
+                                        be).sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine", ["add", "concat"])
+def test_gather_scatter_edge_emb_dispatch_on_cuda(cuda_device, combine):
+    """With ``edge_emb`` a blocked batch goes to K6 (the concat form as
+    K2[x] and K6 on a zero x, which gets no dx); the mean takes the plain
+    path; an unblocked batch raises."""
+    t, b, blocks = _k6_case(cuda_device, 32, 128, 384, seed=2)
+    graph = (b.senders, b.receivers, b.edge_mask, b.max_nodes)
+    kw = dict(edge_emb=None, combine=combine, edge_weight=t["w"].abs() + 0.5)
+    results = []
+    before = dict(blocked_spmm.launches)
+    for fn, layout in ((spmm.gather_scatter, dict(block_nodes=blocks[1],
+                                                  block_edges=blocks[2])),
+                       (spmm.gather_scatter_plain, {})):
+        x = t["x"].detach().clone().requires_grad_(True)
+        ee = t["ee"].detach().clone().requires_grad_(True)
+        out = fn(x, *graph, **{**kw, "edge_emb": ee}, **layout)
+        g = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            3)).to(out.device)
+        out.backward(g)
+        results.append((out.detach(), x.grad, ee.grad))
+    moved = {k: v - before[k] for k, v in blocked_spmm.launches.items()
+             if v != before[k]}
+    want = {"blocked_spmm_ee_fwd[x+ee]": 1, "blocked_spmm_ee_bwd[x+ee]": 1}
+    if combine == "concat":
+        want.update({"blocked_spmm_fwd[x]": 1, "blocked_spmm_bwd[x]": 1})
+    assert moved == want
+    (out, dx, dee), (out_p, dx_p, dee_p) = results
+    assert out.shape == (b.max_nodes, 32 * (1 + (combine == "concat")))
+    assert _rel(out, out_p) <= FWD_TOL
+    assert _rel(dx, dx_p) <= GRAD_TOL and _rel(dee, dee_p) <= GRAD_TOL
+    before = dict(blocked_spmm.launches)
+    mean = spmm.gather_scatter(t["x"], *graph, edge_emb=t["ee"],
+                               combine=combine, aggr="mean",
+                               block_nodes=blocks[1], block_edges=blocks[2])
+    assert blocked_spmm.launches == before
+    assert _rel(mean, spmm.gather_scatter_plain(
+        t["x"], *graph, edge_emb=t["ee"], combine=combine,
+        aggr="mean")) <= FWD_TOL
+    with pytest.raises(ValueError, match="block-diagonal"):
+        spmm.gather_scatter(t["x"], *graph, edge_emb=t["ee"],
+                            combine=combine)
+
+
+@pytest.mark.cuda
+def test_probe_launches_once_and_raises_on_a_wrong_answer(cuda_device,
+                                                          monkeypatch):
+    """The probe builds, launches once a process and caches its success;
+    when its comparison is made to fail (the expected value, not the
+    kernel, is changed) it raises and no kernel library is handed out."""
+    _build.probe.cache_clear()
+    before = _build.launches["probe_scale2"]
+    assert _build.probe() is True and _build.probe() is True
+    assert _build.launches["probe_scale2"] == before + 1
+    x = torch.randn(*_build.PROBE_SHAPE, device=cuda_device)
+    assert torch.equal(_build.probe_scale2(x), 2 * x)
+    monkeypatch.setattr(_build, "probe_scale2_plain", lambda x: 2 * x + 1)
+    _build.probe.cache_clear()
+    with pytest.raises(RuntimeError, match="disagrees"):
+        _build.probe()
+    with pytest.raises(RuntimeError, match="disagrees"):
+        _build.load("spmm_ee")
+    monkeypatch.undo()
+    assert _build.probe() is True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain,pooling", [("chem", "mean"),
+                                            ("chem", "set2set2"),
+                                            ("bio", "attention")])
+def test_supervised_step_on_card_matches_cpu(cuda_device, domain, pooling):
+    """One train-mode step of a small supervised model (dropout 0): card
+    vs CPU; with dropout on, the card's masks repeat bit for bit under the
+    same seed and the step stays finite. The loss itself repeats only to
+    rtol 1e-6: the aggregations' and the readouts' atomics sum in an order
+    that changes from run to run."""
+    if domain == "bio":
+        graphs = bio_dataset(64, seed=2, num_pretrain=7)
+    else:
+        graphs, _ = molecule_dataset(64, num_tasks=5, seed=2,
+                                     missing_frac=0.2)
+    graphs, T = pretrain.supervised_graphs(graphs, domain)
+    cfg = pretrain.PretrainConfig(
+        objective="supervised", domain=domain, num_layer=3, emb_dim=48,
+        batch_size=32, packing="blocked", num_tasks=T,
+        graph_pooling=pooling)
+    batch = next(iter(pretrain.build_loader(cfg, graphs, cuda_device)))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = pretrain.build_objective(cfg).to(dev)
+        loss, _ = model(batch.to(dev), train=True)
+        loss.backward()
+        out[dev.type] = (float(loss.detach()),
+                         {n: p.grad.cpu() for n, p in
+                          model.named_parameters()})
+    assert np.isclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for n, gc in out["cuda"][1].items():
+        assert _rel(gc, out["cpu"][1][n]) <= 1e-3, n
+    drop = dataclasses.replace(cfg, dropout_ratio=0.5)
+    losses, masks = [], []
+    h = torch.ones(64, 48, device=cuda_device)
+    for _ in range(2):
+        model = pretrain.build_objective(drop).to(cuda_device)
+        with torch.no_grad():
+            losses.append(float(model(batch.to(cuda_device), train=True)[0]))
+            masks.append(model.gnn.dropout(h, True))
+    assert torch.equal(masks[0], masks[1])
+    assert set(masks[0].unique().tolist()) == {0.0, 2.0}
+    assert np.isclose(losses[0], losses[1], rtol=1e-6, atol=0.0)
+    assert np.isfinite(losses[0])
+    assert not np.isclose(losses[0], out["cuda"][0], rtol=1e-5, atol=0.0)

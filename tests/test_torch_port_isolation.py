@@ -24,7 +24,9 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "pretrain_gnns_tpu"}
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py"))
+            + sorted((ROOT / "scripts").glob("torch_port_*.py"))
+            + [ROOT / "chip_smoke.py"])
 
 
 def _imported_roots(path):
@@ -46,6 +48,11 @@ def test_no_forbidden_imports_in_sources():
             "pretrain_gnns_tpu_torch/objectives/edgepred.py",
             "pretrain_gnns_tpu_torch/ops/attention.py",
             "pretrain_gnns_tpu_torch/ops/gat_conv.py",
+            "pretrain_gnns_tpu_torch/ops/sorted_spmm.py",
+            "pretrain_gnns_tpu_torch/models/pools.py",
+            "pretrain_gnns_tpu_torch/objectives/supervised.py",
+            "scripts/torch_port_kernel_micro.py",
+            "scripts/torch_port_profile.py",
             "chip_smoke.py"} <= scanned
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & FORBIDDEN)
            for p in files}
@@ -59,6 +66,8 @@ def test_importing_the_port_loads_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import torch_port_kernel_micro\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "print(len(sys.modules), bad)\n"
@@ -90,10 +99,11 @@ def test_standard_packing_and_unported_options():
         pretrain.build_objective(
             pretrain.PretrainConfig(objective="infomax"))
     with pytest.raises(NotImplementedError):
-        GNN(num_layer=2, emb_dim=16, drop_ratio=0.5)
+        pretrain.build_objective(
+            pretrain.PretrainConfig(objective="contextpred"))
     with pytest.raises(NotImplementedError):
         pretrain.build_objective(
-            pretrain.PretrainConfig(domain="bio", objective="supervised"))
+            pretrain.PretrainConfig(domain="bio", objective="contextpred"))
 
 
 def test_cli_trains_one_epoch_on_cpu(tmp_path):
@@ -110,10 +120,10 @@ def test_cli_trains_one_epoch_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--objective", "infomax"],
-                                   ["--domain", "bio", "--objective", "supervised"],
+                                   ["--domain", "bio", "--objective", "contextpred"],
                                    ["--dataset", "bbbp"],
-                                   ["--objective", "edgepred",
-                                    "--dropout_ratio", "0.5"]])
+                                   ["--objective", "supervised",
+                                    "--input_model_file", "trunk.pth"]])
 def test_cli_rejects_what_is_not_ported(flags):
     with pytest.raises(SystemExit, match="not ported"):
         cli.main(["--device", "cpu", "--epochs", "1", *flags])

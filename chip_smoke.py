@@ -12,15 +12,21 @@ Phases, in order (any failure exits non-zero):
   2. chem kernel phase: on the chem path's first batch (256 molecules,
      blocks of 128 nodes / 384 edge slots, F = 300, K = 9, float32) the
      fused GIN conv K1 is held against its plain PyTorch version (forward
-     ``out``, ``aggr``, ``z`` and all seven gradients) and timed with CUDA
-     events beside the plain version, ``torch.matmul`` for its products
-     and its bound;
+     ``out``, ``aggr``, ``z`` and all seven gradients), every output equal
+     bit for bit between two runs, and timed with CUDA events beside the
+     plain version, the unfused GIN layer (K2 ``[x+ein]``, the self term,
+     two ``nn.Linear`` and the ReLU; its output held against K1's), its
+     bound and its products alone: through its own GEMM (``gemm.cuh``) and
+     through ``torch.matmul``, each in TFLOP/s;
   3. chem agreement: one train-mode masking step at full width on the card
      (kernels) and on the CPU (plain version) from the same weights:
      loss, every gradient and the batch-norm running stats;
   4. chem main path: ``run_pretrain`` on ``cuda`` at full width (GIN
      5 x 300, batch 256, mask_edge off) for a few dozen steps, with every
      launch count checked: K1 at 5 x steps in each direction, K2 at 0;
+     then, under ``gin_conv.set_fused("off")``, the chem agreement step and
+     16 steps of the same path on the unfused GIN route: K2's
+     ``fwd[x+ein]`` and ``bwd[x+ein]`` at 5 a step, K1 at 0;
   5. bio kernel phase: on the bio path's first batch (256 ego-networks,
      blocks of 128 nodes / 384 edge slots, F = 300, K = 10, float32) each
      variant of the fused edge-transform SpMM K2 (has_x, has_ein, both) is
@@ -147,6 +153,7 @@ K5 = {"blocked_gat_attention_fwd": LAYERS,
 CHEM_TASKS = 1310  # the reference's ChEMBL task count
 BIO_TASKS = 5000  # the reference's coarse GO terms
 WARMUP, TRIALS, REPS = 5, 20, 10
+T0 = time.perf_counter()  # the run's start, for the phases' stamps
 SPIN_CYCLES = 3_500_000  # about 2 ms of the card's clock, see time_ms
 
 # NVIDIA H100 SXM data sheet: float32 on the CUDA cores (dense), HBM3 rate
@@ -290,6 +297,20 @@ def kernel_phase(torch, batch, model):
             and gin_conv.launches["gin_conv_bwd"] > 0):
         raise AssertionError(f"K1 launch counter did not move: "
                              f"{gin_conv.launches}")
+    # no atomics: a second run gives the same bits
+    with torch.no_grad():
+        again = gin_conv.gin_conv_fwd(*args)
+        again += gin_conv.gin_conv_bwd(g, again[1], again[2], ein, W1, W2,
+                                       snd, rcv, w, nm, bn, be)
+    torch.cuda.synchronize()
+    differ = [n for n, a, b in zip(("out", "aggr", "z") + names,
+                                   (out, aggr, z) + tuple(grads_k), again)
+              if not torch.equal(a, b)]
+    print(f"[kernels] K1 run to run: "
+          f"{f'differs in {differ}' if differ else 'out, aggr, z and all seven gradients equal bit for bit'}",
+          flush=True)
+    if differ:
+        raise AssertionError(f"K1 is not repeatable: {differ}")
 
     # timings (device ms per call, see time_ms)
     def plain_fwd():
@@ -309,6 +330,18 @@ def kernel_phase(torch, batch, model):
                                      torch.matmul(z.t(), g),
                                      torch.matmul(aggr.t(), dzr),
                                      torch.matmul(dzr, W1.t())), torch)
+        # the same products through K1's own GEMM (gemm.cuh), with the
+        # epilogues and the split K that K1 gives them
+        s2 = gin_conv.wgrad_splits(F2, F, N)
+        s1 = gin_conv.wgrad_splits(F, F2, N)
+        gemm_fwd_ms = time_ms(lambda: (gin_conv.gemm(aggr, W1, b1, relu=True),
+                                       gin_conv.gemm(z, W2, b2)), torch)
+        gemm_bwd_ms = time_ms(lambda: (gin_conv.gemm(g, W2.t(), pos_mask=z),
+                                       gin_conv.gemm(z.t(), g, splits=s2),
+                                       gin_conv.gemm(aggr.t(), dzr, splits=s1),
+                                       gin_conv.gemm(dzr, W1.t())), torch)
+    unfused_fwd_ms, unfused_bwd_ms = unfused_layer_ms(torch, conv, x, batch,
+                                                      g, out)
 
     # The bound counts the work this batch needs. Padded rows are one
     # constant row: in the forward aggr = 0 there, so z = relu(b1) and out
@@ -333,52 +366,87 @@ def kernel_phase(torch, batch, model):
     src = "pretrain_gnns_tpu_torch/csrc/gin_conv.cu"
     common = dict(route="cuda", source=src, library_ms=None,
                   shape="chem masking first batch")
+    gemm_flops = 2 * N * F * F2  # one product over all N rows
+    tflops = lambda n, ms: n * gemm_flops / ms / 1e9
     fwd = dict(name="gin_conv_fwd",
                replaces="pretrain_gnns_tpu/ops/pallas_gin.py:47",
                tpu_counterpart="ops/pallas_gin.py::_fwd_kernel via _call_fwd",
                max_abs_err=fwd_abs, ms=kern_fwd_ms, plain_ms=plain_fwd_ms,
                bound_ms=fwd_b, bound_by=fwd_by, matmul_ms=mm_fwd_ms,
-               **common)
+               gemm_ms=gemm_fwd_ms, gemm_tflops=tflops(2, gemm_fwd_ms),
+               matmul_tflops=tflops(2, mm_fwd_ms),
+               unfused_ms=unfused_fwd_ms, **common)
     bwd = dict(name="gin_conv_bwd",
                replaces="pretrain_gnns_tpu/ops/pallas_gin.py:114",
                tpu_counterpart="ops/pallas_gin.py::_bwd_kernel via _call_bwd",
                max_abs_err=bwd_abs, ms=kern_bwd_ms, plain_ms=plain_bwd_ms,
                bound_ms=bwd_b, bound_by=bwd_by, matmul_ms=mm_bwd_ms,
-               **common)
+               gemm_ms=gemm_bwd_ms, gemm_tflops=tflops(4, gemm_bwd_ms),
+               matmul_tflops=tflops(4, mm_bwd_ms),
+               unfused_ms=unfused_bwd_ms, **common)
     print(f"[kernels] shapes N={N} F={F} F2={F2} K={K} E={E} "
           f"valid_nodes={V} valid_edges={e_valid}; bound operations "
           f"fwd {fwd_ops:.4e} bwd {bwd_ops:.4e}", flush=True)
     for k in (fwd, bwd):
         print(f"[kernels] {k['name']}: kernel {k['ms']:.4f} ms, plain "
-              f"{k['plain_ms']:.4f} ms, torch.matmul products "
-              f"{k['matmul_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-              f"({k['bound_by']})", flush=True)
+              f"{k['plain_ms']:.4f} ms, unfused route (K2 [x+ein], two "
+              f"nn.Linear, ReLU, self term) {k['unfused_ms']:.4f} ms, bound "
+              f"{k['bound_ms']:.4f} ms ({k['bound_by']}); its products: "
+              f"gemm.cuh {k['gemm_ms']:.4f} ms = {k['gemm_tflops']:.1f} "
+              f"TFLOP/s, torch.matmul {k['matmul_ms']:.4f} ms = "
+              f"{k['matmul_tflops']:.1f} TFLOP/s ("
+              f"{100 * k['gemm_tflops'] / k['matmul_tflops']:.0f}% of "
+              "torch.matmul's rate)", flush=True)
     return [fwd, bwd]
 
 
-def path_name(cfg, gat_fused="on") -> str:
-    unfused = " unfused" * (gat_fused == "off")
+def unfused_layer_ms(torch, conv, x, batch, g, k1_out):
+    """Device ms of one GIN layer on the unfused route
+    (``gin_conv.set_fused("off")``: K2 ``[x+ein]``, the self term, the two
+    ``nn.Linear`` and the ReLU), forward and backward, on K1's inputs; its
+    output is held against K1's."""
+    with fused_as("off"):
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: conv(x, batch), torch)
+        xl = x.detach().clone().requires_grad_(True)
+        out = conv(xl, batch)
+        leaves = [xl] + list(conv.parameters())
+        bwd_ms = time_ms(lambda: torch.autograd.grad(
+            out, leaves, g, retain_graph=True), torch)
+    err = rel_err(out.detach(), k1_out)
+    print(f"[kernels] unfused GIN layer: forward rel err from K1 {err:.3e}",
+          flush=True)
+    if not err <= FWD_TOL:
+        raise AssertionError(f"the unfused GIN layer disagrees with K1: {err}")
+    return fwd_ms, bwd_ms
+
+
+def path_name(cfg, fused="on") -> str:
+    unfused = " unfused" * (fused == "off")
     return f"{cfg.domain} {cfg.objective} {cfg.gnn_type}{unfused}"
 
 
 @contextlib.contextmanager
-def gat_fused_as(mode):
-    """``gat_conv.set_fused(mode)`` for the block, "on" again after it."""
-    from pretrain_gnns_tpu_torch.ops import gat_conv
+def fused_as(mode):
+    """``set_fused(mode)`` of the GAT conv (K4) and the GIN conv (K1) for
+    the block, "on" again after it."""
+    from pretrain_gnns_tpu_torch.ops import gat_conv, gin_conv
 
     gat_conv.set_fused(mode)
+    gin_conv.set_fused(mode)
     try:
         yield
     finally:
         gat_conv.set_fused("on")
+        gin_conv.set_fused("on")
 
 
-def agreement_phase(torch, batch, cfg, referee=False, gat_fused="on"):
+def agreement_phase(torch, batch, cfg, referee=False, fused="on"):
     """One train-mode step of ``cfg``'s objective on the card and on the
     CPU. With ``referee``, a float64 step on the CPU and the measured
     float32 noise set the gradients' limit (see REFEREE_K)."""
-    with gat_fused_as(gat_fused):
-        _agreement(torch, batch, cfg, referee, path_name(cfg, gat_fused))
+    with fused_as(fused):
+        _agreement(torch, batch, cfg, referee, path_name(cfg, fused))
 
 
 def _agreement(torch, batch, cfg, referee, name):
@@ -437,7 +505,8 @@ def _agreement(torch, batch, cfg, referee, name):
     print(f"{tag} loss cuda={lc:.6f} cpu={lp:.6f} rel err "
           f"{loss_err:.3e}; max grad rel err{' (median)' * referee} "
           f"{card_err:.3e} (limit "
-          f"{limit:.3e}); max BN stat rel err {stat_err:.3e}", flush=True)
+          f"{limit:.3e}); max BN stat rel err {stat_err:.3e} "
+          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
     if not (loss_err <= STEP_LOSS_TOL and card_err <= limit
             and stat_err <= STEP_GRAD_TOL and math.isfinite(lc)):
         raise AssertionError(f"{name} step on the card disagrees with "
@@ -460,7 +529,7 @@ def read_counts(modules):
 
 
 def main_path_phase(torch, graphs, cfg, card, per_step,
-                    epochs=MAIN_EPOCHS, gat_fused="on", reprobe=False):
+                    epochs=MAIN_EPOCHS, fused="on", reprobe=False):
     """``run_pretrain`` on the card; every launch count is set to 0 just
     before and read just after. ``per_step`` gives the launches a step of
     each counter that must move; every other count must stay 0. With
@@ -470,7 +539,7 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
     from pretrain_gnns_tpu_torch.ops import _build, gin_conv
     from pretrain_gnns_tpu_torch.train import pretrain
 
-    name = path_name(cfg, gat_fused)
+    name = path_name(cfg, fused)
     tag = f"[{name} path]"
     stamps = []
 
@@ -484,7 +553,7 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
     if reprobe:
         _build.probe.cache_clear()
         gin_conv._lib.cache_clear()
-    with gat_fused_as(gat_fused):
+    with fused_as(fused):
         for m in modules:
             m.reset_launches()
         res = pretrain.run_pretrain(cfg, graphs, log=log, epochs=epochs,
@@ -508,7 +577,7 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
     print(f"{tag} {steps} steps, launches "
           f"{ {k: v for k, v in counts.items() if v} }; {rate}on {card}; peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
-          "MiB", flush=True)
+          f"MiB [{time.perf_counter() - T0:.0f} s]", flush=True)
     return counts, steps
 
 
@@ -1319,7 +1388,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    t0 = time.perf_counter()
+    t0 = T0
     card = card_line()
     dev = resolve_device("cuda")
     print(f"[card] {card}; torch {torch.__version__}, CUDA "
@@ -1345,6 +1414,9 @@ def main() -> int:
     probe = probe_phase(torch)
     agreement_phase(torch, batch, cfg)
     record_launches(kernels, main_path_phase(torch, graphs, cfg, card, K1))
+    # the same path on the unfused GIN route: K2 [x+ein], no K1
+    agreement_phase(torch, batch, cfg, fused="off")
+    main_path_phase(torch, graphs, cfg, card, GCN_K2, epochs=1, fused="off")
     chem_graphs, chem_first = graphs, batch
 
     # bio: K2 on the bio masking path
@@ -1461,13 +1533,13 @@ def main() -> int:
         "receivers and masks checked equal")
     for domain, mode in (("chem", "on"), ("bio", "on"), ("chem", "off")):
         agreement_phase(torch, gat_first[domain], gat_path(domain)[1],
-                        gat_fused=mode)
+                        fused=mode)
     record_launches(k45, main_path_phase(torch, *gat_path("chem"), card, K4),
                     K4)
     main_path_phase(torch, *gat_path("bio"), card, K4, epochs=1)
     record_launches(k45, main_path_phase(
         torch, *gat_path("chem", "edgepred"), card, {**K5, **K3}, epochs=1,
-        gat_fused="off"), K5)
+        fused="off"), K5)
 
     # K6 and K7: the precomputed-edge-embedding aggregation, through the
     # op-level API and the kernel micro-benchmark

@@ -22,15 +22,24 @@
 // the CUDA cores the layer is bound by operations (67 TFLOP/s peak), not
 // by bytes (3.35 TB/s). The aggregation is a small share of the work.
 //
-// Design (simple and right first; wgmma/TMA on bf16 are later work):
+// Design:
 // - The TPU kernel gathered and scattered with one-hot matmuls on the MXU.
-//   Here the aggregation is a gather with per-edge shared-memory atomics:
-//   one CTA per (node block, 32-wide feature tile) keeps the block's
-//   receiver rows in a shared f32 tile. Padded edge slots (w == 0) and any
-//   slot whose endpoints fall outside its block are skipped, so a padded
-//   slot's global index 0 never indexes shared memory out of bounds.
-// - The MLP products go through the tiled FMA GEMM of gemm.cuh (64x64x16
-//   tiles, 4x4 outputs per thread, full float32, no TF32) with a
+//   Here one CTA per (node block, 32-wide feature tile) keeps the block's
+//   rows in a shared f32 tile, a lane per feature, and each warp is the
+//   only writer of the rows it owns (the slot walk of slot_walk.cuh, K6's
+//   scheme): no atomics, and every sum is taken in slot order, so aggr, dx
+//   and dWe are the same bits from run to run. Padded edge slots (w == 0)
+//   and any slot whose endpoints fall outside its block add nothing.
+// - The edge term is reassociated: aggr_r = sum_{rcv_e = r} w_e x[snd_e]
+//   + A_r @ We with A_r = sum_{rcv_e = r} w_e ein_e. The owning warp adds
+//   w_e ein_e into the block's [block_nodes, K] row sums A in shared memory
+//   (lanes k < K, one add a slot), then each row gets A_r @ We with the
+//   lane's column of We in registers: K FMAs a row, not a slot. In the
+//   backward, dWe = sum_r A_r^T da_r per block: the backward walks the
+//   slots by sender (for dx) and by receiver (to rebuild A, which costs
+//   one add a slot and saves keeping A from the forward).
+// - The MLP products go through the GEMM of gemm.cuh (register-tiled,
+//   double-buffered cp.async, full float32, no TF32) with a
 //   bias/ReLU/(z > 0) epilogue. Operand strides are arguments, so
 //   transposed operands need no copies. Weight gradients contract over
 //   all N rows; they split K into partial products that a second pass
@@ -38,14 +47,13 @@
 // - The TPU carried the cross-block sums (dWe, de_self) in VMEM across a
 //   sequential grid. Hopper's blocks run in no order, so each node block
 //   writes its partial and a second pass sums the partials in block order.
-// Summation order: the shared-memory atomics of the two aggregation
-// kernels make aggr and dx sums of a few terms in an order that varies
-// from run to run (a relative error of a few float32 ulps); everything
-// else is summed in a fixed order.
+// Every output is summed in a fixed order: the kernels give the same bits
+// on every run.
 
 #include <cuda_runtime.h>
 
 #include "gemm.cuh"
+#include "slot_walk.cuh"
 
 namespace {
 
@@ -53,7 +61,17 @@ constexpr int FT = 32;                    // feature tile: one warp wide
 constexpr int AGG_THREADS = 256;
 constexpr int AGG_WARPS = AGG_THREADS / FT;
 constexpr int MAX_BN = 256;               // node rows per block
-constexpr int MAX_K = 16;                 // one-hot edge feature width
+constexpr int MAX_K = 16;                 // edge input width
+constexpr int DEFAULT_SMEM = 48 * 1024;   // above this only after opting in
+
+// shared floats of an aggregation CTA: the rows' feature tile and their
+// edge-input sums, [block_nodes][FT + MAX_K]; the backward reuses them for
+// its cross-warp sums, [AGG_WARPS][MAX_K + 1][FT]
+int aggr_smem(int block_nodes) {
+  const int rows = block_nodes * (FT + MAX_K);
+  const int red = AGG_WARPS * (MAX_K + 1) * FT;
+  return (rows > red ? rows : red) * (int)sizeof(float);
+}
 
 __global__ void __launch_bounds__(AGG_THREADS)
 gin_aggr_fwd_kernel(const float* __restrict__ x, const float* __restrict__ ein,
@@ -62,41 +80,54 @@ gin_aggr_fwd_kernel(const float* __restrict__ x, const float* __restrict__ ein,
                     const float* __restrict__ w, const float* __restrict__ nm,
                     float* __restrict__ aggr, int F, int K, int block_nodes,
                     int block_edges) {
-  __shared__ float acc[MAX_BN * FT];
-  __shared__ float We_s[MAX_K * FT];
+  extern __shared__ float smem[];
+  float* acc = smem;                        // [block_nodes][FT]
+  float* asum = smem + block_nodes * FT;    // [block_nodes][MAX_K]
   const int b = blockIdx.x;
   const int f0 = blockIdx.y * FT;
   const int lane = threadIdx.x % FT;
   const int warp = threadIdx.x / FT;
   const int f = f0 + lane;
   const bool fok = f < F;
-  for (int i = threadIdx.x; i < block_nodes * FT; i += AGG_THREADS) acc[i] = 0.f;
-  for (int i = threadIdx.x; i < K * FT; i += AGG_THREADS) {
-    const int k = i / FT, l = i % FT;
-    We_s[i] = (f0 + l < F) ? We[(ll)k * F + f0 + l] : 0.f;
+  // a warp zeroes, fills and reads only the rows it owns: no block barrier
+  for (int r = warp; r < block_nodes; r += AGG_WARPS) {
+    acc[r * FT + lane] = 0.f;
+    if (lane < MAX_K) asum[r * MAX_K + lane] = 0.f;
   }
-  __syncthreads();
+  float we_f[MAX_K];  // this lane's column of We
+#pragma unroll
+  for (int k = 0; k < MAX_K; ++k) we_f[k] = (k < K && fok) ? We[(ll)k * F + f] : 0.f;
+  __syncwarp();
 
-  const int base = b * block_nodes;
+  const ll base = (ll)b * block_nodes;
   const ll e0 = (ll)b * block_edges;
-  for (int e = warp; e < block_edges; e += AGG_WARPS) {
-    const float we = w[e0 + e];
-    if (we == 0.f) continue;
-    const int s = snd[e0 + e] - base;
-    const int r = rcv[e0 + e] - base;
-    if (s < 0 || s >= block_nodes || r < 0 || r >= block_nodes) continue;
-    float m = fok ? x[(ll)(base + s) * F + f] : 0.f;
-    const float* ee = ein + (e0 + e) * K;
-    for (int k = 0; k < K; ++k) m = fmaf(ee[k], We_s[k * FT + lane], m);
-    atomicAdd(&acc[r * FT + lane], we * m);
+  for (int q0 = 0; q0 < block_edges; q0 += FT) {
+    int ls, lr;
+    float we;
+    load_slot(snd, rcv, w, e0, base, q0 + lane, block_nodes, block_edges, ls,
+              lr, we);
+    walk_owned(lr, ls, lr, we, warp, AGG_WARPS,
+               [&](int src, int s, int r, float wq) {
+                 if (lane < K)
+                   asum[r * MAX_K + lane] = fmaf(
+                       wq, ein[(e0 + q0 + src) * K + lane],
+                       asum[r * MAX_K + lane]);
+                 if (fok)
+                   acc[r * FT + lane] = fmaf(wq, x[(base + s) * F + f],
+                                             acc[r * FT + lane]);
+               });
   }
-  __syncthreads();
+  __syncwarp();
 
   if (!fok) return;
   const float es = e_self[f];
   for (int r = warp; r < block_nodes; r += AGG_WARPS) {
+    float e = 0.f;  // A_r @ We[:, f]
+#pragma unroll
+    for (int k = 0; k < MAX_K; ++k)
+      if (k < K) e = fmaf(asum[r * MAX_K + k], we_f[k], e);
     const ll n = base + r;
-    aggr[n * F + f] = acc[r * FT + lane] + (x[n * F + f] + es) * nm[n];
+    aggr[n * F + f] = acc[r * FT + lane] + e + (x[n * F + f] + es) * nm[n];
   }
 }
 
@@ -107,48 +138,62 @@ gin_aggr_bwd_kernel(const float* __restrict__ da, const float* __restrict__ ein,
                     float* __restrict__ dx, float* __restrict__ dWe_part,
                     float* __restrict__ des_part, int F, int K, int block_nodes,
                     int block_edges) {
-  __shared__ float acc[MAX_BN * FT];
+  extern __shared__ float smem[];
+  float* acc = smem;                        // [block_nodes][FT], by sender
+  float* asum = smem + block_nodes * FT;    // [block_nodes][MAX_K], by receiver
   const int b = blockIdx.x;
   const int f0 = blockIdx.y * FT;
   const int lane = threadIdx.x % FT;
   const int warp = threadIdx.x / FT;
   const int f = f0 + lane;
   const bool fok = f < F;
-  for (int i = threadIdx.x; i < block_nodes * FT; i += AGG_THREADS) acc[i] = 0.f;
-  __syncthreads();
+  for (int r = warp; r < block_nodes; r += AGG_WARPS) {
+    acc[r * FT + lane] = 0.f;
+    if (lane < MAX_K) asum[r * MAX_K + lane] = 0.f;
+  }
+  __syncwarp();
 
-  const int base = b * block_nodes;
+  const ll base = (ll)b * block_nodes;
   const ll e0 = (ll)b * block_edges;
-  float dwe[MAX_K];
+  for (int q0 = 0; q0 < block_edges; q0 += FT) {
+    int ls, lr;
+    float we;
+    load_slot(snd, rcv, w, e0, base, q0 + lane, block_nodes, block_edges, ls,
+              lr, we);
+    walk_owned(ls, ls, lr, we, warp, AGG_WARPS,
+               [&](int, int s, int r, float wq) {
+                 if (fok)
+                   acc[s * FT + lane] = fmaf(wq, da[(base + r) * F + f],
+                                             acc[s * FT + lane]);
+               });
+    walk_owned(lr, ls, lr, we, warp, AGG_WARPS,
+               [&](int src, int, int r, float wq) {
+                 if (lane < K)
+                   asum[r * MAX_K + lane] = fmaf(
+                       wq, ein[(e0 + q0 + src) * K + lane],
+                       asum[r * MAX_K + lane]);
+               });
+  }
+  __syncwarp();
+
+  float dwe[MAX_K];  // sum over the warp's rows of A_r[k] * da_r[f]
 #pragma unroll
   for (int k = 0; k < MAX_K; ++k) dwe[k] = 0.f;
-  for (int e = warp; e < block_edges; e += AGG_WARPS) {
-    const float we = w[e0 + e];
-    if (we == 0.f) continue;
-    const int s = snd[e0 + e] - base;
-    const int r = rcv[e0 + e] - base;
-    if (s < 0 || s >= block_nodes || r < 0 || r >= block_nodes) continue;
-    const float dm = fok ? da[(ll)(base + r) * F + f] : 0.f;
-    atomicAdd(&acc[s * FT + lane], we * dm);
-    const float* ee = ein + (e0 + e) * K;
-    const float wdm = we * dm;
-#pragma unroll
-    for (int k = 0; k < MAX_K; ++k)
-      if (k < K) dwe[k] = fmaf(ee[k], wdm, dwe[k]);
-  }
-  __syncthreads();
-
   float des = 0.f;
   for (int r = warp; r < block_nodes; r += AGG_WARPS) {
     const ll n = base + r;
-    const float dn = fok ? da[n * F + f] * nm[n] : 0.f;
+    const float d = fok ? da[n * F + f] : 0.f;
+    const float dn = d * nm[n];
     des += dn;
     if (fok) dx[n * F + f] = acc[r * FT + lane] + dn;
+#pragma unroll
+    for (int k = 0; k < MAX_K; ++k)
+      if (k < K) dwe[k] = fmaf(asum[r * MAX_K + k], d, dwe[k]);
   }
-  __syncthreads();  // acc is reused below for the cross-warp sums
+  __syncthreads();  // smem is reused below for the cross-warp sums
 
-  float* red_we = acc;                          // [AGG_WARPS][MAX_K][FT]
-  float* red_es = acc + AGG_WARPS * MAX_K * FT;  // [AGG_WARPS][FT]
+  float* red_we = smem;                           // [AGG_WARPS][MAX_K][FT]
+  float* red_es = smem + AGG_WARPS * MAX_K * FT;  // [AGG_WARPS][FT]
 #pragma unroll
   for (int k = 0; k < MAX_K; ++k)
     if (k < K) red_we[(warp * MAX_K + k) * FT + lane] = dwe[k];
@@ -167,6 +212,20 @@ gin_aggr_bwd_kernel(const float* __restrict__ da, const float* __restrict__ ein,
     for (int v = 0; v < AGG_WARPS; ++v) s += red_es[v * FT + t];
     des_part[(ll)b * F + f0 + t] = s;
   }
+}
+
+template <typename Kernel, typename... Args>
+int launch_aggr(Kernel kernel, int n_blocks, int F, int block_nodes,
+                cudaStream_t st, Args... args) {
+  const int smem = aggr_smem(block_nodes);
+  if (smem > DEFAULT_SMEM) {
+    const int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err) return err;
+  }
+  dim3 grid(n_blocks, (F + FT - 1) / FT);
+  kernel<<<grid, AGG_THREADS, smem, st>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 struct BwdWork {
@@ -226,9 +285,9 @@ int pgt_gin_conv_fwd(const float* x, const float* ein, const float* We,
   if (bad_shape(N, K, block_nodes, block_edges)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int n_blocks = N / block_nodes;
-  dim3 grid(n_blocks, (F + FT - 1) / FT);
-  gin_aggr_fwd_kernel<<<grid, AGG_THREADS, 0, st>>>(x, ein, We, e_self, snd, rcv, w, nm, aggr, F, K, block_nodes, block_edges);
-  int err = (int)cudaGetLastError();
+  int err = launch_aggr(gin_aggr_fwd_kernel, n_blocks, F, block_nodes, st, x,
+                        ein, We, e_self, snd, rcv, w, nm, aggr, F, K,
+                        block_nodes, block_edges);
   if (err) return err;
   err = gemm(aggr, F, 1, W1, w1s0, w1s1, z, N, F2, F, 1, nullptr, b1, nullptr, 1, st);
   if (err) return err;
@@ -266,13 +325,38 @@ int pgt_gin_conv_bwd(const float* g, const float* aggr, const float* z,
   // da = dzr @ W1^T: B(k = c, j = f) = W1[f, c]
   err = gemm(wk.dzr, F2, 1, W1, w1s1, w1s0, wk.da, N, F, F2, 1, nullptr, nullptr, nullptr, 0, st);
   if (err) return err;
-  dim3 grid(n_blocks, (F + FT - 1) / FT);
-  gin_aggr_bwd_kernel<<<grid, AGG_THREADS, 0, st>>>(wk.da, ein, snd, rcv, w, nm, dx, wk.dWe_part, wk.des_part, F, K, block_nodes, block_edges);
-  err = (int)cudaGetLastError();
+  err = launch_aggr(gin_aggr_bwd_kernel, n_blocks, F, block_nodes, st, wk.da,
+                    ein, snd, rcv, w, nm, dx, wk.dWe_part, wk.des_part, F, K,
+                    block_nodes, block_edges);
   if (err) return err;
   err = sum_partials(wk.dWe_part, n_blocks, (ll)K * F, F, dWe, nullptr, nullptr, 0, st);
   if (err) return err;
   return sum_partials(wk.des_part, n_blocks, F, F, des, nullptr, nullptr, 0, st);
+}
+
+// The GEMM of gemm.cuh alone, for tests and timing: C [M, N] =
+// epilogue(A @ B) with A(i, k) = A[i*sa0 + k*sa1], B(k, j) = B[k*sb0 +
+// j*sb1]; bias [N] and pos_mask [M, N] may be null. With splits > 1,
+// ``part`` holds pgt_gemm_workspace floats.
+// The splits of K that K1's (and K4's) weight gradients take.
+int pgt_gemm_wgrad_splits(int M, int N, int K) {
+  return wgrad_splits(M, N, K);
+}
+
+long long pgt_gemm_workspace(int M, int N, int K, int splits) {
+  const int k_chunk = ((K + splits - 1) / splits + TK - 1) / TK * TK;
+  const int s = (K + k_chunk - 1) / k_chunk;
+  return s > 1 ? (ll)s * M * N : 0;
+}
+
+int pgt_gemm(const float* A, ll sa0, ll sa1, const float* B, ll sb0, ll sb1,
+             float* C, int M, int N, int K, int splits, float* part,
+             const float* bias, const float* pos_mask, int relu,
+             void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || splits <= 0)
+    return (int)cudaErrorInvalidValue;
+  return gemm(A, sa0, sa1, B, sb0, sb1, C, M, N, K, splits, part, bias,
+              pos_mask, relu, (cudaStream_t)stream);
 }
 
 }  // extern "C"

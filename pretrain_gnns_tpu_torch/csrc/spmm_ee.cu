@@ -31,8 +31,9 @@
 //   owns the rows r with r % WARPS == warp and is the only writer of those
 //   rows: the warp reads 32 edge slots at a time (one per lane, coalesced),
 //   ballots which of them touch a row it owns, and walks those in slot
-//   order. So the sums need no atomics and are taken in a fixed order: out
-//   and dx are the same bits from run to run.
+//   order (slot_walk.cuh, shared with K1). So the sums need no atomics and
+//   are taken in a fixed order: out and dx are the same bits from run to
+//   run.
 // - The backward walks the slots by sender in the same way; the owner of a
 //   slot's sender row also writes the slot's dmsg row, and the slots that
 //   add nothing get their zero row from the warp whose turn the chunk is.
@@ -60,6 +61,8 @@
 
 #include <cuda_runtime.h>
 
+#include "slot_walk.cuh"
+
 namespace {
 
 constexpr int FT = 32;                  // feature tile: one warp wide
@@ -67,9 +70,6 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / FT;
 constexpr int MAX_SMEM = 232448;        // 227 KB: a block's most on the H100
 constexpr int DEFAULT_SMEM = 48 * 1024; // above this only after opting in
-constexpr unsigned FULL = 0xffffffffu;
-
-typedef long long ll;
 
 int tile_smem(int block_nodes) {
   return block_nodes * FT * (int)sizeof(float);
@@ -77,25 +77,6 @@ int tile_smem(int block_nodes) {
 
 int sorted_smem(int block_edges) {
   return 3 * block_edges * (int)sizeof(int);
-}
-
-// One slot per lane: the local sender and receiver of slot q of the block
-// and its weight; ls = lr = -1 marks a slot that adds nothing.
-__device__ __forceinline__ void load_slot(
-    const int* __restrict__ snd, const int* __restrict__ rcv,
-    const float* __restrict__ w, ll e0, ll base, int q, int block_nodes,
-    int block_edges, int& ls, int& lr, float& we) {
-  ls = -1;
-  lr = -1;
-  we = 0.f;
-  if (q >= block_edges) return;
-  we = w[e0 + q];
-  if (we == 0.f) return;
-  const ll s = snd[e0 + q] - base;
-  const ll r = rcv[e0 + q] - base;
-  if (s < 0 || s >= block_nodes || r < 0 || r >= block_nodes) return;
-  ls = (int)s;
-  lr = (int)r;
 }
 
 template <bool HAS_EE>
@@ -122,18 +103,13 @@ spmm_ee_fwd_kernel(const float* __restrict__ x, const float* __restrict__ ee,
     load_slot(snd, rcv, w, e0, base, q0 + lane, block_nodes, block_edges, ls,
               lr, we);
     // this warp adds into the rows it owns, and no other warp does
-    unsigned m = __ballot_sync(FULL, lr >= 0 && lr % WARPS == warp);
-    while (m) {  // the same in every lane: the loop is uniform
-      const int src = __ffs(m) - 1;
-      m &= m - 1;
-      const int s = __shfl_sync(FULL, ls, src);
-      const int r = __shfl_sync(FULL, lr, src);
-      const float wq = __shfl_sync(FULL, we, src);
-      if (!fok) continue;
-      float v = x[(base + s) * F + f];
-      if (HAS_EE) v += ee[(e0 + q0 + src) * F + f];
-      acc[r * FT + lane] = fmaf(wq, v, acc[r * FT + lane]);
-    }
+    walk_owned(lr, ls, lr, we, warp, WARPS,
+               [&](int src, int s, int r, float wq) {
+                 if (!fok) return;
+                 float v = x[(base + s) * F + f];
+                 if (HAS_EE) v += ee[(e0 + q0 + src) * F + f];
+                 acc[r * FT + lane] = fmaf(wq, v, acc[r * FT + lane]);
+               });
   }
   __syncthreads();
 
@@ -170,7 +146,7 @@ spmm_ee_bwd_kernel(const float* __restrict__ g, const int* __restrict__ snd,
     if (NEED_DMSG) {
       // the slots that add nothing get exact zeros, from the warp whose
       // turn this chunk is
-      unsigned z = __ballot_sync(FULL, q0 + lane < block_edges && ls < 0);
+      unsigned z = __ballot_sync(FULL_MASK, q0 + lane < block_edges && ls < 0);
       if ((q0 / FT) % WARPS == warp && fok) {
         while (z) {
           const int src = __ffs(z) - 1;
@@ -180,21 +156,18 @@ spmm_ee_bwd_kernel(const float* __restrict__ g, const int* __restrict__ snd,
       }
     }
     // the owner of a slot's sender row writes the slot's dmsg row too
-    unsigned m = __ballot_sync(FULL, ls >= 0 && ls % WARPS == warp);
-    while (m) {
-      const int src = __ffs(m) - 1;
-      m &= m - 1;
-      const int s = __shfl_sync(FULL, ls, src);
-      const int r = __shfl_sync(FULL, lr, src);
-      const float wq = __shfl_sync(FULL, we, src);
-      if (!fok) continue;
-      // rounded once as a product, then added: dx is the sum of the dmsg
-      // rows as written, the same bits whether dmsg is asked for or not
-      // (a contraction into an FMA would round the product only with dmsg)
-      const float dm = __fmul_rn(wq, g[(base + r) * F + f]);
-      if (NEED_DMSG) dmsg[(e0 + q0 + src) * F + f] = dm;
-      if (NEED_DX) acc[s * FT + lane] = __fadd_rn(acc[s * FT + lane], dm);
-    }
+    walk_owned(ls, ls, lr, we, warp, WARPS,
+               [&](int src, int s, int r, float wq) {
+                 if (!fok) return;
+                 // rounded once as a product, then added: dx is the sum of
+                 // the dmsg rows as written, the same bits whether dmsg is
+                 // asked for or not (a contraction into an FMA would round
+                 // the product only with dmsg)
+                 const float dm = __fmul_rn(wq, g[(base + r) * F + f]);
+                 if (NEED_DMSG) dmsg[(e0 + q0 + src) * F + f] = dm;
+                 if (NEED_DX)
+                   acc[s * FT + lane] = __fadd_rn(acc[s * FT + lane], dm);
+               });
   }
 
   if (NEED_DX) {

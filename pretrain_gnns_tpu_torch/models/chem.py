@@ -7,9 +7,11 @@ direction 0) is added analytically: ``aggr += (x + e_self) * node_mask``.
 Bond embeddings go to the fused GIN conv in one-hot form: ``ein = [
 one_hot(bond, 6) | one_hot(dir, 3)]`` and ``We = [e1; e2]``, so that
 ``ein @ We == e1[bond] + e2[dir]``. GIN runs as one fused GIN conv call
-(K1 on CUDA); GCN and GraphSAGE aggregate through
-``ops/spmm.gather_scatter`` with ``edge_in``/``edge_kernel`` (the fused
-edge-transform SpMM K2 on CUDA, its ``x + ein`` variant). GAT runs as one
+(K1 on CUDA) or, under ``ops/gin_conv.set_fused("off")``, as an
+aggregation followed by its MLP; that aggregation and those of GCN and
+GraphSAGE go through ``ops/spmm.gather_scatter`` with
+``edge_in``/``edge_kernel`` (the fused edge-transform SpMM K2 on CUDA, its
+``x + ein`` variant). GAT runs as one
 fused GAT conv call (K4 on CUDA) or, under
 ``ops/gat_conv.set_fused("off")``, as ``weight_linear``, the embedding sum
 and the GAT attention (K5 on CUDA); its self loop is one more logit per
@@ -91,8 +93,10 @@ class _ChemConv(nn.Module):
 
 class GINConv(_ChemConv):
     """GIN conv: sum of ``x_j + e`` messages plus the self loop, then the
-    MLP Linear(D, 2D) -> ReLU -> Linear(2D, D), as one fused GIN conv call.
-    On CUDA the batch must have the block-diagonal layout."""
+    MLP Linear(D, 2D) -> ReLU -> Linear(2D, D), as one fused GIN conv call
+    or, under ``ops/gin_conv.set_fused("off")``, as ``gather_scatter``, the
+    self term and ``self.mlp`` (the same parameters either way). On CUDA
+    the batch must have the block-diagonal layout."""
 
     def __init__(self, emb_dim: int):
         super().__init__()
@@ -119,7 +123,15 @@ class GINConv(_ChemConv):
                 "GINConv on CUDA needs a block-diagonal batch "
                 "(packing='blocked' or 'auto')"
             )
-        return gin_conv.fused_gin_conv(*self.conv_inputs(h, g))
+        if gin_conv.fused_enabled():
+            return gin_conv.fused_gin_conv(*self.conv_inputs(h, g))
+        We, e_self = self.edge_kernel()
+        aggr = spmm.gather_scatter(
+            h, g.senders, g.receivers, g.edge_mask, g.max_nodes,
+            edge_in=bond_one_hot(g, h.dtype), edge_kernel=We,
+            block_nodes=g.block_nodes, block_edges=g.block_edges,
+        )
+        return self.mlp(aggr + (h + e_self) * g.node_mask[:, None])
 
 
 class GCNConv(_ChemConv):

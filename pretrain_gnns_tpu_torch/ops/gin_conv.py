@@ -18,7 +18,15 @@ On a CUDA tensor :func:`fused_gin_conv` launches the hand-written kernels
 of ``csrc/gin_conv.cu`` (see the note there for what bounds them on the
 card and how they are built) or raises; on a CPU tensor it runs the plain
 PyTorch version :func:`fused_gin_conv_plain`. ``launches`` counts the
-kernel launches of each direction.
+kernel launches of each direction and those of :func:`gemm`, the GEMM of
+K1's (and K4's) products called alone.
+
+:func:`set_fused` is the counterpart of the JAX package's
+``pallas_gin.set_fused``: ``"on"`` (the default) routes the chem trunks'
+``GINConv`` here, ``"off"`` to the unfused composition of the JAX
+package's ``GINConv``: ``spmm.gather_scatter`` with the bond one-hots (the
+fused edge-transform SpMM K2, its ``x + ein`` variant, on CUDA), the self
+term and the two ``nn.Linear`` of the MLP.
 
 Padded node rows get ``relu(b1) @ W2 + b2``, not zero, exactly as the JAX
 kernel; the trunk masks them after the batch norm.
@@ -34,12 +42,27 @@ import torch
 
 from pretrain_gnns_tpu_torch.ops import _build, spmm
 
-launches: Dict[str, int] = {"gin_conv_fwd": 0, "gin_conv_bwd": 0}
+launches: Dict[str, int] = {"gin_conv_fwd": 0, "gin_conv_bwd": 0, "gemm": 0}
+
+_fused = True
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def set_fused(mode: str) -> None:
+    """``"on"``: ``GINConv`` runs as one fused GIN conv call (K1);
+    ``"off"``: as ``gather_scatter`` (K2), the self term and the MLP."""
+    global _fused
+    if mode not in ("on", "off"):
+        raise ValueError(f"set_fused takes 'on' or 'off', got {mode!r}")
+    _fused = mode == "on"
+
+
+def fused_enabled() -> bool:
+    return _fused
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -58,6 +81,13 @@ def _lib() -> ctypes.CDLL:
     lib.pgt_gin_conv_bwd_workspace.restype = _L
     lib.pgt_gin_conv_max_block_nodes.restype = _I
     lib.pgt_gin_conv_max_k.restype = _I
+    lib.pgt_gemm.argtypes = [_P, _L, _L, _P, _L, _L, _P] + [_I] * 4 + [_P] * 3 \
+        + [_I, _P]
+    lib.pgt_gemm.restype = _I
+    lib.pgt_gemm_workspace.argtypes = [_I] * 4
+    lib.pgt_gemm_workspace.restype = _L
+    lib.pgt_gemm_wgrad_splits.argtypes = [_I] * 3
+    lib.pgt_gemm_wgrad_splits.restype = _I
     return lib
 
 
@@ -164,6 +194,56 @@ def gin_conv_bwd(g, aggr, z, ein, W1, W2, senders, receivers, w, nmask,
             f"gin_conv backward launch failed (CUDA error {err})")
     launches["gin_conv_bwd"] += 1
     return dx, dWe, des, dW1, db1, dW2, db2
+
+
+def gemm_plain(a, b, bias=None, pos_mask=None, relu: bool = False):
+    """The plain PyTorch version of :func:`gemm`."""
+    out = a @ b
+    if bias is not None:
+        out = out + bias
+    if relu:
+        out = torch.relu(out)
+    if pos_mask is not None:
+        out = torch.where(pos_mask > 0, out, 0.0)
+    return out
+
+
+def gemm(a, b, bias=None, pos_mask=None, relu: bool = False,
+         splits: int = 1):
+    """``epilogue(a @ b)``: the GEMM of ``csrc/gemm.cuh`` that carries K1's
+    and K4's products, alone (tests and timing; the trunks reach it only
+    through K1 and K4). ``a`` [M, K] and ``b`` [K, N] are float32 with any
+    strides; the epilogue adds ``bias`` [N], applies ReLU and keeps the
+    entries where ``pos_mask`` [M, N] > 0, in that order. ``splits`` > 1
+    splits K into partial products summed in a fixed order, as the weight
+    gradients do. The plain version on a CPU tensor."""
+    if not a.is_cuda:
+        return gemm_plain(a, b, bias, pos_mask, relu)
+    lib = _lib()
+    (M, K), N = a.shape, b.shape[1]
+    _build.check_tensors(a.device, [(a, "a", (M, K), _F32, False),
+                                    (b, "b", (K, N), _F32, False)] + [
+        (t, name, shape, _F32, True) for t, name, shape in
+        ((bias, "bias", (N,)), (pos_mask, "pos_mask", (M, N)))
+        if t is not None])
+    out = torch.empty((M, N), dtype=_F32, device=a.device)
+    part = torch.empty(lib.pgt_gemm_workspace(M, N, K, splits), dtype=_F32,
+                       device=a.device)
+    ptr = lambda t: None if t is None or not t.numel() else t.data_ptr()
+    err = lib.pgt_gemm(a.data_ptr(), a.stride(0), a.stride(1), b.data_ptr(),
+                       b.stride(0), b.stride(1), out.data_ptr(), M, N, K,
+                       splits, ptr(part), ptr(bias), ptr(pos_mask), int(relu),
+                       _build.stream(a))
+    if err:
+        raise RuntimeError(f"gemm launch failed (CUDA error {err})")
+    launches["gemm"] += 1
+    return out
+
+
+def wgrad_splits(M: int, N: int, K: int) -> int:
+    """The splits of K that K1's backward gives a weight gradient [M, N]
+    contracted over K rows (``gemm``'s ``splits``)."""
+    return _lib().pgt_gemm_wgrad_splits(M, N, K)
 
 
 class _FusedGinConv(torch.autograd.Function):

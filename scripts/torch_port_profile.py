@@ -6,7 +6,7 @@ Run from the repository root:
     python3 scripts/torch_port_profile.py [--domain chem|bio]
         [--objective masking|edgepred|supervised]
         [--gnn_type gin|gcn|gat|graphsage]
-        [--gat_fused on|off]
+        [--gat_fused on|off] [--gin_fused on|off]
 
 Configurations (float32, 5 x 300, batch 256), the workloads of
 chip_smoke.py's main paths:
@@ -20,7 +20,10 @@ chip_smoke.py's main paths:
     5,000 ``go_target_pretrain`` labels, the reference's label widths;
     its loader has no transform);
   - with ``--gnn_type gat``, ``--gat_fused off`` takes the unfused GATConv
-    (the blocked GAT attention K5) instead of the fused GAT conv K4.
+    (the blocked GAT attention K5) instead of the fused GAT conv K4; with
+    ``--gnn_type gin`` (chem), ``--gin_fused off`` takes the unfused
+    GINConv (K2 ``[x+ein]`` and cuBLAS for the MLP) instead of the fused
+    GIN conv K1.
 It prints, for the card named on its first line:
   - host: ms to pack one batch and apply its transform (masking or
     negative sampling; the loader, on one thread), and the transform's
@@ -58,7 +61,7 @@ from pretrain_gnns_tpu_torch.data.synthetic import (  # noqa: E402
     bio_dataset, molecule_dataset,
 )
 from pretrain_gnns_tpu_torch.device import resolve_device  # noqa: E402
-from pretrain_gnns_tpu_torch.ops import gat_conv  # noqa: E402
+from pretrain_gnns_tpu_torch.ops import gat_conv, gin_conv  # noqa: E402
 from pretrain_gnns_tpu_torch.train import optim, pretrain  # noqa: E402
 from pretrain_gnns_tpu_torch.train.state import TrainState  # noqa: E402
 
@@ -132,12 +135,14 @@ def main() -> int:
     p.add_argument("--gnn_type", default="gin",
                    choices=["gin", "gcn", "gat", "graphsage"])
     p.add_argument("--gat_fused", default="on", choices=["on", "off"])
+    p.add_argument("--gin_fused", default="on", choices=["on", "off"])
     args = p.parse_args()
     gat_conv.set_fused(args.gat_fused)
+    gin_conv.set_fused(args.gin_fused)
     dev = resolve_device("cuda")
     graphs, cfg = workload(args.domain, args.objective, args.gnn_type)
     path = (f"{args.domain} {args.objective} {args.gnn_type}"
-            + " unfused" * (args.gat_fused == "off"))
+            + " unfused" * ("off" in (args.gat_fused, args.gin_fused)))
     loader = pretrain.build_loader(cfg, graphs, dev)
 
     # host: pack + transform, one thread; then the transform alone

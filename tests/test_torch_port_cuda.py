@@ -91,6 +91,84 @@ def test_kernels_match_plain_version(cuda_device, F, bn, be):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("F,K", [(300, 9), (33, 1), (33, 16), (300, 16)])
+def test_k1_is_bit_repeatable(cuda_device, F, K):
+    """K1 forward and backward, twice on the same inputs: out, aggr, z and
+    all seven gradients equal bit for bit (no atomics), and within the
+    tolerances of the plain version. Edge inputs of width K drawn at
+    random (K = 9: the bond one-hots), fractional edge weights, and the
+    first block left without a valid edge."""
+    t, ein, b, nm, blocks = _case(cuda_device, F, 128, 384, seed=F + K)
+    gen = torch.Generator().manual_seed(K)
+    E = b.senders.shape[0]
+    if K != 9:
+        ein = torch.randn(E, K, generator=gen).to(cuda_device)
+    We = torch.randn(K, F, generator=gen).to(cuda_device)
+    w = b.edge_mask.float() * (0.5 + torch.rand(E, generator=gen)).to(
+        cuda_device)
+    w[:blocks[2]] = 0  # block 0: no valid edge
+    args = (t["x"], ein, We, t["e_self"], t["W1"], t["b1"], t["W2"],
+            t["b2"], b.senders, b.receivers, w, nm, blocks[1], blocks[2])
+    runs = []
+    for _ in range(2):
+        out, aggr, z = gin_conv.gin_conv_fwd(*args)
+        grads = gin_conv.gin_conv_bwd(t["g"], aggr, z, ein, t["W1"], t["W2"],
+                                      b.senders, b.receivers, w, nm,
+                                      blocks[1], blocks[2])
+        runs.append((out, aggr, z) + grads)
+    torch.cuda.synchronize()
+    names = ("out", "aggr", "z", "dx", "dWe", "de_self", "dW1", "db1", "dW2",
+             "db2")
+    for name, a, c in zip(names, *runs):
+        assert torch.equal(a, c), name
+    t = dict(t, We=We)
+    leaves = [t[k].detach().clone().requires_grad_(True) for k in DIFF]
+    plain = gin_conv.fused_gin_conv_plain(leaves[0], ein, *leaves[1:],
+                                          *args[8:], return_residuals=True)
+    grads_p = torch.autograd.grad(plain[0], leaves, t["g"])
+    for name, x, y in zip(names, runs[0], plain + grads_p):
+        assert _rel(x, y.detach()) <= (FWD_TOL if name in names[:3]
+                                       else GRAD_TOL), name
+    # block 0 aggregates its self term only
+    rows = slice(0, blocks[1])
+    want = (t["x"][rows] + t["e_self"]) * nm[rows, None]
+    assert _rel(runs[0][1][rows], want) <= FWD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K,layout,splits", [
+    (8192, 600, 300, "nt", 1),   # K1's first forward product
+    (8192, 300, 600, "nt", 1),   # its second
+    (8192, 600, 300, "nn", 1),   # g @ W2^T
+    (600, 300, 8192, "tn", 11),  # dW2 = z^T g, split K
+    (300, 600, 8192, "tn", 18),  # dW1 = aggr^T dzr
+    (257, 129, 45, "nn", 1), (257, 129, 45, "tt", 1), (100, 70, 301, "tn", 3),
+    (33, 600, 17, "nt", 1), (130, 300, 520, "tt", 2),
+])
+def test_gemm_matches_matmul(cuda_device, M, N, K, layout, splits):
+    """The GEMM of gemm.cuh alone against torch.matmul (full float32):
+    plain and transposed operands (a transposed one is a strided view),
+    M, N and K no multiples of its tiles, split K, and the epilogue."""
+    gen = torch.Generator().manual_seed(M + N + K)
+    r = lambda *s: torch.randn(*s, generator=gen).to(cuda_device)
+    a = r(M, K) if layout[0] == "n" else r(K, M).t()
+    b = r(K, N) if layout[1] == "n" else r(N, K).t()
+    bias, pos = r(N), r(M, N)
+    before = gin_conv.launches["gemm"]
+    got = gin_conv.gemm(a, b, splits=splits)
+    got_epi = gin_conv.gemm(a, b, bias, pos, relu=True, splits=splits)
+    again = gin_conv.gemm(a, b, bias, pos, relu=True, splits=splits)
+    torch.cuda.synchronize()
+    assert gin_conv.launches["gemm"] == before + 3
+    assert _rel(got, torch.matmul(a, b)) <= FWD_TOL
+    want = gin_conv.gemm_plain(a.double(), b.double(), bias.double(),
+                               pos.double(), relu=True)
+    assert _rel(got_epi, want.float()) <= FWD_TOL
+    assert torch.equal(got_epi, again)
+    assert not got_epi[pos <= 0].any()
+
+
+@pytest.mark.cuda
 def test_autograd_function_matches_plain_version(cuda_device):
     t, ein, b, nm, blocks = _case(cuda_device, 40, 64, 192, seed=1)
     rest = (b.senders, b.receivers, b.edge_mask.float(), b.node_mask,
@@ -120,6 +198,40 @@ def test_masking_step_on_card_matches_cpu(cuda_device):
         out[dev.type] = (float(loss.detach()),
                          {n: p.grad.cpu() for n, p in
                           model.named_parameters()})
+    assert np.isclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for n, gc in out["cuda"][1].items():
+        assert _rel(gc, out["cpu"][1][n]) <= 1e-3, n
+
+
+@pytest.mark.cuda
+def test_unfused_gin_masking_step_on_card_matches_cpu(cuda_device):
+    """Under ``gin_conv.set_fused("off")`` the chem GIN trunk runs K2's
+    ``[x+ein]`` variant (once a layer each way) and no K1: one train-mode
+    step on the card against the CPU."""
+    graphs, _ = molecule_dataset(64, seed=2)
+    cfg = pretrain.PretrainConfig(num_layer=3, emb_dim=48, batch_size=32,
+                                  mask_edge=True, packing="blocked")
+    batch = next(iter(pretrain.build_loader(cfg, graphs, cuda_device)))
+    out = {}
+    gin_conv.set_fused("off")
+    try:
+        for dev in (cuda_device, torch.device("cpu")):
+            model = pretrain.build_objective(cfg).to(dev)
+            gin_conv.reset_launches()
+            blocked_spmm.reset_launches()
+            loss, _ = model(batch.to(dev), train=True)
+            loss.backward()
+            out[dev.type] = (float(loss.detach()),
+                             {n: p.grad.cpu() for n, p in
+                              model.named_parameters()},
+                             dict(gin_conv.launches),
+                             dict(blocked_spmm.launches))
+    finally:
+        gin_conv.set_fused("on")
+    assert not any(out["cuda"][2].values())
+    moved = {k: v for k, v in out["cuda"][3].items() if v}
+    assert moved == {"blocked_spmm_fwd[x+ein]": 3,
+                     "blocked_spmm_bwd[x+ein]": 3}
     assert np.isclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
     for n, gc in out["cuda"][1].items():
         assert _rel(gc, out["cpu"][1][n]) <= 1e-3, n

@@ -162,11 +162,12 @@ PEAK_BYTES_PER_S = 3.35e12
 
 # Tolerances, as max |kernel - plain| / max(1, max |plain|). Both sides
 # are full float32 (no TF32); they differ only in summation order (tiled
-# FMA GEMMs vs cuBLAS, shared-memory atomics vs index_add_ atomics, per-
-# block partials summed in block order, a warp's shuffle tree vs a row
-# reduction, a segment softmax walked in slot order vs scatter_reduce and
-# index_add_). The same for K1 to K7; every output of K6 and K7 is held to
-# FWD_TOL (their sums have a few terms, and dmsg is one product).
+# FMA GEMMs vs cuBLAS, rows summed in slot order with the edge term
+# reassociated vs index_add_ atomics, per-block partials summed in block
+# order, a warp's shuffle tree vs a row reduction, a segment softmax
+# walked in slot order vs scatter_reduce and index_add_). The same for K1
+# to K7; every output of K6 and K7 is held to FWD_TOL (their sums have a
+# few terms, and dmsg is one product).
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
 # One full-width train step, card (kernels) vs CPU (plain version): five
@@ -179,19 +180,19 @@ STEP_GRAD_TOL = 2e-3
 # starts near 64 with dL/dscore = +-1 on half the pairs, and a rounding
 # error that flips one ReLU gate with a large cotangent moves a weight
 # gradient by 3e-3 of its largest entry. Such flips are rare and come and
-# go between two runs on the card (its atomics sum in a changing order),
-# so no constant limit and no single float32 step says what float32 may
-# do there. A float64 step on the CPU referees, and the float32 noise is
-# measured: the largest distance from the float64 gradients of 1 +
-# NOISE_SAMPLES float32 steps on the CPU, the samples from parameters
-# scaled by 1 + NOISE_EPS * N(0, 1), one float32 rounding each. The
-# card's gradients may lie REFEREE_K times that far from the float64
-# ones, or STEP_GRAD_TOL if that is more (all by rel_err, the maximum
-# over the parameters). The card takes the step three times, twice from
-# parameters scaled in the same way, and the median distance is held:
-# one rare flip on the card while no noise sample caught one must not
-# fail a right kernel, and a wrong one is wrong in all three. Loss and
-# batch-norm statistics keep the limits above.
+# go with the last bits of the inputs: the card's kernels sum in their own
+# fixed order, which is not the CPU's, so no constant limit and no single
+# float32 step says what float32 may do there. A float64 step on the CPU
+# referees, and the float32 noise is measured: the largest distance from
+# the float64 gradients of 1 + NOISE_SAMPLES float32 steps on the CPU, the
+# samples from parameters scaled by 1 + NOISE_EPS * N(0, 1), one float32
+# rounding each. The card's gradients may lie REFEREE_K times that far
+# from the float64 ones, or STEP_GRAD_TOL if that is more (all by rel_err,
+# the maximum over the parameters). The card takes the step three times,
+# twice from parameters scaled in the same way, and the median distance
+# is held: one rare flip on the card while no noise sample caught one
+# must not fail a right kernel, and a wrong one is wrong in all three.
+# Loss and batch-norm statistics keep the limits above.
 REFEREE_K = 4.0
 NOISE_SAMPLES = 16
 NOISE_EPS = 1e-7
@@ -633,9 +634,16 @@ def k2_phase(torch, batch, ein, W, w, variants, shape):
         fwd_args = (x, ein, W, snd, rcv, w, bn, be, has_x, has_ein)
         bwd_args = (g, ein, snd, rcv, w, K, bn, be, has_x, has_ein)
         with torch.no_grad():
-            out = bs.spmm_fwd(*fwd_args)
-            dx, dW = bs.spmm_bwd(*bwd_args)
+            runs = [(bs.spmm_fwd(*fwd_args),) + bs.spmm_bwd(*bwd_args)
+                    for _ in range(2)]
         torch.cuda.synchronize()
+        out, dx, dW = runs[0]
+        # no atomics: a second run gives the same bits
+        bit_equal = all(a is None or torch.equal(a, c)
+                        for a, c in zip(*runs))
+        if not bit_equal:
+            raise AssertionError(f"K2[{v}] differs between two runs on the "
+                                 "same inputs")
         xl = x.detach().clone().requires_grad_(True)
         Wl = W.detach().clone().requires_grad_(True)
         out_p = bs.blocked_spmm_fused_plain(xl, ein, Wl, snd, rcv, w, bn, be,
@@ -649,7 +657,8 @@ def k2_phase(torch, batch, ein, W, w, variants, shape):
                      for n, a, b in zip(gnames, grads_k, grads_p)}
         print(f"[kernels] K2[{v}] forward rel err {fwd_err:.3e}, backward "
               f"rel err {grad_errs}; padded rows max "
-              f"{float(out[~batch.node_mask].abs().max()):.1e}", flush=True)
+              f"{float(out[~batch.node_mask].abs().max()):.1e}; two runs "
+              f"bit-equal", flush=True)
         if not (fwd_err <= FWD_TOL and all(e <= GRAD_TOL
                                             for e in grad_errs.values())
                 and not out[~batch.node_mask].any()):
@@ -697,7 +706,8 @@ def k2_phase(torch, batch, ein, W, w, variants, shape):
                 tpu_counterpart=(f"ops/pallas_spmm.py::_fused_{d}_kernel via "
                                  f"_fused_call_{d} (blocked_spmm_fused)"),
                 max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
-                bound_by=by, library_ms=lms, library=library, shape=shape))
+                bound_by=by, library_ms=lms, library=library, shape=shape,
+                bit_equal=bit_equal))
     print(f"[kernels] K2 at the {shape}: N={N} F={F} K={K} E={E} valid_edges="
           f"{e_valid} senders={n_snd} receivers={n_rcv}", flush=True)
     for k in entries:

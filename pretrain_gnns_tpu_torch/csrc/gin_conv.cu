@@ -24,20 +24,15 @@
 //
 // Design:
 // - The TPU kernel gathered and scattered with one-hot matmuls on the MXU.
-//   Here one CTA per (node block, 32-wide feature tile) keeps the block's
-//   rows in a shared f32 tile, a lane per feature, and each warp is the
-//   only writer of the rows it owns (the slot walk of slot_walk.cuh, K6's
-//   scheme): no atomics, and every sum is taken in slot order, so aggr, dx
-//   and dWe are the same bits from run to run. Padded edge slots (w == 0)
-//   and any slot whose endpoints fall outside its block add nothing.
-// - The edge term is reassociated: aggr_r = sum_{rcv_e = r} w_e x[snd_e]
-//   + A_r @ We with A_r = sum_{rcv_e = r} w_e ein_e. The owning warp adds
-//   w_e ein_e into the block's [block_nodes, K] row sums A in shared memory
-//   (lanes k < K, one add a slot), then each row gets A_r @ We with the
-//   lane's column of We in registers: K FMAs a row, not a slot. In the
-//   backward, dWe = sum_r A_r^T da_r per block: the backward walks the
-//   slots by sender (for dx) and by receiver (to rebuild A, which costs
-//   one add a slot and saves keeping A from the forward).
+//   Here the aggregations are the row-owned walks of edge_aggr.cuh (with
+//   the self term; K2 instantiates the same templates without it): one CTA
+//   per (node block, 32-wide feature tile), each warp the only writer of
+//   the rows it owns, the block's slots staged in shared memory, no
+//   atomics, every sum in slot order. The edge term is reassociated:
+//   aggr_r = sum_{rcv_e = r} w_e x[snd_e] + A_r @ We with A_r =
+//   sum_{rcv_e = r} w_e ein_e, K FMAs a row, not a slot; in the backward
+//   dWe = sum_r A_r^T da_r per block, A rebuilt by a receiver walk (one
+//   add a slot, and nothing kept from the forward).
 // - The MLP products go through the GEMM of gemm.cuh (register-tiled,
 //   double-buffered cp.async, full float32, no TF32) with a
 //   bias/ReLU/(z > 0) epilogue. Operand strides are arguments, so
@@ -52,181 +47,13 @@
 
 #include <cuda_runtime.h>
 
+#include "edge_aggr.cuh"
 #include "gemm.cuh"
-#include "slot_walk.cuh"
 
 namespace {
 
-constexpr int FT = 32;                    // feature tile: one warp wide
-constexpr int AGG_THREADS = 256;
-constexpr int AGG_WARPS = AGG_THREADS / FT;
 constexpr int MAX_BN = 256;               // node rows per block
-constexpr int MAX_K = 16;                 // edge input width
-constexpr int DEFAULT_SMEM = 48 * 1024;   // above this only after opting in
-
-// shared floats of an aggregation CTA: the rows' feature tile and their
-// edge-input sums, [block_nodes][FT + MAX_K]; the backward reuses them for
-// its cross-warp sums, [AGG_WARPS][MAX_K + 1][FT]
-int aggr_smem(int block_nodes) {
-  const int rows = block_nodes * (FT + MAX_K);
-  const int red = AGG_WARPS * (MAX_K + 1) * FT;
-  return (rows > red ? rows : red) * (int)sizeof(float);
-}
-
-__global__ void __launch_bounds__(AGG_THREADS)
-gin_aggr_fwd_kernel(const float* __restrict__ x, const float* __restrict__ ein,
-                    const float* __restrict__ We, const float* __restrict__ e_self,
-                    const int* __restrict__ snd, const int* __restrict__ rcv,
-                    const float* __restrict__ w, const float* __restrict__ nm,
-                    float* __restrict__ aggr, int F, int K, int block_nodes,
-                    int block_edges) {
-  extern __shared__ float smem[];
-  float* acc = smem;                        // [block_nodes][FT]
-  float* asum = smem + block_nodes * FT;    // [block_nodes][MAX_K]
-  const int b = blockIdx.x;
-  const int f0 = blockIdx.y * FT;
-  const int lane = threadIdx.x % FT;
-  const int warp = threadIdx.x / FT;
-  const int f = f0 + lane;
-  const bool fok = f < F;
-  // a warp zeroes, fills and reads only the rows it owns: no block barrier
-  for (int r = warp; r < block_nodes; r += AGG_WARPS) {
-    acc[r * FT + lane] = 0.f;
-    if (lane < MAX_K) asum[r * MAX_K + lane] = 0.f;
-  }
-  float we_f[MAX_K];  // this lane's column of We
-#pragma unroll
-  for (int k = 0; k < MAX_K; ++k) we_f[k] = (k < K && fok) ? We[(ll)k * F + f] : 0.f;
-  __syncwarp();
-
-  const ll base = (ll)b * block_nodes;
-  const ll e0 = (ll)b * block_edges;
-  for (int q0 = 0; q0 < block_edges; q0 += FT) {
-    int ls, lr;
-    float we;
-    load_slot(snd, rcv, w, e0, base, q0 + lane, block_nodes, block_edges, ls,
-              lr, we);
-    walk_owned(lr, ls, lr, we, warp, AGG_WARPS,
-               [&](int src, int s, int r, float wq) {
-                 if (lane < K)
-                   asum[r * MAX_K + lane] = fmaf(
-                       wq, ein[(e0 + q0 + src) * K + lane],
-                       asum[r * MAX_K + lane]);
-                 if (fok)
-                   acc[r * FT + lane] = fmaf(wq, x[(base + s) * F + f],
-                                             acc[r * FT + lane]);
-               });
-  }
-  __syncwarp();
-
-  if (!fok) return;
-  const float es = e_self[f];
-  for (int r = warp; r < block_nodes; r += AGG_WARPS) {
-    float e = 0.f;  // A_r @ We[:, f]
-#pragma unroll
-    for (int k = 0; k < MAX_K; ++k)
-      if (k < K) e = fmaf(asum[r * MAX_K + k], we_f[k], e);
-    const ll n = base + r;
-    aggr[n * F + f] = acc[r * FT + lane] + e + (x[n * F + f] + es) * nm[n];
-  }
-}
-
-__global__ void __launch_bounds__(AGG_THREADS)
-gin_aggr_bwd_kernel(const float* __restrict__ da, const float* __restrict__ ein,
-                    const int* __restrict__ snd, const int* __restrict__ rcv,
-                    const float* __restrict__ w, const float* __restrict__ nm,
-                    float* __restrict__ dx, float* __restrict__ dWe_part,
-                    float* __restrict__ des_part, int F, int K, int block_nodes,
-                    int block_edges) {
-  extern __shared__ float smem[];
-  float* acc = smem;                        // [block_nodes][FT], by sender
-  float* asum = smem + block_nodes * FT;    // [block_nodes][MAX_K], by receiver
-  const int b = blockIdx.x;
-  const int f0 = blockIdx.y * FT;
-  const int lane = threadIdx.x % FT;
-  const int warp = threadIdx.x / FT;
-  const int f = f0 + lane;
-  const bool fok = f < F;
-  for (int r = warp; r < block_nodes; r += AGG_WARPS) {
-    acc[r * FT + lane] = 0.f;
-    if (lane < MAX_K) asum[r * MAX_K + lane] = 0.f;
-  }
-  __syncwarp();
-
-  const ll base = (ll)b * block_nodes;
-  const ll e0 = (ll)b * block_edges;
-  for (int q0 = 0; q0 < block_edges; q0 += FT) {
-    int ls, lr;
-    float we;
-    load_slot(snd, rcv, w, e0, base, q0 + lane, block_nodes, block_edges, ls,
-              lr, we);
-    walk_owned(ls, ls, lr, we, warp, AGG_WARPS,
-               [&](int, int s, int r, float wq) {
-                 if (fok)
-                   acc[s * FT + lane] = fmaf(wq, da[(base + r) * F + f],
-                                             acc[s * FT + lane]);
-               });
-    walk_owned(lr, ls, lr, we, warp, AGG_WARPS,
-               [&](int src, int, int r, float wq) {
-                 if (lane < K)
-                   asum[r * MAX_K + lane] = fmaf(
-                       wq, ein[(e0 + q0 + src) * K + lane],
-                       asum[r * MAX_K + lane]);
-               });
-  }
-  __syncwarp();
-
-  float dwe[MAX_K];  // sum over the warp's rows of A_r[k] * da_r[f]
-#pragma unroll
-  for (int k = 0; k < MAX_K; ++k) dwe[k] = 0.f;
-  float des = 0.f;
-  for (int r = warp; r < block_nodes; r += AGG_WARPS) {
-    const ll n = base + r;
-    const float d = fok ? da[n * F + f] : 0.f;
-    const float dn = d * nm[n];
-    des += dn;
-    if (fok) dx[n * F + f] = acc[r * FT + lane] + dn;
-#pragma unroll
-    for (int k = 0; k < MAX_K; ++k)
-      if (k < K) dwe[k] = fmaf(asum[r * MAX_K + k], d, dwe[k]);
-  }
-  __syncthreads();  // smem is reused below for the cross-warp sums
-
-  float* red_we = smem;                           // [AGG_WARPS][MAX_K][FT]
-  float* red_es = smem + AGG_WARPS * MAX_K * FT;  // [AGG_WARPS][FT]
-#pragma unroll
-  for (int k = 0; k < MAX_K; ++k)
-    if (k < K) red_we[(warp * MAX_K + k) * FT + lane] = dwe[k];
-  red_es[warp * FT + lane] = des;
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < K * FT; i += AGG_THREADS) {
-    const int k = i / FT, l = i % FT;
-    float s = 0.f;
-    for (int v = 0; v < AGG_WARPS; ++v) s += red_we[(v * MAX_K + k) * FT + l];
-    if (f0 + l < F) dWe_part[((ll)b * K + k) * F + f0 + l] = s;
-  }
-  const int t = threadIdx.x;
-  if (t < FT && f0 + t < F) {
-    float s = 0.f;
-    for (int v = 0; v < AGG_WARPS; ++v) s += red_es[v * FT + t];
-    des_part[(ll)b * F + f0 + t] = s;
-  }
-}
-
-template <typename Kernel, typename... Args>
-int launch_aggr(Kernel kernel, int n_blocks, int F, int block_nodes,
-                cudaStream_t st, Args... args) {
-  const int smem = aggr_smem(block_nodes);
-  if (smem > DEFAULT_SMEM) {
-    const int err = (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err) return err;
-  }
-  dim3 grid(n_blocks, (F + FT - 1) / FT);
-  kernel<<<grid, AGG_THREADS, smem, st>>>(args...);
-  return (int)cudaGetLastError();
-}
+constexpr int MAX_K = AGG_MAX_K;          // edge input width
 
 struct BwdWork {
   float* dzr;       // [N, F2]
@@ -285,9 +112,9 @@ int pgt_gin_conv_fwd(const float* x, const float* ein, const float* We,
   if (bad_shape(N, K, block_nodes, block_edges)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int n_blocks = N / block_nodes;
-  int err = launch_aggr(gin_aggr_fwd_kernel, n_blocks, F, block_nodes, st, x,
-                        ein, We, e_self, snd, rcv, w, nm, aggr, F, K,
-                        block_nodes, block_edges);
+  int err = edge_aggr_fwd<true, true, true, 1>(x, ein, We, e_self, snd, rcv, w,
+                                            nm, aggr, n_blocks, F, K,
+                                            block_nodes, block_edges, st);
   if (err) return err;
   err = gemm(aggr, F, 1, W1, w1s0, w1s1, z, N, F2, F, 1, nullptr, b1, nullptr, 1, st);
   if (err) return err;
@@ -325,9 +152,9 @@ int pgt_gin_conv_bwd(const float* g, const float* aggr, const float* z,
   // da = dzr @ W1^T: B(k = c, j = f) = W1[f, c]
   err = gemm(wk.dzr, F2, 1, W1, w1s1, w1s0, wk.da, N, F, F2, 1, nullptr, nullptr, nullptr, 0, st);
   if (err) return err;
-  err = launch_aggr(gin_aggr_bwd_kernel, n_blocks, F, block_nodes, st, wk.da,
-                    ein, snd, rcv, w, nm, dx, wk.dWe_part, wk.des_part, F, K,
-                    block_nodes, block_edges);
+  err = edge_aggr_bwd<true, true, true, 1>(wk.da, ein, snd, rcv, w, nm, dx,
+                                        wk.dWe_part, wk.des_part, n_blocks, F,
+                                        K, block_nodes, block_edges, st);
   if (err) return err;
   err = sum_partials(wk.dWe_part, n_blocks, (ll)K * F, F, dWe, nullptr, nullptr, 0, st);
   if (err) return err;

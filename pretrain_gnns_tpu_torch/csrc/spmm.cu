@@ -17,170 +17,32 @@
 // edge arrays) and does at most 0.3 GFLOP, so it is bound by bytes
 // (3.35 TB/s), not by operations: about 0.01 ms at the peak.
 //
-// Design (simple and right first; a receiver-sorted segment reduction
-// without atomics, bf16 and TMA are later work):
-// - The TPU kernel gathered and scattered with one-hot matmuls on the MXU
-//   and grouped blocks per grid step. Here one CTA per (node block,
-//   32-wide feature tile) keeps the block's rows in a shared f32 tile; a
-//   warp takes one edge at a time and a lane one feature, so the x/g row
-//   loads are coalesced, and the message goes into the tile with a
-//   shared-memory atomic. No [E, F] message ever reaches device memory.
-// - The edge input row ein_e (K <= 16 floats) is loaded once per edge, one
-//   value per lane, and broadcast with warp shuffles; W's K x 32 tile sits
-//   in shared memory.
-// - Padded edge slots (w == 0) and any slot whose endpoints fall outside
-//   its block are skipped, so a padded slot's global index 0 never
-//   indexes shared memory out of bounds. Every row of the block is
-//   written, so padded rows come out 0.
-// - The shared tile is sized from block_nodes at launch (dynamic shared
-//   memory, opted in above 48 KB up to the 227 KB a block may use), since
-//   block_layout grows block_nodes to the largest graph.
-// - The TPU carried dW across its sequential grid in VMEM. Hopper's
-//   blocks run in no order, so each node block writes a K x F partial
-//   (per-warp register sums, then summed across warps in order) and a
-//   second pass sums the partials in block order.
-// Summation order: the shared-memory atomics make out and dx sums of a few
-// terms per row in an order that varies from run to run (a relative error
-// of a few float32 ulps); dW is summed in a fixed order.
+// Design: the three variants are instantiations of the row-owned
+// aggregation of edge_aggr.cuh, the one K1 runs with its self term
+// (<HAS_X, HAS_EIN, SELF = false, VEC>): one CTA per (node block, feature
+// tile), two features a lane where F is even and the rows 8-byte aligned
+// (a 64-wide tile, float2 accesses), else one; the block's slots staged
+// in shared memory, each warp the only writer of its rows, the x or g rows
+// of up to eight owned slots in flight a warp, and the edge term
+// reassociated (A_r = sum w_e ein_e in [block_nodes, K] row sums, then
+// A_r @ W once a row; dW = sum_r A_r^T g_r a block). The TPU carried dW
+// across its sequential grid in VMEM; Hopper's blocks run in no order, so
+// each node block writes a K x F partial and a second pass sums the
+// partials in block order. No atomics: out, dx and dW are the same bits
+// on every run.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <initializer_list>
+
+#include "edge_aggr.cuh"
+
 namespace {
 
-constexpr int FT = 32;                  // feature tile: one warp wide
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / FT;
-constexpr int MAX_K = 16;               // edge input width
+constexpr int MAX_K = AGG_MAX_K;        // edge input width
 constexpr int MAX_SMEM = 232448;        // 227 KB: a block's most on the H100
-constexpr int DEFAULT_SMEM = 48 * 1024; // above this only after opting in
 constexpr int NUM_SMS = 132;            // H100 SXM
-constexpr unsigned FULL = 0xffffffffu;
-
-typedef long long ll;
-
-int fwd_smem(int block_nodes, int K, bool has_ein) {
-  return (block_nodes + (has_ein ? K : 0)) * FT * (int)sizeof(float);
-}
-
-int bwd_smem(int block_nodes, bool has_x, bool has_ein) {
-  const int acc = has_x ? block_nodes * FT : 0;
-  const int red = has_ein ? WARPS * MAX_K * FT : 0;
-  return (acc > red ? acc : red) * (int)sizeof(float);
-}
-
-template <bool HAS_X, bool HAS_EIN>
-__global__ void __launch_bounds__(THREADS)
-spmm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ ein,
-                const float* __restrict__ W, const int* __restrict__ snd,
-                const int* __restrict__ rcv, const float* __restrict__ w,
-                float* __restrict__ out, int F, int K, int block_nodes,
-                int block_edges) {
-  extern __shared__ float smem[];
-  float* acc = smem;                     // [block_nodes][FT]
-  float* W_s = smem + block_nodes * FT;  // [K][FT]
-  const int b = blockIdx.x;
-  const int f0 = blockIdx.y * FT;
-  const int lane = threadIdx.x % FT;
-  const int warp = threadIdx.x / FT;
-  const int f = f0 + lane;
-  const bool fok = f < F;
-  for (int i = threadIdx.x; i < block_nodes * FT; i += THREADS) acc[i] = 0.f;
-  if (HAS_EIN) {
-    for (int i = threadIdx.x; i < K * FT; i += THREADS) {
-      const int k = i / FT, l = i % FT;
-      W_s[i] = (f0 + l < F) ? W[(ll)k * F + f0 + l] : 0.f;
-    }
-  }
-  __syncthreads();
-
-  const ll base = (ll)b * block_nodes;
-  const ll e0 = (ll)b * block_edges;
-  for (int e = warp; e < block_edges; e += WARPS) {
-    // every lane reads the same slot: the branches below are warp-uniform
-    const float we = w[e0 + e];
-    if (we == 0.f) continue;
-    const ll s = snd[e0 + e] - base;
-    const ll r = rcv[e0 + e] - base;
-    if (s < 0 || s >= block_nodes || r < 0 || r >= block_nodes) continue;
-    float m = 0.f;
-    if (HAS_X) m = fok ? x[(base + s) * F + f] : 0.f;
-    if (HAS_EIN) {
-      const float ek = lane < K ? ein[(e0 + e) * K + lane] : 0.f;
-#pragma unroll
-      for (int k = 0; k < MAX_K; ++k)
-        if (k < K) m = fmaf(__shfl_sync(FULL, ek, k), W_s[k * FT + lane], m);
-    }
-    atomicAdd(&acc[r * FT + lane], we * m);
-  }
-  __syncthreads();
-
-  if (!fok) return;
-  for (int r = warp; r < block_nodes; r += WARPS)
-    out[(base + r) * F + f] = acc[r * FT + lane];
-}
-
-template <bool HAS_X, bool HAS_EIN>
-__global__ void __launch_bounds__(THREADS)
-spmm_bwd_kernel(const float* __restrict__ g, const float* __restrict__ ein,
-                const int* __restrict__ snd, const int* __restrict__ rcv,
-                const float* __restrict__ w, float* __restrict__ dx,
-                float* __restrict__ dW_part, int F, int K, int block_nodes,
-                int block_edges) {
-  extern __shared__ float smem[];
-  float* acc = smem;  // [block_nodes][FT] (HAS_X), then the dW reduction
-  const int b = blockIdx.x;
-  const int f0 = blockIdx.y * FT;
-  const int lane = threadIdx.x % FT;
-  const int warp = threadIdx.x / FT;
-  const int f = f0 + lane;
-  const bool fok = f < F;
-  if (HAS_X) {
-    for (int i = threadIdx.x; i < block_nodes * FT; i += THREADS) acc[i] = 0.f;
-    __syncthreads();
-  }
-
-  const ll base = (ll)b * block_nodes;
-  const ll e0 = (ll)b * block_edges;
-  float dw[MAX_K];
-#pragma unroll
-  for (int k = 0; k < MAX_K; ++k) dw[k] = 0.f;
-  for (int e = warp; e < block_edges; e += WARPS) {
-    const float we = w[e0 + e];
-    if (we == 0.f) continue;
-    const ll s = snd[e0 + e] - base;
-    const ll r = rcv[e0 + e] - base;
-    if (s < 0 || s >= block_nodes || r < 0 || r >= block_nodes) continue;
-    const float dm = fok ? we * g[(base + r) * F + f] : 0.f;  // dmsg_e
-    if (HAS_X) atomicAdd(&acc[s * FT + lane], dm);
-    if (HAS_EIN) {
-      const float ek = lane < K ? ein[(e0 + e) * K + lane] : 0.f;
-#pragma unroll
-      for (int k = 0; k < MAX_K; ++k)
-        if (k < K) dw[k] = fmaf(__shfl_sync(FULL, ek, k), dm, dw[k]);
-    }
-  }
-
-  if (HAS_X) {
-    __syncthreads();
-    if (fok)
-      for (int r = warp; r < block_nodes; r += WARPS)
-        dx[(base + r) * F + f] = acc[r * FT + lane];
-  }
-  if (HAS_EIN) {
-    __syncthreads();  // the dx tile has been read: reuse it
-    float* red = smem;  // [WARPS][MAX_K][FT]
-#pragma unroll
-    for (int k = 0; k < MAX_K; ++k)
-      if (k < K) red[(warp * MAX_K + k) * FT + lane] = dw[k];
-    __syncthreads();
-    for (int i = threadIdx.x; i < K * FT; i += THREADS) {
-      const int k = i / FT, l = i % FT;
-      float sum = 0.f;
-      for (int v = 0; v < WARPS; ++v) sum += red[(v * MAX_K + k) * FT + l];
-      if (f0 + l < F) dW_part[((ll)b * K + k) * F + f0 + l] = sum;
-    }
-  }
-}
 
 // out[i] = sum_p part[p * MN + i], summed in order p = 0, 1, ...
 __global__ void sum_partials_kernel(const float* __restrict__ part, int S,
@@ -193,11 +55,23 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, int S,
   }
 }
 
-template <typename Kernel>
-int set_smem(Kernel kernel, int smem) {
-  if (smem <= DEFAULT_SMEM) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// Two features a lane where the rows allow float2 accesses (F even, every
+// row pointer 8-byte aligned), else one.
+bool pairs(int F, std::initializer_list<const float*> ptrs) {
+  if (F % 2) return false;
+  for (const float* p : ptrs)
+    if (p && reinterpret_cast<uintptr_t>(p) % 8) return false;
+  return true;
+}
+
+int fwd_smem(int block_nodes, int K, int vec, bool has_x, bool has_ein) {
+  return edge_aggr_smem(block_nodes, has_ein ? K : 0, vec, has_x, has_ein,
+                        false);
+}
+
+int bwd_smem(int block_nodes, int K, int vec, bool has_x, bool has_ein) {
+  return edge_aggr_smem(block_nodes, has_ein ? K : 0, vec, has_x, has_ein,
+                        true);
 }
 
 template <bool HAS_X, bool HAS_EIN>
@@ -205,13 +79,15 @@ int launch_fwd(const float* x, const float* ein, const float* W,
                const int* snd, const int* rcv, const float* w, float* out,
                int N, int F, int K, int block_nodes, int block_edges,
                cudaStream_t st) {
-  const int smem = fwd_smem(block_nodes, K, HAS_EIN);
-  int err = set_smem(spmm_fwd_kernel<HAS_X, HAS_EIN>, smem);
-  if (err) return err;
-  dim3 grid(N / block_nodes, (F + FT - 1) / FT);
-  spmm_fwd_kernel<HAS_X, HAS_EIN><<<grid, THREADS, smem, st>>>(
-      x, ein, W, snd, rcv, w, out, F, K, block_nodes, block_edges);
-  return (int)cudaGetLastError();
+  const int n_blocks = N / block_nodes;
+  K = HAS_EIN ? K : 0;
+  if (pairs(F, {x, W, out}))
+    return edge_aggr_fwd<HAS_X, HAS_EIN, false, 2>(
+        x, ein, W, nullptr, snd, rcv, w, nullptr, out, n_blocks, F, K,
+        block_nodes, block_edges, st);
+  return edge_aggr_fwd<HAS_X, HAS_EIN, false, 1>(
+      x, ein, W, nullptr, snd, rcv, w, nullptr, out, n_blocks, F, K,
+      block_nodes, block_edges, st);
 }
 
 template <bool HAS_X, bool HAS_EIN>
@@ -219,14 +95,15 @@ int launch_bwd(const float* g, const float* ein, const int* snd,
                const int* rcv, const float* w, float* dx, float* dW,
                float* dW_part, int N, int F, int K, int block_nodes,
                int block_edges, cudaStream_t st) {
-  const int smem = bwd_smem(block_nodes, HAS_X, HAS_EIN);
-  int err = set_smem(spmm_bwd_kernel<HAS_X, HAS_EIN>, smem);
-  if (err) return err;
   const int n_blocks = N / block_nodes;
-  dim3 grid(n_blocks, (F + FT - 1) / FT);
-  spmm_bwd_kernel<HAS_X, HAS_EIN><<<grid, THREADS, smem, st>>>(
-      g, ein, snd, rcv, w, dx, dW_part, F, K, block_nodes, block_edges);
-  err = (int)cudaGetLastError();
+  K = HAS_EIN ? K : 0;
+  int err = pairs(F, {g, dx})
+      ? edge_aggr_bwd<HAS_X, HAS_EIN, false, 2>(
+            g, ein, snd, rcv, w, nullptr, dx, dW_part, nullptr, n_blocks, F,
+            K, block_nodes, block_edges, st)
+      : edge_aggr_bwd<HAS_X, HAS_EIN, false, 1>(
+            g, ein, snd, rcv, w, nullptr, dx, dW_part, nullptr, n_blocks, F,
+            K, block_nodes, block_edges, st);
   if (err || !HAS_EIN) return err;
   const ll MN = (ll)K * F;
   const ll want = (MN + 255) / 256;
@@ -248,11 +125,15 @@ extern "C" {
 
 int pgt_spmm_max_k() { return MAX_K; }
 int pgt_spmm_max_smem() { return MAX_SMEM; }
+// Shared bytes of a forward launch at most (with x's tile, two features a
+// lane).
 int pgt_spmm_fwd_smem(int block_nodes, int K, int has_ein) {
-  return fwd_smem(block_nodes, K, has_ein != 0);
+  return fwd_smem(block_nodes, K, 2, true, has_ein != 0);
 }
+// Shared bytes of a backward launch at most (at K = MAX_K, two features a
+// lane).
 int pgt_spmm_bwd_smem(int block_nodes, int has_x, int has_ein) {
-  return bwd_smem(block_nodes, has_x != 0, has_ein != 0);
+  return bwd_smem(block_nodes, MAX_K, 2, has_x != 0, has_ein != 0);
 }
 
 // Forward: writes out [N, F]. x [N, F] is read only with has_x; ein [E, K]
@@ -263,7 +144,7 @@ int pgt_spmm_fwd(const float* x, const float* ein, const float* W,
                  int N, int F, int K, int block_nodes, int block_edges,
                  int has_x, int has_ein, void* stream) {
   if (bad_shape(N, F, K, block_nodes, block_edges, has_x, has_ein,
-                fwd_smem(block_nodes, K, has_ein != 0)))
+                fwd_smem(block_nodes, K, 2, has_x != 0, has_ein != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (has_x && has_ein)
@@ -280,7 +161,7 @@ int pgt_spmm_bwd(const float* g, const float* ein, const int* snd,
                  float* dW_part, int N, int F, int K, int block_nodes,
                  int block_edges, int has_x, int has_ein, void* stream) {
   if (bad_shape(N, F, K, block_nodes, block_edges, has_x, has_ein,
-                bwd_smem(block_nodes, has_x != 0, has_ein != 0)))
+                bwd_smem(block_nodes, K, 2, has_x != 0, has_ein != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (has_x && has_ein)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Bit-for-bit A/B of the blocked SpMM on a precomputed edge embedding (K6)
-and its receiver-sorted variant (K7) between this tree's
-``csrc/spmm_ee.cu`` and the one of another checkout, on one GPU.
+"""Bit-for-bit A/B of the fused GIN conv (K1), the blocked SpMM on a
+precomputed edge embedding (K6) and its receiver-sorted variant (K7)
+between this tree's ``csrc/gin_conv.cu`` and ``csrc/spmm_ee.cu`` (with
+the headers they include) and those of another checkout, on one GPU.
 
 Run from the repository root, with the other checkout's ``csrc`` directory
 (for example a ``git archive`` of the parent commit unpacked under
@@ -9,22 +10,23 @@ Run from the repository root, with the other checkout's ``csrc`` directory
 
     python3 scripts/torch_port_bits_ab.py --ref_csrc _archive/parent/pretrain_gnns_tpu_torch/csrc
 
-It builds the other source with this tree's ``nvcc`` flags into a
-temporary directory, then runs both libraries through this tree's wrappers
-on the chem and bio masking paths' first batches (256 graphs, F = 300, a
-random edge embedding, fractional and partly negative edge weights): K6
-forward with and without the edge embedding, K6 backward (``dx`` and
-``dmsg`` together and each alone) and K7 forward on the sorted slots. It
-prints whether every output is equal bit for bit and exits non-zero if one
-is not.
+It builds the other sources with this tree's ``nvcc`` flags into a
+temporary directory, then runs both libraries through this tree's wrappers.
+K1 on the chem masking path's first batch (the first layer's weights and
+bond one-hots, random x and cotangent; the path's 0/1 edge weights and
+fractional, partly negative ones): ``out``, ``aggr``, ``z`` and the seven
+gradients. K6 and K7 on the chem and bio masking paths' first batches (256
+graphs, F = 300, a random edge embedding, fractional and partly negative
+edge weights): K6 forward with and without the edge embedding, K6
+backward (``dx`` and ``dmsg`` together and each alone) and K7 forward on
+the sorted slots. It prints whether every output is equal bit for bit and
+exits non-zero if one is not.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import os
-import subprocess
 import sys
 import tempfile
 
@@ -37,12 +39,19 @@ from pretrain_gnns_tpu_torch.data.synthetic import (  # noqa: E402
     bio_dataset, molecule_dataset,
 )
 from pretrain_gnns_tpu_torch.device import resolve_device  # noqa: E402
-from pretrain_gnns_tpu_torch.ops import _build  # noqa: E402
 from pretrain_gnns_tpu_torch.ops import blocked_spmm as bs  # noqa: E402
+from pretrain_gnns_tpu_torch.ops import gin_conv  # noqa: E402
 from pretrain_gnns_tpu_torch.ops import sorted_spmm as ss  # noqa: E402
 from pretrain_gnns_tpu_torch.train import pretrain  # noqa: E402
+from scripts.torch_port_k1_k4_ab import build, use  # noqa: E402
 
 F = 300
+
+
+def config(domain: str):
+    return pretrain.PretrainConfig(domain=domain, num_layer=5, emb_dim=F,
+                                   batch_size=256, mask_edge=False, seed=0,
+                                   packing="auto")
 
 
 def first_batch(domain: str, dev):
@@ -50,9 +59,35 @@ def first_batch(domain: str, dev):
         graphs = bio_dataset(4096, seed=0)
     else:
         graphs, _ = molecule_dataset(4096, seed=0, mean_atoms=23)
-    cfg = pretrain.PretrainConfig(domain=domain, num_layer=5, emb_dim=F,
-                                  batch_size=256, seed=0, packing="auto")
-    return next(iter(pretrain.build_loader(cfg, graphs, dev))).to(dev)
+    return next(iter(pretrain.build_loader(config(domain), graphs,
+                                           dev))).to(dev)
+
+
+def k1_outputs(batch, conv, seed: int):
+    """K1's ``out``, ``aggr``, ``z`` and seven gradients on ``batch``
+    through the loaded library, with the path's edge weights and with
+    fractional ones."""
+    gen = torch.Generator().manual_seed(seed)
+    dev = batch.node_mask.device
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    nm = batch.node_mask.to(torch.float32)
+    x = rnd(batch.max_nodes, F) * nm[:, None]
+    g = rnd(batch.max_nodes, F) * nm[:, None]
+    names = ("out", "aggr", "z", "dx", "dWe", "de_self", "dW1", "db1", "dW2",
+             "db2")
+    out = {}
+    with torch.no_grad():
+        args = conv.conv_inputs(x, batch)
+        args = args[:11] + (nm,) + args[12:]
+        (_, ein, _, _, W1, _, W2, _, snd, rcv, w, _, bn, be) = args
+        for tag, ww in (("", w), (" fractional w", w * rnd(w.shape[0]))):
+            a = args[:10] + (ww,) + args[11:]
+            res = gin_conv.gin_conv_fwd(*a)
+            res += gin_conv.gin_conv_bwd(g, res[1], res[2], ein, W1, W2, snd,
+                                         rcv, ww, nm, bn, be)
+            out.update({f"K1 {n}{tag}": t for n, t in zip(names, res)})
+    torch.cuda.synchronize()
+    return out
 
 
 def outputs(batch, seed: int):
@@ -82,17 +117,6 @@ def outputs(batch, seed: int):
     return out
 
 
-def build_ref(ref_csrc: str, out_dir: str) -> ctypes.CDLL:
-    lib = os.path.join(out_dir, "libspmm_ee_ref.so")
-    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib,
-           os.path.join(ref_csrc, "spmm_ee.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed for the reference:\n{res.stdout}"
-                           f"{res.stderr}")
-    return ctypes.CDLL(lib)
-
-
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ref_csrc", required=True,
@@ -100,22 +124,23 @@ def main() -> int:
     args = p.parse_args()
     dev = resolve_device("cuda")
     batches = {d: first_batch(d, dev) for d in ("chem", "bio")}
+    conv = pretrain.build_objective(config("chem")).to(dev).gnn.gnns[0]
     with tempfile.TemporaryDirectory() as tmp:
-        ref = build_ref(args.ref_csrc, tmp)
+        ref = {name: build(args.ref_csrc, name, tmp)
+               for name in ("gin_conv", "spmm_ee")}
         results = {}
         for tag in ("tree", "ref"):
-            bs._ee_lib.cache_clear()
-            _build._libs.pop("spmm_ee", None)
-            if tag == "ref":
-                _build._libs["spmm_ee"] = ref  # load() hands this one out
-            results[tag] = {d: outputs(b, seed=7) for d, b in batches.items()}
-        bs._ee_lib.cache_clear()
-        _build._libs.pop("spmm_ee", None)
-    bad = [f"{d} {k}" for d in batches for k in results["tree"][d]
-           if not torch.equal(results["tree"][d][k], results["ref"][d][k])]
-    n = sum(len(v) for v in results["tree"].values())
-    print(f"card: {torch.cuda.get_device_name(0)}; K6/K7 outputs of this tree "
-          f"vs {args.ref_csrc}: {n - len(bad)} of {n} equal bit for bit"
+            use(ref if tag == "ref" else {})
+            results[tag] = {f"{d} {k}": v for d, b in batches.items()
+                            for k, v in outputs(b, seed=7).items()}
+            results[tag].update({f"chem {k}": v for k, v in k1_outputs(
+                batches["chem"], conv, seed=8).items()})
+        use({})
+    bad = [k for k in results["tree"]
+           if not torch.equal(results["tree"][k], results["ref"][k])]
+    n = len(results["tree"])
+    print(f"card: {torch.cuda.get_device_name(0)}; K1/K6/K7 outputs of this "
+          f"tree vs {args.ref_csrc}: {n - len(bad)} of {n} equal bit for bit"
           + (f"; differ: {bad}" if bad else ""))
     return 1 if bad else 0
 

@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""Timing A/B of the fused GIN conv (K1) and the fused GAT conv (K4),
-forward and backward, between this tree's ``csrc/gin_conv.cu`` and
-``csrc/gat.cu`` (with the GEMM of ``gemm.cuh`` they share) and those of
-another checkout, in one process on one GPU.
+"""Timing A/B of the fused GIN conv (K1), the fused GAT conv (K4) and the
+fused edge-transform SpMM (K2), forward and backward, between this tree's
+``csrc/gin_conv.cu``, ``csrc/gat.cu`` and ``csrc/spmm.cu`` (with the
+headers they include) and those of another checkout, in one process on
+one GPU.
 
 Run from the repository root, with the other checkout's ``csrc`` directory
 (for example a ``git archive`` of the parent commit unpacked under
 ``_archive/``):
 
-    python3 scripts/torch_port_k1_k4_ab.py --ref_csrc _archive/parent/pretrain_gnns_tpu_torch/csrc
+    python3 scripts/torch_port_k1_k4_ab.py --ref_csrc _archive/parent/pretrain_gnns_tpu_torch/csrc [--kernels k1,k4,k2]
 
-Both libraries have the same C interface. The script builds the other
-sources with this tree's ``nvcc`` flags, then times each kernel (device ms
-a call, ``chip_smoke.time_ms``) on the chem masking path's first batch
-(GIN 5 x 300 and GAT 5 x 300 with 2 heads; random inputs from a seed) in
-the order reference, this tree, this tree, reference, and prints each
-time beside the card's name and power limit.
+The libraries of both trees have the same C interfaces. The script builds
+the other sources with this tree's ``nvcc`` flags, then times each kernel
+(device ms a call, ``chip_smoke.time_ms``) in the order reference, this
+tree, this tree, reference, and prints each time beside the card's name
+and power limit. Shapes: K1 and K4 on the chem masking path's first batch
+(GIN 5 x 300 and GAT 5 x 300 with 2 heads); K2 ``[x]``, ``[ein]`` and
+``[x+ein]`` on the bio masking path's first batch (the first layer's
+``[edge_feat | 1]`` edge inputs and edge kernel, K = 10) and ``[x+ein]``
+on the chem edge-prediction path's first batch with the GCN trunk's bond
+one-hots (K = 9) and symmetric-normalised edge weights, as
+``chip_smoke.py`` times them. Random inputs from a seed.
 """
 
 from __future__ import annotations
@@ -34,10 +40,13 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from pretrain_gnns_tpu_torch.data.synthetic import molecule_dataset  # noqa: E402
+from pretrain_gnns_tpu_torch.data.synthetic import (  # noqa: E402
+    bio_dataset, molecule_dataset,
+)
 from pretrain_gnns_tpu_torch.device import resolve_device  # noqa: E402
-from pretrain_gnns_tpu_torch.models import chem  # noqa: E402
+from pretrain_gnns_tpu_torch.models import bio, chem  # noqa: E402
 from pretrain_gnns_tpu_torch.ops import _build, attention  # noqa: E402
+from pretrain_gnns_tpu_torch.ops import blocked_spmm as bs  # noqa: E402
 from pretrain_gnns_tpu_torch.ops import gat_conv as gc  # noqa: E402
 from pretrain_gnns_tpu_torch.ops import gin_conv  # noqa: E402
 from pretrain_gnns_tpu_torch.train import pretrain  # noqa: E402
@@ -54,15 +63,21 @@ def build(srcdir: str, name: str, out_dir: str) -> ctypes.CDLL:
     return ctypes.CDLL(lib)
 
 
-def use(gin_lib, gat_lib) -> None:
-    """Route the K1 and K4 wrappers to these libraries (None: this
-    tree's)."""
+SOURCES = {"k1": "gin_conv", "k4": "gat", "k2": "spmm"}
+
+
+def use(libs) -> None:
+    """Route the K1, K4, K2 and K6/K7 wrappers to the libraries of
+    ``libs`` (``{source name: CDLL}``; a source not named: this tree's)."""
     _tree_gin_lib.cache_clear()
     attention.lib.cache_clear()
-    for name, lib in (("gin_conv", gin_lib), ("gat", gat_lib)):
+    bs._lib.cache_clear()
+    bs._ee_lib.cache_clear()
+    for name in (*SOURCES.values(), "spmm_ee"):
         _build._libs.pop(name, None)
-        if lib is not None:
-            _build._libs[name] = lib
+        if name in libs:
+            _build._libs[name] = libs[name]  # load() hands this one out
+    gin_lib = libs.get("gin_conv")
     if gin_lib is not None:  # the K1 entry points only
         L, I = ctypes.c_longlong, ctypes.c_int
         gin_lib.pgt_gin_conv_fwd.argtypes = gin_conv._FWD_ARGS
@@ -81,8 +96,52 @@ def use(gin_lib, gat_lib) -> None:
 _tree_gin_lib = gin_conv._lib
 
 
+def k2_cases(dev):
+    """``{kernel: callable}`` for K2's six rows: the bio masking path's
+    first batch and, for ``[x+ein]``, the chem GCN edge-prediction one."""
+    gen = torch.Generator().manual_seed(2)
+    out = {}
+    bio_cfg = pretrain.PretrainConfig(domain="bio", num_layer=5, emb_dim=300,
+                                      batch_size=256, seed=0,
+                                      packing="auto")
+    gcn_cfg = pretrain.PretrainConfig(objective="edgepred", gnn_type="gcn",
+                                      num_layer=5, emb_dim=300,
+                                      batch_size=256, seed=0,
+                                      packing="auto")
+    chem_graphs, _ = molecule_dataset(4096, seed=0, mean_atoms=23)
+    for tag, cfg, graphs in (("bio", bio_cfg, bio_dataset(4096, seed=0)),
+                             ("chem GCN", gcn_cfg, chem_graphs)):
+        b = next(iter(pretrain.build_loader(cfg, graphs, dev))).to(dev)
+        conv = pretrain.build_objective(cfg).to(dev).gnn.gnns[0]
+        W = conv.edge_kernel()[0].detach().contiguous()
+        nm = b.node_mask.to(torch.float32)
+        x = torch.randn(b.max_nodes, 300, generator=gen).to(dev) * nm[:, None]
+        g = torch.randn(b.max_nodes, 300, generator=gen).to(dev)
+        w = b.edge_mask.to(torch.float32)
+        if tag == "bio":
+            ein = bio.edge_inputs(b, torch.float32)
+            variants = ((True, False), (False, True), (True, True))
+        else:
+            ein = chem.bond_one_hot(b, torch.float32)
+            dis = chem.inv_sqrt_degree(b)
+            w = w * dis[b.receivers.long()] * dis[b.senders.long()]
+            variants = ((True, True),)
+        edges = (b.senders, b.receivers, w)
+        for has_x, has_ein in variants:
+            flags = (b.block_nodes, b.block_edges, has_x, has_ein)
+            name = f"K2[{bs.variant(has_x, has_ein)}] {tag}"
+            out[f"{name} fwd"] = (
+                lambda x=x, ein=ein, W=W, edges=edges, flags=flags:
+                bs.spmm_fwd(x, ein, W, *edges, *flags))
+            out[f"{name} bwd"] = (
+                lambda g=g, ein=ein, K=W.shape[0], edges=edges, flags=flags:
+                bs.spmm_bwd(g, ein, *edges, K, *flags))
+    return out
+
+
 def cases(dev):
-    """``{kernel: callable}`` on the chem masking first batch."""
+    """``{kernel: callable}`` for K1 and K4 on the chem masking first
+    batch."""
     graphs, _ = molecule_dataset(4096, seed=0, mean_atoms=23)
     out = {}
     gen = torch.Generator().manual_seed(1)
@@ -142,23 +201,32 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ref_csrc", required=True,
                    help="the other checkout's pretrain_gnns_tpu_torch/csrc")
+    p.add_argument("--kernels", default="k1,k4",
+                   help="comma-separated, of k1, k4 and k2")
     args = p.parse_args()
+    kernels = args.kernels.split(",")
+    if not set(kernels) <= set(SOURCES):
+        p.error(f"--kernels takes {sorted(SOURCES)}")
     dev = resolve_device("cuda")
     card = chip_smoke.card_line()
-    fns = cases(dev)
+    fns = {}
+    if {"k1", "k4"} & set(kernels):
+        fns.update({k: f for k, f in cases(dev).items()
+                    if ("k1" if k.startswith("gin") else "k4") in kernels})
+    if "k2" in kernels:
+        fns.update(k2_cases(dev))
     times = {k: {"tree": [], "ref": []} for k in fns}
     with tempfile.TemporaryDirectory() as tmp:
-        ref = (build(args.ref_csrc, "gin_conv", tmp),
-               build(args.ref_csrc, "gat", tmp))
+        ref = {SOURCES[k]: build(args.ref_csrc, SOURCES[k], tmp)
+               for k in kernels}
         for tag in ("ref", "tree", "tree", "ref"):
-            use(*(ref if tag == "ref" else (None, None)))
+            use(ref if tag == "ref" else {})
             with torch.no_grad():
-                for k in ("gin_conv_fwd", "gin_conv_bwd", "gat_conv_fwd",
-                          "gat_conv_bwd"):
-                    if k.endswith("bwd"):  # its forward's outputs first
-                        fns[k.replace("bwd", "fwd")]()
-                    times[k][tag].append(chip_smoke.time_ms(fns[k], torch))
-        use(None, None)
+                for k, fn in fns.items():
+                    if k.startswith(("gin_conv_bwd", "gat_conv_bwd")):
+                        fns[k.replace("bwd", "fwd")]()  # its saved outputs
+                    times[k][tag].append(chip_smoke.time_ms(fn, torch))
+        use({})
     print(f"card: {card}; device ms a call (chip_smoke.time_ms), reference "
           f"{args.ref_csrc} vs this tree, runs in the order ref, tree, tree, "
           "ref")

@@ -98,12 +98,18 @@ def run_main_path(cfg, graphs, prof=None):
 
 
 # name fragments of the port's own kernels (csrc/*.cu); K1 and K4 share
-# the GEMM and the column sums of gemm.cuh, and K1, K2 and K4 sum their
-# per-block partials with a kernel of the same name
-OWN_KERNELS = {"K1 aggregation": ("gin_aggr_",),
+# the GEMM and the column sums of gemm.cuh, K1 and K2 the aggregation of
+# edge_aggr.cuh (K1's instantiation has the self term, <..., true, VEC>),
+# and K1, K2 and K4 sum their per-block partials with a kernel of the same
+# name
+OWN_KERNELS = {"K1 aggregation": tuple(f"edge_aggr_{d}_kernel<true, true, true,"
+                                       for d in ("fwd", "bwd")),
                "GEMM and column sums (K1, K4)": ("::gemm_kernel",
                                                  "colsum_partial_"),
-               "K2": ("spmm_fwd_kernel", "spmm_bwd_kernel"),
+               "K2": tuple(f"edge_aggr_{d}_kernel<{v}, false,"
+                           for d in ("fwd", "bwd")
+                           for v in ("true, false", "false, true",
+                                     "true, true")),
                "K3": ("edot_",), "K4/K5 attention": ("gat_",),
                "partial sums (K1, K2, K4)": ("sum_partials_",)}
 

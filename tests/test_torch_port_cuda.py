@@ -27,7 +27,8 @@ from pretrain_gnns_tpu_torch.ops import (
 from pretrain_gnns_tpu_torch.train import pretrain
 
 # max |kernel - plain| / max(1, max |plain|): full f32 on both sides, only
-# the summation order differs (tiled GEMMs vs cuBLAS, atomics)
+# the summation order differs (tiled GEMMs vs cuBLAS, rows summed in slot
+# order vs index_add_)
 FWD_TOL, GRAD_TOL = 1e-5, 1e-4
 DIFF = ("x", "We", "e_self", "W1", "b1", "W2", "b2")
 
@@ -299,6 +300,50 @@ def test_k2_kernels_match_plain_version(cuda_device, has_x, has_ein, F, bn,
         assert _rel(dx, dx_p) <= GRAD_TOL
     if has_ein:
         assert dW.dtype == torch.float32
+        assert _rel(dW, dW_p) <= GRAD_TOL
+
+
+# [x] reads no edge input, so it takes one width only
+K2_BITS_CASES = [(hx, he, k) for hx, he in K2_VARIANTS
+                 for k in ((1, 10, 16) if he else (10,))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_x,has_ein,K", K2_BITS_CASES)
+@pytest.mark.parametrize("F", [300, 33])
+@pytest.mark.parametrize("bn,be", [(128, 384), (512, 1536)])
+def test_k2_is_bit_repeatable(cuda_device, has_x, has_ein, K, F, bn, be):
+    """K2 forward and backward, twice on the same inputs: out, dx and dW
+    equal bit for bit (no atomics), within the tolerances of the plain
+    version, padded rows exactly 0. Edge inputs of width K drawn at random,
+    signed fractional edge weights, and the first block left without a
+    valid edge."""
+    t, b, blocks = _k2_case(cuda_device, F, bn, be, seed=F + K)
+    gen = torch.Generator().manual_seed(K)
+    E = b.senders.shape[0]
+    t["ein"] = torch.randn(E, K, generator=gen).to(cuda_device)
+    t["W"] = torch.randn(K, F, generator=gen).to(cuda_device)
+    t["w"][:blocks[2]] = 0  # block 0: no valid edge
+    runs = []
+    for _ in range(2):
+        out = blocked_spmm.spmm_fwd(t["x"], t["ein"], t["W"], b.senders,
+                                    b.receivers, t["w"], bn, be, has_x,
+                                    has_ein)
+        dx, dW = blocked_spmm.spmm_bwd(t["g"], t["ein"], b.senders,
+                                       b.receivers, t["w"], K, bn, be,
+                                       has_x, has_ein)
+        runs.append((out, dx, dW))
+    torch.cuda.synchronize()
+    for name, a, c in zip(("out", "dx", "dW"), *runs):
+        assert (a is None) == (c is None), name
+        assert a is None or torch.equal(a, c), name
+    out, dx, dW = runs[0]
+    out_p, dx_p, dW_p = _k2_plain(t, b, blocks, has_x, has_ein)
+    assert _rel(out, out_p) <= FWD_TOL
+    assert not out[~b.node_mask].any() and not out[:bn].any()
+    if has_x:
+        assert _rel(dx, dx_p) <= GRAD_TOL
+    if has_ein:
         assert _rel(dW, dW_p) <= GRAD_TOL
 
 

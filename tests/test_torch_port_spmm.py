@@ -99,6 +99,65 @@ def test_plain_matches_jax(case, has_x, has_ein, ref):
         assert not np.any(dx_t) and not np.any(dx_j)
 
 
+def _reassociated_k2(a, has_x, has_ein):
+    """(out, dx, dW) in the order of sums of the card kernel
+    (csrc/edge_aggr.cuh): each row summed in slot order, the edge term
+    reassociated as ``A_r @ W`` with ``A_r = sum_{rcv_e = r} w_e ein_e``,
+    and ``dW = sum_b A_b^T g_b`` over the node blocks in block order."""
+    t = {k: torch.from_numpy(np.array(v)) for k, v in a.items()}
+    snd, rcv, w, g = (t["senders"].long(), t["receivers"].long(), t["w"],
+                      t["g"])
+    N = t["x"].shape[0]
+    seg_sum = lambda rows, ids: torch.zeros(
+        (N, rows.shape[1]), dtype=torch.float32).index_add_(0, ids, rows)
+    out = torch.zeros((N, F), dtype=torch.float32)
+    dx = torch.zeros_like(out)
+    dW = torch.zeros_like(t["W"])
+    if has_x:
+        out = seg_sum(w[:, None] * t["x"][snd], rcv)
+        dx = seg_sum(w[:, None] * g[rcv], snd)
+    if has_ein:
+        A = seg_sum(w[:, None] * t["ein"], rcv)
+        out = out + A @ t["W"]
+        for b in range(N // BN):
+            rows = slice(b * BN, (b + 1) * BN)
+            dW = dW + A[rows].T @ g[rows]
+    return out.numpy(), dx.numpy(), dW.numpy()
+
+
+# [x] reads no edge input, so it takes one width only
+REASSOC_CASES = [(hx, he, k) for hx, he in VARIANTS
+                 for k in ((1, 10, 16) if he else (K,))]
+
+
+@pytest.mark.parametrize("weights", ["signed", "gcn"])
+@pytest.mark.parametrize("has_x,has_ein,k", REASSOC_CASES)
+def test_reassociated_sums_match_jax_kernel(case, has_x, has_ein, k,
+                                            weights):
+    """The card kernel's order of float32 sums, written out in torch,
+    against the JAX Pallas kernel (interpret mode): edge inputs of width
+    1, 10 and 16, with signed fractional edge weights or GCN's
+    ``deg^-1/2`` of both endpoints (the self loop counted). W is drawn
+    with variance 1/k, so that the edge term has the same scale at every
+    width (the tolerance has an absolute part)."""
+    rng = np.random.default_rng(k)
+    a = dict(case, ein=rng.normal(size=(len(case["w"]), k)).astype(
+        np.float32), W=(rng.normal(size=(k, F)) * k ** -0.5).astype(
+        np.float32))
+    if weights == "gcn":
+        rcv, snd, mask = a["receivers"], a["senders"], a["edge_mask"]
+        deg = np.bincount(rcv[mask], minlength=len(a["x"])) + 1.0
+        dis = (deg ** -0.5).astype(np.float32)
+        a["w"] = (dis[rcv] * dis[snd] * mask).astype(np.float32)
+    out_j, dx_j, dW_j = _jax_k2(a, has_x, has_ein, "pallas_interpret")
+    out_t, dx_t, dW_t = _reassociated_k2(a, has_x, has_ein)
+    np.testing.assert_allclose(out_t, out_j, **FWD_TOL)
+    np.testing.assert_allclose(dx_t, dx_j, err_msg="dx", **GRAD_TOL)
+    if has_ein:
+        np.testing.assert_allclose(dW_t, dW_j, err_msg="dW", **GRAD_TOL)
+    assert not np.any(out_t[~case["node_mask"]])
+
+
 @pytest.mark.parametrize("has_x,has_ein", VARIANTS)
 def test_wrapper_runs_plain_version_on_cpu(case, has_x, has_ein):
     before = dict(blocked_spmm.launches)

@@ -975,34 +975,51 @@ def gat_phase(torch, batch, conv, ein, tag):
     # edges with their index, weight and input entries, the parameters, and
     # every output written once. The saved x is an output of K4's forward
     # and an input of its backward, as in the TPU kernel; the saved softmax
-    # scalars are this port's choice and count nowhere. K4 needs
-    # e = ein @ We (2K operations a feature) once in each direction: the
-    # edge logit is ein . (We a_j), 2K operations an edge and head, and the
-    # e term of da_j is (sum_e dz_e ein_e) @ We, the same again.
+    # scalars are this port's choice and count nowhere. K4's edge term is
+    # counted the cheaper of two ways on this batch: per edge and feature
+    # (e = ein @ We once in each direction, 2K operations, and dWe = ein^T
+    # de) or reassociated per row (A_r = sum alpha_e ein_e, 2K operations
+    # an edge and head, then A_r @ We, 2K a row and feature; backward
+    # q_r = We g_r and ein_e . q_r for dalpha, A_r^T g_r and S a_j^T for
+    # dWe), which is less wherever valid rows are fewer than valid edges.
+    # The edge logit is ein . (We a_j) and da_j's e term (sum_e dz_e ein_e)
+    # @ We either way: 2K operations an edge and head each.
     V, Ev = int(nm.sum()), int(batch.edge_mask.sum())
     f4 = 4  # bytes
     small = nbytes(*par, bias, bl)
     edge_b4 = Ev * (K + 3) * f4
     node_ops, edge_ops = V * HD, Ev * HD
     edge_scalar_ops = Ev * H * 2 * K + 2 * K * HD
-    k4_fwd_b = bound(
-        2 * (V + 1) * D * HD      # x = h @ Wl + bl
-        + node_ops * 7            # ps, pd, the self message
-        + edge_scalar_ops         # pe = ein . (We a_j)
-        + edge_ops * (2 * K + 3)  # e once, alpha (x_j + e) summed
-        + N * D * 2,              # head mean, + bias
-        rows_nbytes(h, V) + nbytes(Wl) + small + edge_b4 + nbytes(out, x))
-    k4_bwd_b = bound(
-        2 * 2 * V * D * HD        # dWl = h^T dx, dh = dx Wl^T
-        + edge_ops * (2 * K + 3)  # e once, dalpha = <g, x_j + e>
-        + node_ops * 3            # the self loop's dalpha
-        + edge_ops * 2            # de = alpha g, scattered into dx
-        + node_ops * 12           # dx's other terms, de_self, da_i, da_j
-        + edge_ops * 2 * K        # dWe = ein^T de
-        + edge_scalar_ops         # da_j's e term
-        + N * D + node_ops,       # dbias, the 1/H
-        rows_nbytes(g, V) + rows_nbytes(h, V) + rows_nbytes(x, V)
-        + nbytes(Wl) + small + edge_b4 + nbytes(*grads_k))
+    e_fwd = {"per edge": edge_ops * (2 * K + 3),  # e once, alpha (x_j + e)
+             "per row": edge_ops * 2 + Ev * H * 2 * K + node_ops * (2 * K + 1)}
+    e_bwd = {"per edge": edge_ops * (2 * K + 3)   # e once, dalpha
+             + edge_ops * 2 * K,                  # dWe = ein^T de
+             "per row": edge_ops * 2 + node_ops * 2 * K + Ev * H * 2 * K
+             + node_ops * 2 * K + Ev * H * 4 * K + 2 * K * HD}
+
+    def k4_bounds(e_f, e_b):
+        fwd = bound(
+            2 * (V + 1) * D * HD      # x = h @ Wl + bl
+            + node_ops * 7            # ps, pd, the self message
+            + edge_scalar_ops         # pe = ein . (We a_j)
+            + e_f                     # the edge term, alpha (x_j + e) summed
+            + N * D * 2,              # head mean, + bias
+            rows_nbytes(h, V) + nbytes(Wl) + small + edge_b4
+            + nbytes(out, x))
+        bwd = bound(
+            2 * 2 * V * D * HD        # dWl = h^T dx, dh = dx Wl^T
+            + e_b                     # dalpha = <g, x_j + e>, dWe
+            + node_ops * 3            # the self loop's dalpha
+            + edge_ops * 2            # de = alpha g, scattered into dx
+            + node_ops * 12           # dx's other terms, de_self, da_i, da_j
+            + edge_scalar_ops         # da_j's e term
+            + N * D + node_ops,       # dbias, the 1/H
+            rows_nbytes(g, V) + rows_nbytes(h, V) + rows_nbytes(x, V)
+            + nbytes(Wl) + small + edge_b4 + nbytes(*grads_k))
+        return fwd, bwd
+
+    k4_fwd_b, k4_bwd_b = k4_bounds(min(e_fwd.values()), min(e_bwd.values()))
+    k4_per_edge = k4_bounds(e_fwd["per edge"], e_bwd["per edge"])
     edge_b5 = Ev * 3 * f4 + Ev * HD * f4
     k5_fwd_b = bound(
         node_ops * 7 + edge_ops * 5,
@@ -1026,8 +1043,11 @@ def gat_phase(torch, batch, conv, ein, tag):
                              bound_by=by, max_abs_err=errs[name])
         extra = ""
         if name in matmul:
+            per_edge = k4_per_edge[name == "gat_conv_bwd"][0]
             results[name]["matmul_ms"] = matmul[name]
-            extra = f", torch.matmul products {matmul[name]:.4f} ms"
+            results[name]["bound_ms_edge_term_per_edge"] = per_edge
+            extra = (f", torch.matmul products {matmul[name]:.4f} ms, bound "
+                     f"with the edge term counted per edge {per_edge:.4f} ms")
         print(f"[kernels] {name} {tag}: kernel {kern_ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms{extra}, library none (no single call), "
               f"bound {b_ms:.4f} ms ({by})", flush=True)

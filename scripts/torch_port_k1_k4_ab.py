@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
-"""Timing A/B of the fused GIN conv (K1), the fused GAT conv (K4) and the
-fused edge-transform SpMM (K2), forward and backward, between this tree's
-``csrc/gin_conv.cu``, ``csrc/gat.cu`` and ``csrc/spmm.cu`` (with the
-headers they include) and those of another checkout, in one process on
-one GPU.
+"""Timing A/B of the fused GIN conv (K1), the fused GAT conv (K4), the
+blocked GAT attention (K5) and the fused edge-transform SpMM (K2), forward
+and backward, between this tree's ``csrc/gin_conv.cu``, ``csrc/gat.cu``
+and ``csrc/spmm.cu`` (with the headers they include) and those of another
+checkout, in one process on one GPU.
 
 Run from the repository root, with the other checkout's ``csrc`` directory
 (for example a ``git archive`` of the parent commit unpacked under
 ``_archive/``):
 
-    python3 scripts/torch_port_k1_k4_ab.py --ref_csrc _archive/parent/pretrain_gnns_tpu_torch/csrc [--kernels k1,k4,k2]
+    python3 scripts/torch_port_k1_k4_ab.py --ref_csrc _archive/parent/pretrain_gnns_tpu_torch/csrc [--kernels k1,k4,k5,k2]
 
 The libraries of both trees have the same C interfaces. The script builds
 the other sources with this tree's ``nvcc`` flags, then times each kernel
 (device ms a call, ``chip_smoke.time_ms``) in the order reference, this
 tree, this tree, reference, and prints each time beside the card's name
-and power limit. Shapes: K1 and K4 on the chem masking path's first batch
-(GIN 5 x 300 and GAT 5 x 300 with 2 heads); K2 ``[x]``, ``[ein]`` and
+and power limit. Shapes: K1 on the chem masking path's first batch (GIN 5
+x 300); K4 and K5 on the chem and bio GAT masking paths' first batches
+(GAT 5 x 300 with 2 heads; K5 on x and e as the unfused conv forms them,
+as ``chip_smoke.py`` times it); K2 ``[x]``, ``[ein]`` and
 ``[x+ein]`` on the bio masking path's first batch (the first layer's
 ``[edge_feat | 1]`` edge inputs and edge kernel, K = 10) and ``[x+ein]``
 on the chem edge-prediction path's first batch with the GCN trunk's bond
@@ -63,7 +65,7 @@ def build(srcdir: str, name: str, out_dir: str) -> ctypes.CDLL:
     return ctypes.CDLL(lib)
 
 
-SOURCES = {"k1": "gin_conv", "k4": "gat", "k2": "spmm"}
+SOURCES = {"k1": "gin_conv", "k4": "gat", "k5": "gat", "k2": "spmm"}
 
 
 def use(libs) -> None:
@@ -139,62 +141,96 @@ def k2_cases(dev):
     return out
 
 
-def cases(dev):
-    """``{kernel: callable}`` for K1 and K4 on the chem masking first
-    batch."""
-    graphs, _ = molecule_dataset(4096, seed=0, mean_atoms=23)
+def gat_cases(dev, kernels):
+    """``{kernel: callable}`` for K4 and K5 (those of ``kernels``) on the
+    chem and bio GAT masking paths' first batches, with each path's first
+    layer's parameters and edge inputs."""
     out = {}
-    gen = torch.Generator().manual_seed(1)
-    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
-    for gnn in ("gin", "gat"):
-        cfg = pretrain.PretrainConfig(num_layer=5, emb_dim=300,
+    gen = torch.Generator().manual_seed(4)
+    for domain in ("chem", "bio"):
+        cfg = pretrain.PretrainConfig(domain=domain, num_layer=5, emb_dim=300,
                                       batch_size=256, mask_edge=False,
-                                      seed=0, packing="auto", gnn_type=gnn)
+                                      seed=0, packing="auto", gnn_type="gat")
+        graphs = (bio_dataset(4096, seed=0) if domain == "bio"
+                  else molecule_dataset(4096, seed=0, mean_atoms=23)[0])
         b = next(iter(pretrain.build_loader(cfg, graphs, dev))).to(dev)
         conv = pretrain.build_objective(cfg).to(dev).gnn.gnns[0]
+        ein = (bio.edge_inputs(b, torch.float32) if domain == "bio"
+               else chem.bond_one_hot(b, torch.float32))
         nm = b.node_mask.to(torch.float32)
-        x = rnd(b.max_nodes, 300) * nm[:, None]
-        g = rnd(b.max_nodes, 300) * nm[:, None]
-        bn, be = b.block_nodes, b.block_edges
+        N, H, D, bn, be = (b.max_nodes, conv.heads, conv.emb_dim,
+                           b.block_nodes, b.block_edges)
+        rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
+        h = rnd(N, D) * nm[:, None]
+        g, g3 = rnd(N, D) * nm[:, None], rnd(N, H, D) * nm[:, None, None]
         with torch.no_grad():
-            if gnn == "gin":
-                args = conv.conv_inputs(x, b)
-                args = args[:11] + (nm,) + args[12:]
-                (_, ein, _, _, W1, _, W2, _, snd, rcv, w, _, _, _) = args
-                res = {}
+            We, e_self = conv.edge_kernel()
+            par = [We.contiguous(), e_self.reshape(H, D).contiguous(),
+                   conv.att[0, :, :D].contiguous(),
+                   conv.att[0, :, D:].contiguous()]
+            Wl, bl = conv.weight_linear.weight.t(), conv.weight_linear.bias
+            bias = rnd(D) * 0.1
+            x5 = (h @ Wl + bl).reshape(N, H, D).contiguous()
+            e5 = (ein @ par[0]).reshape(-1, H, D).contiguous()
+        graph = (b.senders, b.receivers, b.edge_mask.to(torch.float32))
+        res = {}
 
-                def k1_fwd(args=args, res=res):
-                    res["fz"] = gin_conv.gin_conv_fwd(*args)
+        def k4_fwd(res=res, h=h, Wl=Wl, bl=bl, ein=ein, par=par, bias=bias,
+                   graph=graph, bn=bn, be=be):
+            res["fx"] = gc.gat_conv_fwd(h, Wl, bl, ein, *par, bias, *graph,
+                                        bn, be)
 
-                def k1_bwd(res=res, ein=ein, W1=W1, W2=W2, snd=snd, rcv=rcv,
-                           w=w, nm=nm, g=g):
-                    _, aggr, z = res["fz"]
-                    gin_conv.gin_conv_bwd(g, aggr, z, ein, W1, W2, snd, rcv,
-                                          w, nm, bn, be)
-                out["gin_conv_fwd"], out["gin_conv_bwd"] = k1_fwd, k1_bwd
-            else:
-                We, e_self = conv.edge_kernel()
-                H, D = conv.heads, conv.emb_dim
-                par = [We.contiguous(), e_self.reshape(H, D).contiguous(),
-                       conv.att[0, :, :D].contiguous(),
-                       conv.att[0, :, D:].contiguous()]
-                Wl = conv.weight_linear.weight.t()
-                bl = conv.weight_linear.bias
-                graph = (b.senders, b.receivers, b.edge_mask.to(torch.float32))
-                ein = chem.bond_one_hot(b, torch.float32)
-                bias = rnd(D) * 0.1
-                res = {}
+        def k4_bwd(res=res, g=g, h=h, Wl=Wl, ein=ein, par=par, graph=graph,
+                   bn=bn, be=be):
+            _, xx, saved = res["fx"]
+            gc.gat_conv_bwd(g, h, Wl, xx, ein, *par, *graph, saved, bn, be)
 
-                def k4_fwd(res=res):
-                    res["fx"] = gc.gat_conv_fwd(x, Wl, bl, ein, *par, bias,
-                                                *graph, bn, be)
+        def k5_fwd(res=res, x5=x5, e5=e5, par=par, graph=graph, bn=bn,
+                   be=be):
+            res["f5"] = attention.gat_attn_fwd(x5, e5, *par[1:], *graph, 0.2,
+                                               bn, be)
 
-                def k4_bwd(res=res):
-                    _, xx, saved = res["fx"]
-                    gc.gat_conv_bwd(g, x, Wl, xx, ein, *par, *graph, saved,
-                                    bn, be)
-                out["gat_conv_fwd"], out["gat_conv_bwd"] = k4_fwd, k4_bwd
+        def k5_bwd(res=res, g3=g3, x5=x5, e5=e5, par=par, graph=graph,
+                   bn=bn, be=be):
+            attention.gat_attn_bwd(g3, x5, e5, *par[1:], *graph,
+                                   res["f5"][1], 0.2, bn, be)
+
+        if "k4" in kernels:
+            out[f"gat_conv_fwd {domain}"] = k4_fwd
+            out[f"gat_conv_bwd {domain}"] = k4_bwd
+        if "k5" in kernels:
+            out[f"blocked_gat_attention_fwd {domain}"] = k5_fwd
+            out[f"blocked_gat_attention_bwd {domain}"] = k5_bwd
     return out
+
+
+def cases(dev):
+    """``{kernel: callable}`` for K1 on the chem masking first batch."""
+    graphs, _ = molecule_dataset(4096, seed=0, mean_atoms=23)
+    gen = torch.Generator().manual_seed(1)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    cfg = pretrain.PretrainConfig(num_layer=5, emb_dim=300, batch_size=256,
+                                  mask_edge=False, seed=0, packing="auto")
+    b = next(iter(pretrain.build_loader(cfg, graphs, dev))).to(dev)
+    conv = pretrain.build_objective(cfg).to(dev).gnn.gnns[0]
+    nm = b.node_mask.to(torch.float32)
+    x = rnd(b.max_nodes, 300) * nm[:, None]
+    g = rnd(b.max_nodes, 300) * nm[:, None]
+    bn, be = b.block_nodes, b.block_edges
+    with torch.no_grad():
+        args = conv.conv_inputs(x, b)
+    args = args[:11] + (nm,) + args[12:]
+    (_, ein, _, _, W1, _, W2, _, snd, rcv, w, _, _, _) = args
+    res = {}
+
+    def k1_fwd():
+        res["fz"] = gin_conv.gin_conv_fwd(*args)
+
+    def k1_bwd():
+        _, aggr, z = res["fz"]
+        gin_conv.gin_conv_bwd(g, aggr, z, ein, W1, W2, snd, rcv, w, nm, bn,
+                              be)
+    return {"gin_conv_fwd": k1_fwd, "gin_conv_bwd": k1_bwd}
 
 
 def main() -> int:
@@ -202,7 +238,7 @@ def main() -> int:
     p.add_argument("--ref_csrc", required=True,
                    help="the other checkout's pretrain_gnns_tpu_torch/csrc")
     p.add_argument("--kernels", default="k1,k4",
-                   help="comma-separated, of k1, k4 and k2")
+                   help="comma-separated, of k1, k4, k5 and k2")
     args = p.parse_args()
     kernels = args.kernels.split(",")
     if not set(kernels) <= set(SOURCES):
@@ -210,20 +246,22 @@ def main() -> int:
     dev = resolve_device("cuda")
     card = chip_smoke.card_line()
     fns = {}
-    if {"k1", "k4"} & set(kernels):
-        fns.update({k: f for k, f in cases(dev).items()
-                    if ("k1" if k.startswith("gin") else "k4") in kernels})
+    if "k1" in kernels:
+        fns.update(cases(dev))
+    if {"k4", "k5"} & set(kernels):
+        fns.update(gat_cases(dev, kernels))
     if "k2" in kernels:
         fns.update(k2_cases(dev))
     times = {k: {"tree": [], "ref": []} for k in fns}
     with tempfile.TemporaryDirectory() as tmp:
-        ref = {SOURCES[k]: build(args.ref_csrc, SOURCES[k], tmp)
-               for k in kernels}
+        ref = {src: build(args.ref_csrc, src, tmp)
+               for src in {SOURCES[k] for k in kernels}}
         for tag in ("ref", "tree", "tree", "ref"):
             use(ref if tag == "ref" else {})
             with torch.no_grad():
                 for k, fn in fns.items():
-                    if k.startswith(("gin_conv_bwd", "gat_conv_bwd")):
+                    if k.startswith(("gin_conv_bwd", "gat_conv_bwd",
+                                     "blocked_gat_attention_bwd")):
                         fns[k.replace("bwd", "fwd")]()  # its saved outputs
                     times[k][tag].append(chip_smoke.time_ms(fn, torch))
         use({})

@@ -558,11 +558,15 @@ GAT_GRADS = ("dh", "dWl", "dbl", "dWe", "de_self", "da_i", "da_j", "dbias")
 H = 2
 
 
-def _gat_case(dev, domain, D, block_nodes, block_edges, n_graphs=24, seed=0):
+def _gat_case(dev, domain, D, block_nodes, block_edges, n_graphs=24, seed=0,
+              variant="onehot"):
     """A blocked batch whose last two blocks are all padding, and the
     inputs of K4 (h, Wl as a transposed view, ein, We, ...) from which K5's
-    x and e follow. Chem: bond one-hots, K = 9; bio: [edge_feat | 1],
-    K = 10."""
+    x and e follow, with the edge weights ``t["w"]``. Chem: bond one-hots,
+    K = 9; bio: [edge_feat | 1], K = 10. ``variant``: "onehot" (those),
+    "K1" or "K16" (uniform random ein of that width), "dense" (normal
+    random ein, the same width) or "frac" (one-hots, valid edge weights
+    drawn from [0.25, 1.25))."""
     if domain == "bio":
         graphs = bio_dataset(n_graphs, seed=seed)
         extra = {"center_node_idx": n_graphs}
@@ -579,9 +583,16 @@ def _gat_case(dev, domain, D, block_nodes, block_edges, n_graphs=24, seed=0):
     ein = (bio.edge_inputs(b, torch.float32) if domain == "bio"
            else chem.bond_one_hot(b, torch.float32))
     gen = torch.Generator().manual_seed(seed)
+    if variant in ("K1", "K16"):
+        ein = torch.rand(ein.shape[0], int(variant[1:]), generator=gen).to(dev)
+    elif variant == "dense":
+        ein = torch.randn(ein.shape, generator=gen).to(dev)
+    w = b.edge_mask.float()
+    if variant == "frac":
+        w = w * (0.25 + torch.rand(w.shape, generator=gen).to(dev))
     r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(dev)
     N, K = b.max_nodes, ein.shape[1]
-    t = dict(h=r(N, D) * b.node_mask[:, None],
+    t = dict(w=w, h=r(N, D) * b.node_mask[:, None],
              Wl=r(H * D, D, scale=D ** -0.5).t(), bl=r(H * D, scale=0.1),
              We=r(K, H * D, scale=0.5), e_self=r(H, D, scale=0.5),
              a_i=r(H, D, scale=D ** -0.5), a_j=r(H, D, scale=D ** -0.5),
@@ -593,31 +604,44 @@ def _graph(b):
     return b.senders, b.receivers, b.edge_mask.float()
 
 
+# (D, block_nodes, block_edges, variant of _gat_case): an odd width, blocks
+# of 512 nodes and 1,536 slots, the GAT paths' own shape, K = 1 at a width
+# of two 320-feature chunks, K = 16, and fractional edge weights
+GAT_SHAPES = [(45, 128, 384, "onehot"), (300, 512, 1536, "onehot"),
+              (300, 128, 384, "onehot"), (333, 128, 384, "K1"),
+              (40, 128, 384, "K16"), (300, 128, 384, "frac")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("domain", ["chem", "bio"])
-@pytest.mark.parametrize("D,bn,be", [(45, 128, 384), (300, 512, 1536)])
-def test_k4_kernels_match_plain_version(cuda_device, domain, D, bn, be):
-    """K4's forward (out and the saved x) and all eight gradients at an odd
-    width and at blocks of 512 nodes (above 48 KB of shared memory), with
+@pytest.mark.parametrize("D,bn,be,variant",
+                         GAT_SHAPES + [(45, 128, 384, "dense")])
+def test_k4_kernels_match_plain_version(cuda_device, domain, D, bn, be,
+                                        variant):
+    """K4's forward (out and the saved x) and all eight gradients at the
+    shapes of GAT_SHAPES and with dense random edge inputs (the
+    reassociated edge term must hold for any ein, not only one-hots), with
     all-padding blocks: nothing is NaN, padded rows get (bl + e_self) head
     averaged + bias, and every output is the same bits from run to run."""
-    t, ein, b, bn_, be_ = _gat_case(cuda_device, domain, D, bn, be)
+    t, ein, b, bn_, be_ = _gat_case(cuda_device, domain, D, bn, be,
+                                    variant=variant)
     assert (bn_, be_) == (bn, be)
+    graph = (b.senders, b.receivers, t["w"])
     before = dict(gat_conv.launches)
     run = lambda: gat_conv.gat_conv_fwd(
         t["h"], t["Wl"], t["bl"], ein, t["We"], t["e_self"], t["a_i"],
-        t["a_j"], t["bias"], *_graph(b), bn, be)
+        t["a_j"], t["bias"], *graph, bn, be)
     out, x, saved = run()
     back = lambda: gat_conv.gat_conv_bwd(
         t["g"], t["h"], t["Wl"], x, ein, t["We"], t["e_self"], t["a_i"],
-        t["a_j"], *_graph(b), saved, bn, be)
+        t["a_j"], *graph, saved, bn, be)
     grads = back()
     torch.cuda.synchronize()
     assert gat_conv.launches == {k: v + 1 for k, v in before.items()}
     leaves = [t[k].detach().clone().requires_grad_(True) for k in GAT_DIFF]
     lh, lWl, lbl, lWe, les, lai, laj, lbias = leaves
     out_p, x_p = gat_conv.fused_gat_conv_plain(
-        lh, lWl, lbl, ein, lWe, les, lai, laj, lbias, *_graph(b), H,
+        lh, lWl, lbl, ein, lWe, les, lai, laj, lbias, *graph, H,
         return_residuals=True)
     grads_p = torch.autograd.grad(out_p, leaves, t["g"])
     assert torch.isfinite(out).all()
@@ -646,22 +670,25 @@ def _k5_inputs(t, ein, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("domain", ["chem", "bio"])
-@pytest.mark.parametrize("D,bn,be", [(45, 128, 384), (300, 512, 1536)])
-def test_k5_kernels_match_plain_version(cuda_device, domain, D, bn, be):
+@pytest.mark.parametrize("D,bn,be,variant", GAT_SHAPES)
+def test_k5_kernels_match_plain_version(cuda_device, domain, D, bn, be,
+                                        variant):
     """K5's forward and its five gradients, as above; a padded slot's de
     row is exactly 0."""
-    t, ein, b, bn_, be_ = _gat_case(cuda_device, domain, D, bn, be, seed=1)
+    t, ein, b, bn_, be_ = _gat_case(cuda_device, domain, D, bn, be, seed=1,
+                                    variant=variant)
     x, e = _k5_inputs(t, ein, D)
     par = (t["e_self"], t["a_i"], t["a_j"])
+    graph = (b.senders, b.receivers, t["w"])
     before = dict(attention.launches)
-    out, saved = attention.gat_attn_fwd(x, e, *par, *_graph(b), 0.2, bn, be)
-    back = lambda: attention.gat_attn_bwd(t["g3"], x, e, *par, *_graph(b),
+    out, saved = attention.gat_attn_fwd(x, e, *par, *graph, 0.2, bn, be)
+    back = lambda: attention.gat_attn_bwd(t["g3"], x, e, *par, *graph,
                                           saved, 0.2, bn, be)
     grads = back()
     torch.cuda.synchronize()
     assert attention.launches == {k: v + 1 for k, v in before.items()}
     leaves = [v.detach().clone().requires_grad_(True) for v in (x, e, *par)]
-    out_p = attention.blocked_gat_attention_plain(*leaves, *_graph(b), 0.2)
+    out_p = attention.blocked_gat_attention_plain(*leaves, *graph, 0.2)
     grads_p = torch.autograd.grad(out_p, leaves, t["g3"])
     assert torch.isfinite(out).all()
     assert _rel(out, out_p.detach()) <= FWD_TOL

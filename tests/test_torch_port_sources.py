@@ -2,9 +2,10 @@
 (K1, csrc/gin_conv.cu) and the fused edge-transform SpMM (K2,
 csrc/spmm.cu) aggregate through the one row-owned walk of
 csrc/edge_aggr.cuh, which sums every row in a fixed order. No atomic add
-may come back into K2 (its outputs would change in their last bits from
-run to run), and the build must rebuild both libraries when the header
-changes."""
+may come back into K2 or into the GAT attention (K4 and K5, csrc/gat.cu,
+whose walks are row-owned too): their outputs would change in their last
+bits from run to run. The build must rebuild both K1's and K2's libraries
+when the header changes."""
 
 import re
 import shutil
@@ -21,6 +22,11 @@ USERS = ["gin_conv", "spmm"]
 def test_no_atomics_in_k2(name):
     text = (_build.CSRC / name).read_text()
     assert not re.search(r"\batomic\w*\s*\(", text), name
+
+
+def test_no_atomics_in_gat():
+    text = (_build.CSRC / "gat.cu").read_text()
+    assert not re.search(r"\batomic\w*\s*\(", text)
 
 
 @pytest.mark.parametrize("name", USERS)

@@ -1019,7 +1019,6 @@ def gat_phase(torch, batch, conv, ein, tag):
         return fwd, bwd
 
     k4_fwd_b, k4_bwd_b = k4_bounds(min(e_fwd.values()), min(e_bwd.values()))
-    k4_per_edge = k4_bounds(e_fwd["per edge"], e_bwd["per edge"])
     edge_b5 = Ev * 3 * f4 + Ev * HD * f4
     k5_fwd_b = bound(
         node_ops * 7 + edge_ops * 5,
@@ -1043,11 +1042,8 @@ def gat_phase(torch, batch, conv, ein, tag):
                              bound_by=by, max_abs_err=errs[name])
         extra = ""
         if name in matmul:
-            per_edge = k4_per_edge[name == "gat_conv_bwd"][0]
             results[name]["matmul_ms"] = matmul[name]
-            results[name]["bound_ms_edge_term_per_edge"] = per_edge
-            extra = (f", torch.matmul products {matmul[name]:.4f} ms, bound "
-                     f"with the edge term counted per edge {per_edge:.4f} ms")
+            extra = f", torch.matmul products {matmul[name]:.4f} ms"
         print(f"[kernels] {name} {tag}: kernel {kern_ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms{extra}, library none (no single call), "
               f"bound {b_ms:.4f} ms ({by})", flush=True)

@@ -58,8 +58,9 @@
 //   lists, by ballot, the slots of each of its rows in slot order: every
 //   sum below is taken in a fixed order, with no atomics, so every output is
 //   the same bits on every run. A lane holds NV = 10 features of a row in
-//   registers, two adjacent ones (float2) where D is even. Staging loops
-//   issue all their loads before the first store (copy_batched, stage).
+//   registers, two adjacent ones (float2) where D is even, the row fits one
+//   chunk and the rows are 8-byte aligned. Staging loops issue all their
+//   loads before the first store (copy_batched, stage).
 // - Forward, one kernel: for each row and head the warp forms x_r·a_i and
 //   the self logit, then walks the row's slots B at a time (the x[s] rows of
 //   a batch, and K5's e rows, loaded before any is used), takes the sender
@@ -87,9 +88,10 @@
 // - Parameter gradients: each walk CTA (and each dWe CTA) writes its partial
 //   sums of de_self, da_i, da_j (and dWe), its warps' shares added in warp
 //   order; gat_finish_kernel sums them in CTA order.
-// - Rows wider than a chunk (D > 320) take one CTA per chunk; the full-row
-//   dot products are then summed chunk by chunk in the same order in every
-//   CTA, so all chunks see the same logits.
+// - Rows wider than a chunk (D > 320) take one CTA per chunk and one
+//   feature a lane (no path has them: they are kept correct, not fast);
+//   the full-row dot products are then summed chunk by chunk in the same
+//   order in every CTA, so all chunks see the same logits.
 // - Padded slots and slots with an endpoint outside their block get alpha
 //   = 0 and dlr = 0, and K5 writes their de rows as exact zeros. Padded
 //   node rows and all-padding blocks are computed like any other: their
@@ -100,6 +102,9 @@
 //   only with w > 0 (theirs with w != 0).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <initializer_list>
 
 #include "gemm.cuh"
 
@@ -1007,12 +1012,20 @@ dim3 walk_grid(const Graph& a) {
   return dim3(a.N / a.bn, (a.bn + RPC - 1) / RPC, (a.D + CH - 1) / CH);
 }
 
-// The instantiation of a walk kernel for this width: VEC = 2 where D is
-// even, WIDE where a row spans more than one chunk.
+// The instantiation of a walk kernel for this row: two features a lane
+// (VEC = 2) where D is even, the row fits one chunk and every row the walks
+// read or write starts 8-byte aligned (the graph's float rows and those of
+// ``ptrs``); else one, WIDE where a row spans more than one chunk.
 template <typename Kern>
-Kern pick(const Graph& a, Kern k11, Kern k12, Kern k21, Kern k22) {
-  const bool vec2 = a.D % 2 == 0, wide = a.D > CH;
-  return vec2 ? (wide ? k22 : k21) : (wide ? k12 : k11);
+Kern pick(const Graph& a, std::initializer_list<const float*> ptrs,
+          Kern k1, Kern k1_wide, Kern k2) {
+  if (a.D > CH) return k1_wide;
+  if (a.D % 2) return k1;
+  for (const float* p : {a.x, a.e, a.We, a.es, a.ai, a.aj})
+    if (p && reinterpret_cast<uintptr_t>(p) % 8) return k1;
+  for (const float* p : ptrs)
+    if (p && reinterpret_cast<uintptr_t>(p) % 8) return k1;
+  return k2;
 }
 
 // The whole forward attention on a.x: va [H, K] scratch for K4, else null.
@@ -1027,10 +1040,9 @@ int attention_fwd(const Graph& a, const float* bias, float* va, float* alpha,
     if (err) return err;
   }
   const int smem = walk_smem(a.be, false);
-  auto kern = pick(a, gat_fwd_kernel<FUSED, 1, false>,
+  auto kern = pick(a, {bias, out}, gat_fwd_kernel<FUSED, 1, false>,
                    gat_fwd_kernel<FUSED, 1, true>,
-                   gat_fwd_kernel<FUSED, 2, false>,
-                   gat_fwd_kernel<FUSED, 2, true>);
+                   gat_fwd_kernel<FUSED, 2, false>);
   const int err = allow_smem(kern, smem);
   if (err) return err;
   kern<<<walk_grid(a), THREADS, smem, st>>>(a, va, bias, out, alpha, aself,
@@ -1079,14 +1091,12 @@ int attention_bwd(const Graph& a, const Cot& c, const float* alpha,
                   float* dpar, cudaStream_t st) {
   const ll HD = (ll)a.H * a.D;
   const int smem = walk_smem(a.be, true);
-  auto rcv = pick(a, gat_bwd_rcv_kernel<FUSED, 1, false>,
+  auto rcv = pick(a, {c.g, dx, de}, gat_bwd_rcv_kernel<FUSED, 1, false>,
                   gat_bwd_rcv_kernel<FUSED, 1, true>,
-                  gat_bwd_rcv_kernel<FUSED, 2, false>,
-                  gat_bwd_rcv_kernel<FUSED, 2, true>);
-  auto snd = pick(a, gat_bwd_snd_kernel<FUSED, 1, false>,
+                  gat_bwd_rcv_kernel<FUSED, 2, false>);
+  auto snd = pick(a, {c.g, dx, de}, gat_bwd_snd_kernel<FUSED, 1, false>,
                   gat_bwd_snd_kernel<FUSED, 1, true>,
-                  gat_bwd_snd_kernel<FUSED, 2, false>,
-                  gat_bwd_snd_kernel<FUSED, 2, true>);
+                  gat_bwd_snd_kernel<FUSED, 2, false>);
   int err = allow_smem(rcv, smem);
   if (err) return err;
   err = allow_smem(snd, smem);

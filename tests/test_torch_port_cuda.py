@@ -605,11 +605,13 @@ def _graph(b):
 
 
 # (D, block_nodes, block_edges, variant of _gat_case): an odd width, blocks
-# of 512 nodes and 1,536 slots, the GAT paths' own shape, K = 1 at a width
-# of two 320-feature chunks, K = 16, and fractional edge weights
+# of 512 nodes and 1,536 slots, the GAT paths' own shape, K = 1 at an odd
+# width of two 320-feature chunks, K = 16, fractional edge weights, and an
+# even width of two chunks with dense random ein
 GAT_SHAPES = [(45, 128, 384, "onehot"), (300, 512, 1536, "onehot"),
               (300, 128, 384, "onehot"), (333, 128, 384, "K1"),
-              (40, 128, 384, "K16"), (300, 128, 384, "frac")]
+              (40, 128, 384, "K16"), (300, 128, 384, "frac"),
+              (334, 128, 384, "dense")]
 
 
 @pytest.mark.cuda
@@ -699,6 +701,53 @@ def test_k5_kernels_match_plain_version(cuda_device, domain, D, bn, be,
     assert not grads[1][~b.edge_mask].any()
     for a, a2 in zip(grads, back()):
         assert torch.equal(a, a2)
+
+
+def _at_odd_offset(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past an 8-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 2, dtype=t.dtype, device=t.device)
+    off = 1 if buf.data_ptr() % 8 == 0 else 2
+    return buf[off:off + t.numel()].view(t.shape).copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k4", "k5"])
+def test_gat_kernels_take_rows_at_odd_offsets(cuda_device, kernel):
+    """At an even width, inputs at an odd float offset (their rows not
+    8-byte aligned: K5's x, e and cotangent, K4's We and cotangent) take
+    one feature a lane and agree with the plain version."""
+    D = 40
+    t, ein, b, bn, be = _gat_case(cuda_device, "chem", D, 128, 384, seed=3)
+    graph = (b.senders, b.receivers, t["w"])
+    par = (t["e_self"], t["a_i"], t["a_j"])
+    if kernel == "k5":
+        x, e = (_at_odd_offset(v) for v in _k5_inputs(t, ein, D))
+        out, saved = attention.gat_attn_fwd(x, e, *par, *graph, 0.2, bn, be)
+        grads = attention.gat_attn_bwd(_at_odd_offset(t["g3"]), x, e, *par,
+                                       *graph, saved, 0.2, bn, be)
+        leaves = [v.detach().clone().requires_grad_(True)
+                  for v in (x, e, *par)]
+        out_p = attention.blocked_gat_attention_plain(*leaves, *graph, 0.2)
+        g = t["g3"]
+    else:
+        We = _at_odd_offset(t["We"])
+        out, x, saved = gat_conv.gat_conv_fwd(
+            t["h"], t["Wl"], t["bl"], ein, We, *par, t["bias"], *graph, bn,
+            be)
+        grads = gat_conv.gat_conv_bwd(
+            _at_odd_offset(t["g"]), t["h"], t["Wl"], x, ein, We, *par,
+            *graph, saved, bn, be)
+        leaves = [t[k].detach().clone().requires_grad_(True)
+                  for k in GAT_DIFF]
+        lh, lWl, lbl, lWe, les, lai, laj, lbias = leaves
+        out_p = gat_conv.fused_gat_conv_plain(
+            lh, lWl, lbl, ein, lWe, les, lai, laj, lbias, *graph, H)
+        g = t["g"]
+    grads_p = torch.autograd.grad(out_p, leaves, g)
+    assert _rel(out, out_p.detach()) <= FWD_TOL
+    for i, (a, p) in enumerate(zip(grads, grads_p)):
+        assert _rel(a, p) <= GRAD_TOL, i
 
 
 @pytest.mark.cuda

@@ -45,9 +45,9 @@ Phases, in order (any failure exits non-zero):
      blocked pair-dot head K3 is held against its plain version for both
      scoring heads (positives: every edge slot, 384 a block; negatives:
      the C++ sampler's block-aligned pairs, 192 a block): scores and
-     ``dx``, padded pairs and untouched rows exactly 0, ``dx`` equal bit
-     for bit between two runs; timed beside the plain version and its
-     bound (no single PyTorch call computes it);
+     ``dx``, padded pairs and untouched rows exactly 0, scores and ``dx``
+     each equal bit for bit between two runs; timed beside the plain
+     version and its bound (no single PyTorch call computes it);
   9. GCN kernel phase: K2's ``has_x`` + ``has_ein`` variant again, at the
      shapes the chem GCN trunk gives it (first batch of the chem
      edge-prediction path, K = 9, edge weights ``deg^-1/2[r] *
@@ -100,7 +100,8 @@ Phases, in order (any failure exits non-zero):
      exactly 0, every output equal bit for bit between two runs; timed (K7
      with and without the sort) beside the plain version,
      ``torch.sparse.mm`` for the ``x`` term (the whole function only
-     without ``ee``) and the bound;
+     without ``ee``) and the bound, and K7's time printed beside K6's
+     forward ``[x+ee]`` on the same batch;
   19. the op-level path of K6: ``ops.spmm.gather_scatter(..., edge_emb=
      ...)`` in its add and concat forms and ``blocked_spmm`` without an
      edge embedding, forward and backward on the card, against the plain
@@ -749,6 +750,7 @@ def k3_phase(torch, batch, tag):
         g_path[::stride] = g[::stride]
         with torch.no_grad():
             out = ed.edot_fwd(x, a_idx, b_idx, w, bn, ppb)
+            out_again = ed.edot_fwd(x, a_idx, b_idx, w, bn, ppb)
             dx = ed.edot_bwd(g, x, a_idx, b_idx, w, bn, ppb)
             dx_again = ed.edot_bwd(g, x, a_idx, b_idx, w, bn, ppb)
             dx_path = ed.edot_bwd(g_path, x, a_idx, b_idx, w, bn, ppb)
@@ -764,15 +766,17 @@ def k3_phase(torch, batch, tag):
         touched[a_idx[valid].long()] = True
         touched[b_idx[valid].long()] = True
         rerun = float((dx - dx_again).abs().max())
+        same_fwd = torch.equal(out, out_again)
         print(f"[kernels] K3 {tag} {head}: P={P} ({ppb} a block, "
               f"{int(valid.sum())} valid) forward rel err {fwd_err:.3e}, dx "
               f"rel err {bwd_err:.3e}; padded pairs max "
               f"{float(out[~valid].abs().max()):.1e}, untouched rows max "
               f"{float(dx[~touched].abs().max()):.1e}; dx run-to-run max "
-              f"abs difference {rerun:.1e}", flush=True)
+              f"abs difference {rerun:.1e}; scores equal bits in two runs: "
+              f"{same_fwd}", flush=True)
         if not (fwd_err <= FWD_TOL and bwd_err <= GRAD_TOL
                 and not out[~valid].any() and not dx[~touched].any()
-                and rerun == 0.0):
+                and rerun == 0.0 and same_fwd):
             raise AssertionError(f"K3 {tag} {head} disagrees with its plain "
                                  "version")
         if not (ed.launches["blocked_edge_dot_fwd"] > 0
@@ -1241,7 +1245,10 @@ def spmm_ee_phase(torch, batch, tag):
             library="partial: torch.sparse.mm covers the x term only",
             max_abs_err=float((out7 - want7).abs().max()))
     print(f"[kernels] K6 and K7 at the {tag}: N={N} F={F} E={E} valid_edges="
-          f"{e_valid} senders={n_snd} receivers={n_rcv}", flush=True)
+          f"{e_valid} senders={n_snd} receivers={n_rcv}; K7 "
+          f"{results['sorted_blocked_spmm_fwd']['ms']:.4f} ms against K6 "
+          f"[x+ee] {results['blocked_spmm_ee_fwd[x+ee]']['ms']:.4f} ms",
+          flush=True)
     for name, r in results.items():
         extra = (f" ({r['with_sort_ms']:.4f} ms with sort_block_edges)"
                  if "with_sort_ms" in r else "")

@@ -1,6 +1,9 @@
 // Row-owned edge aggregation on the block-diagonal batch, forward and
 // backward, shared by the fused GIN conv (gin_conv.cu, K1) and the fused
-// edge-transform SpMM (spmm.cu, K2). One template, three flags:
+// edge-transform SpMM (spmm.cu, K2); the pair-dot head's backward
+// (edge_dot.cu, K3) walks its pairs' sides with the same staging, walk and
+// launch, and the receiver-sorted SpMM (spmm_ee.cu, K7) takes its row
+// accesses and launch. One template, three flags:
 //
 //   out_r = sum_{rcv_e = r} w_e * (x[snd_e] [HAS_X] + ein_e @ W [HAS_EIN])
 //           + (x_r + e_self) * nm_r                                  [SELF]
@@ -52,6 +55,9 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <initializer_list>
+
 #include "slot_walk.cuh"
 
 namespace {
@@ -91,6 +97,19 @@ int edge_aggr_smem(int block_nodes, int K, int vec, bool acc, bool has_ein,
          AGG_WARPS * AGG_STAGE;
 }
 
+// The widest VEC, of 4, 2 and 1 and at most max_vec, whose accesses the
+// rows allow: F a multiple of VEC and every row pointer 4 * VEC-byte
+// aligned (null pointers are not read).
+int row_vec(int F, std::initializer_list<const float*> ptrs, int max_vec) {
+  for (int vec = max_vec; vec > 1; vec /= 2) {
+    bool ok = F % vec == 0;
+    for (const float* p : ptrs)
+      if (p && reinterpret_cast<uintptr_t>(p) % (4 * vec)) ok = false;
+    if (ok) return vec;
+  }
+  return 1;
+}
+
 // VEC adjacent features of one row: a lane's share of a feature tile.
 template <int VEC>
 struct Row {
@@ -100,7 +119,13 @@ struct Row {
 template <int VEC>
 __device__ __forceinline__ Row<VEC> ld_row(const float* p) {
   Row<VEC> r;
-  if constexpr (VEC == 2) {
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    r.v[0] = t.x;
+    r.v[1] = t.y;
+    r.v[2] = t.z;
+    r.v[3] = t.w;
+  } else if constexpr (VEC == 2) {
     const float2 t = *reinterpret_cast<const float2*>(p);
     r.v[0] = t.x;
     r.v[1] = t.y;
@@ -112,7 +137,9 @@ __device__ __forceinline__ Row<VEC> ld_row(const float* p) {
 
 template <int VEC>
 __device__ __forceinline__ void st_row(float* p, const Row<VEC>& r) {
-  if constexpr (VEC == 2)
+  if constexpr (VEC == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(r.v[0], r.v[1], r.v[2], r.v[3]);
+  else if constexpr (VEC == 2)
     *reinterpret_cast<float2*>(p) = make_float2(r.v[0], r.v[1]);
   else
     *p = r.v[0];
@@ -175,7 +202,10 @@ __device__ __forceinline__ void stage_slots(
 // Visits, in slot order, the staged slots 0 .. n - 1 whose sender
 // (BY_SENDER) or receiver row this warp owns: load(q) for a batch of up to
 // AGG_BATCH slots q, then add(q, loaded) for each in order. Every lane
-// runs the same loop.
+// runs the same loop. The list entries of a batch are read from shared
+// memory before any is used, so that those reads overlap; load may return
+// what add needs besides the row (the slot's weight, its row index), read
+// in the same overlapped step.
 template <bool BY_SENDER, typename Load, typename Add>
 __device__ __forceinline__ void walk_staged(const Staged& s, int n, int lane,
                                             int warp, Load load, Add add) {
@@ -191,13 +221,16 @@ __device__ __forceinline__ void walk_staged(const Staged& s, int n, int lane,
   }
   __syncwarp();
   for (int i = 0; i < cnt; i += AGG_BATCH) {
+    int q[AGG_BATCH];
+#pragma unroll
+    for (int u = 0; u < AGG_BATCH; ++u) q[u] = i + u < cnt ? list[i + u] : 0;
     decltype(load(0)) v[AGG_BATCH];
 #pragma unroll
     for (int u = 0; u < AGG_BATCH; ++u)
-      if (i + u < cnt) v[u] = load(list[i + u]);
+      if (i + u < cnt) v[u] = load(q[u]);
 #pragma unroll
     for (int u = 0; u < AGG_BATCH; ++u)
-      if (i + u < cnt) add(list[i + u], v[u]);
+      if (i + u < cnt) add(q[u], v[u]);
   }
   __syncwarp();  // the next walk rewrites the list
 }

@@ -33,9 +33,6 @@
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
-#include <initializer_list>
-
 #include "edge_aggr.cuh"
 
 namespace {
@@ -55,15 +52,6 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, int S,
   }
 }
 
-// Two features a lane where the rows allow float2 accesses (F even, every
-// row pointer 8-byte aligned), else one.
-bool pairs(int F, std::initializer_list<const float*> ptrs) {
-  if (F % 2) return false;
-  for (const float* p : ptrs)
-    if (p && reinterpret_cast<uintptr_t>(p) % 8) return false;
-  return true;
-}
-
 int fwd_smem(int block_nodes, int K, int vec, bool has_x, bool has_ein) {
   return edge_aggr_smem(block_nodes, has_ein ? K : 0, vec, has_x, has_ein,
                         false);
@@ -81,7 +69,7 @@ int launch_fwd(const float* x, const float* ein, const float* W,
                cudaStream_t st) {
   const int n_blocks = N / block_nodes;
   K = HAS_EIN ? K : 0;
-  if (pairs(F, {x, W, out}))
+  if (row_vec(F, {x, W, out}, 2) == 2)
     return edge_aggr_fwd<HAS_X, HAS_EIN, false, 2>(
         x, ein, W, nullptr, snd, rcv, w, nullptr, out, n_blocks, F, K,
         block_nodes, block_edges, st);
@@ -97,7 +85,7 @@ int launch_bwd(const float* g, const float* ein, const int* snd,
                int block_edges, cudaStream_t st) {
   const int n_blocks = N / block_nodes;
   K = HAS_EIN ? K : 0;
-  int err = pairs(F, {g, dx})
+  int err = row_vec(F, {g, dx}, 2) == 2
       ? edge_aggr_bwd<HAS_X, HAS_EIN, false, 2>(
             g, ein, snd, rcv, w, nullptr, dx, dW_part, nullptr, n_blocks, F,
             K, block_nodes, block_edges, st)

@@ -23,8 +23,7 @@
 // (3.35 TB/s), about 0.010 and 0.014 ms; 0.029 and 0.035 ms at the bio
 // shapes (N = 20,480, 61,440 slots).
 //
-// Design (simple and right first; float4 rows and more loads in flight per
-// warp are later work):
+// Design:
 // - The TPU kernels gathered and scattered with one-hot matmuls on the MXU.
 //   Here K6 gives one CTA a (node block, 32-wide feature tile) and keeps
 //   the block's rows in a shared f32 tile, a lane per feature. Each warp
@@ -43,12 +42,23 @@
 // - The TPU's sorted kernel formed a log-depth prefix sum over the block's
 //   messages and subtracted two boundary rows per node, its answer to a
 //   missing cumsum and to the MXU. On the card a sorted block is a
-//   segmented reduction: K7 loads the block's slots (local receiver,
-//   local sender, weight) into shared memory once, coalesced; a warp takes
-//   a node, finds the node's run of slots by binary search, sums the run
-//   in slot order in a register and writes the row once. No shared
-//   accumulator, no atomics, the same bits every run, and no cancellation
-//   between large prefix sums.
+//   segmented reduction. K7 gives one CTA a (node block, 32 * VEC-wide
+//   feature tile), two features a lane where F is even and the rows
+//   8-byte aligned, and loads the block's slots (local receiver, local
+//   sender or -1, weight) into shared memory once, coalesced. One parallel
+//   pass marks where each receiver's run of slots starts and ends (slot i
+//   starts a run where rl[i] != rl[i - 1]) and the span of slots whose
+//   receiver lies in the block. The span splits into one range a warp,
+//   each moved to the next start of a run, so that every run lies in one
+//   range. A warp reads its range 32 slots at a time, a slot a lane,
+//   ballots the slots that add (and each run's first slot), and walks
+//   them SORTED_BATCH at a time, their metadata by shuffle: the x and ee
+//   rows of a batch are loaded before any is added. Each run is summed in
+//   slot order in a register, as v = x + ee and then fmaf(w, v, sum) from
+//   0, and its row written once; rows without a run are written as 0. No
+//   shared accumulator, no atomics, the same bits every run, and no
+//   cancellation between large prefix sums. What bounds it is latency:
+//   the staging trip, then one trip for each batch of a range.
 // - Padded edge slots (w == 0, global index 0) and any slot with an
 //   endpoint outside its block are skipped, so index 0 never reaches a row
 //   of another block's tile; in a sorted block such slots sort to the
@@ -61,7 +71,7 @@
 
 #include <cuda_runtime.h>
 
-#include "slot_walk.cuh"
+#include "edge_aggr.cuh"
 
 namespace {
 
@@ -70,13 +80,14 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / FT;
 constexpr int MAX_SMEM = 232448;        // 227 KB: a block's most on the H100
 constexpr int DEFAULT_SMEM = 48 * 1024; // above this only after opting in
+constexpr int SORTED_BATCH = 8;         // K7: slots whose rows a warp loads at once
 
 int tile_smem(int block_nodes) {
   return block_nodes * FT * (int)sizeof(float);
 }
 
-int sorted_smem(int block_edges) {
-  return 3 * block_edges * (int)sizeof(int);
+int sorted_smem(int block_nodes, int block_edges) {
+  return (3 * block_edges + 2 * block_nodes + 2) * (int)sizeof(int);
 }
 
 template <bool HAS_EE>
@@ -178,7 +189,7 @@ spmm_ee_bwd_kernel(const float* __restrict__ g, const int* __restrict__ snd,
   }
 }
 
-template <bool HAS_EE>
+template <bool HAS_EE, int VEC>
 __global__ void __launch_bounds__(THREADS)
 spmm_sorted_fwd_kernel(const float* __restrict__ x,
                        const float* __restrict__ ee,
@@ -187,17 +198,24 @@ spmm_sorted_fwd_kernel(const float* __restrict__ x,
                        const float* __restrict__ w, float* __restrict__ out,
                        int F, int block_nodes, int block_edges) {
   // the block's slots, loaded once and coalesced: local receivers
-  // (ascending), local senders (-1 for a slot that adds nothing), weights
-  extern __shared__ int slots[];  // [3][block_edges]
+  // (ascending), local senders (-1 for a slot that adds nothing), weights;
+  // each node's run of slots, run0[n] .. run1[n] - 1 (none: run1 < run0);
+  // and the span of slots whose receiver lies in the block
+  extern __shared__ int slots[];  // [3][block_edges], [2][block_nodes], [2]
   int* rl = slots;
   int* sl = slots + block_edges;
   float* wl = reinterpret_cast<float*>(slots + 2 * block_edges);
+  int* run0 = slots + 3 * block_edges;
+  int* run1 = run0 + block_nodes;
+  int* span = run1 + block_nodes;
+  constexpr int FTV = FT * VEC;
   const int b = blockIdx.x;
-  const int f0 = blockIdx.y * FT;
+  const int f0 = blockIdx.y * FTV;
   const int lane = threadIdx.x % FT;
   const int warp = threadIdx.x / FT;
-  const int f = f0 + lane;
-  const bool fok = f < F;
+  const int c = lane * VEC;
+  const int f = f0 + c;
+  const bool fok = f < F;  // VEC = 2 needs F even: a pair lies wholly inside
   const ll base = (ll)b * block_nodes;
   const ll e0 = (ll)b * block_edges;
   for (int i = threadIdx.x; i < block_edges; i += THREADS) {
@@ -207,26 +225,101 @@ spmm_sorted_fwd_kernel(const float* __restrict__ x,
     sl[i] = (we != 0.f && s >= 0 && s < block_nodes) ? (int)s : -1;
     wl[i] = we;
   }
+  for (int n = threadIdx.x; n < block_nodes; n += THREADS) {
+    run0[n] = 0;
+    run1[n] = -1;
+  }
+  if (threadIdx.x < 2) span[threadIdx.x] = 0;
+  __syncthreads();
+  // one pass marks where each run and the span start and end; padded
+  // slots (negative receivers, sorted to the front) belong to no run
+  const auto in_block = [&](int r) { return r >= 0 && r < block_nodes; };
+  for (int i = threadIdx.x; i < block_edges; i += THREADS) {
+    const int r = rl[i];
+    if (!in_block(r)) continue;
+    const int prev = i > 0 ? rl[i - 1] : -1;
+    const int next = i + 1 < block_edges ? rl[i + 1] : -1;
+    if (prev != r) run0[r] = i;
+    if (next != r) run1[r] = i + 1;
+    if (!in_block(prev)) span[0] = i;
+    if (!in_block(next)) span[1] = i + 1;
+  }
   __syncthreads();
 
-  for (int n = warp; n < block_nodes; n += WARPS) {
-    // the node's run starts at the first slot whose receiver is >= n
-    int lo = 0, hi = block_edges;
-    while (lo < hi) {
-      const int mid = (lo + hi) / 2;
-      if (rl[mid] < n) lo = mid + 1; else hi = mid;
+  // nodes without a run, padded rows among them, are written as 0
+  for (int n0 = warp * FT; n0 < block_nodes; n0 += FT * WARPS) {
+    const int n = n0 + lane;
+    unsigned m = __ballot_sync(FULL_MASK, n < block_nodes && run1[n] < run0[n]);
+    while (m) {
+      const int src = __ffs(m) - 1;
+      m &= m - 1;
+      if (fok) st_row(out + (base + n0 + src) * F + f, zero_row<VEC>());
     }
-    float sum = 0.f;
-    for (int e = lo; e < block_edges && rl[e] == n; ++e) {
-      // every lane reads the same slot: the branch is warp-uniform
-      const int s = sl[e];
-      if (s < 0 || !fok) continue;
-      float v = x[(base + s) * F + f];
-      if (HAS_EE) v += ee[(e0 + e) * F + f];
-      sum = fmaf(wl[e], v, sum);
-    }
-    if (fok) out[(base + n) * F + f] = sum;
   }
+
+  // The span splits into WARPS ranges of about equal length, each moved
+  // to the next start of a run, so that every run lies in one range: a
+  // warp sums whole runs in slot order, in a register, and writes each
+  // node's row once.
+  const auto split = [&](int v) {
+    const int first = span[0], last = span[1];
+    if (v >= WARPS) return last;
+    const int t = first + (int)((ll)(last - first) * v / WARPS);
+    const int r = t > first && t < last ? rl[t] : -1;
+    if (!in_block(r) || run0[r] == t) return t;
+    return min(max(run1[r], t), last);
+  };
+  const int lo = split(warp), hi = split(warp + 1);
+  int cur = -1;  // the node whose run is being summed
+  Row<VEC> sum = zero_row<VEC>();
+  for (int e = lo; e < hi; e += FT) {  // the same in every lane
+    // a slot a lane; the walk visits the slots that add and the first
+    // slot of each run (a run of slots that add nothing still writes 0)
+    const int i = e + lane;
+    const int my_r = i < hi ? rl[i] : -1;
+    const int my_s = i < hi ? sl[i] : -1;
+    const float my_w = i < hi ? wl[i] : 0.f;
+    const bool starts = i < hi && (i == 0 || rl[i - 1] != my_r);
+    unsigned m = __ballot_sync(FULL_MASK,
+                               in_block(my_r) && (my_s >= 0 || starts));
+    while (m) {  // SORTED_BATCH visited slots at a time
+      int src[SORTED_BATCH];
+#pragma unroll
+      for (int u = 0; u < SORTED_BATCH; ++u) {
+        src[u] = m ? __ffs(m) - 1 : FT;  // FT: none
+        m &= m - 1;
+      }
+      int sv[SORTED_BATCH];
+      Row<VEC> xv[SORTED_BATCH], ev[SORTED_BATCH];
+#pragma unroll
+      for (int u = 0; u < SORTED_BATCH; ++u) {
+        sv[u] = __shfl_sync(FULL_MASK, my_s, src[u] % FT);
+        if (src[u] < FT && sv[u] >= 0 && fok) {
+          xv[u] = ld_row<VEC>(x + (base + sv[u]) * F + f);
+          if (HAS_EE) ev[u] = ld_row<VEC>(ee + (e0 + e + src[u]) * F + f);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < SORTED_BATCH; ++u) {
+        const int r = __shfl_sync(FULL_MASK, my_r, src[u] % FT);
+        const float wq = __shfl_sync(FULL_MASK, my_w, src[u] % FT);
+        if (src[u] == FT) continue;
+        if (r != cur) {
+          if (cur >= 0 && fok) st_row(out + (base + cur) * F + f, sum);
+          cur = r;
+          sum = zero_row<VEC>();
+        }
+        if (sv[u] < 0 || !fok) continue;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          float v = xv[u].v[j];
+          if (HAS_EE) v += ev[u].v[j];
+          sum.v[j] = fmaf(wq, v, sum.v[j]);
+        }
+      }
+    }
+  }
+  if (cur >= 0 && fok) st_row(out + (base + cur) * F + f, sum);
 }
 
 template <typename Kernel>
@@ -246,6 +339,17 @@ int launch(Kernel kernel, int smem, int N, int F, int block_nodes,
   return (int)cudaGetLastError();
 }
 
+// K7 with VEC features a lane (VEC = 2: F even, rows 8-byte aligned).
+template <bool HAS_EE, int VEC>
+int launch_sorted(const float* x, const float* ee, const int* snd,
+                  const int* rcv, const float* w, float* out, int N, int F,
+                  int block_nodes, int block_edges, cudaStream_t st) {
+  return launch_edge_aggr(spmm_sorted_fwd_kernel<HAS_EE, VEC>,
+                          sorted_smem(block_nodes, block_edges),
+                          N / block_nodes, F, FT * VEC, st, x, ee, snd, rcv,
+                          w, out, F, block_nodes, block_edges);
+}
+
 bool bad_shape(int N, int F, int block_nodes, int block_edges, int smem) {
   return block_nodes <= 0 || block_edges <= 0 || N <= 0 || F <= 0 ||
          N % block_nodes != 0 || smem > MAX_SMEM;
@@ -257,7 +361,9 @@ extern "C" {
 
 int pgt_spmm_ee_max_smem() { return MAX_SMEM; }
 int pgt_spmm_ee_smem(int block_nodes) { return tile_smem(block_nodes); }
-int pgt_spmm_sorted_smem(int block_edges) { return sorted_smem(block_edges); }
+int pgt_spmm_sorted_smem(int block_nodes, int block_edges) {
+  return sorted_smem(block_nodes, block_edges);
+}
 
 // K6 forward: writes out [N, F] from x [N, F], ee [E, F] (read only with
 // has_ee), snd, rcv [E] (global row indices) and w [E];
@@ -305,15 +411,20 @@ int pgt_spmm_sorted_fwd(const float* x, const float* ee, const int* snd,
                         const int* rcv, const float* w, float* out, int N,
                         int F, int block_nodes, int block_edges, int has_ee,
                         void* stream) {
-  const int smem = sorted_smem(block_edges);
-  if (bad_shape(N, F, block_nodes, block_edges, smem))
+  if (bad_shape(N, F, block_nodes, block_edges,
+                sorted_smem(block_nodes, block_edges)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const bool two = row_vec(F, {x, has_ee ? ee : nullptr, out}, 2) == 2;
   if (has_ee)
-    return launch(spmm_sorted_fwd_kernel<true>, smem, N, F, block_nodes, st,
-                  x, ee, snd, rcv, w, out, F, block_nodes, block_edges);
-  return launch(spmm_sorted_fwd_kernel<false>, smem, N, F, block_nodes, st,
-                x, ee, snd, rcv, w, out, F, block_nodes, block_edges);
+    return two ? launch_sorted<true, 2>(x, ee, snd, rcv, w, out, N, F,
+                                        block_nodes, block_edges, st)
+               : launch_sorted<true, 1>(x, ee, snd, rcv, w, out, N, F,
+                                        block_nodes, block_edges, st);
+  return two ? launch_sorted<false, 2>(x, ee, snd, rcv, w, out, N, F,
+                                       block_nodes, block_edges, st)
+             : launch_sorted<false, 1>(x, ee, snd, rcv, w, out, N, F,
+                                       block_nodes, block_edges, st);
 }
 
 }  // extern "C"

@@ -256,7 +256,7 @@ def _ee_lib() -> ctypes.CDLL:
     lib.pgt_spmm_sorted_fwd.restype = _I
     lib.pgt_spmm_ee_smem.argtypes = [_I]
     lib.pgt_spmm_ee_smem.restype = _I
-    lib.pgt_spmm_sorted_smem.argtypes = [_I]
+    lib.pgt_spmm_sorted_smem.argtypes = [_I, _I]
     lib.pgt_spmm_sorted_smem.restype = _I
     lib.pgt_spmm_ee_max_smem.restype = _I
     return lib

@@ -14,9 +14,9 @@ JAX function's element for element). Padded slots (global index 0,
 ``w = 0``) sort to the front of their block and add nothing.
 
 On a CUDA tensor :func:`sorted_blocked_spmm` launches the hand-written
-kernel of ``csrc/spmm_ee.cu`` (a segmented reduction: each node's run of
-slots is summed in slot order in a register and written once; see the note
-there) or raises; on a CPU tensor it runs
+kernel of ``csrc/spmm_ee.cu`` (a segmented reduction: the runs of
+receivers are found in one pass, each node's run is summed in slot order in
+a register and written once; see the note there) or raises; on a CPU tensor it runs
 :func:`sorted_blocked_spmm_plain`, after checking the contract. The card
 path does not check it: the check would synchronise the device. Like the
 JAX function it has no backward: differentiating through it raises.
@@ -66,7 +66,8 @@ def sorted_spmm_fwd(x, ee, senders, receivers, w, block_nodes: int,
     (N, F), E = x.shape, senders.shape[0]
     lib = bs.check_ee_layout(
         x.device, block_nodes, block_edges, N, E,
-        lambda lib: lib.pgt_spmm_sorted_smem(block_edges), tensors)
+        lambda lib: lib.pgt_spmm_sorted_smem(block_nodes, block_edges),
+        tensors)
     out = torch.empty((N, F), dtype=torch.float32, device=x.device)
     err = lib.pgt_spmm_sorted_fwd(
         x.data_ptr(), None if ee is None else ee.data_ptr(),

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Bit-for-bit A/B of the fused GIN conv (K1), the blocked SpMM on a
-precomputed edge embedding (K6) and its receiver-sorted variant (K7)
-between this tree's ``csrc/gin_conv.cu`` and ``csrc/spmm_ee.cu`` (with
+precomputed edge embedding (K6), its receiver-sorted variant (K7) and the
+pair-dot head's backward (K3 ``dx``) between this tree's
+``csrc/gin_conv.cu``, ``csrc/spmm_ee.cu`` and ``csrc/edge_dot.cu`` (with
 the headers they include) and those of another checkout, on one GPU.
 
 Run from the repository root, with the other checkout's ``csrc`` directory
@@ -19,7 +20,12 @@ gradients. K6 and K7 on the chem and bio masking paths' first batches (256
 graphs, F = 300, a random edge embedding, fractional and partly negative
 edge weights): K6 forward with and without the edge embedding, K6
 backward (``dx`` and ``dmsg`` together and each alone) and K7 forward on
-the sorted slots. It prints whether every output is equal bit for bit and
+the sorted slots, with and without the edge embedding. K3's ``dx`` on the
+chem and bio edge-prediction paths' first batches, both heads, with the
+path's 0/1 pair weights and the cotangent the path gives it (0 on the
+positive head's odd slots) and with fractional, partly negative weights
+and a random cotangent on every pair. (K3's scores are summed in another
+order since the redesign, so they are not compared.) It prints whether every output is equal bit for bit and
 exits non-zero if one is not.
 """
 
@@ -40,6 +46,7 @@ from pretrain_gnns_tpu_torch.data.synthetic import (  # noqa: E402
 )
 from pretrain_gnns_tpu_torch.device import resolve_device  # noqa: E402
 from pretrain_gnns_tpu_torch.ops import blocked_spmm as bs  # noqa: E402
+from pretrain_gnns_tpu_torch.ops import edge_dot as ed  # noqa: E402
 from pretrain_gnns_tpu_torch.ops import gin_conv  # noqa: E402
 from pretrain_gnns_tpu_torch.ops import sorted_spmm as ss  # noqa: E402
 from pretrain_gnns_tpu_torch.train import pretrain  # noqa: E402
@@ -54,13 +61,43 @@ def config(domain: str):
                                    packing="auto")
 
 
-def first_batch(domain: str, dev):
+def first_batch(domain: str, dev, cfg=None):
     if domain == "bio":
         graphs = bio_dataset(4096, seed=0)
     else:
         graphs, _ = molecule_dataset(4096, seed=0, mean_atoms=23)
-    return next(iter(pretrain.build_loader(config(domain), graphs,
+    return next(iter(pretrain.build_loader(cfg or config(domain), graphs,
                                            dev))).to(dev)
+
+
+def k3_outputs(batch, seed: int):
+    """K3's ``dx`` for both heads on an edge-prediction ``batch`` through
+    the loaded library."""
+    gen = torch.Generator().manual_seed(seed)
+    dev = batch.node_mask.device
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    x = rnd(batch.max_nodes, F) * batch.node_mask[:, None]
+    neg = batch.extras["negative_edges_blocked"]
+    heads = {"pos": (batch.receivers, batch.senders, batch.edge_mask,
+                     batch.block_edges, 2),
+             "neg": (neg[:, 0].contiguous(), neg[:, 1].contiguous(),
+                     batch.extras["negative_edges_blocked_mask"],
+                     batch.block_edges // 2, 1)}
+    out = {}
+    with torch.no_grad():
+        for head, (a_idx, b_idx, valid, ppb, stride) in heads.items():
+            P = a_idx.shape[0]
+            g = rnd(P)
+            g_path = torch.zeros_like(g)
+            g_path[::stride] = g[::stride]
+            w = valid.to(torch.float32)
+            w_frac = w * (torch.rand(P, generator=gen) * 2 - 0.5).to(dev)
+            for tag, gg, ww in (("", g_path, w),
+                                (" fractional w", g, w_frac)):
+                out[f"K3 dx {head}{tag}"] = ed.edot_bwd(
+                    gg, x, a_idx, b_idx, ww, batch.block_nodes, ppb)
+    torch.cuda.synchronize()
+    return out
 
 
 def k1_outputs(batch, conv, seed: int):
@@ -124,10 +161,13 @@ def main() -> int:
     args = p.parse_args()
     dev = resolve_device("cuda")
     batches = {d: first_batch(d, dev) for d in ("chem", "bio")}
+    edgepred = {d: first_batch(d, dev, pretrain.PretrainConfig(
+        objective="edgepred", domain=d, num_layer=5, emb_dim=F,
+        batch_size=256, seed=0, packing="auto")) for d in ("chem", "bio")}
     conv = pretrain.build_objective(config("chem")).to(dev).gnn.gnns[0]
     with tempfile.TemporaryDirectory() as tmp:
         ref = {name: build(args.ref_csrc, name, tmp)
-               for name in ("gin_conv", "spmm_ee")}
+               for name in ("gin_conv", "spmm_ee", "edge_dot")}
         results = {}
         for tag in ("tree", "ref"):
             use(ref if tag == "ref" else {})
@@ -135,11 +175,13 @@ def main() -> int:
                             for k, v in outputs(b, seed=7).items()}
             results[tag].update({f"chem {k}": v for k, v in k1_outputs(
                 batches["chem"], conv, seed=8).items()})
+            results[tag].update({f"{d} {k}": v for d, b in edgepred.items()
+                                 for k, v in k3_outputs(b, seed=9).items()})
         use({})
     bad = [k for k in results["tree"]
            if not torch.equal(results["tree"][k], results["ref"][k])]
     n = len(results["tree"])
-    print(f"card: {torch.cuda.get_device_name(0)}; K1/K6/K7 outputs of this "
+    print(f"card: {torch.cuda.get_device_name(0)}; K1/K3/K6/K7 outputs of this "
           f"tree vs {args.ref_csrc}: {n - len(bad)} of {n} equal bit for bit"
           + (f"; differ: {bad}" if bad else ""))
     return 1 if bad else 0

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Timing A/B of the fused GIN conv (K1), the fused GAT conv (K4), the
-blocked GAT attention (K5) and the fused edge-transform SpMM (K2), forward
-and backward, between this tree's ``csrc/gin_conv.cu``, ``csrc/gat.cu``
-and ``csrc/spmm.cu`` (with the headers they include) and those of another
-checkout, in one process on one GPU.
+blocked GAT attention (K5), the fused edge-transform SpMM (K2) and the
+pair-dot head (K3), forward and backward, and of the receiver-sorted SpMM
+(K7), between this tree's ``csrc/gin_conv.cu``, ``csrc/gat.cu``,
+``csrc/spmm.cu``, ``csrc/edge_dot.cu`` and ``csrc/spmm_ee.cu`` (with the
+headers they include) and those of another checkout, in one process on
+one GPU.
 
 Run from the repository root, with the other checkout's ``csrc`` directory
 (for example a ``git archive`` of the parent commit unpacked under
 ``_archive/``):
 
-    python3 scripts/torch_port_k1_k4_ab.py --ref_csrc _archive/parent/pretrain_gnns_tpu_torch/csrc [--kernels k1,k4,k5,k2]
+    python3 scripts/torch_port_k1_k4_ab.py --ref_csrc _archive/parent/pretrain_gnns_tpu_torch/csrc [--kernels k1,k4,k5,k2,k3,k7]
 
 The libraries of both trees have the same C interfaces. The script builds
 the other sources with this tree's ``nvcc`` flags, then times each kernel
@@ -23,7 +25,13 @@ as ``chip_smoke.py`` times it); K2 ``[x]``, ``[ein]`` and
 ``[edge_feat | 1]`` edge inputs and edge kernel, K = 10) and ``[x+ein]``
 on the chem edge-prediction path's first batch with the GCN trunk's bond
 one-hots (K = 9) and symmetric-normalised edge weights, as
-``chip_smoke.py`` times them. Random inputs from a seed.
+``chip_smoke.py`` times them; K3 on the chem and bio edge-prediction
+paths' first batches, both heads, the backward with the cotangent the path
+gives it (0 on the positive head's odd slots), as ``chip_smoke.py`` times
+it; K7 with and without an edge embedding on the chem and bio masking
+paths' first batches (fractional, partly negative edge weights, the slots
+sorted by ``sort_block_edges``), with K6's forward ``[x+ee]`` on the
+unsorted slots timed beside it. Random inputs from a seed.
 """
 
 from __future__ import annotations
@@ -50,7 +58,9 @@ from pretrain_gnns_tpu_torch.models import bio, chem  # noqa: E402
 from pretrain_gnns_tpu_torch.ops import _build, attention  # noqa: E402
 from pretrain_gnns_tpu_torch.ops import blocked_spmm as bs  # noqa: E402
 from pretrain_gnns_tpu_torch.ops import gat_conv as gc  # noqa: E402
+from pretrain_gnns_tpu_torch.ops import edge_dot as ed  # noqa: E402
 from pretrain_gnns_tpu_torch.ops import gin_conv  # noqa: E402
+from pretrain_gnns_tpu_torch.ops import sorted_spmm as ss  # noqa: E402
 from pretrain_gnns_tpu_torch.train import pretrain  # noqa: E402
 
 
@@ -65,17 +75,19 @@ def build(srcdir: str, name: str, out_dir: str) -> ctypes.CDLL:
     return ctypes.CDLL(lib)
 
 
-SOURCES = {"k1": "gin_conv", "k4": "gat", "k5": "gat", "k2": "spmm"}
+SOURCES = {"k1": "gin_conv", "k4": "gat", "k5": "gat", "k2": "spmm",
+           "k3": "edge_dot", "k7": "spmm_ee"}
 
 
 def use(libs) -> None:
-    """Route the K1, K4, K2 and K6/K7 wrappers to the libraries of
+    """Route the K1, K4, K2, K3 and K6/K7 wrappers to the libraries of
     ``libs`` (``{source name: CDLL}``; a source not named: this tree's)."""
     _tree_gin_lib.cache_clear()
     attention.lib.cache_clear()
     bs._lib.cache_clear()
     bs._ee_lib.cache_clear()
-    for name in (*SOURCES.values(), "spmm_ee"):
+    ed._lib.cache_clear()
+    for name in SOURCES.values():
         _build._libs.pop(name, None)
         if name in libs:
             _build._libs[name] = libs[name]  # load() hands this one out
@@ -138,6 +150,69 @@ def k2_cases(dev):
             out[f"{name} bwd"] = (
                 lambda g=g, ein=ein, K=W.shape[0], edges=edges, flags=flags:
                 bs.spmm_bwd(g, ein, *edges, K, *flags))
+    return out
+
+
+def k3_cases(dev):
+    """``{kernel: callable}`` for K3, both heads and directions, on the
+    chem and bio edge-prediction paths' first batches."""
+    gen = torch.Generator().manual_seed(3)
+    out = {}
+    for domain in ("chem", "bio"):
+        cfg = pretrain.PretrainConfig(objective="edgepred", domain=domain,
+                                      num_layer=5, emb_dim=300,
+                                      batch_size=256, seed=0, packing="auto")
+        graphs = (bio_dataset(4096, seed=0) if domain == "bio"
+                  else molecule_dataset(4096, seed=0, mean_atoms=23)[0])
+        b = next(iter(pretrain.build_loader(cfg, graphs, dev))).to(dev)
+        x = (torch.randn(b.max_nodes, 300, generator=gen).to(dev)
+             * b.node_mask[:, None])
+        neg = b.extras["negative_edges_blocked"]
+        heads = {"pos": (b.receivers, b.senders, b.edge_mask,
+                         b.block_edges, 2),
+                 "neg": (neg[:, 0].contiguous(), neg[:, 1].contiguous(),
+                         b.extras["negative_edges_blocked_mask"],
+                         b.block_edges // 2, 1)}
+        for head, (a_idx, b_idx, valid, ppb, stride) in heads.items():
+            w = valid.to(torch.float32)
+            g = torch.zeros(a_idx.shape[0], device=dev)
+            g[::stride] = torch.randn(g[::stride].shape[0],
+                                      generator=gen).to(dev)
+            pairs = (x, a_idx, b_idx, w, b.block_nodes, ppb)
+            out[f"blocked_edge_dot_fwd {domain} {head}"] = (
+                lambda pairs=pairs: ed.edot_fwd(*pairs))
+            out[f"blocked_edge_dot_bwd {domain} {head}"] = (
+                lambda g=g, pairs=pairs: ed.edot_bwd(g, *pairs))
+    return out
+
+
+def k7_cases(dev):
+    """``{kernel: callable}`` for K7 with and without an edge embedding,
+    and K6's forward ``[x+ee]`` beside it, on the chem and bio masking
+    paths' first batches."""
+    gen = torch.Generator().manual_seed(6)
+    out = {}
+    for domain in ("chem", "bio"):
+        cfg = pretrain.PretrainConfig(domain=domain, num_layer=5, emb_dim=300,
+                                      batch_size=256, mask_edge=False,
+                                      seed=0, packing="auto")
+        graphs = (bio_dataset(4096, seed=0) if domain == "bio"
+                  else molecule_dataset(4096, seed=0, mean_atoms=23)[0])
+        b = next(iter(pretrain.build_loader(cfg, graphs, dev))).to(dev)
+        N, E, bn, be = b.max_nodes, b.max_edges, b.block_nodes, b.block_edges
+        rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
+        x, ee = rnd(N, 300) * b.node_mask[:, None], rnd(E, 300)
+        w = b.edge_mask.to(torch.float32) * (
+            torch.rand(E, generator=gen) * 2 - 0.5).to(dev)
+        s2, r2, w2, ee2 = ss.sort_block_edges(b.senders, b.receivers, w, ee,
+                                              N // bn, be)
+        out[f"blocked_spmm_ee_fwd[x+ee] {domain}"] = (
+            lambda x=x, ee=ee, e=(b.senders, b.receivers, w, bn, be):
+            bs.spmm_ee_fwd(x, ee, *e))
+        for tag, e_in in (("[x+ee]", ee2), ("[x]", None)):
+            out[f"sorted_blocked_spmm_fwd{tag} {domain}"] = (
+                lambda x=x, e_in=e_in, e=(s2, r2, w2, bn, be):
+                ss.sorted_spmm_fwd(x, e_in, *e))
     return out
 
 
@@ -238,7 +313,7 @@ def main() -> int:
     p.add_argument("--ref_csrc", required=True,
                    help="the other checkout's pretrain_gnns_tpu_torch/csrc")
     p.add_argument("--kernels", default="k1,k4",
-                   help="comma-separated, of k1, k4, k5 and k2")
+                   help="comma-separated, of k1, k4, k5, k2, k3 and k7")
     args = p.parse_args()
     kernels = args.kernels.split(",")
     if not set(kernels) <= set(SOURCES):
@@ -252,6 +327,10 @@ def main() -> int:
         fns.update(gat_cases(dev, kernels))
     if "k2" in kernels:
         fns.update(k2_cases(dev))
+    if "k3" in kernels:
+        fns.update(k3_cases(dev))
+    if "k7" in kernels:
+        fns.update(k7_cases(dev))
     times = {k: {"tree": [], "ref": []} for k in fns}
     with tempfile.TemporaryDirectory() as tmp:
         ref = {src: build(args.ref_csrc, src, tmp)

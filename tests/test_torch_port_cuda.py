@@ -436,10 +436,13 @@ def test_k2_with_gcn_edge_weight_matches_plain_version(cuda_device):
     assert _rel(dx, dx_p) <= GRAD_TOL and _rel(dW, dW_p) <= GRAD_TOL
 
 
-def _k3_case(dev, F, block_nodes, block_edges, head, n_graphs=24, seed=0):
+def _k3_case(dev, F, block_nodes, block_edges, head, n_graphs=24, seed=0,
+             fractional=False):
     """A blocked bio batch with its last blocks all padding, and K3's
     inputs for one scoring head: "pos" = every edge slot, "neg" = the C++
-    sampler's block-aligned pairs (block_edges // 2 a block)."""
+    sampler's block-aligned pairs (block_edges // 2 a block). With
+    ``fractional`` the valid pairs get fractional, partly negative weights
+    and one of them becomes a self-pair (a == b)."""
     graphs = bio_dataset(n_graphs, seed=seed)
     n_blocks, bn, be = block_layout(graphs, n_graphs, block_nodes,
                                     block_edges)
@@ -460,21 +463,41 @@ def _k3_case(dev, F, block_nodes, block_edges, head, n_graphs=24, seed=0):
     x = (torch.randn(b.max_nodes, F, generator=gen).to(dev)
          * b.node_mask[:, None])
     g = torch.randn(a_idx.shape[0], generator=gen).to(dev)
-    return x, a_idx, b_idx, mask.float(), g, b, bn, ppb
+    w = mask.float()
+    if fractional:
+        w = w * (torch.rand(w.shape[0], generator=gen) * 2 - 0.5).to(dev)
+        b_idx = b_idx.clone()
+        i = int(torch.nonzero(mask)[3])
+        b_idx[i] = a_idx[i]
+    return x, a_idx, b_idx, w, g, b, bn, ppb
+
+
+# every load width of K3 and K7: F odd (4 B), F % 4 == 0 (16 B forward,
+# 8 B backward and K7), F even with F % 4 != 0 (8 B); blocks of 512 nodes
+# and 1,536 slots
+WIDTH_CASES = [(45, 128, 384), (64, 128, 384), (300, 512, 1536),
+               (334, 128, 384)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("odd_offset", [False, True])
 @pytest.mark.parametrize("head", ["pos", "neg"])
-@pytest.mark.parametrize("F,bn,be", [(45, 128, 384), (300, 512, 1536)])
-def test_k3_kernels_match_plain_version(cuda_device, F, bn, be, head):
-    """K3's forward and backward at an odd width and at blocks of 512
-    nodes (64 KB of shared memory, above the 48 KB a launch gets without
-    opting in), with all-padding blocks: padded pairs score exactly 0,
-    rows no valid pair touches get exactly 0, and dx is the same bits from
-    run to run."""
+@pytest.mark.parametrize("F,bn,be", WIDTH_CASES)
+def test_k3_kernels_match_plain_version(cuda_device, F, bn, be, head,
+                                        odd_offset):
+    """K3's forward and backward at every load width, at blocks of 512
+    nodes (above the 48 KB of shared memory a launch gets without opting
+    in), with all-padding blocks, fractional and negative weights and a
+    self-pair, and (``odd_offset``) x at an odd float offset, which takes
+    one feature a lane: padded pairs score exactly 0, rows no valid pair
+    touches get exactly 0, and both directions are the same bits from run
+    to run."""
     x, a_idx, b_idx, w, g, b, bn_, ppb = _k3_case(cuda_device, F, bn, be,
-                                                  head)
-    assert bn_ == bn
+                                                  head, fractional=True)
+    assert bn_ == bn and bool((a_idx == b_idx)[w != 0].any())
+    if odd_offset:
+        x = _at_odd_offset(x)
+        assert x.data_ptr() % 8
     before = dict(edge_dot.launches)
     out = edge_dot.edot_fwd(x, a_idx, b_idx, w, bn, ppb)
     dx = edge_dot.edot_bwd(g, x, a_idx, b_idx, w, bn, ppb)
@@ -490,8 +513,8 @@ def test_k3_kernels_match_plain_version(cuda_device, F, bn, be, head):
     touched[a_idx[w != 0].long()] = True
     touched[b_idx[w != 0].long()] = True
     assert not dx[~touched].any() and not dx[~b.node_mask].any()
-    again = edge_dot.edot_bwd(g, x, a_idx, b_idx, w, bn, ppb)
-    assert torch.equal(dx, again)
+    assert torch.equal(edge_dot.edot_bwd(g, x, a_idx, b_idx, w, bn, ppb), dx)
+    assert torch.equal(edge_dot.edot_fwd(x, a_idx, b_idx, w, bn, ppb), out)
 
 
 @pytest.mark.cuda
@@ -967,30 +990,46 @@ def test_k6_autograd_function_gradients(cuda_device, has_ee):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("odd_offset", [False, True])
 @pytest.mark.parametrize("has_ee", [True, False])
-@pytest.mark.parametrize("F,bn,be", [(45, 128, 384), (300, 512, 1536)])
+@pytest.mark.parametrize("F,bn,be", WIDTH_CASES)
 def test_k7_kernel_matches_plain_version_and_k6(cuda_device, has_ee, F, bn,
-                                                be):
+                                                be, odd_offset):
     """K7 on the per-block sorted edges against its plain version and
-    against K6 on the unsorted ones; padded rows exactly 0, the same bits
-    from run to run, and no backward."""
+    against K6 on the unsorted ones, at every load width, with fractional
+    and negative weights, one receiver whose run (45 slots) is longer than
+    a batch of loads, and (``odd_offset``) x and the edge embedding at an
+    odd float offset (one feature a lane); padded rows exactly 0, the same
+    bits from run to run, and no backward."""
     t, b, blocks = _k6_case(cuda_device, F, bn, be)
+    # 45 valid slots of block 1 into one receiver
+    lo = be
+    v = torch.nonzero(b.edge_mask[lo:lo + be]).flatten()[:45] + lo
+    assert v.numel() == 45
+    rcv = b.receivers.clone()
+    rcv[v] = int(rcv[v[0]])
+    b = dataclasses.replace(b, receivers=rcv)
     s2, r2, w2, ee2 = sorted_spmm.sort_block_edges(
         b.senders, b.receivers, t["w"], t["ee"] if has_ee else None,
         blocks[0], be)
     assert bool((r2.reshape(-1, be).diff(dim=1) >= 0).all())
+    x = t["x"]
+    if odd_offset:
+        x = _at_odd_offset(x)
+        ee2 = None if ee2 is None else _at_odd_offset(ee2)
+        assert x.data_ptr() % 8
     before = dict(sorted_spmm.launches)
-    out = sorted_spmm.sorted_blocked_spmm(t["x"], ee2, s2, r2, w2, bn, be)
+    out = sorted_spmm.sorted_blocked_spmm(x, ee2, s2, r2, w2, bn, be)
     torch.cuda.synchronize()
     assert sorted_spmm.launches["sorted_blocked_spmm_fwd"] == \
         before["sorted_blocked_spmm_fwd"] + 1
-    want = sorted_spmm.sorted_blocked_spmm_plain(t["x"], ee2, s2, r2, w2)
+    want = sorted_spmm.sorted_blocked_spmm_plain(x, ee2, s2, r2, w2)
     k6 = blocked_spmm.spmm_ee_fwd(t["x"], t["ee"] if has_ee else None,
                                   b.senders, b.receivers, t["w"], bn, be)
     assert _rel(out, want) <= FWD_TOL and _rel(out, k6) <= FWD_TOL
     assert not out[~b.node_mask].any()
     assert torch.equal(
-        sorted_spmm.sorted_blocked_spmm(t["x"], ee2, s2, r2, w2, bn, be), out)
+        sorted_spmm.sorted_blocked_spmm(x, ee2, s2, r2, w2, bn, be), out)
     x = t["x"].detach().clone().requires_grad_(True)
     with pytest.raises(NotImplementedError, match="forward only"):
         sorted_spmm.sorted_blocked_spmm(x, ee2, s2, r2, w2, bn,

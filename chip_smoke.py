@@ -98,10 +98,12 @@ Phases, in order (any failure exits non-zero):
      (after ``sort_block_edges``) are held against their plain versions
      and K7 against K6 on the unsorted edges: padded rows and slots
      exactly 0, every output equal bit for bit between two runs; timed (K7
-     with and without the sort) beside the plain version,
-     ``torch.sparse.mm`` for the ``x`` term (the whole function only
-     without ``ee``) and the bound, and K7's time printed beside K6's
-     forward ``[x+ee]`` on the same batch;
+     with and without the sort) beside the plain version, one
+     ``torch.sparse.mm`` each way (a CSR adjacency of the edge weights,
+     with ``ee`` stacked beside it: ``[A | A_ee]`` on ``[x; ee]`` forward,
+     its transpose on ``g`` for ``dx`` over ``dmsg``; held against the
+     kernel) and the bound, and K7's time printed beside K6's forward
+     ``[x+ee]`` on the same batch;
   19. the op-level path of K6: ``ops.spmm.gather_scatter(..., edge_emb=
      ...)`` in its add and concat forms and ``blocked_spmm`` without an
      edge embedding, forward and backward on the card, against the plain
@@ -1114,6 +1116,39 @@ def probe_phase(torch):
         shape="[8, 300] float32, the TPU probe's")]
 
 
+SPMM_EE_LIBRARY = {
+    ("fwd", False): "torch.sparse.mm, CSR of A (A[rcv, snd] = w), on x",
+    ("bwd", False): "torch.sparse.mm, CSR of A^T, on g: dx",
+    ("fwd", True): "torch.sparse.mm, CSR of [A | A_ee] (A_ee[rcv_e, e] = "
+                   "w_e), on [x; ee] stacked outside the timed call",
+    ("bwd", True): "torch.sparse.mm, CSR of [A | A_ee]^T, on g: dx over "
+                   "every slot's dmsg row",
+}
+
+
+def spmm_ee_csr(torch, senders, receivers, w, valid, n_nodes, with_ee):
+    """K6 as one sparse matrix, the library's yardstick: ``A`` with
+    ``A[rcv_e, snd_e] = w_e`` over the valid slots and, ``with_ee``, beside
+    it ``A_ee`` with ``A_ee[rcv_e, e] = w_e``, ``[N, N + E]``. So ``A @ x``
+    (``A @ [x; ee]``) is K6's forward and ``A^T @ g`` its ``dx`` (stacked
+    on ``dmsg``, a row for every slot, 0 where the slot adds nothing).
+    Returns ``(A, A^T)`` in CSR."""
+    slots = torch.nonzero(valid).flatten()
+    rcv, snd = receivers[slots].long(), senders[slots].long()
+    rows, cols = [rcv], [snd]
+    if with_ee:
+        rows.append(rcv)
+        cols.append(slots + n_nodes)
+    idx = torch.stack([torch.cat(rows), torch.cat(cols)])
+    vals = w[slots].repeat(len(rows))
+    shape = (n_nodes, n_nodes + senders.shape[0] * with_ee)
+
+    def csr(i, size):
+        return (torch.sparse_coo_tensor(i, vals, size).coalesce()
+                .to_sparse_csr())
+    return csr(idx, shape), csr(idx.flip(0), shape[::-1])
+
+
 def spmm_ee_phase(torch, batch, tag):
     """K6 and K7 against their plain versions on a path's first batch,
     with a random edge embedding and fractional, partly negative edge
@@ -1140,24 +1175,31 @@ def spmm_ee_phase(torch, batch, tag):
     n_rcv = int(torch.unique(rcv[valid]).numel())
     pad_rows, pad_slots = ~batch.node_mask, ~valid
 
-    # the library's yardstick covers the x term only: out = A x, dx = A^T g
-    pairs = torch.stack([rcv[valid].long(), snd[valid].long()])
-    csr = {name: torch.sparse_coo_tensor(idx, w[valid], (N, N))
-           .coalesce().to_sparse_csr()
-           for name, idx in (("A", pairs), ("At", pairs.flip(0)))}
-    lib_fwd_ms = time_ms(lambda: torch.sparse.mm(csr["A"], x), torch)
-    lib_bwd_ms = time_ms(lambda: torch.sparse.mm(csr["At"], g), torch)
+    # the library's yardstick: one torch.sparse.mm each way, [x+ee] on the
+    # stacked [x; ee], which is built outside the timed call
+    xe = torch.cat([x, ee])
+    library = {}
+    for has_ee in (True, False):
+        A, At = spmm_ee_csr(torch, snd, rcv, w, valid, N, has_ee)
+        rhs = xe if has_ee else x
+        library[has_ee] = dict(
+            fwd_ms=time_ms(lambda: torch.sparse.mm(A, rhs), torch),
+            bwd_ms=time_ms(lambda: torch.sparse.mm(At, g), torch),
+            out=torch.sparse.mm(A, rhs), back=torch.sparse.mm(At, g))
 
     results = {}
     for has_ee in (True, False):
         v = bs.ee_variant(has_ee)
         e_in = ee if has_ee else None
+        lib = library[has_ee]
         fwd = lambda: bs.spmm_ee_fwd(x, e_in, *edges)
         bwd = lambda: bs.spmm_ee_bwd(g, *edges, has_ee, True, has_ee)
         with torch.no_grad():
             out, (dx, dmsg) = fwd(), bwd()
             out2, (dx2, dmsg2) = fwd(), bwd()
             dx_alone = bs.spmm_ee_bwd(g, *edges, has_ee, True, False)[0]
+            dmsg_alone = (bs.spmm_ee_bwd(g, *edges, has_ee, False, True)[1]
+                          if has_ee else None)
         torch.cuda.synchronize()
         xl = x.detach().clone().requires_grad_(True)
         el = ee.detach().clone().requires_grad_(True)
@@ -1172,14 +1214,20 @@ def spmm_ee_phase(torch, batch, tag):
             [dmsg[pad_slots]] if has_ee else [])
         same = (torch.equal(out, out2) and torch.equal(dx, dx2)
                 and torch.equal(dx, dx_alone)
-                and (not has_ee or torch.equal(dmsg, dmsg2)))
+                and (not has_ee or (torch.equal(dmsg, dmsg2)
+                                    and torch.equal(dmsg, dmsg_alone))))
+        # the yardstick computes the same function: out, then dx over dmsg
+        lib_errs = [rel_err(lib["out"], out),
+                    rel_err(lib["back"], torch.cat(grads_k))]
         print(f"[kernels] K6[{v}] {tag}: rel err {errs}; padded rows and "
               f"slots max {max(float(z.abs().max()) for z in zeros):.1e}; "
-              f"equal bits in two runs: {same}", flush=True)
-        if (not all(e <= FWD_TOL for e in errs.values())
+              f"equal bits in two runs: {same}; torch.sparse.mm against "
+              f"the kernel (out, back) {[f'{e:.1e}' for e in lib_errs]}",
+              flush=True)
+        if (not all(e <= FWD_TOL for e in [*errs.values(), *lib_errs])
                 or any(z.any() for z in zeros) or not same):
             raise AssertionError(f"K6[{v}] {tag} disagrees with its plain "
-                                 "version")
+                                 "version or its yardstick")
         plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
             out_p, leaves, g, retain_graph=True), torch)
         with torch.no_grad():
@@ -1196,18 +1244,16 @@ def spmm_ee_phase(torch, batch, tag):
                       + nbytes(out))
         bwd_b = bound(e_valid * F * 2,
                       n_rcv * row + e_valid * 12 + nbytes(*grads_k))
-        library = ("torch.sparse.mm, CSR adjacency of w" if not has_ee else
-                   "partial: torch.sparse.mm covers the x term only, no "
-                   "single call adds ee or writes dee")
-        for d, ms, pms, (b_ms, by), lms, err in (
-                ("fwd", fwd_ms, plain_fwd_ms, fwd_b, lib_fwd_ms,
+        for d, ms, pms, (b_ms, by), err in (
+                ("fwd", fwd_ms, plain_fwd_ms, fwd_b,
                  float((out - out_p.detach()).abs().max())),
-                ("bwd", bwd_ms, plain_bwd_ms, bwd_b, lib_bwd_ms,
+                ("bwd", bwd_ms, plain_bwd_ms, bwd_b,
                  max(float((a - b).abs().max())
                      for a, b in zip(grads_k, grads_p)))):
             results[f"blocked_spmm_ee_{d}[{v}]"] = dict(
                 ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=by,
-                library_ms=lms, library=library, max_abs_err=err)
+                library_ms=lib[f"{d}_ms"], library=SPMM_EE_LIBRARY[d, has_ee],
+                max_abs_err=err)
         if has_ee:
             k6_out, k6_fwd_b = out, fwd_b
 
@@ -1241,8 +1287,8 @@ def spmm_ee_phase(torch, batch, tag):
             plain_ms=time_ms(lambda: ss.sorted_blocked_spmm_plain(
                 x, ee2, s2, r2, w2, bn, be), torch),
             bound_ms=k6_fwd_b[0], bound_by=k6_fwd_b[1],
-            library_ms=lib_fwd_ms,
-            library="partial: torch.sparse.mm covers the x term only",
+            library_ms=library[True]["fwd_ms"],
+            library=SPMM_EE_LIBRARY["fwd", True],
             max_abs_err=float((out7 - want7).abs().max()))
     print(f"[kernels] K6 and K7 at the {tag}: N={N} F={F} E={E} valid_edges="
           f"{e_valid} senders={n_snd} receivers={n_rcv}; K7 "
@@ -1254,7 +1300,7 @@ def spmm_ee_phase(torch, batch, tag):
                  if "with_sort_ms" in r else "")
         print(f"[kernels] {name} {tag}: kernel {r['ms']:.4f} ms{extra}, "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-              f"ms ({r['library'].split(':')[0]}), bound "
+              f"ms ({r['library'].split(',')[0]}), bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
     return results
 

@@ -1,9 +1,10 @@
 // Row-owned edge aggregation on the block-diagonal batch, forward and
 // backward, shared by the fused GIN conv (gin_conv.cu, K1) and the fused
 // edge-transform SpMM (spmm.cu, K2); the pair-dot head's backward
-// (edge_dot.cu, K3) walks its pairs' sides with the same staging, walk and
-// launch, and the receiver-sorted SpMM (spmm_ee.cu, K7) takes its row
-// accesses and launch. One template, three flags:
+// (edge_dot.cu, K3) and the blocked SpMM on a precomputed edge embedding
+// (spmm_ee.cu, K6) walk their slots with the same staging and walk, and
+// the receiver-sorted SpMM (spmm_ee.cu, K7) takes its row accesses and
+// launch. One template, three flags:
 //
 //   out_r = sum_{rcv_e = r} w_e * (x[snd_e] [HAS_X] + ein_e @ W [HAS_EIN])
 //           + (x_r + e_self) * nm_r                                  [SELF]
@@ -28,9 +29,8 @@
 //   8-byte aligned: half the CTAs, and the walk's cost shared by two
 //   features; K1 keeps VEC = 1); the block's rows sit in a shared f32
 //   tile. Each warp owns the rows r with r % AGG_WARPS == warp and is the
-//   only writer of them (the row ownership of slot_walk.cuh): no atomics,
-//   and every row is summed in slot order, so out, dx, dW and de_self are
-//   the same bits on every run.
+//   only writer of them: no atomics, and every row is summed in slot
+//   order, so out, dx, dW and de_self are the same bits on every run.
 // - The CTA stages AGG_STAGE slots at a time in shared memory (local
 //   sender, local receiver, weight, and the slots' ein rows), one slot a
 //   thread, every load independent and coalesced. Each warp then ballots
@@ -58,9 +58,11 @@
 #include <cstdint>
 #include <initializer_list>
 
-#include "slot_walk.cuh"
-
 namespace {
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+typedef long long ll;
 
 constexpr int AGG_FT = 32;                   // lanes of a feature tile
 constexpr int AGG_THREADS = 256;
@@ -153,6 +155,16 @@ __device__ __forceinline__ Row<VEC> zero_row() {
   return r;
 }
 
+// A staged slot as a warp's walk loads it: the row it adds, the local row
+// that row adds into, the weight, and a second row to add (K6's ee).
+template <int VEC>
+struct Slot {
+  Row<VEC> x;
+  int r;
+  float w;
+  Row<VEC> e;
+};
+
 struct Staged {
   int* ls;              // [AGG_STAGE] local sender, -1: adds nothing
   int* lr;              // [AGG_STAGE] local receiver, -1: adds nothing
@@ -161,10 +173,11 @@ struct Staged {
   unsigned char* list;  // [AGG_WARPS][AGG_STAGE] a warp's owned slots
 };
 
-// Stage slots p0 .. p0 + n - 1 of block b, one a thread (load_slot's rule:
-// -1 for a padded slot or an endpoint outside the block), and with K > 0
-// their ein rows, every load issued before the first store. Between two
-// __syncthreads of the caller.
+// Stage slots p0 .. p0 + n - 1 of block b, one a thread (-1 for a slot
+// that adds nothing: w == 0, or an endpoint outside the block, so that a
+// padded slot's global index 0 never reaches a row of another block's
+// tile), and with K > 0 their ein rows, every load issued before the first
+// store. Between two __syncthreads of the caller.
 __device__ __forceinline__ void stage_slots(
     const Staged& s, const int* __restrict__ snd, const int* __restrict__ rcv,
     const float* __restrict__ w, const float* __restrict__ ein, ll e0,
@@ -471,6 +484,17 @@ edge_aggr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ ein,
   }
 }
 
+// The card's SMs (one query a process).
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
 template <typename Kernel, typename... Args>
 int launch_edge_aggr(Kernel kernel, int smem, int n_blocks, int F, int ftv,
                      cudaStream_t st, Args... args) {
@@ -482,6 +506,21 @@ int launch_edge_aggr(Kernel kernel, int smem, int n_blocks, int F, int ftv,
   dim3 grid(n_blocks, (F + ftv - 1) / ftv);
   kernel<<<grid, AGG_THREADS, smem, st>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// Launches at2, a kernel bound to two CTAs an SM, where the (n_blocks,
+// feature tile) grid fits the card at two or where at3, its build bound to
+// three, spills registers; else at3, so that a second wave stays short.
+template <typename Kernel, typename... Args>
+int launch_two_or_three(Kernel at2, Kernel at3, int smem, int n_blocks,
+                        int F, int ftv, cudaStream_t st, Args... args) {
+  cudaFuncAttributes a3;
+  const int err = (int)cudaFuncGetAttributes(&a3, at3);
+  if (err) return err;
+  const ll ctas = (ll)n_blocks * ((F + ftv - 1) / ftv);
+  return launch_edge_aggr(
+      ctas <= 2LL * sm_count() || a3.localSizeBytes > 0 ? at2 : at3, smem,
+      n_blocks, F, ftv, st, args...);
 }
 
 // Launches the forward: out [n_blocks * block_nodes, F].

@@ -52,7 +52,8 @@
 //   twice into its row), starting from 0: no atomics, the same bits every
 //   run, and the bits of the one-pair-a-time kernel this replaced. The
 //   launch bound is two CTAs an SM (registers for the loads in flight)
-//   where the grid fits the card at two, else three.
+//   where the grid fits the card at two, else three (unless three would
+//   spill registers).
 // - Padded pairs (w == 0, global index 0), pairs with a zero cotangent
 //   (the odd edge slots of the positive head) and any pair with an
 //   endpoint outside its block read no row and add nothing, so index 0
@@ -168,15 +169,6 @@ edot_fwd_kernel(const float* __restrict__ x, const int* __restrict__ a,
   }
 }
 
-// A side loaded for the walk: the other endpoint's row, the local row it
-// adds into, and c = g * w.
-template <int VEC>
-struct Side {
-  Row<VEC> x;
-  int r;
-  float c;
-};
-
 // Stages the two sides of pairs q0 .. q0 + n - 1 of the block whose first
 // pair is e0, one side a thread: slot 2i is pair q0 + i's a-side (local
 // sender b, local receiver a), slot 2i + 1 its b-side; both carry
@@ -238,17 +230,17 @@ edot_bwd_kernel(const float* __restrict__ x, const int* __restrict__ a,
     __syncthreads();
     walk_staged<false>(
         st, 2 * n, lane, warp,
-        [&](int q) {  // the other row, and the side's row and c
-          return Side<VEC>{fok ? ld_row<VEC>(x + (base + st.ls[q]) * F + f)
+        [&](int q) {  // the other row, and the side's row and c = g * w
+          return Slot<VEC>{fok ? ld_row<VEC>(x + (base + st.ls[q]) * F + f)
                                : zero_row<VEC>(),
                            st.lr[q], st.w[q]};
         },
-        [&](int, const Side<VEC>& sd) {
+        [&](int, const Slot<VEC>& sd) {
           if (!fok) return;
           Row<VEC> s = ld_row<VEC>(acc + sd.r * FTV + c);
 #pragma unroll
           for (int j = 0; j < VEC; ++j)
-            s.v[j] = fmaf(sd.c, sd.x.v[j], s.v[j]);
+            s.v[j] = fmaf(sd.w, sd.x.v[j], s.v[j]);
           st_row(acc + sd.r * FTV + c, s);
         });
   }
@@ -263,17 +255,6 @@ bool bad_shape(int N, int F, int P, int block_nodes, int pairs_per_block) {
   return N <= 0 || F <= 0 || block_nodes <= 0 || pairs_per_block <= 0 ||
          N % block_nodes != 0 ||
          (ll)P != (ll)(N / block_nodes) * pairs_per_block;
-}
-
-// The card's SMs (one query a process).
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
 }
 
 // The forward's warps the card holds at once (one query a process and VEC).
@@ -309,22 +290,15 @@ int launch_fwd(const float* x, const int* a, const int* b, const float* w,
 }
 
 // Registers against CTAs: two CTAs an SM (up to 128 registers a thread)
-// where the grid fits the card at two, else three (up to 85), so that a
-// second wave stays short.
+// or three (up to 85), as the header's launch_two_or_three chooses.
 template <int VEC>
 int launch_bwd(const float* x, const int* a, const int* b, const float* w,
                const float* g, float* dx, int N, int F, int block_nodes,
                int pairs_per_block, cudaStream_t st) {
-  const int n_blocks = N / block_nodes;
-  const ll ctas = (ll)n_blocks * ((F + AGG_FT * VEC - 1) / (AGG_FT * VEC));
-  const int smem = bwd_smem(block_nodes, VEC);
-  if (ctas <= 2LL * sm_count())
-    return launch_edge_aggr(edot_bwd_kernel<VEC, 2>, smem, n_blocks, F,
-                            AGG_FT * VEC, st, x, a, b, w, g, dx, F,
-                            block_nodes, pairs_per_block);
-  return launch_edge_aggr(edot_bwd_kernel<VEC, 3>, smem, n_blocks, F,
-                          AGG_FT * VEC, st, x, a, b, w, g, dx, F, block_nodes,
-                          pairs_per_block);
+  return launch_two_or_three(edot_bwd_kernel<VEC, 2>, edot_bwd_kernel<VEC, 3>,
+                             bwd_smem(block_nodes, VEC), N / block_nodes, F,
+                             AGG_FT * VEC, st, x, a, b, w, g, dx, F,
+                             block_nodes, pairs_per_block);
 }
 
 }  // namespace

@@ -97,9 +97,9 @@
 //   node rows and all-padding blocks are computed like any other: their
 //   only logit is the self loop, so aself = 1 and out = x + e_self.
 // - K4's three products and its two column sums go through gemm.cuh
-//   (shared with gin_conv.cu). edge_aggr.cuh and slot_walk.cuh do not fit
-//   here: the softmax needs each row's slots together, and a GAT slot counts
-//   only with w > 0 (theirs with w != 0).
+//   (shared with gin_conv.cu). edge_aggr.cuh's walk does not fit here:
+//   the softmax needs each row's slots together, and a GAT slot counts only
+//   with w > 0 (the header's with w != 0).
 
 #include <cuda_runtime.h>
 

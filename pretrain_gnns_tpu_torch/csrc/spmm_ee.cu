@@ -25,20 +25,28 @@
 //
 // Design:
 // - The TPU kernels gathered and scattered with one-hot matmuls on the MXU.
-//   Here K6 gives one CTA a (node block, 32-wide feature tile) and keeps
-//   the block's rows in a shared f32 tile, a lane per feature. Each warp
-//   owns the rows r with r % WARPS == warp and is the only writer of those
-//   rows: the warp reads 32 edge slots at a time (one per lane, coalesced),
-//   ballots which of them touch a row it owns, and walks those in slot
-//   order (slot_walk.cuh, shared with K1). So the sums need no atomics and
-//   are taken in a fixed order: out and dx are the same bits from run to
-//   run.
-// - The backward walks the slots by sender in the same way; the owner of a
-//   slot's sender row also writes the slot's dmsg row, and the slots that
-//   add nothing get their zero row from the warp whose turn the chunk is.
-//   dx and dmsg are each computed only when asked for (the concat form of
+//   K6's forward and its dx are the staged, row-owned walk of
+//   edge_aggr.cuh that K2 and K3's backward take: one CTA per (node block,
+//   32 * VEC-wide feature tile), VEC = 4, 2 or 1 features a lane (F a
+//   multiple of VEC, every row pointer 4 * VEC-byte aligned, the block's
+//   tile within shared memory), each warp the only writer of the tile's
+//   rows r with r % AGG_WARPS == warp. A warp lists the staged slots whose
+//   row it owns (receiver forward, sender backward) in slot order and
+//   loads the rows of up to AGG_BATCH of them (x and ee forward, g
+//   backward) before adding any. Every row is summed in slot order with
+//   the arithmetic of the one-slot-at-a-time walk this replaced: no
+//   atomics, the same bits on every run and the same bits as before. Two
+//   CTAs an SM where the grid fits at two or three would spill registers,
+//   else three.
+// - The backward's walk also writes dmsg: each slot's w * g row (rounded
+//   as dx adds it) from the walk's add, and exact zeros for the slots that
+//   add nothing, the warps taking the staged slots in turn. On the H100
+//   this beat a pass over each stage that loads the g rows again, flat
+//   dmsg CTAs in the same launch, and a dmsg kernel on a second stream
+//   beside the walk (PERF.md section 6). Without dx (the concat form of
 //   gather_scatter aggregates the edge embedding over an all-zero x that
-//   needs no dx).
+//   needs no dx), dmsg is a kernel of its own, one VEC-wide piece a
+//   thread, the array written front to back.
 // - The TPU's sorted kernel formed a log-depth prefix sum over the block's
 //   messages and subtracted two boundary rows per node, its answer to a
 //   missing cumsum and to the MXU. On the card a sorted block is a
@@ -60,133 +68,142 @@
 //   cancellation between large prefix sums. What bounds it is latency:
 //   the staging trip, then one trip for each batch of a range.
 // - Padded edge slots (w == 0, global index 0) and any slot with an
-//   endpoint outside its block are skipped, so index 0 never reaches a row
+//   endpoint outside its block add nothing, so index 0 never reaches a row
 //   of another block's tile; in a sorted block such slots sort to the
 //   front (negative local receiver) or the back and add nothing. Every row
 //   of out, dx and dmsg is written once, so padded rows and slots come out
 //   exactly 0 and no output needs a zeroing pass.
-// - The shared tile is sized from block_nodes at launch (dynamic shared
-//   memory, opted in above 48 KB up to the 227 KB a block may use), since
-//   block_layout grows block_nodes to the largest graph.
+// - K6's tile is sized from block_nodes at launch (dynamic shared memory,
+//   opted in above 48 KB up to the 227 KB a block may use), since
+//   block_layout grows block_nodes to the largest graph; blocks too large
+//   for a wider tile take a narrower one.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "edge_aggr.cuh"
 
 namespace {
 
-constexpr int FT = 32;                  // feature tile: one warp wide
+constexpr int FT = 32;                  // K7: feature tile, one warp wide
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / FT;
 constexpr int MAX_SMEM = 232448;        // 227 KB: a block's most on the H100
-constexpr int DEFAULT_SMEM = 48 * 1024; // above this only after opting in
 constexpr int SORTED_BATCH = 8;         // K7: slots whose rows a warp loads at once
 
-int tile_smem(int block_nodes) {
-  return block_nodes * FT * (int)sizeof(float);
+// Shared bytes of a K6 walk CTA: the block's tile, VEC features a lane,
+// and the staging.
+int walk_smem(int block_nodes, int vec) {
+  return edge_aggr_smem(block_nodes, 0, vec, true, false, false);
 }
 
 int sorted_smem(int block_nodes, int block_edges) {
   return (3 * block_edges + 2 * block_nodes + 2) * (int)sizeof(int);
 }
 
-template <bool HAS_EE>
-__global__ void __launch_bounds__(THREADS)
-spmm_ee_fwd_kernel(const float* __restrict__ x, const float* __restrict__ ee,
-                   const int* __restrict__ snd, const int* __restrict__ rcv,
-                   const float* __restrict__ w, float* __restrict__ out,
-                   int F, int block_nodes, int block_edges) {
-  extern __shared__ float acc[];  // [block_nodes][FT]
+// K6's walk. Forward (src = x, out) by receiver: out_r = fmaf(w, x[s] +
+// ee_e, out_r) over the row's slots in slot order. Backward (src = g,
+// out = dx) by sender: dm = w * g[r] rounded, then dx_s = dx_s + dm, so
+// that dx is the sum of the dmsg rows as written (a contraction into an
+// FMA would differ from dmsg in its last bits); with dmsg, each slot's dm
+// goes to its row of dmsg, and the slots that add nothing get exact zeros.
+template <bool BWD, bool HAS_EE, int VEC, int MIN_CTAS>
+__global__ void __launch_bounds__(AGG_THREADS, MIN_CTAS)
+spmm_ee_walk_kernel(const float* __restrict__ src,
+                    const float* __restrict__ ee,
+                    const int* __restrict__ snd, const int* __restrict__ rcv,
+                    const float* __restrict__ w, float* __restrict__ out,
+                    float* __restrict__ dmsg, int F, int block_nodes,
+                    int block_edges) {
+  constexpr int FTV = AGG_FT * VEC;
+  extern __shared__ float smem[];
+  float *acc, *asum, *W_s;
+  const Staged st =
+      carve_walk(smem, block_nodes, 0, FTV, true, false, acc, asum, W_s);
   const int b = blockIdx.x;
-  const int f0 = blockIdx.y * FT;
-  const int lane = threadIdx.x % FT;
-  const int warp = threadIdx.x / FT;
-  const int f = f0 + lane;
+  const int f0 = blockIdx.y * FTV;
+  const int lane = threadIdx.x % AGG_FT;
+  const int warp = threadIdx.x / AGG_FT;
+  const int c = lane * VEC;  // the lane's first column of the tile
+  const int f = f0 + c;
   const bool fok = f < F;
-  for (int i = threadIdx.x; i < block_nodes * FT; i += THREADS) acc[i] = 0.f;
-  __syncthreads();
+  // a warp zeroes, fills and reads only the rows it owns
+  for (int r = warp; r < block_nodes; r += AGG_WARPS)
+    st_row(acc + r * FTV + c, zero_row<VEC>());
 
   const ll base = (ll)b * block_nodes;
   const ll e0 = (ll)b * block_edges;
-  for (int q0 = 0; q0 < block_edges; q0 += FT) {
-    int ls, lr;
-    float we;
-    load_slot(snd, rcv, w, e0, base, q0 + lane, block_nodes, block_edges, ls,
-              lr, we);
-    // this warp adds into the rows it owns, and no other warp does
-    walk_owned(lr, ls, lr, we, warp, WARPS,
-               [&](int src, int s, int r, float wq) {
-                 if (!fok) return;
-                 float v = x[(base + s) * F + f];
-                 if (HAS_EE) v += ee[(e0 + q0 + src) * F + f];
-                 acc[r * FT + lane] = fmaf(wq, v, acc[r * FT + lane]);
-               });
+  for (int p0 = 0; p0 < block_edges; p0 += AGG_STAGE) {
+    const int n = min(AGG_STAGE, block_edges - p0);
+    __syncthreads();  // the last pass's staging has been read
+    stage_slots(st, snd, rcv, w, nullptr, e0, base, p0, n, block_nodes, 0);
+    __syncthreads();
+    if (BWD && dmsg && fok)
+      for (int q = warp; q < n; q += AGG_WARPS)
+        if (st.lr[q] < 0)
+          st_row(dmsg + (e0 + p0 + q) * F + f, zero_row<VEC>());
+    walk_staged<BWD>(
+        st, n, lane, warp,
+        [&](int q) {
+          Slot<VEC> s;
+          s.r = BWD ? st.ls[q] : st.lr[q];
+          s.w = st.w[q];
+          if (fok) {
+            const int from = BWD ? st.lr[q] : st.ls[q];
+            s.x = ld_row<VEC>(src + (base + from) * F + f);
+            if (HAS_EE) s.e = ld_row<VEC>(ee + (e0 + p0 + q) * F + f);
+          }
+          return s;
+        },
+        [&](int q, const Slot<VEC>& s) {
+          if (!fok) return;
+          Row<VEC> a = ld_row<VEC>(acc + s.r * FTV + c), dm;
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            if (BWD) {
+              dm.v[j] = __fmul_rn(s.w, s.x.v[j]);
+              a.v[j] = __fadd_rn(a.v[j], dm.v[j]);
+            } else {
+              float v = s.x.v[j];
+              if (HAS_EE) v += s.e.v[j];
+              a.v[j] = fmaf(s.w, v, a.v[j]);
+            }
+          }
+          if (BWD && dmsg) st_row(dmsg + (e0 + p0 + q) * F + f, dm);
+          st_row(acc + s.r * FTV + c, a);
+        });
   }
-  __syncthreads();
+  __syncwarp();
 
   if (!fok) return;
-  for (int r = warp; r < block_nodes; r += WARPS)
-    out[(base + r) * F + f] = acc[r * FT + lane];
+  for (int r = warp; r < block_nodes; r += AGG_WARPS)
+    st_row(out + (base + r) * F + f, ld_row<VEC>(acc + r * FTV + c));
 }
 
-template <bool NEED_DX, bool NEED_DMSG>
-__global__ void __launch_bounds__(THREADS)
-spmm_ee_bwd_kernel(const float* __restrict__ g, const int* __restrict__ snd,
-                   const int* __restrict__ rcv, const float* __restrict__ w,
-                   float* __restrict__ dx, float* __restrict__ dmsg, int F,
-                   int block_nodes, int block_edges) {
-  extern __shared__ float acc[];  // [block_nodes][FT], with NEED_DX
-  const int b = blockIdx.x;
-  const int f0 = blockIdx.y * FT;
-  const int lane = threadIdx.x % FT;
-  const int warp = threadIdx.x / FT;
-  const int f = f0 + lane;
-  const bool fok = f < F;
-  if (NEED_DX) {
-    for (int i = threadIdx.x; i < block_nodes * FT; i += THREADS) acc[i] = 0.f;
-    __syncthreads();
+// dmsg [E, F] alone, one VEC-wide piece a thread, the array written front
+// to back: w * g[rcv] (rounded as dx adds it) or, for a slot that adds
+// nothing (stage_slots' rule), exact zeros.
+template <int VEC>
+__global__ void __launch_bounds__(AGG_THREADS)
+spmm_ee_dmsg_kernel(const float* __restrict__ g, const int* __restrict__ snd,
+                    const int* __restrict__ rcv, const float* __restrict__ w,
+                    float* __restrict__ dmsg, int F, int block_nodes,
+                    int block_edges, ll pieces) {
+  const ll i = blockIdx.x * (ll)AGG_THREADS + threadIdx.x;
+  if (i >= pieces) return;
+  const int cols = F / VEC;
+  const ll e = i / cols;
+  const ll base = e / block_edges * block_nodes;
+  const float we = w[e];
+  const ll s = snd[e] - base, r = rcv[e] - base;
+  Row<VEC> d = zero_row<VEC>();
+  if (we != 0.f && s >= 0 && s < block_nodes && r >= 0 && r < block_nodes) {
+    const Row<VEC> gr = ld_row<VEC>(g + (base + r) * F + i % cols * VEC);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) d.v[j] = __fmul_rn(we, gr.v[j]);
   }
-
-  const ll base = (ll)b * block_nodes;
-  const ll e0 = (ll)b * block_edges;
-  for (int q0 = 0; q0 < block_edges; q0 += FT) {
-    int ls, lr;
-    float we;
-    load_slot(snd, rcv, w, e0, base, q0 + lane, block_nodes, block_edges, ls,
-              lr, we);
-    if (NEED_DMSG) {
-      // the slots that add nothing get exact zeros, from the warp whose
-      // turn this chunk is
-      unsigned z = __ballot_sync(FULL_MASK, q0 + lane < block_edges && ls < 0);
-      if ((q0 / FT) % WARPS == warp && fok) {
-        while (z) {
-          const int src = __ffs(z) - 1;
-          z &= z - 1;
-          dmsg[(e0 + q0 + src) * F + f] = 0.f;
-        }
-      }
-    }
-    // the owner of a slot's sender row writes the slot's dmsg row too
-    walk_owned(ls, ls, lr, we, warp, WARPS,
-               [&](int src, int s, int r, float wq) {
-                 if (!fok) return;
-                 // rounded once as a product, then added: dx is the sum of
-                 // the dmsg rows as written, the same bits whether dmsg is
-                 // asked for or not (a contraction into an FMA would round
-                 // the product only with dmsg)
-                 const float dm = __fmul_rn(wq, g[(base + r) * F + f]);
-                 if (NEED_DMSG) dmsg[(e0 + q0 + src) * F + f] = dm;
-                 if (NEED_DX)
-                   acc[s * FT + lane] = __fadd_rn(acc[s * FT + lane], dm);
-               });
-  }
-
-  if (NEED_DX) {
-    __syncthreads();
-    if (!fok) return;
-    for (int r = warp; r < block_nodes; r += WARPS)
-      dx[(base + r) * F + f] = acc[r * FT + lane];
-  }
+  st_row(dmsg + i * VEC, d);
 }
 
 template <bool HAS_EE, int VEC>
@@ -322,21 +339,44 @@ spmm_sorted_fwd_kernel(const float* __restrict__ x,
   if (cur >= 0 && fok) st_row(out + (base + cur) * F + f, sum);
 }
 
-template <typename Kernel>
-int set_smem(Kernel kernel, int smem) {
-  if (smem <= DEFAULT_SMEM) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// Calls fn(std::integral_constant<int, VEC>()) for vec = 4, 2 or 1.
+template <typename Fn>
+int with_vec(int vec, Fn fn) {
+  if (vec == 4) return fn(std::integral_constant<int, 4>());
+  if (vec == 2) return fn(std::integral_constant<int, 2>());
+  return fn(std::integral_constant<int, 1>());
 }
 
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int smem, int N, int F, int block_nodes,
-           cudaStream_t st, Args... args) {
-  const int err = set_smem(kernel, smem);
-  if (err) return err;
-  dim3 grid(N / block_nodes, (F + FT - 1) / FT);
-  kernel<<<grid, THREADS, smem, st>>>(args...);
-  return (int)cudaGetLastError();
+// Launches K6's walk with VEC features a lane, the widest that the rows
+// allow (row_vec) and whose tile fits shared memory.
+template <bool BWD, bool HAS_EE>
+int launch_walk(const float* src, const float* ee, const int* snd,
+                const int* rcv, const float* w, float* out, float* dmsg,
+                int N, int F, int block_nodes, int block_edges,
+                cudaStream_t st) {
+  int vec = row_vec(F, {src, ee, out, dmsg}, 4);
+  while (vec > 1 && walk_smem(block_nodes, vec) > MAX_SMEM) vec /= 2;
+  return with_vec(vec, [&](auto v) {
+    constexpr int VEC = decltype(v)::value;
+    return launch_two_or_three(
+        spmm_ee_walk_kernel<BWD, HAS_EE, VEC, 2>,
+        spmm_ee_walk_kernel<BWD, HAS_EE, VEC, 3>, walk_smem(block_nodes, VEC),
+        N / block_nodes, F, AGG_FT * VEC, st, src, ee, snd, rcv, w, out, dmsg,
+        F, block_nodes, block_edges);
+  });
+}
+
+int launch_dmsg(const float* g, const int* snd, const int* rcv,
+                const float* w, float* dmsg, int N, int F, int block_nodes,
+                int block_edges, cudaStream_t st) {
+  return with_vec(row_vec(F, {g, dmsg}, 4), [&](auto v) {
+    constexpr int VEC = decltype(v)::value;
+    const ll pieces = (ll)(N / block_nodes) * block_edges * (F / VEC);
+    const unsigned ctas = (unsigned)((pieces + AGG_THREADS - 1) / AGG_THREADS);
+    spmm_ee_dmsg_kernel<VEC><<<ctas, AGG_THREADS, 0, st>>>(
+        g, snd, rcv, w, dmsg, F, block_nodes, block_edges, pieces);
+    return (int)cudaGetLastError();
+  });
 }
 
 // K7 with VEC features a lane (VEC = 2: F even, rows 8-byte aligned).
@@ -360,7 +400,8 @@ bool bad_shape(int N, int F, int block_nodes, int block_edges, int smem) {
 extern "C" {
 
 int pgt_spmm_ee_max_smem() { return MAX_SMEM; }
-int pgt_spmm_ee_smem(int block_nodes) { return tile_smem(block_nodes); }
+// Shared bytes of a K6 launch with out or dx at least (one feature a lane).
+int pgt_spmm_ee_smem(int block_nodes) { return walk_smem(block_nodes, 1); }
 int pgt_spmm_sorted_smem(int block_nodes, int block_edges) {
   return sorted_smem(block_nodes, block_edges);
 }
@@ -373,15 +414,14 @@ int pgt_spmm_ee_fwd(const float* x, const float* ee, const int* snd,
                     const int* rcv, const float* w, float* out, int N, int F,
                     int block_nodes, int block_edges, int has_ee,
                     void* stream) {
-  const int smem = tile_smem(block_nodes);
-  if (bad_shape(N, F, block_nodes, block_edges, smem))
+  if (bad_shape(N, F, block_nodes, block_edges, walk_smem(block_nodes, 1)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (has_ee)
-    return launch(spmm_ee_fwd_kernel<true>, smem, N, F, block_nodes, st, x,
-                  ee, snd, rcv, w, out, F, block_nodes, block_edges);
-  return launch(spmm_ee_fwd_kernel<false>, smem, N, F, block_nodes, st, x,
-                ee, snd, rcv, w, out, F, block_nodes, block_edges);
+    return launch_walk<false, true>(x, ee, snd, rcv, w, out, nullptr, N, F,
+                                    block_nodes, block_edges, st);
+  return launch_walk<false, false>(x, nullptr, snd, rcv, w, out, nullptr, N,
+                                   F, block_nodes, block_edges, st);
 }
 
 // K6 backward from g [N, F]: writes every row of dx [N, F] (need_dx) and of
@@ -390,19 +430,17 @@ int pgt_spmm_ee_bwd(const float* g, const int* snd, const int* rcv,
                     const float* w, float* dx, float* dmsg, int N, int F,
                     int block_nodes, int block_edges, int need_dx,
                     int need_dmsg, void* stream) {
-  const int smem = need_dx ? tile_smem(block_nodes) : 0;
-  if (bad_shape(N, F, block_nodes, block_edges, smem) ||
+  if (bad_shape(N, F, block_nodes, block_edges,
+                need_dx ? walk_smem(block_nodes, 1) : 0) ||
       !(need_dx || need_dmsg))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (need_dx && need_dmsg)
-    return launch(spmm_ee_bwd_kernel<true, true>, smem, N, F, block_nodes, st,
-                  g, snd, rcv, w, dx, dmsg, F, block_nodes, block_edges);
-  if (need_dx)
-    return launch(spmm_ee_bwd_kernel<true, false>, smem, N, F, block_nodes,
-                  st, g, snd, rcv, w, dx, dmsg, F, block_nodes, block_edges);
-  return launch(spmm_ee_bwd_kernel<false, true>, smem, N, F, block_nodes, st,
-                g, snd, rcv, w, dx, dmsg, F, block_nodes, block_edges);
+  if (!need_dx)
+    return launch_dmsg(g, snd, rcv, w, dmsg, N, F, block_nodes, block_edges,
+                       st);
+  return launch_walk<true, false>(g, nullptr, snd, rcv, w, dx,
+                                  need_dmsg ? dmsg : nullptr, N, F,
+                                  block_nodes, block_edges, st);
 }
 
 // K7 forward: as pgt_spmm_ee_fwd, for receivers that ascend within each

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Bit-for-bit A/B of the fused GIN conv (K1), the blocked SpMM on a
-precomputed edge embedding (K6), its receiver-sorted variant (K7) and the
-pair-dot head's backward (K3 ``dx``) between this tree's
-``csrc/gin_conv.cu``, ``csrc/spmm_ee.cu`` and ``csrc/edge_dot.cu`` (with
-the headers they include) and those of another checkout, on one GPU.
+"""Bit-for-bit A/B of the fused GIN conv (K1), the fused edge-transform
+SpMM (K2), the blocked SpMM on a precomputed edge embedding (K6), its
+receiver-sorted variant (K7) and the pair-dot head's backward (K3 ``dx``)
+between this tree's ``csrc/gin_conv.cu``, ``csrc/spmm.cu``,
+``csrc/spmm_ee.cu`` and ``csrc/edge_dot.cu`` (with the headers they
+include) and those of another checkout, on one GPU.
 
 Run from the repository root, with the other checkout's ``csrc`` directory
 (for example a ``git archive`` of the parent commit unpacked under
@@ -16,11 +17,14 @@ temporary directory, then runs both libraries through this tree's wrappers.
 K1 on the chem masking path's first batch (the first layer's weights and
 bond one-hots, random x and cotangent; the path's 0/1 edge weights and
 fractional, partly negative ones): ``out``, ``aggr``, ``z`` and the seven
-gradients. K6 and K7 on the chem and bio masking paths' first batches (256
-graphs, F = 300, a random edge embedding, fractional and partly negative
-edge weights): K6 forward with and without the edge embedding, K6
-backward (``dx`` and ``dmsg`` together and each alone) and K7 forward on
-the sorted slots, with and without the edge embedding. K3's ``dx`` on the
+gradients. K2's three variants on the bio masking path's first batch
+(random x, cotangent, K = 10 edge inputs and edge kernel, fractional and
+partly negative edge weights): ``out``, ``dx`` and ``dW``. K6 and K7 on
+the chem and bio masking paths' first batches (256 graphs, F = 300, a
+random edge embedding, fractional and partly negative edge weights): K6
+forward with and without the edge embedding, K6 backward (``dx`` and
+``dmsg`` together and each alone) and K7 forward on the sorted slots,
+with and without the edge embedding. K3's ``dx`` on the
 chem and bio edge-prediction paths' first batches, both heads, with the
 path's 0/1 pair weights and the cotangent the path gives it (0 on the
 positive head's odd slots) and with fractional, partly negative weights
@@ -127,6 +131,31 @@ def k1_outputs(batch, conv, seed: int):
     return out
 
 
+def k2_outputs(batch, seed: int):
+    """K2's ``out``, ``dx`` and ``dW`` in its three variants on ``batch``
+    through the loaded library."""
+    gen = torch.Generator().manual_seed(seed)
+    dev = batch.node_mask.device
+    N, E, K = batch.max_nodes, batch.max_edges, 10
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    x, g = rnd(N, F) * batch.node_mask[:, None], rnd(N, F)
+    ein, W = rnd(E, K), rnd(K, F)
+    w = batch.edge_mask.float() * rnd(E)
+    edges = (batch.senders, batch.receivers, w)
+    blocks = (batch.block_nodes, batch.block_edges)
+    out = {}
+    with torch.no_grad():
+        for flags in ((True, False), (False, True), (True, True)):
+            v = bs.variant(*flags)
+            out[f"K2 fwd[{v}]"] = bs.spmm_fwd(x, ein, W, *edges, *blocks,
+                                              *flags)
+            dx, dW = bs.spmm_bwd(g, ein, *edges, K, *blocks, *flags)
+            out.update({f"K2 bwd[{v}] {n}": t for n, t in
+                        (("dx", dx), ("dW", dW)) if t is not None})
+    torch.cuda.synchronize()
+    return out
+
+
 def outputs(batch, seed: int):
     """Every K6 and K7 output on ``batch`` through the loaded library."""
     gen = torch.Generator().manual_seed(seed)
@@ -167,7 +196,7 @@ def main() -> int:
     conv = pretrain.build_objective(config("chem")).to(dev).gnn.gnns[0]
     with tempfile.TemporaryDirectory() as tmp:
         ref = {name: build(args.ref_csrc, name, tmp)
-               for name in ("gin_conv", "spmm_ee", "edge_dot")}
+               for name in ("gin_conv", "spmm", "spmm_ee", "edge_dot")}
         results = {}
         for tag in ("tree", "ref"):
             use(ref if tag == "ref" else {})
@@ -175,13 +204,15 @@ def main() -> int:
                             for k, v in outputs(b, seed=7).items()}
             results[tag].update({f"chem {k}": v for k, v in k1_outputs(
                 batches["chem"], conv, seed=8).items()})
+            results[tag].update({f"bio {k}": v for k, v in k2_outputs(
+                batches["bio"], seed=10).items()})
             results[tag].update({f"{d} {k}": v for d, b in edgepred.items()
                                  for k, v in k3_outputs(b, seed=9).items()})
         use({})
     bad = [k for k in results["tree"]
            if not torch.equal(results["tree"][k], results["ref"][k])]
     n = len(results["tree"])
-    print(f"card: {torch.cuda.get_device_name(0)}; K1/K3/K6/K7 outputs of this "
+    print(f"card: {torch.cuda.get_device_name(0)}; K1/K2/K3/K6/K7 outputs of this "
           f"tree vs {args.ref_csrc}: {n - len(bad)} of {n} equal bit for bit"
           + (f"; differ: {bad}" if bad else ""))
     return 1 if bad else 0

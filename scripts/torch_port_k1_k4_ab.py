@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
 """Timing A/B of the fused GIN conv (K1), the fused GAT conv (K4), the
-blocked GAT attention (K5), the fused edge-transform SpMM (K2) and the
-pair-dot head (K3), forward and backward, and of the receiver-sorted SpMM
-(K7), between this tree's ``csrc/gin_conv.cu``, ``csrc/gat.cu``,
-``csrc/spmm.cu``, ``csrc/edge_dot.cu`` and ``csrc/spmm_ee.cu`` (with the
-headers they include) and those of another checkout, in one process on
-one GPU.
+blocked GAT attention (K5), the fused edge-transform SpMM (K2), the
+pair-dot head (K3) and the blocked SpMM on a precomputed edge embedding
+(K6), forward and backward, and of the receiver-sorted SpMM (K7), between
+this tree's ``csrc/gin_conv.cu``, ``csrc/gat.cu``, ``csrc/spmm.cu``,
+``csrc/edge_dot.cu`` and ``csrc/spmm_ee.cu`` (with the headers they
+include) and those of another checkout, in one process on one GPU.
 
 Run from the repository root, with the other checkout's ``csrc`` directory
 (for example a ``git archive`` of the parent commit unpacked under
 ``_archive/``):
 
-    python3 scripts/torch_port_k1_k4_ab.py --ref_csrc _archive/parent/pretrain_gnns_tpu_torch/csrc [--kernels k1,k4,k5,k2,k3,k7]
+    python3 scripts/torch_port_k1_k4_ab.py --ref_csrc _archive/parent/pretrain_gnns_tpu_torch/csrc [--kernels k1,k4,k5,k2,k3,k6,k7]
 
 The libraries of both trees have the same C interfaces. The script builds
 the other sources with this tree's ``nvcc`` flags, then times each kernel
@@ -28,10 +28,13 @@ one-hots (K = 9) and symmetric-normalised edge weights, as
 ``chip_smoke.py`` times them; K3 on the chem and bio edge-prediction
 paths' first batches, both heads, the backward with the cotangent the path
 gives it (0 on the positive head's odd slots), as ``chip_smoke.py`` times
-it; K7 with and without an edge embedding on the chem and bio masking
-paths' first batches (fractional, partly negative edge weights, the slots
-sorted by ``sort_block_edges``), with K6's forward ``[x+ee]`` on the
-unsorted slots timed beside it. Random inputs from a seed.
+it; K6 with and without an edge embedding on the chem and bio masking
+paths' first batches (fractional, partly negative edge weights), forward
+and backward (``dx`` and ``dmsg`` together, ``dx`` alone, ``dmsg`` alone),
+with K2 ``[x]`` on the same inputs beside it; K7 with and without an edge
+embedding on the same batches (the slots sorted by ``sort_block_edges``),
+with K6's forward ``[x+ee]`` on the unsorted slots timed beside it.
+Random inputs from a seed.
 """
 
 from __future__ import annotations
@@ -76,7 +79,7 @@ def build(srcdir: str, name: str, out_dir: str) -> ctypes.CDLL:
 
 
 SOURCES = {"k1": "gin_conv", "k4": "gat", "k5": "gat", "k2": "spmm",
-           "k3": "edge_dot", "k7": "spmm_ee"}
+           "k3": "edge_dot", "k6": "spmm_ee", "k7": "spmm_ee"}
 
 
 def use(libs) -> None:
@@ -183,6 +186,44 @@ def k3_cases(dev):
                 lambda pairs=pairs: ed.edot_fwd(*pairs))
             out[f"blocked_edge_dot_bwd {domain} {head}"] = (
                 lambda g=g, pairs=pairs: ed.edot_bwd(g, *pairs))
+    return out
+
+
+def k6_cases(dev):
+    """``{kernel: callable}`` for K6 with and without an edge embedding,
+    forward and backward (``dx`` and ``dmsg``; ``dx``; and ``dmsg`` alone,
+    the concat form's), with K2 ``[x]`` on the same inputs beside it, on
+    the chem and bio masking paths' first batches (fractional, partly
+    negative edge weights)."""
+    gen = torch.Generator().manual_seed(6)
+    out = {}
+    for domain in ("chem", "bio"):
+        cfg = pretrain.PretrainConfig(domain=domain, num_layer=5, emb_dim=300,
+                                      batch_size=256, mask_edge=False,
+                                      seed=0, packing="auto")
+        graphs = (bio_dataset(4096, seed=0) if domain == "bio"
+                  else molecule_dataset(4096, seed=0, mean_atoms=23)[0])
+        b = next(iter(pretrain.build_loader(cfg, graphs, dev))).to(dev)
+        N, E, bn, be = b.max_nodes, b.max_edges, b.block_nodes, b.block_edges
+        rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
+        x, ee, g = rnd(N, 300) * b.node_mask[:, None], rnd(E, 300), rnd(N, 300)
+        w = b.edge_mask.to(torch.float32) * (
+            torch.rand(E, generator=gen) * 2 - 0.5).to(dev)
+        e = (b.senders, b.receivers, w, bn, be)
+        for tag, e_in in (("[x+ee]", ee), ("[x]", None)):
+            out[f"blocked_spmm_ee_fwd{tag} {domain}"] = (
+                lambda x=x, e_in=e_in, e=e: bs.spmm_ee_fwd(x, e_in, *e))
+        out[f"blocked_spmm_ee_bwd[x+ee] {domain}"] = (
+            lambda g=g, e=e: bs.spmm_ee_bwd(g, *e, True))
+        out[f"blocked_spmm_ee_bwd[x] {domain}"] = (
+            lambda g=g, e=e: bs.spmm_ee_bwd(g, *e, False, True, False))
+        out[f"blocked_spmm_ee_bwd[x+ee] dmsg alone {domain}"] = (
+            lambda g=g, e=e: bs.spmm_ee_bwd(g, *e, True, False, True))
+        out[f"K2[x] fwd {domain}"] = (
+            lambda x=x, e=e: bs.spmm_fwd(x, None, None, *e, True, False))
+        out[f"K2[x] bwd {domain}"] = (
+            lambda g=g, e=e: bs.spmm_bwd(g, None, *e[:3], 0, *e[3:], True,
+                                         False))
     return out
 
 
@@ -313,7 +354,7 @@ def main() -> int:
     p.add_argument("--ref_csrc", required=True,
                    help="the other checkout's pretrain_gnns_tpu_torch/csrc")
     p.add_argument("--kernels", default="k1,k4",
-                   help="comma-separated, of k1, k4, k5, k2, k3 and k7")
+                   help="comma-separated, of k1, k4, k5, k2, k3, k6 and k7")
     args = p.parse_args()
     kernels = args.kernels.split(",")
     if not set(kernels) <= set(SOURCES):
@@ -329,6 +370,8 @@ def main() -> int:
         fns.update(k2_cases(dev))
     if "k3" in kernels:
         fns.update(k3_cases(dev))
+    if "k6" in kernels:
+        fns.update(k6_cases(dev))
     if "k7" in kernels:
         fns.update(k7_cases(dev))
     times = {k: {"tree": [], "ref": []} for k in fns}

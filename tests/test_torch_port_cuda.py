@@ -917,16 +917,40 @@ def _k6_plain(t, b, blocks, has_ee, g=None):
     return out.detach(), dx, dee
 
 
+def _long_runs(b, be, n):
+    """``b`` with block 0's first ``n`` valid slots into one receiver and
+    the next ``n`` from one sender: where ``n`` exceeds the 256 slots a
+    pass stages, each run spans two passes."""
+    v = torch.nonzero(b.edge_mask[:be]).flatten()
+    assert v.numel() >= 2 * n
+    rcv, snd = b.receivers.clone(), b.senders.clone()
+    rcv[v[:n]] = int(rcv[v[0]])
+    snd[v[n:2 * n]] = int(snd[v[n]])
+    return dataclasses.replace(b, receivers=rcv, senders=snd)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("odd_offset", [False, True])
 @pytest.mark.parametrize("has_ee", [True, False])
-@pytest.mark.parametrize("F,bn,be", [(45, 128, 384), (300, 512, 1536)])
-def test_k6_kernels_match_plain_version(cuda_device, has_ee, F, bn, be):
-    """K6's forward and backward at an odd width and at blocks of 512
-    nodes (64 KB of shared memory, above the 48 KB a launch gets without
-    opting in), with all-padding blocks: padded rows and padded slots come
-    out exactly 0, and every output is the same bits from run to run."""
+@pytest.mark.parametrize("F,bn,be", WIDTH_CASES)
+def test_k6_kernels_match_plain_version(cuda_device, has_ee, F, bn, be,
+                                        odd_offset):
+    """K6's forward and backward at every load width (F = 300 at blocks of
+    512 nodes takes two features a lane: its 4-wide tile would not fit
+    shared memory), at blocks of 512 nodes (above the 48 KB a launch gets
+    without opting in), with all-padding blocks, fractional and negative
+    weights, a receiver and a sender with a run of 45 slots (300 at blocks
+    of 1,536 slots: longer than one staged pass), and (``odd_offset``) x,
+    the edge embedding and g at an odd float offset (one feature a lane):
+    padded rows and padded slots come out exactly 0, and every output is
+    the same bits from run to run and in every subset of dx and dmsg."""
     t, b, blocks = _k6_case(cuda_device, F, bn, be)
     assert blocks[1] == bn
+    b = _long_runs(b, be, 300 if be > 1024 else 45)
+    if odd_offset:
+        t = {k: _at_odd_offset(v) if k in ("x", "ee", "g") else v
+             for k, v in t.items()}
+        assert t["x"].data_ptr() % 8
     ee = t["ee"] if has_ee else None
     edges = (b.senders, b.receivers, t["w"], bn, be)
     name = blocked_spmm.ee_variant(has_ee)
@@ -954,6 +978,8 @@ def test_k6_kernels_match_plain_version(cuda_device, has_ee, F, bn, be):
     assert none is None and none2 is None
     assert torch.equal(dx_only, dx) and torch.equal(dmsg_only, dmsg)
     assert torch.equal(blocked_spmm.spmm_ee_fwd(t["x"], ee, *edges), out)
+    assert torch.equal(blocked_spmm.spmm_ee_bwd(t["g"], *edges, has_ee)[0],
+                       dx)
 
 
 @pytest.mark.cuda

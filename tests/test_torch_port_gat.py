@@ -350,7 +350,7 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
         assert csrc / "gemm.cuh" in _build._with_headers(csrc / f"{name}.cu")
     # spmm.cu shares K1's aggregation header, not the GEMM
     assert _build._with_headers(csrc / "spmm.cu") == [
-        csrc / "spmm.cu", csrc / "edge_aggr.cuh", csrc / "slot_walk.cuh"]
+        csrc / "spmm.cu", csrc / "edge_aggr.cuh"]
     before = {n: _build._target(n)[1].name for n in names}
     assert before == {n: _build._target(n)[1].name for n in names}
     with open(csrc / "gemm.cuh", "a") as f:

@@ -2,12 +2,12 @@
 (K1, csrc/gin_conv.cu) and the fused edge-transform SpMM (K2,
 csrc/spmm.cu) aggregate through the one row-owned walk of
 csrc/edge_aggr.cuh, which sums every row in a fixed order; K3's backward
-(csrc/edge_dot.cu) walks its pairs' sides with the same staging and walk,
-and K7 (csrc/spmm_ee.cu) takes the header's row loads. No atomic add may
-come back into K2, the header, K3, K6 and K7, or the GAT attention (K4 and
-K5, csrc/gat.cu, whose walks are row-owned too): their outputs would change
-in their last bits from run to run. The build must rebuild every user's
-library when the header changes."""
+(csrc/edge_dot.cu) and K6 (csrc/spmm_ee.cu) walk their slots with the same
+staging and walk, and K7 (the same source) takes the header's row loads.
+No atomic add may come back into K2, the header, K3, K6 and K7, or the GAT
+attention (K4 and K5, csrc/gat.cu, whose walks are row-owned too): their
+outputs would change in their last bits from run to run. The build must
+rebuild every user's library when the header changes."""
 
 import re
 import shutil
@@ -20,7 +20,8 @@ HEADER = "edge_aggr.cuh"
 USERS = ["gin_conv", "spmm", "edge_dot", "spmm_ee"]
 
 
-# K2, its header, and the kernels built on the header's walk and rows
+# K2, its header, and the kernels built on the header's walk and rows (K3,
+# K6 and K7)
 @pytest.mark.parametrize("name", ["spmm.cu", HEADER, "edge_dot.cu",
                                   "spmm_ee.cu"])
 def test_no_atomics_in_k2(name):

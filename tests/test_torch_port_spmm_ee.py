@@ -10,7 +10,9 @@ composition. Tolerances: forward rtol 1e-5 / atol 1e-5 and gradients rtol
 1e-4 / atol 1e-5 (float32 on both sides; only the summation order
 differs); the JAX sorted kernel subtracts prefix sums over a whole block,
 so it is held to atol 1e-4, as its own test holds it. The CUDA kernels are
-held against the plain versions in tests/test_torch_port_cuda.py."""
+held against the plain versions in tests/test_torch_port_cuda.py; the
+sparse products that ``chip_smoke.py`` times beside K6 are held against
+the plain version here."""
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from pretrain_gnns_tpu.ops import pallas_spmm, pallas_spmm_sorted
 from pretrain_gnns_tpu.ops import segment as jseg
 from pretrain_gnns_tpu.ops import spmm as jspmm
@@ -127,6 +130,34 @@ def test_k6_weight_gets_no_gradient(case):
                                     w, BN, BE)
     dx, dw = torch.autograd.grad(out, [x, w], t["g"], allow_unused=True)
     assert dx is not None and dw is None
+
+
+@pytest.mark.parametrize("has_ee", [True, False])
+def test_library_yardstick_computes_k6(case, has_ee):
+    """``chip_smoke.py`` times K6 against one ``torch.sparse.mm`` each way:
+    the CSR ``[A | A_ee]`` on ``[x; ee]`` (``A`` alone on ``x`` without an
+    edge embedding) is the plain version's forward, and its transpose on
+    ``g`` is ``dx`` stacked on every slot's ``dee`` row (exact zeros on the
+    padded slots, the all-padding block's among them), within 1e-6
+    relative: the library column times the same function."""
+    t = _tensors(case)
+    N, E = t["x"].shape[0], t["ee"].shape[0]
+    A, At = chip_smoke.spmm_ee_csr(torch, t["senders"], t["receivers"],
+                                   t["w"], t["edge_mask"], N, has_ee)
+    cols = N + E * has_ee
+    assert A.layout == At.layout == torch.sparse_csr
+    assert tuple(A.shape) == (N, cols) and tuple(At.shape) == (cols, N)
+    rhs = torch.cat([t["x"], t["ee"]]) if has_ee else t["x"]
+    out, back = torch.sparse.mm(A, rhs), torch.sparse.mm(At, t["g"])
+    out_p, dx_p, dee_p = _torch_k6(case, has_ee)
+    want = [out_p, dx_p] + ([dee_p] if has_ee else [])
+    got = [out.numpy(), back[:N].numpy()] + ([back[N:].numpy()]
+                                             if has_ee else [])
+    for a, b in zip(got, want):
+        assert chip_smoke.rel_err(torch.from_numpy(a),
+                                  torch.from_numpy(b)) <= 1e-6
+    if has_ee:
+        assert not back[N:][~t["edge_mask"]].any()
 
 
 def _sorted(a, with_ee=True):

@@ -120,7 +120,24 @@ Phases, in order (any failure exits non-zero):
      dropout 0.2, 1,310 tasks) for 48 steps: K1 at 5 a step in each
      direction, the probe once (the libraries are loaded anew for this
      run), every other count 0; then 16 steps of the bio supervised path
-     (5,000 tasks; K2's ``[x]`` and ``[ein]`` at 5 a step).
+     (5,000 tasks; K2's ``[x]`` and ``[ein]`` at 5 a step);
+  23. loader phase, on the host, for each path's configuration (chem and
+     bio masking, edge prediction, supervised and infomax): the first
+     epoch of ``build_loader`` (the flat dataset and the C++ packer) is a
+     ``FlatLoader`` and equals ``PackedLoader``'s with the same transform
+     and seed batch for batch, every field and extra; printed: host ms a
+     batch of each (pack and transform, one thread) and the ms of planning
+     the epoch with ``native.plan_epoch`` and with the Python walk;
+  24. infomax agreement and paths: one train-mode Deep Graph Infomax step
+     at full width, card vs CPU, chem and bio, refereed by a float64 CPU
+     step as edge prediction's (the float32 CPU step alone can lie
+     further from float64 than the masking steps' gradient limit); then
+     16 steps each of ``run_pretrain(objective="infomax")``:
+     chem K1 at 5 a step each way, bio K2's ``[x]`` and ``[ein]`` at 5 a
+     step, every other count 0;
+  25. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
+     defaults (chem masking GIN on 16,384 molecules and bio masking GIN,
+     5 windows of 2 epochs each after a warm-up epoch), its JSON line.
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` and
 ``launches_per_step`` from the path that runs it at the entry's ``shape``), the card line and, last, the result line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -1435,6 +1452,84 @@ def micro_phase(torch, micro_main):
     return counts, 0
 
 
+def same_batch(a, b) -> bool:
+    """Every array field and extra of two host batches equal in value."""
+    import numpy as np
+
+    fields = ("node_feat", "edge_feat", "senders", "receivers", "node_graph",
+              "node_mask", "edge_mask", "graph_mask", "y")
+    return ((a.block_nodes, a.block_edges) == (b.block_nodes, b.block_edges)
+            and all((getattr(a, f) is None) == (getattr(b, f) is None)
+                    for f in fields)
+            and all(np.array_equal(getattr(a, f), getattr(b, f))
+                    for f in fields if getattr(a, f) is not None)
+            and sorted(a.extras) == sorted(b.extras)
+            and all(np.array_equal(a.extras[k], b.extras[k])
+                    for k in a.extras))
+
+
+def loader_phase(graphs, cfg, dev):
+    """The first epoch of ``build_loader`` against ``PackedLoader`` with
+    the same transform, seed and layout, batch for batch; the host's ms a
+    batch of each (pack and transform, one thread) and of planning the
+    epoch in C++ and in Python."""
+    import numpy as np
+
+    from pretrain_gnns_tpu_torch import native
+    from pretrain_gnns_tpu_torch.data.flat import plan_epoch_plain
+    from pretrain_gnns_tpu_torch.data.packing import PackedLoader
+    from pretrain_gnns_tpu_torch.train import pretrain
+
+    tag = f"[{path_name(cfg)} loader]"
+    flat = pretrain.build_loader(cfg, graphs, dev)
+    if type(flat).__name__ != "FlatLoader":
+        raise AssertionError(f"{tag} build_loader gave {type(flat).__name__}")
+    packed = PackedLoader(graphs, cfg.batch_size, flat.max_nodes,
+                          flat.max_edges, seed=flat.seed,
+                          extra_pad=flat.extra_pad, blocks=flat.blocks,
+                          drop_last=flat.drop_last,
+                          post_transform=flat.post_transform)
+    t = time.perf_counter()
+    first = list(flat)
+    flat_ms = (time.perf_counter() - t) * 1e3 / len(first)
+    t = time.perf_counter()
+    batches = list(packed)
+    packed_ms = (time.perf_counter() - t) * 1e3 / len(batches)
+    if len(first) != len(batches) or not all(
+            same_batch(a, b) for a, b in zip(first, batches)):
+        raise AssertionError(f"{tag} FlatLoader's first epoch differs from "
+                             "PackedLoader's")
+    order = np.random.default_rng((0, 0)).permutation(len(graphs))
+    lens = (flat.flat.lens_n, flat.flat.lens_e, order, cfg.batch_size)
+    layout = flat.blocks or (1, flat.max_nodes, flat.max_edges)
+    t = time.perf_counter()
+    native.plan_epoch(*lens, *layout)
+    plan_c = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    plan_epoch_plain(*lens, layout)
+    plan_py = (time.perf_counter() - t) * 1e3
+    print(f"{tag} FlatLoader: {len(first)} batches equal PackedLoader's "
+          f"(node_feat {first[0].node_feat.dtype} against "
+          f"{batches[0].node_feat.dtype}); host ms a batch, pack and "
+          f"transform: flat {flat_ms:.3f}, packed {packed_ms:.3f}; "
+          f"planning the epoch: plan_epoch {plan_c:.3f} ms, the Python walk "
+          f"{plan_py:.3f} ms ({plan_c / len(first):.4f} / "
+          f"{plan_py / len(first):.4f} ms a batch) "
+          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+
+
+def bench_phase():
+    """``python -m pretrain_gnns_tpu_torch.bench`` at its defaults, in
+    this process; it prints its JSON line."""
+    from pretrain_gnns_tpu_torch import bench
+
+    print("[bench] pretrain_gnns_tpu_torch.bench at its defaults:",
+          flush=True)
+    if bench.main([]) != 0:
+        raise AssertionError("the bench failed")
+    print(f"[bench] done [{time.perf_counter() - T0:.0f} s]", flush=True)
+
+
 def describe(tag, batch):
     print(f"[{tag}] first batch: {int(batch.graph_mask.sum())} graphs, "
           f"{int(batch.node_mask.sum())} nodes, "
@@ -1474,7 +1569,7 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     reports = _build.build(["gin_conv", "spmm", "edge_dot", "gat", "spmm_ee",
                             "probe"])
-    native.load()  # the C++ negative sampler, g++
+    native.load()  # the C++ packer and negative sampler, g++
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
     for name, text in reports.items():
         print(f"[build] {name}.cu:\n{text.strip()}", flush=True)
@@ -1488,6 +1583,7 @@ def main() -> int:
     batch = next(iter(pretrain.build_loader(cfg, graphs, dev)))
     print(f"[data] {len(graphs)} molecules", flush=True)
     describe("data", batch)
+    loader_phase(graphs, cfg, dev)
     model = pretrain.build_objective(cfg).to(dev)
     kernels = kernel_phase(torch, batch.to(dev), model)
     probe = probe_phase(torch)
@@ -1507,6 +1603,7 @@ def main() -> int:
     batch = next(iter(pretrain.build_loader(cfg, graphs, dev)))
     print(f"[data] {len(graphs)} ego-networks", flush=True)
     describe("data", batch)
+    loader_phase(graphs, cfg, dev)
     conv = pretrain.build_objective(cfg).to(dev).gnn.gnns[0]
     on_card = batch.to(dev)
     k2 = k2_phase(torch, on_card, bio.edge_inputs(on_card, torch.float32),
@@ -1532,6 +1629,7 @@ def main() -> int:
         graphs, cfg = edgepred(domain)
         first[domain] = next(iter(pretrain.build_loader(cfg, graphs, dev)))
         describe(f"data {domain} edgepred", first[domain])
+        loader_phase(graphs, cfg, dev)
     k3 = k3_entries(*(k3_phase(torch, first[d].to(dev), d)
                       for d in ("chem", "bio")))
 
@@ -1651,12 +1749,29 @@ def main() -> int:
         graphs, cfg = supervised(domain, 0.0)
         first = next(iter(pretrain.build_loader(cfg, graphs, dev)))
         describe(f"data {domain} supervised, {cfg.num_tasks} tasks", first)
+        loader_phase(graphs, cfg, dev)
         agreement_phase(torch, first, cfg)
         sup[domain] = graphs, pretrain.PretrainConfig(
             **{**cfg.__dict__, "dropout_ratio": 0.2})
     record_launches(probe, main_path_phase(torch, *sup["chem"], card, K1,
                                            reprobe=True))
     main_path_phase(torch, *sup["bio"], card, BIO_K2, epochs=1)
+
+    # Deep Graph Infomax: mean pooling and a bilinear discriminator over K1
+    # (chem) and K2 (bio); no transform
+    for domain, graphs, per_step in (("chem", chem_graphs, K1),
+                                     ("bio", bio_graphs, BIO_K2)):
+        cfg = pretrain.PretrainConfig(
+            objective="infomax", domain=domain, num_layer=LAYERS,
+            emb_dim=EMB, batch_size=BATCH, seed=0, packing="auto")
+        loader_phase(graphs, cfg, dev)
+        # as edge prediction's, the step is ill-conditioned at its random
+        # start: a float64 step on the CPU referees (see REFEREE_K)
+        agreement_phase(torch, next(iter(pretrain.build_loader(
+            cfg, graphs, dev))), cfg, referee=True)
+        main_path_phase(torch, graphs, cfg, card, per_step, epochs=1)
+
+    bench_phase()
     kernels += k2 + k3 + k45 + k67 + probe
     missing = [k["name"] for k in kernels if not k.get("launches")]
     if missing:

@@ -1,7 +1,7 @@
-"""Pretraining CLI of the port: attribute masking, edge prediction and
-supervised pretraining in the chem and bio domains, on a GIN, GCN, GAT or
-GraphSAGE trunk, with the flag names of the JAX package's CLI plus
-``--device``.
+"""Pretraining CLI of the port: attribute masking, edge prediction, Deep
+Graph Infomax and supervised pretraining in the chem and bio domains, on a
+GIN, GCN, GAT or GraphSAGE trunk, with the flag names of the JAX package's
+CLI plus ``--device``.
 
 Examples:
   python -m pretrain_gnns_tpu_torch.cli.pretrain --dataset synthetic \
@@ -10,6 +10,8 @@ Examples:
       --dataset synthetic --epochs 5 --output_model_file bio_trunk
   python -m pretrain_gnns_tpu_torch.cli.pretrain --objective edgepred \
       --gnn_type gcn --epochs 5 --output_model_file edgepred_trunk
+  python -m pretrain_gnns_tpu_torch.cli.pretrain --objective infomax \
+      --domain bio --epochs 5 --output_model_file infomax_trunk
   python -m pretrain_gnns_tpu_torch.cli.pretrain --gnn_type gat \
       --domain bio --epochs 5 --output_model_file gat_trunk
   python -m pretrain_gnns_tpu_torch.cli.pretrain --objective supervised \
@@ -25,8 +27,9 @@ JAX package's ``synthetic`` dataset has them, or the ego-networks'
 bio dataset it trains on every graph: the species split of the JAX CLI
 (``--split``) is not ported, nor is ``--input_model_file``.
 
-Saves the trunk ``state_dict`` (reference key layout) with ``torch.save``
-to ``<output_model_file>.pth``.
+Saves the trunk ``state_dict`` (reference key layout) to
+``<output_model_file>.pth`` in torch's legacy (pre-zip) format, which the
+reference's torch 1.0.1 reads, as the JAX package's CLI writes it.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from __future__ import annotations
 import argparse
 
 import torch
+from torch import nn
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -84,12 +88,13 @@ def resolve_dropout(args) -> float:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     args.dropout_ratio = resolve_dropout(args)
-    if (args.objective not in ("masking", "edgepred", "supervised")
+    if (args.objective not in ("masking", "edgepred", "infomax",
+                               "supervised")
             or args.domain not in ("chem", "bio")):
         raise SystemExit(
             f"--objective {args.objective} --domain {args.domain} is not "
-            "ported yet; this CLI runs --objective masking, edgepred or "
-            "supervised with --domain chem or bio"
+            "ported yet; this CLI runs --objective masking, edgepred, "
+            "infomax or supervised with --domain chem or bio"
         )
     if args.gnn_type not in ("gin", "gcn", "gat", "graphsage"):
         raise SystemExit(f"--gnn_type {args.gnn_type} is not ported yet")
@@ -126,11 +131,16 @@ def main(argv=None):
         cfg, graphs, log=lambda s: print(s, flush=True), device=args.device)
     if args.output_model_file:
         path = args.output_model_file + ".pth"
-        trunk = {k: v.detach().cpu()
-                 for k, v in res["model"].gnn.state_dict().items()}
-        torch.save(trunk, path)
+        save_trunk(res["model"].gnn, path)
         print(f"saved trunk -> {path}")
     return res["history"]
+
+
+def save_trunk(trunk: nn.Module, path: str) -> None:
+    """``trunk.state_dict()`` on the CPU, written in the legacy non-zip
+    format that torch 1.0.1's ``torch.load`` reads."""
+    state = {k: v.detach().cpu() for k, v in trunk.state_dict().items()}
+    torch.save(state, path, _use_new_zipfile_serialization=False)
 
 
 if __name__ == "__main__":

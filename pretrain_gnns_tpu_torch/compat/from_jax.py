@@ -9,8 +9,12 @@ so they are transposed; batch-norm ``scale``/``bias`` become
 ``running_var``, with ``num_batches_tracked = 0``; a GAT conv's raw
 ``att`` and ``bias`` arrays and the set2set readout's LSTM arrays
 (``weight_ih``, ``weight_hh``, ``bias_ih``, ``bias_hh``, kept ``[in, 4H]``)
-keep their own names. The variables of a ``SupervisedObjective`` map the
-same way (``pred.gnn.*``, ``pred.pool.*``, ``pred.graph_pred_linear.*``).
+keep their own names, and so does ``InfomaxObjective``'s
+``discriminator_weight``: the port's parameter has the JAX name and its
+``[D, D]`` layout (``summary @ W`` in both), so it is neither renamed to
+``.weight`` nor transposed. The variables of a ``SupervisedObjective``
+map the same way (``pred.gnn.*``, ``pred.pool.*``,
+``pred.graph_pred_linear.*``).
 It is the port's own copy of the mapping the JAX package's trunk export
 applies."""
 
@@ -31,7 +35,8 @@ def _torch_name(name: str) -> str:
     return name
 
 
-_RAW_LEAVES = ("att", "bias", "weight_ih", "weight_hh", "bias_ih", "bias_hh")
+_RAW_LEAVES = ("att", "bias", "weight_ih", "weight_hh", "bias_ih", "bias_hh",
+               "discriminator_weight")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -47,8 +52,9 @@ def state_dict_from_jax(params: Mapping[str, Any],
         for name, sub in p.items():
             base = prefix + _torch_name(name)
             if not isinstance(sub, Mapping):
-                # a GAT conv's and an LSTM cell's raw leaves keep their
-                # names; any other raw array is an embedding table
+                # a GAT conv's, an LSTM cell's and the infomax
+                # discriminator's raw leaves keep their names; any other
+                # raw array is an embedding table
                 key = base if name in _RAW_LEAVES else f"{base}.weight"
                 out[key] = _tensor(sub)
             elif "kernel" in sub:  # Dense

@@ -3,11 +3,15 @@
 
 Batches are ``batch_size`` graphs in seeded shuffled order, packed into
 fixed buffers sized once per dataset. A batch whose graphs overflow the
-buffers flushes early and carries the rest into the next batch."""
+buffers flushes early and carries the rest into the next batch.
+:func:`make_loader` picks the loader: ``data.flat.FlatLoader`` (the C++
+packer) when the graphs flatten, ``PackedLoader`` (graph by graph, in
+numpy) otherwise."""
 
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,6 +80,46 @@ def buffer_sizes(
     )
     r = lambda v: int(math.ceil(v / multiple) * multiple)
     return r(max_nodes), r(max_edges)
+
+
+def make_loader(
+    graphs: Sequence[Graph],
+    batch_size: int,
+    max_nodes: Optional[int] = None,
+    max_edges: Optional[int] = None,
+    drop_last: bool = False,
+    seed: int = 0,
+    extra_pad=None,
+    blocks: Optional[Tuple[int, int, int]] = None,
+    post_transform=None,
+):
+    """A ``FlatLoader`` when the graphs flatten (fixed-shape NODE_IDX and
+    GRAPH extras only), else a ``PackedLoader``, with a warning that says
+    why. Both iterate alike: seeded shuffle, early flush, ``drop_last``,
+    ``post_transform`` with the epoch's generator, ``last_epoch_stats``.
+    Any other fault of the graphs (an endpoint outside its graph, labels
+    that do not stack) raises, as the packers trust their indices."""
+    from pretrain_gnns_tpu_torch.data.flat import (
+        FlatGraphs, FlatLoader, NotFlat,
+    )
+
+    graphs = list(graphs)
+    if blocks is None and (max_nodes is None or max_edges is None):
+        mn, me = buffer_sizes(graphs, batch_size)
+        max_nodes, max_edges = max_nodes or mn, max_edges or me
+    try:
+        flat = FlatGraphs.from_graphs(graphs)
+    except NotFlat as e:
+        warnings.warn(f"the graphs do not flatten ({e}); packing them "
+                      "graph by graph with PackedLoader", stacklevel=2)
+    else:
+        return FlatLoader(flat, batch_size, max_nodes or 0, max_edges or 0,
+                          seed=seed, drop_last=drop_last, blocks=blocks,
+                          extra_pad=extra_pad, post_transform=post_transform)
+    return PackedLoader(graphs, batch_size, max_nodes, max_edges,
+                        drop_last=drop_last, seed=seed,
+                        extra_pad=extra_pad, blocks=blocks,
+                        post_transform=post_transform)
 
 
 class PackedLoader:

@@ -2,7 +2,8 @@
 ``pretrain_gnns_tpu.models.inits``).
 
 ``nn.Linear`` weights and biases draw from U(-1/sqrt(fan_in),
-1/sqrt(fan_in)); embedding tables are xavier-uniform; GAT's attention
+1/sqrt(fan_in)), except a :class:`Linear` head's bias, whose fan-in is
+given; embedding tables are xavier-uniform; GAT's attention
 vector is PyG's glorot and its output bias zero. Every draw comes
 from an explicit ``torch.Generator``, so a seed fixes the weights on any
 device."""
@@ -22,11 +23,26 @@ def activation_dtype() -> torch.dtype:
     return torch.float32
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` whose bias is drawn from U(-1/sqrt(bias_fan_in),
+    1/sqrt(bias_fan_in)): the JAX package's ``inits.dense(features,
+    fan_in)`` on an input wider than ``fan_in`` (the chem masking heads
+    under JK concat), whose weight bound follows the input's width and its
+    bias bound ``fan_in``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias_fan_in: int):
+        super().__init__(in_features, out_features)
+        self.bias_fan_in = bias_fan_in
+
+
 @torch.no_grad()
 def reset_linear_(linear: nn.Linear, generator: torch.Generator) -> None:
     bound = 1.0 / math.sqrt(linear.in_features)
     linear.weight.uniform_(-bound, bound, generator=generator)
     if linear.bias is not None:
+        bound = 1.0 / math.sqrt(getattr(linear, "bias_fan_in",
+                                        linear.in_features))
         linear.bias.uniform_(-bound, bound, generator=generator)
 
 

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from pretrain_gnns_tpu_torch.core.graphs import PackedGraphs
-from pretrain_gnns_tpu_torch.models import bio
+from pretrain_gnns_tpu_torch.models import bio, inits
 from pretrain_gnns_tpu_torch.models.chem import GNN
 from pretrain_gnns_tpu_torch.objectives import losses
 
@@ -36,10 +36,13 @@ class MaskingObjective(nn.Module):
         super().__init__()
         self.mask_edge = mask_edge
         self.gnn = GNN(num_layer, emb_dim, jk, drop_ratio, gnn_type)
+        # the JAX heads: weights bounded by the input's width, biases by
+        # emb_dim (they differ under JK concat)
         rep = (num_layer + 1) * emb_dim if jk == "concat" else emb_dim
-        self.linear_pred_atoms = nn.Linear(rep, num_atom_classes)
+        self.linear_pred_atoms = inits.Linear(rep, num_atom_classes, emb_dim)
         if mask_edge:
-            self.linear_pred_bonds = nn.Linear(rep, num_bond_classes)
+            self.linear_pred_bonds = inits.Linear(rep, num_bond_classes,
+                                                  emb_dim)
 
     def forward(self, g: PackedGraphs, train: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -1,16 +1,19 @@
 """Pretraining entry (port of ``pretrain_gnns_tpu.train.pretrain`` for
 attribute masking, chem ``MaskingObjective`` and bio
 ``BioMaskEdgeObjective``, for edge prediction, ``EdgePredObjective`` on
-either trunk, and for supervised pretraining, ``SupervisedObjective`` with
-the domain's graph-level head).
+either trunk, for Deep Graph Infomax, ``InfomaxObjective`` on either
+trunk, and for supervised pretraining, ``SupervisedObjective`` with the
+domain's graph-level head).
 
-The loop follows the reference's {chem,bio}/pretrain_{masking,edgepred}.py:
-a seeded model, one Adam over every parameter, shuffled batches of
-``batch_size`` graphs with the objective's transform (masking or negative
-sampling; none for the supervised objective, whose batches carry the
-labels ``y``) applied per batch, the trunk saved at the end. Packing and the
-transform run in a prefetch thread while the GPU runs the previous step;
-the loss is read back once per epoch."""
+The loop follows the reference's {chem,bio}/pretrain_{masking,edgepred,
+deepgraphinfomax}.py: a seeded model, one Adam over every parameter,
+shuffled batches of ``batch_size`` graphs with the objective's transform
+(masking or negative sampling; none for infomax and the supervised
+objective, whose batches carry the labels ``y``) applied per batch, the
+trunk saved at the end. The loader is ``data.packing.make_loader``'s: the
+flat dataset and the C++ packer (``data.flat.FlatLoader``) when the graphs
+flatten. Packing and the transform run in a prefetch thread while the GPU
+runs the previous step; the loss is read back once per epoch."""
 
 from __future__ import annotations
 
@@ -26,13 +29,14 @@ from pretrain_gnns_tpu_torch.data.batch_transforms import (
     BatchMaskAtom, BatchMaskEdge, BatchNegativeEdge, NativeNegativeEdge,
 )
 from pretrain_gnns_tpu_torch.data.packing import (
-    PackedLoader, buffer_sizes, choose_blocks,
+    buffer_sizes, choose_blocks, make_loader,
 )
 from pretrain_gnns_tpu_torch.data.prefetch import prefetch
 from pretrain_gnns_tpu_torch.device import resolve_device
 from pretrain_gnns_tpu_torch.models import bio as bio_models
 from pretrain_gnns_tpu_torch.models.inits import init_parameters
 from pretrain_gnns_tpu_torch.objectives.edgepred import EdgePredObjective
+from pretrain_gnns_tpu_torch.objectives.infomax import InfomaxObjective
 from pretrain_gnns_tpu_torch.objectives.masking import (
     BioMaskEdgeObjective, MaskingObjective,
 )
@@ -44,8 +48,8 @@ from pretrain_gnns_tpu_torch.train.telemetry import ThroughputMeter
 
 @dataclasses.dataclass
 class PretrainConfig:
-    """The masking, edge-prediction and supervised subset of the JAX
-    package's ``PretrainConfig``."""
+    """The masking, edge-prediction, infomax and supervised subset of the
+    JAX package's ``PretrainConfig``."""
 
     objective: str = "masking"
     domain: str = "chem"
@@ -70,13 +74,16 @@ class PretrainConfig:
     packing: str = "auto"  # auto | standard | blocked
 
 
+PORTED_OBJECTIVES = ("masking", "edgepred", "infomax", "supervised")
+
+
 def _check_ported(cfg: PretrainConfig) -> None:
-    if (cfg.objective not in ("masking", "edgepred", "supervised")
+    if (cfg.objective not in PORTED_OBJECTIVES
             or cfg.domain not in ("chem", "bio")):
         raise NotImplementedError(
             f"objective={cfg.objective!r} domain={cfg.domain!r} is not "
-            "ported; this port runs masking, edgepred and supervised in "
-            "the chem and bio domains"
+            "ported; this port runs masking, edgepred, infomax and "
+            "supervised in the chem and bio domains"
         )
 
 
@@ -91,28 +98,34 @@ def build_objective(cfg: PretrainConfig) -> nn.Module:
         model = SupervisedObjective(
             num_tasks=cfg.num_tasks, graph_pooling=cfg.graph_pooling,
             domain=cfg.domain, **common)
-    elif cfg.objective == "edgepred":
-        model = (EdgePredObjective(**common, trunk=bio_models.GNN)
-                 if cfg.domain == "bio" else EdgePredObjective(**common))
+    elif cfg.objective in ("edgepred", "infomax"):
+        cls = (EdgePredObjective if cfg.objective == "edgepred"
+               else InfomaxObjective)
+        model = (cls(**common, trunk=bio_models.GNN) if cfg.domain == "bio"
+                 else cls(**common))
     elif cfg.domain == "bio":
         model = BioMaskEdgeObjective(**common)
     else:
         model = MaskingObjective(mask_edge=cfg.mask_edge, **common)
-    init_parameters(model, torch.Generator().manual_seed(cfg.seed))
+    gen = torch.Generator().manual_seed(cfg.seed)
+    init_parameters(model, gen)
+    if cfg.objective == "infomax":
+        model.reset_discriminator(gen)  # after the trunk's draws
     model.gnn.seed_dropout(cfg.seed)
     return model
 
 
 def build_loader(cfg: PretrainConfig, graphs: Sequence[Graph],
-                 device: torch.device, drop_last: bool = True
-                 ) -> PackedLoader:
-    """Packed batches with the objective's vectorized pass applied to
-    each: masking (``BatchMaskAtom`` for chem, ``BatchMaskEdge`` for bio)
-    or negative sampling for edge prediction, where the batch's layout
-    picks the sampler: a blocked batch gets the C++ sampler's
-    block-aligned pairs (``NativeNegativeEdge``), which the pair-dot
-    kernel takes, a standard one the compact ``BatchNegativeEdge``. The
-    supervised objective has no transform: its batches carry the graphs'
+                 device: torch.device, drop_last: bool = True):
+    """``data.packing.make_loader``'s loader (a ``FlatLoader`` when the
+    graphs flatten, else a ``PackedLoader``) with the objective's
+    vectorized pass applied to each batch: masking (``BatchMaskAtom`` for
+    chem, ``BatchMaskEdge`` for bio) or negative sampling for edge
+    prediction, where the batch's layout picks the sampler: a blocked
+    batch gets the C++ sampler's block-aligned pairs
+    (``NativeNegativeEdge``), which the pair-dot kernel takes, a standard
+    one the compact ``BatchNegativeEdge``. Infomax and the supervised
+    objective have no transform; supervised batches carry the graphs'
     labels ``y [G, T]`` (see :func:`supervised_graphs` for bio)."""
     _check_ported(cfg)
     mn, me = buffer_sizes(graphs, cfg.batch_size)
@@ -123,7 +136,7 @@ def build_loader(cfg: PretrainConfig, graphs: Sequence[Graph],
     # bio graphs carry a per-graph center_node_idx (a node index)
     extra_pad = ({"center_node_idx": cfg.batch_size}
                  if cfg.domain == "bio" else None)
-    if cfg.objective == "supervised":
+    if cfg.objective in ("infomax", "supervised"):
         post = None
     elif cfg.objective == "edgepred":
         post = (NativeNegativeEdge() if blocks is not None
@@ -140,9 +153,9 @@ def build_loader(cfg: PretrainConfig, graphs: Sequence[Graph],
             node_budget=int(mn * cfg.mask_rate) + cfg.batch_size + 8,
             edge_budget=me // 2,
         )
-    return PackedLoader(graphs, cfg.batch_size, mn, me, seed=cfg.seed,
-                        extra_pad=extra_pad, blocks=blocks,
-                        drop_last=drop_last, post_transform=post)
+    return make_loader(graphs, cfg.batch_size, mn, me, seed=cfg.seed,
+                       extra_pad=extra_pad, blocks=blocks,
+                       drop_last=drop_last, post_transform=post)
 
 
 def supervised_graphs(graphs: Sequence[Graph], domain: str):
@@ -225,7 +238,8 @@ def run_pretrain(
         if log:
             if epoch == 1:
                 st = loader.last_epoch_stats
-                log(f"loader: {st['batches']} batches, "
+                log(f"loader: {type(loader).__name__}, {st['batches']} "
+                    "batches, "
                     f"{st['graphs_per_batch']:.1f} graphs/batch "
                     f"(batch_size={cfg.batch_size}, blocks={loader.blocks})")
             log(" ".join(f"{k}={v:.4f}" if isinstance(v, float) else

@@ -4,9 +4,14 @@
 Run from the repository root:
 
     python3 scripts/torch_port_profile.py [--domain chem|bio]
-        [--objective masking|edgepred|supervised]
+        [--objective masking|edgepred|infomax|supervised]
         [--gnn_type gin|gcn|gat|graphsage]
         [--gat_fused on|off] [--gin_fused on|off]
+
+One path a process: each row of PERF.md section 5 is measured in a
+process of its own, so that no measurement follows another path's in the
+same process (the profiler's and the caching allocator's state would
+carry over).
 
 Configurations (float32, 5 x 300, batch 256), the workloads of
 chip_smoke.py's main paths:
@@ -15,19 +20,20 @@ chip_smoke.py's main paths:
   - bio: synthetic ego-networks (``bio_dataset(4096, seed=0)``, about 60
     nodes on average);
   - masking (default), edge prediction, whose batches carry the C++
-    sampler's block-aligned negative pairs, or supervised pretraining
-    (mean pooling, dropout 0.2; chem on 1,310 synthetic tasks, bio on
-    5,000 ``go_target_pretrain`` labels, the reference's label widths;
-    its loader has no transform);
+    sampler's block-aligned negative pairs, Deep Graph Infomax (no
+    transform) or supervised pretraining (mean pooling, dropout 0.2; chem
+    on 1,310 synthetic tasks, bio on 5,000 ``go_target_pretrain`` labels,
+    the reference's label widths; its loader has no transform);
   - with ``--gnn_type gat``, ``--gat_fused off`` takes the unfused GATConv
     (the blocked GAT attention K5) instead of the fused GAT conv K4; with
     ``--gnn_type gin`` (chem), ``--gin_fused off`` takes the unfused
     GINConv (K2 ``[x+ein]`` and cuBLAS for the MLP) instead of the fused
     GIN conv K1.
-It prints, for the card named on its first line:
+It prints, for the card named on its first line (name and power limit,
+as ``nvidia-smi --query-gpu=name,power.limit`` reads them):
   - host: ms to pack one batch and apply its transform (masking or
-    negative sampling; the loader, on one thread), and the transform's
-    share alone;
+    negative sampling; ``build_loader``'s loader, named, on one thread),
+    and the transform's share alone;
   - device-only step: ms per train step over batches already on the card,
     and the host's time to enqueue one step on an idle card;
   - the main path: ``run_pretrain`` for EPOCHS epochs, its ms per step and
@@ -36,7 +42,9 @@ It prints, for the card named on its first line:
     (started and stopped by the epoch log hook): device time per kernel
     name and per step, the share of the port's own kernels among it, and
     the device's busy share against the unprofiled run's step time (the
-    profiler slows the host);
+    profiler slows the host), the launches a step on the card and the
+    ``aten::_to_copy`` calls a step (dtype casts and the batch's copies
+    to the card);
 and one JSON line with those numbers.
 """
 
@@ -46,6 +54,7 @@ import argparse
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
@@ -137,7 +146,7 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--domain", default="chem", choices=["chem", "bio"])
     p.add_argument("--objective", default="masking",
-                   choices=["masking", "edgepred", "supervised"])
+                   choices=["masking", "edgepred", "infomax", "supervised"])
     p.add_argument("--gnn_type", default="gin",
                    choices=["gin", "gcn", "gat", "graphsage"])
     p.add_argument("--gat_fused", default="on", choices=["on", "off"])
@@ -161,7 +170,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     for _ in range(8):
         t = time.perf_counter()
-        if loader.post_transform is not None:  # supervised has none
+        if loader.post_transform is not None:  # infomax, supervised: none
             loader.post_transform(host_batch, rng)
         transform_ms.append((time.perf_counter() - t) * 1e3)
     batches = [b.to(dev) for b in list(loader)[:4]]
@@ -199,15 +208,24 @@ def main() -> int:
                if e.device_type == DeviceType.CUDA and _device_us(e) > 0
                and e.key not in host_keys]
     kernels.sort(key=lambda r: -r[1])
+    launches_per_step = sum(r[2] for r in kernels) / p_steps
+    # every dtype cast and every host-to-card copy of a batch's leaves
+    to_copy_per_step = sum(e.count for e in events
+                           if e.key == "aten::_to_copy"
+                           and e.device_type == DeviceType.CPU) / p_steps
     busy_step_ms = sum(r[1] for r in kernels) / p_steps
     own = {k: sum(ms for n, ms, _ in kernels
                   if any(f in n for f in frags)) / p_steps
            for k, frags in OWN_KERNELS.items()}
-    card = torch.cuda.get_device_name(0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}; {path}")
-    print(f"host pack+transform: median {statistics.median(host_ms):.3f} ms "
-          f"per batch ({int(host_batch.edge_mask.sum())} valid edges), the "
-          f"transform alone {statistics.median(transform_ms):.3f} ms")
+    print(f"host pack+transform ({type(loader).__name__}): median "
+          f"{statistics.median(host_ms):.3f} ms per batch "
+          f"({int(host_batch.edge_mask.sum())} valid edges), the transform "
+          f"alone {statistics.median(transform_ms):.3f} ms")
     print(f"device-only step: {device_step_ms:.3f} ms; host enqueue of one "
           f"step: median {statistics.median(enqueue_ms):.3f} ms")
     print(f"run_pretrain: {step_ms:.3f} ms/step, {edges / secs:.1f} valid "
@@ -217,11 +235,13 @@ def main() -> int:
           f"{100 * busy_step_ms / step_ms:.1f}% of the unprofiled step; "
           "of it the port's kernels "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in own.items()))
+    print(f"launches a step: {launches_per_step:.1f} kernels, copies and "
+          f"memsets; aten::_to_copy {to_copy_per_step:.1f}")
     print(f"device time by kernel (ms over {p_steps} steps, launches):")
     for name, ms, count in kernels[:25]:
         print(f"  {ms:9.3f}  {count:6d}  {name[:110]}")
     print(json.dumps({
-        "card": card, "path": path,
+        "card": card, "path": path, "loader": type(loader).__name__,
         "host_pack_transform_ms": statistics.median(host_ms),
         "host_transform_ms": statistics.median(transform_ms),
         "own_kernels_ms_per_step": own,
@@ -232,6 +252,8 @@ def main() -> int:
         "profiled_step_ms": p_secs / p_steps * 1e3,
         "device_busy_ms_per_step": busy_step_ms,
         "device_busy_share": busy_step_ms / step_ms,
+        "launches_per_step": launches_per_step,
+        "to_copy_per_step": to_copy_per_step,
         "top_kernels_ms_per_step": {n[:80]: ms / p_steps
                                     for n, ms, _ in kernels[:10]},
     }))

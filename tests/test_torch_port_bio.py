@@ -127,13 +127,14 @@ def test_bio_dataset_identical(seed):
 @pytest.mark.parametrize("packing", ["blocked", "standard"])
 def test_mask_edge_batches_match_jax(graphs, packing):
     """Two epochs of the port's bio masking loader against the JAX
-    PackedLoader + BatchMaskEdge with the same seed and layout."""
+    package's pipeline for it, make_loader (its FlatLoader) +
+    BatchMaskEdge, with the same seed and layout: values and dtypes."""
     cfg = _cfg(packing)
     port = tpretrain.build_loader(cfg, graphs, torch.device("cpu"))
     blocks = port.blocks
     assert (blocks is None) == (packing == "standard")
     me = port.max_edges
-    ref = jpk.PackedLoader(
+    ref = jpk.make_loader(
         graphs=jsyn.bio_dataset(N_GRAPHS, seed=3), batch_size=BATCH,
         max_nodes=port.max_nodes, max_edges=me, seed=0, blocks=blocks,
         drop_last=True, extra_pad={"center_node_idx": BATCH},
@@ -273,8 +274,8 @@ def test_state_dict_from_jax_matches_bio_trunk_export(batches):
 
 def test_unported_bio_options_raise():
     with pytest.raises(NotImplementedError):
-        tpretrain.build_objective(
-            tpretrain.PretrainConfig(domain="bio", objective="infomax"))
+        tpretrain.build_objective(tpretrain.PretrainConfig(
+            domain="bio", objective="contextpred", gnn_type="gat"))
     with pytest.raises(NotImplementedError):
         tpretrain.build_objective(
             tpretrain.PretrainConfig(domain="bio", objective="contextpred"))

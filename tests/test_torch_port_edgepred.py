@@ -235,12 +235,16 @@ def _sampler_arrays(graphs, batch):
 
 
 def _unsampled_batch(domain, packing):
+    """The one batch of ``BATCH`` graphs without its transform, and the
+    graphs in its slot order: the loader's shuffle of epoch 0."""
     graphs = _graphs(domain)[:BATCH]
-    loader = tpretrain.build_loader(_cfg(domain, packing), graphs,
-                                    torch.device("cpu"))
-    loader.shuffle, loader.post_transform = False, None
+    cfg = _cfg(domain, packing)
+    loader = tpretrain.build_loader(cfg, graphs, torch.device("cpu"))
+    loader.post_transform = None
     (batch,) = list(loader)
-    return graphs, batch
+    order = np.arange(len(graphs))
+    np.random.default_rng((cfg.seed, 0)).shuffle(order)
+    return [graphs[i] for i in order], batch
 
 
 @pytest.mark.parametrize("domain", DOMAINS)

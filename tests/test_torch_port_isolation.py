@@ -97,7 +97,7 @@ def test_standard_packing_and_unported_options():
     assert batch.block_nodes == 0
     with pytest.raises(NotImplementedError):
         pretrain.build_objective(
-            pretrain.PretrainConfig(objective="infomax"))
+            pretrain.PretrainConfig(objective="contextpred", gnn_type="gcn"))
     with pytest.raises(NotImplementedError):
         pretrain.build_objective(
             pretrain.PretrainConfig(objective="contextpred"))
@@ -119,7 +119,7 @@ def test_cli_trains_one_epoch_on_cpu(tmp_path):
     GNN(num_layer=2, emb_dim=32).load_state_dict(trunk, strict=True)
 
 
-@pytest.mark.parametrize("flags", [["--objective", "infomax"],
+@pytest.mark.parametrize("flags", [["--objective", "contextpred"],
                                    ["--domain", "bio", "--objective", "contextpred"],
                                    ["--dataset", "bbbp"],
                                    ["--objective", "supervised",

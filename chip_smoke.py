@@ -6,6 +6,23 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+Every path below (a "main path" phase) runs ``run_pretrain`` for 3 epochs
+of 16 steps at the resolved default ``scan_steps`` K = 16: epoch 1 eager
+(3 warm-up steps on the capture stream, 13 tail steps), epoch 2 captures
+16 steps into one CUDA graph and replays it, epoch 3 replays it (its
+edges/s are printed). The launch counters count the wrappers' calls, so
+a path's count must be its launches a step times (eager steps + K): the
+eager steps' and the capture's; the replays launch the captured graph and
+count nothing, and their number is reported beside the count. Each path
+is followed by its capture phase: on the path's first batches,
+3 eager steps and 2 replays of 4 captured steps against as many eager
+steps from the same seeded state, run twice: the two eager runs and the
+captured run must be bit-equal in the parameters, the batch-norm
+statistics, Adam's moments and the per-step losses (the port's kernels
+have no atomics, its embeddings and row sums sum in a fixed order); one
+more replay runs under ``torch.profiler`` and must show the path's
+kernels by name (their device activities are printed, counted by name).
+
 Phases, in order (any failure exits non-zero):
   1. the card's name and power limit; the kernels built from ``csrc/``
      (one ``nvcc`` per source, all started together);
@@ -22,10 +39,10 @@ Phases, in order (any failure exits non-zero):
      (kernels) and on the CPU (plain version) from the same weights:
      loss, every gradient and the batch-norm running stats;
   4. chem main path: ``run_pretrain`` on ``cuda`` at full width (GIN
-     5 x 300, batch 256, mask_edge off) for a few dozen steps, with every
+     5 x 300, batch 256, mask_edge off) for 48 steps, with every
      launch count checked: K1 at 5 x steps in each direction, K2 at 0;
      then, under ``gin_conv.set_fused("off")``, the chem agreement step and
-     16 steps of the same path on the unfused GIN route: K2's
+     48 steps of the same path on the unfused GIN route: K2's
      ``fwd[x+ein]`` and ``bwd[x+ein]`` at 5 a step, K1 at 0;
   5. bio kernel phase: on the bio path's first batch (256 ego-networks,
      blocks of 128 nodes / 384 edge slots, F = 300, K = 10, float32) each
@@ -63,7 +80,7 @@ Phases, in order (any failure exits non-zero):
      ``cuda`` at full width (chem GIN 5 x 300, batch 256) for 48 steps:
      K1 at 5 a step and K3 at 2 a step in each direction, every other
      count 0;
-  12. three short paths of 16 steps at full width: chem edge prediction
+  12. three more paths of 48 steps at full width: chem edge prediction
      on a GCN trunk (K2's ``fwd[x+ein]`` and ``bwd[x+ein]`` at 5 a step,
      K3 at 2, K1 at 0), bio edge prediction on GIN (K2's ``[x]`` and
      ``[ein]`` at 5 a step, K3 at 2) and bio edge prediction on GraphSAGE
@@ -83,7 +100,7 @@ Phases, in order (any failure exits non-zero):
   15. GAT main path: ``run_pretrain(gnn_type="gat")`` on ``cuda`` at full
      width (chem masking, GAT 5 x 300, 2 heads, batch 256, mask_edge off)
      for 48 steps: K4 at 5 a step in each direction, every other count 0;
-  16. two short GAT paths of 16 steps at full width: bio masking (K4 at
+  16. two more GAT paths of 48 steps at full width: bio masking (K4 at
      K = 10, 160 blocks) and chem edge prediction with
      ``gat_conv.set_fused("off")`` (K5 at 5 a step in each direction, K3
      at 2, K4 at 0);
@@ -119,7 +136,7 @@ Phases, in order (any failure exits non-zero):
      ``cuda`` at full width (chem GIN 5 x 300, batch 256, mean pooling,
      dropout 0.2, 1,310 tasks) for 48 steps: K1 at 5 a step in each
      direction, the probe once (the libraries are loaded anew for this
-     run), every other count 0; then 16 steps of the bio supervised path
+     run), every other count 0; then 48 steps of the bio supervised path
      (5,000 tasks; K2's ``[x]`` and ``[ein]`` at 5 a step);
   23. loader phase, on the host, for each path's configuration (chem and
      bio masking, edge prediction, supervised and infomax): the first
@@ -132,20 +149,27 @@ Phases, in order (any failure exits non-zero):
      at full width, card vs CPU, chem and bio, refereed by a float64 CPU
      step as edge prediction's (the float32 CPU step alone can lie
      further from float64 than the masking steps' gradient limit); then
-     16 steps each of ``run_pretrain(objective="infomax")``:
+     48 steps each of ``run_pretrain(objective="infomax")``:
      chem K1 at 5 a step each way, bio K2's ``[x]`` and ``[ein]`` at 5 a
      step, every other count 0;
   25. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
      defaults (chem masking GIN on 16,384 molecules and bio masking GIN,
-     5 windows of 2 epochs each after a warm-up epoch), its JSON line.
-Then one ``{"kernels": [...]}`` line (each kernel's ``launches`` and
-``launches_per_step`` from the path that runs it at the entry's ``shape``), the card line and, last, the result line
+     5 windows of 4 epochs each after 2 warm-up epochs), at
+     ``--scan_steps 1`` (every step eager) and then at its default (K =
+     16, CUDA-graph replays), each its JSON line.
+Then one ``{"kernels": [...]}`` line (each kernel's ``launches``, the
+wrapper calls counted on the path that runs it at the entry's ``shape``,
+``launches_per_step``, those calls over the steps that made them,
+``replays``, the CUDA-graph replays of the run, and ``launches_counted``:
+how the count was read), the card
+line and, last, the result line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this script, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -159,7 +183,7 @@ EMB = 300
 LAYERS = 5
 MEAN_ATOMS = 23
 MAIN_GRAPHS = 4096  # 16 steps per epoch at batch 256, both domains
-MAIN_EPOCHS = 3  # epoch 1 warms up; epochs 2-3 are timed
+MAIN_EPOCHS = 3  # epoch 1 eager; the capture in epoch 2; epoch 3 is timed
 # launches per step of each path, by counter; every other count stays 0
 K1 = {"gin_conv_fwd": LAYERS, "gin_conv_bwd": LAYERS}
 BIO_K2 = {"blocked_spmm_fwd[x]": LAYERS, "blocked_spmm_fwd[ein]": LAYERS,
@@ -551,23 +575,30 @@ def read_counts(modules):
 
 def main_path_phase(torch, graphs, cfg, card, per_step,
                     epochs=MAIN_EPOCHS, fused="on", reprobe=False):
-    """``run_pretrain`` on the card; every launch count is set to 0 just
-    before and read just after. ``per_step`` gives the launches a step of
-    each counter that must move; every other count must stay 0. With
-    ``reprobe`` the probe's answer and the GIN library's handle are
-    forgotten first, so the run's first kernel launch must load the
-    library anew and launch the probe: exactly once in the run."""
+    """``run_pretrain`` on the card at the resolved default ``scan_steps``
+    K (16): after the run's first eager steps each group of K batches is
+    one CUDA-graph replay. Every launch count is set to 0 just before and
+    read just after. The counters count Python calls: the eager steps' and,
+    once, the K steps of the capture; a replay launches the captured graph
+    and counts nothing. So ``per_step`` (the launches a step of each
+    counter that must move; every other count must stay 0) times (eager
+    steps + K) must be the count. With ``reprobe`` the probe's answer and
+    the GIN library's handle are forgotten first, so the run's first kernel
+    launch must load the library anew and launch the probe: exactly once in
+    the run. Returns (the counts, the steps that made them, how each count
+    was read, the run's replays)."""
     from pretrain_gnns_tpu_torch.ops import _build, gin_conv
     from pretrain_gnns_tpu_torch.train import pretrain
 
     name = path_name(cfg, fused)
     tag = f"[{name} path]"
-    stamps = []
+    stamps, replayed = [], []
 
     def log(msg):
         print(f"{tag} {msg}", flush=True)
         if msg.startswith("epoch="):
             stamps.append(time.perf_counter())
+            replayed.append(" replays=0 " not in msg)
 
     modules = counted_modules()
     torch.cuda.reset_peak_memory_stats()
@@ -582,35 +613,183 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
         counts = read_counts(modules)
     hist = res["history"]
     steps = sum(h["steps"] for h in hist)
-    want = {k: per_step.get(k, 0) * steps for k in counts}
+    k, replays, eager = res["scan_steps"], res["replays"], res["eager_steps"]
+    if k != pretrain.resolve_scan_steps(0, "cuda") or not replays or (
+            eager + k * replays != steps):
+        raise AssertionError(f"{name} path: K {k}, {replays} replays and "
+                             f"{eager} eager steps for {steps} steps")
+    counted = eager + k
+    want = {key: per_step.get(key, 0) * counted for key in counts}
     want["probe_scale2"] = int(reprobe)
-    if counts != want or not steps or set(per_step) - set(counts):
+    if counts != want or set(per_step) - set(counts):
         raise AssertionError(f"{name} path launches {counts} != "
-                             f"{want} ({per_step} x {steps} steps)")
+                             f"{want} ({per_step} x ({eager} eager steps + "
+                             f"{k} captured))")
     if not all(math.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"non-finite loss: {hist}")
-    rate = ""
-    if epochs > 1:  # epoch 1 warms up
-        edges = sum(h["edges"] for h in hist[1:])
-        rate = (f"{edges / (stamps[-1] - stamps[0]):.1f} valid edges/s over "
-                f"epochs 2-{epochs} ({sum(h['steps'] for h in hist[1:])} "
-                "steps, float32); ")
-    print(f"{tag} {steps} steps, launches "
-          f"{ {k: v for k, v in counts.items() if v} }; {rate}on {card}; peak "
-          f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
-          f"MiB [{time.perf_counter() - T0:.0f} s]", flush=True)
-    return counts, steps
+    how = {key: f"{counts[key]} wrapper calls counted in Python over "
+                f"{eager} eager steps and the {k} steps of one capture; "
+                f"the run replayed that capture {replays} times as one "
+                f"CUDA graph, which counts nothing" for key in per_step}
+    # the rate over the epochs after the one that captured
+    first = replayed.index(True) + 1
+    if first >= epochs:
+        raise AssertionError(f"{name} path: no epoch after the capture's")
+    edges = sum(h["edges"] for h in hist[first:])
+    print(f"{tag} K = {k}: {replays} replays and {eager} eager steps, "
+          f"{steps} steps; launches counted "
+          f"{ {key: v for key, v in counts.items() if v} }; "
+          f"{edges / (stamps[-1] - stamps[first - 1]):.1f} valid edges/s "
+          f"over epochs {first + 1}-{epochs} "
+          f"({sum(h['steps'] for h in hist[first:])} steps, float32) "
+          f"on {card}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+    return counts, counted, how, replays
 
 
-def record_launches(entries, counts_steps, names=None):
-    """Writes a path's counts into the entries of the kernels it ran: the
-    launches of the whole run and, from them, the launches a step."""
-    counts, steps = counts_steps
+def record_launches(entries, launched, names=None):
+    """Writes a path's launches into the entries of the kernels it ran:
+    the wrapper calls counted in the run, from them the calls a step, the
+    run's replays, and how they were counted."""
+    counts, steps = launched[:2]
+    how = launched[2] if len(launched) > 2 else {}
     for k in entries:
         if names is None or k["name"] in names:
             k["launches"] = counts[k["name"]]
+            k["launches_counted"] = how.get(
+                k["name"], "eager calls, counted in Python")
             if steps:
                 k["launches_per_step"] = counts[k["name"]] // steps
+            if len(launched) > 3:
+                k["replays"] = launched[3]
+
+
+# the capture phase: CAPTURE_GROUPS replays of CAPTURE_K steps after the
+# run's warm-up steps, against as many eager steps from the same state
+CAPTURE_K = 4
+CAPTURE_GROUPS = 2
+# a fragment of the device kernel's name for each counter: a replay must
+# show every one of its path
+KERNEL_NAMES = {
+    "gin_conv_fwd": ("edge_aggr_fwd_kernel<true, true, true,",
+                     "gemm_kernel"),
+    "gin_conv_bwd": ("edge_aggr_bwd_kernel<true, true, true,",
+                     "gemm_kernel"),
+    **{f"blocked_spmm_{d}[{v}]": (f"edge_aggr_{d}_kernel<{args}, false,",)
+       for d in ("fwd", "bwd")
+       for v, args in (("x", "true, false"), ("ein", "false, true"),
+                       ("x+ein", "true, true"))},
+    "blocked_edge_dot_fwd": ("edot_fwd_kernel",),
+    "blocked_edge_dot_bwd": ("edot_bwd_kernel",),
+    "gat_conv_fwd": ("gat_fwd_kernel", "gemm_kernel"),
+    "gat_conv_bwd": ("gat_bwd_rcv_kernel", "gat_bwd_snd_kernel",
+                     "gat_dwe_kernel"),
+    "blocked_gat_attention_fwd": ("gat_fwd_kernel",),
+    "blocked_gat_attention_bwd": ("gat_bwd_rcv_kernel",
+                                  "gat_bwd_snd_kernel"),
+}
+
+
+def _snapshot(state, losses):
+    """What the steps changed: the parameters, the batch-norm statistics,
+    Adam's moments and the per-step losses."""
+    import torch
+
+    model, opt = state.model, state.optimizer
+    return {
+        "parameters": {n: p.detach().clone()
+                       for n, p in model.named_parameters()},
+        "BN statistics": {n: b.clone() for n, b in model.named_buffers()},
+        "Adam moments": {f"{n}.{key}": v.clone()
+                         for n, p in model.named_parameters()
+                         for key, v in opt.state.get(p, {}).items()},
+        "losses": {"": torch.cat([v.reshape(-1) for v in losses])},
+    }
+
+
+def _max_diff(a, b):
+    """Each group's largest absolute difference between two snapshots (0
+    for a group without tensors: a trunk without batch norm)."""
+    return {group: max((float((t.double() - b[group][key].double())
+                              .abs().max()) for key, t in a[group].items()),
+                       default=0.0)
+            for group in a}
+
+
+def capture_phase(torch, graphs, cfg, per_step, fused="on"):
+    """Captured steps against eager steps on the path's first batches at
+    full width, from the same seeded state: ``graphed.WARMUP_STEPS`` eager
+    steps and CAPTURE_GROUPS replays of CAPTURE_K steps through
+    ``make_scan_pretrain_step``, against as many eager ``train_step``s,
+    run twice. The two eager runs must be bit-equal (the port's kernels
+    have no atomics, and its embeddings and row sums sum in a fixed order:
+    ``models/chem.lookup``, ``ops/segment``), and the captured run bit-equal
+    to them. One more replay runs under ``torch.profiler``: every kernel of
+    ``per_step``'s counters must show among its device activities by
+    name."""
+    import itertools
+
+    from torch.autograd import DeviceType
+
+    from pretrain_gnns_tpu_torch.train import graphed, optim, pretrain
+    from pretrain_gnns_tpu_torch.train.state import TrainState
+
+    tag = f"[{path_name(cfg, fused)} capture]"
+    dev = torch.device("cuda")
+    W, K = graphed.WARMUP_STEPS, CAPTURE_K
+    n = W + K * CAPTURE_GROUPS
+    host = [b.pin_memory() for b in itertools.islice(
+        pretrain.build_loader(cfg, graphs, dev), n + K)]
+
+    def fresh():
+        model = pretrain.build_objective(cfg).to(dev)
+        return TrainState(model, optim.adam(model.parameters(), cfg.lr,
+                                            cfg.decay))
+
+    def eager():
+        st = fresh()
+        losses = [pretrain.train_step(st, b.to(dev, non_blocking=True))[0]
+                  for b in host[:n]]
+        return _snapshot(st, losses)
+
+    with fused_as(fused):
+        runs = [eager(), eager()]
+        st = fresh()
+        scan = pretrain.make_scan_pretrain_step(st, host[0], K)
+        losses = [scan.step(b)[0] for b in host[:W]]
+        losses += [scan(host[W + g * K: W + (g + 1) * K])[0]
+                   for g in range(CAPTURE_GROUPS)]
+        captured = _snapshot(st, losses)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            scan(host[n:n + K])
+            torch.cuda.synchronize()
+    ee, ce = _max_diff(runs[1], runs[0]), _max_diff(captured, runs[0])
+    ran = collections.Counter(e.name for e in prof.events()
+                              if e.device_type == DeviceType.CUDA)
+    missing = sorted({frag for key in per_step for frag in KERNEL_NAMES[key]
+                      if not any(frag in nm for nm in ran)})
+    own = collections.Counter()
+    for nm, times in ran.items():
+        if any(frag in nm for frags in KERNEL_NAMES.values()
+               for frag in frags):
+            own[nm[:80]] += times
+    print(f"{tag} {W} eager steps and {CAPTURE_GROUPS} replays of {K} "
+          f"against {n} eager steps; max |captured - eager|: "
+          + ", ".join(f"{g} {v:.3g}" for g, v in ce.items())
+          + "; max |eager - eager|: "
+          + ", ".join(f"{g} {v:.3g}" for g, v in ee.items())
+          + f"; a profiled replay of {K} steps ran {sum(ran.values())} "
+          f"device activities of {len(ran)} names, the port's kernels "
+          f"(launches by name) "
+          f"{dict(sorted(own.items()))} [{time.perf_counter() - T0:.0f} s]",
+          flush=True)
+    if any(ee.values()) or any(ce.values()):
+        raise AssertionError(f"{tag} the steps are not bit-equal")
+    if missing:
+        raise AssertionError(f"{tag} a replay ran no kernel named {missing}")
 
 
 def k2_phase(torch, batch, ein, W, w, variants, shape):
@@ -1519,14 +1698,16 @@ def loader_phase(graphs, cfg, dev):
 
 
 def bench_phase():
-    """``python -m pretrain_gnns_tpu_torch.bench`` at its defaults, in
-    this process; it prints its JSON line."""
+    """``python -m pretrain_gnns_tpu_torch.bench`` at ``--scan_steps 1``
+    (eager steps) and at its defaults (K = 16, CUDA-graph replays), in
+    turn, in this process; each prints its JSON line."""
     from pretrain_gnns_tpu_torch import bench
 
-    print("[bench] pretrain_gnns_tpu_torch.bench at its defaults:",
-          flush=True)
-    if bench.main([]) != 0:
-        raise AssertionError("the bench failed")
+    for argv in (["--scan_steps", "1"], []):
+        print(f"[bench] pretrain_gnns_tpu_torch.bench {' '.join(argv)}:",
+              flush=True)
+        if bench.main(argv) != 0:
+            raise AssertionError("the bench failed")
     print(f"[bench] done [{time.perf_counter() - T0:.0f} s]", flush=True)
 
 
@@ -1589,9 +1770,11 @@ def main() -> int:
     probe = probe_phase(torch)
     agreement_phase(torch, batch, cfg)
     record_launches(kernels, main_path_phase(torch, graphs, cfg, card, K1))
+    capture_phase(torch, graphs, cfg, K1)
     # the same path on the unfused GIN route: K2 [x+ein], no K1
     agreement_phase(torch, batch, cfg, fused="off")
-    main_path_phase(torch, graphs, cfg, card, GCN_K2, epochs=1, fused="off")
+    main_path_phase(torch, graphs, cfg, card, GCN_K2, fused="off")
+    capture_phase(torch, graphs, cfg, GCN_K2, fused="off")
     chem_graphs, chem_first = graphs, batch
 
     # bio: K2 on the bio masking path
@@ -1613,6 +1796,7 @@ def main() -> int:
                   "bio masking first batch")
     agreement_phase(torch, batch, cfg)
     record_launches(k2, main_path_phase(torch, graphs, cfg, card, BIO_K2))
+    capture_phase(torch, graphs, cfg, BIO_K2)
     bio_graphs, bio_first = graphs, batch
 
     # edge prediction: K3 in both scoring heads, K1 or K2 in the trunk
@@ -1662,13 +1846,15 @@ def main() -> int:
     graphs, cfg = paths["chem", "gin"]
     record_launches(k3, main_path_phase(torch, graphs, cfg, card,
                                         {**K1, **K3}))
+    capture_phase(torch, graphs, cfg, {**K1, **K3})
     graphs, cfg = paths["chem", "gcn"]
     record_launches(k2, main_path_phase(torch, graphs, cfg, card,
-                                        {**GCN_K2, **K3}, epochs=1), GCN_K2)
-    graphs, cfg = paths["bio", "gin"]
-    main_path_phase(torch, graphs, cfg, card, {**BIO_K2, **K3}, epochs=1)
-    graphs, cfg = paths["bio", "graphsage"]
-    main_path_phase(torch, graphs, cfg, card, {**GCN_K2, **K3}, epochs=1)
+                                        {**GCN_K2, **K3}), GCN_K2)
+    capture_phase(torch, graphs, cfg, {**GCN_K2, **K3})
+    for path, per_step in ((("bio", "gin"), {**BIO_K2, **K3}),
+                           (("bio", "graphsage"), {**GCN_K2, **K3})):
+        main_path_phase(torch, *paths[path], card, per_step)
+        capture_phase(torch, *paths[path], per_step)
 
     # GAT: K4 (the fused conv) and K5 (the attention of the unfused conv)
     def gat_path(domain, objective="masking"):
@@ -1713,10 +1899,14 @@ def main() -> int:
                         fused=mode)
     record_launches(k45, main_path_phase(torch, *gat_path("chem"), card, K4),
                     K4)
-    main_path_phase(torch, *gat_path("bio"), card, K4, epochs=1)
+    capture_phase(torch, *gat_path("chem"), K4)
+    main_path_phase(torch, *gat_path("bio"), card, K4)
+    capture_phase(torch, *gat_path("bio"), K4)
     record_launches(k45, main_path_phase(
-        torch, *gat_path("chem", "edgepred"), card, {**K5, **K3}, epochs=1,
+        torch, *gat_path("chem", "edgepred"), card, {**K5, **K3},
         fused="off"), K5)
+    capture_phase(torch, *gat_path("chem", "edgepred"), {**K5, **K3},
+                  fused="off")
 
     # K6 and K7: the precomputed-edge-embedding aggregation, through the
     # op-level API and the kernel micro-benchmark
@@ -1755,7 +1945,9 @@ def main() -> int:
             **{**cfg.__dict__, "dropout_ratio": 0.2})
     record_launches(probe, main_path_phase(torch, *sup["chem"], card, K1,
                                            reprobe=True))
-    main_path_phase(torch, *sup["bio"], card, BIO_K2, epochs=1)
+    capture_phase(torch, *sup["chem"], K1)
+    main_path_phase(torch, *sup["bio"], card, BIO_K2)
+    capture_phase(torch, *sup["bio"], BIO_K2)
 
     # Deep Graph Infomax: mean pooling and a bilinear discriminator over K1
     # (chem) and K2 (bio); no transform
@@ -1769,7 +1961,8 @@ def main() -> int:
         # start: a float64 step on the CPU referees (see REFEREE_K)
         agreement_phase(torch, next(iter(pretrain.build_loader(
             cfg, graphs, dev))), cfg, referee=True)
-        main_path_phase(torch, graphs, cfg, card, per_step, epochs=1)
+        main_path_phase(torch, graphs, cfg, card, per_step)
+        capture_phase(torch, graphs, cfg, per_step)
 
     bench_phase()
     kernels += k2 + k3 + k45 + k67 + probe

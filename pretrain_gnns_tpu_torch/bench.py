@@ -14,7 +14,12 @@ Cells (float32, seed 0 for the data and the weights):
     0.15).
 Each cell runs ``run_pretrain(..., device="cuda")`` with its default
 pipeline (``build_loader``: the flat dataset and the C++ packer, the
-masking pass on the prefetch thread). Epoch 1 warms up; then ``--windows``
+masking pass on the prefetch thread) and ``--scan_steps`` train steps a
+dispatch (0, the default, resolves to 16 on CUDA: one CUDA-graph replay a
+group of 16 batches; 1 runs every step eagerly). Epochs 1 and 2 warm up
+(the first eager steps and the capture, which falls in epoch 1 or 2 at the
+cells' 64 and 16 steps an epoch; both sides of a comparison warm up alike);
+then ``--windows``
 windows of ``--window_epochs`` whole epochs each are timed in the same
 run: the wall time between the epoch log stamps (``run_pretrain`` reads the
 loss back at each epoch's end, so a stamp follows the card's work) and
@@ -61,12 +66,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--window_epochs", type=int, default=4,
                    help="whole epochs in one timed window")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--scan_steps", type=int, default=0,
+                   help="train steps a dispatch (0 = auto: 16 on CUDA, 1 "
+                        "on the CPU)")
     return p
 
 
+WARMUP_EPOCHS = 2
+
+
 def run_cell(cfg, graphs, args):
-    """``run_pretrain`` for 1 + windows * window_epochs epochs; the timed
-    windows' rates and the run's facts."""
+    """``run_pretrain`` for WARMUP_EPOCHS + windows * window_epochs epochs;
+    the timed windows' rates and the run's facts."""
     import torch
 
     from pretrain_gnns_tpu_torch.train import pretrain
@@ -82,27 +93,30 @@ def run_cell(cfg, graphs, args):
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = pretrain.run_pretrain(cfg, graphs, log=log,
-                                epochs=1 + args.windows * k,
+                                epochs=WARMUP_EPOCHS + args.windows * k,
                                 device=args.device)
     hist = res["history"]
     if not all(math.isfinite(h["loss"]) for h in hist):
         raise RuntimeError(f"non-finite loss: {hist}")
     windows = []
     for w in range(args.windows):
-        # stamps[i] closes epoch i + 1; window w is epochs 2 + w * k to
-        # 1 + (w + 1) * k
-        edges = sum(h["edges"] for h in hist[1 + w * k: 1 + (w + 1) * k])
-        windows.append(edges / (stamps[(w + 1) * k] - stamps[w * k]))
+        # stamps[i] closes epoch i + 1; window w is the k epochs after
+        # epoch WARMUP_EPOCHS + w * k
+        a = WARMUP_EPOCHS + w * k
+        edges = sum(h["edges"] for h in hist[a: a + k])
+        windows.append(edges / (stamps[a + k - 1] - stamps[a - 1]))
     med = statistics.median(windows)
     out = {
         "value": med, "unit": "valid edges/s", "windows": windows,
         "spread": (max(windows) - min(windows)) / med,
         "epochs_per_window": k, "steps_per_epoch": hist[-1]["steps"],
         "edges_per_epoch": hist[-1]["edges"],
-        "warmup_epoch_s": stamps[0] - t0,
+        "warmup_epochs": WARMUP_EPOCHS,
+        "warmup_s": stamps[WARMUP_EPOCHS - 1] - t0,
         "epoch_s": [b - a for a, b in zip(stamps, stamps[1:])],
         "final_loss": hist[-1]["loss"],
         "loader": type(res["loader"]).__name__,
+        "replays": res["replays"], "eager_steps": res["eager_steps"],
         "blocks": res["loader"].blocks,
     }
     if args.device == "cuda":
@@ -121,7 +135,8 @@ def cells(args):
     L, D = args.num_layer, args.emb_dim
     per = "per_gpu" if args.device == "cuda" else "per_cpu"
     common = dict(objective="masking", num_layer=L, emb_dim=D,
-                  batch_size=args.batch_size, seed=args.seed)
+                  batch_size=args.batch_size, seed=args.seed,
+                  scan_steps=args.scan_steps)
     metric = f"masking_pretrain_gin{L}_{D}_e2e_edges_per_sec_{per}"
     return [
         (metric, PretrainConfig(mask_edge=False, **common),
@@ -135,6 +150,8 @@ def cells(args):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     import torch
+
+    from pretrain_gnns_tpu_torch.train.pretrain import resolve_scan_steps
 
     if args.device == "cuda" and not torch.cuda.is_available():
         print("bench: no CUDA device; pass --device cpu to run on the CPU "
@@ -156,7 +173,8 @@ def main(argv=None) -> int:
         card=card_line() if args.device == "cuda" else None,
         kind=(torch.cuda.get_device_name(0) if args.device == "cuda"
               else "cpu"),
-        batch_size=args.batch_size, seed=args.seed)
+        batch_size=args.batch_size, seed=args.seed,
+        scan_steps=resolve_scan_steps(args.scan_steps, args.device))
     print(json.dumps(result))
     return 0
 

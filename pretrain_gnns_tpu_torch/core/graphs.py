@@ -54,6 +54,10 @@ class Graph:
         return int(self.edge_index.shape[1])
 
 
+_LEAVES = ("node_feat", "edge_feat", "senders", "receivers", "node_graph",
+           "node_mask", "edge_mask", "graph_mask", "y")
+
+
 @dataclasses.dataclass
 class PackedGraphs:
     """Fixed-shape batch of graphs; leaves are numpy arrays on the host and
@@ -110,6 +114,14 @@ class PackedGraphs:
             deg = deg + self.node_mask.to(torch.int32)
         return deg
 
+    def leaves(self) -> Dict[str, Any]:
+        """Every array leaf by name, the extras as ``extras/<key>``; the
+        leaves that are ``None`` are left out."""
+        out = {f: getattr(self, f) for f in _LEAVES
+               if getattr(self, f) is not None}
+        out.update((f"extras/{k}", v) for k, v in self.extras.items())
+        return out
+
     def _map(self, fn) -> "PackedGraphs":
         """Apply ``fn`` to every array leaf, as a torch tensor."""
 
@@ -122,18 +134,8 @@ class PackedGraphs:
             return fn(t)
 
         return dataclasses.replace(
-            self,
-            node_feat=put(self.node_feat),
-            edge_feat=put(self.edge_feat),
-            senders=put(self.senders),
-            receivers=put(self.receivers),
-            node_graph=put(self.node_graph),
-            node_mask=put(self.node_mask),
-            edge_mask=put(self.edge_mask),
-            graph_mask=put(self.graph_mask),
-            y=put(self.y),
-            extras={k: put(v) for k, v in self.extras.items()},
-        )
+            self, **{f: put(getattr(self, f)) for f in _LEAVES},
+            extras={k: put(v) for k, v in self.extras.items()})
 
     def to(self, device, non_blocking: bool = False) -> "PackedGraphs":
         """Every array leaf as a torch tensor on ``device``. With

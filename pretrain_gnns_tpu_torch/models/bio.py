@@ -34,9 +34,10 @@ from torch import nn
 from pretrain_gnns_tpu_torch.core.graphs import PackedGraphs
 from pretrain_gnns_tpu_torch.models import inits, pools
 from pretrain_gnns_tpu_torch.models.chem import (
-    TrunkDropout, _GatParams, inv_sqrt_degree, l2_normalize_rows,
+    TrunkDropout, _GatParams, inv_sqrt_degree, l2_normalize_rows, lookup,
 )
 from pretrain_gnns_tpu_torch.models.norm import MaskedBatchNorm
+from pretrain_gnns_tpu_torch.ops import segment as seg
 from pretrain_gnns_tpu_torch.ops import spmm
 
 EDGE_FEAT_DIM = 9
@@ -64,7 +65,7 @@ class _BioConv(nn.Module):
     def embed_input(self, h: torch.Tensor, g: PackedGraphs) -> torch.Tensor:
         if not self.input_layer:
             return h
-        return (self.input_node_embeddings(h[:, 0].long())
+        return (lookup(self.input_node_embeddings, h[:, 0])
                 * g.node_mask[:, None])
 
     def edge_kernel(self):
@@ -238,6 +239,6 @@ class GNNGraphPred(nn.Module):
     def forward(self, g: PackedGraphs, train: bool = False) -> torch.Tensor:
         h = self.gnn(g, train=train)
         center = g.extras["center_node_idx"].long()
-        graph_rep = torch.cat([self.pool(h, g), h.index_select(0, center)],
+        graph_rep = torch.cat([self.pool(h, g), seg.gather_rows(h, center)],
                               dim=1)
         return self.graph_pred_linear(graph_rep)

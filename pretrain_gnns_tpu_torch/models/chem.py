@@ -56,6 +56,19 @@ def bond_one_hot(g: PackedGraphs, dtype: torch.dtype) -> torch.Tensor:
     ], dim=1).to(dtype)
 
 
+def lookup(emb: nn.Embedding, idx: torch.Tensor) -> torch.Tensor:
+    """``emb(idx)`` as the product ``one_hot(idx) @ emb.weight``: the same
+    rows exactly (one nonzero term a row), and a weight gradient
+    ``one_hot^T @ g`` that the GEMM sums in the same order every run.
+    ``nn.Embedding``'s backward sums with atomics on CUDA, so that two runs
+    of a step would differ in the last bits, and a sorted index backward
+    walks each row's occurrences one after another: thousands for the few
+    rows these tables have."""
+    hot = idx.long()[:, None] == torch.arange(emb.num_embeddings,
+                                              device=idx.device)
+    return hot.to(emb.weight.dtype) @ emb.weight
+
+
 def inv_sqrt_degree(g: PackedGraphs) -> torch.Tensor:
     """GCN's ``deg^-1/2`` per node, the self loop counted; 0 where the
     degree is 0 (padded rows), the reference's inf -> 0 clamp."""
@@ -241,8 +254,8 @@ class GATConv(_ChemConv, _GatParams):
         ef = g.edge_feat
         return self.gat_layer(
             h, g, bond_one_hot(g, h.dtype),
-            lambda: (self.edge_embedding1(ef[:, 0].long())
-                     + self.edge_embedding2(ef[:, 1].long())))
+            lambda: (lookup(self.edge_embedding1, ef[:, 0])
+                     + lookup(self.edge_embedding2, ef[:, 1])))
 
 
 CONVS = {"gin": GINConv, "gcn": GCNConv, "gat": GATConv,
@@ -262,17 +275,26 @@ class TrunkDropout:
         self._dropout_seed = int(seed)
         self._dropout_generators = {}
 
+    def dropout_generator(self, device: torch.device) -> torch.Generator:
+        """The generator of the masks on ``device`` (with its index, as a
+        tensor's ``device`` gives it), made from the seed at first use. A
+        CUDA graph that captures the trunk registers it
+        (``train/graphed.py``), so that each replay draws the masks that
+        eager steps would."""
+        gen = self._dropout_generators.get(device)
+        if gen is None:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(self._dropout_seed)
+            self._dropout_generators[device] = gen
+        return gen
+
     def dropout(self, h: torch.Tensor, train: bool) -> torch.Tensor:
         p = self.drop_ratio
         if not train or p <= 0:
             return h
         if p >= 1:
             return torch.zeros_like(h)
-        gen = self._dropout_generators.get(h.device)
-        if gen is None:
-            gen = torch.Generator(device=h.device)
-            gen.manual_seed(self._dropout_seed)
-            self._dropout_generators[h.device] = gen
+        gen = self.dropout_generator(h.device)
         keep = torch.rand(h.shape, generator=gen, device=h.device) >= p
         return torch.where(keep, h / (1.0 - p), 0.0)
 
@@ -307,8 +329,8 @@ class GNN(nn.Module, TrunkDropout):
 
     def forward(self, g: PackedGraphs, train: bool = False) -> torch.Tensor:
         nmask = g.node_mask[:, None]
-        x = (self.x_embedding1(g.node_feat[:, 0].long())
-             + self.x_embedding2(g.node_feat[:, 1].long()))
+        x = (lookup(self.x_embedding1, g.node_feat[:, 0])
+             + lookup(self.x_embedding2, g.node_feat[:, 1]))
         # padded rows exactly zero; activations flow in the compute dtype
         h = (x * nmask).to(inits.activation_dtype())
         h_list = [h]

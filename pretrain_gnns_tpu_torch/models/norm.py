@@ -39,7 +39,7 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             if mask is None:
-                n = torch.tensor(float(xf.shape[0]), device=x.device)
+                n = xf.new_full((), float(xf.shape[0]))
                 mean = xf.mean(0)
                 var = torch.square(xf - mean).mean(0)
             else:

@@ -23,12 +23,27 @@ from pretrain_gnns_tpu_torch.core.graphs import PackedGraphs
 from pretrain_gnns_tpu_torch.ops import segment as seg
 
 
+def _membership(h: torch.Tensor, g: PackedGraphs) -> torch.Tensor:
+    """``[G, N]``: 1 where valid node n lies in graph slot G, in ``h``'s
+    dtype."""
+    slots = torch.arange(g.max_graphs, device=h.device)
+    hot = (g.node_graph.long()[None, :] == slots[:, None]) & (
+        g.node_mask.bool()[None, :])
+    return hot.to(h.dtype)
+
+
 def sum_pool(h: torch.Tensor, g: PackedGraphs) -> torch.Tensor:
-    return seg.segment_sum(h, g.node_graph, g.max_graphs, mask=g.node_mask)
+    """Each graph slot's sum of its valid rows, as the product
+    ``membership @ h``: a GEMM over the batch's few hundred slots, which
+    sums in the same order every run (forward and backward) on either
+    device, where ``index_add`` sums with atomics on CUDA and a sorted
+    ``index_put`` walks each slot's rows one after another."""
+    return _membership(h, g) @ h
 
 
 def mean_pool(h: torch.Tensor, g: PackedGraphs) -> torch.Tensor:
-    return seg.segment_mean(h, g.node_graph, g.max_graphs, mask=g.node_mask)
+    hot = _membership(h, g)
+    return (hot @ h) / torch.clamp(hot.sum(dim=1, keepdim=True), min=1.0)
 
 
 def max_pool(h: torch.Tensor, g: PackedGraphs) -> torch.Tensor:
@@ -100,7 +115,7 @@ class Set2SetPool(nn.Module):
         ids = g.node_graph.long()
         for _ in range(self.processing_steps):
             carry, q = self.lstm(carry, q_star)
-            e = (h * q.index_select(0, ids)).sum(dim=-1, keepdim=True)
+            e = (h * seg.gather_rows(q, ids)).sum(dim=-1, keepdim=True)
             a = seg.segment_softmax(e, g.node_graph, B, mask=g.node_mask)
             r = seg.segment_sum(a * h, g.node_graph, B, mask=g.node_mask)
             q_star = torch.cat([q, r], dim=-1)

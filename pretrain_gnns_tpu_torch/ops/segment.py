@@ -1,7 +1,11 @@
 """Masked segment reductions (port of ``pretrain_gnns_tpu.ops.segment``).
 
 Every function takes an explicit ``num_segments`` and an optional validity
-mask, so padded rows contribute nothing, not even to mean denominators."""
+mask, so padded rows contribute nothing, not even to mean denominators.
+
+Rows are summed into segments by :func:`scatter_add_rows` and gathered by
+:func:`gather_rows`, whose sums (forward and backward) run in an order
+that is the same in every run on either device."""
 
 from __future__ import annotations
 
@@ -18,6 +22,25 @@ def _apply_mask(data: torch.Tensor, mask: Optional[torch.Tensor]
     return data * m.reshape(m.shape + (1,) * (data.dim() - m.dim()))
 
 
+def scatter_add_rows(out: torch.Tensor, ids: torch.Tensor,
+                     data: torch.Tensor) -> torch.Tensor:
+    """``out`` with each row of ``data`` added to row ``ids[i]``, summed in
+    an order that every run repeats: on CUDA by ``index_put(...,
+    accumulate=True)``, which sums over the sorted indices (``index_add``
+    sums with atomics there), on the CPU by ``index_add``, which adds in
+    index order (``index_put``'s accumulate adds in parallel with atomics
+    there)."""
+    if out.is_cuda:
+        return out.index_put((ids,), data, accumulate=True)
+    return out.index_add(0, ids, data)
+
+
+def gather_rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``x[ids]``, its backward summed as :func:`scatter_add_rows` sums: by
+    indexing on CUDA, by ``index_select`` on the CPU."""
+    return x[ids] if x.is_cuda else x.index_select(0, ids)
+
+
 def segment_sum(
     data: torch.Tensor,
     segment_ids: torch.Tensor,
@@ -26,7 +49,7 @@ def segment_sum(
 ) -> torch.Tensor:
     """Sum of ``data`` rows per segment; masked rows contribute zero."""
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
-    return out.index_add(0, segment_ids.long(), _apply_mask(data, mask))
+    return scatter_add_rows(out, segment_ids.long(), _apply_mask(data, mask))
 
 
 def segment_count(
@@ -76,9 +99,9 @@ def segment_max(
     """Max per segment over valid rows; empty segments get ``empty_value``."""
     if mask is not None:
         m = mask.reshape(mask.shape + (1,) * (data.dim() - mask.dim()))
-        data = torch.where(m.bool(), data, data.new_tensor(_NEG_INF))
+        data = torch.where(m.bool(), data, _NEG_INF)
     out = _segment_amax(data, segment_ids, num_segments)
-    return torch.where(out <= _NEG_INF / 2, out.new_tensor(empty_value), out)
+    return torch.where(out <= _NEG_INF / 2, empty_value, out)
 
 
 def segment_softmax(
@@ -98,18 +121,18 @@ def segment_softmax(
     ids = segment_ids.long()
     if mask is not None:
         m = mask.reshape(mask.shape + (1,) * (logits.dim() - mask.dim()))
-        logits = torch.where(m.bool(), logits, logits.new_tensor(_NEG_INF))
+        logits = torch.where(m.bool(), logits, _NEG_INF)
     seg_max = _segment_amax(logits, ids, num_segments)
     if extra_logit is not None:
         seg_max = torch.maximum(seg_max, extra_logit)
     # empty segments: avoid -inf
     seg_max = torch.clamp(seg_max, min=_NEG_INF).detach()
-    exp = torch.exp(logits - seg_max.index_select(0, ids))
+    exp = torch.exp(logits - gather_rows(seg_max, ids))
     exp = _apply_mask(exp, mask)
     denom = segment_sum(exp, ids, num_segments)
     if extra_logit is not None:
         exp_extra = torch.exp(extra_logit - seg_max)
         denom = torch.clamp(denom + exp_extra, min=1e-16)
-        return exp / denom.index_select(0, ids), exp_extra / denom
+        return exp / gather_rows(denom, ids), exp_extra / denom
     denom = torch.clamp(denom, min=1e-16)
-    return exp / denom.index_select(0, ids)
+    return exp / gather_rows(denom, ids)

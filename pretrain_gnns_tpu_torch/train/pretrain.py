@@ -12,12 +12,17 @@ shuffled batches of ``batch_size`` graphs with the objective's transform
 objective, whose batches carry the labels ``y``) applied per batch, the
 trunk saved at the end. The loader is ``data.packing.make_loader``'s: the
 flat dataset and the C++ packer (``data.flat.FlatLoader``) when the graphs
-flatten. Packing and the transform run in a prefetch thread while the GPU
-runs the previous step; the loss is read back once per epoch."""
+flatten. Packing and the transform run in a prefetch thread, one for the
+run, while the GPU runs the previous steps; the loss is read back once per
+epoch. With ``scan_steps`` K > 1 (the default on CUDA, 16) each group of K
+consecutive batches of an epoch is one CUDA-graph replay of K train steps
+(``train/graphed.py``), as the JAX package's ``make_scan_pretrain_step``
+runs K steps in one ``lax.scan`` dispatch."""
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
@@ -31,7 +36,7 @@ from pretrain_gnns_tpu_torch.data.batch_transforms import (
 from pretrain_gnns_tpu_torch.data.packing import (
     buffer_sizes, choose_blocks, make_loader,
 )
-from pretrain_gnns_tpu_torch.data.prefetch import prefetch
+from pretrain_gnns_tpu_torch.data.prefetch import chunked, prefetch
 from pretrain_gnns_tpu_torch.device import resolve_device
 from pretrain_gnns_tpu_torch.models import bio as bio_models
 from pretrain_gnns_tpu_torch.models.inits import init_parameters
@@ -41,7 +46,7 @@ from pretrain_gnns_tpu_torch.objectives.masking import (
     BioMaskEdgeObjective, MaskingObjective,
 )
 from pretrain_gnns_tpu_torch.objectives.supervised import SupervisedObjective
-from pretrain_gnns_tpu_torch.train import optim
+from pretrain_gnns_tpu_torch.train import graphed, optim
 from pretrain_gnns_tpu_torch.train.state import TrainState
 from pretrain_gnns_tpu_torch.train.telemetry import ThroughputMeter
 
@@ -72,6 +77,9 @@ class PretrainConfig:
     graph_pooling: str = "mean"
     # batch layout: auto = block-diagonal (what the kernels take) on CUDA
     packing: str = "auto"  # auto | standard | blocked
+    # train steps a dispatch: one CUDA-graph replay runs this many steps
+    # (0 = auto: 16 on CUDA, 1 on the CPU; see resolve_scan_steps)
+    scan_steps: int = 0
 
 
 PORTED_OBJECTIVES = ("masking", "edgepred", "infomax", "supervised")
@@ -176,15 +184,69 @@ def supervised_graphs(graphs: Sequence[Graph], domain: str):
     return graphs, int(np.asarray(graphs[0].y).shape[0])
 
 
-def train_step(state: TrainState, batch):
-    """One forward, backward and optimizer step; returns the detached loss
-    and metrics (no host synchronisation)."""
+def step_body(state: TrainState, batch):
+    """One forward, backward and optimizer step, not counted in
+    ``state.step``; returns the detached loss and metrics (no host
+    synchronisation). What a CUDA graph captures K times."""
     loss, metrics = state.model(batch, train=True)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     state.optimizer.step()
-    state.step += 1
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+
+def train_step(state: TrainState, batch):
+    """One train step (:func:`step_body`), counted in ``state.step``."""
+    out = step_body(state, batch)
+    state.step += 1
+    return out
+
+
+def resolve_scan_steps(scan_steps: int, device) -> int:
+    """Train steps a dispatch: a positive ``scan_steps`` stands; 0 means 16
+    on CUDA and 1 on the CPU, as the JAX package's ``resolve_scan_steps``
+    means 16 on an accelerator and 1 on the CPU."""
+    if scan_steps < 0:
+        raise ValueError(f"scan_steps must be >= 0, got {scan_steps}")
+    if scan_steps > 0:
+        return scan_steps
+    return 16 if torch.device(device).type == "cuda" else 1
+
+
+def make_scan_pretrain_step(state: TrainState, example_batch,
+                            k: int) -> graphed.ScanStep:
+    """K train steps a call on K batches with ``example_batch``'s leaf
+    shapes and dtypes (a ``graphed.ScanStep`` on the parameters' device):
+    on CUDA one replay of a graph that captures the K steps at the first
+    call, after at least one eager ``.step(batch)``; on the CPU the K steps
+    in turn. A call returns the losses ``[K]`` and metrics ``{name: [K]}``;
+    a batch of another signature raises ``ValueError``."""
+    dev = next(state.model.parameters()).device
+    return graphed.ScanStep(state, example_batch, k, step_body, dev)
+
+
+def _run_batches(loader, epochs: int, k: int, pin: bool):
+    """The run's batches, made on the prefetch thread, one for the whole
+    run (an epoch's end does not drain the queue), each with its counts
+    and, for the card, pinned: ``("group", [k items])`` for one call of
+    the ``ScanStep``, ``("step", item)`` for one eager step (the run's
+    first ``graphed.WARMUP_STEPS`` batches and each epoch's short tail,
+    every batch when ``k`` is 1), and ``("end", stats)`` after each epoch,
+    with the loader's statistics of that epoch."""
+    warm = graphed.WARMUP_STEPS if k > 1 else 0
+    for _ in range(epochs):
+        items = ((b.pin_memory() if pin else b,
+                  ThroughputMeter.counts_of(b)) for b in loader)
+        for item in itertools.islice(items, warm):
+            warm -= 1
+            yield "step", item
+        for group in chunked(items, k):
+            if k > 1 and len(group) == k:
+                yield "group", group
+            else:
+                for item in group:
+                    yield "step", item
+        yield "end", dict(loader.last_epoch_stats)
 
 
 def run_pretrain(
@@ -199,51 +261,72 @@ def run_pretrain(
     ``device="cpu"``.
     History rows: ``epoch``, ``loss`` and the metrics (means over the
     epoch's steps), ``edges`` (valid edges, each directed edge once per
-    step) and ``steps``."""
+    step) and ``steps``. The result also names ``scan_steps`` (the
+    resolved K), the run's ``replays`` and its ``eager_steps``."""
     dev = resolve_device(device)
+    k = resolve_scan_steps(cfg.scan_steps, dev)
     model = build_objective(cfg).to(dev)
     loader = build_loader(cfg, graphs, dev)
     state = TrainState(model, optim.adam(model.parameters(), cfg.lr,
                                          cfg.decay))
     meter = ThroughputMeter()
-
     pin = dev.type == "cuda"
-
-    def batches():  # runs on the prefetch thread
-        for b in loader:
-            # page-locked leaves make the copy to the card asynchronous:
-            # the host goes on launching while the previous step runs
-            yield (b.pin_memory() if pin else b,
-                   ThroughputMeter.counts_of(b))
+    n_epochs = epochs or cfg.epochs
+    batches = prefetch(_run_batches(loader, n_epochs, k, pin), depth=2)
+    scan = None
 
     history = []
-    for epoch in range(1, (epochs or cfg.epochs) + 1):
+    for epoch in range(1, n_epochs + 1):
         meter.reset()
-        losses, agg = [], {}
-        for batch, counts in prefetch(batches(), depth=2):
-            loss, metrics = train_step(state, batch.to(dev, non_blocking=pin))
-            losses.append(loss)
-            for k, v in metrics.items():
-                agg.setdefault(k, []).append(v)
-            meter.tick(**counts)
-        nb = max(len(losses), 1)
+        parts, agg = [], {}
+        replays = eager = 0
+        for kind, item in batches:
+            if kind == "end":
+                stats = item
+                break
+            if k > 1 and scan is None:
+                first = item[0][0] if kind == "group" else item[0]
+                scan = make_scan_pretrain_step(state, first, k)
+            if kind == "group":
+                loss, metrics = scan([b for b, _ in item])
+                replays += 1
+            else:
+                batch, counts = item
+                item = [item]
+                loss, metrics = (
+                    scan.step(batch) if scan is not None
+                    else train_step(state, batch.to(dev, non_blocking=pin)))
+                eager += 1
+            # each step's loss and metrics in order: the epoch's mean sums
+            # one vector, whatever the grouping
+            parts.append(loss.reshape(-1))
+            for key, v in metrics.items():
+                agg.setdefault(key, []).append(v.reshape(-1))
+            for _, counts in item:
+                meter.tick(**counts)
+        nb = max(meter.steps, 1)
         row = {"epoch": epoch,
-               "loss": float(torch.stack(losses).sum()) / nb if losses
+               "loss": float(torch.cat(parts).sum()) / nb if parts
                else 0.0}
-        row.update({k: float(torch.stack(v).sum()) / nb
-                    for k, v in agg.items()})
+        row.update({key: float(torch.cat(v).sum()) / nb
+                    for key, v in agg.items()})
         row["edges"] = meter.edges
         row["steps"] = meter.steps
         history.append(row)
         if log:
             if epoch == 1:
-                st = loader.last_epoch_stats
-                log(f"loader: {type(loader).__name__}, {st['batches']} "
+                log(f"loader: {type(loader).__name__}, {stats['batches']} "
                     "batches, "
-                    f"{st['graphs_per_batch']:.1f} graphs/batch "
-                    f"(batch_size={cfg.batch_size}, blocks={loader.blocks})")
-            log(" ".join(f"{k}={v:.4f}" if isinstance(v, float) else
-                         f"{k}={v}" for k, v in row.items())
-                + f" edges/s={meter.edges_per_sec():.1f}")
+                    f"{stats['graphs_per_batch']:.1f} graphs/batch "
+                    f"(batch_size={cfg.batch_size}, blocks={loader.blocks}); "
+                    f"{k} steps/dispatch "
+                    + ("(CUDA-graph replays)" if k > 1 and pin else
+                       "(steps in turn)" if k > 1 else "(eager steps)"))
+            log(" ".join(f"{key}={v:.4f}" if isinstance(v, float) else
+                         f"{key}={v}" for key, v in row.items())
+                + f" edges/s={meter.edges_per_sec():.1f}"
+                f" replays={replays} eager_steps={eager}")
     return {"state": state, "model": model, "history": history,
-            "loader": loader}
+            "loader": loader, "scan_steps": k,
+            "replays": scan.replays if scan else 0,
+            "eager_steps": scan.eager_steps if scan else state.step}

@@ -152,11 +152,37 @@ Phases, in order (any failure exits non-zero):
      48 steps each of ``run_pretrain(objective="infomax")``:
      chem K1 at 5 a step each way, bio K2's ``[x]`` and ``[ein]`` at 5 a
      step, every other count 0;
-  25. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
+  25. mixed precision, under the JAX bench's recipe (``models.inits`` at
+     ``bfloat16_act``, ``ops.spmm`` at ``bfloat16``; every phase before
+     runs with both knobs at float32): K1 on the chem masking first batch,
+     K2 ``[x]`` and ``[ein]`` on the bio masking first batch, K2
+     ``[x+ein]`` on the chem masking first batch (the unfused GIN path's
+     shape; each K2 case also with fractional edge weights) and K3's
+     positive head on the chem edge-prediction first batch, each with
+     bfloat16 and with float32 rows at compute_dtype=bfloat16, against
+     their plain versions at that dtype and beside the control, the same
+     wrapper at float32 (BF16_KERNEL_TOL, BF16_KERNEL_MEAN_TOL),
+     bit-equal between two runs, timed beside the plain version, the
+     library (``torch.matmul`` in bfloat16 on K1's products,
+     ``torch.sparse.mm`` in bfloat16 for K2 ``[x]``) and the bound (the
+     stored widths' bytes, operations at the bfloat16 tensor peak); then
+     chem masking GIN, its unfused route (K2 ``[x+ein]``), bio masking GIN
+     and chem edge-prediction GIN under the recipe: a train step on the
+     card against the CPU's plain versions at the same compute dtype
+     (``plain_as_on_card``), within limits set by noisy CPU steps, which
+     the control (the kernels' knob at float32) must break
+     (BF16_REFEREE_K), the 48-step path with its launch counts and its
+     edges/s beside its float32 twin's from earlier in the run, and its
+     capture phase (the bfloat16 instantiations of K1's, K2's and K3's
+     kernels and ``gemm_cvt_kernel`` among the replay's kernels); last, a
+     chem masking GAT step under the recipe must raise (K4 has no
+     bfloat16 variant);
+  26. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
      defaults (chem masking GIN on 16,384 molecules and bio masking GIN,
      5 windows of 4 epochs each after 2 warm-up epochs), at
-     ``--scan_steps 1`` (every step eager) and then at its default (K =
-     16, CUDA-graph replays), each its JSON line.
+     ``--scan_steps 1`` (every step eager), then at its default (K =
+     16, CUDA-graph replays) and at ``--dtype bfloat16_act``, each its JSON
+     line.
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches``, the
 wrapper calls counted on the path that runs it at the entry's ``shape``,
 ``launches_per_step``, those calls over the steps that made them,
@@ -173,6 +199,7 @@ import collections
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -203,6 +230,9 @@ SPIN_CYCLES = 3_500_000  # about 2 ms of the card's clock, see time_ms
 # NVIDIA H100 SXM data sheet: float32 on the CUDA cores (dense), HBM3 rate
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# ... and the dense bfloat16 tensor-core peak: the bound of a bfloat16
+# variant's products (its bytes count the rows at their stored widths)
+PEAK_BF16_FLOPS = 989e12
 
 # Tolerances, as max |kernel - plain| / max(1, max |plain|). Both sides
 # are full float32 (no TF32); they differ only in summation order (tiled
@@ -240,6 +270,41 @@ STEP_GRAD_TOL = 2e-3
 REFEREE_K = 4.0
 NOISE_SAMPLES = 16
 NOISE_EPS = 1e-7
+# bfloat16 (the JAX bench's recipe: the model's knob at bfloat16_act, the
+# kernels' at bfloat16). A bfloat16 variant against its plain version at
+# compute_dtype=bfloat16, read twice an output (``bf16_readings``): both
+# round at the same points and multiply exactly, but a float32 sum taken
+# in another order can move a later rounding (a message, aggr, z, a
+# bfloat16 output) by one bfloat16 step, 2^-8 of the value.
+# BF16_KERNEL_TOL bounds the largest such step and BF16_KERNEL_MEAN_TOL
+# their share. The control, the same wrapper at compute_dtype=float32 on
+# the same inputs, must read a mean over BF16_KERNEL_MEAN_TOL in some case
+# of each kernel and rows. Measured on an H100: the largest readings at
+# most 4.3e-7 here and 2.2e-3 in the card tests (a flipped rounding), the
+# means at most 2.5e-7 and 2.8e-6; the control's means 1.5e-3 to 4.8e-2
+# wherever a rounding acts.
+BF16_KERNEL_TOL = 5e-3
+BF16_KERNEL_MEAN_TOL = 2e-5
+# A full-width train step under the recipe, card (kernels) against the CPU
+# (the plain versions at compute_dtype=bfloat16, through the same
+# dispatch). Five layers of bfloat16 activations and batch norm turn a
+# one-step difference into flips downstream (ReLU gates, later roundings),
+# so the step's noise is measured as for REFEREE_K: BF16_NOISE_SAMPLES CPU
+# steps from parameters scaled by 1 + NOISE_EPS * N(0, 1). The card's
+# largest gradient error (rel_err, the maximum over the parameters) and
+# its L1 share (sum |card - CPU| / sum |CPU| over every gradient) may each
+# be BF16_REFEREE_K times the farthest sample's; the control, the card's
+# step with the kernels' knob at float32, must come out over one of the
+# two. Measured on an H100: the card at 0.42-0.69 of these limits, the
+# control at 1.08-1.69 (the bio step's nearest: 1.08 and 1.19). Loss and
+# batch-norm statistics cannot tell the control from the card (it reads
+# within the noise), so their limits are fixed over the readings: the
+# loss at most 7.5e-5 (the noise samples 1.4e-4), the statistics 6.5e-5
+# (the noise 1.1e-4, the control 2.7e-4).
+BF16_REFEREE_K = 1.25
+BF16_NOISE_SAMPLES = 3
+BF16_STEP_LOSS_TOL = 2e-4
+BF16_STEP_STAT_TOL = 3e-4
 
 
 def card_line() -> str:
@@ -279,8 +344,8 @@ def time_ms(fn, torch) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_F32_FLOPS
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS):
+    t_ops = flops / peak_flops
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -574,7 +639,8 @@ def read_counts(modules):
 
 
 def main_path_phase(torch, graphs, cfg, card, per_step,
-                    epochs=MAIN_EPOCHS, fused="on", reprobe=False):
+                    epochs=MAIN_EPOCHS, fused="on", reprobe=False,
+                    precision="float32"):
     """``run_pretrain`` on the card at the resolved default ``scan_steps``
     K (16): after the run's first eager steps each group of K batches is
     one CUDA-graph replay. Every launch count is set to 0 just before and
@@ -586,12 +652,13 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
     the GIN library's handle are forgotten first, so the run's first kernel
     launch must load the library anew and launch the probe: exactly once in
     the run. Returns (the counts, the steps that made them, how each count
-    was read, the run's replays)."""
+    was read, the run's replays, its edges/s after the capture).
+    ``precision`` names the knobs' setting in the printed line."""
     from pretrain_gnns_tpu_torch.ops import _build, gin_conv
     from pretrain_gnns_tpu_torch.train import pretrain
 
     name = path_name(cfg, fused)
-    tag = f"[{name} path]"
+    tag = f"[{name}{' ' + precision if precision != 'float32' else ''} path]"
     stamps, replayed = [], []
 
     def log(msg):
@@ -636,16 +703,17 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
     if first >= epochs:
         raise AssertionError(f"{name} path: no epoch after the capture's")
     edges = sum(h["edges"] for h in hist[first:])
+    rate = edges / (stamps[-1] - stamps[first - 1])
     print(f"{tag} K = {k}: {replays} replays and {eager} eager steps, "
           f"{steps} steps; launches counted "
           f"{ {key: v for key, v in counts.items() if v} }; "
-          f"{edges / (stamps[-1] - stamps[first - 1]):.1f} valid edges/s "
+          f"{rate:.1f} valid edges/s "
           f"over epochs {first + 1}-{epochs} "
-          f"({sum(h['steps'] for h in hist[first:])} steps, float32) "
+          f"({sum(h['steps'] for h in hist[first:])} steps, {precision}) "
           f"on {card}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
           f"[{time.perf_counter() - T0:.0f} s]", flush=True)
-    return counts, counted, how, replays
+    return counts, counted, how, replays, rate
 
 
 def record_launches(entries, launched, names=None):
@@ -655,12 +723,13 @@ def record_launches(entries, launched, names=None):
     counts, steps = launched[:2]
     how = launched[2] if len(launched) > 2 else {}
     for k in entries:
-        if names is None or k["name"] in names:
-            k["launches"] = counts[k["name"]]
+        key = k.get("counter", k["name"])  # a bfloat16 variant's counter
+        if names is None or key in names:
+            k["launches"] = counts[key]
             k["launches_counted"] = how.get(
-                k["name"], "eager calls, counted in Python")
+                key, "eager calls, counted in Python")
             if steps:
-                k["launches_per_step"] = counts[k["name"]] // steps
+                k["launches_per_step"] = counts[key] // steps
             if len(launched) > 3:
                 k["replays"] = launched[3]
 
@@ -717,7 +786,8 @@ def _max_diff(a, b):
             for group in a}
 
 
-def capture_phase(torch, graphs, cfg, per_step, fused="on"):
+def capture_phase(torch, graphs, cfg, per_step, fused="on",
+                  kernel_names=None):
     """Captured steps against eager steps on the path's first batches at
     full width, from the same seeded state: ``graphed.WARMUP_STEPS`` eager
     steps and CAPTURE_GROUPS replays of CAPTURE_K steps through
@@ -727,7 +797,7 @@ def capture_phase(torch, graphs, cfg, per_step, fused="on"):
     ``models/chem.lookup``, ``ops/segment``), and the captured run bit-equal
     to them. One more replay runs under ``torch.profiler``: every kernel of
     ``per_step``'s counters must show among its device activities by
-    name."""
+    name (KERNEL_NAMES' patterns, ``kernel_names``' in their place)."""
     import itertools
 
     from torch.autograd import DeviceType
@@ -736,6 +806,8 @@ def capture_phase(torch, graphs, cfg, per_step, fused="on"):
     from pretrain_gnns_tpu_torch.train.state import TrainState
 
     tag = f"[{path_name(cfg, fused)} capture]"
+    if kernel_names:
+        tag = tag[:-1] + " bfloat16]"
     dev = torch.device("cuda")
     W, K = graphed.WARMUP_STEPS, CAPTURE_K
     n = W + K * CAPTURE_GROUPS
@@ -769,11 +841,12 @@ def capture_phase(torch, graphs, cfg, per_step, fused="on"):
     ee, ce = _max_diff(runs[1], runs[0]), _max_diff(captured, runs[0])
     ran = collections.Counter(e.name for e in prof.events()
                               if e.device_type == DeviceType.CUDA)
-    missing = sorted({frag for key in per_step for frag in KERNEL_NAMES[key]
-                      if not any(frag in nm for nm in ran)})
+    names = {**KERNEL_NAMES, **(kernel_names or {})}
+    missing = sorted({frag for key in per_step for frag in names[key]
+                      if not any(re.search(frag, nm) for nm in ran)})
     own = collections.Counter()
     for nm, times in ran.items():
-        if any(frag in nm for frags in KERNEL_NAMES.values()
+        if any(re.search(frag, nm) for frags in names.values()
                for frag in frags):
             own[nm[:80]] += times
     print(f"{tag} {W} eager steps and {CAPTURE_GROUPS} replays of {K} "
@@ -1697,13 +1770,646 @@ def loader_phase(graphs, cfg, dev):
           f"[{time.perf_counter() - T0:.0f} s]", flush=True)
 
 
+
+# --- mixed precision: the bfloat16 variants of K1, K2 and K3 ----------------
+
+
+@contextlib.contextmanager
+def precision(model, kernels):
+    """Both precision knobs for the block (``models.inits`` at ``model``,
+    ``ops.spmm`` at ``kernels``), float32 again after it."""
+    from pretrain_gnns_tpu_torch.models import inits
+    from pretrain_gnns_tpu_torch.ops import spmm
+
+    inits.set_compute_dtype(model)
+    spmm.set_compute_dtype(kernels)
+    try:
+        yield
+    finally:
+        inits.set_compute_dtype("float32")
+        spmm.set_compute_dtype("float32")
+
+
+@contextlib.contextmanager
+def plain_as_on_card(torch):
+    """On the CPU, ``ops.spmm``'s dispatch as on the card: the blocked sums
+    and pair scores through the kernels' wrappers (which run their plain
+    versions on CPU tensors) at the kernels' knob, and the fused GIN conv
+    at it too. The CPU's own dispatch ignores the knob (the JAX package's
+    XLA fallback); this is the reference a bfloat16 step on the card is
+    held against."""
+    from pretrain_gnns_tpu_torch.ops import edge_dot as ed
+    from pretrain_gnns_tpu_torch.ops import spmm
+
+    saved = spmm.kernel_dtype, spmm.gather_scatter, spmm.edge_dot
+    cdt = {"float32": torch.float32,
+           "bfloat16": torch.bfloat16}[spmm.get_compute_dtype()]
+
+    def gather_scatter(x, senders, receivers, edge_mask, num_nodes,
+                       edge_in=None, edge_kernel=None, combine="add",
+                       edge_weight=None, block_nodes=0, block_edges=0,
+                       edge_emb=None, aggr="sum"):
+        if aggr != "sum":
+            return saved[1](x, senders, receivers, edge_mask, num_nodes,
+                            edge_in, edge_kernel, combine, edge_weight,
+                            block_nodes, block_edges, edge_emb, aggr)
+        return spmm.blocked_gather_scatter(
+            x, senders, receivers, edge_mask, edge_in, edge_kernel, combine,
+            edge_weight, block_nodes, block_edges, edge_emb, cdt)
+
+    def edge_dot(x, a_idx, b_idx, mask, block_nodes=0, pairs_per_block=0):
+        return ed.blocked_edge_dot(x, a_idx, b_idx, mask.to(torch.float32),
+                                   block_nodes, pairs_per_block, cdt)
+
+    spmm.kernel_dtype = lambda x: cdt
+    spmm.gather_scatter, spmm.edge_dot = gather_scatter, edge_dot
+    try:
+        yield
+    finally:
+        spmm.kernel_dtype, spmm.gather_scatter, spmm.edge_dot = saved
+
+
+def bf16_agreement(torch, batch, cfg, fused="on"):
+    """One train-mode step of ``cfg``'s objective under the bfloat16
+    knobs: on the card (the bfloat16 kernels) and on the CPU (their plain
+    versions at compute_dtype=bfloat16, ``plain_as_on_card``), from the
+    same weights: loss, every gradient and the batch-norm statistics,
+    within the limits that BF16_NOISE_SAMPLES noisy CPU steps set (see
+    BF16_REFEREE_K), which the control (the card's step with the kernels'
+    knob at float32) must break."""
+    from pretrain_gnns_tpu_torch.ops import spmm
+    from pretrain_gnns_tpu_torch.train.pretrain import build_objective
+
+    name = path_name(cfg, fused) + " bfloat16"
+
+    def step(dev, kernels="bfloat16", noise_seed=None):
+        model = build_objective(cfg)
+        if noise_seed is not None:
+            gen = torch.Generator().manual_seed(noise_seed)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1 + NOISE_EPS * torch.randn(p.shape,
+                                                       generator=gen))
+        model = model.to(dev)
+        ctx = plain_as_on_card(torch) if dev == "cpu" else \
+            contextlib.nullcontext()
+        spmm.set_compute_dtype(kernels)
+        try:
+            with fused_as(fused), ctx:
+                loss, _ = model(batch.to(dev), train=True)
+        finally:
+            spmm.set_compute_dtype("bfloat16")
+        loss.backward()
+        if not (loss.dtype == torch.float32 and all(
+                p.grad.dtype == torch.float32 for p in model.parameters())):
+            raise AssertionError(f"[{name}] loss or gradients not float32")
+        return (float(loss.detach()),
+                {n: p.grad.detach().cpu()
+                 for n, p in model.named_parameters()},
+                {n: b.detach().cpu().float()
+                 for n, b in model.named_buffers()})
+
+    def readings(got, want):
+        """(loss, largest gradient, gradients' L1 share, statistics)"""
+        (lc, gc, bc), (lp, gp, bp) = got, want
+        diff = sum(float((gc[n] - gp[n]).abs().sum()) for n in gp)
+        return (abs(lc - lp) / max(1.0, abs(lp)),
+                max(rel_err(gc[n], gp[n]) for n in gp),
+                diff / sum(float(gp[n].abs().sum()) for n in gp),
+                max((rel_err(bc[n], bp[n]) for n in bp), default=0.0))
+
+    cpu = step("cpu")
+    card, ctl = readings(step("cuda"), cpu), readings(
+        step("cuda", kernels="float32"), cpu)
+    noise = [readings(step("cpu", noise_seed=i), cpu)
+             for i in range(BF16_NOISE_SAMPLES)]
+    lim = [BF16_REFEREE_K * max(r[i] for r in noise) for i in (1, 2)]
+    fmt = lambda r: "(" + ", ".join(f"{e:.3e}" for e in r) + ")"
+    print(f"[{name} agreement] (loss, largest gradient, gradients' L1, BN "
+          f"statistics) rel err from the CPU: card {fmt(card)}; limits "
+          f"({BF16_STEP_LOSS_TOL:.0e}, {lim[0]:.3e}, {lim[1]:.3e}, "
+          f"{BF16_STEP_STAT_TOL:.0e}); the control {fmt(ctl)}; CPU steps "
+          f"from parameters scaled by 1 + {NOISE_EPS:.0e} * N(0, 1) "
+          f"{' '.join(fmt(r) for r in noise)} "
+          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+    if not (card[0] <= BF16_STEP_LOSS_TOL and card[1] <= lim[0]
+            and card[2] <= lim[1] and card[3] <= BF16_STEP_STAT_TOL
+            and math.isfinite(cpu[0])):
+        raise AssertionError(f"{name} step on the card disagrees with the "
+                             "CPU's plain versions")
+    if not (ctl[1] > lim[0] or ctl[2] > lim[1]):
+        raise AssertionError(f"{name}: the float32 control passes the "
+                             "gradient limits")
+
+
+def bf16_readings(got, want):
+    """|got - want| read twice: the largest over max(1, max |want|) and the
+    mean over mean |want| (over 1 where ``want`` is all 0)."""
+    d = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().mean())
+    return (float(d.max()) / max(1.0, float(want.float().abs().max())),
+            float(d.mean()) / (scale or 1.0))
+
+
+def _bf16_check(torch, tag, runs, sound, control):
+    """Two runs bit-equal and every sound reading (``sound`` maps an
+    output to (kernel, plain at compute_dtype=bfloat16)) within
+    BF16_KERNEL_TOL and BF16_KERNEL_MEAN_TOL; returns the control's
+    (``control``: the same wrapper at compute_dtype=float32 on the same
+    inputs) largest mean reading, which the caller holds over
+    BF16_KERNEL_MEAN_TOL."""
+    same = all(a is None or torch.equal(a, c) for a, c in zip(*runs))
+    got = {k: bf16_readings(*v) for k, v in sound.items()}
+    ctl = {k: bf16_readings(*v) for k, v in control.items()}
+    fmt = lambda r: {k: (float(f"{a:.3e}"), float(f"{b:.3e}"))
+                     for k, (a, b) in r.items()}
+    print(f"[kernels bf16] {tag} (max, mean) rel err from the plain version "
+          f"at compute_dtype=bfloat16 {fmt(got)}; the control at float32 "
+          f"{fmt(ctl)}; two runs {'bit-equal' if same else 'DIFFER'}",
+          flush=True)
+    bad = {k: v for k, v in got.items() if not (
+        v[0] <= BF16_KERNEL_TOL and v[1] <= BF16_KERNEL_MEAN_TOL)}
+    if bad or not same:
+        raise AssertionError(f"{tag} disagrees with its plain version or "
+                             f"does not repeat: {bad}")
+    return max(b for _, b in ctl.values())
+
+
+def _control_shows(tag, means):
+    """The gate can tell compute_dtype=float32 from bfloat16: the control
+    read a mean over BF16_KERNEL_MEAN_TOL in one of its cases."""
+    if not max(means) > BF16_KERNEL_MEAN_TOL:
+        raise AssertionError(f"{tag}: the float32 control reads as the "
+                             f"bfloat16 variant ({max(means):.3e})")
+
+
+def _rows_entry(res, main, other):
+    """The bfloat16-rows numbers as an entry's keys, the float32 rows'
+    beside them."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    entry = {k: res[main][k] for k in keys}
+    entry["rows_float32"] = {k: res[other][k] for k in keys}
+    return entry
+
+
+def k1_bf16_phase(torch, batch, model):
+    """K1's bfloat16 variant (compute_dtype=bfloat16) on the chem masking
+    path's first batch, with bfloat16 rows (the bfloat16_act path's) and
+    float32 rows: against its plain version at compute_dtype=bfloat16 and
+    the control at float32 (``_bf16_check``), every output equal bit for
+    bit between two runs, timed beside the plain version and
+    ``torch.matmul`` in bfloat16 on its products."""
+    from pretrain_gnns_tpu_torch.ops import gin_conv
+
+    bf, dev = torch.bfloat16, batch.node_mask.device
+    conv = model.gnn.gnns[0]
+    gen = torch.Generator().manual_seed(11)
+    N = batch.max_nodes
+    nm = batch.node_mask.to(torch.float32)
+    x32 = torch.randn(N, EMB, generator=gen).to(dev) * nm[:, None]
+    g32 = torch.randn(N, EMB, generator=gen).to(dev)
+    base = conv.conv_inputs(x32, batch)
+    base = base[:11] + (nm,) + base[12:]
+    (_, ein, We, e_self, W1, b1, W2, b2, snd, rcv, w, _, bn, be) = base
+    F, F2, K = EMB, W1.shape[1], ein.shape[1]
+    V, e_valid = int(nm.sum()), int(batch.edge_mask.sum())
+    names = ("out", "dx", "dWe", "de_self", "dW1", "db1", "dW2", "db2")
+    res = {}
+    for rows in (bf, torch.float32):
+        x, g = x32.to(rows), g32.to(rows)
+        args = (x,) + base[1:]
+        bwd = lambda a, z, dt=bf: gin_conv.gin_conv_bwd(
+            g, a, z, ein, W1, W2, snd, rcv, w, nm, bn, be, dt)
+
+        def run(dt):
+            out, aggr, z = gin_conv.gin_conv_fwd(*args, compute_dtype=dt)
+            return (out, aggr, z) + bwd(aggr, z, dt)
+
+        with torch.no_grad():
+            runs = [run(bf) for _ in range(2)]
+            control = run(torch.float32)
+        torch.cuda.synchronize()
+        out, aggr, z = runs[0][:3]
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, We, e_self, W1, b1, W2, b2)]
+        out_p = gin_conv.fused_gin_conv_plain(
+            leaves[0], ein, *leaves[1:], snd, rcv, w, nm, bn, be,
+            compute_dtype=bf)
+        grads_p = torch.autograd.grad(out_p, leaves, g, retain_graph=True)
+        plain = (out_p.detach(),) + grads_p
+        tag = f"K1 rows {str(rows)[6:]}"
+        _control_shows(tag, [_bf16_check(
+            torch, tag, runs,
+            dict(zip(names, zip(runs[0][:1] + runs[0][3:], plain))),
+            dict(zip(names, zip(control[:1] + control[3:], plain))))])
+        max_abs = max(float((a.float() - c.detach().float()).abs().max())
+                      for a, c in zip((out,) + runs[0][3:], plain))
+
+        plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            out_p, leaves, g, retain_graph=True), torch)
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: gin_conv.gin_conv_fwd(
+                *args, compute_dtype=bf), torch)
+            bwd_ms = time_ms(lambda: bwd(aggr, z), torch)
+            plain_fwd_ms = time_ms(lambda: gin_conv.fused_gin_conv_plain(
+                *args, compute_dtype=bf), torch)
+            # the library: K1's products as torch.matmul in bfloat16
+            W1b, W2b, gb = W1.to(bf), W2.to(bf), g.to(bf)
+            dzr = z.clone()
+            mm_fwd_ms = time_ms(lambda: (torch.matmul(aggr, W1b),
+                                         torch.matmul(z, W2b)), torch)
+            mm_bwd_ms = time_ms(lambda: (torch.matmul(gb, W2b.t()),
+                                         torch.matmul(z.t(), gb),
+                                         torch.matmul(aggr.t(), dzr),
+                                         torch.matmul(dzr, W1b.t())), torch)
+        # the bound: the float32 kernel's operations (see kernel_phase) at
+        # the bfloat16 tensor peak; the bytes at the stored widths (rows
+        # and the residuals aggr, z in bfloat16 or float32, parameters,
+        # edge arrays and weight gradients float32)
+        rs = x.element_size()
+        row_ops = 2 * F * F2
+        fwd_ops = (2 * (V + 1) * row_ops + e_valid * F * (2 * K + 3)
+                   + 3 * V * F)
+        bwd_ops = ((4 * V + 2) * row_ops + e_valid * F * (2 * K + 2)
+                   + 2 * V * F + N * F + 2 * (V + 1) * F2)
+        edge_bytes = sum(rows_nbytes(t, e_valid) for t in (ein, snd, rcv, w))
+        fwd_b = bound(fwd_ops, V * F * rs + edge_bytes
+                      + nbytes(We, e_self, W1, b1, W2, b2, nm, out, aggr, z),
+                      PEAK_BF16_FLOPS)
+        bwd_b = bound(bwd_ops, rows_nbytes(aggr, V) + rows_nbytes(z, V + 1)
+                      + edge_bytes + nbytes(g, W1, W2, nm, *runs[0][3:]),
+                      PEAK_BF16_FLOPS)
+        for d, ms, pms, b, lms in (("fwd", fwd_ms, plain_fwd_ms, fwd_b,
+                                    mm_fwd_ms),
+                                   ("bwd", bwd_ms, plain_bwd_ms, bwd_b,
+                                    mm_bwd_ms)):
+            res[d, rows] = dict(max_abs_err=max_abs, ms=ms, plain_ms=pms,
+                                bound_ms=b[0], bound_by=b[1], library_ms=lms)
+            print(f"[kernels bf16] gin_conv_{d} rows {str(rows)[6:]}: "
+                  f"kernel {ms:.4f} ms, plain {pms:.4f} ms, torch.matmul "
+                  f"bf16 products {lms:.4f} ms, bound {b[0]:.4f} ms "
+                  f"({b[1]})", flush=True)
+    src = "pretrain_gnns_tpu_torch/csrc/gin_conv.cu"
+    return [dict(name=f"gin_conv_{d}[bf16]", counter=f"gin_conv_{d}",
+                 route="cuda", source=src,
+                 replaces=f"pretrain_gnns_tpu/ops/pallas_gin.py:{line}",
+                 tpu_counterpart=(f"ops/pallas_gin.py::_{d}_kernel at "
+                                  "compute_dtype=bfloat16"),
+                 library="torch.matmul in bfloat16 on K1's products",
+                 shape="chem masking first batch, bfloat16 rows",
+                 **_rows_entry({r: res[d, r] for r in (bf, torch.float32)},
+                               bf, torch.float32))
+            for d, line in (("fwd", 47), ("bwd", 114))]
+
+
+def k2_bf16_phase(torch, cases):
+    """K2's bfloat16 variants, each with bfloat16 and float32 rows, as
+    ``k1_bf16_phase``: ``cases`` maps a variant ``(has_x, has_ein)`` to its
+    cases ``(shape, batch, ein, W, w)``, the first the shape of the path
+    whose launches the entry reports (timed there), the others the same
+    batch with fractional edge weights, where every rounding shows (the
+    control must show in some case of each variant and rows). The
+    library's yardstick is ``torch.sparse.mm`` in bfloat16 for the ``[x]``
+    variant (no single call computes the others)."""
+    from pretrain_gnns_tpu_torch.ops import blocked_spmm as bs
+
+    bf = torch.bfloat16
+    entries = []
+    for (has_x, has_ein), variant_cases in cases.items():
+        v = bs.variant(has_x, has_ein)
+        res = {}
+        for rows in (bf, torch.float32):
+            tag = f"K2[{v}] rows {str(rows)[6:]}"
+            means = []
+            for i, (shape, batch, ein, W, w) in enumerate(variant_cases):
+                r, mean = _k2_bf16_case(torch, batch, ein, W, w, has_x,
+                                        has_ein, rows, f"{tag}, {shape}",
+                                        timed=i == 0)
+                means.append(mean)
+                if i == 0:
+                    res.update({(d, rows): r[d] for d in r})
+            _control_shows(tag, means)
+        for d, line in (("fwd", 328), ("bwd", 377)):
+            entries.append(dict(
+                name=f"blocked_spmm_{d}[{v}][bf16]",
+                counter=f"blocked_spmm_{d}[{v}]", route="cuda",
+                source="pretrain_gnns_tpu_torch/csrc/spmm.cu",
+                replaces=f"pretrain_gnns_tpu/ops/pallas_spmm.py:{line}",
+                tpu_counterpart=(f"ops/pallas_spmm.py::_fused_{d}_kernel at "
+                                 "compute_dtype=bfloat16"),
+                library=("torch.sparse.mm in bfloat16, CSR adjacency of w"
+                         if not has_ein else
+                         "none: no single PyTorch call computes it"),
+                shape=f"{variant_cases[0][0]}, bfloat16 rows",
+                **_rows_entry({r: res[d, r] for r in (bf, torch.float32)},
+                              bf, torch.float32)))
+    return entries
+
+
+def _k2_bf16_case(torch, batch, ein, W, w, has_x, has_ein, rows, tag,
+                  timed):
+    """One case of ``k2_bf16_phase``: the checks, and with ``timed`` the
+    times and the bound by direction; returns them and the control's
+    largest mean reading."""
+    from pretrain_gnns_tpu_torch.ops import blocked_spmm as bs
+
+    bf, dev = torch.bfloat16, batch.node_mask.device
+    gen = torch.Generator().manual_seed(12)
+    N = batch.max_nodes
+    nm = batch.node_mask.to(torch.float32)
+    x = (torch.randn(N, EMB, generator=gen).to(dev) * nm[:, None]).to(rows)
+    g = torch.randn(N, EMB, generator=gen).to(dev).to(rows)
+    W = W.detach().contiguous()
+    snd, rcv, valid = batch.senders, batch.receivers, batch.edge_mask
+    bn, be, K, F = batch.block_nodes, batch.block_edges, W.shape[0], EMB
+
+    def run(dt):
+        return ((bs.spmm_fwd(x, ein, W, snd, rcv, w, bn, be, has_x, has_ein,
+                             dt),)
+                + bs.spmm_bwd(g, ein, snd, rcv, w, K, bn, be, has_x,
+                              has_ein, dt))
+
+    with torch.no_grad():
+        runs = [run(bf) for _ in range(2)]
+        control = run(torch.float32)
+    torch.cuda.synchronize()
+    out, dx, dW = runs[0]
+    xl = x.detach().clone().requires_grad_(True)
+    Wl = W.detach().clone().requires_grad_(True)
+    out_p = bs.blocked_spmm_fused_plain(xl, ein, Wl, snd, rcv, w, bn, be,
+                                        has_x, has_ein, bf)
+    leaves = [t for t, f in ((xl, has_x), (Wl, has_ein)) if f]
+    names = ["out"] + [n for n, f in (("dx", has_x), ("dW", has_ein)) if f]
+    grads_p = torch.autograd.grad(out_p, leaves, g, retain_graph=True)
+    plain = (out_p.detach(),) + grads_p
+    pick = lambda o: [o[0]] + [t for t, f in ((o[1], has_x),
+                                               (o[2], has_ein)) if f]
+    mean = _bf16_check(torch, tag, runs,
+                       dict(zip(names, zip(pick(runs[0]), plain))),
+                       dict(zip(names, zip(pick(control), plain))))
+    if out[~batch.node_mask].any():
+        raise AssertionError(f"{tag}: padded rows not 0")
+    if not timed:
+        return {}, mean
+    max_abs = max(float((a.float() - c.float()).abs().max())
+                  for a, c in zip(pick(runs[0]), plain))
+    grads_k = pick(runs[0])[1:]
+    fwd_args = (x, ein, W, snd, rcv, w, bn, be, has_x, has_ein, bf)
+    plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        out_p, leaves, g, retain_graph=True), torch)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: bs.spmm_fwd(*fwd_args), torch)
+        bwd_ms = time_ms(lambda: bs.spmm_bwd(g, ein, snd, rcv, w, K, bn, be,
+                                             has_x, has_ein, bf), torch)
+        plain_fwd_ms = time_ms(lambda: bs.blocked_spmm_fused_plain(
+            *fwd_args), torch)
+        lib = (None, None)
+        if not has_ein:
+            pairs = torch.stack([rcv[valid].long(), snd[valid].long()])
+            csr = {k: torch.sparse_coo_tensor(i, w[valid].to(bf), (N, N))
+                   .coalesce().to_sparse_csr()
+                   for k, i in (("A", pairs), ("At", pairs.flip(0)))}
+            xb, gb = x.to(bf), g.to(bf)
+            try:
+                lib = (time_ms(lambda: torch.sparse.mm(csr["A"], xb), torch),
+                       time_ms(lambda: torch.sparse.mm(csr["At"], gb), torch))
+            except RuntimeError as e:  # no bfloat16 CSR product
+                print(f"[kernels bf16] torch.sparse.mm in bfloat16 does not "
+                      f"run here: {e}", flush=True)
+    e_valid = int(valid.sum())
+    n_snd = int(torch.unique(snd[valid]).numel())
+    n_rcv = int(torch.unique(rcv[valid]).numel())
+    rs = x.element_size()
+    e_bytes = e_valid * 4 * (2 + has_x + (K if has_ein else 0))
+    fwd_ops = e_valid * F * (2 * K * has_ein + (has_x and has_ein) + 2)
+    bwd_ops = e_valid * F * (1 + has_x + 2 * K * has_ein)
+    fwd_b = bound(fwd_ops, n_snd * F * rs * has_x + K * F * 4 * has_ein
+                  + e_bytes + nbytes(out), PEAK_BF16_FLOPS)
+    bwd_b = bound(bwd_ops, n_rcv * F * rs + e_bytes
+                  + sum(nbytes(t) for t in grads_k), PEAK_BF16_FLOPS)
+    res = {}
+    for d, ms, pms, b, lms in (("fwd", fwd_ms, plain_fwd_ms, fwd_b, lib[0]),
+                               ("bwd", bwd_ms, plain_bwd_ms, bwd_b, lib[1])):
+        res[d] = dict(max_abs_err=max_abs, ms=ms, plain_ms=pms,
+                      bound_ms=b[0], bound_by=b[1], library_ms=lms)
+        lms_s = "none" if lms is None else f"{lms:.4f} ms"
+        print(f"[kernels bf16] blocked_spmm_{d}[{bs.variant(has_x, has_ein)}]"
+              f" rows {str(rows)[6:]}: kernel {ms:.4f} ms, plain {pms:.4f} "
+              f"ms, library {lms_s}, bound {b[0]:.4f} ms ({b[1]})",
+              flush=True)
+    return res, mean
+
+
+def k3_bf16_phase(torch, batch):
+    """K3's bfloat16 variant on the chem edge-prediction path's first
+    batch, the positive head (every edge slot, the cotangent the path gives
+    it), with bfloat16 and float32 rows, as ``k1_bf16_phase``."""
+    from pretrain_gnns_tpu_torch.ops import edge_dot as ed
+
+    bf, dev = torch.bfloat16, batch.node_mask.device
+    gen = torch.Generator().manual_seed(13)
+    N, F, bn = batch.max_nodes, EMB, batch.block_nodes
+    x32 = (torch.randn(N, F, generator=gen).to(dev)
+           * batch.node_mask[:, None])
+    a_idx, b_idx, valid = batch.receivers, batch.senders, batch.edge_mask
+    ppb, P = batch.block_edges, batch.receivers.shape[0]
+    w = valid.to(torch.float32)
+    g = torch.zeros(P, device=dev)
+    g[::2] = torch.randn(P, generator=gen).to(dev)[::2]
+    res = {}
+    for rows in (bf, torch.float32):
+        x = x32.to(rows)
+
+        def run(dt):
+            return (ed.edot_fwd(x, a_idx, b_idx, w, bn, ppb, dt),
+                    ed.edot_bwd(g, x, a_idx, b_idx, w, bn, ppb, dt))
+
+        with torch.no_grad():
+            runs = [run(bf) for _ in range(2)]
+            control = run(torch.float32)
+        torch.cuda.synchronize()
+        out, dx = runs[0]
+        xl = x.detach().clone().requires_grad_(True)
+        out_p = ed.edge_dot_plain(xl, a_idx, b_idx, w, compute_dtype=bf)
+        (dx_p,) = torch.autograd.grad(out_p, [xl], g, retain_graph=True)
+        plain = (out_p.detach(), dx_p)
+        tag = f"K3 rows {str(rows)[6:]}"
+        _control_shows(tag, [_bf16_check(
+            torch, tag, runs, dict(zip(("score", "dx"), zip(runs[0], plain))),
+            dict(zip(("score", "dx"), zip(control, plain))))])
+        max_abs = max(float((out - out_p.detach()).abs().max()),
+                      float((dx.float() - dx_p.float()).abs().max()))
+        plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            out_p, [xl], g, retain_graph=True), torch)
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: ed.edot_fwd(x, a_idx, b_idx, w, bn, ppb,
+                                                 bf), torch)
+            bwd_ms = time_ms(lambda: ed.edot_bwd(g, x, a_idx, b_idx, w, bn,
+                                                 ppb, bf), torch)
+            plain_fwd_ms = time_ms(lambda: ed.edge_dot_plain(
+                x, a_idx, b_idx, w, compute_dtype=bf), torch)
+        rs = x.element_size()
+        touched = torch.zeros(N, dtype=torch.bool, device=dev)
+        touched[a_idx[valid].long()] = True
+        touched[b_idx[valid].long()] = True
+        live = valid & (g != 0)
+        rows_b = int(torch.unique(torch.cat([a_idx[live], b_idx[live]]))
+                     .numel())
+        nv, nl = int(valid.sum()), int(live.sum())
+        fwd_b = bound(2 * F * nv, int(touched.sum()) * F * rs + nv * 12
+                      + P * 4, PEAK_BF16_FLOPS)
+        bwd_b = bound(4 * F * nl, rows_b * F * rs + nl * 16 + N * F * rs,
+                      PEAK_BF16_FLOPS)
+        for d, ms, pms, b in (("fwd", fwd_ms, plain_fwd_ms, fwd_b),
+                              ("bwd", bwd_ms, plain_bwd_ms, bwd_b)):
+            res[d, rows] = dict(max_abs_err=max_abs, ms=ms, plain_ms=pms,
+                                bound_ms=b[0], bound_by=b[1], library_ms=None)
+            print(f"[kernels bf16] blocked_edge_dot_{d} rows "
+                  f"{str(rows)[6:]}: kernel {ms:.4f} ms, plain {pms:.4f} "
+                  f"ms, library none (no single call), bound {b[0]:.4f} ms "
+                  f"({b[1]})", flush=True)
+    return [dict(name=f"blocked_edge_dot_{d}[bf16]",
+                 counter=f"blocked_edge_dot_{d}", route="cuda",
+                 source="pretrain_gnns_tpu_torch/csrc/edge_dot.cu",
+                 replaces=f"pretrain_gnns_tpu/ops/pallas_spmm.py:{line}",
+                 tpu_counterpart=(f"ops/pallas_spmm.py::_edot_{d}_kernel at "
+                                  "compute_dtype=bfloat16"),
+                 library="none: no single PyTorch call computes it",
+                 shape=("chem edge-prediction first batch, positive head, "
+                        "bfloat16 rows"),
+                 **_rows_entry({r: res[d, r] for r in (bf, torch.float32)},
+                               bf, torch.float32))
+            for d, line in (("fwd", 587), ("bwd", 610))]
+
+
+# the device kernels a bfloat16 replay must show: the bfloat16
+# instantiations (the last template argument, BF, true) of K1's, K2's and
+# K3's walks, and K1's products through gemm_cvt_kernel
+BF16_KERNEL_NAMES = {
+    "gin_conv_fwd": (r"edge_aggr_fwd_kernel<true, true, true, [^>]*, true>",
+                     "gemm_cvt_kernel"),
+    "gin_conv_bwd": (r"edge_aggr_bwd_kernel<true, true, true, [^>]*, true>",
+                     "gemm_cvt_kernel"),
+    **{f"blocked_spmm_{d}[{v}]":
+       (f"edge_aggr_{d}_kernel<{args}, false, [^>]*, true>",)
+       for d in ("fwd", "bwd")
+       for v, args in (("x", "true, false"), ("ein", "false, true"),
+                       ("x+ein", "true, true"))},
+    "blocked_edge_dot_fwd": (r"edot_fwd_kernel<[^>]*, true>",),
+    "blocked_edge_dot_bwd": (r"edot_bwd_kernel<[^>]*, true>",),
+}
+
+
+def gat_raises_phase(torch, graphs, cfg):
+    """A chem masking GAT step under the bfloat16 knobs raises on the card
+    (K4 has no bfloat16 variant) before K4 launches."""
+    from pretrain_gnns_tpu_torch.ops import gat_conv
+    from pretrain_gnns_tpu_torch.train import pretrain
+
+    dev = torch.device("cuda")
+    model = pretrain.build_objective(cfg).to(dev)
+    batch = next(iter(pretrain.build_loader(cfg, graphs, dev))).to(dev)
+    gat_conv.reset_launches()
+    try:
+        model(batch, train=True)
+    except ValueError as e:
+        if "K4" not in str(e) or "bf16 not ported" not in str(e):
+            raise
+        if any(gat_conv.launches.values()):
+            raise AssertionError("K4 launched before it raised")
+        print(f"[chem masking gat bfloat16] raises on the card: {e}",
+              flush=True)
+        return
+    raise AssertionError("a chem GAT step under the bfloat16 knobs ran")
+
+
+def k2_bf16_cases(torch, chem_cfg, chem_first, bio_cfg, bio_first):
+    """``k2_bf16_phase``'s cases: ``[x]`` and ``[ein]`` on the bio masking
+    path's first batch (its edge inputs, the first layer's W, the path's
+    0/1 edge weights), ``[x+ein]`` on the chem masking path's (the bond
+    one-hots, the first layer's We, the unfused GIN path's 0/1 weights),
+    each beside the same batch with fractional weights: 0.5 + U(0, 1) on
+    the bio batch, GCN's symmetric normalisation on the chem one."""
+    from pretrain_gnns_tpu_torch.models import bio, chem
+    from pretrain_gnns_tpu_torch.train import pretrain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(14)
+    b = bio_first.to(dev)
+    conv = pretrain.build_objective(bio_cfg).to(dev).gnn.gnns[0]
+    mask = b.edge_mask.to(torch.float32)
+    frac = mask * (0.5 + torch.rand(mask.shape[0], generator=gen)).to(dev)
+    bio_in = (bio.edge_inputs(b, torch.float32), conv.edge_kernel()[0])
+    bio_cases = [("bio masking first batch", b, *bio_in, mask),
+                 ("bio masking first batch, fractional edge weights", b,
+                  *bio_in, frac)]
+    c = chem_first.to(dev)
+    conv = pretrain.build_objective(chem_cfg).to(dev).gnn.gnns[0]
+    dis = chem.inv_sqrt_degree(c)
+    mask = c.edge_mask.to(torch.float32)
+    gcn = mask * dis[c.receivers.long()] * dis[c.senders.long()]
+    chem_in = (chem.bond_one_hot(c, torch.float32), conv.edge_kernel()[0])
+    return {(True, False): bio_cases, (False, True): bio_cases,
+            (True, True): [
+                ("chem masking first batch (the unfused GIN path's)", c,
+                 *chem_in, mask),
+                ("chem masking first batch, GCN edge weights", c, *chem_in,
+                 gcn)]}
+
+
+def bf16_section(torch, card, chem_graphs, chem_first, bio_graphs, bio_first,
+                 edgepred_chem_first, f32_rates):
+    """The bfloat16 variants and paths under the JAX bench's recipe;
+    returns the ``kernels`` entries of the variants."""
+    from pretrain_gnns_tpu_torch.train import pretrain
+
+    dev = torch.device("cuda")
+    base = dict(num_layer=LAYERS, emb_dim=EMB, batch_size=BATCH, seed=0,
+                packing="auto")
+    chem_cfg = pretrain.PretrainConfig(mask_edge=False, **base)
+    bio_cfg = pretrain.PretrainConfig(domain="bio", **base)
+    ep_cfg = pretrain.PretrainConfig(objective="edgepred", **base)
+    with precision("bfloat16_act", "bfloat16"):
+        entries = k1_bf16_phase(torch, chem_first.to(dev),
+                                pretrain.build_objective(chem_cfg).to(dev))
+        entries += k2_bf16_phase(torch, k2_bf16_cases(
+            torch, chem_cfg, chem_first, bio_cfg, bio_first))
+        entries += k3_bf16_phase(torch, edgepred_chem_first.to(dev))
+        recorded = set()  # a variant's launches: the first path that runs it
+        for graphs, cfg, first, per_step, fused in (
+                (chem_graphs, chem_cfg, chem_first, K1, "on"),
+                (chem_graphs, chem_cfg, chem_first, GCN_K2, "off"),
+                (bio_graphs, bio_cfg, bio_first, BIO_K2, "on"),
+                (chem_graphs, ep_cfg, edgepred_chem_first, {**K1, **K3},
+                 "on")):
+            name = path_name(cfg, fused)
+            bf16_agreement(torch, first, cfg, fused)
+            launched = main_path_phase(torch, graphs, cfg, card, per_step,
+                                       fused=fused,
+                                       precision="bfloat16_act")
+            record_launches([k for k in entries if k["counter"] in per_step
+                             and k["counter"] not in recorded], launched)
+            recorded.update(per_step)
+            rate, f32 = launched[4], f32_rates.get(name)
+            print(f"[{name} bfloat16_act] {rate:.1f} valid edges/s against "
+                  f"{f32:.1f} in float32 earlier in this run, "
+                  f"{rate / f32:.3f}x, on {card}", flush=True)
+            capture_phase(torch, graphs, cfg, per_step, fused,
+                          kernel_names=BF16_KERNEL_NAMES)
+        gat_raises_phase(torch, chem_graphs, pretrain.PretrainConfig(
+            gnn_type="gat", mask_edge=False, **base))
+    return entries
+
+
 def bench_phase():
     """``python -m pretrain_gnns_tpu_torch.bench`` at ``--scan_steps 1``
-    (eager steps) and at its defaults (K = 16, CUDA-graph replays), in
-    turn, in this process; each prints its JSON line."""
+    (eager steps), at its defaults (K = 16, CUDA-graph replays) and at
+    ``--dtype bfloat16_act``, in turn, in this process; each prints its
+    JSON line."""
     from pretrain_gnns_tpu_torch import bench
 
-    for argv in (["--scan_steps", "1"], []):
+    for argv in (["--scan_steps", "1"], [], ["--dtype", "bfloat16_act"]):
         print(f"[bench] pretrain_gnns_tpu_torch.bench {' '.join(argv)}:",
               flush=True)
         if bench.main(argv) != 0:
@@ -1734,8 +2440,8 @@ def main() -> int:
             bio_dataset, molecule_dataset,
         )
         from pretrain_gnns_tpu_torch.device import resolve_device
-        from pretrain_gnns_tpu_torch.models import bio, chem
-        from pretrain_gnns_tpu_torch.ops import _build
+        from pretrain_gnns_tpu_torch.models import bio, chem, inits
+        from pretrain_gnns_tpu_torch.ops import _build, spmm
         from pretrain_gnns_tpu_torch.train import pretrain
         from scripts.torch_port_kernel_micro import main as micro_main
     except ImportError as e:
@@ -1746,6 +2452,15 @@ def main() -> int:
     t0 = T0
     card = card_line()
     dev = resolve_device("cuda")
+    # every phase but the bfloat16 section runs with both precision knobs
+    # at float32
+    inits.set_compute_dtype("float32")
+    spmm.set_compute_dtype("float32")
+    f32_rates = {}
+
+    def rated(cfg, launched, fused="on"):
+        f32_rates[path_name(cfg, fused)] = launched[4]
+        return launched
     print(f"[card] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     reports = _build.build(["gin_conv", "spmm", "edge_dot", "gat", "spmm_ee",
@@ -1769,11 +2484,13 @@ def main() -> int:
     kernels = kernel_phase(torch, batch.to(dev), model)
     probe = probe_phase(torch)
     agreement_phase(torch, batch, cfg)
-    record_launches(kernels, main_path_phase(torch, graphs, cfg, card, K1))
+    record_launches(kernels, rated(cfg, main_path_phase(torch, graphs, cfg,
+                                                        card, K1)))
     capture_phase(torch, graphs, cfg, K1)
     # the same path on the unfused GIN route: K2 [x+ein], no K1
     agreement_phase(torch, batch, cfg, fused="off")
-    main_path_phase(torch, graphs, cfg, card, GCN_K2, fused="off")
+    rated(cfg, main_path_phase(torch, graphs, cfg, card, GCN_K2,
+                               fused="off"), "off")
     capture_phase(torch, graphs, cfg, GCN_K2, fused="off")
     chem_graphs, chem_first = graphs, batch
 
@@ -1795,7 +2512,8 @@ def main() -> int:
                   ((True, False), (False, True), (True, True)),
                   "bio masking first batch")
     agreement_phase(torch, batch, cfg)
-    record_launches(k2, main_path_phase(torch, graphs, cfg, card, BIO_K2))
+    record_launches(k2, rated(cfg, main_path_phase(torch, graphs, cfg, card,
+                                                   BIO_K2)))
     capture_phase(torch, graphs, cfg, BIO_K2)
     bio_graphs, bio_first = graphs, batch
 
@@ -1844,8 +2562,9 @@ def main() -> int:
     for (domain, _), (_, cfg) in paths.items():
         agreement_phase(torch, first[domain], cfg, referee=True)
     graphs, cfg = paths["chem", "gin"]
-    record_launches(k3, main_path_phase(torch, graphs, cfg, card,
-                                        {**K1, **K3}))
+    record_launches(k3, rated(cfg, main_path_phase(torch, graphs, cfg, card,
+                                                   {**K1, **K3})))
+    edgepred_chem_first = first["chem"]
     capture_phase(torch, graphs, cfg, {**K1, **K3})
     graphs, cfg = paths["chem", "gcn"]
     record_launches(k2, main_path_phase(torch, graphs, cfg, card,
@@ -1964,8 +2683,13 @@ def main() -> int:
         main_path_phase(torch, graphs, cfg, card, per_step)
         capture_phase(torch, graphs, cfg, per_step)
 
+    # mixed precision: the bfloat16 variants of K1, K2 and K3, and four
+    # paths under the JAX bench's recipe
+    bf16 = bf16_section(torch, card, chem_graphs, chem_first, bio_graphs,
+                        bio_first, edgepred_chem_first, f32_rates)
+
     bench_phase()
-    kernels += k2 + k3 + k45 + k67 + probe
+    kernels += k2 + k3 + k45 + k67 + probe + bf16
     missing = [k["name"] for k in kernels if not k.get("launches")]
     if missing:
         raise AssertionError(f"no path launched {missing}")

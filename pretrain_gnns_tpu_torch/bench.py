@@ -5,7 +5,7 @@ Run from the repository root:
 
     python -m pretrain_gnns_tpu_torch.bench
 
-Cells (float32, seed 0 for the data and the weights):
+Cells (seed 0 for the data and the weights):
   - chem, the headline: the workload of the JAX package's ``bench.py``:
     16,384 molecules of ``molecule_dataset(..., num_tasks=1, mean_atoms=23)``,
     batch 256, GIN 5 x 300, masking with ``mask_edge`` off;
@@ -25,6 +25,13 @@ run: the wall time between the epoch log stamps (``run_pretrain`` reads the
 loss back at each epoch's end, so a stamp follows the card's work) and
 the valid edges of exactly those epochs, each directed edge once a step.
 A cell reports the median window and the spread, (max - min) / median.
+
+``--dtype`` sets both precision knobs for the run: ``float32`` (the
+default) the model's and the kernels' to float32; ``bfloat16_act`` the
+model's to ``bfloat16_act`` (activations in bfloat16; parameters, batch
+norm statistics, Adam state and losses in float32) and the kernels' to
+``bfloat16``, the recipe the JAX package's ``bench.py`` times as its
+headline (it leaves its kernel dtype at its default, ``bfloat16``).
 
 Prints exactly one JSON line: each cell under its metric name (its value,
 windows, spread and loader), the dtype, and the card's name and power
@@ -69,7 +76,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scan_steps", type=int, default=0,
                    help="train steps a dispatch (0 = auto: 16 on CUDA, 1 "
                         "on the CPU)")
+    p.add_argument("--dtype", default="float32",
+                   choices=sorted(DTYPES),
+                   help="precision: the model's and the kernels' knob")
     return p
+
+
+# --dtype: (models.inits knob, ops.spmm knob)
+DTYPES = {"float32": ("float32", "float32"),
+          "bfloat16_act": ("bfloat16_act", "bfloat16")}
 
 
 WARMUP_EPOCHS = 2
@@ -157,19 +172,30 @@ def main(argv=None) -> int:
         print("bench: no CUDA device; pass --device cpu to run on the CPU "
               "(no GPU metric then)", file=sys.stderr)
         return 1
+    from pretrain_gnns_tpu_torch.models import inits
+    from pretrain_gnns_tpu_torch.ops import spmm
+
     result = {}
-    for metric, cfg, make_graphs in cells(args):
-        t = time.perf_counter()
-        graphs = make_graphs()
-        setup = time.perf_counter() - t
-        cell = run_cell(cfg, graphs, args)
-        cell["dataset_s"], cell["graphs"] = setup, len(graphs)
-        if not result:  # the chem cell is the headline
-            result.update(metric=metric, value=cell["value"],
-                          unit=cell["unit"])
-        result[metric] = cell
+    before = (inits.get_compute_dtype(), spmm.get_compute_dtype())
+    inits.set_compute_dtype(DTYPES[args.dtype][0])
+    spmm.set_compute_dtype(DTYPES[args.dtype][1])
+    try:
+        for metric, cfg, make_graphs in cells(args):
+            t = time.perf_counter()
+            graphs = make_graphs()
+            setup = time.perf_counter() - t
+            cell = run_cell(cfg, graphs, args)
+            cell["dataset_s"], cell["graphs"] = setup, len(graphs)
+            if not result:  # the chem cell is the headline
+                result.update(metric=metric, value=cell["value"],
+                              unit=cell["unit"])
+            result[metric] = cell
+    finally:
+        inits.set_compute_dtype(before[0])
+        spmm.set_compute_dtype(before[1])
     result.update(
-        dtype="float32", device=args.device,
+        dtype=args.dtype, kernel_dtype=DTYPES[args.dtype][1],
+        device=args.device,
         card=card_line() if args.device == "cuda" else None,
         kind=(torch.cuda.get_device_name(0) if args.device == "cuda"
               else "cpu"),

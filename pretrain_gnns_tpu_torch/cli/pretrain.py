@@ -23,9 +23,11 @@ The supervised objective trains the domain's graph-level head
 (``--graph_pooling sum|mean|max|attention|set2setN``, the last for chem
 only) on the dataset's labels: the molecules' two synthetic tasks, as the
 JAX package's ``synthetic`` dataset has them, or the ego-networks'
-``go_target_pretrain`` extra. On the synthetic
-bio dataset it trains on every graph: the species split of the JAX CLI
-(``--split``) is not ported, nor is ``--input_model_file``.
+``go_target_pretrain`` extra. In the bio domain it trains on the
+pretrain set of ``--split`` (:func:`bio_supervised_pretrain_indices`):
+``species`` (the default) keeps the seven train/valid species and the easy
+half of the human graphs, ``random`` the train and valid parts of a seeded
+random split, as the JAX CLI. ``--input_model_file`` is not ported.
 
 ``--scan_steps K`` runs K train steps a dispatch, as the JAX CLI's flag:
 on CUDA one CUDA-graph replay of K captured steps a group of K batches (0,
@@ -40,7 +42,9 @@ reference's torch 1.0.1 reads, as the JAX package's CLI writes it.
 from __future__ import annotations
 
 import argparse
+from typing import List
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -64,8 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="supervised: sum | mean | max | attention | set2setN")
     p.add_argument("--input_model_file", default="",
                    help="not ported yet")
-    p.add_argument("--split", default="",
-                   help="not ported yet (bio supervised species split)")
+    p.add_argument("--split", default="species",
+                   choices=["species", "random"],
+                   help="bio supervised pretrain-set construction "
+                        "(bio/pretrain_supervised.py:83-101)")
     p.add_argument("--JK", dest="jk", default="last",
                    choices=["last", "concat", "max", "sum"])
     p.add_argument("--gnn_type", default="gin")
@@ -105,9 +111,8 @@ def main(argv=None):
         )
     if args.gnn_type not in ("gin", "gcn", "gat", "graphsage"):
         raise SystemExit(f"--gnn_type {args.gnn_type} is not ported yet")
-    for flag in ("input_model_file", "split"):
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag} is not ported yet")
+    if args.input_model_file:
+        raise SystemExit("--input_model_file is not ported yet")
     if args.dataset != "synthetic":
         raise SystemExit(
             f"--dataset {args.dataset} is not ported yet; use synthetic"
@@ -124,6 +129,12 @@ def main(argv=None):
                                                seed=args.seed)
     num_tasks = 1
     if args.objective == "supervised":
+        if args.domain == "bio":
+            species = np.array(
+                [g.extras["species_id"][0][0] for g in graphs])
+            keep = bio_supervised_pretrain_indices(species, args.split,
+                                                   args.seed)
+            graphs = [graphs[i] for i in keep]
         graphs, num_tasks = pretrain.supervised_graphs(graphs, args.domain)
     cfg = pretrain.PretrainConfig(
         objective=args.objective, domain=args.domain,
@@ -142,6 +153,27 @@ def main(argv=None):
         save_trunk(res["model"].gnn, path)
         print(f"saved trunk -> {path}")
     return res["history"]
+
+
+def bio_supervised_pretrain_indices(species: np.ndarray, split: str,
+                                    seed: int) -> List[int]:
+    """The reference's supervised pretrain set
+    (bio/pretrain_supervised.py:83-101): under ``species`` the seven
+    train/valid species plus the easy half of the human test set (the
+    seeded ``random_split`` that fine-tuning later calls "test_easy");
+    under ``random`` the train and valid parts of a seeded random split."""
+    from pretrain_gnns_tpu_torch.data import splitters
+
+    n = len(species)
+    if split == "random":
+        tr, va, _ = splitters.random_split(n, seed=seed)
+        return list(tr) + list(va)
+    if split != "species":
+        raise ValueError(f"Unknown split name. ({split})")
+    tv, te = splitters.species_split(np.asarray(species))
+    easy_idx, _, _ = splitters.random_split(
+        len(te), frac_train=0.5, frac_valid=0.5, frac_test=0.0, seed=seed)
+    return list(tv) + [te[i] for i in easy_idx]
 
 
 def save_trunk(trunk: nn.Module, path: str) -> None:

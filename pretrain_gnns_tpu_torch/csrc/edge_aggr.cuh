@@ -48,21 +48,49 @@
 //   add nothing, so a padded slot's global index 0 never reaches a row of
 //   another block. Every row of out and dx is written, so padded rows come
 //   out exactly 0 (K1: its self term, which the node mask zeroes).
+// bfloat16 (BF = true): the rows may be stored as float or bfloat16 (TI
+// the rows read, TO the rows written), and with BF the walk rounds its
+// operands to bfloat16 where the Pallas kernel at compute_dtype = bfloat16
+// does, every product and sum in float32:
+// - forward, each slot's message m_e = bf(w_e) bf(x[snd_e]) + sum_k
+//   bf(w_e ein_ek) bf(W_k), then out_r = sum bf(m_e) (+ the self term,
+//   unrounded). The rounding of each message leaves no room for the row
+//   sums A, so the edge term is formed per slot from W's tile in shared
+//   memory (K FMAs a feature and slot) and the block's message sums sit
+//   in the shared tile even without x;
+// - backward without the self term (K2): dmsg_e = bf(bf(w_e) bf(g[rcv_e])),
+//   dx_n = sum dmsg_e, and dW = sum_e bf(ein_e)^T dmsg_e, summed per slot
+//   by the receiver walk into each warp's registers;
+// - backward with it (K1): dx_n = sum bf(w_e) bf(g[rcv_e]) + g_n nm_n and
+//   dW = sum_r A_r^T bf(g_r) with A_r = sum bf(w_e ein_e), as the Pallas
+//   kernel's one-hot products give it.
+// Products of two bfloat16 values are exact in float32, so only the order
+// of the sums differs from the Pallas kernel. The float instantiations
+// (TI = TO = float, BF = false) are the code above, the same bits.
 // Everything here has internal linkage (an anonymous namespace), so each
 // including source gets its own copy.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 typedef long long ll;
+typedef __nv_bfloat16 bf16;
+
+// v rounded to the nearest bfloat16 (ties to even), as a float: the
+// Pallas kernel's astype(bfloat16).
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 constexpr int AGG_FT = 32;                   // lanes of a feature tile
 constexpr int AGG_THREADS = 256;
@@ -100,13 +128,14 @@ int edge_aggr_smem(int block_nodes, int K, int vec, bool acc, bool has_ein,
 }
 
 // The widest VEC, of 4, 2 and 1 and at most max_vec, whose accesses the
-// rows allow: F a multiple of VEC and every row pointer 4 * VEC-byte
-// aligned (null pointers are not read).
-int row_vec(int F, std::initializer_list<const float*> ptrs, int max_vec) {
+// rows allow: F a multiple of VEC and every row pointer elem * VEC-byte
+// aligned, elem the bytes of an element (null pointers are not read).
+int row_vec(int F, std::initializer_list<const void*> ptrs, int max_vec,
+            int elem = 4) {
   for (int vec = max_vec; vec > 1; vec /= 2) {
     bool ok = F % vec == 0;
-    for (const float* p : ptrs)
-      if (p && reinterpret_cast<uintptr_t>(p) % (4 * vec)) ok = false;
+    for (const void* p : ptrs)
+      if (p && reinterpret_cast<uintptr_t>(p) % (elem * vec)) ok = false;
     if (ok) return vec;
   }
   return 1;
@@ -145,6 +174,57 @@ __device__ __forceinline__ void st_row(float* p, const Row<VEC>& r) {
     *reinterpret_cast<float2*>(p) = make_float2(r.v[0], r.v[1]);
   else
     *p = r.v[0];
+}
+
+// The same for bfloat16 rows: 8-, 4- or 2-byte accesses, the values
+// widened to float on the load and rounded to nearest on the store.
+template <int VEC>
+__device__ __forceinline__ Row<VEC> ld_row(const bf16* p) {
+  Row<VEC> r;
+  if constexpr (VEC == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    r.v[0] = a.x;
+    r.v[1] = a.y;
+    r.v[2] = b.x;
+    r.v[3] = b.y;
+  } else if constexpr (VEC == 2) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    r.v[0] = a.x;
+    r.v[1] = a.y;
+  } else {
+    r.v[0] = __bfloat162float(*p);
+  }
+  return r;
+}
+
+template <int VEC>
+__device__ __forceinline__ void st_row(bf16* p, const Row<VEC>& r) {
+  if constexpr (VEC == 4) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(r.v[0], r.v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(r.v[2], r.v[3]);
+    uint2 u;
+    u.x = *reinterpret_cast<const unsigned*>(&a);
+    u.y = *reinterpret_cast<const unsigned*>(&b);
+    *reinterpret_cast<uint2*>(p) = u;
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(r.v[0], r.v[1]);
+  } else {
+    *p = __float2bfloat16_rn(r.v[0]);
+  }
+}
+
+// A row read from rows of type T, rounded to bfloat16 values under BF
+// (bfloat16 rows already hold them).
+template <int VEC, bool BF, typename T>
+__device__ __forceinline__ Row<VEC> ld_row_bf(const T* p) {
+  Row<VEC> r = ld_row<VEC>(p);
+  if constexpr (BF && std::is_same<T, float>::value) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) r.v[j] = round_bf16(r.v[j]);
+  }
+  return r;
 }
 
 template <int VEC>
@@ -212,6 +292,15 @@ __device__ __forceinline__ void stage_slots(
   }
 }
 
+// Under BF, rounds the staged ein rows of slots 0 .. n - 1 in place to
+// bf(w_e ein_e) (MUL_W) or bf(ein_e), one entry a thread. Between two
+// __syncthreads of the caller.
+template <bool MUL_W>
+__device__ __forceinline__ void round_staged(const Staged& s, int n, int K) {
+  for (int i = threadIdx.x; i < n * K; i += AGG_THREADS)
+    s.ein[i] = round_bf16(MUL_W ? s.ein[i] * s.w[i / K] : s.ein[i]);
+}
+
 // Visits, in slot order, the staged slots 0 .. n - 1 whose sender
 // (BY_SENDER) or receiver row this warp owns: load(q) for a batch of up to
 // AGG_BATCH slots q, then add(q, loaded) for each in order. Every lane
@@ -269,21 +358,24 @@ __device__ __forceinline__ Staged carve_walk(float* smem, int block_nodes,
 
 // Forward, with VEC adjacent features a lane (VEC = 2 needs F even: a
 // lane's pair lies wholly inside or wholly past F). K = 0 without HAS_EIN;
-// W, e_self and nm are read only where their flag asks.
-template <bool HAS_X, bool HAS_EIN, bool SELF, int VEC>
+// W, e_self and nm are read only where their flag asks. x is read as TI,
+// out written as TO; BF rounds as the note above says.
+template <bool HAS_X, bool HAS_EIN, bool SELF, int VEC, typename TI = float,
+          typename TO = float, bool BF = false>
 __global__ void __launch_bounds__(AGG_THREADS, agg_min_ctas(HAS_X, HAS_EIN))
-edge_aggr_fwd_kernel(const float* __restrict__ x, const float* __restrict__ ein,
+edge_aggr_fwd_kernel(const TI* __restrict__ x, const float* __restrict__ ein,
                      const float* __restrict__ W, const float* __restrict__ e_self,
                      const int* __restrict__ snd, const int* __restrict__ rcv,
                      const float* __restrict__ w, const float* __restrict__ nm,
-                     float* __restrict__ out, int F, int K, int block_nodes,
+                     TO* __restrict__ out, int F, int K, int block_nodes,
                      int block_edges) {
   static_assert(HAS_X || HAS_EIN, "nothing to aggregate");
   static_assert(!SELF || HAS_X, "the self term reads x");
   constexpr int FTV = AGG_FT * VEC;
+  constexpr bool ACC = HAS_X || BF;  // the message sums' shared tile
   extern __shared__ float smem[];
   float *acc, *asum, *W_s;
-  const Staged st = carve_walk(smem, block_nodes, K, FTV, HAS_X, HAS_EIN, acc,
+  const Staged st = carve_walk(smem, block_nodes, K, FTV, ACC, HAS_EIN, acc,
                                asum, W_s);
   const int b = blockIdx.x;
   const int f0 = blockIdx.y * FTV;
@@ -294,13 +386,14 @@ edge_aggr_fwd_kernel(const float* __restrict__ x, const float* __restrict__ ein,
   const bool fok = f < F;
   // a warp zeroes, fills and reads only the rows it owns
   for (int r = warp; r < block_nodes; r += AGG_WARPS) {
-    if (HAS_X) st_row(acc + r * FTV + c, zero_row<VEC>());
+    if (ACC) st_row(acc + r * FTV + c, zero_row<VEC>());
     if (HAS_EIN && lane < K) asum[r * K + lane] = 0.f;
   }
   if (HAS_EIN)  // read after the pass loop's first barrier
     for (int i = threadIdx.x; i < K * FTV; i += AGG_THREADS) {
       const int k = i / FTV, l = i % FTV;
-      W_s[i] = f0 + l < F ? W[(ll)k * F + f0 + l] : 0.f;
+      const float v = f0 + l < F ? W[(ll)k * F + f0 + l] : 0.f;
+      W_s[i] = BF ? round_bf16(v) : v;
     }
 
   const ll base = (ll)b * block_nodes;
@@ -311,15 +404,41 @@ edge_aggr_fwd_kernel(const float* __restrict__ x, const float* __restrict__ ein,
     stage_slots(st, snd, rcv, w, ein, e0, base, p0, n, block_nodes,
                 HAS_EIN ? K : 0);
     __syncthreads();
+    if (BF && HAS_EIN) {
+      round_staged<true>(st, n, K);
+      __syncthreads();
+    }
     walk_staged<false>(
         st, n, lane, warp,
         [&](int q) {
-          return (HAS_X && fok) ? ld_row<VEC>(x + (base + st.ls[q]) * F + f)
-                                : zero_row<VEC>();
+          return (HAS_X && fok)
+                     ? ld_row_bf<VEC, BF>(x + (base + st.ls[q]) * F + f)
+                     : zero_row<VEC>();
         },
         [&](int q, const Row<VEC>& xs) {
           const int r = st.lr[q];
           const float wq = st.w[q];
+          if constexpr (BF) {  // the slot's message, rounded, into acc
+            if (!fok) return;
+            const float wr = round_bf16(wq);
+            Row<VEC> m = zero_row<VEC>();
+#pragma unroll
+            for (int k = 0; k < AGG_MAX_K; ++k)
+              if (HAS_EIN && k < K) {
+                const float ek = st.ein[q * K + k];
+                const Row<VEC> wk = ld_row<VEC>(W_s + k * FTV + c);
+#pragma unroll
+                for (int j = 0; j < VEC; ++j) m.v[j] = fmaf(ek, wk.v[j], m.v[j]);
+              }
+            Row<VEC> a = ld_row<VEC>(acc + r * FTV + c);
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) {
+              if (HAS_X) m.v[j] = HAS_EIN ? m.v[j] + wr * xs.v[j] : wr * xs.v[j];
+              a.v[j] += round_bf16(m.v[j]);
+            }
+            st_row(acc + r * FTV + c, a);
+            return;
+          }
           if (HAS_EIN && lane < K)
             asum[r * K + lane] = fmaf(wq, st.ein[q * K + lane], asum[r * K + lane]);
           if (HAS_X && fok) {
@@ -337,13 +456,13 @@ edge_aggr_fwd_kernel(const float* __restrict__ x, const float* __restrict__ ein,
   if (SELF) es = ld_row<VEC>(e_self + f);
   for (int r = warp; r < block_nodes; r += AGG_WARPS) {
     const ll nr = base + r;
-    const Row<VEC> a = HAS_X ? ld_row<VEC>(acc + r * FTV + c) : zero_row<VEC>();
+    const Row<VEC> a = ACC ? ld_row<VEC>(acc + r * FTV + c) : zero_row<VEC>();
     Row<VEC> xr = zero_row<VEC>();
     if (SELF) xr = ld_row<VEC>(x + nr * F + f);
     Row<VEC> e = zero_row<VEC>();  // A_r @ W[:, f .. f + VEC - 1]
 #pragma unroll
     for (int k = 0; k < AGG_MAX_K; ++k)
-      if (HAS_EIN && k < K) {
+      if (!BF && HAS_EIN && k < K) {
         const float ak = asum[r * K + k];
         const Row<VEC> wk = ld_row<VEC>(W_s + k * FTV + c);
 #pragma unroll
@@ -352,7 +471,9 @@ edge_aggr_fwd_kernel(const float* __restrict__ x, const float* __restrict__ ein,
     Row<VEC> o;
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
-      if (SELF)
+      if (BF)  // acc holds the rounded messages' sum, the edge term in it
+        o.v[j] = SELF ? a.v[j] + (xr.v[j] + es.v[j]) * nm[nr] : a.v[j];
+      else if (SELF)
         o.v[j] = a.v[j] + e.v[j] + (xr.v[j] + es.v[j]) * nm[nr];
       else if (HAS_X && HAS_EIN)
         o.v[j] = a.v[j] + e.v[j];
@@ -367,13 +488,15 @@ edge_aggr_fwd_kernel(const float* __restrict__ x, const float* __restrict__ ein,
 
 // Backward from g, with VEC adjacent features a lane as the forward.
 // Writes dx (HAS_X), the block's dW partial [n_blocks][K][F] (HAS_EIN) and
-// its de_self partial [n_blocks][F] (SELF).
-template <bool HAS_X, bool HAS_EIN, bool SELF, int VEC>
+// its de_self partial [n_blocks][F] (SELF). g is read as TI, dx written as
+// TO; BF rounds as the note above says.
+template <bool HAS_X, bool HAS_EIN, bool SELF, int VEC, typename TI = float,
+          typename TO = float, bool BF = false>
 __global__ void __launch_bounds__(AGG_THREADS, agg_min_ctas(HAS_X, HAS_EIN))
-edge_aggr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ ein,
+edge_aggr_bwd_kernel(const TI* __restrict__ g, const float* __restrict__ ein,
                      const int* __restrict__ snd, const int* __restrict__ rcv,
                      const float* __restrict__ w, const float* __restrict__ nm,
-                     float* __restrict__ dx, float* __restrict__ dW_part,
+                     TO* __restrict__ dx, float* __restrict__ dW_part,
                      float* __restrict__ des_part, int F, int K,
                      int block_nodes, int block_edges) {
   static_assert(HAS_X || HAS_EIN, "nothing to aggregate");
@@ -395,6 +518,12 @@ edge_aggr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ ein,
     if (HAS_X) st_row(acc + r * FTV + c, zero_row<VEC>());
     if (HAS_EIN && lane < K) asum[r * K + lane] = 0.f;
   }
+  // sum over the warp's rows of A_r[k] * g_r[f] (under BF without the self
+  // term: over the warp's slots of bf(ein_e)[k] * dmsg_e[f])
+  Row<VEC> dwe[AGG_MAX_K];
+#pragma unroll
+  for (int k = 0; k < AGG_MAX_K; ++k) dwe[k] = zero_row<VEC>();
+  constexpr bool SLOT_DW = BF && !SELF && HAS_EIN;
 
   const ll base = (ll)b * block_nodes;
   const ll e0 = (ll)b * block_edges;
@@ -404,41 +533,68 @@ edge_aggr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ ein,
     stage_slots(st, snd, rcv, w, ein, e0, base, p0, n, block_nodes,
                 HAS_EIN ? K : 0);
     __syncthreads();
+    if (BF && HAS_EIN) {
+      round_staged<SELF>(st, n, K);
+      __syncthreads();
+    }
     if (HAS_X)
       walk_staged<true>(
           st, n, lane, warp,
           [&](int q) {
-            return fok ? ld_row<VEC>(g + (base + st.lr[q]) * F + f)
+            return fok ? ld_row_bf<VEC, BF>(g + (base + st.lr[q]) * F + f)
                        : zero_row<VEC>();
           },
           [&](int q, const Row<VEC>& gr) {
             const int s = st.ls[q];
             if (fok) {
               Row<VEC> a = ld_row<VEC>(acc + s * FTV + c);
+              const float wq = BF ? round_bf16(st.w[q]) : st.w[q];
 #pragma unroll
-              for (int j = 0; j < VEC; ++j) a.v[j] = fmaf(st.w[q], gr.v[j], a.v[j]);
+              for (int j = 0; j < VEC; ++j)
+                a.v[j] = BF && !SELF ? a.v[j] + round_bf16(wq * gr.v[j])
+                                     : fmaf(wq, gr.v[j], a.v[j]);
               st_row(acc + s * FTV + c, a);
             }
           });
-    if (HAS_EIN)
+    if (SLOT_DW)
+      walk_staged<false>(
+          st, n, lane, warp,
+          [&](int q) {
+            return fok ? ld_row_bf<VEC, BF>(g + (base + st.lr[q]) * F + f)
+                       : zero_row<VEC>();
+          },
+          [&](int q, const Row<VEC>& gr) {
+            const float wq = round_bf16(st.w[q]);
+            Row<VEC> dm;
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) dm.v[j] = round_bf16(wq * gr.v[j]);
+#pragma unroll
+            for (int k = 0; k < AGG_MAX_K; ++k)
+              if (k < K) {
+                const float ek = st.ein[q * K + k];
+#pragma unroll
+                for (int j = 0; j < VEC; ++j)
+                  dwe[k].v[j] = fmaf(ek, dm.v[j], dwe[k].v[j]);
+              }
+          });
+    else if (HAS_EIN)
       walk_staged<false>(
           st, n, lane, warp, [](int) { return 0.f; },
           [&](int q, float) {
             const int r = st.lr[q];
             if (lane < K)
-              asum[r * K + lane] = fmaf(st.w[q], st.ein[q * K + lane], asum[r * K + lane]);
+              asum[r * K + lane] =
+                  BF ? asum[r * K + lane] + st.ein[q * K + lane]
+                     : fmaf(st.w[q], st.ein[q * K + lane], asum[r * K + lane]);
           });
   }
   __syncwarp();
 
-  Row<VEC> dwe[AGG_MAX_K];  // sum over the warp's rows of A_r[k] * g_r[f]
-#pragma unroll
-  for (int k = 0; k < AGG_MAX_K; ++k) dwe[k] = zero_row<VEC>();
   Row<VEC> des = zero_row<VEC>();
   for (int r = warp; r < block_nodes; r += AGG_WARPS) {
     const ll nr = base + r;
     Row<VEC> d = zero_row<VEC>();
-    if ((SELF || HAS_EIN) && fok) d = ld_row<VEC>(g + nr * F + f);
+    if ((SELF || (HAS_EIN && !SLOT_DW)) && fok) d = ld_row<VEC>(g + nr * F + f);
     if (SELF) {
       Row<VEC> o;
 #pragma unroll
@@ -453,10 +609,11 @@ edge_aggr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ ein,
     }
 #pragma unroll
     for (int k = 0; k < AGG_MAX_K; ++k)
-      if (HAS_EIN && k < K)
+      if (HAS_EIN && !SLOT_DW && k < K)
 #pragma unroll
         for (int j = 0; j < VEC; ++j)
-          dwe[k].v[j] = fmaf(asum[r * K + k], d.v[j], dwe[k].v[j]);
+          dwe[k].v[j] = fmaf(asum[r * K + k], BF ? round_bf16(d.v[j]) : d.v[j],
+                             dwe[k].v[j]);
   }
   if (!(HAS_EIN || SELF)) return;
   __syncthreads();  // smem is reused below for the cross-warp sums
@@ -524,27 +681,29 @@ int launch_two_or_three(Kernel at2, Kernel at3, int smem, int n_blocks,
 }
 
 // Launches the forward: out [n_blocks * block_nodes, F].
-template <bool HAS_X, bool HAS_EIN, bool SELF, int VEC>
-int edge_aggr_fwd(const float* x, const float* ein, const float* W,
+template <bool HAS_X, bool HAS_EIN, bool SELF, int VEC, typename TI = float,
+          typename TO = float, bool BF = false>
+int edge_aggr_fwd(const TI* x, const float* ein, const float* W,
                   const float* e_self, const int* snd, const int* rcv,
-                  const float* w, const float* nm, float* out, int n_blocks,
+                  const float* w, const float* nm, TO* out, int n_blocks,
                   int F, int K, int block_nodes, int block_edges,
                   cudaStream_t st) {
   return launch_edge_aggr(
-      edge_aggr_fwd_kernel<HAS_X, HAS_EIN, SELF, VEC>,
-      edge_aggr_smem(block_nodes, K, VEC, HAS_X, HAS_EIN, false), n_blocks,
-      F, AGG_FT * VEC, st, x, ein, W, e_self, snd, rcv, w, nm, out, F, K,
-      block_nodes, block_edges);
+      edge_aggr_fwd_kernel<HAS_X, HAS_EIN, SELF, VEC, TI, TO, BF>,
+      edge_aggr_smem(block_nodes, K, VEC, HAS_X || BF, HAS_EIN, false),
+      n_blocks, F, AGG_FT * VEC, st, x, ein, W, e_self, snd, rcv, w, nm, out,
+      F, K, block_nodes, block_edges);
 }
 
 // Launches the backward: dx, and the per-block partials of dW and de_self.
-template <bool HAS_X, bool HAS_EIN, bool SELF, int VEC>
-int edge_aggr_bwd(const float* g, const float* ein, const int* snd,
-                  const int* rcv, const float* w, const float* nm, float* dx,
+template <bool HAS_X, bool HAS_EIN, bool SELF, int VEC, typename TI = float,
+          typename TO = float, bool BF = false>
+int edge_aggr_bwd(const TI* g, const float* ein, const int* snd,
+                  const int* rcv, const float* w, const float* nm, TO* dx,
                   float* dW_part, float* des_part, int n_blocks, int F, int K,
                   int block_nodes, int block_edges, cudaStream_t st) {
   return launch_edge_aggr(
-      edge_aggr_bwd_kernel<HAS_X, HAS_EIN, SELF, VEC>,
+      edge_aggr_bwd_kernel<HAS_X, HAS_EIN, SELF, VEC, TI, TO, BF>,
       edge_aggr_smem(block_nodes, K, VEC, HAS_X, HAS_EIN, true),
       n_blocks, F, AGG_FT * VEC, st, g, ein, snd, rcv, w, nm, dx, dW_part,
       des_part, F, K, block_nodes, block_edges);

@@ -64,6 +64,13 @@
 //   memory, opted in above 48 KB up to the 227 KB a block may use), since
 //   block_layout grows block_nodes to the largest graph; blocks too large
 //   for a wider tile take a narrower one.
+// - bfloat16: x and dx may be stored as bfloat16 (bf16_rows: 8-, 4- or
+//   2-byte accesses by F and alignment), and with bf16_compute the kernels
+//   round as the Pallas kernel at compute_dtype = bfloat16 does: the
+//   forward multiplies the rows' bfloat16 values (exact in float32, summed
+//   in float32; scores float32), the backward adds bf(c_p * bf(x_other))
+//   for each side. These variants take the two-CTA launch only (one build
+//   each, to keep nvcc's time down).
 
 #include <cuda_runtime.h>
 
@@ -86,9 +93,9 @@ int bwd_smem(int block_nodes, int vec) {
 
 // A warp takes the per_warp = FWD_PAIRS * rounds pairs from p0, FWD_PAIRS a
 // round and FWD_DEPTH rounds' rows in flight at once.
-template <int VEC>
+template <int VEC, typename T = float, bool BF = false>
 __global__ void __launch_bounds__(FWD_THREADS)
-edot_fwd_kernel(const float* __restrict__ x, const int* __restrict__ a,
+edot_fwd_kernel(const T* __restrict__ x, const int* __restrict__ a,
                 const int* __restrict__ b, const float* __restrict__ w,
                 float* __restrict__ out, int P, int F, int block_nodes,
                 int pairs_per_block, int rounds) {
@@ -142,8 +149,8 @@ edot_fwd_kernel(const float* __restrict__ x, const int* __restrict__ a,
         for (int u = 0; u < FWD_CHUNKS; ++u) {
           const int f = f0 + u * FWD_GROUP * VEC;
           if (qa[d] >= 0 && f < F) {
-            va[d][u] = ld_row<VEC>(x + (ll)qa[d] * F + f);
-            vb[d][u] = ld_row<VEC>(x + (ll)qb[d] * F + f);
+            va[d][u] = ld_row_bf<VEC, BF>(x + (ll)qa[d] * F + f);
+            vb[d][u] = ld_row_bf<VEC, BF>(x + (ll)qb[d] * F + f);
           }
         }
 #pragma unroll
@@ -199,11 +206,11 @@ __device__ __forceinline__ void stage_sides(
   s.w[t] = c;
 }
 
-template <int VEC, int MIN_CTAS>
+template <int VEC, int MIN_CTAS, typename T = float, bool BF = false>
 __global__ void __launch_bounds__(AGG_THREADS, MIN_CTAS)
-edot_bwd_kernel(const float* __restrict__ x, const int* __restrict__ a,
+edot_bwd_kernel(const T* __restrict__ x, const int* __restrict__ a,
                 const int* __restrict__ b, const float* __restrict__ w,
-                const float* __restrict__ g, float* __restrict__ dx, int F,
+                const float* __restrict__ g, T* __restrict__ dx, int F,
                 int block_nodes, int pairs_per_block) {
   constexpr int FTV = AGG_FT * VEC;
   extern __shared__ float smem[];
@@ -231,16 +238,18 @@ edot_bwd_kernel(const float* __restrict__ x, const int* __restrict__ a,
     walk_staged<false>(
         st, 2 * n, lane, warp,
         [&](int q) {  // the other row, and the side's row and c = g * w
-          return Slot<VEC>{fok ? ld_row<VEC>(x + (base + st.ls[q]) * F + f)
-                               : zero_row<VEC>(),
-                           st.lr[q], st.w[q]};
+          return Slot<VEC>{
+              fok ? ld_row_bf<VEC, BF>(x + (base + st.ls[q]) * F + f)
+                  : zero_row<VEC>(),
+              st.lr[q], st.w[q]};
         },
         [&](int, const Slot<VEC>& sd) {
           if (!fok) return;
           Row<VEC> s = ld_row<VEC>(acc + sd.r * FTV + c);
 #pragma unroll
           for (int j = 0; j < VEC; ++j)
-            s.v[j] = fmaf(sd.w, sd.x.v[j], s.v[j]);
+            s.v[j] = BF ? s.v[j] + round_bf16(sd.w * sd.x.v[j])
+                        : fmaf(sd.w, sd.x.v[j], s.v[j]);
           st_row(acc + sd.r * FTV + c, s);
         });
   }
@@ -257,14 +266,15 @@ bool bad_shape(int N, int F, int P, int block_nodes, int pairs_per_block) {
          (ll)P != (ll)(N / block_nodes) * pairs_per_block;
 }
 
-// The forward's warps the card holds at once (one query a process and VEC).
-template <int VEC>
+// The forward's warps the card holds at once (one query a process and
+// variant).
+template <int VEC, typename T, bool BF>
 ll fwd_resident_warps() {
   static ll warps = 0;
   if (warps == 0) {
     int ctas = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &ctas, edot_fwd_kernel<VEC>, FWD_THREADS, 0);
+        &ctas, edot_fwd_kernel<VEC, T, BF>, FWD_THREADS, 0);
     warps = (ll)sm_count() * ctas * FWD_WARPS;
   }
   return warps;
@@ -273,81 +283,117 @@ ll fwd_resident_warps() {
 // Rounds a warp takes: as few as let every warp be resident at once (each
 // round one dependent trip to memory), at most AGG_FT / FWD_PAIRS (one
 // index load a lane).
-template <int VEC>
-int launch_fwd(const float* x, const int* a, const int* b, const float* w,
+template <int VEC, typename T = float, bool BF = false>
+int launch_fwd(const T* x, const int* a, const int* b, const float* w,
                float* out, int F, int P, int block_nodes,
                int pairs_per_block, cudaStream_t st) {
-  const ll cap = fwd_resident_warps<VEC>() * FWD_PAIRS;
+  const ll cap = fwd_resident_warps<VEC, T, BF>() * FWD_PAIRS;
   int rounds = cap > 0 ? (int)((P + cap - 1) / cap) : AGG_FT / FWD_PAIRS;
   rounds = (rounds + FWD_DEPTH - 1) / FWD_DEPTH * FWD_DEPTH;
   rounds = max(FWD_DEPTH, min(rounds, AGG_FT / FWD_PAIRS));
   const ll per_warp = (ll)FWD_PAIRS * rounds;
   const ll warps = (P + per_warp - 1) / per_warp;
   const int grid = (int)((warps + FWD_WARPS - 1) / FWD_WARPS);
-  edot_fwd_kernel<VEC><<<grid, FWD_THREADS, 0, st>>>(
+  edot_fwd_kernel<VEC, T, BF><<<grid, FWD_THREADS, 0, st>>>(
       x, a, b, w, out, P, F, block_nodes, pairs_per_block, rounds);
   return (int)cudaGetLastError();
 }
 
 // Registers against CTAs: two CTAs an SM (up to 128 registers a thread)
-// or three (up to 85), as the header's launch_two_or_three chooses.
-template <int VEC>
-int launch_bwd(const float* x, const int* a, const int* b, const float* w,
-               const float* g, float* dx, int N, int F, int block_nodes,
+// or three (up to 85), as the header's launch_two_or_three chooses; the
+// bfloat16 variants two.
+template <int VEC, typename T = float, bool BF = false>
+int launch_bwd(const T* x, const int* a, const int* b, const float* w,
+               const float* g, T* dx, int N, int F, int block_nodes,
                int pairs_per_block, cudaStream_t st) {
-  return launch_two_or_three(edot_bwd_kernel<VEC, 2>, edot_bwd_kernel<VEC, 3>,
-                             bwd_smem(block_nodes, VEC), N / block_nodes, F,
-                             AGG_FT * VEC, st, x, a, b, w, g, dx, F,
-                             block_nodes, pairs_per_block);
+  if constexpr (std::is_same<T, float>::value && !BF)
+    return launch_two_or_three(edot_bwd_kernel<VEC, 2>,
+                               edot_bwd_kernel<VEC, 3>,
+                               bwd_smem(block_nodes, VEC), N / block_nodes,
+                               F, AGG_FT * VEC, st, x, a, b, w, g, dx, F,
+                               block_nodes, pairs_per_block);
+  else
+    return launch_edge_aggr(edot_bwd_kernel<VEC, 2, T, BF>,
+                            bwd_smem(block_nodes, VEC), N / block_nodes, F,
+                            AGG_FT * VEC, st, x, a, b, w, g, dx, F,
+                            block_nodes, pairs_per_block);
+}
+
+template <typename T, bool BF>
+int fwd_t(const void* x_, const int* a, const int* b, const float* w,
+          float* out, int F, int P, int block_nodes, int pairs_per_block,
+          cudaStream_t st) {
+  const T* x = static_cast<const T*>(x_);
+  switch (row_vec(F, {x}, 4, sizeof(T))) {
+    case 4:
+      return launch_fwd<4, T, BF>(x, a, b, w, out, F, P, block_nodes,
+                                  pairs_per_block, st);
+    case 2:
+      return launch_fwd<2, T, BF>(x, a, b, w, out, F, P, block_nodes,
+                                  pairs_per_block, st);
+    default:
+      return launch_fwd<1, T, BF>(x, a, b, w, out, F, P, block_nodes,
+                                  pairs_per_block, st);
+  }
+}
+
+template <typename T, bool BF>
+int bwd_t(const void* x_, const int* a, const int* b, const float* w,
+          const float* g, void* dx_, int N, int F, int block_nodes,
+          int pairs_per_block, cudaStream_t st) {
+  const T* x = static_cast<const T*>(x_);
+  T* dx = static_cast<T*>(dx_);
+  const int vec = row_vec(F, {x, dx}, 4, sizeof(T));
+  if (vec == 4 && bwd_smem(block_nodes, 4) <= MAX_SMEM)
+    return launch_bwd<4, T, BF>(x, a, b, w, g, dx, N, F, block_nodes,
+                                pairs_per_block, st);
+  if (vec >= 2 && bwd_smem(block_nodes, 2) <= MAX_SMEM)
+    return launch_bwd<2, T, BF>(x, a, b, w, g, dx, N, F, block_nodes,
+                                pairs_per_block, st);
+  return launch_bwd<1, T, BF>(x, a, b, w, g, dx, N, F, block_nodes,
+                              pairs_per_block, st);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Present since the entry points take (bf16_rows, bf16_compute).
+int pgt_bf16_flags() { return 1; }
+
 int pgt_edot_max_smem() { return MAX_SMEM; }
 // Shared bytes of a backward launch at least (one feature a lane).
 int pgt_edot_bwd_smem(int block_nodes) { return bwd_smem(block_nodes, 1); }
 
-// Forward: writes out [P] from x [N, F], a, b [P] (global row indices) and
-// w [P]; P = (N / block_nodes) * pairs_per_block. Returns the first CUDA
-// error, 0 if none.
-int pgt_edot_fwd(const float* x, const int* a, const int* b, const float* w,
+// Forward: writes out [P] (float) from x [N, F], a, b [P] (global row
+// indices) and w [P]; P = (N / block_nodes) * pairs_per_block. x is
+// bfloat16 with bf16_rows; bf16_compute rounds as the note above says.
+// Returns the first CUDA error, 0 if none.
+int pgt_edot_fwd(const void* x, const int* a, const int* b, const float* w,
                  float* out, int N, int F, int P, int block_nodes,
-                 int pairs_per_block, void* stream) {
+                 int pairs_per_block, int bf16_rows, int bf16_compute,
+                 void* stream) {
   if (bad_shape(N, F, P, block_nodes, pairs_per_block))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (row_vec(F, {x}, 4)) {
-    case 4:
-      return launch_fwd<4>(x, a, b, w, out, F, P, block_nodes,
-                           pairs_per_block, st);
-    case 2:
-      return launch_fwd<2>(x, a, b, w, out, F, P, block_nodes,
-                           pairs_per_block, st);
-    default:
-      return launch_fwd<1>(x, a, b, w, out, F, P, block_nodes,
-                           pairs_per_block, st);
-  }
+  auto fn = bf16_rows ? (bf16_compute ? fwd_t<bf16, true> : fwd_t<bf16, false>)
+                      : (bf16_compute ? fwd_t<float, true> : fwd_t<float, false>);
+  return fn(x, a, b, w, out, F, P, block_nodes, pairs_per_block, st);
 }
 
-// Backward from the cotangent g [P]: writes every row of dx [N, F].
-int pgt_edot_bwd(const float* x, const int* a, const int* b, const float* w,
-                 const float* g, float* dx, int N, int F, int P,
-                 int block_nodes, int pairs_per_block, void* stream) {
+// Backward from the cotangent g [P] (float): writes every row of dx [N, F],
+// stored as x is.
+int pgt_edot_bwd(const void* x, const int* a, const int* b, const float* w,
+                 const float* g, void* dx, int N, int F, int P,
+                 int block_nodes, int pairs_per_block, int bf16_rows,
+                 int bf16_compute, void* stream) {
   if (bad_shape(N, F, P, block_nodes, pairs_per_block) ||
       bwd_smem(block_nodes, 1) > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int vec = row_vec(F, {x, dx}, 4);
-  if (vec == 4 && bwd_smem(block_nodes, 4) <= MAX_SMEM)
-    return launch_bwd<4>(x, a, b, w, g, dx, N, F, block_nodes,
-                         pairs_per_block, st);
-  if (vec >= 2 && bwd_smem(block_nodes, 2) <= MAX_SMEM)
-    return launch_bwd<2>(x, a, b, w, g, dx, N, F, block_nodes,
-                         pairs_per_block, st);
-  return launch_bwd<1>(x, a, b, w, g, dx, N, F, block_nodes, pairs_per_block,
-                       st);
+  auto fn = bf16_rows ? (bf16_compute ? bwd_t<bf16, true> : bwd_t<bf16, false>)
+                      : (bf16_compute ? bwd_t<float, true> : bwd_t<float, false>);
+  return fn(x, a, b, w, g, dx, N, F, block_nodes, pairs_per_block, st);
 }
 
 }  // extern "C"

@@ -42,6 +42,14 @@
 // - The TPU carried the cross-block sums (dWe, de_self) in VMEM across a
 //   sequential grid. Hopper's blocks run in no order, so each node block
 //   writes its partial and a second pass sums the partials in block order.
+// - bfloat16: x, out, g and dx may be stored as bfloat16 (bf16_rows), and
+//   with bf16_compute the layer rounds where the Pallas kernel at
+//   compute_dtype = bfloat16 does: the aggregation's operands and each
+//   message (edge_aggr.cuh's BF walk), every product's operands (gemm.cuh's
+//   gemm_cvt on bfloat16 or rounded tiles, float32 accumulation), db2 from
+//   the rounded g; aggr and z are saved as bfloat16, dzr, da and the
+//   weight gradients stay float32. Without either flag the float kernels
+//   run, their bits unchanged.
 // Every output is summed in a fixed order: the kernels give the same bits
 // on every run.
 
@@ -87,9 +95,104 @@ bool bad_shape(int N, int K, int block_nodes, int block_edges) {
          K > MAX_K || N % block_nodes != 0;
 }
 
+// The aggregation of the forward with x stored as TI, aggr as TA.
+template <typename TI, typename TA, bool BF>
+int aggr_fwd(const void* x, const float* ein, const float* We,
+             const float* e_self, const int* snd, const int* rcv,
+             const float* w, const float* nm, void* aggr, int n_blocks, int F,
+             int K, int block_nodes, int block_edges, cudaStream_t st) {
+  return edge_aggr_fwd<true, true, true, 1, TI, TA, BF>(
+      static_cast<const TI*>(x), ein, We, e_self, snd, rcv, w, nm,
+      static_cast<TA*>(aggr), n_blocks, F, K, block_nodes, block_edges, st);
+}
+
+// The aggregation of the backward from da (float), dx stored as TO.
+template <typename TO, bool BF>
+int aggr_bwd(const float* da, const float* ein, const int* snd,
+             const int* rcv, const float* w, const float* nm, void* dx,
+             float* dWe_part, float* des_part, int n_blocks, int F, int K,
+             int block_nodes, int block_edges, cudaStream_t st) {
+  return edge_aggr_bwd<true, true, true, 1, float, TO, BF>(
+      da, ein, snd, rcv, w, nm, static_cast<TO*>(dx), dWe_part, des_part,
+      n_blocks, F, K, block_nodes, block_edges, st);
+}
+
+// The bfloat16 forward (see the note above): rows = bf16_rows, c =
+// bf16_compute, not both false.
+int fwd_bf16(const void* x, const float* ein, const float* We,
+             const float* e_self, const float* W1, ll w1s0, ll w1s1,
+             const float* b1, const float* W2, ll w2s0, ll w2s1,
+             const float* b2, const int* snd, const int* rcv, const float* w,
+             const float* nm, void* out, void* aggr, void* z, int N, int F,
+             int F2, int K, int block_nodes, int block_edges, bool rows,
+             bool c, cudaStream_t st) {
+  const int n_blocks = N / block_nodes;
+  int err;
+  if (rows)
+    err = c ? aggr_fwd<bf16, bf16, true>(x, ein, We, e_self, snd, rcv, w, nm, aggr, n_blocks, F, K, block_nodes, block_edges, st)
+            : aggr_fwd<bf16, float, false>(x, ein, We, e_self, snd, rcv, w, nm, aggr, n_blocks, F, K, block_nodes, block_edges, st);
+  else
+    err = aggr_fwd<float, bf16, true>(x, ein, We, e_self, snd, rcv, w, nm, aggr, n_blocks, F, K, block_nodes, block_edges, st);
+  if (err) return err;
+  const int act = c ? GEMM_A_BF16 | GEMM_B_ROUND : 0;  // aggr, z; W1, W2
+  err = gemm_cvt(aggr, F, 1, W1, w1s0, w1s1, z, N, F2, F, 1, nullptr, b1,
+                 nullptr, 1, act | (c ? GEMM_C_BF16 : 0), st);
+  if (err) return err;
+  return gemm_cvt(z, F2, 1, W2, w2s0, w2s1, out, N, F, F2, 1, nullptr, b2,
+                  nullptr, 0, act | (rows ? GEMM_C_BF16 : 0), st);
+}
+
+// The bfloat16 backward, flags as fwd_bf16's.
+int bwd_bf16(const void* g, const void* aggr, const void* z, const float* ein,
+             const float* W1, ll w1s0, ll w1s1, const float* W2, ll w2s0,
+             ll w2s1, const int* snd, const int* rcv, const float* w,
+             const float* nm, void* dx, float* dWe, float* des, float* dW1,
+             float* db1, float* dW2, float* db2, const BwdWork& wk, int N,
+             int F, int F2, int K, int block_nodes, int block_edges,
+             bool rows, bool c, cudaStream_t st) {
+  const int n_blocks = N / block_nodes;
+  // g: stored as bfloat16 (rows), else float rounded under c
+  const bool g_rnd = c && !rows;
+  const int gA = rows ? GEMM_A_BF16 : g_rnd ? GEMM_A_ROUND : 0;
+  const int gB = rows ? GEMM_B_BF16 : g_rnd ? GEMM_B_ROUND : 0;
+  const int wB = c ? GEMM_B_ROUND : 0;           // W1, W2
+  const int sA = c ? GEMM_A_BF16 : 0;            // saved aggr, z
+  const int dA = c ? GEMM_A_ROUND : 0;           // dzr as an operand
+  const int dB = c ? GEMM_B_ROUND : 0;
+  int err;
+  // dzr = (g @ W2^T) * (z > 0)
+  err = gemm_cvt(g, F, 1, W2, w2s1, w2s0, wk.dzr, N, F2, F, 1, nullptr, nullptr, z, 0, gA | wB | (c ? GEMM_PM_BF16 : 0), st);
+  if (err) return err;
+  // dW2 = z^T g
+  err = gemm_cvt(z, 1, F2, g, F, 1, dW2, F2, F, N, wgrad_splits(F2, F, N), wk.part, nullptr, nullptr, 0, sA | gB, st);
+  if (err) return err;
+  err = colsum(g, N, F, wk.cpart, db2, st, rows, g_rnd);
+  if (err) return err;
+  // dW1 = aggr^T dzr
+  err = gemm_cvt(aggr, 1, F, wk.dzr, F2, 1, dW1, F, F2, N, wgrad_splits(F, F2, N), wk.part, nullptr, nullptr, 0, sA | dB, st);
+  if (err) return err;
+  err = colsum(wk.dzr, N, F2, wk.cpart, db1, st);
+  if (err) return err;
+  // da = dzr @ W1^T
+  err = gemm_cvt(wk.dzr, F2, 1, W1, w1s1, w1s0, wk.da, N, F, F2, 1, nullptr, nullptr, nullptr, 0, dA | wB, st);
+  if (err) return err;
+  if (rows)
+    err = c ? aggr_bwd<bf16, true>(wk.da, ein, snd, rcv, w, nm, dx, wk.dWe_part, wk.des_part, n_blocks, F, K, block_nodes, block_edges, st)
+            : aggr_bwd<bf16, false>(wk.da, ein, snd, rcv, w, nm, dx, wk.dWe_part, wk.des_part, n_blocks, F, K, block_nodes, block_edges, st);
+  else
+    err = aggr_bwd<float, true>(wk.da, ein, snd, rcv, w, nm, dx, wk.dWe_part, wk.des_part, n_blocks, F, K, block_nodes, block_edges, st);
+  if (err) return err;
+  err = sum_partials(wk.dWe_part, n_blocks, (ll)K * F, F, dWe, nullptr, nullptr, 0, st);
+  if (err) return err;
+  return sum_partials(wk.des_part, n_blocks, F, F, des, nullptr, nullptr, 0, st);
+}
+
 }  // namespace
 
 extern "C" {
+
+// Present since the entry points take (bf16_rows, bf16_compute).
+int pgt_bf16_flags() { return 1; }
 
 // Float32 elements of scratch that pgt_gin_conv_bwd needs.
 long long pgt_gin_conv_bwd_workspace(int N, int F, int F2, int K,
@@ -101,40 +204,60 @@ int pgt_gin_conv_max_block_nodes() { return MAX_BN; }
 int pgt_gin_conv_max_k() { return MAX_K; }
 
 // Forward: writes out [N, F], aggr [N, F] and z [N, F2]. W1 is [F, F2] and
-// W2 [F2, F] with any strides. Returns the first CUDA error, 0 if none.
-int pgt_gin_conv_fwd(const float* x, const float* ein, const float* We,
+// W2 [F2, F] with any strides. x and out are bfloat16 with bf16_rows, aggr
+// and z with bf16_compute, else float. Returns the first CUDA error, 0 if
+// none.
+int pgt_gin_conv_fwd(const void* x, const float* ein, const float* We,
                      const float* e_self, const float* W1, ll w1s0, ll w1s1,
                      const float* b1, const float* W2, ll w2s0, ll w2s1,
                      const float* b2, const int* snd, const int* rcv,
-                     const float* w, const float* nm, float* out, float* aggr,
-                     float* z, int N, int F, int F2, int K, int block_nodes,
-                     int block_edges, void* stream) {
+                     const float* w, const float* nm, void* out, void* aggr,
+                     void* z, int N, int F, int F2, int K, int block_nodes,
+                     int block_edges, int bf16_rows, int bf16_compute,
+                     void* stream) {
   if (bad_shape(N, K, block_nodes, block_edges)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (bf16_rows || bf16_compute)
+    return fwd_bf16(x, ein, We, e_self, W1, w1s0, w1s1, b1, W2, w2s0, w2s1,
+                    b2, snd, rcv, w, nm, out, aggr, z, N, F, F2, K,
+                    block_nodes, block_edges, bf16_rows, bf16_compute, st);
   const int n_blocks = N / block_nodes;
-  int err = edge_aggr_fwd<true, true, true, 1>(x, ein, We, e_self, snd, rcv, w,
-                                            nm, aggr, n_blocks, F, K,
-                                            block_nodes, block_edges, st);
+  int err = edge_aggr_fwd<true, true, true, 1>(
+      static_cast<const float*>(x), ein, We, e_self, snd, rcv, w, nm,
+      static_cast<float*>(aggr), n_blocks, F, K, block_nodes, block_edges,
+      st);
   if (err) return err;
-  err = gemm(aggr, F, 1, W1, w1s0, w1s1, z, N, F2, F, 1, nullptr, b1, nullptr, 1, st);
+  float* zf = static_cast<float*>(z);
+  err = gemm(static_cast<const float*>(aggr), F, 1, W1, w1s0, w1s1, zf, N, F2, F, 1, nullptr, b1, nullptr, 1, st);
   if (err) return err;
-  return gemm(z, F2, 1, W2, w2s0, w2s1, out, N, F, F2, 1, nullptr, b2, nullptr, 0, st);
+  return gemm(zf, F2, 1, W2, w2s0, w2s1, static_cast<float*>(out), N, F, F2, 1, nullptr, b2, nullptr, 0, st);
 }
 
 // Backward: writes dx [N, F], dWe [K, F], des [F], dW1 [F, F2], db1 [F2],
 // dW2 [F2, F], db2 [F]. ``work`` holds pgt_gin_conv_bwd_workspace floats.
-int pgt_gin_conv_bwd(const float* g, const float* aggr, const float* z,
+// g and dx are bfloat16 with bf16_rows, aggr and z with bf16_compute; the
+// weight gradients are float.
+int pgt_gin_conv_bwd(const void* g_, const void* aggr_, const void* z_,
                      const float* ein, const float* W1, ll w1s0, ll w1s1,
                      const float* W2, ll w2s0, ll w2s1, const int* snd,
                      const int* rcv, const float* w, const float* nm,
-                     float* dx, float* dWe, float* des, float* dW1,
+                     void* dx_, float* dWe, float* des, float* dW1,
                      float* db1, float* dW2, float* db2, float* work, int N,
                      int F, int F2, int K, int block_nodes, int block_edges,
-                     void* stream) {
+                     int bf16_rows, int bf16_compute, void* stream) {
   if (bad_shape(N, K, block_nodes, block_edges)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int n_blocks = N / block_nodes;
   const BwdWork wk = carve(work, N, F, F2, K, n_blocks);
+  if (bf16_rows || bf16_compute)
+    return bwd_bf16(g_, aggr_, z_, ein, W1, w1s0, w1s1, W2, w2s0, w2s1, snd,
+                    rcv, w, nm, dx_, dWe, des, dW1, db1, dW2, db2, wk, N, F,
+                    F2, K, block_nodes, block_edges, bf16_rows, bf16_compute,
+                    st);
+  const float* g = static_cast<const float*>(g_);
+  const float* aggr = static_cast<const float*>(aggr_);
+  const float* z = static_cast<const float*>(z_);
+  float* dx = static_cast<float*>(dx_);
   int err;
   // dzr = (g @ W2^T) * (z > 0): B(k = f, j = c) = W2[c, f]
   err = gemm(g, F, 1, W2, w2s1, w2s0, wk.dzr, N, F2, F, 1, nullptr, nullptr, z, 0, st);

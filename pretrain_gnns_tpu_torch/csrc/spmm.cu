@@ -30,6 +30,13 @@
 // each node block writes a K x F partial and a second pass sums the
 // partials in block order. No atomics: out, dx and dW are the same bits
 // on every run.
+//
+// bfloat16: x, out, g and dx may be stored as bfloat16 (bf16_rows, two
+// features a lane in 4-byte accesses where F is even and the rows 4-byte
+// aligned), and with bf16_compute the walk rounds as the Pallas kernel at
+// compute_dtype = bfloat16 does (edge_aggr.cuh's BF: each message rounded
+// before the receiver sum, the edge term per slot; dmsg = bf(bf(w) bf(g))
+// and dW = sum bf(ein)^T dmsg per slot); dW stays float32.
 
 #include <cuda_runtime.h>
 
@@ -62,36 +69,70 @@ int bwd_smem(int block_nodes, int K, int vec, bool has_x, bool has_ein) {
                         true);
 }
 
-template <bool HAS_X, bool HAS_EIN>
-int launch_fwd(const float* x, const float* ein, const float* W,
-               const int* snd, const int* rcv, const float* w, float* out,
-               int N, int F, int K, int block_nodes, int block_edges,
-               cudaStream_t st) {
+// Rows stored as T, rounding under BF.
+template <bool HAS_X, bool HAS_EIN, typename T, bool BF>
+int launch_fwd_t(const void* x_, const float* ein, const float* W,
+                 const int* snd, const int* rcv, const float* w, void* out_,
+                 int N, int F, int K, int block_nodes, int block_edges,
+                 cudaStream_t st) {
+  const T* x = static_cast<const T*>(x_);
+  T* out = static_cast<T*>(out_);
   const int n_blocks = N / block_nodes;
   K = HAS_EIN ? K : 0;
-  if (row_vec(F, {x, W, out}, 2) == 2)
-    return edge_aggr_fwd<HAS_X, HAS_EIN, false, 2>(
+  const int vec = std::is_same<T, float>::value
+      ? row_vec(F, {x, W, out}, 2) : row_vec(F, {x, out}, 2, sizeof(T));
+  if (vec == 2)
+    return edge_aggr_fwd<HAS_X, HAS_EIN, false, 2, T, T, BF>(
         x, ein, W, nullptr, snd, rcv, w, nullptr, out, n_blocks, F, K,
         block_nodes, block_edges, st);
-  return edge_aggr_fwd<HAS_X, HAS_EIN, false, 1>(
+  return edge_aggr_fwd<HAS_X, HAS_EIN, false, 1, T, T, BF>(
       x, ein, W, nullptr, snd, rcv, w, nullptr, out, n_blocks, F, K,
       block_nodes, block_edges, st);
 }
 
 template <bool HAS_X, bool HAS_EIN>
-int launch_bwd(const float* g, const float* ein, const int* snd,
-               const int* rcv, const float* w, float* dx, float* dW,
-               float* dW_part, int N, int F, int K, int block_nodes,
-               int block_edges, cudaStream_t st) {
+int launch_fwd(const void* x, const float* ein, const float* W,
+               const int* snd, const int* rcv, const float* w, void* out,
+               int N, int F, int K, int block_nodes, int block_edges,
+               bool rows, bool c, cudaStream_t st) {
+  auto fn = rows ? (c ? launch_fwd_t<HAS_X, HAS_EIN, bf16, true>
+                      : launch_fwd_t<HAS_X, HAS_EIN, bf16, false>)
+                 : (c ? launch_fwd_t<HAS_X, HAS_EIN, float, true>
+                      : launch_fwd_t<HAS_X, HAS_EIN, float, false>);
+  return fn(x, ein, W, snd, rcv, w, out, N, F, K, block_nodes, block_edges,
+            st);
+}
+
+template <bool HAS_X, bool HAS_EIN, typename T, bool BF>
+int launch_bwd_t(const void* g_, const float* ein, const int* snd,
+                 const int* rcv, const float* w, void* dx_, float* dW_part,
+                 int N, int F, int K, int block_nodes, int block_edges,
+                 cudaStream_t st) {
+  const T* g = static_cast<const T*>(g_);
+  T* dx = static_cast<T*>(dx_);
   const int n_blocks = N / block_nodes;
-  K = HAS_EIN ? K : 0;
-  int err = row_vec(F, {g, dx}, 2) == 2
-      ? edge_aggr_bwd<HAS_X, HAS_EIN, false, 2>(
+  return row_vec(F, {g, dx}, 2, sizeof(T)) == 2
+      ? edge_aggr_bwd<HAS_X, HAS_EIN, false, 2, T, T, BF>(
             g, ein, snd, rcv, w, nullptr, dx, dW_part, nullptr, n_blocks, F,
             K, block_nodes, block_edges, st)
-      : edge_aggr_bwd<HAS_X, HAS_EIN, false, 1>(
+      : edge_aggr_bwd<HAS_X, HAS_EIN, false, 1, T, T, BF>(
             g, ein, snd, rcv, w, nullptr, dx, dW_part, nullptr, n_blocks, F,
             K, block_nodes, block_edges, st);
+}
+
+template <bool HAS_X, bool HAS_EIN>
+int launch_bwd(const void* g, const float* ein, const int* snd,
+               const int* rcv, const float* w, void* dx, float* dW,
+               float* dW_part, int N, int F, int K, int block_nodes,
+               int block_edges, bool rows, bool c, cudaStream_t st) {
+  const int n_blocks = N / block_nodes;
+  K = HAS_EIN ? K : 0;
+  auto fn = rows ? (c ? launch_bwd_t<HAS_X, HAS_EIN, bf16, true>
+                      : launch_bwd_t<HAS_X, HAS_EIN, bf16, false>)
+                 : (c ? launch_bwd_t<HAS_X, HAS_EIN, float, true>
+                      : launch_bwd_t<HAS_X, HAS_EIN, float, false>);
+  int err = fn(g, ein, snd, rcv, w, dx, dW_part, N, F, K, block_nodes,
+               block_edges, st);
   if (err || !HAS_EIN) return err;
   const ll MN = (ll)K * F;
   const ll want = (MN + 255) / 256;
@@ -111,6 +152,9 @@ bool bad_shape(int N, int F, int K, int block_nodes, int block_edges,
 
 extern "C" {
 
+// Present since the entry points take (bf16_rows, bf16_compute).
+int pgt_bf16_flags() { return 1; }
+
 int pgt_spmm_max_k() { return MAX_K; }
 int pgt_spmm_max_smem() { return MAX_SMEM; }
 // Shared bytes of a forward launch at most (with x's tile, two features a
@@ -125,38 +169,45 @@ int pgt_spmm_bwd_smem(int block_nodes, int has_x, int has_ein) {
 }
 
 // Forward: writes out [N, F]. x [N, F] is read only with has_x; ein [E, K]
-// and W [K, F] only with has_ein. E = (N / block_nodes) * block_edges.
-// Returns the first CUDA error, 0 if none.
-int pgt_spmm_fwd(const float* x, const float* ein, const float* W,
-                 const int* snd, const int* rcv, const float* w, float* out,
+// and W [K, F] only with has_ein. E = (N / block_nodes) * block_edges. x
+// and out are bfloat16 with bf16_rows, else float; bf16_compute rounds as
+// the note above says. Returns the first CUDA error, 0 if none.
+int pgt_spmm_fwd(const void* x, const float* ein, const float* W,
+                 const int* snd, const int* rcv, const float* w, void* out,
                  int N, int F, int K, int block_nodes, int block_edges,
-                 int has_x, int has_ein, void* stream) {
+                 int has_x, int has_ein, int bf16_rows, int bf16_compute,
+                 void* stream) {
   if (bad_shape(N, F, K, block_nodes, block_edges, has_x, has_ein,
-                fwd_smem(block_nodes, K, 2, has_x != 0, has_ein != 0)))
+                fwd_smem(block_nodes, K, 2, has_x || bf16_compute,
+                         has_ein != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const bool r = bf16_rows, c = bf16_compute;
   if (has_x && has_ein)
-    return launch_fwd<true, true>(x, ein, W, snd, rcv, w, out, N, F, K, block_nodes, block_edges, st);
+    return launch_fwd<true, true>(x, ein, W, snd, rcv, w, out, N, F, K, block_nodes, block_edges, r, c, st);
   if (has_x)
-    return launch_fwd<true, false>(x, ein, W, snd, rcv, w, out, N, F, K, block_nodes, block_edges, st);
-  return launch_fwd<false, true>(x, ein, W, snd, rcv, w, out, N, F, K, block_nodes, block_edges, st);
+    return launch_fwd<true, false>(x, ein, W, snd, rcv, w, out, N, F, K, block_nodes, block_edges, r, c, st);
+  return launch_fwd<false, true>(x, ein, W, snd, rcv, w, out, N, F, K, block_nodes, block_edges, r, c, st);
 }
 
 // Backward from g [N, F]: writes dx [N, F] (has_x) and dW [K, F] (has_ein),
-// with dW_part [N / block_nodes, K, F] as scratch.
-int pgt_spmm_bwd(const float* g, const float* ein, const int* snd,
-                 const int* rcv, const float* w, float* dx, float* dW,
+// with dW_part [N / block_nodes, K, F] as scratch. g and dx are bfloat16
+// with bf16_rows; dW is float.
+int pgt_spmm_bwd(const void* g, const float* ein, const int* snd,
+                 const int* rcv, const float* w, void* dx, float* dW,
                  float* dW_part, int N, int F, int K, int block_nodes,
-                 int block_edges, int has_x, int has_ein, void* stream) {
+                 int block_edges, int has_x, int has_ein, int bf16_rows,
+                 int bf16_compute, void* stream) {
   if (bad_shape(N, F, K, block_nodes, block_edges, has_x, has_ein,
                 bwd_smem(block_nodes, K, 2, has_x != 0, has_ein != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const bool r = bf16_rows, c = bf16_compute;
   if (has_x && has_ein)
-    return launch_bwd<true, true>(g, ein, snd, rcv, w, dx, dW, dW_part, N, F, K, block_nodes, block_edges, st);
+    return launch_bwd<true, true>(g, ein, snd, rcv, w, dx, dW, dW_part, N, F, K, block_nodes, block_edges, r, c, st);
   if (has_x)
-    return launch_bwd<true, false>(g, ein, snd, rcv, w, dx, dW, dW_part, N, F, K, block_nodes, block_edges, st);
-  return launch_bwd<false, true>(g, ein, snd, rcv, w, dx, dW, dW_part, N, F, K, block_nodes, block_edges, st);
+    return launch_bwd<true, false>(g, ein, snd, rcv, w, dx, dW, dW_part, N, F, K, block_nodes, block_edges, r, c, st);
+  return launch_bwd<false, true>(g, ein, snd, rcv, w, dx, dW, dW_part, N, F, K, block_nodes, block_edges, r, c, st);
 }
 
 }  // extern "C"

@@ -24,7 +24,10 @@ Module and parameter names follow the reference state dict
 and ``gnns.{k}.bias``; the head adds ``gnn.*``, ``pool.gate_nn`` and
 ``graph_pred_linear``). The JK modes are ``last`` and the intended layer
 ``sum``. Dropout follows every layer's ReLU in train mode, as in the chem
-trunk; the convs take ``train`` for their batch norm only."""
+trunk; the convs take ``train`` for their batch norm only. Under the
+mixed-precision knob of ``models.inits`` the node-label embedding is cast
+to the activation dtype, the edge inputs and tables stay float32, and the
+dense layers go through ``inits.dense``, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ from torch import nn
 from pretrain_gnns_tpu_torch.core.graphs import PackedGraphs
 from pretrain_gnns_tpu_torch.models import inits, pools
 from pretrain_gnns_tpu_torch.models.chem import (
-    TrunkDropout, _GatParams, inv_sqrt_degree, l2_normalize_rows, lookup,
+    TrunkDropout, _GatParams, gcn_self_term, inv_sqrt_degree, lookup,
+    sage_update,
 )
 from pretrain_gnns_tpu_torch.models.norm import MaskedBatchNorm
 from pretrain_gnns_tpu_torch.ops import segment as seg
@@ -65,7 +69,7 @@ class _BioConv(nn.Module):
     def embed_input(self, h: torch.Tensor, g: PackedGraphs) -> torch.Tensor:
         if not self.input_layer:
             return h
-        return (lookup(self.input_node_embeddings, h[:, 0])
+        return (inits.downcast(lookup(self.input_node_embeddings, h[:, 0]))
                 * g.node_mask[:, None])
 
     def edge_kernel(self):
@@ -106,8 +110,8 @@ class GINConv(_BioConv):
         self_msg = torch.cat([h, e_self.to(h.dtype).expand_as(h)], dim=1)
         aggr = aggr + self_msg * g.node_mask[:, None]
         lin0, bn, _, lin3 = self.mlp
-        z = torch.relu(bn(lin0(aggr), g.node_mask, train))
-        return lin3(z)
+        z = torch.relu(bn(inits.dense(lin0, aggr), g.node_mask, train))
+        return inits.dense(lin3, z)
 
 
 class GCNConv(_BioConv):
@@ -126,10 +130,9 @@ class GCNConv(_BioConv):
         W, e_self = self.edge_kernel()
         dis = inv_sqrt_degree(g)
         norm = dis[g.receivers.long()] * dis[g.senders.long()]
-        x = self.linear(h)
+        x = inits.dense(self.linear, h)
         aggr = self.aggregate(x, g, ein, W, edge_weight=norm)
-        self_w = (dis * dis * g.node_mask)[:, None]
-        return aggr + self_w * (x + e_self)
+        return aggr + gcn_self_term(dis, g, x, e_self).to(aggr.dtype)
 
 
 class SAGEConv(_BioConv):
@@ -146,11 +149,8 @@ class SAGEConv(_BioConv):
                 train: bool = False) -> torch.Tensor:
         h = self.embed_input(h, g)
         W, e_self = self.edge_kernel()
-        x = self.linear(h)
-        s = self.aggregate(x, g, ein, W)
-        s = s + (x + e_self) * g.node_mask[:, None]
-        deg = g.in_degree(include_self_loop=True).to(torch.float32)
-        return l2_normalize_rows(s / torch.clamp(deg, min=1.0)[:, None])
+        x = inits.dense(self.linear, h)
+        return sage_update(self.aggregate(x, g, ein, W), g, x, e_self)
 
 
 class GATConv(_BioConv, _GatParams):
@@ -166,8 +166,8 @@ class GATConv(_BioConv, _GatParams):
     def forward(self, h: torch.Tensor, g: PackedGraphs, ein: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
         h = self.embed_input(h, g)
-        return self.gat_layer(h, g, ein,
-                              lambda: self.edge_encoder(ein[:, :-1]))
+        return self.gat_layer(
+            h, g, ein, lambda: inits.dense(self.edge_encoder, ein[:, :-1]))
 
 
 CONVS = {"gin": GINConv, "gcn": GCNConv, "gat": GATConv,
@@ -202,7 +202,9 @@ class GNN(nn.Module, TrunkDropout):
 
     def forward(self, g: PackedGraphs, train: bool = False) -> torch.Tensor:
         nmask = g.node_mask[:, None]
-        dtype = inits.activation_dtype()
+        # the edge inputs in the encoders' dtype (float32); layer 0 embeds
+        # the labels and casts them to the activation dtype
+        dtype = self.gnns[0].edge_encoder.weight.dtype
         ein = edge_inputs(g, dtype)
         h = g.node_feat.to(dtype)
         h_list = []
@@ -241,4 +243,4 @@ class GNNGraphPred(nn.Module):
         center = g.extras["center_node_idx"].long()
         graph_rep = torch.cat([self.pool(h, g), seg.gather_rows(h, center)],
                               dim=1)
-        return self.graph_pred_linear(graph_rep)
+        return inits.dense(self.graph_pred_linear, graph_rep)

@@ -23,6 +23,13 @@ Module and parameter names follow the reference state dict
 ``gnns.{k}.edge_embedding{1,2}``, ``batch_norms.{k}``; the head adds
 ``gnn.*``, ``pool.*`` and ``graph_pred_linear``).
 
+Under the mixed-precision knob of ``models.inits`` activations flow in
+bfloat16 (``bfloat16_act``) from the trunk's input on; the bond one-hots,
+edge weights and tables stay float32, the dense layers go through
+``inits.dense``, the self terms are cast as the JAX package casts them,
+and the kernels get the compute dtype of ``ops.spmm.kernel_dtype``. GAT's
+attention takes float32 rows, as in the JAX package.
+
 Dropout (``drop_ratio``) follows every layer's ReLU in train mode, before
 the padded rows are zeroed. Its masks come from a ``torch.Generator`` on
 the activations' device, seeded by :meth:`TrunkDropout.seed_dropout`, so a
@@ -37,6 +44,7 @@ from pretrain_gnns_tpu_torch.core.graphs import PackedGraphs
 from pretrain_gnns_tpu_torch.models import inits, pools
 from pretrain_gnns_tpu_torch.models.norm import MaskedBatchNorm
 from pretrain_gnns_tpu_torch.ops import attention, gat_conv, gin_conv, spmm
+from pretrain_gnns_tpu_torch.ops import segment as seg
 
 NUM_ATOM_TYPE = 120  # incl. the mask token 119
 NUM_CHIRALITY_TAG = 3
@@ -75,6 +83,24 @@ def inv_sqrt_degree(g: PackedGraphs) -> torch.Tensor:
     deg = g.in_degree(include_self_loop=True).to(torch.float32)
     pos = deg > 0
     return torch.where(pos, torch.where(pos, deg, 1.0) ** -0.5, 0.0)
+
+
+def gcn_self_term(dis: torch.Tensor, g: PackedGraphs, x: torch.Tensor,
+                  e_self: torch.Tensor) -> torch.Tensor:
+    """GCN's self loop, ``deg^-1 * (x + e_self)`` on valid rows, in
+    float32 (the JAX package casts it to the aggregation's dtype)."""
+    return (dis * dis * g.node_mask)[:, None] * (seg.at_least_f32(x) + e_self)
+
+
+def sage_update(s: torch.Tensor, g: PackedGraphs, x: torch.Tensor,
+                e_self: torch.Tensor) -> torch.Tensor:
+    """GraphSAGE after the aggregation ``s``: the self loop added, the mean
+    over the degree with the self loop, L2-normalised rows, computed in
+    float32 and returned in ``s``'s dtype."""
+    s = s + (x + e_self.to(x.dtype)) * g.node_mask[:, None]
+    deg = g.in_degree(include_self_loop=True).to(torch.float32)
+    mean = seg.at_least_f32(s) / torch.clamp(deg, min=1.0)[:, None]
+    return l2_normalize_rows(mean).to(s.dtype)
 
 
 def l2_normalize_rows(mean: torch.Tensor) -> torch.Tensor:
@@ -120,13 +146,15 @@ class GINConv(_ChemConv):
         self.add_edge_embeddings(emb_dim)
 
     def conv_inputs(self, h: torch.Tensor, g: PackedGraphs) -> tuple:
-        """The arguments of ``gin_conv.fused_gin_conv`` for this layer."""
-        ein = bond_one_hot(g, h.dtype)
+        """The arguments of ``gin_conv.fused_gin_conv`` for this layer but
+        the compute dtype: the bond one-hots in the tables' dtype and the
+        edge weights in float32, whatever ``h``'s."""
         We, e_self = self.edge_kernel()
+        ein = bond_one_hot(g, We.dtype)
         lin0, lin2 = self.mlp[0], self.mlp[2]
         return (h, ein, We, e_self, lin0.weight.t(), lin0.bias,
                 lin2.weight.t(), lin2.bias, g.senders, g.receivers,
-                g.edge_mask.to(h.dtype), g.node_mask, g.block_nodes,
+                g.edge_mask.to(torch.float32), g.node_mask, g.block_nodes,
                 g.block_edges)
 
     def forward(self, h: torch.Tensor, g: PackedGraphs) -> torch.Tensor:
@@ -137,14 +165,17 @@ class GINConv(_ChemConv):
                 "(packing='blocked' or 'auto')"
             )
         if gin_conv.fused_enabled():
-            return gin_conv.fused_gin_conv(*self.conv_inputs(h, g))
+            return gin_conv.fused_gin_conv(
+                *self.conv_inputs(h, g), compute_dtype=spmm.kernel_dtype(h))
         We, e_self = self.edge_kernel()
         aggr = spmm.gather_scatter(
             h, g.senders, g.receivers, g.edge_mask, g.max_nodes,
-            edge_in=bond_one_hot(g, h.dtype), edge_kernel=We,
+            edge_in=bond_one_hot(g, We.dtype), edge_kernel=We,
             block_nodes=g.block_nodes, block_edges=g.block_edges,
         )
-        return self.mlp(aggr + (h + e_self) * g.node_mask[:, None])
+        aggr = aggr + (h + e_self.to(h.dtype)) * g.node_mask[:, None]
+        lin0, _, lin2 = self.mlp
+        return inits.dense(lin2, torch.relu(inits.dense(lin0, aggr)))
 
 
 class GCNConv(_ChemConv):
@@ -162,15 +193,14 @@ class GCNConv(_ChemConv):
         We, e_self = self.edge_kernel()
         dis = inv_sqrt_degree(g)
         norm = dis[g.receivers.long()] * dis[g.senders.long()]
-        x = self.linear(h)
+        x = inits.dense(self.linear, h)
         aggr = spmm.gather_scatter(
             x, g.senders, g.receivers, g.edge_mask, g.max_nodes,
-            edge_in=bond_one_hot(g, x.dtype), edge_kernel=We,
+            edge_in=bond_one_hot(g, We.dtype), edge_kernel=We,
             edge_weight=norm, block_nodes=g.block_nodes,
             block_edges=g.block_edges,
         )
-        self_w = (dis * dis * g.node_mask)[:, None]
-        return aggr + self_w * (x + e_self)
+        return aggr + gcn_self_term(dis, g, x, e_self).to(aggr.dtype)
 
 
 class SAGEConv(_ChemConv):
@@ -185,15 +215,13 @@ class SAGEConv(_ChemConv):
 
     def forward(self, h: torch.Tensor, g: PackedGraphs) -> torch.Tensor:
         We, e_self = self.edge_kernel()
-        x = self.linear(h)
+        x = inits.dense(self.linear, h)
         s = spmm.gather_scatter(
             x, g.senders, g.receivers, g.edge_mask, g.max_nodes,
-            edge_in=bond_one_hot(g, x.dtype), edge_kernel=We,
+            edge_in=bond_one_hot(g, We.dtype), edge_kernel=We,
             block_nodes=g.block_nodes, block_edges=g.block_edges,
         )
-        s = s + (x + e_self) * g.node_mask[:, None]
-        deg = g.in_degree(include_self_loop=True).to(torch.float32)
-        return l2_normalize_rows(s / torch.clamp(deg, min=1.0)[:, None])
+        return sage_update(s, g, x, e_self)
 
 
 class _GatParams:
@@ -225,16 +253,21 @@ class _GatParams:
         e_self = e_self.reshape(H, D)
         a_i, a_j = self.att[0, :, :D], self.att[0, :, D:]
         lin = self.weight_linear
+        cdt = spmm.kernel_dtype(h)
         if gat_conv.fused_enabled():
             return gat_conv.fused_gat_conv(
-                h, lin.weight.t(), lin.bias, ein, We, e_self, a_i, a_j,
-                self.bias, g.senders, g.receivers, g.edge_mask.to(h.dtype),
-                H, g.block_nodes, g.block_edges, self.negative_slope)
+                seg.at_least_f32(h), lin.weight.t(), lin.bias, ein, We,
+                e_self, a_i, a_j, self.bias, g.senders, g.receivers,
+                g.edge_mask.to(torch.float32), H, g.block_nodes,
+                g.block_edges, self.negative_slope, compute_dtype=cdt)
+        # the attention in float32 (logit stability), as in the JAX package
+        x = seg.at_least_f32(inits.dense(lin, h))
         out = attention.gat_attention(
-            lin(h).reshape(-1, H, D), edge_embedding().reshape(-1, H, D),
+            x.reshape(-1, H, D), edge_embedding().reshape(-1, H, D),
             e_self, a_i[None], a_j[None], g.senders, g.receivers,
             g.edge_mask, g.max_nodes, self.negative_slope,
-            block_nodes=g.block_nodes, block_edges=g.block_edges)
+            block_nodes=g.block_nodes, block_edges=g.block_edges,
+            compute_dtype=cdt)
         return out.mean(dim=1) + self.bias  # head mean
 
 
@@ -253,7 +286,7 @@ class GATConv(_ChemConv, _GatParams):
     def forward(self, h: torch.Tensor, g: PackedGraphs) -> torch.Tensor:
         ef = g.edge_feat
         return self.gat_layer(
-            h, g, bond_one_hot(g, h.dtype),
+            h, g, bond_one_hot(g, torch.float32),
             lambda: (lookup(self.edge_embedding1, ef[:, 0])
                      + lookup(self.edge_embedding2, ef[:, 1])))
 
@@ -332,7 +365,7 @@ class GNN(nn.Module, TrunkDropout):
         x = (lookup(self.x_embedding1, g.node_feat[:, 0])
              + lookup(self.x_embedding2, g.node_feat[:, 1]))
         # padded rows exactly zero; activations flow in the compute dtype
-        h = (x * nmask).to(inits.activation_dtype())
+        h = inits.downcast(x * nmask)
         h_list = [h]
         for layer in range(self.num_layer):
             h = self.gnns[layer](h, g)
@@ -373,4 +406,4 @@ class GNNGraphPred(nn.Module):
 
     def forward(self, g: PackedGraphs, train: bool = False) -> torch.Tensor:
         h = self.gnn(g, train=train)
-        return self.graph_pred_linear(self.pool(h, g))
+        return inits.dense(self.graph_pred_linear, self.pool(h, g))

@@ -6,21 +6,76 @@
 given; embedding tables are xavier-uniform; GAT's attention
 vector is PyG's glorot and its output bias zero. Every draw comes
 from an explicit ``torch.Generator``, so a seed fixes the weights on any
-device."""
+device.
+
+The mixed-precision knob, as the JAX package's (``PGT_MODEL_DTYPE``,
+:func:`set_compute_dtype`):
+
+- ``"float32"``: everything in float32 (the default);
+- ``"bfloat16"``: every dense layer (:func:`dense`) computes in bfloat16
+  and returns float32, activations stay float32;
+- ``"bfloat16_act"``: activations flow in bfloat16 from the trunk's input
+  embedding on, and dense layers return bfloat16.
+
+Parameters, batch-norm statistics, optimizer state and losses stay float32
+in every mode. The casts are explicit (``torch.autocast`` rounds at other
+places than flax's ``Dense(dtype=bfloat16)``)."""
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+
+_MODES = ("float32", "bfloat16", "bfloat16_act")
+
+
+def _checked(name: str) -> str:
+    if name not in _MODES:
+        raise ValueError(f"model dtype must be one of {_MODES}, got {name!r}")
+    return name
+
+
+_DENSE_DTYPE = _checked(os.environ.get("PGT_MODEL_DTYPE", "float32"))
+
+
+def set_compute_dtype(name: str) -> None:
+    """Set the mixed-precision mode: ``"float32"``, ``"bfloat16"`` or
+    ``"bfloat16_act"``; anything else raises ``ValueError``."""
+    global _DENSE_DTYPE
+    _DENSE_DTYPE = _checked(name)
+
+
+def get_compute_dtype() -> str:
+    return _DENSE_DTYPE
 
 
 def activation_dtype() -> torch.dtype:
-    """Dtype activations flow in: float32 (the JAX package's default
-    ``float32`` mode; its ``bfloat16_act`` mode is not ported yet)."""
-    return torch.float32
+    """Dtype activations flow in under the mixed-precision knob."""
+    return torch.bfloat16 if _DENSE_DTYPE == "bfloat16_act" else torch.float32
+
+
+def downcast(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the activation dtype (unchanged outside ``bfloat16_act``)."""
+    return x.to(activation_dtype())
+
+
+def dense(linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``linear(x)`` under the mixed-precision knob, as the JAX package's
+    ``inits.dense``: in float32 mode the plain layer; otherwise ``x``, the
+    weight and the bias cast to bfloat16 for the product, and the result
+    left in bfloat16 (``bfloat16_act``) or cast back to float32
+    (``bfloat16``). The parameters themselves stay float32."""
+    if _DENSE_DTYPE == "float32":
+        return linear(x)
+    bf = torch.bfloat16
+    bias = None if linear.bias is None else linear.bias.to(bf)
+    y = F.linear(x.to(bf), linear.weight.to(bf), bias)
+    return y.float() if _DENSE_DTYPE == "bfloat16" else y
 
 
 class Linear(nn.Linear):

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from pretrain_gnns_tpu_torch.core.graphs import PackedGraphs
+from pretrain_gnns_tpu_torch.models import inits
 from pretrain_gnns_tpu_torch.ops import segment as seg
 
 
@@ -60,7 +61,7 @@ class GlobalAttentionPool(nn.Module):
         self.gate_nn = nn.Linear(in_dim, 1)
 
     def forward(self, h: torch.Tensor, g: PackedGraphs) -> torch.Tensor:
-        gate = self.gate_nn(h)  # [N, 1]
+        gate = inits.dense(self.gate_nn, h)  # [N, 1]
         a = seg.segment_softmax(gate, g.node_graph, g.max_graphs,
                                 mask=g.node_mask)
         return seg.segment_sum(a * h, g.node_graph, g.max_graphs,
@@ -90,8 +91,10 @@ class TorchLSTMCell(nn.Module):
 
     def forward(self, carry, x):
         c, h = carry
-        z = x @ self.weight_ih + self.bias_ih + h @ self.weight_hh \
-            + self.bias_hh
+        # bfloat16 inputs widen to the weights' float32, as jnp promotes
+        dt = self.weight_ih.dtype
+        z = x.to(dt) @ self.weight_ih + self.bias_ih \
+            + h.to(dt) @ self.weight_hh + self.bias_hh
         i, f, gg, o = torch.chunk(z, 4, dim=-1)
         c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)

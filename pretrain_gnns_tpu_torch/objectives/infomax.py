@@ -60,7 +60,8 @@ class InfomaxObjective(nn.Module):
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         h = self.gnn(g, train=train)
         summary = torch.sigmoid(pools.mean_pool(h, g))  # [G, D]
-        proj = summary @ self.discriminator_weight  # [G, D]
+        w = self.discriminator_weight
+        proj = summary.to(w.dtype) @ w  # [G, D], float32 as jnp promotes
         node_graph = g.node_graph.long()
         shifted = cycle_shift(g.max_graphs, g.graph_mask.sum(), 1,
                               device=h.device)

@@ -7,10 +7,7 @@ from __future__ import annotations
 
 import torch
 
-
-def _at_least_f32(t: torch.Tensor) -> torch.Tensor:
-    """Narrower floats go up to float32; float64 stays."""
-    return t.to(torch.promote_types(t.dtype, torch.float32))
+from pretrain_gnns_tpu_torch.ops.segment import at_least_f32
 
 
 def masked_softmax_xent(
@@ -20,7 +17,7 @@ def masked_softmax_xent(
 ) -> torch.Tensor:
     """Cross-entropy averaged over valid rows (torch CrossEntropyLoss's
     mean reduction restricted to ``mask``), in f32 at least."""
-    logits = _at_least_f32(logits)
+    logits = at_least_f32(logits)
     logz = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, labels.long()[:, None])[:, 0] - logz
     m = mask.to(ll.dtype)
@@ -32,7 +29,7 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor
     """Elementwise binary cross-entropy on logits (torch
     ``BCEWithLogitsLoss(reduction="none")``, the stable form), in f32 at
     least."""
-    logits = _at_least_f32(logits)
+    logits = at_least_f32(logits)
     targets = targets.to(logits.dtype)
     return (torch.clamp(logits, min=0.0) - logits * targets
             + torch.log1p(torch.exp(-logits.abs())))

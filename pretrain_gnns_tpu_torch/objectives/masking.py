@@ -8,7 +8,10 @@ extras of ``data.batch_transforms.BatchMaskAtom``.
 
 Bio: predict the dominant evidence channel (the argmax of the first 7
 label dims) of each masked edge from ``h[src] + h[dst]``. Batches carry
-the extras of ``data.batch_transforms.BatchMaskEdge``."""
+the extras of ``data.batch_transforms.BatchMaskEdge``.
+
+The heads go through ``models.inits.dense`` (the mixed-precision knob);
+the losses are taken in float32."""
 
 from __future__ import annotations
 
@@ -50,7 +53,7 @@ class MaskingObjective(nn.Module):
         idx = g.extras["masked_atom_indices"].long()
         idx_mask = g.extras["masked_atom_indices_mask"]
         node_labels = g.extras["mask_node_label"][:, 0]
-        pred_node = self.linear_pred_atoms(h[idx])
+        pred_node = inits.dense(self.linear_pred_atoms, h[idx])
         loss = losses.masked_softmax_xent(pred_node, node_labels, idx_mask)
         metrics = {"acc_node": _masked_accuracy(pred_node, node_labels,
                                                 idx_mask)}
@@ -60,7 +63,7 @@ class MaskingObjective(nn.Module):
             edge_labels = g.extras["mask_edge_label"][:, 0]
             src = g.receivers[eidx].long()
             dst = g.senders[eidx].long()
-            pred_edge = self.linear_pred_bonds(h[src] + h[dst])
+            pred_edge = inits.dense(self.linear_pred_bonds, h[src] + h[dst])
             loss = loss + losses.masked_softmax_xent(pred_edge, edge_labels,
                                                      emask)
             metrics["acc_edge"] = _masked_accuracy(pred_edge, edge_labels,
@@ -86,6 +89,6 @@ class BioMaskEdgeObjective(nn.Module):
                                              ].argmax(dim=1)
         src = g.receivers[eidx].long()
         dst = g.senders[eidx].long()
-        pred = self.linear_pred_edges(h[src] + h[dst])
+        pred = inits.dense(self.linear_pred_edges, h[src] + h[dst])
         loss = losses.masked_softmax_xent(pred, labels, emask)
         return loss, {"acc_edge": _masked_accuracy(pred, labels, emask)}

@@ -148,6 +148,45 @@ def check_tensors(dev: torch.device, tensors: Iterable[tuple]) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+ROW_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def row_dtype(t: torch.Tensor, name: str) -> torch.dtype:
+    """``t``'s dtype, which a kernel with bfloat16 variants takes as its
+    rows' dtype: float32 or bfloat16, else ``ValueError``."""
+    if t.dtype not in ROW_DTYPES:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected float32 or "
+                         f"bfloat16")
+    return t.dtype
+
+
+def check_compute_dtype(dtype: torch.dtype) -> bool:
+    """True for bfloat16, False for float32 (a kernel's compute dtype),
+    else ``ValueError``."""
+    if dtype not in ROW_DTYPES:
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                         f"{dtype}")
+    return dtype == torch.bfloat16
+
+
+def require_float32(kernel: str, compute_dtype: torch.dtype,
+                    *tensors: torch.Tensor) -> None:
+    """Raise ``ValueError`` naming ``kernel`` where its CUDA path would be
+    asked for bfloat16 (the compute dtype or a row tensor): its bfloat16
+    variant is not ported, and it must not run silently in float32."""
+    if compute_dtype == torch.bfloat16 or any(
+            t is not None and t.dtype == torch.bfloat16 for t in tensors):
+        raise ValueError(f"{kernel}: bf16 not ported (its kernel runs in "
+                         f"float32 only; set the kernel compute dtype and the "
+                         f"rows to float32)")
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to the nearest bfloat16 value (ties to even), as
+    float32: the Pallas kernels' ``astype(bfloat16)`` of an operand."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
 def stream(t: torch.Tensor) -> int:
     """The handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -241,11 +241,16 @@ def blocked_gat_attention_plain(x, e, e_self, a_i, a_j, senders, receivers,
 
 
 def blocked_gat_attention(x, e, e_self, a_i, a_j, senders, receivers, w,
-                          slope: float, block_nodes: int, block_edges: int
+                          slope: float, block_nodes: int, block_edges: int,
+                          compute_dtype: torch.dtype = torch.float32
                           ) -> torch.Tensor:
     """K5 on CUDA tensors (kernel forward and backward), the plain version
-    on CPU tensors. Returns ``[N, H, D]``."""
+    on CPU tensors. Returns ``[N, H, D]``. K5 has no bfloat16 variant yet:
+    on CUDA a bfloat16 ``compute_dtype``, ``x`` or ``e`` raises
+    ``ValueError``."""
     if x.is_cuda:
+        _build.require_float32("K5 blocked_gat_attention", compute_dtype, x,
+                               e)
         return _BlockedGatAttention.apply(
             x.contiguous(), e.contiguous(), e_self.contiguous(),
             a_i.contiguous(), a_j.contiguous(), senders, receivers, w,
@@ -270,7 +275,9 @@ def gat_attention_plain(x, e, e_self, a_i, a_j, senders, receivers,
 
 def gat_attention(x, e, e_self, a_i, a_j, senders, receivers, edge_mask,
                   num_nodes: int, slope: float = 0.2, block_nodes: int = 0,
-                  block_edges: int = 0) -> torch.Tensor:
+                  block_edges: int = 0,
+                  compute_dtype: torch.dtype = torch.float32
+                  ) -> torch.Tensor:
     """GAT attention ``[N, H, D]`` with the argument order of the JAX
     ``gat_attention`` (``a_i``, ``a_j`` are ``[1, H, D]``). Dispatch: a CPU
     tensor takes :func:`gat_attention_plain`, whatever the layout; a CUDA
@@ -289,4 +296,4 @@ def gat_attention(x, e, e_self, a_i, a_j, senders, receivers, edge_mask,
     return blocked_gat_attention(
         x, e, e_self, a_i.reshape(H, D), a_j.reshape(H, D), senders,
         receivers, edge_mask.to(torch.float32), slope, block_nodes,
-        block_edges)
+        block_edges, compute_dtype)

@@ -21,6 +21,18 @@ plain PyTorch version :func:`blocked_spmm_fused_plain`. ``launches``
 counts the kernel launches by direction and variant, e.g.
 ``blocked_spmm_fwd[x]``, ``blocked_spmm_bwd[x+ein]``.
 
+``compute_dtype`` is the Pallas kernel's: at ``torch.bfloat16`` K2 rounds
+the edge weight, the gathered rows, ``w * ein`` and ``W`` to bfloat16 and
+each message before the receiver sum, and in the backward
+``dmsg = bf(bf(w) bf(g))`` and ``ein`` before their products, every sum in
+float32. ``x`` may be float32 or bfloat16: ``out`` and ``dx`` come out in
+``x``'s dtype, ``dW`` in float32. The plain version at bfloat16 is
+:class:`_SpmmPlainBf16`. It stays apart from the float32 plain version
+(autograd over ``w * (x[snd] + ein @ W)``): with its rounding taken out it
+computes ``w x[snd] + (w ein) @ W``, the Pallas body's association, which
+moves the last bits of ``out``, and the
+float32 plain version keeps the bits the float32 tests were written on.
+
 K6 replaces ``pretrain_gnns_tpu/ops/pallas_spmm.py::blocked_spmm`` (the
 Pallas TPU kernels ``_fwd_kernel``/``_bwd_kernel``)::
 
@@ -35,6 +47,8 @@ autograd asks for it. On a CUDA tensor :func:`blocked_spmm` launches the
 kernels of ``csrc/spmm_ee.cu`` or raises; on a CPU tensor it runs
 :func:`blocked_spmm_plain`. Its counters are
 ``blocked_spmm_ee_{fwd,bwd}[x+ee]`` and ``blocked_spmm_ee_{fwd,bwd}[x]``.
+K6 has no bfloat16 variant yet: on CUDA it raises ``ValueError`` under a
+bfloat16 compute dtype or rows.
 """
 
 from __future__ import annotations
@@ -71,15 +85,15 @@ def variant(has_x: bool, has_ein: bool) -> str:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_F32, _I32 = torch.float32, torch.int32
+_F32, _I32, _BF16 = torch.float32, torch.int32, torch.bfloat16
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("spmm")
-    lib.pgt_spmm_fwd.argtypes = [_P] * 7 + [_I] * 7 + [_P]
+    lib.pgt_spmm_fwd.argtypes = [_P] * 7 + [_I] * 9 + [_P]
     lib.pgt_spmm_fwd.restype = _I
-    lib.pgt_spmm_bwd.argtypes = [_P] * 8 + [_I] * 7 + [_P]
+    lib.pgt_spmm_bwd.argtypes = [_P] * 8 + [_I] * 9 + [_P]
     lib.pgt_spmm_bwd.restype = _I
     lib.pgt_spmm_fwd_smem.argtypes = [_I] * 3
     lib.pgt_spmm_fwd_smem.restype = _I
@@ -119,31 +133,34 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def spmm_fwd(x, ein, W, senders, receivers, w, block_nodes: int,
-             block_edges: int, has_x: bool = True, has_ein: bool = True
-             ) -> torch.Tensor:
-    """Launch K2's forward; returns ``out [N, F]``. ``x`` gives N (and the
-    device) even when ``has_x`` is false."""
+             block_edges: int, has_x: bool = True, has_ein: bool = True,
+             compute_dtype: torch.dtype = _F32) -> torch.Tensor:
+    """Launch K2's forward; returns ``out [N, F]`` in ``x``'s dtype. ``x``
+    gives N, the device and the rows' dtype even when ``has_x`` is
+    false."""
     name = variant(has_x, has_ein)
     _require_cuda(x)
     lib = _lib()
     N, E = x.shape[0], senders.shape[0]
     F = W.shape[1] if has_ein else x.shape[1]
     K = W.shape[0] if has_ein else 0
+    rows = _build.row_dtype(x, "x")
+    bf = _build.check_compute_dtype(compute_dtype)
     tensors = [(senders, "senders", (E,), _I32),
                (receivers, "receivers", (E,), _I32), (w, "w", (E,), _F32)]
     if has_x:
-        tensors.append((x, "x", (N, F), _F32))
+        tensors.append((x, "x", (N, F), rows))
     if has_ein:
         tensors += [(ein, "ein", (E, K), _F32), (W, "W", (K, F), _F32)]
     _check(lib, x.device, block_nodes, block_edges, N, K, E,
            lib.pgt_spmm_fwd_smem(block_nodes, K, int(has_ein)), tensors)
-    out = torch.empty((N, F), dtype=_F32, device=x.device)
+    out = torch.empty((N, F), dtype=rows, device=x.device)
     err = lib.pgt_spmm_fwd(
         x.data_ptr() if has_x else None, _ptr(ein) if has_ein else None,
         _ptr(W) if has_ein else None, senders.data_ptr(),
         receivers.data_ptr(), w.data_ptr(), out.data_ptr(), N, F, K,
         block_nodes, block_edges, int(has_x), int(has_ein),
-        _build.stream(x),
+        int(rows == _BF16), int(bf), _build.stream(x),
     )
     if err:
         raise RuntimeError(
@@ -153,16 +170,19 @@ def spmm_fwd(x, ein, W, senders, receivers, w, block_nodes: int,
 
 
 def spmm_bwd(g, ein, senders, receivers, w, K: int, block_nodes: int,
-             block_edges: int, has_x: bool = True, has_ein: bool = True
+             block_edges: int, has_x: bool = True, has_ein: bool = True,
+             compute_dtype: torch.dtype = _F32
              ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Launch K2's backward from ``g [N, F]``; returns ``(dx, dW)``, each
-    None where its flag is false."""
+    None where its flag is false: ``dx`` in ``g``'s dtype, ``dW`` float32."""
     name = variant(has_x, has_ein)
     _require_cuda(g)
     lib = _lib()
     (N, F), E = g.shape, senders.shape[0]
     K = K if has_ein else 0
-    tensors = [(g, "g", (N, F), _F32), (senders, "senders", (E,), _I32),
+    rows = _build.row_dtype(g, "g")
+    bf = _build.check_compute_dtype(compute_dtype)
+    tensors = [(g, "g", (N, F), rows), (senders, "senders", (E,), _I32),
                (receivers, "receivers", (E,), _I32), (w, "w", (E,), _F32)]
     if has_ein:
         tensors.append((ein, "ein", (E, K), _F32))
@@ -170,14 +190,15 @@ def spmm_bwd(g, ein, senders, receivers, w, K: int, block_nodes: int,
            lib.pgt_spmm_bwd_smem(block_nodes, int(has_x), int(has_ein)),
            tensors)
     new = lambda *shape: torch.empty(shape, dtype=_F32, device=g.device)
-    dx = new(N, F) if has_x else None
+    dx = (torch.empty((N, F), dtype=rows, device=g.device) if has_x
+          else None)
     dW = new(K, F) if has_ein else None
     part = new(N // block_nodes, K, F) if has_ein else None
     err = lib.pgt_spmm_bwd(
         g.data_ptr(), _ptr(ein) if has_ein else None, senders.data_ptr(),
         receivers.data_ptr(), w.data_ptr(), _ptr(dx), _ptr(dW), _ptr(part),
         N, F, K, block_nodes, block_edges, int(has_x), int(has_ein),
-        _build.stream(g),
+        int(rows == _BF16), int(bf), _build.stream(g),
     )
     if err:
         raise RuntimeError(
@@ -189,12 +210,12 @@ def spmm_bwd(g, ein, senders, receivers, w, K: int, block_nodes: int,
 class _BlockedSpmmFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ein, W, senders, receivers, w, block_nodes,
-                block_edges, has_x, has_ein):
+                block_edges, has_x, has_ein, compute_dtype):
         out = spmm_fwd(x, ein, W, senders, receivers, w, block_nodes,
-                       block_edges, has_x, has_ein)
+                       block_edges, has_x, has_ein, compute_dtype)
         ctx.save_for_backward(ein, senders, receivers, w)
         ctx.cfg = (W.shape[0] if has_ein else 0, block_nodes, block_edges,
-                   has_x, has_ein)
+                   has_x, has_ein, compute_dtype)
         ctx.x_like = (x.shape, x.dtype, x.device)
         return out
 
@@ -202,9 +223,9 @@ class _BlockedSpmmFused(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         ein, senders, receivers, w = ctx.saved_tensors
-        K, bn, be, has_x, has_ein = ctx.cfg
+        K, bn, be, has_x, has_ein, cdt = ctx.cfg
         dx, dW = spmm_bwd(g.contiguous(), ein, senders, receivers, w, K, bn,
-                          be, has_x, has_ein)
+                          be, has_x, has_ein, cdt)
         need = ctx.needs_input_grad
         if need[0] and dx is None:
             shape, dtype, dev = ctx.x_like
@@ -212,34 +233,85 @@ class _BlockedSpmmFused(torch.autograd.Function):
         dein = torch.zeros_like(ein) if need[1] else None  # as the JAX VJP
         dw = torch.zeros_like(w) if need[5] else None
         return (dx if need[0] else None, dein, dW if need[2] else None,
-                None, None, dw, None, None, None, None)
+                None, None, dw, None, None, None, None, None)
+
+
+class _SpmmPlainBf16(torch.autograd.Function):
+    """K2's plain version at compute dtype bfloat16: the Pallas kernel's
+    bodies (``_fused_fwd_kernel``, ``_fused_bwd_kernel`` of
+    ``pallas_spmm.py``) in torch, rounding where they round; ``dein`` and
+    ``dw`` are zeros, as the JAX VJP's."""
+
+    @staticmethod
+    def forward(ctx, x, ein, W, senders, receivers, w, has_x, has_ein):
+        r = _build.round_bf16
+        snd, rcv = senders.long(), receivers.long()
+        wf = w.float()
+        msg = r(ein.float() * wf[:, None]) @ r(W) if has_ein else 0
+        if has_x:
+            msg = msg + r(wf)[:, None] * r(x.float())[snd]
+        N, F = x.shape[0], msg.shape[1]
+        out = seg.scatter_add_rows(x.new_zeros((N, F), dtype=_F32), rcv,
+                                   r(msg))
+        ctx.save_for_backward(ein, senders, receivers, w)
+        ctx.cfg = (has_x, has_ein, x.shape, x.dtype)
+        return out.to(x.dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        r = _build.round_bf16
+        ein, senders, receivers, w = ctx.saved_tensors
+        has_x, has_ein, x_shape, x_dtype = ctx.cfg
+        need = ctx.needs_input_grad
+        dmsg = r(r(w.float())[:, None] * r(g.float())[receivers.long()])
+        dx = dW = None
+        if need[0]:
+            dx = (seg.scatter_add_rows(g.new_zeros(x_shape, dtype=_F32),
+                                       senders.long(), dmsg)
+                  if has_x else g.new_zeros(x_shape, dtype=_F32))
+            dx = dx.to(x_dtype)
+        if has_ein and need[2]:
+            dW = r(ein.float()).t() @ dmsg
+        return (dx, torch.zeros_like(ein) if has_ein and need[1] else None,
+                dW, None, None, torch.zeros_like(w) if need[5] else None,
+                None, None)
 
 
 def blocked_spmm_fused_plain(x, ein, W, senders, receivers, w,
                              block_nodes: int = 0, block_edges: int = 0,
-                             has_x: bool = True, has_ein: bool = True
+                             has_x: bool = True, has_ein: bool = True,
+                             compute_dtype: torch.dtype = _F32
                              ) -> torch.Tensor:
-    """The plain PyTorch version of K2 (any layout; autograd gives the
-    backward): a gather, the edge product, a weighted segment sum."""
+    """The plain PyTorch version of K2 (any layout). At float32 autograd
+    gives the backward: a gather of ``x`` widened to float32, the edge
+    product, a weighted segment sum, returned in ``x``'s dtype. At
+    bfloat16 it is :class:`_SpmmPlainBf16`."""
     variant(has_x, has_ein)
-    msg = x.index_select(0, senders.long()) if has_x else 0
+    if _build.check_compute_dtype(compute_dtype):
+        return _SpmmPlainBf16.apply(x, ein, W, senders, receivers, w, has_x,
+                                    has_ein)
+    msg = (seg.at_least_f32(x).index_select(0, senders.long()) if has_x
+           else 0)
     if has_ein:
         msg = msg + ein @ W
-    return seg.segment_sum(msg, receivers, x.shape[0], mask=w)
+    return seg.segment_sum(msg, receivers, x.shape[0], mask=w).to(x.dtype)
 
 
 def blocked_spmm_fused(x, ein, W, senders, receivers, w, block_nodes: int,
                        block_edges: int, has_x: bool = True,
-                       has_ein: bool = True) -> torch.Tensor:
+                       has_ein: bool = True,
+                       compute_dtype: torch.dtype = _F32) -> torch.Tensor:
     """K2 on CUDA tensors (kernel forward and backward), the plain version
     on CPU tensors. ``w`` is the f32 edge weight with the mask folded in
-    (0 on padded slots)."""
+    (0 on padded slots); ``compute_dtype`` is float32 or bfloat16."""
     if x.is_cuda:
         return _BlockedSpmmFused.apply(x, ein, W, senders, receivers, w,
                                        block_nodes, block_edges, has_x,
-                                       has_ein)
+                                       has_ein, compute_dtype)
     return blocked_spmm_fused_plain(x, ein, W, senders, receivers, w,
-                                    block_nodes, block_edges, has_x, has_ein)
+                                    block_nodes, block_edges, has_x, has_ein,
+                                    compute_dtype)
 
 
 # --- K6: the edge embedding precomputed, [E, F] ---------------------------
@@ -395,11 +467,15 @@ def blocked_spmm_plain(x, edge_emb, senders, receivers, edge_weight,
 
 
 def blocked_spmm(x, edge_emb, senders, receivers, edge_weight,
-                 block_nodes: int, block_edges: int) -> torch.Tensor:
+                 block_nodes: int, block_edges: int,
+                 compute_dtype: torch.dtype = _F32) -> torch.Tensor:
     """K6 on CUDA tensors (kernel forward and backward), the plain version
     on CPU tensors. ``edge_emb`` is ``[E, F]`` or None; ``edge_weight`` is
-    the f32 edge weight with the mask folded in (0 on padded slots)."""
+    the f32 edge weight with the mask folded in (0 on padded slots). On
+    CUDA a bfloat16 ``compute_dtype`` or rows raise ``ValueError`` (no
+    bfloat16 variant yet)."""
     if x.is_cuda:
+        _build.require_float32("K6 blocked_spmm", compute_dtype, x, edge_emb)
         return _BlockedSpmm.apply(x, edge_emb, senders, receivers,
                                   edge_weight, block_nodes, block_edges)
     return blocked_spmm_plain(x, edge_emb, senders, receivers, edge_weight,

@@ -191,15 +191,19 @@ def fused_gat_conv_plain(h, Wl, bl, ein, We, e_self, a_i, a_j, bias, senders,
 
 def fused_gat_conv(h, Wl, bl, ein, We, e_self, a_i, a_j, bias, senders,
                    receivers, w, heads: int, block_nodes: int,
-                   block_edges: int, slope: float = 0.2) -> torch.Tensor:
+                   block_edges: int, slope: float = 0.2,
+                   compute_dtype: torch.dtype = torch.float32
+                   ) -> torch.Tensor:
     """K4 on CUDA tensors (kernel forward and backward), the plain version
     on CPU tensors. ``e_self``, ``a_i`` and ``a_j`` are ``[H, D]`` (slices
     of one ``att`` parameter pass: they are made contiguous here and
     autograd joins their gradients); ``w`` is the f32 edge weight with the
-    mask folded in."""
+    mask folded in. K4 has no bfloat16 variant yet: on CUDA a bfloat16
+    ``compute_dtype`` or ``h`` raises ``ValueError``."""
     if e_self.shape[0] != heads:
         raise ValueError(f"e_self is {tuple(e_self.shape)}, heads={heads}")
     if h.is_cuda:
+        _build.require_float32("K4 fused_gat_conv", compute_dtype, h, ein)
         return _FusedGatConv.apply(
             h.contiguous(), Wl, bl, ein, We.contiguous(),
             e_self.contiguous(), a_i.contiguous(), a_j.contiguous(), bias,

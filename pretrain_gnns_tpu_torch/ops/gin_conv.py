@@ -30,6 +30,23 @@ term and the two ``nn.Linear`` of the MLP.
 
 Padded node rows get ``relu(b1) @ W2 + b2``, not zero, exactly as the JAX
 kernel; the trunk masks them after the batch norm.
+
+``compute_dtype`` is the Pallas kernel's: at ``torch.bfloat16`` the layer
+rounds its operands to bfloat16 where the Pallas body does (the edge
+weight, ``x``, ``w * ein`` and ``We``; each message before the receiver
+sum; ``aggr``, ``z``, ``g``, ``dzr`` and the weights before each product;
+``da`` before the aggregation's backward), with every product and sum in
+float32. ``x`` may be float32 or bfloat16; ``out`` and ``dx`` come out in
+``x``'s dtype, the residuals ``aggr`` and ``z`` in the compute dtype, the
+weight gradients in float32. The plain version at bfloat16 is
+:class:`_GinConvPlainBf16`, the Pallas body written out in torch. It stays
+apart from the float32 plain version (autograd over
+``gather_scatter_plain`` and the MLP): with its rounding taken out it
+associates the message as ``w x[snd] + (w ein) @ We``, not
+``w (x[snd] + ein @ We)``, which moves the last bits of ``out`` and of
+three gradients, and the float32 plain
+version keeps the bits the float32 tests and ``return_residuals`` were
+written on.
 """
 
 from __future__ import annotations
@@ -41,6 +58,7 @@ from typing import Dict
 import torch
 
 from pretrain_gnns_tpu_torch.ops import _build, spmm
+from pretrain_gnns_tpu_torch.ops import segment as seg
 
 launches: Dict[str, int] = {"gin_conv_fwd": 0, "gin_conv_bwd": 0, "gemm": 0}
 
@@ -66,8 +84,8 @@ def fused_enabled() -> bool:
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_FWD_ARGS = [_P] * 5 + [_L, _L, _P, _P, _L, _L] + [_P] * 8 + [_I] * 6 + [_P]
-_BWD_ARGS = [_P] * 5 + [_L, _L, _P, _L, _L] + [_P] * 12 + [_I] * 6 + [_P]
+_FWD_ARGS = [_P] * 5 + [_L, _L, _P, _P, _L, _L] + [_P] * 8 + [_I] * 8 + [_P]
+_BWD_ARGS = [_P] * 5 + [_L, _L, _P, _L, _L] + [_P] * 12 + [_I] * 8 + [_P]
 
 
 @functools.cache
@@ -114,7 +132,7 @@ def _check(lib, dev, block_nodes: int, block_edges: int, N: int, K: int,
     _build.check_tensors(dev, tensors)
 
 
-_F32, _I32 = torch.float32, torch.int32
+_F32, _I32, _BF16 = torch.float32, torch.int32, torch.bfloat16
 
 
 def _edge_tensors(E, K, ein, senders, receivers, w):
@@ -125,14 +143,19 @@ def _edge_tensors(E, K, ein, senders, receivers, w):
 
 
 def gin_conv_fwd(x, ein, We, e_self, W1, b1, W2, b2, senders, receivers, w,
-                 nmask, block_nodes: int, block_edges: int):
-    """Launch K1's forward; returns ``(out, aggr, z)``. ``nmask`` is f32."""
+                 nmask, block_nodes: int, block_edges: int,
+                 compute_dtype: torch.dtype = _F32):
+    """Launch K1's forward; returns ``(out, aggr, z)``: ``out`` in ``x``'s
+    dtype (float32 or bfloat16), ``aggr`` and ``z`` in ``compute_dtype``.
+    ``nmask`` is f32."""
     _require_cuda(x)
     lib = _lib()
     N, F = x.shape
     K, F2, E = We.shape[0], W1.shape[1], senders.shape[0]
+    rows = _build.row_dtype(x, "x")
+    bf = _build.check_compute_dtype(compute_dtype)
     _check(lib, x.device, block_nodes, block_edges, N, K, E, [
-        (x, "x", (N, F), _F32, True),
+        (x, "x", (N, F), rows, True),
         (We, "We", (K, F), _F32, True),
         (e_self, "e_self", (F,), _F32, True),
         (W1, "W1", (F, F2), _F32, False),
@@ -141,16 +164,17 @@ def gin_conv_fwd(x, ein, We, e_self, W1, b1, W2, b2, senders, receivers, w,
         (b2, "b2", (F,), _F32, True),
         (nmask, "nmask", (N,), _F32, True),
     ] + _edge_tensors(E, K, ein, senders, receivers, w))
-    out = torch.empty((N, F), dtype=_F32, device=x.device)
-    aggr = torch.empty((N, F), dtype=_F32, device=x.device)
-    z = torch.empty((N, F2), dtype=_F32, device=x.device)
+    out = torch.empty((N, F), dtype=rows, device=x.device)
+    aggr = torch.empty((N, F), dtype=compute_dtype, device=x.device)
+    z = torch.empty((N, F2), dtype=compute_dtype, device=x.device)
     err = lib.pgt_gin_conv_fwd(
         x.data_ptr(), ein.data_ptr(), We.data_ptr(), e_self.data_ptr(),
         W1.data_ptr(), W1.stride(0), W1.stride(1), b1.data_ptr(),
         W2.data_ptr(), W2.stride(0), W2.stride(1), b2.data_ptr(),
         senders.data_ptr(), receivers.data_ptr(), w.data_ptr(),
         nmask.data_ptr(), out.data_ptr(), aggr.data_ptr(), z.data_ptr(),
-        N, F, F2, K, block_nodes, block_edges, _build.stream(x),
+        N, F, F2, K, block_nodes, block_edges, int(rows == _BF16), int(bf),
+        _build.stream(x),
     )
     if err:
         raise RuntimeError(
@@ -160,23 +184,29 @@ def gin_conv_fwd(x, ein, We, e_self, W1, b1, W2, b2, senders, receivers, w,
 
 
 def gin_conv_bwd(g, aggr, z, ein, W1, W2, senders, receivers, w, nmask,
-                 block_nodes: int, block_edges: int):
-    """Launch K1's backward from the saved ``aggr`` and ``z``; returns
-    ``(dx, dWe, de_self, dW1, db1, dW2, db2)``. ``nmask`` is f32."""
+                 block_nodes: int, block_edges: int,
+                 compute_dtype: torch.dtype = _F32):
+    """Launch K1's backward from the saved ``aggr`` and ``z`` (in
+    ``compute_dtype``); returns ``(dx, dWe, de_self, dW1, db1, dW2, db2)``,
+    ``dx`` in ``g``'s dtype (the rows'), the rest float32. ``nmask`` is
+    f32."""
     _require_cuda(g)
     lib = _lib()
     N, F = g.shape
     K, F2, E = ein.shape[1], z.shape[1], senders.shape[0]
+    rows = _build.row_dtype(g, "g")
+    bf = _build.check_compute_dtype(compute_dtype)
     _check(lib, g.device, block_nodes, block_edges, N, K, E, [
-        (g, "g", (N, F), _F32, True),
-        (aggr, "aggr", (N, F), _F32, True),
-        (z, "z", (N, F2), _F32, True),
+        (g, "g", (N, F), rows, True),
+        (aggr, "aggr", (N, F), compute_dtype, True),
+        (z, "z", (N, F2), compute_dtype, True),
         (W1, "W1", (F, F2), _F32, False),
         (W2, "W2", (F2, F), _F32, False),
         (nmask, "nmask", (N,), _F32, True),
     ] + _edge_tensors(E, K, ein, senders, receivers, w))
     new = lambda *shape: torch.empty(shape, dtype=_F32, device=g.device)
-    dx, dWe, des = new(N, F), new(K, F), new(F)
+    dx = torch.empty((N, F), dtype=rows, device=g.device)
+    dWe, des = new(K, F), new(F)
     dW1, db1, dW2, db2 = new(F, F2), new(F2), new(F2, F), new(F)
     work = new(lib.pgt_gin_conv_bwd_workspace(N, F, F2, K, N // block_nodes))
     err = lib.pgt_gin_conv_bwd(
@@ -187,7 +217,7 @@ def gin_conv_bwd(g, aggr, z, ein, W1, W2, senders, receivers, w, nmask,
         nmask.data_ptr(), dx.data_ptr(), dWe.data_ptr(), des.data_ptr(),
         dW1.data_ptr(), db1.data_ptr(), dW2.data_ptr(), db2.data_ptr(),
         work.data_ptr(), N, F, F2, K, block_nodes, block_edges,
-        _build.stream(g),
+        int(rows == _BF16), int(bf), _build.stream(g),
     )
     if err:
         raise RuntimeError(
@@ -249,13 +279,14 @@ def wgrad_splits(M: int, N: int, K: int) -> int:
 class _FusedGinConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ein, We, e_self, W1, b1, W2, b2, senders, receivers,
-                w, nmask, block_nodes, block_edges):
+                w, nmask, block_nodes, block_edges, compute_dtype):
         nm = nmask.to(torch.float32)
         out, aggr, z = gin_conv_fwd(x, ein, We, e_self, W1, b1, W2, b2,
                                     senders, receivers, w, nm, block_nodes,
-                                    block_edges)
+                                    block_edges, compute_dtype)
         ctx.save_for_backward(ein, W1, W2, senders, receivers, w, nm, aggr, z)
         ctx.blocks = (block_nodes, block_edges)
+        ctx.compute_dtype = compute_dtype
         return out
 
     @staticmethod
@@ -264,38 +295,101 @@ class _FusedGinConv(torch.autograd.Function):
         ein, W1, W2, senders, receivers, w, nm, aggr, z = ctx.saved_tensors
         dx, dWe, des, dW1, db1, dW2, db2 = gin_conv_bwd(
             g.contiguous(), aggr, z, ein, W1, W2, senders, receivers, w, nm,
-            *ctx.blocks,
+            *ctx.blocks, ctx.compute_dtype,
         )
 
         def zero(i, t):
             return torch.zeros_like(t) if ctx.needs_input_grad[i] else None
 
         return (dx, zero(1, ein), dWe, des, dW1, db1, dW2, db2, None, None,
-                zero(10, w), None, None, None)
+                zero(10, w), None, None, None, None)
+
+
+class _GinConvPlainBf16(torch.autograd.Function):
+    """K1's plain version at compute dtype bfloat16: the Pallas kernel's
+    forward and backward bodies in torch, rounding where they round
+    (``_fwd_kernel``, ``_bwd_kernel`` of ``pallas_gin.py``). Sums of rows
+    go through ``segment.scatter_add_rows``."""
+
+    @staticmethod
+    def forward(ctx, x, ein, We, e_self, W1, b1, W2, b2, senders, receivers,
+                w, nmask):
+        r = _build.round_bf16
+        snd, rcv = senders.long(), receivers.long()
+        wf, nm = w.float(), nmask.float()
+        N, F = x.shape
+        ein_w = r(ein.float() * wf[:, None])
+        msg = r(wf)[:, None] * r(x.float())[snd] + ein_w @ r(We)
+        aggr = seg.scatter_add_rows(x.new_zeros((N, F), dtype=_F32), rcv,
+                                    r(msg))
+        aggr_c = r(aggr + (x.float() + e_self) * nm[:, None])
+        z_c = r(torch.relu(aggr_c @ r(W1) + b1))
+        out = z_c @ r(W2) + b2
+        ctx.save_for_backward(ein_w, W1, W2, senders, receivers, w, nm,
+                              aggr_c, z_c)
+        ctx.x_dtype = x.dtype
+        return out.to(x.dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        r = _build.round_bf16
+        ein_w, W1, W2, senders, receivers, w, nm, aggr_c, z_c = \
+            ctx.saved_tensors
+        snd, rcv = senders.long(), receivers.long()
+        g_all = r(g.float())
+        dz = g_all @ r(W2).t()
+        dW2 = z_c.t() @ g_all
+        db2 = g_all.sum(0)
+        dzr = torch.where(z_c > 0, dz, 0.0)
+        dW1 = aggr_c.t() @ r(dzr)
+        db1 = dzr.sum(0)
+        da = r(dzr) @ r(W1).t()
+        da_nm = da * nm[:, None]
+        dmsg = r(da)[rcv]
+        dx = seg.scatter_add_rows(torch.zeros_like(da), snd,
+                                  r(w.float())[:, None] * dmsg) + da_nm
+        need = ctx.needs_input_grad
+        return (dx.to(ctx.x_dtype),
+                torch.zeros_like(ein_w) if need[1] else None,
+                ein_w.t() @ dmsg, da_nm.sum(0), dW1, db1, dW2, db2, None,
+                None, torch.zeros_like(w) if need[10] else None, None)
 
 
 def fused_gin_conv_plain(x, ein, We, e_self, W1, b1, W2, b2, senders,
                          receivers, w, nmask, block_nodes: int = 0,
                          block_edges: int = 0,
-                         return_residuals: bool = False):
-    """The plain PyTorch version of K1 (any layout; autograd gives the
-    backward). With ``return_residuals`` returns ``(out, aggr, z)``."""
-    aggr = spmm.gather_scatter_plain(x, senders, receivers, w, x.shape[0],
+                         return_residuals: bool = False,
+                         compute_dtype: torch.dtype = _F32):
+    """The plain PyTorch version of K1 (any layout). At float32 autograd
+    gives the backward, ``x`` is widened to float32 and ``out`` returned in
+    ``x``'s dtype; with ``return_residuals`` returns ``(out, aggr, z)``. At
+    bfloat16 it is :class:`_GinConvPlainBf16` (no residuals)."""
+    if _build.check_compute_dtype(compute_dtype):
+        if return_residuals:
+            raise ValueError("return_residuals is float32 only")
+        return _GinConvPlainBf16.apply(x, ein, We, e_self, W1, b1, W2, b2,
+                                       senders, receivers, w, nmask)
+    xf = seg.at_least_f32(x)
+    aggr = spmm.gather_scatter_plain(xf, senders, receivers, w, x.shape[0],
                                      edge_in=ein, edge_kernel=We)
-    aggr = aggr + (x + e_self) * nmask.to(x.dtype)[:, None]
+    aggr = aggr + (xf + e_self) * nmask.to(xf.dtype)[:, None]
     z = torch.relu(aggr @ W1 + b1)
-    out = z @ W2 + b2
+    out = (z @ W2 + b2).to(x.dtype)
     return (out, aggr, z) if return_residuals else out
 
 
 def fused_gin_conv(x, ein, We, e_self, W1, b1, W2, b2, senders, receivers,
-                   w, nmask, block_nodes: int, block_edges: int):
+                   w, nmask, block_nodes: int, block_edges: int,
+                   compute_dtype: torch.dtype = _F32):
     """K1 on CUDA tensors (kernel forward and backward), the plain version
     on CPU tensors. ``w`` is the f32 edge weight with the mask folded in;
-    ``nmask`` may be bool or f32."""
+    ``nmask`` may be bool or f32; ``compute_dtype`` is float32 or
+    bfloat16."""
     if x.is_cuda:
         return _FusedGinConv.apply(x, ein, We, e_self, W1, b1, W2, b2,
                                    senders, receivers, w, nmask, block_nodes,
-                                   block_edges)
+                                   block_edges, compute_dtype)
     return fused_gin_conv_plain(x, ein, We, e_self, W1, b1, W2, b2, senders,
-                                receivers, w, nmask, block_nodes, block_edges)
+                                receivers, w, nmask, block_nodes, block_edges,
+                                compute_dtype=compute_dtype)

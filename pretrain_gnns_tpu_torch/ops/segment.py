@@ -22,6 +22,12 @@ def _apply_mask(data: torch.Tensor, mask: Optional[torch.Tensor]
     return data * m.reshape(m.shape + (1,) * (data.dim() - m.dim()))
 
 
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` widened to float32 if it is narrower (bfloat16); float32 and
+    float64 stay as they are."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def scatter_add_rows(out: torch.Tensor, ids: torch.Tensor,
                      data: torch.Tensor) -> torch.Tensor:
     """``out`` with each row of ``data`` added to row ``ids[i]``, summed in

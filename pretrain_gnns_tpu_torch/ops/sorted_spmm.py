@@ -118,11 +118,18 @@ def _check_sorted(receivers, block_edges: int) -> None:
 
 
 def sorted_blocked_spmm(x, edge_emb, senders, receivers, edge_weight,
-                        block_nodes: int, block_edges: int) -> torch.Tensor:
+                        block_nodes: int, block_edges: int,
+                        compute_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
     """K7 on CUDA tensors, the plain version on CPU tensors (where the
     sortedness of ``receivers`` is checked first). Forward only: calling
-    ``backward`` through the result raises ``NotImplementedError``."""
-    if not x.is_cuda:
+    ``backward`` through the result raises ``NotImplementedError``. K7 has
+    no bfloat16 variant yet: on CUDA a bfloat16 ``compute_dtype`` or rows
+    raise ``ValueError``."""
+    if x.is_cuda:
+        _build.require_float32("K7 sorted_blocked_spmm", compute_dtype, x,
+                               edge_emb)
+    else:
         _check_sorted(receivers, block_edges)
     return _SortedBlockedSpmm.apply(x, edge_emb, senders, receivers,
                                     edge_weight, block_nodes, block_edges)

@@ -24,10 +24,21 @@ calls ``[K2(x; has_x) | K2(edge_in, edge_kernel; has_ein)]``; with
 path on either device, whatever the layout. A CUDA tensor with
 ``aggr="sum"`` on any other batch raises ``ValueError``; a CPU tensor takes
 the plain path :func:`gather_scatter_plain`. :func:`edge_dot` states its
-own dispatch."""
+own dispatch.
+
+The kernels' compute dtype is a knob, as the JAX package's
+(``PGT_SPMM_DTYPE``, :func:`set_compute_dtype`): ``"float32"`` or
+``"bfloat16"``, where a kernel rounds its operands to bfloat16 at the
+points the Pallas kernel does and sums in float32. It reaches K1, K2 and K3
+on CUDA tensors only (:func:`kernel_dtype`); the plain path on the CPU
+ignores it and follows torch's dtype promotion, as the JAX package's XLA
+fallback does. K4-K7 have no bfloat16 variant yet and raise under it on
+CUDA. The port's default is ``"float32"``, where the JAX package's is
+``"bfloat16"``: it moves to ``"bfloat16"`` once K4-K7 have theirs."""
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -35,6 +46,35 @@ import torch
 from pretrain_gnns_tpu_torch.ops import blocked_spmm
 from pretrain_gnns_tpu_torch.ops import edge_dot as edge_dot_ops
 from pretrain_gnns_tpu_torch.ops import segment as seg
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _checked(name: str) -> str:
+    if name not in _DTYPES:
+        raise ValueError(f"kernel compute dtype must be one of "
+                         f"{tuple(_DTYPES)}, got {name!r}")
+    return name
+
+
+_DTYPE = _checked(os.environ.get("PGT_SPMM_DTYPE", "float32"))
+
+
+def set_compute_dtype(name: str) -> None:
+    """Set the kernels' compute dtype: ``"float32"`` or ``"bfloat16"``;
+    anything else raises ``ValueError``."""
+    global _DTYPE
+    _DTYPE = _checked(name)
+
+
+def get_compute_dtype() -> str:
+    return _DTYPE
+
+
+def kernel_dtype(x: torch.Tensor) -> torch.dtype:
+    """The compute dtype a kernel gets for rows ``x``: the knob's on a CUDA
+    tensor, float32 on the CPU (where the plain path ignores the knob)."""
+    return _DTYPES[_DTYPE] if x.is_cuda else torch.float32
 
 
 def gather_scatter_plain(
@@ -100,6 +140,30 @@ def gather_scatter(
         return gather_scatter_plain(x, senders, receivers, edge_mask,
                                     num_nodes, edge_in, edge_kernel,
                                     combine, edge_weight, edge_emb, aggr)
+    return blocked_gather_scatter(
+        x, senders, receivers, edge_mask, edge_in, edge_kernel, combine,
+        edge_weight, block_nodes, block_edges, edge_emb, kernel_dtype(x))
+
+
+def blocked_gather_scatter(
+    x: torch.Tensor,
+    senders: torch.Tensor,
+    receivers: torch.Tensor,
+    edge_mask: torch.Tensor,
+    edge_in: Optional[torch.Tensor],
+    edge_kernel: Optional[torch.Tensor],
+    combine: str,
+    edge_weight: Optional[torch.Tensor],
+    block_nodes: int,
+    block_edges: int,
+    edge_emb: Optional[torch.Tensor],
+    compute_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The sum of :func:`gather_scatter` on a block-diagonal batch through
+    the kernels' wrappers (K2, K6) at ``compute_dtype``: their kernels on
+    CUDA tensors, their plain versions on CPU tensors (a reference that
+    rounds as the card's kernels do)."""
+    fused = edge_in is not None
     if not (block_nodes > 0 and block_edges > 0):
         raise ValueError(
             "gather_scatter on CUDA needs a block-diagonal batch "
@@ -114,23 +178,26 @@ def gather_scatter(
         w = w * edge_weight
     graph = (senders, receivers, w, block_nodes, block_edges)
     if combine == "add" and edge_emb is not None:
-        return blocked_spmm.blocked_spmm(x, edge_emb, *graph)
+        return blocked_spmm.blocked_spmm(x, edge_emb, *graph, compute_dtype)
     if combine == "add":
         return blocked_spmm.blocked_spmm_fused(
-            x, edge_in, edge_kernel, *graph, has_x=True, has_ein=fused)
-    left = blocked_spmm.blocked_spmm_fused(x, None, None, *graph, has_x=True,
-                                           has_ein=False)
+            x, edge_in, edge_kernel, *graph, has_x=True, has_ein=fused,
+            compute_dtype=compute_dtype)
+    left = blocked_spmm.blocked_spmm_fused(
+        x, None, None, *graph, has_x=True, has_ein=False,
+        compute_dtype=compute_dtype)
     if fused:
-        # x only gives the row count here: detached, it gets no zero
-        # gradient
+        # x only gives the row count and the output's dtype here: detached,
+        # it gets no zero gradient
         right = blocked_spmm.blocked_spmm_fused(
             x.detach(), edge_in, edge_kernel, *graph, has_x=False,
-            has_ein=True)
+            has_ein=True, compute_dtype=compute_dtype)
     else:
         # the edge embedding alone, aggregated over an all-zero x of its
         # width, which asks for no gradient
         zeros = x.new_zeros((x.shape[0], edge_emb.shape[1]))
-        right = blocked_spmm.blocked_spmm(zeros, edge_emb, *graph)
+        right = blocked_spmm.blocked_spmm(zeros, edge_emb, *graph,
+                                          compute_dtype)
     return torch.cat([left, right], dim=-1)
 
 
@@ -160,4 +227,4 @@ def edge_dot(
             "(packing='blocked' or 'auto')"
         )
     return edge_dot_ops.blocked_edge_dot(x, a_idx, b_idx, w, block_nodes,
-                                         pairs_per_block)
+                                         pairs_per_block, kernel_dtype(x))

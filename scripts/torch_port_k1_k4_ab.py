@@ -67,7 +67,59 @@ from pretrain_gnns_tpu_torch.ops import sorted_spmm as ss  # noqa: E402
 from pretrain_gnns_tpu_torch.train import pretrain  # noqa: E402
 
 
-def build(srcdir: str, name: str, out_dir: str) -> ctypes.CDLL:
+# Entry points that take (bf16_rows, bf16_compute) before the stream since
+# the bfloat16 variants; a library that has no ``pgt_bf16_flags`` predates
+# them.
+_FLAGGED = ("pgt_gin_conv_fwd", "pgt_gin_conv_bwd", "pgt_spmm_fwd",
+            "pgt_spmm_bwd", "pgt_edot_fwd", "pgt_edot_bwd")
+
+
+class _DropFlags:
+    """An entry point of a library built before the bfloat16 flags, called
+    with this tree's arguments: the two flags (which must be 0) are
+    dropped, here and from ``argtypes``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def argtypes(self):
+        return self.fn.argtypes
+
+    @argtypes.setter
+    def argtypes(self, types):
+        self.fn.argtypes = list(types[:-3]) + list(types[-1:])
+
+    @property
+    def restype(self):
+        return self.fn.restype
+
+    @restype.setter
+    def restype(self, t):
+        self.fn.restype = t
+
+    def __call__(self, *args):
+        if args[-3] or args[-2]:
+            raise ValueError("this library has float32 kernels only")
+        return self.fn(*(args[:-3] + args[-1:]))
+
+
+class _NoFlags:
+    """A library built before the bfloat16 flags, with this tree's entry
+    points' arguments."""
+
+    def __init__(self, lib):
+        self._lib, self._fns = lib, {}
+
+    def __getattr__(self, name):
+        if name not in _FLAGGED:
+            return getattr(self._lib, name)
+        if name not in self._fns:
+            self._fns[name] = _DropFlags(getattr(self._lib, name))
+        return self._fns[name]
+
+
+def build(srcdir: str, name: str, out_dir: str):
     lib = os.path.join(out_dir, f"lib{name}_ref.so")
     res = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib,
                           os.path.join(srcdir, f"{name}.cu")],
@@ -75,7 +127,8 @@ def build(srcdir: str, name: str, out_dir: str) -> ctypes.CDLL:
     if res.returncode:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stdout}"
                            f"{res.stderr}")
-    return ctypes.CDLL(lib)
+    lib = ctypes.CDLL(lib)
+    return lib if hasattr(lib, "pgt_bf16_flags") else _NoFlags(lib)
 
 
 SOURCES = {"k1": "gin_conv", "k4": "gat", "k5": "gat", "k2": "spmm",

@@ -2,7 +2,8 @@
 tiny size on the CPU it prints one JSON line with every field the GPU run
 prints (each cell's metric, windows, spread and loader; the dtype; the
 device); without CUDA and without ``--device cpu`` it exits non-zero and
-prints no result. About 10 s alone."""
+prints no result; ``--dtype bfloat16_act`` sets both precision knobs and
+restores them. About 15 s alone."""
 
 import json
 import os
@@ -50,3 +51,25 @@ def test_bench_without_cuda_exits_non_zero():
                        text=True, timeout=120)
     assert r.returncode != 0 and not r.stdout.strip()
     assert "no CUDA device" in r.stderr
+
+
+def test_bench_bfloat16_act_sets_both_knobs_and_restores_them(capsys):
+    """``--dtype bfloat16_act`` runs the cells with bfloat16 activations and
+    the kernels' knob at bfloat16 (on the CPU the plain path ignores the
+    latter), names both in its line, and leaves the knobs as it found
+    them."""
+    from pretrain_gnns_tpu_torch.models import inits
+    from pretrain_gnns_tpu_torch.ops import spmm
+
+    assert bench.main(TINY + ["--windows", "1", "--dtype",
+                              "bfloat16_act"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (out["dtype"], out["kernel_dtype"]) == ("bfloat16_act",
+                                                   "bfloat16")
+    metric = "masking_pretrain_gin2_16_e2e_edges_per_sec_per_cpu"
+    for name in (metric, "bio_" + metric):
+        assert min(out[name]["windows"]) > 0
+        assert out[name]["final_loss"] > 0
+    assert inits.get_compute_dtype() == "float32"
+    assert spmm.get_compute_dtype() == "float32"
+

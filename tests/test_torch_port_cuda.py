@@ -1209,3 +1209,238 @@ def test_captured_steps_equal_eager_steps_bit_for_bit(cuda_device,
                          other["model"].parameters()):
             for key, v in opt0.state[p0].items():
                 assert torch.equal(opt.state[p][key], v), key
+
+
+# --- bfloat16: K1, K2 and K3 at compute_dtype bfloat16 and bfloat16 rows ---
+
+# Two readings of |kernel - plain| for each output: the largest over
+# max(1, max |plain|) and the mean over mean |plain|. Both sides round at
+# the same points and multiply exactly, but a float32 sum taken in another
+# order can move a later rounding (a message, aggr, z, a bfloat16 output)
+# by one bfloat16 step, 2^-8 of the value: BF16_TOL bounds such a step and
+# BF16_MEAN_TOL their share. A variant that skips a rounding (or rounds
+# where the plain version does not) moves most entries by about 2^-9: the
+# control, the same wrapper at the other compute dtype on the same inputs,
+# must read a mean above BF16_MEAN_TOL on some output. Measured on an
+# H100: the largest sound readings 2.2e-3, the sound means at most 2.8e-6,
+# the control's means at least 1.4e-3.
+BF16_TOL = 5e-3
+BF16_MEAN_TOL = 2e-5
+BF16 = torch.bfloat16
+# (rows' dtype, compute dtype): every combination but float32 with float32
+BF16_MODES = [(torch.float32, BF16), (BF16, BF16), (BF16, torch.float32)]
+
+
+def _in(t, dtype, odd_offset=False):
+    t = t.to(dtype)
+    return _at_odd_offset(t) if odd_offset else t
+
+
+def _other(cdt):
+    return torch.float32 if cdt == BF16 else BF16
+
+
+def _bf16_readings(got, want):
+    d = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().mean())
+    return (float(d.max()) / max(1.0, float(want.float().abs().max())),
+            float(d.mean()) / scale if scale else float(d.mean()))
+
+
+def _bf16_gate(tag, sound, control):
+    """``sound`` and ``control`` map an output's name to (kernel, plain):
+    every sound reading within the limits, and the control's mean over
+    BF16_MEAN_TOL on some output."""
+    got = {n: _bf16_readings(*ab) for n, ab in sound.items()}
+    ctl = {n: _bf16_readings(*ab) for n, ab in control.items()}
+    print(f"[bf16 readings] {tag} sound "
+          f"{ {n: (f'{a:.2e}', f'{b:.2e}') for n, (a, b) in got.items()} } "
+          f"control "
+          f"{ {n: (f'{a:.2e}', f'{b:.2e}') for n, (a, b) in ctl.items()} }")
+    for n, (mx, mean) in got.items():
+        assert mx <= BF16_TOL and mean <= BF16_MEAN_TOL, (n, mx, mean)
+    assert max(mean for _, mean in ctl.values()) > BF16_MEAN_TOL, ctl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cdt", BF16_MODES)
+@pytest.mark.parametrize("F,odd_offset", [(300, False), (45, False),
+                                          (300, True)])
+def test_k1_bf16_matches_plain_version_and_repeats(cuda_device, rows, cdt,
+                                                   F, odd_offset):
+    """K1's bfloat16 variants, forward and every gradient, against the
+    plain version at the same compute dtype (the Pallas body written out in
+    torch), with fractional edge weights, and the control at the other
+    compute dtype (``_bf16_gate``); two runs equal bit for bit; out and dx
+    in the rows' dtype, aggr and z in the compute dtype, the weight
+    gradients float32."""
+    t, ein, b, nm, blocks = _case(cuda_device, F, 128, 384, seed=F)
+    E = b.senders.shape[0]
+    gen = torch.Generator().manual_seed(3)
+    w = b.edge_mask.float() * (0.5 + torch.rand(E, generator=gen)).to(
+        cuda_device)
+    x, g = _in(t["x"], rows, odd_offset), _in(t["g"], rows, odd_offset)
+    if odd_offset:  # one element past a pair's alignment
+        assert x.data_ptr() % (2 * x.element_size())
+    args = (x, ein, t["We"], t["e_self"], t["W1"], t["b1"], t["W2"],
+            t["b2"], b.senders, b.receivers, w, nm, blocks[1], blocks[2])
+
+    def run(dt):
+        out, aggr, z = gin_conv.gin_conv_fwd(*args, compute_dtype=dt)
+        return (out, aggr, z) + gin_conv.gin_conv_bwd(
+            g, aggr, z, ein, t["W1"], t["W2"], b.senders, b.receivers, w,
+            nm, blocks[1], blocks[2], dt)
+
+    runs = [run(cdt) for _ in range(2)]
+    control = run(_other(cdt))
+    torch.cuda.synchronize()
+    names = ("out", "aggr", "z", "dx", "dWe", "de_self", "dW1", "db1", "dW2",
+             "db2")
+    for name, a, c in zip(names, *runs):
+        assert torch.equal(a, c), name
+    out, aggr, z, *grads = runs[0]
+    assert out.dtype == rows and grads[0].dtype == rows
+    assert aggr.dtype == cdt and z.dtype == cdt
+    assert all(d.dtype == torch.float32 for d in grads[1:])
+    leaves = [x.detach().clone().requires_grad_(True)] + [
+        t[k].detach().clone().requires_grad_(True) for k in DIFF[1:]]
+    out_p = gin_conv.fused_gin_conv_plain(leaves[0], ein, *leaves[1:],
+                                          *args[8:], compute_dtype=cdt)
+    plain = (out_p.detach(),) + torch.autograd.grad(out_p, leaves, g)
+    outs = ("out",) + DIFF
+    _bf16_gate(f"K1 F={F} rows={rows} cdt={cdt} odd={odd_offset}",
+               dict(zip(outs, zip((out,) + tuple(grads), plain))),
+               dict(zip(outs, zip(control[:1] + control[3:], plain))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cdt", BF16_MODES)
+@pytest.mark.parametrize("has_x,has_ein", K2_VARIANTS)
+@pytest.mark.parametrize("F,odd_offset", [(300, False), (45, False),
+                                          (300, True)])
+def test_k2_bf16_matches_plain_version_and_repeats(cuda_device, rows, cdt,
+                                                   has_x, has_ein, F,
+                                                   odd_offset):
+    """K2's bfloat16 variants with fractional, partly negative (GCN-like)
+    edge weights: out, dx and dW against the plain version at the same
+    compute dtype, and the control at the other (``_bf16_gate``),
+    bit-equal between two runs, padded rows exactly 0."""
+    t, b, blocks = _k2_case(cuda_device, F, 128, 384)
+    x, g = _in(t["x"], rows, odd_offset), _in(t["g"], rows, odd_offset)
+
+    def run(dt):
+        out = blocked_spmm.spmm_fwd(x, t["ein"], t["W"], b.senders,
+                                    b.receivers, t["w"], 128, 384, has_x,
+                                    has_ein, dt)
+        dx, dW = blocked_spmm.spmm_bwd(g, t["ein"], b.senders, b.receivers,
+                                       t["w"], t["W"].shape[0], 128, 384,
+                                       has_x, has_ein, dt)
+        return out, dx, dW
+
+    runs = [run(cdt) for _ in range(2)]
+    control = run(_other(cdt))
+    torch.cuda.synchronize()
+    for a, c in zip(*runs):
+        assert (a is None and c is None) or torch.equal(a, c)
+    out, dx, dW = runs[0]
+    assert out.dtype == rows and not out[~b.node_mask].any()
+    xl = x.detach().clone().requires_grad_(True)
+    Wl = t["W"].detach().clone().requires_grad_(True)
+    out_p = blocked_spmm.blocked_spmm_fused_plain(
+        xl, t["ein"], Wl, b.senders, b.receivers, t["w"], 128, 384, has_x,
+        has_ein, cdt)
+    dx_p, dW_p = torch.autograd.grad(out_p, [xl, Wl], g, allow_unused=True)
+    if has_x:
+        assert dx.dtype == rows
+    if has_ein:
+        assert dW.dtype == torch.float32
+    outs = [n for n, f in (("out", True), ("dx", has_x), ("dW", has_ein))
+            if f]
+    plain = dict(zip(("out", "dx", "dW"), (out_p.detach(), dx_p, dW_p)))
+    _bf16_gate(f"K2 x={has_x} ein={has_ein} F={F} rows={rows} cdt={cdt} "
+               f"odd={odd_offset}",
+               {n: (k, plain[n]) for n, k in zip(("out", "dx", "dW"),
+                                                  runs[0]) if n in outs},
+               {n: (k, plain[n]) for n, k in zip(("out", "dx", "dW"),
+                                                  control) if n in outs})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cdt", BF16_MODES)
+@pytest.mark.parametrize("head", ["pos", "neg"])
+@pytest.mark.parametrize("F,odd_offset", [(300, False), (45, False),
+                                          (300, True)])
+def test_k3_bf16_matches_plain_version_and_repeats(cuda_device, rows, cdt,
+                                                   head, F, odd_offset):
+    """K3's bfloat16 variants with fractional weights and a self-pair:
+    float32 scores and dx in the rows' dtype against the plain version at
+    the same compute dtype, and the control at the other
+    (``_bf16_gate``), bit-equal between two runs."""
+    x, a_idx, b_idx, w, g, b, bn, ppb = _k3_case(cuda_device, F, 128, 384,
+                                                 head, fractional=True)
+    x = _in(x, rows, odd_offset)
+
+    def run(dt):
+        return (edge_dot.edot_fwd(x, a_idx, b_idx, w, bn, ppb, dt),
+                edge_dot.edot_bwd(g, x, a_idx, b_idx, w, bn, ppb, dt))
+
+    runs = [run(cdt) for _ in range(2)]
+    control = run(_other(cdt))
+    torch.cuda.synchronize()
+    (out, dx), (out2, dx2) = runs
+    assert torch.equal(out, out2) and torch.equal(dx, dx2)
+    assert out.dtype == torch.float32 and dx.dtype == rows
+    xl = x.detach().clone().requires_grad_(True)
+    out_p = edge_dot.edge_dot_plain(xl, a_idx, b_idx, w,
+                                    compute_dtype=cdt)
+    (dx_p,) = torch.autograd.grad(out_p, [xl], g)
+    plain = (out_p.detach(), dx_p)
+    _bf16_gate(f"K3 {head} F={F} rows={rows} cdt={cdt} odd={odd_offset}",
+               dict(zip(("score", "dx"), zip(runs[0], plain))),
+               dict(zip(("score", "dx"), zip(control, plain))))
+    assert not out[w == 0].any()
+
+
+@pytest.mark.cuda
+def test_unported_kernels_raise_under_bf16(cuda_device):
+    """K4, K5, K6 and K7 have no bfloat16 variant: on the card a bfloat16
+    compute dtype or bfloat16 rows raise ValueError naming the kernel,
+    before anything launches."""
+    t, ein, b, bn, be = _gat_case(cuda_device, "chem", 32, 128, 384)
+    D, blocks = 32, (None, bn, be)
+    before = (dict(gat_conv.launches), dict(attention.launches),
+              dict(blocked_spmm.launches), dict(sorted_spmm.launches))
+    conv_args = (t["h"], t["Wl"], t["bl"], ein, t["We"], t["e_self"],
+                 t["a_i"], t["a_j"], t["bias"], b.senders, b.receivers,
+                 t["w"], H, blocks[1], blocks[2])
+    with pytest.raises(ValueError, match="K4.*bf16 not ported"):
+        gat_conv.fused_gat_conv(*conv_args, compute_dtype=BF16)
+    with pytest.raises(ValueError, match="K4.*bf16 not ported"):
+        gat_conv.fused_gat_conv(t["h"].to(BF16), *conv_args[1:])
+    x, e = _k5_inputs(t, ein, D)
+    attn = (x, e, t["e_self"], t["a_i"], t["a_j"], b.senders, b.receivers,
+            t["w"], 0.2, blocks[1], blocks[2])
+    with pytest.raises(ValueError, match="K5.*bf16 not ported"):
+        attention.blocked_gat_attention(*attn, compute_dtype=BF16)
+    with pytest.raises(ValueError, match="K5.*bf16 not ported"):
+        attention.blocked_gat_attention(x.to(BF16), *attn[1:])
+    xf = torch.randn(b.max_nodes, D, device=cuda_device)
+    ee = torch.randn(b.max_edges, D, device=cuda_device)
+    graph = (b.senders, b.receivers, t["w"], blocks[1], blocks[2])
+    with pytest.raises(ValueError, match="K6.*bf16 not ported"):
+        blocked_spmm.blocked_spmm(xf, ee, *graph, BF16)
+    with pytest.raises(ValueError, match="K6.*bf16 not ported"):
+        blocked_spmm.blocked_spmm(xf.to(BF16), ee, *graph)
+    with pytest.raises(ValueError, match="K7.*bf16 not ported"):
+        sorted_spmm.sorted_blocked_spmm(xf, ee, *graph, compute_dtype=BF16)
+    with pytest.raises(ValueError, match="K6.*bf16 not ported"):
+        spmm.set_compute_dtype("bfloat16")
+        try:
+            spmm.gather_scatter(xf, b.senders, b.receivers, b.edge_mask,
+                                b.max_nodes, block_nodes=blocks[1],
+                                block_edges=blocks[2], edge_emb=ee)
+        finally:
+            spmm.set_compute_dtype("float32")
+    after = (dict(gat_conv.launches), dict(attention.launches),
+             dict(blocked_spmm.launches), dict(sorted_spmm.launches))
+    assert after == before

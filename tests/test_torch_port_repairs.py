@@ -1,4 +1,4 @@
-"""Two faults of the port against the JAX package, repaired:
+"""Three faults of the port against the JAX package, repaired:
 
 - F7: under JK concat, the chem masking heads' biases are drawn from
   U(-1/sqrt(emb_dim), 1/sqrt(emb_dim)), the JAX ``inits.dense`` bias bound,
@@ -6,6 +6,9 @@
   initial state dict is what it was.
 - F8: the CLI writes its trunk in torch's legacy non-zip format, as the JAX
   CLI does, which the reference's torch 1.0.1 reads.
+- F4 (``--split``): the CLI's bio supervised pretraining trains on the
+  species split by default, as the JAX CLI's does; its pretrain set equals
+  the JAX CLI's index for index under ``species`` and ``random``.
 
 Sizes: 2 layers, emb 300 for F7 (the bounds are then 1/sqrt(300) against
 1/sqrt(900)), emb 16 for F8. About 25 s alone."""
@@ -166,3 +169,63 @@ def test_cli_writes_a_legacy_file(tmp_path):
     assert not zipfile.is_zipfile(str(out) + ".pth")
     tchem.GNN(num_layer=2, emb_dim=16).load_state_dict(
         torch.load(str(out) + ".pth"), strict=True)
+
+
+# --- F4: the species split of bio supervised pretraining --------------------
+
+
+@pytest.mark.parametrize("split", ["species", "random"])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_bio_supervised_pretrain_indices_equal_jax(split, seed):
+    from pretrain_gnns_tpu.cli import pretrain as jcli
+    from pretrain_gnns_tpu_torch.data import synthetic as tsyn
+
+    graphs = tsyn.bio_dataset(96, seed=seed)
+    species = np.array([g.extras["species_id"][0][0] for g in graphs])
+    got = cli.bio_supervised_pretrain_indices(species, split, seed)
+    assert got == jcli.bio_supervised_pretrain_indices(species, split, seed)
+    assert 0 < len(got) < len(graphs) and len(set(got)) == len(got)
+    with pytest.raises(ValueError):
+        cli.bio_supervised_pretrain_indices(species, "scaffold", seed)
+
+
+def test_split_flag_has_the_jax_default_and_choices():
+    from pretrain_gnns_tpu.cli import pretrain as jcli
+
+    def split_action(parser):
+        return next(a for a in parser._actions if a.dest == "split")
+
+    mine, ref = split_action(cli.build_parser()), split_action(
+        jcli.build_parser())
+    assert (mine.default, list(mine.choices)) == (ref.default,
+                                                  list(ref.choices))
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["--split", "scaffold"])
+
+
+@pytest.mark.parametrize("split", ["species", "random"])
+def test_bio_supervised_cli_trains_on_the_split(monkeypatch, split):
+    """The CLI hands run_pretrain the split's graphs, in its order, with
+    their pretraining labels in y."""
+    from pretrain_gnns_tpu_torch.data import synthetic as tsyn
+
+    seen = {}
+
+    def fake_run(cfg, graphs, **kw):
+        seen["graphs"] = graphs
+        return {"history": [], "model": None}
+
+    monkeypatch.setattr(tpretrain, "run_pretrain", fake_run)
+    cli.main(["--objective", "supervised", "--domain", "bio", "--device",
+              "cpu", "--split", split, "--n_synthetic", "256", "--seed", "1"])
+    graphs = tsyn.bio_dataset(64, seed=1)
+    species = np.array([g.extras["species_id"][0][0] for g in graphs])
+    keep = cli.bio_supervised_pretrain_indices(species, split, 1)
+    assert len(keep) < len(graphs)
+    got = seen["graphs"]
+    assert len(got) == len(keep)
+    for g, i in zip(got, keep):
+        np.testing.assert_array_equal(g.node_feat, graphs[i].node_feat)
+        np.testing.assert_array_equal(
+            g.y, graphs[i].extras["go_target_pretrain"][0])
+

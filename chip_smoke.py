@@ -165,7 +165,12 @@ Phases, in order (any failure exits non-zero):
      bit-equal between two runs, timed beside the plain version, the
      library (``torch.matmul`` in bfloat16 on K1's products,
      ``torch.sparse.mm`` in bfloat16 for K2 ``[x]``) and the bound (the
-     stored widths' bytes, operations at the bfloat16 tensor peak); then
+     stored widths' bytes, operations at the bfloat16 tensor peak); K1's
+     six products alone through its tensor-core GEMM (``gin_conv.gemm_bf16``)
+     at their shapes, layouts and splits, against ``torch.matmul`` on
+     float32 copies of the bfloat16 operands (BF16_GEMM_TOL, with a control
+     that leaves one operand unrounded and must break it), timed beside
+     ``torch.matmul`` in bfloat16; then
      chem masking GIN, its unfused route (K2 ``[x+ein]``), bio masking GIN
      and chem edge-prediction GIN under the recipe: a train step on the
      card against the CPU's plain versions at the same compute dtype
@@ -174,7 +179,9 @@ Phases, in order (any failure exits non-zero):
      (BF16_REFEREE_K), the 48-step path with its launch counts and its
      edges/s beside its float32 twin's from earlier in the run, and its
      capture phase (the bfloat16 instantiations of K1's, K2's and K3's
-     kernels and ``gemm_cvt_kernel`` among the replay's kernels); last, a
+     kernels and K1's tensor-core ``gemm_bf16_kernel`` among the replay's
+     kernels, the float ``gemm_kernel`` absent from K1's paths, and the
+     card's busy share of the replay); last, a
      chem masking GAT step under the recipe must raise (K4 has no
      bfloat16 variant);
   26. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
@@ -285,6 +292,12 @@ NOISE_EPS = 1e-7
 # wherever a rounding acts.
 BF16_KERNEL_TOL = 5e-3
 BF16_KERNEL_MEAN_TOL = 2e-5
+# K1's tensor-core GEMM alone against torch.matmul on float32 copies of its
+# bfloat16 operands, as rel_err: each product of two bfloat16 values is
+# exact in float32, so only the order of the float32 sums differs (as
+# FWD_TOL); the control, the same reference with one operand left
+# unrounded, must read over the limit.
+BF16_GEMM_TOL = 1e-5
 # A full-width train step under the recipe, card (kernels) against the CPU
 # (the plain versions at compute_dtype=bfloat16, through the same
 # dispatch). Five layers of bfloat16 activations and batch norm turn a
@@ -787,7 +800,7 @@ def _max_diff(a, b):
 
 
 def capture_phase(torch, graphs, cfg, per_step, fused="on",
-                  kernel_names=None):
+                  kernel_names=None, absent_names=None):
     """Captured steps against eager steps on the path's first batches at
     full width, from the same seeded state: ``graphed.WARMUP_STEPS`` eager
     steps and CAPTURE_GROUPS replays of CAPTURE_K steps through
@@ -797,7 +810,10 @@ def capture_phase(torch, graphs, cfg, per_step, fused="on",
     ``models/chem.lookup``, ``ops/segment``), and the captured run bit-equal
     to them. One more replay runs under ``torch.profiler``: every kernel of
     ``per_step``'s counters must show among its device activities by
-    name (KERNEL_NAMES' patterns, ``kernel_names``' in their place)."""
+    name (KERNEL_NAMES' patterns, ``kernel_names``' in their place), and
+    none of ``absent_names``' patterns for those counters. Its busy share
+    is the union of its device activities' intervals over the call's wall
+    time (the K batches' copies and the replay, until the card is done)."""
     import itertools
 
     from torch.autograd import DeviceType
@@ -836,14 +852,25 @@ def capture_phase(torch, graphs, cfg, per_step, fused="on",
         torch.cuda.synchronize()
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t_call = time.perf_counter()
             scan(host[n:n + K])
             torch.cuda.synchronize()
+            t_call = time.perf_counter() - t_call
     ee, ce = _max_diff(runs[1], runs[0]), _max_diff(captured, runs[0])
     ran = collections.Counter(e.name for e in prof.events()
                               if e.device_type == DeviceType.CUDA)
     names = {**KERNEL_NAMES, **(kernel_names or {})}
     missing = sorted({frag for key in per_step for frag in names[key]
                       if not any(re.search(frag, nm) for nm in ran)})
+    present = sorted({nm[:80] for key in per_step
+                      for frag in (absent_names or {}).get(key, ())
+                      for nm in ran if re.search(frag, nm)})
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in spans:  # the union of the intervals
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
     own = collections.Counter()
     for nm, times in ran.items():
         if any(re.search(frag, nm) for frags in names.values()
@@ -857,12 +884,16 @@ def capture_phase(torch, graphs, cfg, per_step, fused="on",
           + f"; a profiled replay of {K} steps ran {sum(ran.values())} "
           f"device activities of {len(ran)} names, the port's kernels "
           f"(launches by name) "
-          f"{dict(sorted(own.items()))} [{time.perf_counter() - T0:.0f} s]",
-          flush=True)
+          f"{dict(sorted(own.items()))}; the card busy "
+          f"{busy_us / 1e3:.3f} ms of the call's {t_call * 1e3:.3f} ms "
+          f"({100 * busy_us / 1e6 / t_call:.1f}%, profiled) "
+          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
     if any(ee.values()) or any(ce.values()):
         raise AssertionError(f"{tag} the steps are not bit-equal")
     if missing:
         raise AssertionError(f"{tag} a replay ran no kernel named {missing}")
+    if present:
+        raise AssertionError(f"{tag} a replay ran {present}")
 
 
 def k2_phase(torch, batch, ein, W, w, variants, shape):
@@ -1959,7 +1990,8 @@ def k1_bf16_phase(torch, batch, model):
     float32 rows: against its plain version at compute_dtype=bfloat16 and
     the control at float32 (``_bf16_check``), every output equal bit for
     bit between two runs, timed beside the plain version and
-    ``torch.matmul`` in bfloat16 on its products."""
+    ``torch.matmul`` in bfloat16 on its products; then its products alone
+    (``k1_gemm_bf16_check``)."""
     from pretrain_gnns_tpu_torch.ops import gin_conv
 
     bf, dev = torch.bfloat16, batch.node_mask.device
@@ -2050,6 +2082,9 @@ def k1_bf16_phase(torch, batch, model):
                   f"kernel {ms:.4f} ms, plain {pms:.4f} ms, torch.matmul "
                   f"bf16 products {lms:.4f} ms, bound {b[0]:.4f} ms "
                   f"({b[1]})", flush=True)
+        if rows == bf:
+            products = (aggr, z, g32, W1, W2, b1, b2)
+    gemm_ms = k1_gemm_bf16_check(torch, *products)
     src = "pretrain_gnns_tpu_torch/csrc/gin_conv.cu"
     return [dict(name=f"gin_conv_{d}[bf16]", counter=f"gin_conv_{d}",
                  route="cuda", source=src,
@@ -2058,9 +2093,72 @@ def k1_bf16_phase(torch, batch, model):
                                   "compute_dtype=bfloat16"),
                  library="torch.matmul in bfloat16 on K1's products",
                  shape="chem masking first batch, bfloat16 rows",
+                 gemm_bf16_ms=gemm_ms[d],
                  **_rows_entry({r: res[d, r] for r in (bf, torch.float32)},
                                bf, torch.float32))
             for d, line in (("fwd", 47), ("bwd", 114))]
+
+
+def k1_gemm_bf16_check(torch, aggr, z, g32, W1, W2, b1, b2):
+    """K1's six products at compute_dtype=bfloat16 alone through its
+    tensor-core GEMM (``gin_conv.gemm_bf16``) on the chem masking first
+    batch's operands (``aggr`` and ``z`` as K1 saved them, bfloat16; the
+    cotangent, the weights and dzr rounded), each with the layout and the
+    split K that K1 gives it, against ``torch.matmul`` on float32 copies
+    (BF16_GEMM_TOL) and the control, the same reference with one operand
+    left unrounded, which must break it; then the products timed with
+    K1's epilogues beside ``torch.matmul`` in bfloat16. Returns the GEMM's
+    ms of each direction."""
+    from pretrain_gnns_tpu_torch.ops import gin_conv
+
+    bf = torch.bfloat16
+    N, F2, F = z.shape[0], z.shape[1], aggr.shape[1]
+    s2 = gin_conv.wgrad_splits(F2, F, N)
+    s1 = gin_conv.wgrad_splits(F, F2, N)
+    readings = {}
+    with torch.no_grad():
+        g = g32.to(bf)
+        W1b, W2b = W1.to(bf), W2.to(bf)  # the strides of linear.weight.t()
+        dzr32 = torch.where(z > 0, g.float() @ W2b.float().t(), 0.0)
+        dzr = dzr32.to(bf)
+        # (name, a, b, splits, the unrounded operand: 0 a, 1 b, and it)
+        cases = (("z = aggr W1", aggr, W1b, 1, 1, W1),
+                 ("out = z W2", z, W2b, 1, 1, W2),
+                 ("dzr = g W2^T", g, W2b.t(), 1, 0, g32),
+                 ("dW2 = z^T g", z.t(), g, s2, 1, g32),
+                 ("dW1 = aggr^T dzr", aggr.t(), dzr, s1, 1, dzr32),
+                 ("da = dzr W1^T", dzr, W1b.t(), 1, 1, W1.t()))
+        for name, a, b, s, which, raw in cases:
+            got = gin_conv.gemm_bf16(a, b, splits=s)
+            ctl = (raw @ b.float()) if which == 0 else (a.float() @ raw)
+            readings[name] = (rel_err(got, a.float() @ b.float()),
+                              rel_err(got, ctl))
+        torch.cuda.synchronize()
+        # K1's settings: the ordered roundings for dzr's product alone
+        fwd_ms = time_ms(lambda: (
+            gin_conv.gemm_bf16(aggr, W1b, b1, relu=True, out_dtype=bf,
+                               ordered_ties=False),
+            gin_conv.gemm_bf16(z, W2b, b2, out_dtype=bf,
+                               ordered_ties=False)), torch)
+        bwd_ms = time_ms(lambda: (
+            gin_conv.gemm_bf16(g, W2b.t(), pos_mask=z),
+            gin_conv.gemm_bf16(z.t(), g, splits=s2),
+            gin_conv.gemm_bf16(aggr.t(), dzr, splits=s1),
+            gin_conv.gemm_bf16(dzr, W1b.t(), ordered_ties=False)), torch)
+    flops = 2 * N * F * F2
+    print(f"[kernels bf16] K1's products alone on the tensor cores "
+          f"(gemm_bf16), rel err (sound, control) against torch.matmul on "
+          f"float32 copies: "
+          f"{ {k: (float(f'{a:.3e}'), float(f'{c:.3e}')) for k, (a, c) in readings.items()} }; "  # noqa: E501
+          f"forward {fwd_ms:.4f} ms = {2 * flops / fwd_ms / 1e9:.1f} TFLOP/s, "
+          f"backward {bwd_ms:.4f} ms = {4 * flops / bwd_ms / 1e9:.1f} "
+          f"TFLOP/s, with K1's epilogues and splits", flush=True)
+    bad = {k: v for k, v in readings.items()
+           if not (v[0] <= BF16_GEMM_TOL < v[1])}
+    if bad:
+        raise AssertionError(f"gemm_bf16 disagrees with torch.matmul, or "
+                             f"its control passes: {bad}")
+    return {"fwd": fwd_ms, "bwd": bwd_ms}
 
 
 def k2_bf16_phase(torch, cases):
@@ -2285,12 +2383,12 @@ def k3_bf16_phase(torch, batch):
 
 # the device kernels a bfloat16 replay must show: the bfloat16
 # instantiations (the last template argument, BF, true) of K1's, K2's and
-# K3's walks, and K1's products through gemm_cvt_kernel
+# K3's walks, and K1's products on the tensor cores (gemm_bf16_kernel) ...
 BF16_KERNEL_NAMES = {
     "gin_conv_fwd": (r"edge_aggr_fwd_kernel<true, true, true, [^>]*, true>",
-                     "gemm_cvt_kernel"),
+                     "gemm_bf16_kernel"),
     "gin_conv_bwd": (r"edge_aggr_bwd_kernel<true, true, true, [^>]*, true>",
-                     "gemm_cvt_kernel"),
+                     "gemm_bf16_kernel"),
     **{f"blocked_spmm_{d}[{v}]":
        (f"edge_aggr_{d}_kernel<{args}, false, [^>]*, true>",)
        for d in ("fwd", "bwd")
@@ -2299,6 +2397,9 @@ BF16_KERNEL_NAMES = {
     "blocked_edge_dot_fwd": (r"edot_fwd_kernel<[^>]*, true>",),
     "blocked_edge_dot_bwd": (r"edot_bwd_kernel<[^>]*, true>",),
 }
+# ... and the kernels it must not show: no K1 product on the CUDA cores
+BF16_ABSENT_NAMES = {"gin_conv_fwd": (r"gemm_kernel<",),
+                     "gin_conv_bwd": (r"gemm_kernel<",)}
 
 
 def gat_raises_phase(torch, graphs, cfg):
@@ -2396,7 +2497,8 @@ def bf16_section(torch, card, chem_graphs, chem_first, bio_graphs, bio_first,
                   f"{f32:.1f} in float32 earlier in this run, "
                   f"{rate / f32:.3f}x, on {card}", flush=True)
             capture_phase(torch, graphs, cfg, per_step, fused,
-                          kernel_names=BF16_KERNEL_NAMES)
+                          kernel_names=BF16_KERNEL_NAMES,
+                          absent_names=BF16_ABSENT_NAMES)
         gat_raises_phase(torch, chem_graphs, pretrain.PretrainConfig(
             gnn_type="gat", mask_edge=False, **base))
     return entries

@@ -41,15 +41,10 @@
 //   product is the same bits on every run. A product that contracts over
 //   many rows (a weight gradient) splits K into partial products that a
 //   second pass sums in a fixed order. Epilogue: bias, ReLU, (mask > 0).
-// - bfloat16 (gemm_cvt): where an operand is stored as bfloat16, or is
-//   float to be rounded to bfloat16 (K1 at compute_dtype = bfloat16), the
-//   tiles are loaded into registers, widened or rounded, and stored into
-//   the same float tiles one k-tile ahead of the FMAs (the loads of tile
-//   t + 1 in flight during the FMAs of tile t), and the output may be
-//   written as bfloat16. The FMAs are the float kernel's: a product of two
-//   bfloat16 values is exact in float32, so this is the Pallas kernel's
-//   bfloat16 product with float32 accumulation, summed over k in order.
-//   On float operands with no rounding it gives the float kernel's bits.
+//   The float kernel may write its output rounded to bfloat16 (K1 with
+//   bfloat16 rows at compute_dtype = float32).
+// - bfloat16 operands (gemm_bf16, K1 at compute_dtype = bfloat16) go to the
+//   tensor cores instead: see the note above gemm_bf16_kernel below.
 // Everything here has internal linkage (an anonymous namespace), so each
 // including source gets its own copy.
 
@@ -58,14 +53,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
-// gemm_cvt's operand flags: stored as bfloat16 (BF16), or float rounded to
-// bfloat16 on the load (ROUND); C and the positive mask stored as bfloat16.
-enum : int {
-  GEMM_A_BF16 = 1, GEMM_A_ROUND = 2, GEMM_B_BF16 = 4, GEMM_B_ROUND = 8,
-  GEMM_C_BF16 = 16, GEMM_PM_BF16 = 32,
-};
+typedef __nv_bfloat16 bf16;
 
 constexpr int TM = 128, TK = 16;  // CTA tile rows and depth
 constexpr int TKP = TK + 4;       // row pitch of a k-contiguous tile
@@ -98,14 +90,18 @@ __device__ __forceinline__ float ld_elem(const void* X, ll off, bool bf,
   return rnd ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
-// Asynchronous copies into shared memory; bytes < the copy size fills the
-// rest of the destination with zeros (bytes = 0 reads nothing).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
+// Asynchronous copies into shared memory of ``size`` (16 or 8) or 4 bytes;
+// bytes < the copy size fills the rest of the destination with zeros
+// (bytes = 0 reads nothing).
+__device__ __forceinline__ void cp_async_b(void* dst, const void* src,
+                                           int bytes, int size) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (size == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(bytes) : "memory");
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
@@ -120,9 +116,10 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// wait until at most one group (the one just committed) is in flight
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+// wait until at most N committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Issue the copies of one operand tile: X(r, k) = X[r*s_r + k*s_k] for the
@@ -149,7 +146,7 @@ __device__ __forceinline__ void load_tile(float* sm,
       }
       const float* src = bytes ? X + (ll)(r0 + r) * s_r + (ll)(k0 + k) * s_k
                                : X;
-      cp_async16(KMAJ ? sm + k * R + r : sm + r * TKP + k, src, bytes);
+      cp_async_b(KMAJ ? sm + k * R + r : sm + r * TKP + k, src, bytes, 16);
     }
   } else {
 #pragma unroll 4
@@ -291,14 +288,15 @@ __device__ __forceinline__ void store_tile(
 // B(k, j) = B[k*sb0 + j*sb1], on TM x TN tiles, CPT columns a thread; A_KM:
 // A staged k-major (sa0 == 1), B_KM: B staged k-major (sb1 == 1). With
 // gridDim.z > 1, slice z of K writes its raw partial product to
-// C + z*M*N and the epilogue is left to the sum.
+// C + z*M*N and the epilogue is left to the sum; else C is bfloat16 with
+// c_bf16.
 template <int TN, int CPT, bool A_KM, bool B_KM>
 __global__ void __launch_bounds__(16 * (TN / CPT), 512 / (16 * (TN / CPT)))
 gemm_kernel(const float* __restrict__ A, ll sa0, ll sa1,
             const float* __restrict__ B, ll sb0, ll sb1,
-            float* __restrict__ C, int M, int N, int K, int k_chunk,
+            void* __restrict__ C, int M, int N, int K, int k_chunk,
             bool a_vec, bool b_vec, const float* __restrict__ bias,
-            const float* __restrict__ pos_mask, int relu) {
+            const float* __restrict__ pos_mask, int relu, bool c_bf16) {
   constexpr int TX = TN / CPT;  // threads along n; 16 along m
   constexpr int NT = 16 * TX;
   constexpr int A_SIZE = A_KM ? TK * TM : TM * TKP;
@@ -330,13 +328,13 @@ gemm_kernel(const float* __restrict__ A, ll sa0, ll sa1,
                               b_vec, tid);
     }
     cp_async_commit();
-    cp_async_wait_prior();  // k-tile t has landed (this thread's copies)
+    cp_async_wait<1>();  // k-tile t has landed (this thread's copies)
     __syncthreads();        // ... and every other thread's
     fma_tile<TN, CPT, A_KM, B_KM>(acc, sA[t & 1], sB[t & 1], tx, ty);
     __syncthreads();  // the stage is refilled two k-tiles on
   }
 
-  store_tile<TN, CPT, A_KM, B_KM>(acc, C, false, M, N, m0, n0, tx, ty, bias,
+  store_tile<TN, CPT, A_KM, B_KM>(acc, C, c_bf16, M, N, m0, n0, tx, ty, bias,
                                   pos_mask, false, relu);
 }
 
@@ -388,36 +386,41 @@ int wgrad_splits(int M, int N, int K) {
 
 template <int TN, int CPT, bool A_KM, bool B_KM>
 void launch_gemm(dim3 grid, cudaStream_t st, const float* A, ll sa0, ll sa1,
-                 const float* B, ll sb0, ll sb1, float* C, int M, int N,
+                 const float* B, ll sb0, ll sb1, void* C, int M, int N,
                  int K, int k_chunk, bool a_vec, bool b_vec,
-                 const float* bias, const float* pos_mask, int relu) {
+                 const float* bias, const float* pos_mask, int relu,
+                 bool c_bf16) {
   gemm_kernel<TN, CPT, A_KM, B_KM><<<grid, 16 * (TN / CPT), 0, st>>>(
       A, sa0, sa1, B, sb0, sb1, C, M, N, K, k_chunk, a_vec, b_vec, bias,
-      pos_mask, relu);
+      pos_mask, relu, c_bf16);
 }
 
 template <int TN, int CPT>
 void launch_gemm_tn(bool a_km, bool b_km, dim3 grid, cudaStream_t st,
                     const float* A, ll sa0, ll sa1, const float* B, ll sb0,
-                    ll sb1, float* C, int M, int N, int K, int k_chunk,
+                    ll sb1, void* C, int M, int N, int K, int k_chunk,
                     bool a_vec, bool b_vec, const float* bias,
-                    const float* pos_mask, int relu) {
+                    const float* pos_mask, int relu, bool c_bf16) {
   auto fn = a_km ? (b_km ? launch_gemm<TN, CPT, true, true>
                          : launch_gemm<TN, CPT, true, false>)
                  : (b_km ? launch_gemm<TN, CPT, false, true>
                          : launch_gemm<TN, CPT, false, false>);
   fn(grid, st, A, sa0, sa1, B, sb0, sb1, C, M, N, K, k_chunk, a_vec, b_vec,
-     bias, pos_mask, relu);
+     bias, pos_mask, relu, c_bf16);
 }
 
 bool aligned16(const float* p) { return ((size_t)p & 15) == 0; }
 
+// C written as bfloat16 (rounded to nearest) with c_bf16, which a split
+// product does not take. Returns the first CUDA error, 0 if none.
 int gemm(const float* A, ll sa0, ll sa1, const float* B, ll sb0, ll sb1,
-         float* C, int M, int N, int K, int splits, float* part,
-         const float* bias, const float* pos_mask, int relu, cudaStream_t st) {
+         void* C, int M, int N, int K, int splits, float* part,
+         const float* bias, const float* pos_mask, int relu, cudaStream_t st,
+         bool c_bf16 = false) {
   const int k_chunk = ((K + splits - 1) / splits + TK - 1) / TK * TK;
   splits = (K + k_chunk - 1) / k_chunk;
   const bool split = splits > 1;
+  if (split && c_bf16) return (int)cudaErrorInvalidValue;
   const int tn = split ? 128 : 64;  // see the note above
   dim3 grid((N + tn - 1) / tn, (M + TM - 1) / TM, split ? splits : 1);
   // each operand staged along its contiguous dimension (see the note above)
@@ -427,20 +430,21 @@ int gemm(const float* A, ll sa0, ll sa1, const float* B, ll sb0, ll sb1,
                                            : sa1 == 1 && sa0 % 4 == 0);
   const bool b_vec = aligned16(B) && (b_km ? sb0 % 4 == 0
                                            : sb0 == 1 && sb1 % 4 == 0);
-  float* dst = split ? part : C;
+  void* dst = split ? part : C;
   const float* bi = split ? nullptr : bias;
   const float* pm = split ? nullptr : pos_mask;
   const int rl = split ? 0 : relu;
   const int kc = split ? k_chunk : K;
   if (split)
     launch_gemm_tn<128, 8>(a_km, b_km, grid, st, A, sa0, sa1, B, sb0, sb1,
-                           dst, M, N, K, kc, a_vec, b_vec, bi, pm, rl);
+                           dst, M, N, K, kc, a_vec, b_vec, bi, pm, rl, false);
   else
     launch_gemm_tn<64, 4>(a_km, b_km, grid, st, A, sa0, sa1, B, sb0, sb1, dst,
-                          M, N, K, kc, a_vec, b_vec, bi, pm, rl);
+                          M, N, K, kc, a_vec, b_vec, bi, pm, rl, c_bf16);
   const int err = (int)cudaGetLastError();
   if (err || !split) return err;
-  return sum_partials(part, splits, (ll)M * N, N, C, bias, pos_mask, relu, st);
+  return sum_partials(part, splits, (ll)M * N, N, static_cast<float*>(C),
+                      bias, pos_mask, relu, st);
 }
 
 int colsum(const void* X, int R, int Cc, float* part, float* out,
@@ -452,144 +456,475 @@ int colsum(const void* X, int R, int Cc, float* part, float* out,
   return sum_partials(part, (int)grid.y, Cc, Cc, out, nullptr, nullptr, 0, st);
 }
 
-// ---- gemm_cvt: bfloat16 or rounded operands, float32 accumulation -------
+// ---- gemm_bf16: bfloat16 operands on the tensor cores --------------------
+//
+// K1 at compute_dtype = bfloat16 (gin_conv.cu's bfloat16 route): the Pallas
+// kernel's products of bfloat16 operands with float32 accumulation.
+//
+// What bounds it: at K1's shapes a product does 2.9 GFLOP and moves 10-30
+// MB, so at the bfloat16 tensor-core peak (989 TFLOP/s) it is bound by
+// bytes (3-9 us at 3.35 TB/s); on the CUDA cores (gemm above, 67 TFLOP/s)
+// it would take 44 us. So the products go to the tensor cores, and what
+// the kernel must do is keep them fed from device memory.
+//
+// Design:
+// - mma.sync.m16n8k16 (bfloat16 in, float32 sums) on 128 x 64 CTA tiles, 4
+//   warps of 64 x 32 (4 x 4 mma tiles, 64 accumulators a thread), k-tiles
+//   of 32. Every operand is bfloat16 in device memory: cp.async cannot
+//   convert, so the caller rounds a float operand into scratch first
+//   (convert below), once a call.
+// - Each operand is staged along its contiguous dimension, as in gemm, so
+//   that no transpose copy is made: one contiguous along k as [rows][BK +
+//   8], one contiguous along m (A) or n (B) as [BK][rows + 8] (the weight
+//   gradients' z^T and aggr^T, the cotangent and dzr as B, the transposed
+//   weight views). ldmatrix loads the fragments, ldmatrix.trans those of
+//   the second kind. The pads make each row's offset an odd multiple of 16
+//   bytes modulo 128, so the 8 rows an ldmatrix phase reads hit distinct
+//   banks.
+// - Three shared-memory stages filled by cp.async: the copies of k-tiles t
+//   + 1 and t + 2 are in flight while the mma of tile t run. 16-byte copies
+//   where the base is 16-byte aligned and the pitch a multiple of 8
+//   elements, 8-byte copies where they are 8-byte aligned and the pitch a
+//   multiple of 4 (300-wide bfloat16 rows are 600 bytes), else plain
+//   element loads (odd pitches and offsets: tests, small widths). The ragged
+//   k tail and rows past M or N are zero-filled (cp.async's source size),
+//   so the padded products add exact zeros.
+// - Float32 sums in two levels: each k-tile's 32 products are summed on
+//   the tensor cores from zero, and that partial is added to the thread's
+//   float32 accumulator by an ordinary add, k-tile after k-tile. The
+//   tensor cores' own float32 adds do not round to nearest; one mma chain
+//   over all of K read twice as far from torch.matmul's float32 sums (up
+//   to 1.4e-6 of the largest entry against 6.4e-7, on the H100).
+// - Optionally (``exact``), roundings decided as under the k-ordered
+//   float32 FMA chain: the float kernel's order, and cuBLAS's at these
+//   shapes, which the plain version runs. The tensor cores sum in their own
+//   order, and the last bits of a sum decide its rounding to bfloat16 when
+//   it lies near a midpoint between two bfloat16 values. With ``exact`` an
+//   epilogue value within NEAR_TIE float32 ulps of such a midpoint (about
+//   0.05% of them) is recomputed as that chain after the tile's stores: the
+//   CTA lists them, stages their A rows and B columns in the freed shared
+//   memory, and one thread walks each; every other value rounds as the
+//   chain's would. K1 asks it of dzr's product, whose bfloat16 copy feeds
+//   two later products (measured on the H100: the card tests' mean reading
+//   of dWe 4.3e-5 without it, over its limit of 2e-5; 1.2e-6 to 2.0e-6
+//   with it).
+// - Epilogue as gemm's (bias, ReLU, (mask > 0) with the mask bfloat16),
+//   written float32 or bfloat16, optionally also a bfloat16 copy of the
+//   float32 result into a second matrix (K1's dzr). A weight gradient
+//   splits K into raw float32 partials that sum_partials adds in a fixed
+//   order. Each output is one thread's sum in a fixed order: the kernel
+//   gives the same bits on every run.
 
-// A thread's share of one operand tile in registers: X(r, k) = X[r*s_r +
-// k*s_k] for the tile's R rows from r0 (valid below rmax) and TK k from k0
-// (valid below ke), as float, 0 outside; consecutive threads on
-// consecutive rows (KMAJ) or consecutive k.
-template <int R, bool KMAJ, int NT>
-__device__ __forceinline__ void fetch_tile(float (&v)[R * TK / NT],
-                                           const void* X, bool bf, bool rnd,
-                                           ll s_r, ll s_k, int r0, int rmax,
-                                           int k0, int ke, int tid) {
+constexpr int TC_BM = 128, TC_BN = 64, TC_BK = 32, TC_STAGES = 3;
+constexpr int TC_WARPS_N = 2;                     // 2 x 2 warps
+constexpr int TC_NT = 128;
+constexpr int TC_WM = 64, TC_WN = 32;             // a warp's tile
+constexpr int TC_MI = TC_WM / 16, TC_NI = TC_WN / 8;
+
+// The staged tile of R rows by TC_BK: pitch and size in elements; RC: the
+// operand is contiguous along its rows (m or n), staged [TC_BK][R + 8].
+template <int R, bool RC>
+struct TcTile {
+  static constexpr int P = RC ? R + 8 : TC_BK + 8;
+  static constexpr int SIZE = RC ? TC_BK * P : R * P;
+};
+
+
+// Copies one operand tile into shared memory: X(r, k) for R rows from r0
+// (valid below rmax) and TC_BK k from k0 (valid below ke), X(r, k) =
+// X[r*ld + k], or X[k*ld + r] with RC; V elements a copy (8 or 4 by
+// cp.async, 1 by plain loads), zeros outside.
+template <int R, bool RC, int V>
+__device__ __forceinline__ void tc_load(bf16* sm, const bf16* __restrict__ X,
+                                        ll ld, int r0, int rmax, int k0,
+                                        int ke, int tid) {
+  constexpr int P = TcTile<R, RC>::P;
+  constexpr int ALONG = (RC ? R : TC_BK) / V;  // copies along the pitch
 #pragma unroll
-  for (int u = 0; u < R * TK / NT; ++u) {
-    const int l = tid + u * NT;
-    const int r = KMAJ ? l % R : l / TK;
-    const int k = KMAJ ? l / R : l % TK;
-    v[u] = r0 + r < rmax && k0 + k < ke
-               ? ld_elem(X, (ll)(r0 + r) * s_r + (ll)(k0 + k) * s_k, bf, rnd)
-               : 0.f;
+  for (int l = tid; l < R * TC_BK / V; l += TC_NT) {
+    const int c = l % ALONG * V, o = l / ALONG;
+    const int r = RC ? c : o, k = RC ? o : c;
+    int n = RC ? (k0 + k < ke ? rmax - (r0 + r) : 0)
+               : (r0 + r < rmax ? ke - (k0 + k) : 0);
+    n = max(0, min(V, n));  // valid elements of the copy
+    bf16* dst = RC ? sm + k * P + r : sm + r * P + k;
+    const bf16* src = X + (RC ? (ll)(k0 + k) * ld + r0 + r
+                              : (ll)(r0 + r) * ld + k0 + k);
+    if (V > 1)
+      cp_async_b(dst, n ? src : X, 2 * n, 2 * V);
+    else
+      *dst = n ? *src : __ushort_as_bfloat16(0);
   }
 }
 
-// Stores fetch_tile's registers into the tile's shared layout ([TK][R]
-// with KMAJ, else [R][TKP]).
-template <int R, bool KMAJ, int NT>
-__device__ __forceinline__ void put_tile(float* sm,
-                                         const float (&v)[R * TK / NT],
-                                         int tid) {
+template <int R, bool RC>
+__device__ __forceinline__ void tc_load_any(bf16* sm, const bf16* X, ll ld,
+                                            int r0, int rmax, int k0, int ke,
+                                            int vec, int tid) {
+  if (vec == 8)
+    tc_load<R, RC, 8>(sm, X, ld, r0, rmax, k0, ke, tid);
+  else if (vec == 4)
+    tc_load<R, RC, 4>(sm, X, ld, r0, rmax, k0, ke, tid);
+  else
+    tc_load<R, RC, 1>(sm, X, ld, r0, rmax, k0, ke, tid);
+}
+
+// Four 8 x 8 bfloat16 matrices from shared memory, one row address a lane
+// (lanes 8j to 8j + 7 give matrix j's rows); TR transposes each.
+template <bool TR>
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  if (TR)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// c += a (16 x 16, row) @ b (16 x 8, col), bfloat16 in, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The products of one staged k-tile into a warp's 64 x 32 accumulators at
+// (wm0, wn0) of the CTA tile: the tile's 32 products of each output summed
+// on the tensor cores from zero, that partial added to the accumulator in
+// float32 (see the note above). Fragments: A's 16 x 16 as four 8 x 8
+// matrices (rows 0-7 / 8-15 by k 0-7, then by k 8-15), B's 16 x 16 (two n8
+// tiles) as (n 0-7 by k 0-7, k 8-15), then n 8-15.
+template <bool A_MC, bool B_NC>
+__device__ __forceinline__ void tc_tile(float (&acc)[TC_MI][TC_NI][4],
+                                        const bf16* a, const bf16* b,
+                                        int wm0, int wn0, int lane) {
+  constexpr int PA = TcTile<TC_BM, A_MC>::P, PB = TcTile<TC_BN, B_NC>::P;
+  constexpr int KS = TC_BK / 16;  // mma k-steps a tile
+  const int lr = lane % 8, lj = lane / 8;
+  unsigned bfr[KS][TC_NI][2];
 #pragma unroll
-  for (int u = 0; u < R * TK / NT; ++u) {
-    const int l = tid + u * NT;
-    const int r = KMAJ ? l % R : l / TK;
-    const int k = KMAJ ? l / R : l % TK;
-    (KMAJ ? sm[k * R + r] : sm[r * TKP + k]) = v[u];
+  for (int s = 0; s < KS; ++s)
+#pragma unroll
+    for (int nj = 0; nj < TC_NI; nj += 2) {
+      unsigned r[4];
+      const int n = wn0 + nj * 8 + (lj / 2) * 8, k = 16 * s + (lj % 2) * 8;
+      if (B_NC)  // stored [k][n]
+        ldsm_x4<true>(r, b + (k + lr) * PB + n);
+      else       // stored [n][k]
+        ldsm_x4<false>(r, b + (n + lr) * PB + k);
+      bfr[s][nj][0] = r[0];
+      bfr[s][nj][1] = r[1];
+      bfr[s][nj + 1][0] = r[2];
+      bfr[s][nj + 1][1] = r[3];
+    }
+#pragma unroll
+  for (int mi = 0; mi < TC_MI; ++mi) {
+    unsigned af[KS][4];
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      const int m = wm0 + mi * 16 + (lj % 2) * 8, k = 16 * s + (lj / 2) * 8;
+      if (A_MC)  // stored [k][m]
+        ldsm_x4<true>(af[s], a + (k + lr) * PA + m);
+      else       // stored [m][k]
+        ldsm_x4<false>(af[s], a + (m + lr) * PA + k);
+    }
+    float part[TC_NI][4];
+#pragma unroll
+    for (int ni = 0; ni < TC_NI; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) part[ni][c] = 0.f;
+#pragma unroll
+    for (int s = 0; s < KS; ++s)
+#pragma unroll
+      for (int ni = 0; ni < TC_NI; ++ni)
+        mma_bf16(part[ni], af[s], bfr[s][ni][0], bfr[s][ni][1]);
+#pragma unroll
+    for (int ni = 0; ni < TC_NI; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][ni][c] += part[ni][c];
   }
 }
 
-// gemm_kernel with its operands read through registers (see the note at
-// the top): the tiles of k-tile t + 1 are loaded before the FMAs of tile t
-// and stored into the other stage after them.
-template <int TN, int CPT, bool A_KM, bool B_KM>
-__global__ void __launch_bounds__(16 * (TN / CPT), 512 / (16 * (TN / CPT)))
-gemm_cvt_kernel(const void* __restrict__ A, ll sa0, ll sa1,
-                const void* __restrict__ B, ll sb0, ll sb1,
-                void* __restrict__ C, int M, int N, int K, int k_chunk,
-                int flags, const float* __restrict__ bias,
-                const float* __restrict__ pos_mask, int relu) {
-  constexpr int TX = TN / CPT;
-  constexpr int NT = 16 * TX;
-  constexpr int A_SIZE = A_KM ? TK * TM : TM * TKP;
-  constexpr int B_SIZE = B_KM ? TK * TN : TN * TKP;
-  __shared__ __align__(16) float sA[2][A_SIZE];
-  __shared__ __align__(16) float sB[2][B_SIZE];
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
+constexpr unsigned NEAR_TIE = 16;  // float32 ulps, see the note above
+
+// True where v lies within NEAR_TIE ulps of a midpoint between two
+// bfloat16 values (its low 16 bits near 0x8000): where the order of the
+// float32 adds that made it could decide its rounding to bfloat16.
+__device__ __forceinline__ bool near_tie(float v) {
+  const unsigned low = __float_as_uint(v) & 0xffffu;
+  return low + NEAR_TIE > 0x8000u && low < 0x8000u + NEAR_TIE;
+}
+
+// The ordered chain's staging in the freed stages: up to FIX_E outputs a
+// round, FIX_K of their k a step, rows at an odd word pitch (no bank
+// conflicts between the threads that walk them)
+constexpr int FIX_E = 16, FIX_K = 608, FIX_P = FIX_K + 2;
+static_assert(2 * FIX_E * FIX_P <=
+                  TC_STAGES * (TcTile<TC_BM, true>::SIZE +
+                               TcTile<TC_BN, true>::SIZE),
+              "the ordered chain's staging must fit the stages");
+
+// C[M, N] = epilogue(sum_k A(i, k) * B(k, j)) with A(i, k) = A[i*lda + k]
+// (A[k*lda + i] with A_MC) and B(k, j) = B[j*ldb + k] (B[k*ldb + j] with
+// B_NC), bfloat16, float32 sums; va, vb: elements a copy (see tc_load).
+// With gridDim.z > 1, slice z of K writes its raw partial product to
+// (float*)C + z*M*N. Else C (pitch N) is bfloat16 with c_bf16, and C2, if
+// set, gets a bfloat16 copy at pitch ldc2.
+template <bool A_MC, bool B_NC>
+__global__ void __launch_bounds__(TC_NT)
+gemm_bf16_kernel(const bf16* __restrict__ A, ll lda,
+                 const bf16* __restrict__ B, ll ldb, void* __restrict__ C,
+                 bool c_bf16, bf16* __restrict__ C2, ll ldc2, int M, int N,
+                 int K, int k_chunk, int va, int vb,
+                 const float* __restrict__ bias,
+                 const bf16* __restrict__ pos_mask, int relu, bool exact) {
+  constexpr int A_SIZE = TcTile<TC_BM, A_MC>::SIZE;
+  constexpr int B_SIZE = TcTile<TC_BN, B_NC>::SIZE;
+  __shared__ __align__(16) bf16 smem[TC_STAGES * (A_SIZE + B_SIZE)];
+  bf16* sA = smem;                       // [TC_STAGES][A_SIZE]
+  bf16* sB = smem + TC_STAGES * A_SIZE;  // [TC_STAGES][B_SIZE]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm0 = warp / TC_WARPS_N * TC_WM, wn0 = warp % TC_WARPS_N * TC_WN;
+  const int m0 = blockIdx.y * TC_BM, n0 = blockIdx.x * TC_BN;
   const int kb = blockIdx.z * k_chunk;
   const int ke = min(K, kb + k_chunk);
-  const int tiles = (ke - kb + TK - 1) / TK;
-  const bool a_bf = flags & GEMM_A_BF16, a_rnd = flags & GEMM_A_ROUND;
-  const bool b_bf = flags & GEMM_B_BF16, b_rnd = flags & GEMM_B_ROUND;
-  float acc[8][CPT];
+  const int tiles = (ke - kb + TC_BK - 1) / TC_BK;
+  float acc[TC_MI][TC_NI][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int mi = 0; mi < TC_MI; ++mi)
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+    for (int ni = 0; ni < TC_NI; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0.f;
 
-  float ra[TM * TK / NT], rb[TN * TK / NT];
-  fetch_tile<TM, A_KM, NT>(ra, A, a_bf, a_rnd, sa0, sa1, m0, M, kb, ke, tid);
-  fetch_tile<TN, B_KM, NT>(rb, B, b_bf, b_rnd, sb1, sb0, n0, N, kb, ke, tid);
-  put_tile<TM, A_KM, NT>(sA[0], ra, tid);
-  put_tile<TN, B_KM, NT>(sB[0], rb, tid);
-  __syncthreads();
+  auto load = [&](int t) {
+    const int s = t % TC_STAGES, k0 = kb + t * TC_BK;
+    tc_load_any<TC_BM, A_MC>(sA + s * A_SIZE, A, lda, m0, M, k0, ke, va,
+                             tid);
+    tc_load_any<TC_BN, B_NC>(sB + s * B_SIZE, B, ldb, n0, N, k0, ke, vb,
+                             tid);
+  };
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < tiles) load(s);
+    cp_async_commit();
+  }
   for (int t = 0; t < tiles; ++t) {
-    const bool next = t + 1 < tiles;
-    if (next) {
-      const int k1 = kb + (t + 1) * TK;
-      fetch_tile<TM, A_KM, NT>(ra, A, a_bf, a_rnd, sa0, sa1, m0, M, k1, ke,
-                               tid);
-      fetch_tile<TN, B_KM, NT>(rb, B, b_bf, b_rnd, sb1, sb0, n0, N, k1, ke,
-                               tid);
-    }
-    fma_tile<TN, CPT, A_KM, B_KM>(acc, sA[t & 1], sB[t & 1], tx, ty);
-    if (next) {  // the other stage was last read before the barrier below
-      put_tile<TM, A_KM, NT>(sA[(t + 1) & 1], ra, tid);
-      put_tile<TN, B_KM, NT>(sB[(t + 1) & 1], rb, tid);
-    }
-    __syncthreads();
+    cp_async_wait<TC_STAGES - 2>();  // k-tile t has landed (this thread's)
+    __syncthreads();  // ... every thread's, and tile t - 1's mma are done
+    if (t + TC_STAGES - 1 < tiles) load(t + TC_STAGES - 1);  // tile t - 1's
+    cp_async_commit();                                       // stage
+    tc_tile<A_MC, B_NC>(acc, sA + t % TC_STAGES * A_SIZE,
+                        sB + t % TC_STAGES * B_SIZE, wm0, wn0, lane);
   }
 
-  store_tile<TN, CPT, A_KM, B_KM>(acc, C, flags & GEMM_C_BF16, M, N, m0, n0,
-                                  tx, ty, bias, pos_mask,
-                                  flags & GEMM_PM_BF16, relu);
+  // accumulator c of mma tile (mi, ni): row g + 8 (c / 2), column 2 t + c % 2
+  const bool raw = gridDim.z > 1;
+  const int g = lane / 4, t4 = lane % 4;
+  float* out = reinterpret_cast<float*>(C) + (raw ? (ll)blockIdx.z * M * N : 0);
+  bf16* out16 = reinterpret_cast<bf16*>(C);
+  const bool pairs = N % 2 == 0 && ((size_t)C & 7) == 0;  // 2 columns a store
+  const bool pairs2 = ldc2 % 2 == 0 && ((size_t)C2 & 3) == 0;
+  const float* pm = reinterpret_cast<const float*>(pos_mask);
+  unsigned long long ties = 0;  // this thread's outputs near a tie, by bit
+#pragma unroll
+  for (int mi = 0; mi < TC_MI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = m0 + wm0 + mi * 16 + g + 8 * h;
+      if (i >= M) continue;
+#pragma unroll
+      for (int ni = 0; ni < TC_NI; ++ni) {
+        const int j = n0 + wn0 + ni * 8 + 2 * t4;
+        if (j >= N) continue;
+        const bool two = j + 1 < N;
+        float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
+        const ll o = (ll)i * N + j;
+        if (raw) {
+          if (two && pairs) {
+            *reinterpret_cast<float2*>(out + o) = make_float2(v0, v1);
+          } else {
+            out[o] = v0;
+            if (two) out[o + 1] = v1;
+          }
+          continue;
+        }
+        v0 = epilogue(v0, i, j, N, bias, pm, relu, true);
+        if (two) v1 = epilogue(v1, i, j + 1, N, bias, pm, relu, true);
+        const int bit = ((mi * 2 + h) * TC_NI + ni) * 2;
+        ties |= (unsigned long long)(exact && near_tie(v0)) << bit;
+        if (two) ties |= (unsigned long long)(exact && near_tie(v1)) << (bit + 1);
+        if (c_bf16) {
+          if (two && pairs) {
+            *reinterpret_cast<__nv_bfloat162*>(out16 + o) =
+                __floats2bfloat162_rn(v0, v1);
+          } else {
+            out16[o] = __float2bfloat16_rn(v0);
+            if (two) out16[o + 1] = __float2bfloat16_rn(v1);
+          }
+        } else if (two && pairs) {
+          *reinterpret_cast<float2*>(out + o) = make_float2(v0, v1);
+        } else {
+          out[o] = v0;
+          if (two) out[o + 1] = v1;
+        }
+        if (C2) {
+          bf16* o2 = C2 + (ll)i * ldc2 + j;
+          if (two && pairs2) {
+            *reinterpret_cast<__nv_bfloat162*>(o2) =
+                __floats2bfloat162_rn(v0, v1);
+          } else {
+            o2[0] = __float2bfloat16_rn(v0);
+            if (two) o2[1] = __float2bfloat16_rn(v1);
+          }
+        }
+      }
+    }
+  if (!exact) return;
+  // the outputs near a tie again, as the ordered chain: the CTA lists them
+  // (in thread order), stages their A rows and B columns in the freed
+  // stages, and each of the first threads walks one in k order
+  __shared__ int fix_i[FIX_E], fix_j[FIX_E], warp_n[TC_NT / 32];
+  bf16* fa = smem;                // [FIX_E][FIX_P]
+  bf16* fb = smem + FIX_E * FIX_P;
+  for (;;) {
+    __syncthreads();  // the stages, and the last round's lists, are free
+    const int n = __popcll(ties);
+    int incl = n;     // inclusive scan of n over the warp
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += y;
+    }
+    if (lane == 31) warp_n[warp] = incl;
+    __syncthreads();
+    int slot = incl - n, total = 0;
+#pragma unroll
+    for (int w = 0; w < TC_NT / 32; ++w) {
+      if (w < warp) slot += warp_n[w];
+      total += warp_n[w];
+    }
+    if (total == 0) break;
+    for (; ties && slot < FIX_E; ++slot) {  // the rest wait a round
+      const int bit = __ffsll((long long)ties) - 1;
+      ties &= ties - 1;
+      const int c = bit % 2, ni = bit / 2 % TC_NI, h = bit / (2 * TC_NI) % 2;
+      const int mi = bit / (4 * TC_NI);
+      fix_i[slot] = m0 + wm0 + mi * 16 + g + 8 * h;
+      fix_j[slot] = n0 + wn0 + ni * 8 + 2 * t4 + c;
+    }
+    const int m = min(total, FIX_E);
+    __syncthreads();
+    float s = 0.f;
+    for (int k0 = 0; k0 < K; k0 += FIX_K) {
+      const int kn = min(FIX_K, K - k0);
+      for (int l = tid; l < m * kn; l += TC_NT) {
+        const int e = l / kn, k = l % kn;
+        const ll ka = k0 + k, i = fix_i[e], j = fix_j[e];
+        fa[e * FIX_P + k] = A_MC ? A[ka * lda + i] : A[i * lda + ka];
+        fb[e * FIX_P + k] = B_NC ? B[ka * ldb + j] : B[j * ldb + ka];
+      }
+      __syncthreads();
+      if (tid < m) {
+        const bf16* x = fa + tid * FIX_P;
+        const bf16* y = fb + tid * FIX_P;
+#pragma unroll 8
+        for (int k = 0; k < kn; ++k)
+          s = fmaf(__bfloat162float(x[k]), __bfloat162float(y[k]), s);
+      }
+      __syncthreads();
+    }
+    if (tid < m) {
+      const int i = fix_i[tid], j = fix_j[tid];
+      const float v = epilogue(s, i, j, N, bias, pm, relu, true);
+      const ll o = (ll)i * N + j;
+      if (c_bf16)
+        out16[o] = __float2bfloat16_rn(v);
+      else
+        out[o] = v;
+      if (C2) C2[(ll)i * ldc2 + j] = __float2bfloat16_rn(v);
+    }
+  }
 }
 
-template <int TN, int CPT>
-void launch_gemm_cvt(bool a_km, bool b_km, dim3 grid, cudaStream_t st,
-                     const void* A, ll sa0, ll sa1, const void* B, ll sb0,
-                     ll sb1, void* C, int M, int N, int K, int k_chunk,
-                     int flags, const float* bias, const float* pos_mask,
-                     int relu) {
-  auto k = a_km ? (b_km ? gemm_cvt_kernel<TN, CPT, true, true>
-                        : gemm_cvt_kernel<TN, CPT, true, false>)
-                : (b_km ? gemm_cvt_kernel<TN, CPT, false, true>
-                        : gemm_cvt_kernel<TN, CPT, false, false>);
-  k<<<grid, 16 * (TN / CPT), 0, st>>>(A, sa0, sa1, B, sb0, sb1, C, M, N, K,
-                                      k_chunk, flags, bias, pos_mask, relu);
+// Elements a copy for a bfloat16 operand at p with pitch ld (see tc_load).
+inline int tc_vec(const void* p, ll ld) {
+  const size_t a = (size_t)p;
+  if (a % 16 == 0 && ld % 8 == 0) return 8;
+  if (a % 8 == 0 && ld % 4 == 0) return 4;
+  return 1;
 }
 
-// gemm with the operand and output types of ``flags`` (GEMM_*), tiles and
-// splits as gemm's. A split product (a weight gradient) writes float32 and
-// takes no bfloat16 mask. Returns the first CUDA error, 0 if none.
+// gemm on the tensor cores for bfloat16 A and B (A(i, k) = A[i*sa0 +
+// k*sa1], B(k, j) = B[k*sb0 + j*sb1], one stride of each 1), float32 sums:
+// C [M, N] float32, or bfloat16 with c_bf16; C2, if set, a bfloat16 copy
+// of C at pitch ldc2; pos_mask [M, N] bfloat16. Splits of K and ``part`` as
+// gemm's; a split product takes no bfloat16 output, copy or mask. Returns
+// the first CUDA error, 0 if none.
 template <int = 0>
-int gemm_cvt(const void* A, ll sa0, ll sa1, const void* B, ll sb0, ll sb1,
-             void* C, int M, int N, int K, int splits, float* part,
-             const float* bias, const void* pos_mask, int relu, int flags,
-             cudaStream_t st) {
-  const int k_chunk = ((K + splits - 1) / splits + TK - 1) / TK * TK;
+int gemm_bf16(const bf16* A, ll sa0, ll sa1, const bf16* B, ll sb0, ll sb1,
+              void* C, bool c_bf16, bf16* C2, ll ldc2, int M, int N, int K,
+              int splits, float* part, const float* bias,
+              const bf16* pos_mask, int relu, bool exact, cudaStream_t st) {
+  const bool a_mc = sa1 != 1, b_nc = sb0 != 1;
+  if ((a_mc && sa0 != 1) || (b_nc && sb1 != 1))
+    return (int)cudaErrorInvalidValue;
+  const ll lda = a_mc ? sa1 : sa0, ldb = b_nc ? sb0 : sb1;
+  const int k_chunk = ((K + splits - 1) / splits + TC_BK - 1) / TC_BK * TC_BK;
   splits = (K + k_chunk - 1) / k_chunk;
   const bool split = splits > 1;
-  if (split && (flags & (GEMM_C_BF16 | GEMM_PM_BF16)))
-    return (int)cudaErrorInvalidValue;
-  const int tn = split ? 128 : 64;
-  dim3 grid((N + tn - 1) / tn, (M + TM - 1) / TM, split ? splits : 1);
-  const bool a_km = sa0 == 1 && sa1 != 1;
-  const bool b_km = sb1 == 1 && sb0 != 1;
-  const float* pm = reinterpret_cast<const float*>(pos_mask);
-  if (split)
-    launch_gemm_cvt<128, 8>(a_km, b_km, grid, st, A, sa0, sa1, B, sb0, sb1,
-                            part, M, N, K, k_chunk, flags, nullptr, nullptr,
-                            0);
-  else
-    launch_gemm_cvt<64, 4>(a_km, b_km, grid, st, A, sa0, sa1, B, sb0, sb1, C,
-                           M, N, K, K, flags, bias, pm, relu);
+  if (split && (c_bf16 || C2 || pos_mask)) return (int)cudaErrorInvalidValue;
+  dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM, splits);
+  auto k = a_mc ? (b_nc ? gemm_bf16_kernel<true, true>
+                        : gemm_bf16_kernel<true, false>)
+                : (b_nc ? gemm_bf16_kernel<false, true>
+                        : gemm_bf16_kernel<false, false>);
+  k<<<grid, TC_NT, 0, st>>>(A, lda, B, ldb, split ? part : C, c_bf16, C2,
+                            ldc2, M, N, K, split ? k_chunk : K,
+                            tc_vec(A, lda), tc_vec(B, ldb),
+                            split ? nullptr : bias, pos_mask,
+                            split ? 0 : relu, exact && !split);
   const int err = (int)cudaGetLastError();
   if (err || !split) return err;
-  return sum_partials(part, splits, (ll)M * N, N, reinterpret_cast<float*>(C),
-                      bias, pm, relu, st);
+  return sum_partials(part, splits, (ll)M * N, N, static_cast<float*>(C),
+                      bias, nullptr, relu, st);
+}
+
+// Y[i*t0 + j*t1] = X[i*s0 + j*s1] for i < R, j < C, converted from TI to
+// TO (float to bfloat16 rounded to nearest, or bfloat16 to float);
+// consecutive threads along j.
+template <typename TI, typename TO>
+__global__ void convert_kernel(const TI* __restrict__ X, ll s0, ll s1, int R,
+                               int C, TO* __restrict__ Y, ll t0, ll t1) {
+  const ll n = (ll)R * C;
+  for (ll idx = blockIdx.x * (ll)blockDim.x + threadIdx.x; idx < n;
+       idx += (ll)gridDim.x * blockDim.x) {
+    const ll i = idx / C, j = idx % C;
+    const TI v = X[i * s0 + j * s1];
+    if constexpr (std::is_same<TO, bf16>::value)
+      Y[i * t0 + j * t1] = __float2bfloat16_rn(v);
+    else
+      Y[i * t0 + j * t1] = __bfloat162float(v);
+  }
+}
+
+template <typename TI, typename TO>
+int convert(const TI* X, ll s0, ll s1, int R, int C, TO* Y, ll t0, ll t1,
+            cudaStream_t st) {
+  if (s0 == 1 && s1 != 1) {  // walk X's contiguous dimension
+    convert_kernel<TI, TO><<<NUM_SMS * 4, 256, 0, st>>>(X, s1, s0, C, R, Y,
+                                                        t1, t0);
+  } else {
+    convert_kernel<TI, TO><<<NUM_SMS * 4, 256, 0, st>>>(X, s0, s1, R, C, Y,
+                                                        t0, t1);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -45,11 +45,20 @@
 // - bfloat16: x, out, g and dx may be stored as bfloat16 (bf16_rows), and
 //   with bf16_compute the layer rounds where the Pallas kernel at
 //   compute_dtype = bfloat16 does: the aggregation's operands and each
-//   message (edge_aggr.cuh's BF walk), every product's operands (gemm.cuh's
-//   gemm_cvt on bfloat16 or rounded tiles, float32 accumulation), db2 from
+//   message (edge_aggr.cuh's BF walk), every product's operands, db2 from
 //   the rounded g; aggr and z are saved as bfloat16, dzr, da and the
-//   weight gradients stay float32. Without either flag the float kernels
-//   run, their bits unchanged.
+//   weight gradients stay float32. The six products then run on the
+//   tensor cores (gemm.cuh's gemm_bf16, float32 sums), every operand
+//   bfloat16 in device memory first: W1 and W2 rounded into scratch once a
+//   call (in the orientation of their contiguous dimension, pitch a
+//   multiple of 8 elements), a float32 g rounded into scratch, and dzr's
+//   product writing a bfloat16 copy beside the float32 dzr (db1 and the
+//   self term take the float32 one), its roundings to bfloat16 decided as
+//   under the k-ordered float32 chain. With bfloat16 rows at compute_dtype
+//   = float32 there is nothing to round: the float kernels run on the
+//   stored values (g widened into float32 scratch, out rounded on the
+//   store). Without either flag the float kernels run, their bits
+//   unchanged.
 // Every output is summed in a fixed order: the kernels give the same bits
 // on every run.
 
@@ -63,6 +72,40 @@ namespace {
 constexpr int MAX_BN = 256;               // node rows per block
 constexpr int MAX_K = AGG_MAX_K;          // edge input width
 
+ll pad8(ll n) { return (n + 7) / 8 * 8; }
+
+// Scratch cut from ``base`` (null: sizes only), in float32 elements, each
+// piece 16-byte aligned.
+struct Carver {
+  float* base;
+  ll off = 0;
+  float* take(ll n) {
+    float* p = base ? base + off : nullptr;
+    off += (n + 3) / 4 * 4;
+    return p;
+  }
+  bf16* take16(ll n) { return reinterpret_cast<bf16*>(take((n + 1) / 2)); }
+};
+
+// W1 and W2 rounded to bfloat16 (see round_weight)
+struct Weights16 {
+  bf16* W1;
+  bf16* W2;
+};
+
+Weights16 carve_weights(Carver& c, int F, int F2) {
+  return {c.take16(pad8(F) * pad8(F2)), c.take16(pad8(F) * pad8(F2))};
+}
+
+// The forward's scratch: the rounded weights under bf16_compute, else none.
+Weights16 carve_fwd(float* base, int F, int F2, bool c, ll* total) {
+  Carver cv{base};
+  Weights16 w{nullptr, nullptr};
+  if (c) w = carve_weights(cv, F, F2);
+  *total = cv.off;
+  return w;
+}
+
 struct BwdWork {
   float* dzr;       // [N, F2]
   float* da;        // [N, F]
@@ -70,24 +113,46 @@ struct BwdWork {
   float* cpart;     // column-sum partials of db1 / db2
   float* dWe_part;  // [n_blocks, K, F]
   float* des_part;  // [n_blocks, F]
+  Weights16 w16;    // bf16_compute: W1, W2 rounded
+  bf16* dzr16;      // bf16_compute: dzr rounded, [N, pad8(F2)]
+  bf16* g16;        // float rows at bf16_compute: g rounded, [N, pad8(F)]
+  float* g32;       // bfloat16 rows at float32 compute: g widened, [N, F]
   ll total;
 };
 
-BwdWork carve(float* base, int N, int F, int F2, int K, int n_blocks) {
-  BwdWork w;
-  ll off = 0;
-  auto take = [&](ll n) { float* p = base ? base + off : nullptr; off += (n + 3) / 4 * 4; return p; };
+BwdWork carve(float* base, int N, int F, int F2, int K, int n_blocks,
+              bool rows, bool c) {
+  BwdWork w{};
+  Carver cv{base};
   const ll s2 = (ll)wgrad_splits(F2, F, N) * F2 * F;
   const ll s1 = (ll)wgrad_splits(F, F2, N) * F * F2;
   const ll chunks = (N + COLSUM_ROWS - 1) / COLSUM_ROWS;
-  w.dzr = take((ll)N * F2);
-  w.da = take((ll)N * F);
-  w.part = take(s1 > s2 ? s1 : s2);
-  w.cpart = take(chunks * (F2 > F ? F2 : F));
-  w.dWe_part = take((ll)n_blocks * K * F);
-  w.des_part = take((ll)n_blocks * F);
-  w.total = off;
+  w.dzr = cv.take((ll)N * F2);
+  w.da = cv.take((ll)N * F);
+  w.part = cv.take(s1 > s2 ? s1 : s2);
+  w.cpart = cv.take(chunks * (F2 > F ? F2 : F));
+  w.dWe_part = cv.take((ll)n_blocks * K * F);
+  w.des_part = cv.take((ll)n_blocks * F);
+  if (c) {
+    w.w16 = carve_weights(cv, F, F2);
+    w.dzr16 = cv.take16((ll)N * pad8(F2));
+    if (!rows) w.g16 = cv.take16((ll)N * pad8(F));
+  } else if (rows) {
+    w.g32 = cv.take((ll)N * F);
+  }
+  w.total = cv.off;
   return w;
+}
+
+// A weight [R, C] (strides s0, s1) rounded to bfloat16 into Wr, contiguous
+// along the same dimension as W with a pitch of pad8 elements; *t0, *t1
+// receive Wr's strides.
+int round_weight(const float* W, ll s0, ll s1, int R, int C, bf16* Wr,
+                 ll* t0, ll* t1, cudaStream_t st) {
+  const bool col = s0 == 1 && s1 != 1;
+  *t0 = col ? 1 : pad8(C);
+  *t1 = col ? pad8(R) : 1;
+  return convert(W, s0, s1, R, C, Wr, *t0, *t1, st);
 }
 
 bool bad_shape(int N, int K, int block_nodes, int block_edges) {
@@ -117,15 +182,50 @@ int aggr_bwd(const float* da, const float* ein, const int* snd,
       n_blocks, F, K, block_nodes, block_edges, st);
 }
 
+// The forward's products in float32: z = relu(aggr @ W1 + b1), out = z @ W2
+// + b2, out rounded to bfloat16 on the store with out_bf16.
+int fwd_products(const float* aggr, const float* W1, ll w1s0, ll w1s1,
+                 const float* b1, const float* W2, ll w2s0, ll w2s1,
+                 const float* b2, float* z, void* out, bool out_bf16, int N,
+                 int F, int F2, cudaStream_t st) {
+  int err = gemm(aggr, F, 1, W1, w1s0, w1s1, z, N, F2, F, 1, nullptr, b1, nullptr, 1, st);
+  if (err) return err;
+  return gemm(z, F2, 1, W2, w2s0, w2s1, out, N, F, F2, 1, nullptr, b2, nullptr, 0, st, out_bf16);
+}
+
+// The backward's products and column sums in float32, into wk.dzr, dW2,
+// db2, dW1, db1 and wk.da.
+int bwd_products(const float* g, const float* aggr, const float* z,
+                 const float* W1, ll w1s0, ll w1s1, const float* W2, ll w2s0,
+                 ll w2s1, float* dW1, float* db1, float* dW2, float* db2,
+                 const BwdWork& wk, int N, int F, int F2, cudaStream_t st) {
+  int err;
+  // dzr = (g @ W2^T) * (z > 0): B(k = f, j = c) = W2[c, f]
+  err = gemm(g, F, 1, W2, w2s1, w2s0, wk.dzr, N, F2, F, 1, nullptr, nullptr, z, 0, st);
+  if (err) return err;
+  // dW2 = z^T g: A(i = c, k = n) = z[n, c]
+  err = gemm(z, 1, F2, g, F, 1, dW2, F2, F, N, wgrad_splits(F2, F, N), wk.part, nullptr, nullptr, 0, st);
+  if (err) return err;
+  err = colsum(g, N, F, wk.cpart, db2, st);
+  if (err) return err;
+  // dW1 = aggr^T dzr
+  err = gemm(aggr, 1, F, wk.dzr, F2, 1, dW1, F, F2, N, wgrad_splits(F, F2, N), wk.part, nullptr, nullptr, 0, st);
+  if (err) return err;
+  err = colsum(wk.dzr, N, F2, wk.cpart, db1, st);
+  if (err) return err;
+  // da = dzr @ W1^T: B(k = c, j = f) = W1[f, c]
+  return gemm(wk.dzr, F2, 1, W1, w1s1, w1s0, wk.da, N, F, F2, 1, nullptr, nullptr, nullptr, 0, st);
+}
+
 // The bfloat16 forward (see the note above): rows = bf16_rows, c =
-// bf16_compute, not both false.
+// bf16_compute, not both false; ``work`` holds the scratch of carve_fwd.
 int fwd_bf16(const void* x, const float* ein, const float* We,
              const float* e_self, const float* W1, ll w1s0, ll w1s1,
              const float* b1, const float* W2, ll w2s0, ll w2s1,
              const float* b2, const int* snd, const int* rcv, const float* w,
-             const float* nm, void* out, void* aggr, void* z, int N, int F,
-             int F2, int K, int block_nodes, int block_edges, bool rows,
-             bool c, cudaStream_t st) {
+             const float* nm, void* out, void* aggr, void* z, float* work,
+             int N, int F, int F2, int K, int block_nodes, int block_edges,
+             bool rows, bool c, cudaStream_t st) {
   const int n_blocks = N / block_nodes;
   int err;
   if (rows)
@@ -134,15 +234,24 @@ int fwd_bf16(const void* x, const float* ein, const float* We,
   else
     err = aggr_fwd<float, bf16, true>(x, ein, We, e_self, snd, rcv, w, nm, aggr, n_blocks, F, K, block_nodes, block_edges, st);
   if (err) return err;
-  const int act = c ? GEMM_A_BF16 | GEMM_B_ROUND : 0;  // aggr, z; W1, W2
-  err = gemm_cvt(aggr, F, 1, W1, w1s0, w1s1, z, N, F2, F, 1, nullptr, b1,
-                 nullptr, 1, act | (c ? GEMM_C_BF16 : 0), st);
+  if (!c)  // float32 compute: the float products, out rounded on the store
+    return fwd_products(static_cast<const float*>(aggr), W1, w1s0, w1s1, b1,
+                        W2, w2s0, w2s1, b2, static_cast<float*>(z), out,
+                        true, N, F, F2, st);
+  ll total, u0, u1, v0, v1;
+  const Weights16 wr = carve_fwd(work, F, F2, true, &total);
+  err = round_weight(W1, w1s0, w1s1, F, F2, wr.W1, &u0, &u1, st);
   if (err) return err;
-  return gemm_cvt(z, F2, 1, W2, w2s0, w2s1, out, N, F, F2, 1, nullptr, b2,
-                  nullptr, 0, act | (rows ? GEMM_C_BF16 : 0), st);
+  err = round_weight(W2, w2s0, w2s1, F2, F, wr.W2, &v0, &v1, st);
+  if (err) return err;
+  // z = relu(aggr @ W1 + b1), bfloat16
+  err = gemm_bf16(static_cast<const bf16*>(aggr), F, 1, wr.W1, u0, u1, z, true, nullptr, 0, N, F2, F, 1, nullptr, b1, nullptr, 1, false, st);
+  if (err) return err;
+  // out = z @ W2 + b2, in the rows' dtype
+  return gemm_bf16(static_cast<const bf16*>(z), F2, 1, wr.W2, v0, v1, out, rows, nullptr, 0, N, F, F2, 1, nullptr, b2, nullptr, 0, false, st);
 }
 
-// The bfloat16 backward, flags as fwd_bf16's.
+// The bfloat16 backward, flags as fwd_bf16's; ``wk`` carved with them.
 int bwd_bf16(const void* g, const void* aggr, const void* z, const float* ein,
              const float* W1, ll w1s0, ll w1s1, const float* W2, ll w2s0,
              ll w2s1, const int* snd, const int* rcv, const float* w,
@@ -151,36 +260,57 @@ int bwd_bf16(const void* g, const void* aggr, const void* z, const float* ein,
              int F, int F2, int K, int block_nodes, int block_edges,
              bool rows, bool c, cudaStream_t st) {
   const int n_blocks = N / block_nodes;
-  // g: stored as bfloat16 (rows), else float rounded under c
-  const bool g_rnd = c && !rows;
-  const int gA = rows ? GEMM_A_BF16 : g_rnd ? GEMM_A_ROUND : 0;
-  const int gB = rows ? GEMM_B_BF16 : g_rnd ? GEMM_B_ROUND : 0;
-  const int wB = c ? GEMM_B_ROUND : 0;           // W1, W2
-  const int sA = c ? GEMM_A_BF16 : 0;            // saved aggr, z
-  const int dA = c ? GEMM_A_ROUND : 0;           // dzr as an operand
-  const int dB = c ? GEMM_B_ROUND : 0;
   int err;
-  // dzr = (g @ W2^T) * (z > 0)
-  err = gemm_cvt(g, F, 1, W2, w2s1, w2s0, wk.dzr, N, F2, F, 1, nullptr, nullptr, z, 0, gA | wB | (c ? GEMM_PM_BF16 : 0), st);
-  if (err) return err;
-  // dW2 = z^T g
-  err = gemm_cvt(z, 1, F2, g, F, 1, dW2, F2, F, N, wgrad_splits(F2, F, N), wk.part, nullptr, nullptr, 0, sA | gB, st);
-  if (err) return err;
-  err = colsum(g, N, F, wk.cpart, db2, st, rows, g_rnd);
-  if (err) return err;
-  // dW1 = aggr^T dzr
-  err = gemm_cvt(aggr, 1, F, wk.dzr, F2, 1, dW1, F, F2, N, wgrad_splits(F, F2, N), wk.part, nullptr, nullptr, 0, sA | dB, st);
-  if (err) return err;
-  err = colsum(wk.dzr, N, F2, wk.cpart, db1, st);
-  if (err) return err;
-  // da = dzr @ W1^T
-  err = gemm_cvt(wk.dzr, F2, 1, W1, w1s1, w1s0, wk.da, N, F, F2, 1, nullptr, nullptr, nullptr, 0, dA | wB, st);
-  if (err) return err;
-  if (rows)
-    err = c ? aggr_bwd<bf16, true>(wk.da, ein, snd, rcv, w, nm, dx, wk.dWe_part, wk.des_part, n_blocks, F, K, block_nodes, block_edges, st)
-            : aggr_bwd<bf16, false>(wk.da, ein, snd, rcv, w, nm, dx, wk.dWe_part, wk.des_part, n_blocks, F, K, block_nodes, block_edges, st);
-  else
-    err = aggr_bwd<float, true>(wk.da, ein, snd, rcv, w, nm, dx, wk.dWe_part, wk.des_part, n_blocks, F, K, block_nodes, block_edges, st);
+  if (!c) {  // bfloat16 rows at float32 compute: the float products on g
+    err = convert(static_cast<const bf16*>(g), F, 1, N, F, wk.g32, F, 1, st);
+    if (err) return err;
+    err = bwd_products(wk.g32, static_cast<const float*>(aggr),
+                       static_cast<const float*>(z), W1, w1s0, w1s1, W2,
+                       w2s0, w2s1, dW1, db1, dW2, db2, wk, N, F, F2, st);
+    if (err) return err;
+    err = aggr_bwd<bf16, false>(wk.da, ein, snd, rcv, w, nm, dx, wk.dWe_part, wk.des_part, n_blocks, F, K, block_nodes, block_edges, st);
+  } else {
+    ll u0, u1, v0, v1;
+    err = round_weight(W1, w1s0, w1s1, F, F2, wk.w16.W1, &u0, &u1, st);
+    if (err) return err;
+    err = round_weight(W2, w2s0, w2s1, F2, F, wk.w16.W2, &v0, &v1, st);
+    if (err) return err;
+    // g as a bfloat16 operand: stored so (rows), else rounded into scratch
+    const bf16* gb = static_cast<const bf16*>(g);
+    ll ldg = F;
+    if (!rows) {
+      ldg = pad8(F);
+      err = convert(static_cast<const float*>(g), F, 1, N, F, wk.g16, ldg, 1, st);
+      if (err) return err;
+      gb = wk.g16;
+    }
+    const bf16* z16 = static_cast<const bf16*>(z);
+    const bf16* a16 = static_cast<const bf16*>(aggr);
+    const ll ldd = pad8(F2);
+    // dzr = (g @ W2^T) * (z > 0), float32 and a bfloat16 copy: B(k = f,
+    // j = c) = W2[c, f]. Its roundings as the ordered chain's (gemm.cuh):
+    // one flipped entry of the copy would move a whole row of da, and
+    // de_self sums da unrounded over the rows.
+    err = gemm_bf16(gb, ldg, 1, wk.w16.W2, v1, v0, wk.dzr, false, wk.dzr16, ldd, N, F2, F, 1, nullptr, nullptr, z16, 0, true, st);
+    if (err) return err;
+    // dW2 = z^T g: A(i = c, k = n) = z[n, c]
+    err = gemm_bf16(z16, 1, F2, gb, ldg, 1, dW2, false, nullptr, 0, F2, F, N, wgrad_splits(F2, F, N), wk.part, nullptr, nullptr, 0, false, st);
+    if (err) return err;
+    err = colsum(g, N, F, wk.cpart, db2, st, rows, !rows);
+    if (err) return err;
+    // dW1 = aggr^T dzr
+    err = gemm_bf16(a16, 1, F, wk.dzr16, ldd, 1, dW1, false, nullptr, 0, F, F2, N, wgrad_splits(F, F2, N), wk.part, nullptr, nullptr, 0, false, st);
+    if (err) return err;
+    err = colsum(wk.dzr, N, F2, wk.cpart, db1, st);
+    if (err) return err;
+    // da = dzr @ W1^T: B(k = c, j = f) = W1[f, c]
+    err = gemm_bf16(wk.dzr16, ldd, 1, wk.w16.W1, u1, u0, wk.da, false, nullptr, 0, N, F, F2, 1, nullptr, nullptr, nullptr, 0, false, st);
+    if (err) return err;
+    if (rows)
+      err = aggr_bwd<bf16, true>(wk.da, ein, snd, rcv, w, nm, dx, wk.dWe_part, wk.des_part, n_blocks, F, K, block_nodes, block_edges, st);
+    else
+      err = aggr_bwd<float, true>(wk.da, ein, snd, rcv, w, nm, dx, wk.dWe_part, wk.des_part, n_blocks, F, K, block_nodes, block_edges, st);
+  }
   if (err) return err;
   err = sum_partials(wk.dWe_part, n_blocks, (ll)K * F, F, dWe, nullptr, nullptr, 0, st);
   if (err) return err;
@@ -194,10 +324,20 @@ extern "C" {
 // Present since the entry points take (bf16_rows, bf16_compute).
 int pgt_bf16_flags() { return 1; }
 
+// Float32 elements of scratch that pgt_gin_conv_fwd needs (0 unless
+// bf16_compute).
+long long pgt_gin_conv_fwd_workspace(int F, int F2, int bf16_compute) {
+  ll total;
+  carve_fwd(nullptr, F, F2, bf16_compute, &total);
+  return total;
+}
+
 // Float32 elements of scratch that pgt_gin_conv_bwd needs.
 long long pgt_gin_conv_bwd_workspace(int N, int F, int F2, int K,
-                                     int n_blocks) {
-  return carve(nullptr, N, F, F2, K, n_blocks).total;
+                                     int n_blocks, int bf16_rows,
+                                     int bf16_compute) {
+  return carve(nullptr, N, F, F2, K, n_blocks, bf16_rows, bf16_compute)
+      .total;
 }
 
 int pgt_gin_conv_max_block_nodes() { return MAX_BN; }
@@ -205,21 +345,22 @@ int pgt_gin_conv_max_k() { return MAX_K; }
 
 // Forward: writes out [N, F], aggr [N, F] and z [N, F2]. W1 is [F, F2] and
 // W2 [F2, F] with any strides. x and out are bfloat16 with bf16_rows, aggr
-// and z with bf16_compute, else float. Returns the first CUDA error, 0 if
+// and z with bf16_compute, else float. ``work`` holds
+// pgt_gin_conv_fwd_workspace floats. Returns the first CUDA error, 0 if
 // none.
 int pgt_gin_conv_fwd(const void* x, const float* ein, const float* We,
                      const float* e_self, const float* W1, ll w1s0, ll w1s1,
                      const float* b1, const float* W2, ll w2s0, ll w2s1,
                      const float* b2, const int* snd, const int* rcv,
                      const float* w, const float* nm, void* out, void* aggr,
-                     void* z, int N, int F, int F2, int K, int block_nodes,
-                     int block_edges, int bf16_rows, int bf16_compute,
-                     void* stream) {
+                     void* z, float* work, int N, int F, int F2, int K,
+                     int block_nodes, int block_edges, int bf16_rows,
+                     int bf16_compute, void* stream) {
   if (bad_shape(N, K, block_nodes, block_edges)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16_rows || bf16_compute)
     return fwd_bf16(x, ein, We, e_self, W1, w1s0, w1s1, b1, W2, w2s0, w2s1,
-                    b2, snd, rcv, w, nm, out, aggr, z, N, F, F2, K,
+                    b2, snd, rcv, w, nm, out, aggr, z, work, N, F, F2, K,
                     block_nodes, block_edges, bf16_rows, bf16_compute, st);
   const int n_blocks = N / block_nodes;
   int err = edge_aggr_fwd<true, true, true, 1>(
@@ -227,10 +368,9 @@ int pgt_gin_conv_fwd(const void* x, const float* ein, const float* We,
       static_cast<float*>(aggr), n_blocks, F, K, block_nodes, block_edges,
       st);
   if (err) return err;
-  float* zf = static_cast<float*>(z);
-  err = gemm(static_cast<const float*>(aggr), F, 1, W1, w1s0, w1s1, zf, N, F2, F, 1, nullptr, b1, nullptr, 1, st);
-  if (err) return err;
-  return gemm(zf, F2, 1, W2, w2s0, w2s1, static_cast<float*>(out), N, F, F2, 1, nullptr, b2, nullptr, 0, st);
+  return fwd_products(static_cast<const float*>(aggr), W1, w1s0, w1s1, b1, W2,
+                      w2s0, w2s1, b2, static_cast<float*>(z), out, false, N, F,
+                      F2, st);
 }
 
 // Backward: writes dx [N, F], dWe [K, F], des [F], dW1 [F, F2], db1 [F2],
@@ -248,32 +388,18 @@ int pgt_gin_conv_bwd(const void* g_, const void* aggr_, const void* z_,
   if (bad_shape(N, K, block_nodes, block_edges)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int n_blocks = N / block_nodes;
-  const BwdWork wk = carve(work, N, F, F2, K, n_blocks);
+  const BwdWork wk = carve(work, N, F, F2, K, n_blocks, bf16_rows,
+                           bf16_compute);
   if (bf16_rows || bf16_compute)
     return bwd_bf16(g_, aggr_, z_, ein, W1, w1s0, w1s1, W2, w2s0, w2s1, snd,
                     rcv, w, nm, dx_, dWe, des, dW1, db1, dW2, db2, wk, N, F,
                     F2, K, block_nodes, block_edges, bf16_rows, bf16_compute,
                     st);
-  const float* g = static_cast<const float*>(g_);
-  const float* aggr = static_cast<const float*>(aggr_);
-  const float* z = static_cast<const float*>(z_);
   float* dx = static_cast<float*>(dx_);
-  int err;
-  // dzr = (g @ W2^T) * (z > 0): B(k = f, j = c) = W2[c, f]
-  err = gemm(g, F, 1, W2, w2s1, w2s0, wk.dzr, N, F2, F, 1, nullptr, nullptr, z, 0, st);
-  if (err) return err;
-  // dW2 = z^T g: A(i = c, k = n) = z[n, c]
-  err = gemm(z, 1, F2, g, F, 1, dW2, F2, F, N, wgrad_splits(F2, F, N), wk.part, nullptr, nullptr, 0, st);
-  if (err) return err;
-  err = colsum(g, N, F, wk.cpart, db2, st);
-  if (err) return err;
-  // dW1 = aggr^T dzr
-  err = gemm(aggr, 1, F, wk.dzr, F2, 1, dW1, F, F2, N, wgrad_splits(F, F2, N), wk.part, nullptr, nullptr, 0, st);
-  if (err) return err;
-  err = colsum(wk.dzr, N, F2, wk.cpart, db1, st);
-  if (err) return err;
-  // da = dzr @ W1^T: B(k = c, j = f) = W1[f, c]
-  err = gemm(wk.dzr, F2, 1, W1, w1s1, w1s0, wk.da, N, F, F2, 1, nullptr, nullptr, nullptr, 0, st);
+  int err = bwd_products(static_cast<const float*>(g_),
+                         static_cast<const float*>(aggr_),
+                         static_cast<const float*>(z_), W1, w1s0, w1s1, W2,
+                         w2s0, w2s1, dW1, db1, dW2, db2, wk, N, F, F2, st);
   if (err) return err;
   err = edge_aggr_bwd<true, true, true, 1>(wk.da, ein, snd, rcv, w, nm, dx,
                                         wk.dWe_part, wk.des_part, n_blocks, F,
@@ -284,10 +410,10 @@ int pgt_gin_conv_bwd(const void* g_, const void* aggr_, const void* z_,
   return sum_partials(wk.des_part, n_blocks, F, F, des, nullptr, nullptr, 0, st);
 }
 
-// The GEMM of gemm.cuh alone, for tests and timing: C [M, N] =
+// The GEMMs of gemm.cuh alone, for tests and timing: C [M, N] =
 // epilogue(A @ B) with A(i, k) = A[i*sa0 + k*sa1], B(k, j) = B[k*sb0 +
 // j*sb1]; bias [N] and pos_mask [M, N] may be null. With splits > 1,
-// ``part`` holds pgt_gemm_workspace floats.
+// ``part`` holds pgt_gemm_workspace floats (enough for either GEMM).
 // The splits of K that K1's (and K4's) weight gradients take.
 int pgt_gemm_wgrad_splits(int M, int N, int K) {
   return wgrad_splits(M, N, K);
@@ -307,6 +433,22 @@ int pgt_gemm(const float* A, ll sa0, ll sa1, const float* B, ll sb0, ll sb1,
     return (int)cudaErrorInvalidValue;
   return gemm(A, sa0, sa1, B, sb0, sb1, C, M, N, K, splits, part, bias,
               pos_mask, relu, (cudaStream_t)stream);
+}
+
+// The tensor-core GEMM (gemm_bf16) alone: A and B bfloat16, one stride of
+// each 1; C float32, or bfloat16 with c_bf16; pos_mask bfloat16. A split
+// product takes no bfloat16 C and no mask.
+int pgt_gemm_bf16(const void* A, ll sa0, ll sa1, const void* B, ll sb0,
+                  ll sb1, void* C, int c_bf16, int M, int N, int K,
+                  int splits, float* part, const float* bias,
+                  const void* pos_mask, int relu, int exact, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || splits <= 0)
+    return (int)cudaErrorInvalidValue;
+  return gemm_bf16(static_cast<const bf16*>(A), sa0, sa1,
+                   static_cast<const bf16*>(B), sb0, sb1, C, c_bf16, nullptr,
+                   0, M, N, K, splits, part, bias,
+                   static_cast<const bf16*>(pos_mask), relu, exact,
+                   (cudaStream_t)stream);
 }
 
 }  // extern "C"

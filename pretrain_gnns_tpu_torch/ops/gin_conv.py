@@ -19,7 +19,8 @@ of ``csrc/gin_conv.cu`` (see the note there for what bounds them on the
 card and how they are built) or raises; on a CPU tensor it runs the plain
 PyTorch version :func:`fused_gin_conv_plain`. ``launches`` counts the
 kernel launches of each direction and those of :func:`gemm`, the GEMM of
-K1's (and K4's) products called alone.
+K1's (and K4's) float32 products called alone, and of :func:`gemm_bf16`,
+the tensor-core GEMM of K1's bfloat16 products called alone.
 
 :func:`set_fused` is the counterpart of the JAX package's
 ``pallas_gin.set_fused``: ``"on"`` (the default) routes the chem trunks'
@@ -60,7 +61,8 @@ import torch
 from pretrain_gnns_tpu_torch.ops import _build, spmm
 from pretrain_gnns_tpu_torch.ops import segment as seg
 
-launches: Dict[str, int] = {"gin_conv_fwd": 0, "gin_conv_bwd": 0, "gemm": 0}
+launches: Dict[str, int] = {"gin_conv_fwd": 0, "gin_conv_bwd": 0, "gemm": 0,
+                            "gemm_bf16": 0}
 
 _fused = True
 
@@ -84,18 +86,20 @@ def fused_enabled() -> bool:
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_FWD_ARGS = [_P] * 5 + [_L, _L, _P, _P, _L, _L] + [_P] * 8 + [_I] * 8 + [_P]
+_FWD_ARGS = [_P] * 5 + [_L, _L, _P, _P, _L, _L] + [_P] * 9 + [_I] * 8 + [_P]
 _BWD_ARGS = [_P] * 5 + [_L, _L, _P, _L, _L] + [_P] * 12 + [_I] * 8 + [_P]
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("gin_conv")
+def configure(lib):
+    """Set the argument and result types of K1's library ``lib`` (this
+    tree's interface); returns ``lib``."""
     lib.pgt_gin_conv_fwd.argtypes = _FWD_ARGS
     lib.pgt_gin_conv_fwd.restype = _I
     lib.pgt_gin_conv_bwd.argtypes = _BWD_ARGS
     lib.pgt_gin_conv_bwd.restype = _I
-    lib.pgt_gin_conv_bwd_workspace.argtypes = [_I] * 5
+    lib.pgt_gin_conv_fwd_workspace.argtypes = [_I] * 3
+    lib.pgt_gin_conv_fwd_workspace.restype = _L
+    lib.pgt_gin_conv_bwd_workspace.argtypes = [_I] * 7
     lib.pgt_gin_conv_bwd_workspace.restype = _L
     lib.pgt_gin_conv_max_block_nodes.restype = _I
     lib.pgt_gin_conv_max_k.restype = _I
@@ -106,7 +110,15 @@ def _lib() -> ctypes.CDLL:
     lib.pgt_gemm_workspace.restype = _L
     lib.pgt_gemm_wgrad_splits.argtypes = [_I] * 3
     lib.pgt_gemm_wgrad_splits.restype = _I
+    lib.pgt_gemm_bf16.argtypes = [_P, _L, _L, _P, _L, _L, _P] + [_I] * 5 \
+        + [_P] * 3 + [_I, _I, _P]
+    lib.pgt_gemm_bf16.restype = _I
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return configure(_build.load("gin_conv"))
 
 
 def _require_cuda(t: torch.Tensor) -> None:
@@ -167,14 +179,17 @@ def gin_conv_fwd(x, ein, We, e_self, W1, b1, W2, b2, senders, receivers, w,
     out = torch.empty((N, F), dtype=rows, device=x.device)
     aggr = torch.empty((N, F), dtype=compute_dtype, device=x.device)
     z = torch.empty((N, F2), dtype=compute_dtype, device=x.device)
+    flags = (int(rows == _BF16), int(bf))
+    work = torch.empty(lib.pgt_gin_conv_fwd_workspace(F, F2, int(bf)),
+                       dtype=_F32, device=x.device)
     err = lib.pgt_gin_conv_fwd(
         x.data_ptr(), ein.data_ptr(), We.data_ptr(), e_self.data_ptr(),
         W1.data_ptr(), W1.stride(0), W1.stride(1), b1.data_ptr(),
         W2.data_ptr(), W2.stride(0), W2.stride(1), b2.data_ptr(),
         senders.data_ptr(), receivers.data_ptr(), w.data_ptr(),
         nmask.data_ptr(), out.data_ptr(), aggr.data_ptr(), z.data_ptr(),
-        N, F, F2, K, block_nodes, block_edges, int(rows == _BF16), int(bf),
-        _build.stream(x),
+        work.data_ptr() if work.numel() else None, N, F, F2, K, block_nodes,
+        block_edges, *flags, _build.stream(x),
     )
     if err:
         raise RuntimeError(
@@ -208,7 +223,9 @@ def gin_conv_bwd(g, aggr, z, ein, W1, W2, senders, receivers, w, nmask,
     dx = torch.empty((N, F), dtype=rows, device=g.device)
     dWe, des = new(K, F), new(F)
     dW1, db1, dW2, db2 = new(F, F2), new(F2), new(F2, F), new(F)
-    work = new(lib.pgt_gin_conv_bwd_workspace(N, F, F2, K, N // block_nodes))
+    flags = (int(rows == _BF16), int(bf))
+    work = new(lib.pgt_gin_conv_bwd_workspace(N, F, F2, K, N // block_nodes,
+                                              *flags))
     err = lib.pgt_gin_conv_bwd(
         g.data_ptr(), aggr.data_ptr(), z.data_ptr(), ein.data_ptr(),
         W1.data_ptr(), W1.stride(0), W1.stride(1),
@@ -216,8 +233,8 @@ def gin_conv_bwd(g, aggr, z, ein, W1, W2, senders, receivers, w, nmask,
         senders.data_ptr(), receivers.data_ptr(), w.data_ptr(),
         nmask.data_ptr(), dx.data_ptr(), dWe.data_ptr(), des.data_ptr(),
         dW1.data_ptr(), db1.data_ptr(), dW2.data_ptr(), db2.data_ptr(),
-        work.data_ptr(), N, F, F2, K, block_nodes, block_edges,
-        int(rows == _BF16), int(bf), _build.stream(g),
+        work.data_ptr(), N, F, F2, K, block_nodes, block_edges, *flags,
+        _build.stream(g),
     )
     if err:
         raise RuntimeError(
@@ -267,6 +284,61 @@ def gemm(a, b, bias=None, pos_mask=None, relu: bool = False,
     if err:
         raise RuntimeError(f"gemm launch failed (CUDA error {err})")
     launches["gemm"] += 1
+    return out
+
+
+def gemm_bf16_plain(a, b, bias=None, pos_mask=None, relu: bool = False,
+                    out_dtype: torch.dtype = _F32):
+    """The plain PyTorch version of :func:`gemm_bf16`: the float32 product
+    of the bfloat16 operands (each product exact in float32), the epilogue
+    in float32, the result in ``out_dtype``."""
+    pm = None if pos_mask is None else pos_mask.float()
+    return gemm_plain(a.float(), b.float(), bias, pm, relu).to(out_dtype)
+
+
+def gemm_bf16(a, b, bias=None, pos_mask=None, relu: bool = False,
+              splits: int = 1, out_dtype: torch.dtype = _F32,
+              ordered_ties: bool = True):
+    """``epilogue(a @ b)`` for bfloat16 ``a`` [M, K] and ``b`` [K, N] on the
+    tensor cores with float32 sums: the GEMM of ``csrc/gemm.cuh`` that
+    carries K1's products at compute_dtype bfloat16, alone (tests and
+    timing). Each operand needs one stride of 1 (a row-major matrix or a
+    transposed view of one); the epilogue is :func:`gemm`'s, with
+    ``bias`` float32 [N] and ``pos_mask`` bfloat16 [M, N]; the result is
+    float32 or, with ``out_dtype=torch.bfloat16``, rounded to bfloat16.
+    ``splits`` > 1 (a weight gradient) takes no mask and a float32 result.
+    With ``ordered_ties`` an unsplit result near a bfloat16 rounding
+    midpoint is the k-ordered float32 FMA chain's (see ``csrc/gemm.cuh``).
+    The plain version on a CPU tensor."""
+    if not a.is_cuda:
+        return gemm_bf16_plain(a, b, bias, pos_mask, relu, out_dtype)
+    lib = _lib()
+    (M, K), N = a.shape, b.shape[1]
+    _build.check_tensors(a.device, [(a, "a", (M, K), _BF16, False),
+                                    (b, "b", (K, N), _BF16, False)] + [
+        (t, name, shape, dtype, True) for t, name, shape, dtype in
+        ((bias, "bias", (N,), _F32), (pos_mask, "pos_mask", (M, N), _BF16))
+        if t is not None])
+    if 1 not in a.stride() or 1 not in b.stride():
+        raise ValueError("gemm_bf16 needs a unit stride in each operand")
+    if out_dtype not in _build.ROW_DTYPES:
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got "
+                         f"{out_dtype}")
+    if splits > 1 and (pos_mask is not None or out_dtype == _BF16):
+        raise ValueError("a split gemm_bf16 takes no pos_mask and writes "
+                         "float32")
+    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    part = torch.empty(lib.pgt_gemm_workspace(M, N, K, splits), dtype=_F32,
+                       device=a.device)
+    ptr = lambda t: None if t is None or not t.numel() else t.data_ptr()
+    err = lib.pgt_gemm_bf16(a.data_ptr(), a.stride(0), a.stride(1),
+                            b.data_ptr(), b.stride(0), b.stride(1),
+                            out.data_ptr(), int(out_dtype == _BF16), M, N, K,
+                            splits, ptr(part), ptr(bias), ptr(pos_mask),
+                            int(relu), int(ordered_ties), _build.stream(a))
+    if err:
+        raise RuntimeError(f"gemm_bf16 launch failed (CUDA error {err})")
+    launches["gemm_bf16"] += 1
     return out
 
 

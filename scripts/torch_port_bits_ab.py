@@ -17,7 +17,9 @@ temporary directory, then runs both libraries through this tree's wrappers.
 K1 on the chem masking path's first batch (the first layer's weights and
 bond one-hots, random x and cotangent; the path's 0/1 edge weights and
 fractional, partly negative ones): ``out``, ``aggr``, ``z`` and the seven
-gradients. K2's three variants on the bio masking path's first batch
+gradients; the same with ``x`` and the cotangent in bfloat16 at float32
+compute (the float32 kernels on the stored values). K2's three variants
+on the bio masking path's first batch
 (random x, cotangent, K = 10 edge inputs and edge kernel, fractional and
 partly negative edge weights): ``out``, ``dx`` and ``dW``. K6 and K7 on
 the chem and bio masking paths' first batches (256 graphs, F = 300, a
@@ -57,6 +59,7 @@ from pretrain_gnns_tpu_torch.train import pretrain  # noqa: E402
 from scripts.torch_port_k1_k4_ab import build, use  # noqa: E402
 
 F = 300
+BF16_ROWS = "K1 bf16 rows at float32 compute:"
 
 
 def config(domain: str):
@@ -104,16 +107,17 @@ def k3_outputs(batch, seed: int):
     return out
 
 
-def k1_outputs(batch, conv, seed: int):
+def k1_outputs(batch, conv, seed: int, rows=torch.float32):
     """K1's ``out``, ``aggr``, ``z`` and seven gradients on ``batch``
-    through the loaded library, with the path's edge weights and with
-    fractional ones."""
+    through the loaded library at float32 compute, with the path's edge
+    weights and with fractional ones; ``x`` and the cotangent in
+    ``rows``."""
     gen = torch.Generator().manual_seed(seed)
     dev = batch.node_mask.device
     rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
     nm = batch.node_mask.to(torch.float32)
-    x = rnd(batch.max_nodes, F) * nm[:, None]
-    g = rnd(batch.max_nodes, F) * nm[:, None]
+    x = (rnd(batch.max_nodes, F) * nm[:, None]).to(rows)
+    g = (rnd(batch.max_nodes, F) * nm[:, None]).to(rows)
     names = ("out", "aggr", "z", "dx", "dWe", "de_self", "dW1", "db1", "dW2",
              "db2")
     out = {}
@@ -204,6 +208,9 @@ def main() -> int:
                             for k, v in outputs(b, seed=7).items()}
             results[tag].update({f"chem {k}": v for k, v in k1_outputs(
                 batches["chem"], conv, seed=8).items()})
+            results[tag].update({f"{BF16_ROWS} chem {k}": v for k, v in
+                                 k1_outputs(batches["chem"], conv, seed=8,
+                                            rows=torch.bfloat16).items()})
             results[tag].update({f"bio {k}": v for k, v in k2_outputs(
                 batches["bio"], seed=10).items()})
             results[tag].update({f"{d} {k}": v for d, b in edgepred.items()
@@ -211,9 +218,14 @@ def main() -> int:
         use({})
     bad = [k for k in results["tree"]
            if not torch.equal(results["tree"][k], results["ref"][k])]
-    n = len(results["tree"])
-    print(f"card: {torch.cuda.get_device_name(0)}; K1/K2/K3/K6/K7 outputs of this "
-          f"tree vs {args.ref_csrc}: {n - len(bad)} of {n} equal bit for bit"
+    groups = {"float32": [k for k in results["tree"]
+                          if not k.startswith(BF16_ROWS)],
+              BF16_ROWS: [k for k in results["tree"]
+                          if k.startswith(BF16_ROWS)]}
+    print(f"card: {torch.cuda.get_device_name(0)}; K1/K2/K3/K6/K7 outputs of "
+          f"this tree vs {args.ref_csrc}, equal bit for bit: "
+          + "; ".join(f"{g}: {len([k for k in ks if k not in bad])} of "
+                      f"{len(ks)}" for g, ks in groups.items())
           + (f"; differ: {bad}" if bad else ""))
     return 1 if bad else 0
 

@@ -13,12 +13,15 @@ Run from the repository root, with the other checkout's ``csrc`` directory
 
     python3 scripts/torch_port_k1_k4_ab.py --ref_csrc _archive/parent/pretrain_gnns_tpu_torch/csrc [--kernels k1,k4,k5,k2,k3,k6,k7]
 
-The libraries of both trees have the same C interfaces. The script builds
+The libraries of both trees have the same C interfaces, but for K1's
+forward scratch and workspace flags (added with its tensor-core GEMM),
+which ``compat`` leaves out when calling an older library. It builds
 the other sources with this tree's ``nvcc`` flags, then times each kernel
 (device ms a call, ``chip_smoke.time_ms``) in the order reference, this
 tree, this tree, reference, and prints each time beside the card's name
 and power limit. Shapes: K1 on the chem masking path's first batch (GIN 5
-x 300); K4 and K5 on the chem and bio GAT masking paths' first batches
+x 300), in float32 and at compute_dtype bfloat16 with bfloat16 and with
+float32 rows, and with bfloat16 rows at float32 compute; K4 and K5 on the chem and bio GAT masking paths' first batches
 (GAT 5 x 300 with 2 heads; K5 on x and e as the unfused conv forms them,
 as ``chip_smoke.py`` times it); K2 ``[x]``, ``[ein]`` and
 ``[x+ein]`` on the bio masking path's first batch (the first layer's
@@ -72,51 +75,97 @@ from pretrain_gnns_tpu_torch.train import pretrain  # noqa: E402
 # them.
 _FLAGGED = ("pgt_gin_conv_fwd", "pgt_gin_conv_bwd", "pgt_spmm_fwd",
             "pgt_spmm_bwd", "pgt_edot_fwd", "pgt_edot_bwd")
+# K1's forward takes its scratch (argument 19) and its workspace sizes take
+# the two flags since the tensor-core GEMM; a library without
+# ``pgt_gin_conv_fwd_workspace`` predates them.
+_FWD_WORK_ARG = 19
 
 
-class _DropFlags:
-    """An entry point of a library built before the bfloat16 flags, called
-    with this tree's arguments: the two flags (which must be 0) are
-    dropped, here and from ``argtypes``."""
+def _drop(seq, idx):
+    n = len(seq)
+    idx = {i % n for i in idx}
+    return [v for i, v in enumerate(seq) if i not in idx]
 
-    def __init__(self, fn):
-        self.fn = fn
+
+def _flags_zero(args):
+    if args[-3] or args[-2]:
+        raise ValueError("this library has float32 kernels only")
+
+
+class _Shim:
+    """A function of an older library called with this tree's arguments:
+    those at the indices ``drop`` are left out, here and from
+    ``argtypes`` (``check`` sees them first). Without ``fn``, a function
+    the library lacks: calls return ``missing()``."""
+
+    def __init__(self, fn, drop=(), check=None, missing=None):
+        self.fn, self.drop, self.check = fn, set(drop), check
+        self.missing = missing
 
     @property
     def argtypes(self):
-        return self.fn.argtypes
+        return None if self.fn is None else self.fn.argtypes
 
     @argtypes.setter
     def argtypes(self, types):
-        self.fn.argtypes = list(types[:-3]) + list(types[-1:])
+        if self.fn is not None:
+            self.fn.argtypes = _drop(list(types), self.drop)
 
     @property
     def restype(self):
-        return self.fn.restype
+        return None if self.fn is None else self.fn.restype
 
     @restype.setter
     def restype(self, t):
-        self.fn.restype = t
+        if self.fn is not None:
+            self.fn.restype = t
 
     def __call__(self, *args):
-        if args[-3] or args[-2]:
-            raise ValueError("this library has float32 kernels only")
-        return self.fn(*(args[:-3] + args[-1:]))
+        if self.fn is None:
+            return self.missing()
+        if self.check is not None:
+            self.check(args)
+        return self.fn(*_drop(args, self.drop))
 
 
-class _NoFlags:
-    """A library built before the bfloat16 flags, with this tree's entry
-    points' arguments."""
+def _lacks_bf16_gemm():
+    raise ValueError("this library has no tensor-core GEMM")
 
-    def __init__(self, lib):
-        self._lib, self._fns = lib, {}
+
+class _Older:
+    """An older library with this tree's entry points' arguments."""
+
+    def __init__(self, lib, shims):
+        self._lib, self._shims = lib, shims
 
     def __getattr__(self, name):
-        if name not in _FLAGGED:
-            return getattr(self._lib, name)
-        if name not in self._fns:
-            self._fns[name] = _DropFlags(getattr(self._lib, name))
-        return self._fns[name]
+        if name in self._shims:
+            return self._shims[name]
+        return getattr(self._lib, name)
+
+
+def compat(lib):
+    """``lib``, or a wrapper that calls it with this tree's arguments where
+    it predates the bfloat16 flags or K1's forward scratch."""
+    flags = hasattr(lib, "pgt_bf16_flags")
+    scratch = hasattr(lib, "pgt_gin_conv_fwd_workspace")
+    shims = {}
+    for name in _FLAGGED:
+        if not hasattr(lib, name):
+            continue
+        drop = set() if flags else {-3, -2}
+        if name == "pgt_gin_conv_fwd" and not scratch:
+            drop.add(_FWD_WORK_ARG)
+        if drop:
+            shims[name] = _Shim(getattr(lib, name), drop,
+                                None if flags else _flags_zero)
+    if hasattr(lib, "pgt_gin_conv_bwd") and not scratch:
+        shims.update(
+            pgt_gin_conv_bwd_workspace=_Shim(lib.pgt_gin_conv_bwd_workspace,
+                                             {5, 6}),
+            pgt_gin_conv_fwd_workspace=_Shim(None, missing=lambda: 0),
+            pgt_gemm_bf16=_Shim(None, missing=_lacks_bf16_gemm))
+    return _Older(lib, shims) if shims else lib
 
 
 def build(srcdir: str, name: str, out_dir: str):
@@ -127,8 +176,7 @@ def build(srcdir: str, name: str, out_dir: str):
     if res.returncode:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stdout}"
                            f"{res.stderr}")
-    lib = ctypes.CDLL(lib)
-    return lib if hasattr(lib, "pgt_bf16_flags") else _NoFlags(lib)
+    return compat(ctypes.CDLL(lib))
 
 
 SOURCES = {"k1": "gin_conv", "k4": "gat", "k5": "gat", "k2": "spmm",
@@ -148,16 +196,8 @@ def use(libs) -> None:
         if name in libs:
             _build._libs[name] = libs[name]  # load() hands this one out
     gin_lib = libs.get("gin_conv")
-    if gin_lib is not None:  # the K1 entry points only
-        L, I = ctypes.c_longlong, ctypes.c_int
-        gin_lib.pgt_gin_conv_fwd.argtypes = gin_conv._FWD_ARGS
-        gin_lib.pgt_gin_conv_bwd.argtypes = gin_conv._BWD_ARGS
-        gin_lib.pgt_gin_conv_bwd_workspace.argtypes = [I] * 5
-        gin_lib.pgt_gin_conv_bwd_workspace.restype = L
-        for f in (gin_lib.pgt_gin_conv_fwd, gin_lib.pgt_gin_conv_bwd,
-                  gin_lib.pgt_gin_conv_max_block_nodes,
-                  gin_lib.pgt_gin_conv_max_k):
-            f.restype = I
+    if gin_lib is not None:
+        gin_conv.configure(gin_lib)
         gin_conv._lib = lambda: gin_lib
     else:
         gin_conv._lib = _tree_gin_lib
@@ -374,7 +414,10 @@ def gat_cases(dev, kernels):
 
 
 def cases(dev):
-    """``{kernel: callable}`` for K1 on the chem masking first batch."""
+    """``{kernel: callable}`` for K1 on the chem masking first batch: in
+    float32, and at compute_dtype bfloat16 with bfloat16 rows (the
+    ``bfloat16_act`` path's) and float32 rows, and bfloat16 rows at
+    float32 compute."""
     graphs, _ = molecule_dataset(4096, seed=0, mean_atoms=23)
     gen = torch.Generator().manual_seed(1)
     rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
@@ -399,7 +442,22 @@ def cases(dev):
         _, aggr, z = res["fz"]
         gin_conv.gin_conv_bwd(g, aggr, z, ein, W1, W2, snd, rcv, w, nm, bn,
                               be)
-    return {"gin_conv_fwd": k1_fwd, "gin_conv_bwd": k1_bwd}
+    out = {"gin_conv_fwd": k1_fwd, "gin_conv_bwd": k1_bwd}
+    bf, f32 = torch.bfloat16, torch.float32
+    for tag, rows, cdt in (("bf16", bf, bf), ("bf16, f32 rows", f32, bf),
+                           ("bf16 rows, f32 compute", bf, f32)):
+        a, gr = (x.to(rows),) + args[1:], g.to(rows)
+
+        def fwd(tag=tag, a=a, cdt=cdt):
+            res[tag] = gin_conv.gin_conv_fwd(*a, compute_dtype=cdt)
+
+        def bwd(tag=tag, gr=gr, cdt=cdt):
+            _, aggr, z = res[tag]
+            gin_conv.gin_conv_bwd(gr, aggr, z, ein, W1, W2, snd, rcv, w, nm,
+                                  bn, be, cdt)
+        out[f"gin_conv_fwd[{tag}]"] = fwd
+        out[f"gin_conv_bwd[{tag}]"] = bwd
+    return out
 
 
 def main() -> int:

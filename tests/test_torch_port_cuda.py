@@ -136,25 +136,42 @@ def test_k1_is_bit_repeatable(cuda_device, F, K):
     assert _rel(runs[0][1][rows], want) <= FWD_TOL
 
 
+# gemm.cuh's tensor-core GEMM (gemm_bf16) against torch.matmul on float32
+# copies of its bfloat16 operands, max |diff| / max(1, max |ref|): every
+# product of two bfloat16 values is exact in float32, so only the order of
+# the float32 sums differs, as for the float32 GEMM. The control, the same
+# reference with ``a`` left unrounded, must read over the limit.
+BF16_GEMM_TOL = 1e-5
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("M,N,K,layout,splits", [
     (8192, 600, 300, "nt", 1),   # K1's first forward product
     (8192, 300, 600, "nt", 1),   # its second
     (8192, 600, 300, "nn", 1),   # g @ W2^T
     (600, 300, 8192, "tn", 11),  # dW2 = z^T g, split K
     (300, 600, 8192, "tn", 18),  # dW1 = aggr^T dzr
+    (8192, 300, 600, "nn", 1),   # da = dzr @ W1^T
+    (8100, 600, 300, "nt", 1),   # a ragged M at K1's widths
     (257, 129, 45, "nn", 1), (257, 129, 45, "tt", 1), (100, 70, 301, "tn", 3),
     (33, 600, 17, "nt", 1), (130, 300, 520, "tt", 2),
 ])
-def test_gemm_matches_matmul(cuda_device, M, N, K, layout, splits):
-    """The GEMM of gemm.cuh alone against torch.matmul (full float32):
-    plain and transposed operands (a transposed one is a strided view),
-    M, N and K no multiples of its tiles, split K, and the epilogue."""
+def test_gemm_matches_matmul(cuda_device, M, N, K, layout, splits, dtype):
+    """The GEMMs of gemm.cuh alone against torch.matmul: the float32 GEMM
+    in full float32, the tensor-core GEMM on bfloat16 operands (float32
+    copies in the reference, and a control that must fail); plain and
+    transposed operands (a transposed one is a strided view), M, N and K
+    no multiples of the tiles, split K, the epilogue, and the same bits on
+    a second run."""
     gen = torch.Generator().manual_seed(M + N + K)
     r = lambda *s: torch.randn(*s, generator=gen).to(cuda_device)
     a = r(M, K) if layout[0] == "n" else r(K, M).t()
     b = r(K, N) if layout[1] == "n" else r(N, K).t()
     bias, pos = r(N), r(M, N)
+    if dtype == "bfloat16":
+        _check_gemm_bf16(a, b, bias, pos, splits)
+        return
     before = gin_conv.launches["gemm"]
     got = gin_conv.gemm(a, b, splits=splits)
     got_epi = gin_conv.gemm(a, b, bias, pos, relu=True, splits=splits)
@@ -167,6 +184,53 @@ def test_gemm_matches_matmul(cuda_device, M, N, K, layout, splits):
     assert _rel(got_epi, want.float()) <= FWD_TOL
     assert torch.equal(got_epi, again)
     assert not got_epi[pos <= 0].any()
+
+
+def _check_gemm_bf16(a32, b32, bias, pos, splits):
+    """``test_gemm_matches_matmul`` for gemm_bf16: operands rounded to
+    bfloat16 in their layouts; with one split also the bfloat16 mask, the
+    bfloat16 result, which must be the float32 result rounded, and the
+    roundings near a tie (``ordered_ties``): against the float32 GEMM's
+    k-ordered FMA chain on the same values, rounded to bfloat16, they may
+    disagree no more often than without."""
+    # .to keeps a transposed view's strides (preserve_format)
+    a, b = a32.to(torch.bfloat16), b32.to(torch.bfloat16)
+    assert a.stride() == a32.stride() and b.stride() == b32.stride()
+    pm = pos.to(torch.bfloat16) if splits == 1 else None
+    before = gin_conv.launches["gemm_bf16"]
+    got = gin_conv.gemm_bf16(a, b, splits=splits, ordered_ties=False)
+    epi = gin_conv.gemm_bf16(a, b, bias, pm, relu=True, splits=splits)
+    again = gin_conv.gemm_bf16(a, b, bias, pm, relu=True, splits=splits)
+    calls = 3
+    if splits == 1:
+        epi16 = gin_conv.gemm_bf16(a, b, bias, pm, relu=True,
+                                   out_dtype=torch.bfloat16)
+        loose16 = gin_conv.gemm_bf16(a, b, bias, pm, relu=True,
+                                     out_dtype=torch.bfloat16,
+                                     ordered_ties=False)
+        chain16 = gin_conv.gemm(a.float(), b.float(), bias, pm.float(),
+                                relu=True).to(torch.bfloat16)
+        calls += 2
+    torch.cuda.synchronize()
+    assert gin_conv.launches["gemm_bf16"] == before + calls
+    sound = _rel(got, torch.matmul(a.float(), b.float()))
+    control = _rel(got, torch.matmul(a32, b.float()))
+    print(f"[gemm_bf16] {tuple(a.shape)} x {tuple(b.shape)} splits {splits}"
+          f": sound {sound:.2e}, control {control:.2e}")
+    assert sound <= BF16_GEMM_TOL and control > BF16_GEMM_TOL
+    want = gin_conv.gemm_plain(a.double(), b.double(), bias.double(),
+                               None if pm is None else pm.double(),
+                               relu=True)
+    assert _rel(epi, want.float()) <= BF16_GEMM_TOL
+    assert torch.equal(epi, again)
+    if splits == 1:
+        assert not epi[pm <= 0].any()
+        assert torch.equal(epi16, epi.to(torch.bfloat16))
+        flips = int((epi16 != chain16).sum()), int((loose16 != chain16).sum())
+        print(f"[gemm_bf16] roundings unlike the ordered chain's: "
+              f"{flips[0]} with ordered_ties, {flips[1]} without, of "
+              f"{epi16.numel()}")
+        assert flips[0] <= flips[1]
 
 
 @pytest.mark.cuda

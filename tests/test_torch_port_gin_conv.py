@@ -208,3 +208,38 @@ def test_segment_ops_match_jax(op):
                                              jnp.asarray(ids), 8,
                                              jnp.asarray(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **FWD_TOL)
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["nt", "nn", "tn"])
+def test_gemm_bf16_plain_matches_pallas_product(layout, out_dtype):
+    """``gin_conv.gemm_bf16`` on CPU tensors (its plain version, no launch)
+    against the Pallas body's product at compute_dtype bfloat16,
+    ``jnp.dot`` of bfloat16 operands with float32 sums, then the bias,
+    ReLU and (mask > 0) epilogue, at K1's three operand layouts (a
+    transposed operand is a strided view) and ragged sizes. A bfloat16
+    result may differ by one rounding step where the float32 sums differ
+    in their last bit."""
+    rng = np.random.default_rng(5)
+    M, K, N = 37, 45, 29
+    f32 = lambda *s: rng.normal(size=s).astype(np.float32)
+    a, b, bias, mask = f32(M, K), f32(K, N), f32(N), f32(M, N)
+    bf = torch.bfloat16
+    ta = (torch.from_numpy(a).to(bf) if layout[0] == "n"
+          else torch.from_numpy(a.T.copy()).to(bf).t())
+    tb = (torch.from_numpy(b).to(bf) if layout[1] == "n"
+          else torch.from_numpy(b.T.copy()).to(bf).t())
+    before = dict(gin_conv.launches)
+    got = gin_conv.gemm_bf16(ta, tb, torch.from_numpy(bias),
+                             torch.from_numpy(mask).to(bf), relu=True,
+                             out_dtype=getattr(torch, out_dtype))
+    assert gin_conv.launches == before
+    assert got.dtype == getattr(torch, out_dtype)
+    ref = jnp.dot(jnp.asarray(a).astype(jnp.bfloat16),
+                  jnp.asarray(b).astype(jnp.bfloat16),
+                  preferred_element_type=jnp.float32)
+    ref = jnp.maximum(ref + bias, 0.0)
+    ref = jnp.where(jnp.asarray(mask).astype(jnp.bfloat16) > 0, ref, 0.0)
+    ref = np.asarray(ref.astype(getattr(jnp, out_dtype)).astype(jnp.float32))
+    tol = FWD_TOL if out_dtype == "float32" else dict(rtol=2 ** -8, atol=0)
+    np.testing.assert_allclose(got.float().numpy(), ref, **tol)

@@ -69,3 +69,57 @@ def test_bf16_variants_take_both_flags(name):
         assert re.search(r"int bf16_rows,\s+int bf16_compute,\s+void\* "
                          r"stream$", params), fn
 
+
+
+def _body(text, head):
+    """The brace-balanced body of the first definition that ``head`` (a
+    regex) starts, its signature included."""
+    m = re.search(head, text, re.MULTILINE)
+    assert m, head
+    depth, i = 0, text.index("{", m.end())
+    for j in range(i, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[j], 0)
+        if depth == 0:
+            return text[m.start():j + 1]
+    raise AssertionError(f"unbalanced braces after {head}")
+
+
+def _calls(body, fn):
+    return len(re.findall(rf"(?<![\w.]){fn}\(", body))
+
+
+def test_k1_bf16_products_run_on_the_tensor_cores():
+    """Under bf16_compute K1's six products go to gemm.cuh's tensor-core
+    GEMM (mma.sync on bfloat16 fragments from ldmatrix, cp.async stages),
+    never to the float GEMM's FMA loop (an FMA chain recomputes only the
+    sums near a bfloat16 rounding tie); the register-staged bfloat16 GEMM
+    that preceded it is gone. Only bfloat16 rows at float32 compute keep
+    the float kernels (they have no rounded operand)."""
+    gemm = (_build.CSRC / "gemm.cuh").read_text()
+    gin = (_build.CSRC / "gin_conv.cu").read_text()
+    assert not re.search(r"gemm_cvt|GEMM_[AB]_ROUND|fetch_tile|put_tile",
+                         gemm + gin)
+    kernel = _body(gemm, r"^gemm_bf16_kernel\(")
+    tile = _body(gemm, r"^__device__ __forceinline__ void tc_tile\(")
+    load = _body(gemm, r"^__device__ __forceinline__ void tc_load\(")
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in gemm
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16" in gemm
+    assert _calls(tile, "mma_bf16") == 1 and _calls(tile, "ldsm_x4<true>") == 2
+    assert _calls(load, "cp_async_b") == 1 and "cp_async_wait<" in kernel
+    for text in (kernel, tile, load):
+        assert "fma_tile" not in text
+    # the products' loop has no FMA on the CUDA cores (the kernel's only
+    # fmaf is the ordered chain of the few sums near a rounding tie)
+    assert "fmaf" not in tile + load and kernel.count("fmaf(") == 1
+    fwd = _body(gin, r"^int fwd_bf16\(")
+    bwd = _body(gin, r"^int bwd_bf16\(")
+    # the bf16_compute route: after the float32-compute branch of each
+    f32_fwd, bf_fwd = fwd.split("if (!c)", 1)[1].split(";", 1)
+    f32_bwd, bf_bwd = bwd.split("if (!c) {", 1)[1].split("} else {", 1)
+    assert _calls(bf_fwd, "gemm_bf16") == 2 and _calls(bf_fwd, "gemm") == 0
+    assert _calls(bf_bwd, "gemm_bf16") == 4 and _calls(bf_bwd, "gemm") == 0
+    assert _calls(f32_fwd, "fwd_products") == 1
+    assert _calls(f32_bwd, "bwd_products") == 1
+    assert _calls(f32_fwd + f32_bwd, "gemm_bf16") == 0
+    assert _calls(_body(gin, r"^int fwd_products\("), "gemm") == 2
+    assert _calls(_body(gin, r"^int bwd_products\("), "gemm") == 4

@@ -153,37 +153,44 @@ Phases, in order (any failure exits non-zero):
      chem K1 at 5 a step each way, bio K2's ``[x]`` and ``[ein]`` at 5 a
      step, every other count 0;
   25. mixed precision, under the JAX bench's recipe (``models.inits`` at
-     ``bfloat16_act``, ``ops.spmm`` at ``bfloat16``; every phase before
-     runs with both knobs at float32): K1 on the chem masking first batch,
-     K2 ``[x]`` and ``[ein]`` on the bio masking first batch, K2
-     ``[x+ein]`` on the chem masking first batch (the unfused GIN path's
-     shape; each K2 case also with fractional edge weights) and K3's
-     positive head on the chem edge-prediction first batch, each with
-     bfloat16 and with float32 rows at compute_dtype=bfloat16, against
-     their plain versions at that dtype and beside the control, the same
-     wrapper at float32 (BF16_KERNEL_TOL, BF16_KERNEL_MEAN_TOL),
-     bit-equal between two runs, timed beside the plain version, the
-     library (``torch.matmul`` in bfloat16 on K1's products,
-     ``torch.sparse.mm`` in bfloat16 for K2 ``[x]``) and the bound (the
-     stored widths' bytes, operations at the bfloat16 tensor peak); K1's
-     six products alone through its tensor-core GEMM (``gin_conv.gemm_bf16``)
-     at their shapes, layouts and splits, against ``torch.matmul`` on
-     float32 copies of the bfloat16 operands (BF16_GEMM_TOL, with a control
-     that leaves one operand unrounded and must break it), timed beside
-     ``torch.matmul`` in bfloat16; then
-     chem masking GIN, its unfused route (K2 ``[x+ein]``), bio masking GIN
-     and chem edge-prediction GIN under the recipe: a train step on the
-     card against the CPU's plain versions at the same compute dtype
-     (``plain_as_on_card``), within limits set by noisy CPU steps, which
-     the control (the kernels' knob at float32) must break
-     (BF16_REFEREE_K), the 48-step path with its launch counts and its
-     edges/s beside its float32 twin's from earlier in the run, and its
-     capture phase (the bfloat16 instantiations of K1's, K2's and K3's
-     kernels and K1's tensor-core ``gemm_bf16_kernel`` among the replay's
-     kernels, the float ``gemm_kernel`` absent from K1's paths, and the
-     card's busy share of the replay); last, a
-     chem masking GAT step under the recipe must raise (K4 has no
-     bfloat16 variant);
+     ``bfloat16_act``, ``ops.spmm`` at ``bfloat16``, the JAX package's
+     default; every phase before runs with both knobs pinned at float32,
+     and ``precision`` restores them after the block): K1 on the chem
+     masking first batch, K2 ``[x]`` and ``[ein]`` on the bio masking
+     first batch, K2 ``[x+ein]`` on the chem masking first batch (the
+     unfused GIN path's shape; each K2 case also with fractional edge
+     weights) and K3's positive head on the chem edge-prediction first
+     batch, each with bfloat16 and with float32 rows at
+     compute_dtype=bfloat16; K4 (float32 h) and K5 (float32 x, e in
+     float32 and in bfloat16) on the chem and bio GAT masking first
+     batches; K6 ``[x+ee]`` and ``[x]`` and K7 (sorted slots) on the chem
+     and bio masking first batches, bfloat16 and float32 rows, fractional
+     and negative weights: each against its plain version at that dtype
+     and beside the control, the same wrapper at float32
+     (BF16_KERNEL_TOL, BF16_KERNEL_MEAN_TOL), bit-equal between two runs, timed beside the plain version, the library
+     (``torch.matmul`` in bfloat16 on K1's and K4's products,
+     ``torch.sparse.mm`` in bfloat16 for K2 ``[x]``, K6 and K7) and the
+     bound (the stored widths' bytes, products at the bfloat16 tensor
+     peak); K1's six products alone through its tensor-core GEMM
+     (``gin_conv.gemm_bf16``) at their shapes, layouts and splits, against
+     ``torch.matmul`` on float32 copies of the bfloat16 operands
+     (BF16_GEMM_TOL, with a control that leaves one operand unrounded and
+     must break it), timed beside ``torch.matmul`` in bfloat16; K6's
+     op-level path (phase 19) and the kernel micro-benchmark (phase 20,
+     K7's path) at compute_dtype=bfloat16; then chem masking GIN, its
+     unfused route (K2 ``[x+ein]``), bio masking GIN, chem edge-prediction
+     GIN, chem masking GAT (K4) and chem edge-prediction GAT unfused (K5,
+     K3) under the recipe: a train step on the card against the CPU's
+     plain versions at the same compute dtype (``plain_as_on_card``),
+     within limits set by noisy CPU steps, which the control (the kernels'
+     knob at float32) must break (BF16_REFEREE_K), the 48-step path with
+     its launch counts and its edges/s beside its float32 twin's from
+     earlier in the run, and its capture phase (the bfloat16
+     instantiations of K1's to K5's kernels, K1's and K4's tensor-core
+     ``gemm_bf16_kernel`` and K4's per-slot ``gat_dwe_bf16_kernel`` among
+     the replay's kernels, the float ``gemm_kernel`` absent from K1's and
+     K4's paths, and the card's busy share of the replay); last, the bio
+     masking GAT step under the recipe (K4 at K = 10);
   26. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
      defaults (chem masking GIN on 16,384 molecules and bio masking GIN,
      5 windows of 4 epochs each after 2 warm-up epochs), at
@@ -289,7 +296,10 @@ NOISE_EPS = 1e-7
 # of each kernel and rows. Measured on an H100: the largest readings at
 # most 4.3e-7 here and 2.2e-3 in the card tests (a flipped rounding), the
 # means at most 2.5e-7 and 2.8e-6; the control's means 1.5e-3 to 4.8e-2
-# wherever a rounding acts.
+# wherever a rounding acts. K4-K7's: the means at most 1.2e-5
+# (K4's gradients, with the tie fixup on its residual), the controls'
+# at least 1.4e-3; on bfloat16 rows K7's one rounding (of x) is a no-op,
+# so both compute dtypes give one function there and no control is asked.
 BF16_KERNEL_TOL = 5e-3
 BF16_KERNEL_MEAN_TOL = 2e-5
 # K1's tensor-core GEMM alone against torch.matmul on float32 copies of its
@@ -764,12 +774,18 @@ KERNEL_NAMES = {
                        ("x+ein", "true, true"))},
     "blocked_edge_dot_fwd": ("edot_fwd_kernel",),
     "blocked_edge_dot_bwd": ("edot_bwd_kernel",),
-    "gat_conv_fwd": ("gat_fwd_kernel", "gemm_kernel"),
-    "gat_conv_bwd": ("gat_bwd_rcv_kernel", "gat_bwd_snd_kernel",
+    # the GAT walks' float32 instantiations (BF, the fourth argument,
+    # false)
+    "gat_conv_fwd": (r"gat_fwd_kernel<true, [^>]*, false, float>",
+                     "gemm_kernel"),
+    "gat_conv_bwd": (r"gat_bwd_rcv_kernel<true, [^>]*, false, float>",
+                     r"gat_bwd_snd_kernel<true, [^>]*, false, float>",
                      "gat_dwe_kernel"),
-    "blocked_gat_attention_fwd": ("gat_fwd_kernel",),
-    "blocked_gat_attention_bwd": ("gat_bwd_rcv_kernel",
-                                  "gat_bwd_snd_kernel"),
+    "blocked_gat_attention_fwd": (r"gat_fwd_kernel<false, [^>]*, false, "
+                                  r"float>",),
+    "blocked_gat_attention_bwd": (
+        r"gat_bwd_rcv_kernel<false, [^>]*, false, float>",
+        r"gat_bwd_snd_kernel<false, [^>]*, false, float>"),
 }
 
 
@@ -1634,9 +1650,11 @@ def spmm_ee_entries(chem, bio):
 def edge_emb_path_phase(torch, batch):
     """K6's path: the op-level API. ``gather_scatter`` with a precomputed
     edge embedding in its add and concat forms, and ``blocked_spmm``
-    without one, forward and backward on the card; every launch count is
-    set to 0 just before and read just after, and each result is held
-    against the plain path."""
+    without one, forward and backward on the card at the kernels' knob;
+    every launch count is set to 0 just before and read just after, and
+    each result is held against the plain path (at float32), or under
+    the bfloat16 knob against the kernels' plain versions at bfloat16
+    (BF16_KERNEL_TOL, BF16_KERNEL_MEAN_TOL)."""
     from pretrain_gnns_tpu_torch.ops import blocked_spmm as bs
     from pretrain_gnns_tpu_torch.ops import spmm
 
@@ -1662,6 +1680,8 @@ def edge_emb_path_phase(torch, batch):
                                          else [ee.grad])
 
     w = batch.edge_mask.to(torch.float32) * ew
+    cdt = spmm.kernel_dtype(x0)
+    bf = cdt == torch.bfloat16
     # (on the card through the entry point, the plain path)
     forms = {
         "add": (
@@ -1677,9 +1697,21 @@ def edge_emb_path_phase(torch, batch):
             lambda x, ee: spmm.gather_scatter_plain(
                 x, *graph, edge_emb=ee, combine="concat", edge_weight=ew)),
         "no edge embedding": (
-            lambda x, ee: bs.blocked_spmm(x, None, *graph[:2], w, **layout),
+            lambda x, ee: bs.blocked_spmm(x, None, *graph[:2], w, **layout,
+                                          compute_dtype=cdt),
             lambda x, ee: bs.blocked_spmm_plain(x, None, *graph[:2], w)),
     }
+    if bf:  # the kernels' plain versions at bfloat16, the same dispatch
+        k6_plain = lambda x, ee: bs.blocked_spmm_plain(
+            x, ee, *graph[:2], w, compute_dtype=cdt)
+        forms["add"] = forms["add"][0], k6_plain
+        forms["concat"] = forms["concat"][0], lambda x, ee: torch.cat([
+            bs.blocked_spmm_fused_plain(x, None, None, *graph[:2], w,
+                                        has_x=True, has_ein=False,
+                                        compute_dtype=cdt),
+            k6_plain(x.new_zeros((N, F)), ee)], dim=-1)
+        forms["no edge embedding"] = (forms["no edge embedding"][0],
+                                      lambda x, ee: k6_plain(x, None))
     one = lambda *names: {n: 1 for n in names}
     want = {
         "add": one("blocked_spmm_ee_fwd[x+ee]", "blocked_spmm_ee_bwd[x+ee]"),
@@ -1699,12 +1731,17 @@ def edge_emb_path_phase(torch, batch):
         counts = read_counts(modules)
         moved = {k: v for k, v in counts.items() if v}
         ref = run(plain)
-        errs = [rel_err(a, b) for a, b in zip(got, ref)]
-        print(f"[edge_emb path] {name}: out {tuple(got[0].shape)}, launches "
-              f"{moved}; rel err vs the plain path (out, dx, dee) "
-              f"{[f'{e:.1e}' for e in errs]}", flush=True)
-        if (moved != want[name] or len(got) != len(ref)
-                or not all(e <= FWD_TOL for e in errs)
+        if bf:  # (max, mean) readings, each within its limit
+            errs = [bf16_readings(a, b) for a, b in zip(got, ref)]
+            ok = all(m <= BF16_KERNEL_TOL and mean <= BF16_KERNEL_MEAN_TOL
+                     for m, mean in errs)
+        else:
+            errs = [rel_err(a, b) for a, b in zip(got, ref)]
+            ok = all(e <= FWD_TOL for e in errs)
+        print(f"[edge_emb path{' bfloat16' * bf}] {name}: out "
+              f"{tuple(got[0].shape)}, launches {moved}; rel err vs the "
+              f"plain path (out, dx, dee) {errs}", flush=True)
+        if (moved != want[name] or len(got) != len(ref) or not ok
                 or not all(bool(torch.isfinite(t).all()) for t in got)):
             raise AssertionError(f"edge_emb path {name}: launches {moved} "
                                  f"(want {want[name]}), errors {errs}")
@@ -1713,14 +1750,14 @@ def edge_emb_path_phase(torch, batch):
     return total, 0
 
 
-def micro_phase(torch, micro_main):
+def micro_phase(torch, micro_main, dtype="float32"):
     """K7's path: the kernel micro-benchmark at a reduced number of
-    trials; every launch count is set to 0 just before and read just
-    after."""
+    trials, its kernels at compute dtype ``dtype``; every launch count is
+    set to 0 just before and read just after."""
     modules = counted_modules()
     for m in modules:
         m.reset_launches()
-    rows = micro_main(["--trials", "5"])
+    rows = micro_main(["--trials", "5", "--dtype", dtype])
     counts = read_counts(modules)
     moved = {k: v for k, v in counts.items() if v}
     print(f"[kernel micro] launches {moved}", flush=True)
@@ -1808,31 +1845,34 @@ def loader_phase(graphs, cfg, dev):
 @contextlib.contextmanager
 def precision(model, kernels):
     """Both precision knobs for the block (``models.inits`` at ``model``,
-    ``ops.spmm`` at ``kernels``), float32 again after it."""
+    ``ops.spmm`` at ``kernels``), what they were again after it."""
     from pretrain_gnns_tpu_torch.models import inits
     from pretrain_gnns_tpu_torch.ops import spmm
 
+    was = inits.get_compute_dtype(), spmm.get_compute_dtype()
     inits.set_compute_dtype(model)
     spmm.set_compute_dtype(kernels)
     try:
         yield
     finally:
-        inits.set_compute_dtype("float32")
-        spmm.set_compute_dtype("float32")
+        inits.set_compute_dtype(was[0])
+        spmm.set_compute_dtype(was[1])
 
 
 @contextlib.contextmanager
 def plain_as_on_card(torch):
     """On the CPU, ``ops.spmm``'s dispatch as on the card: the blocked sums
     and pair scores through the kernels' wrappers (which run their plain
-    versions on CPU tensors) at the kernels' knob, and the fused GIN conv
-    at it too. The CPU's own dispatch ignores the knob (the JAX package's
-    XLA fallback); this is the reference a bfloat16 step on the card is
-    held against."""
+    versions on CPU tensors) at the kernels' knob, the GAT attention
+    through K5's wrapper, and the fused GIN and GAT convs at it too. The
+    CPU's own dispatch ignores the knob (the JAX package's XLA fallback);
+    this is the reference a bfloat16 step on the card is held against."""
+    from pretrain_gnns_tpu_torch.ops import attention
     from pretrain_gnns_tpu_torch.ops import edge_dot as ed
     from pretrain_gnns_tpu_torch.ops import spmm
 
-    saved = spmm.kernel_dtype, spmm.gather_scatter, spmm.edge_dot
+    saved = (spmm.kernel_dtype, spmm.gather_scatter, spmm.edge_dot,
+             attention.gat_attention)
     cdt = {"float32": torch.float32,
            "bfloat16": torch.bfloat16}[spmm.get_compute_dtype()]
 
@@ -1852,12 +1892,23 @@ def plain_as_on_card(torch):
         return ed.blocked_edge_dot(x, a_idx, b_idx, mask.to(torch.float32),
                                    block_nodes, pairs_per_block, cdt)
 
+    def gat_attention(x, e, e_self, a_i, a_j, senders, receivers, edge_mask,
+                      num_nodes, slope=0.2, block_nodes=0, block_edges=0,
+                      compute_dtype=torch.float32):
+        H, D = x.shape[1:]
+        return attention.blocked_gat_attention(
+            x, e, e_self, a_i.reshape(H, D), a_j.reshape(H, D), senders,
+            receivers, edge_mask.to(torch.float32), slope, block_nodes,
+            block_edges, compute_dtype)
+
     spmm.kernel_dtype = lambda x: cdt
     spmm.gather_scatter, spmm.edge_dot = gather_scatter, edge_dot
+    attention.gat_attention = gat_attention
     try:
         yield
     finally:
-        spmm.kernel_dtype, spmm.gather_scatter, spmm.edge_dot = saved
+        (spmm.kernel_dtype, spmm.gather_scatter, spmm.edge_dot,
+         attention.gat_attention) = saved
 
 
 def bf16_agreement(torch, batch, cfg, fused="on"):
@@ -2396,33 +2447,418 @@ BF16_KERNEL_NAMES = {
                        ("x+ein", "true, true"))},
     "blocked_edge_dot_fwd": (r"edot_fwd_kernel<[^>]*, true>",),
     "blocked_edge_dot_bwd": (r"edot_bwd_kernel<[^>]*, true>",),
+    # K4: the forward walk on the float32 x, the backward's softmax walk
+    # and its walks on the bfloat16 residual, the per-slot dWe, and the
+    # products on the tensor cores; K5: its walks at BF
+    "gat_conv_fwd": (r"gat_fwd_kernel<true, [^>]*, true, float>",
+                     "gemm_bf16_kernel"),
+    "gat_conv_bwd": (r"gat_fwd_kernel<true, [^>]*, true, [^>]*bfloat16>",
+                     r"gat_bwd_rcv_kernel<true, [^>]*, true, [^>]*bfloat16>",
+                     r"gat_bwd_snd_kernel<true, [^>]*, true, [^>]*bfloat16>",
+                     "gat_dwe_bf16_kernel", "gemm_bf16_kernel"),
+    "blocked_gat_attention_fwd": (r"gat_fwd_kernel<false, [^>]*, true, "
+                                  r"float>",),
+    "blocked_gat_attention_bwd": (
+        r"gat_bwd_rcv_kernel<false, [^>]*, true, float>",
+        r"gat_bwd_snd_kernel<false, [^>]*, true, float>"),
 }
-# ... and the kernels it must not show: no K1 product on the CUDA cores
+# ... and the kernels it must not show: no K1 or K4 product on the CUDA
+# cores, no float32 dWe of K4
 BF16_ABSENT_NAMES = {"gin_conv_fwd": (r"gemm_kernel<",),
-                     "gin_conv_bwd": (r"gemm_kernel<",)}
+                     "gin_conv_bwd": (r"gemm_kernel<",),
+                     "gat_conv_fwd": (r"gemm_kernel<",),
+                     "gat_conv_bwd": (r"gemm_kernel<", "gat_dwe_kernel")}
 
 
-def gat_raises_phase(torch, graphs, cfg):
-    """A chem masking GAT step under the bfloat16 knobs raises on the card
-    (K4 has no bfloat16 variant) before K4 launches."""
-    from pretrain_gnns_tpu_torch.ops import gat_conv
-    from pretrain_gnns_tpu_torch.train import pretrain
+# --- the bfloat16 variants of K4, K5, K6 and K7 ------------------------------
 
-    dev = torch.device("cuda")
-    model = pretrain.build_objective(cfg).to(dev)
-    batch = next(iter(pretrain.build_loader(cfg, graphs, dev))).to(dev)
-    gat_conv.reset_launches()
-    try:
-        model(batch, train=True)
-    except ValueError as e:
-        if "K4" not in str(e) or "bf16 not ported" not in str(e):
-            raise
-        if any(gat_conv.launches.values()):
-            raise AssertionError("K4 launched before it raised")
-        print(f"[chem masking gat bfloat16] raises on the card: {e}",
+
+def gat_bf16_phase(torch, batch, conv, ein, tag):
+    """K4's and K5's bfloat16 variants (compute_dtype=bfloat16) on a GAT
+    masking path's first batch, with the first layer's parameters
+    (``conv``) and edge inputs ``ein``: K4 on float32 h (as the trunks pass
+    it), K5 on x (float32, as the unfused conv widens it) and e in float32
+    (the chem embedding's dtype) and in bfloat16 (the bio encoder's under
+    bfloat16_act). Each against its plain version at compute_dtype=
+    bfloat16 and the control at float32 (``_bf16_check``), bit-equal
+    between two runs, timed beside the plain version and, for K4's
+    products, ``torch.matmul`` in bfloat16. The bounds count the stored
+    widths' bytes, the products at the bfloat16 tensor peak and the
+    attention's other operations at the float32 peak. Returns ``{kernel
+    name: dict}`` (K5's with ``rows_bfloat16`` for bfloat16 e)."""
+    from pretrain_gnns_tpu_torch.ops import attention as at
+    from pretrain_gnns_tpu_torch.ops import gat_conv as gc
+
+    bf, f32 = torch.bfloat16, torch.float32
+    dev = batch.node_mask.device
+    gen = torch.Generator().manual_seed(15)
+    N, E, bn, be = (batch.max_nodes, batch.max_edges, batch.block_nodes,
+                    batch.block_edges)
+    H, D, K, slope = conv.heads, conv.emb_dim, ein.shape[1], 0.2
+    HD = H * D
+    nm = batch.node_mask.to(f32)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    h = rnd(N, D) * nm[:, None]
+    g, g3 = rnd(N, D) * nm[:, None], rnd(N, H, D) * nm[:, None, None]
+    with torch.no_grad():
+        We, e_self = conv.edge_kernel()
+        Wl, bl = conv.weight_linear.weight.t(), conv.weight_linear.bias
+        par = [We.contiguous(), e_self.reshape(H, D).contiguous(),
+               conv.att[0, :, :D].contiguous(),
+               conv.att[0, :, D:].contiguous()]
+        bias = rnd(D) * 0.1
+    graph = (batch.senders, batch.receivers, batch.edge_mask.to(f32))
+    V, Ev = int(nm.sum()), int(batch.edge_mask.sum())
+    node_ops, edge_ops = V * HD, Ev * HD
+    edge_scalar_ops = Ev * H * 2 * K + 2 * K * HD
+    small = nbytes(*par, bias, bl)
+    edge_b4 = Ev * (K + 3) * 4
+    # the attention's float32 operations at the bfloat16 peak's rate
+    f32_ops = PEAK_BF16_FLOPS / PEAK_F32_FLOPS
+    results = {}
+
+    # K4: float32 h, its bfloat16 residual x
+    def k4(dt):
+        out, x, saved = gc.gat_conv_fwd(h, Wl, bl, ein, *par, bias, *graph,
+                                        bn, be, slope, dt)
+        return (out, x) + gc.gat_conv_bwd(g, h, Wl, x, ein, *par, *graph,
+                                          saved, bn, be, slope, dt)
+
+    with torch.no_grad():
+        runs = [k4(bf) for _ in range(2)]
+        control = k4(f32)
+    torch.cuda.synchronize()
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (h, Wl, bl, *par, bias)]
+    lh, lWl, lbl, lWe, les, lai, laj, lbias = leaves
+    k4_plain = lambda: gc.fused_gat_conv_plain(
+        lh, lWl, lbl, ein, lWe, les, lai, laj, lbias, *graph, H, bn, be,
+        slope, return_residuals=True, compute_dtype=bf)
+    out_p, x_p = k4_plain()
+    grads_p = torch.autograd.grad(out_p, leaves, g, retain_graph=True)
+    names = ("out", "x", "dh", "dWl", "dbl", "dWe", "de_self", "da_i",
+             "da_j", "dbias")
+    plain = (out_p.detach(), x_p) + grads_p
+    _control_shows(f"K4 {tag}", [_bf16_check(
+        torch, f"K4 {tag}", runs, dict(zip(names, zip(runs[0], plain))),
+        dict(zip(names, zip(control, plain))))])
+    if not all(bool(torch.isfinite(t.float()).all()) for t in runs[0]):
+        raise AssertionError(f"K4 bfloat16 {tag}: not finite")
+    x16 = runs[0][1]
+    err4 = (max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(runs[0][:2], plain[:2])),
+            max(float((a - b).abs().max())
+                for a, b in zip(runs[0][2:], plain[2:])))
+    plain_bwd = time_ms(lambda: torch.autograd.grad(
+        out_p, leaves, g, retain_graph=True), torch)
+    with torch.no_grad():
+        hb, Wlb, dxb = h.to(bf), Wl.to(bf), x16
+        ms4 = {
+            "gat_conv_fwd": (
+                time_ms(lambda: gc.gat_conv_fwd(h, Wl, bl, ein, *par, bias,
+                                                *graph, bn, be, slope, bf),
+                        torch),
+                time_ms(k4_plain, torch),
+                time_ms(lambda: torch.matmul(hb, Wlb), torch)),
+            "gat_conv_bwd": (
+                time_ms(lambda: gc.gat_conv_bwd(g, h, Wl, x16, ein, *par,
+                                                *graph, (), bn, be, slope,
+                                                bf), torch),
+                plain_bwd,
+                time_ms(lambda: (torch.matmul(hb.t(), dxb),
+                                 torch.matmul(dxb, Wlb.t())), torch)),
+        }
+    # forward: x = h @ Wl and each slot's e = ein @ We (the messages'
+    # rounding needs e a slot) on the tensor cores; backward: dWl, dh and
+    # dWe = ein^T de a slot, dalpha's edge term the cheaper of e a slot
+    # or q_r = We g_r a row; the softmax recomputed from the residual
+    e_dalpha = min(edge_ops * 2 * K, node_ops * 2 * K + Ev * H * 2 * K)
+    fwd4 = bound(2 * (V + 1) * D * HD + edge_ops * 2 * K + f32_ops * (
+        node_ops * 7 + edge_scalar_ops + edge_ops * 4 + N * D * 2),
+        rows_nbytes(h, V) + nbytes(Wl) + small + edge_b4 + N * D * 4
+        + N * HD * 2, PEAK_BF16_FLOPS)
+    bwd4 = bound(2 * 2 * V * D * HD + edge_ops * 2 * K + e_dalpha + f32_ops * (
+        node_ops * 7 + edge_scalar_ops       # the softmax recomputed
+        + node_ops * 3 + edge_ops * 2        # dalpha, the self loop's
+        + edge_ops * 3 + node_ops * 12       # dmsg, dx, de_self, da_i, da_j
+        + edge_scalar_ops + N * D + node_ops),
+        rows_nbytes(g, V) + rows_nbytes(h, V) + V * HD * 2 + nbytes(Wl)
+        + small + edge_b4 + nbytes(*runs[0][2:]), PEAK_BF16_FLOPS)
+    for (name, (ms, pms, mm)), b, err in zip(ms4.items(), (fwd4, bwd4),
+                                             err4):
+        results[name] = dict(ms=ms, plain_ms=pms, matmul_ms=mm,
+                             bound_ms=b[0], bound_by=b[1], max_abs_err=err,
+                             library_ms=None)
+        print(f"[kernels bf16] {name} {tag}: kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, torch.matmul products in bfloat16 {mm:.4f} "
+              f"ms, library none (no single call), bound {b[0]:.4f} ms "
+              f"({b[1]})", flush=True)
+
+    # K5: x float32, e in float32 and in bfloat16
+    with torch.no_grad():
+        x5 = (h @ Wl + bl).reshape(N, H, D)
+        e32 = (ein @ par[0]).reshape(E, H, D)
+    k5res = {}
+    for erows in (f32, bf):
+        e5 = e32.to(erows)
+
+        def k5(dt, fn=at.blocked_gat_attention):
+            lv = [t.detach().clone().requires_grad_(True)
+                  for t in (x5, e5, *par[1:])]
+            out = fn(*lv, *graph, slope, bn, be, compute_dtype=dt)
+            return (out.detach(),) + torch.autograd.grad(out, lv, g3)
+
+        runs5 = [k5(bf) for _ in range(2)]
+        control5 = k5(f32)
+        plain5 = k5(bf, at.blocked_gat_attention_plain)
+        torch.cuda.synchronize()
+        names5 = ("out", "dx", "de", "de_self", "da_i", "da_j")
+        t5 = f"K5 {tag}, e {str(erows)[6:]}"
+        _control_shows(t5, [_bf16_check(
+            torch, t5, runs5, dict(zip(names5, zip(runs5[0], plain5))),
+            dict(zip(names5, zip(control5, plain5))))])
+        if runs5[0][2][~batch.edge_mask].any():
+            raise AssertionError(f"{t5}: padded slots' de not 0")
+        err5 = (float((runs5[0][0] - plain5[0]).abs().max()),
+                max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(runs5[0][1:], plain5[1:])))
+        with torch.no_grad():
+            e5f = e5.float()  # the kernels read e widened
+            fwd = lambda: at.gat_attn_fwd(x5, e5f, *par[1:], *graph, slope,
+                                          bn, be, bf)
+            _, saved5 = fwd()
+            lv5 = [t.detach().clone().requires_grad_(True)
+                   for t in (x5, e5, *par[1:])]
+        out_p5 = at.blocked_gat_attention_plain(*lv5, *graph, slope,
+                                                compute_dtype=bf)
+        plain_bwd5 = time_ms(lambda: torch.autograd.grad(
+            out_p5, lv5, g3, retain_graph=True), torch)
+        with torch.no_grad():
+            ms5 = {"blocked_gat_attention_fwd": (
+                       time_ms(fwd, torch),
+                       time_ms(lambda: at.blocked_gat_attention_plain(
+                           x5, e5, *par[1:], *graph, slope,
+                           compute_dtype=bf), torch)),
+                   "blocked_gat_attention_bwd": (
+                       time_ms(lambda: at.gat_attn_bwd(
+                           g3, x5, e5f, *par[1:], *graph, saved5, slope, bn,
+                           be, bf), torch), plain_bwd5)}
+        eb = Ev * HD * e5.element_size()
+        fwd5 = bound(node_ops * 7 + edge_ops * 5 + node_ops * 2,
+                     V * HD * 4 + Ev * 12 + eb + nbytes(*par[1:])
+                     + N * HD * 4)
+        bwd5 = bound(edge_ops * 3 + node_ops * 3 + edge_ops * 2
+                     + node_ops * 12 + edge_ops * 2,
+                     2 * V * HD * 4 + Ev * 12 + eb + nbytes(*par[1:])
+                     + nbytes(*runs5[0][1:]))
+        for (name, (ms, pms)), b, err in zip(ms5.items(), (fwd5, bwd5),
+                                             err5):
+            k5res[name, erows] = dict(ms=ms, plain_ms=pms, bound_ms=b[0],
+                                      bound_by=b[1], max_abs_err=err,
+                                      library_ms=None)
+            print(f"[kernels bf16] {name} {tag}, e {str(erows)[6:]}: "
+                  f"kernel {ms:.4f} ms, plain {pms:.4f} ms, library none "
+                  f"(no single call), bound {b[0]:.4f} ms ({b[1]})",
+                  flush=True)
+    for name in ("blocked_gat_attention_fwd", "blocked_gat_attention_bwd"):
+        results[name] = dict(k5res[name, f32],
+                             rows_bfloat16=k5res[name, bf])
+    print(f"[kernels bf16] GAT at the {tag}: N={N} E={E} H={H} D={D} K={K} "
+          f"valid_nodes={V} valid_edges={Ev} "
+          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+    return results
+
+
+def gat_bf16_entries(chem, bio):
+    """The ``kernels`` entries of K4's and K5's bfloat16 variants: the times
+    at the chem GAT first batch (the paths that launch them) under the
+    contract's keys, the bio batch beside them."""
+    where = {"gat_conv_fwd": ("pallas_gat_conv.py", 338),
+             "gat_conv_bwd": ("pallas_gat_conv.py", 389),
+             "blocked_gat_attention_fwd": ("pallas_attention.py", 229),
+             "blocked_gat_attention_bwd": ("pallas_attention.py", 389)}
+    return [dict(
+        name=f"{name}[bf16]", counter=name, route="cuda",
+        source="pretrain_gnns_tpu_torch/csrc/gat.cu",
+        replaces=f"pretrain_gnns_tpu/ops/{file}:{line}",
+        tpu_counterpart=f"ops/{file} at compute_dtype=bfloat16",
+        library="none: no single PyTorch call computes it",
+        shape=("chem GAT first batch: the masking path (K4, float32 h) and "
+               "the unfused edge-prediction path (K5, float32 x and e)"),
+        **chem[name], other_shapes={"bio GAT masking first batch": bio[name]})
+        for name, (file, line) in where.items()]
+
+
+def spmm_ee_bf16_phase(torch, batch, tag):
+    """K6's and K7's bfloat16 variants (compute_dtype=bfloat16) on a
+    masking path's first batch with a random edge embedding and
+    fractional, partly negative edge weights, rows in bfloat16 and in
+    float32: K6 ``[x+ee]`` and ``[x]`` (out, dx, dmsg) and K7 on the sorted
+    slots, each against its plain version at compute_dtype=bfloat16 and
+    the control at float32 (``_bf16_check``), bit-equal between two runs,
+    padded rows and slots exactly 0, timed beside the plain version and
+    ``torch.sparse.mm`` in bfloat16 (SPMM_EE_LIBRARY's products, where it
+    runs). Returns ``{kernel name: dict}`` for bfloat16 rows, with
+    ``rows_float32`` beside."""
+    from pretrain_gnns_tpu_torch.ops import blocked_spmm as bs
+    from pretrain_gnns_tpu_torch.ops import sorted_spmm as ss
+
+    bf, f32 = torch.bfloat16, torch.float32
+    dev = batch.node_mask.device
+    gen = torch.Generator().manual_seed(16)
+    N, E, F = batch.max_nodes, batch.max_edges, EMB
+    bn, be = batch.block_nodes, batch.block_edges
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    x0 = rnd(N, F) * batch.node_mask[:, None]
+    ee0, g0 = rnd(E, F), rnd(N, F)
+    valid = batch.edge_mask
+    w = valid.to(f32) * (torch.rand(E, generator=gen) * 2 - 0.5).to(dev)
+    snd, rcv = batch.senders, batch.receivers
+    edges = (snd, rcv, w, bn, be)
+    e_valid = int(valid.sum())
+    n_snd = int(torch.unique(snd[valid]).numel())
+    n_rcv = int(torch.unique(rcv[valid]).numel())
+    pad_rows, pad_slots = ~batch.node_mask, ~valid
+    n_blocks = N // bn
+    s2, r2, w2, ee_sorted = ss.sort_block_edges(snd, rcv, w, ee0, n_blocks,
+                                                be)
+    res = {}
+    for rows in (bf, f32):
+        x, ee, g = x0.to(rows), ee0.to(rows), g0.to(rows)
+        es2 = ee_sorted.to(rows)
+        rs = x.element_size()
+        for has_ee in (True, False):
+            v = bs.ee_variant(has_ee)
+            e_in = ee if has_ee else None
+            tag6 = f"K6[{v}] {tag}, rows {str(rows)[6:]}"
+
+            def run(dt):
+                return ((bs.spmm_ee_fwd(x, e_in, *edges, dt),)
+                        + bs.spmm_ee_bwd(g, *edges, has_ee, True, has_ee,
+                                         dt))
+
+            with torch.no_grad():
+                runs = [run(bf) for _ in range(2)]
+                control = run(f32)
+                alone = bs.spmm_ee_bwd(g, *edges, has_ee, True, False, bf)[0]
+            torch.cuda.synchronize()
+            xl = x.detach().clone().requires_grad_(True)
+            el = ee.detach().clone().requires_grad_(True)
+            out_p = bs.blocked_spmm_plain(xl, el if has_ee else None,
+                                          *edges[:3], compute_dtype=bf)
+            leaves = [xl, el] if has_ee else [xl]
+            grads_p = torch.autograd.grad(out_p, leaves, g, retain_graph=True)
+            names = ("out", "dx", "dmsg")[:2 + has_ee]
+            plain = (out_p.detach(),) + grads_p
+            _control_shows(tag6, [_bf16_check(
+                torch, tag6, runs, dict(zip(names, zip(runs[0], plain))),
+                dict(zip(names, zip(control, plain))))])
+            out, dx, dmsg = runs[0]
+            zeros = [out[pad_rows], dx[pad_rows]] + (
+                [dmsg[pad_slots]] if has_ee else [])
+            if any(z.any() for z in zeros) or not torch.equal(alone, dx):
+                raise AssertionError(f"{tag6}: padded rows or slots not 0, "
+                                     "or dx alone differs")
+            grads_k = [dx, dmsg] if has_ee else [dx]
+            plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
+                out_p, leaves, g, retain_graph=True), torch)
+            with torch.no_grad():
+                fwd_ms = time_ms(lambda: bs.spmm_ee_fwd(x, e_in, *edges, bf),
+                                 torch)
+                bwd_ms = time_ms(lambda: bs.spmm_ee_bwd(
+                    g, *edges, has_ee, True, has_ee, bf), torch)
+                plain_fwd_ms = time_ms(lambda: bs.blocked_spmm_plain(
+                    x, e_in, *edges[:3], compute_dtype=bf), torch)
+                lib = [None, None]
+                A, At = spmm_ee_csr(torch, snd, rcv, w, valid, N, has_ee)
+                to_bf = lambda M: torch.sparse_csr_tensor(
+                    M.crow_indices(), M.col_indices(), M.values().to(bf),
+                    M.shape)
+                rhs = (torch.cat([x, ee]) if has_ee else x).to(bf)
+                try:
+                    Ab, Atb, gb = to_bf(A), to_bf(At), g.to(bf)
+                    lib = [time_ms(lambda: torch.sparse.mm(Ab, rhs), torch),
+                           time_ms(lambda: torch.sparse.mm(Atb, gb), torch)]
+                except RuntimeError as e:  # no bfloat16 CSR product
+                    print(f"[kernels bf16] torch.sparse.mm in bfloat16 does "
+                          f"not run here: {e}", flush=True)
+            fwd_b = bound(e_valid * F * (2 + has_ee),
+                          n_snd * F * rs + e_valid * (12 + F * rs * has_ee)
+                          + nbytes(out), PEAK_BF16_FLOPS)
+            bwd_b = bound(e_valid * F * 2,
+                          n_rcv * F * rs + e_valid * 12 + nbytes(*grads_k),
+                          PEAK_BF16_FLOPS)
+            for d, ms, pms, b, lms, err in (
+                    ("fwd", fwd_ms, plain_fwd_ms, fwd_b, lib[0],
+                     float((out.float() - plain[0].float()).abs().max())),
+                    ("bwd", bwd_ms, plain_bwd_ms, bwd_b, lib[1],
+                     max(float((a.float() - c.float()).abs().max())
+                         for a, c in zip(grads_k, grads_p)))):
+                res[f"blocked_spmm_ee_{d}[{v}]", rows] = dict(
+                    ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                    library_ms=lms, max_abs_err=err,
+                    library=SPMM_EE_LIBRARY[d, has_ee] + ", in bfloat16")
+            if has_ee:
+                k6_fwd_b, k6_lib = fwd_b, lib[0]
+
+        # K7 on the sorted slots
+        tag7 = f"K7 {tag}, rows {str(rows)[6:]}"
+        k7 = lambda dt: ss.sorted_blocked_spmm(x, es2, s2, r2, w2, bn, be, dt)
+        with torch.no_grad():
+            runs7 = [(k7(bf),), (k7(bf),)]
+            control7 = k7(f32)
+            plain7 = ss.sorted_blocked_spmm_plain(x, es2, s2, r2, w2,
+                                                  compute_dtype=bf)
+        torch.cuda.synchronize()
+        mean7 = _bf16_check(torch, tag7, runs7, {"out": (runs7[0][0], plain7)},
+                            {"out": (control7, plain7)})
+        if rows == f32:  # on bfloat16 rows K7's one rounding is a no-op
+            _control_shows(tag7, [mean7])
+        if runs7[0][0][pad_rows].any():
+            raise AssertionError(f"{tag7}: padded rows not 0")
+        with torch.no_grad():
+            res["sorted_blocked_spmm_fwd", rows] = dict(
+                ms=time_ms(lambda: k7(bf), torch),
+                plain_ms=time_ms(lambda: ss.sorted_blocked_spmm_plain(
+                    x, es2, s2, r2, w2, compute_dtype=bf), torch),
+                bound_ms=k6_fwd_b[0], bound_by=k6_fwd_b[1],
+                library_ms=k6_lib,
+                library=SPMM_EE_LIBRARY["fwd", True] + ", in bfloat16",
+                max_abs_err=float((runs7[0][0].float()
+                                   - plain7.float()).abs().max()))
+    for (name, rows), r in res.items():
+        lms = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"[kernels bf16] {name} {tag}, rows {str(rows)[6:]}: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{lms}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
               flush=True)
-        return
-    raise AssertionError("a chem GAT step under the bfloat16 knobs ran")
+    return {name: dict(res[name, bf], rows_float32=res[name, f32])
+            for name, rows in res if rows == bf}
+
+
+def spmm_ee_bf16_entries(chem, bio):
+    """The ``kernels`` entries of K6's and K7's bfloat16 variants: the chem
+    masking first batch under the contract's keys (bfloat16 rows), the bio
+    batch beside them."""
+    entries = []
+    for name in chem:
+        if name == "sorted_blocked_spmm_fwd":
+            replaces = "pretrain_gnns_tpu/ops/pallas_spmm_sorted.py:160"
+            body = "ops/pallas_spmm_sorted.py::_sorted_fwd_kernel"
+        else:
+            d = name.split("_")[3][:3]
+            replaces = ("pretrain_gnns_tpu/ops/pallas_spmm.py:"
+                        f"{195 if d == 'fwd' else 217}")
+            body = f"ops/pallas_spmm.py::_{d}_kernel"
+        entries.append(dict(
+            name=f"{name}[bf16]", counter=name, route="cuda",
+            source="pretrain_gnns_tpu_torch/csrc/spmm_ee.cu",
+            replaces=replaces,
+            tpu_counterpart=f"{body} at compute_dtype=bfloat16",
+            shape="chem masking first batch, random edge embedding, "
+                  "fractional edge weights, bfloat16 rows",
+            **chem[name], other_shapes={"bio masking first batch": bio[name]}))
+    return entries
 
 
 def k2_bf16_cases(torch, chem_cfg, chem_first, bio_cfg, bio_first):
@@ -2460,9 +2896,12 @@ def k2_bf16_cases(torch, chem_cfg, chem_first, bio_cfg, bio_first):
 
 
 def bf16_section(torch, card, chem_graphs, chem_first, bio_graphs, bio_first,
-                 edgepred_chem_first, f32_rates):
+                 edgepred_chem_first, f32_rates, gat_first, micro_main):
     """The bfloat16 variants and paths under the JAX bench's recipe;
-    returns the ``kernels`` entries of the variants."""
+    returns the ``kernels`` entries of the variants. ``gat_first`` holds
+    the GAT paths' first batches ("chem", "bio" masking and "chem
+    edgepred")."""
+    from pretrain_gnns_tpu_torch.models import bio, chem
     from pretrain_gnns_tpu_torch.train import pretrain
 
     dev = torch.device("cuda")
@@ -2471,19 +2910,47 @@ def bf16_section(torch, card, chem_graphs, chem_first, bio_graphs, bio_first,
     chem_cfg = pretrain.PretrainConfig(mask_edge=False, **base)
     bio_cfg = pretrain.PretrainConfig(domain="bio", **base)
     ep_cfg = pretrain.PretrainConfig(objective="edgepred", **base)
+    gat_cfg = {d: pretrain.PretrainConfig(
+        domain=d, gnn_type="gat", mask_edge=False, **base)
+        for d in ("chem", "bio")}
+    gat_ep_cfg = pretrain.PretrainConfig(objective="edgepred",
+                                         gnn_type="gat", **base)
     with precision("bfloat16_act", "bfloat16"):
         entries = k1_bf16_phase(torch, chem_first.to(dev),
                                 pretrain.build_objective(chem_cfg).to(dev))
         entries += k2_bf16_phase(torch, k2_bf16_cases(
             torch, chem_cfg, chem_first, bio_cfg, bio_first))
         entries += k3_bf16_phase(torch, edgepred_chem_first.to(dev))
+        # K4 and K5 at the GAT paths' first batches, K6 and K7 at the
+        # masking paths'
+        gat = {}
+        for d in ("chem", "bio"):
+            on_card = gat_first[d].to(dev)
+            ein = (bio.edge_inputs(on_card, torch.float32) if d == "bio"
+                   else chem.bond_one_hot(on_card, torch.float32))
+            conv = pretrain.build_objective(gat_cfg[d]).to(dev).gnn.gnns[0]
+            gat[d] = gat_bf16_phase(torch, on_card, conv, ein,
+                                    f"{d} GAT masking first batch")
+        entries += gat_bf16_entries(gat["chem"], gat["bio"])
+        k67 = spmm_ee_bf16_entries(*(spmm_ee_bf16_phase(
+            torch, b.to(dev), f"{d} masking first batch")
+            for d, b in (("chem", chem_first), ("bio", bio_first))))
+        entries += k67
+        record_launches(k67, edge_emb_path_phase(torch, chem_first.to(dev)),
+                        {k["counter"] for k in k67
+                         if k["counter"] != "sorted_blocked_spmm_fwd"})
+        record_launches(k67, micro_phase(torch, micro_main, "bfloat16"),
+                        {"sorted_blocked_spmm_fwd"})
         recorded = set()  # a variant's launches: the first path that runs it
         for graphs, cfg, first, per_step, fused in (
                 (chem_graphs, chem_cfg, chem_first, K1, "on"),
                 (chem_graphs, chem_cfg, chem_first, GCN_K2, "off"),
                 (bio_graphs, bio_cfg, bio_first, BIO_K2, "on"),
                 (chem_graphs, ep_cfg, edgepred_chem_first, {**K1, **K3},
-                 "on")):
+                 "on"),
+                (chem_graphs, gat_cfg["chem"], gat_first["chem"], K4, "on"),
+                (chem_graphs, gat_ep_cfg, gat_first["chem edgepred"],
+                 {**K5, **K3}, "off")):
             name = path_name(cfg, fused)
             bf16_agreement(torch, first, cfg, fused)
             launched = main_path_phase(torch, graphs, cfg, card, per_step,
@@ -2499,8 +2966,9 @@ def bf16_section(torch, card, chem_graphs, chem_first, bio_graphs, bio_first,
             capture_phase(torch, graphs, cfg, per_step, fused,
                           kernel_names=BF16_KERNEL_NAMES,
                           absent_names=BF16_ABSENT_NAMES)
-        gat_raises_phase(torch, chem_graphs, pretrain.PretrainConfig(
-            gnn_type="gat", mask_edge=False, **base))
+        # the bio GAT masking path's step (K4 at K = 10); its kernels
+        # above
+        bf16_agreement(torch, gat_first["bio"], gat_cfg["bio"], "on")
     return entries
 
 
@@ -2718,14 +3186,15 @@ def main() -> int:
     for domain, mode in (("chem", "on"), ("bio", "on"), ("chem", "off")):
         agreement_phase(torch, gat_first[domain], gat_path(domain)[1],
                         fused=mode)
-    record_launches(k45, main_path_phase(torch, *gat_path("chem"), card, K4),
-                    K4)
+    record_launches(k45, rated(gat_path("chem")[1], main_path_phase(
+        torch, *gat_path("chem"), card, K4)), K4)
     capture_phase(torch, *gat_path("chem"), K4)
     main_path_phase(torch, *gat_path("bio"), card, K4)
     capture_phase(torch, *gat_path("bio"), K4)
-    record_launches(k45, main_path_phase(
-        torch, *gat_path("chem", "edgepred"), card, {**K5, **K3},
-        fused="off"), K5)
+    record_launches(k45, rated(gat_path("chem", "edgepred")[1],
+                              main_path_phase(
+                                  torch, *gat_path("chem", "edgepred"), card,
+                                  {**K5, **K3}, fused="off"), "off"), K5)
     capture_phase(torch, *gat_path("chem", "edgepred"), {**K5, **K3},
                   fused="off")
 
@@ -2787,8 +3256,10 @@ def main() -> int:
 
     # mixed precision: the bfloat16 variants of K1, K2 and K3, and four
     # paths under the JAX bench's recipe
+    gat_first["chem edgepred"] = unfused_first
     bf16 = bf16_section(torch, card, chem_graphs, chem_first, bio_graphs,
-                        bio_first, edgepred_chem_first, f32_rates)
+                        bio_first, edgepred_chem_first, f32_rates, gat_first,
+                        micro_main)
 
     bench_phase()
     kernels += k2 + k3 + k45 + k67 + probe + bf16

@@ -927,4 +927,18 @@ int convert(const TI* X, ll s0, ll s1, int R, int C, TO* Y, ll t0, ll t1,
   return (int)cudaGetLastError();
 }
 
+ll pad8(ll n) { return (n + 7) / 8 * 8; }
+
+// A weight [R, C] (strides s0, s1) rounded to bfloat16 into Wr, contiguous
+// along the same dimension as W with a pitch of pad8 elements; *t0, *t1
+// receive Wr's strides. K1's and K4's bfloat16 routes round their weights
+// so, once a call, before the products read them.
+int round_weight(const float* W, ll s0, ll s1, int R, int C, bf16* Wr,
+                 ll* t0, ll* t1, cudaStream_t st) {
+  const bool col = s0 == 1 && s1 != 1;
+  *t0 = col ? 1 : pad8(C);
+  *t1 = col ? pad8(R) : 1;
+  return convert(W, s0, s1, R, C, Wr, *t0, *t1, st);
+}
+
 }  // namespace

@@ -72,8 +72,6 @@ namespace {
 constexpr int MAX_BN = 256;               // node rows per block
 constexpr int MAX_K = AGG_MAX_K;          // edge input width
 
-ll pad8(ll n) { return (n + 7) / 8 * 8; }
-
 // Scratch cut from ``base`` (null: sizes only), in float32 elements, each
 // piece 16-byte aligned.
 struct Carver {
@@ -142,17 +140,6 @@ BwdWork carve(float* base, int N, int F, int F2, int K, int n_blocks,
   }
   w.total = cv.off;
   return w;
-}
-
-// A weight [R, C] (strides s0, s1) rounded to bfloat16 into Wr, contiguous
-// along the same dimension as W with a pitch of pad8 elements; *t0, *t1
-// receive Wr's strides.
-int round_weight(const float* W, ll s0, ll s1, int R, int C, bf16* Wr,
-                 ll* t0, ll* t1, cudaStream_t st) {
-  const bool col = s0 == 1 && s1 != 1;
-  *t0 = col ? 1 : pad8(C);
-  *t1 = col ? pad8(R) : 1;
-  return convert(W, s0, s1, R, C, Wr, *t0, *t1, st);
 }
 
 bool bad_shape(int N, int K, int block_nodes, int block_edges) {

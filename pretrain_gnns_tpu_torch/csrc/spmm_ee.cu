@@ -73,6 +73,16 @@
 //   front (negative local receiver) or the back and add nothing. Every row
 //   of out, dx and dmsg is written once, so padded rows and slots come out
 //   exactly 0 and no output needs a zeroing pass.
+// - bfloat16: the rows (x or g, ee, out or dx, dmsg) may be stored as
+//   float or bfloat16 (T), and with BF (compute_dtype = bfloat16) the
+//   kernels round where the Pallas bodies do, every sum in float32, through
+//   edge_aggr.cuh's rounding loads (ld_row_bf) and row accesses. K6
+//   forward: out_r = sum bf(w_e (bf(x[snd_e]) + ee_e)), ee unrounded;
+//   backward: dmsg_e = w_e bf(g[rcv_e]) in the rows' dtype, dx_n = sum
+//   bf(dmsg_e). K7: out_r = sum w_e (bf(x[snd_e]) + ee_e), the messages
+//   summed unrounded in float32 as the body's prefix sums. With float32
+//   compute bfloat16 rows are read widened and written rounded. The new
+//   instantiations take two CTAs an SM; the float ones keep their launch.
 // - K6's tile is sized from block_nodes at launch (dynamic shared memory,
 //   opted in above 48 KB up to the 227 KB a block may use), since
 //   block_layout grows block_nodes to the largest graph; blocks too large
@@ -108,13 +118,15 @@ int sorted_smem(int block_nodes, int block_edges) {
 // that dx is the sum of the dmsg rows as written (a contraction into an
 // FMA would differ from dmsg in its last bits); with dmsg, each slot's dm
 // goes to its row of dmsg, and the slots that add nothing get exact zeros.
-template <bool BWD, bool HAS_EE, int VEC, int MIN_CTAS>
+// Rows of type T; BF rounds as the note above says (forward out_r += bf(w
+// (bf(x[s]) + ee)), backward dx_s += bf(w bf(g[r]))).
+template <bool BWD, bool HAS_EE, int VEC, int MIN_CTAS, typename T = float,
+          bool BF = false>
 __global__ void __launch_bounds__(AGG_THREADS, MIN_CTAS)
-spmm_ee_walk_kernel(const float* __restrict__ src,
-                    const float* __restrict__ ee,
+spmm_ee_walk_kernel(const T* __restrict__ src, const T* __restrict__ ee,
                     const int* __restrict__ snd, const int* __restrict__ rcv,
-                    const float* __restrict__ w, float* __restrict__ out,
-                    float* __restrict__ dmsg, int F, int block_nodes,
+                    const float* __restrict__ w, T* __restrict__ out,
+                    T* __restrict__ dmsg, int F, int block_nodes,
                     int block_edges) {
   constexpr int FTV = AGG_FT * VEC;
   extern __shared__ float smem[];
@@ -151,7 +163,7 @@ spmm_ee_walk_kernel(const float* __restrict__ src,
           s.w = st.w[q];
           if (fok) {
             const int from = BWD ? st.lr[q] : st.ls[q];
-            s.x = ld_row<VEC>(src + (base + from) * F + f);
+            s.x = ld_row_bf<VEC, BF>(src + (base + from) * F + f);
             if (HAS_EE) s.e = ld_row<VEC>(ee + (e0 + p0 + q) * F + f);
           }
           return s;
@@ -163,11 +175,12 @@ spmm_ee_walk_kernel(const float* __restrict__ src,
           for (int j = 0; j < VEC; ++j) {
             if (BWD) {
               dm.v[j] = __fmul_rn(s.w, s.x.v[j]);
-              a.v[j] = __fadd_rn(a.v[j], dm.v[j]);
+              a.v[j] = __fadd_rn(a.v[j], BF ? round_bf16(dm.v[j]) : dm.v[j]);
             } else {
               float v = s.x.v[j];
               if (HAS_EE) v += s.e.v[j];
-              a.v[j] = fmaf(s.w, v, a.v[j]);
+              a.v[j] = BF ? a.v[j] + round_bf16(__fmul_rn(v, s.w))
+                          : fmaf(s.w, v, a.v[j]);
             }
           }
           if (BWD && dmsg) st_row(dmsg + (e0 + p0 + q) * F + f, dm);
@@ -182,13 +195,13 @@ spmm_ee_walk_kernel(const float* __restrict__ src,
 }
 
 // dmsg [E, F] alone, one VEC-wide piece a thread, the array written front
-// to back: w * g[rcv] (rounded as dx adds it) or, for a slot that adds
-// nothing (stage_slots' rule), exact zeros.
-template <int VEC>
+// to back: w * g[rcv] (rounded as dx adds it; BF: w * bf(g[rcv])) or, for
+// a slot that adds nothing (stage_slots' rule), exact zeros.
+template <int VEC, typename T = float, bool BF = false>
 __global__ void __launch_bounds__(AGG_THREADS)
-spmm_ee_dmsg_kernel(const float* __restrict__ g, const int* __restrict__ snd,
+spmm_ee_dmsg_kernel(const T* __restrict__ g, const int* __restrict__ snd,
                     const int* __restrict__ rcv, const float* __restrict__ w,
-                    float* __restrict__ dmsg, int F, int block_nodes,
+                    T* __restrict__ dmsg, int F, int block_nodes,
                     int block_edges, ll pieces) {
   const ll i = blockIdx.x * (ll)AGG_THREADS + threadIdx.x;
   if (i >= pieces) return;
@@ -199,20 +212,22 @@ spmm_ee_dmsg_kernel(const float* __restrict__ g, const int* __restrict__ snd,
   const ll s = snd[e] - base, r = rcv[e] - base;
   Row<VEC> d = zero_row<VEC>();
   if (we != 0.f && s >= 0 && s < block_nodes && r >= 0 && r < block_nodes) {
-    const Row<VEC> gr = ld_row<VEC>(g + (base + r) * F + i % cols * VEC);
+    const Row<VEC> gr = ld_row_bf<VEC, BF>(g + (base + r) * F + i % cols * VEC);
 #pragma unroll
     for (int j = 0; j < VEC; ++j) d.v[j] = __fmul_rn(we, gr.v[j]);
   }
   st_row(dmsg + i * VEC, d);
 }
 
-template <bool HAS_EE, int VEC>
+// K7, rows of type T; BF: the gathered x rows rounded, the messages
+// w (bf(x[s]) + ee) summed unrounded (a product, then an add).
+template <bool HAS_EE, int VEC, typename T = float, bool BF = false>
 __global__ void __launch_bounds__(THREADS)
-spmm_sorted_fwd_kernel(const float* __restrict__ x,
-                       const float* __restrict__ ee,
+spmm_sorted_fwd_kernel(const T* __restrict__ x,
+                       const T* __restrict__ ee,
                        const int* __restrict__ snd,
                        const int* __restrict__ rcv,
-                       const float* __restrict__ w, float* __restrict__ out,
+                       const float* __restrict__ w, T* __restrict__ out,
                        int F, int block_nodes, int block_edges) {
   // the block's slots, loaded once and coalesced: local receivers
   // (ascending), local senders (-1 for a slot that adds nothing), weights;
@@ -312,7 +327,7 @@ spmm_sorted_fwd_kernel(const float* __restrict__ x,
       for (int u = 0; u < SORTED_BATCH; ++u) {
         sv[u] = __shfl_sync(FULL_MASK, my_s, src[u] % FT);
         if (src[u] < FT && sv[u] >= 0 && fok) {
-          xv[u] = ld_row<VEC>(x + (base + sv[u]) * F + f);
+          xv[u] = ld_row_bf<VEC, BF>(x + (base + sv[u]) * F + f);
           if (HAS_EE) ev[u] = ld_row<VEC>(ee + (e0 + e + src[u]) * F + f);
         }
       }
@@ -331,7 +346,7 @@ spmm_sorted_fwd_kernel(const float* __restrict__ x,
         for (int j = 0; j < VEC; ++j) {
           float v = xv[u].v[j];
           if (HAS_EE) v += ev[u].v[j];
-          sum.v[j] = fmaf(wq, v, sum.v[j]);
+          sum.v[j] = BF ? sum.v[j] + __fmul_rn(wq, v) : fmaf(wq, v, sum.v[j]);
         }
       }
     }
@@ -347,44 +362,66 @@ int with_vec(int vec, Fn fn) {
   return fn(std::integral_constant<int, 1>());
 }
 
+// Calls fn(Tag<T>(), integral_constant<bool, BF>()) for the rows' type
+// (bfloat16 with rows) and the compute dtype (bfloat16 with bf).
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+template <typename Fn>
+int with_types(bool rows, bool bf, Fn fn) {
+  using B0 = std::integral_constant<bool, false>;
+  using B1 = std::integral_constant<bool, true>;
+  if (rows) return bf ? fn(Tag<bf16>(), B1()) : fn(Tag<bf16>(), B0());
+  return bf ? fn(Tag<float>(), B1()) : fn(Tag<float>(), B0());
+}
+
 // Launches K6's walk with VEC features a lane, the widest that the rows
-// allow (row_vec) and whose tile fits shared memory.
-template <bool BWD, bool HAS_EE>
-int launch_walk(const float* src, const float* ee, const int* snd,
-                const int* rcv, const float* w, float* out, float* dmsg,
-                int N, int F, int block_nodes, int block_edges,
-                cudaStream_t st) {
-  int vec = row_vec(F, {src, ee, out, dmsg}, 4);
+// allow (row_vec) and whose tile fits shared memory; the float kernels two
+// or three CTAs an SM (launch_two_or_three), the others two.
+template <bool BWD, bool HAS_EE, typename T, bool BF>
+int launch_walk(const T* src, const T* ee, const int* snd, const int* rcv,
+                const float* w, T* out, T* dmsg, int N, int F,
+                int block_nodes, int block_edges, cudaStream_t st) {
+  int vec = row_vec(F, {src, ee, out, dmsg}, 4, (int)sizeof(T));
   while (vec > 1 && walk_smem(block_nodes, vec) > MAX_SMEM) vec /= 2;
   return with_vec(vec, [&](auto v) {
     constexpr int VEC = decltype(v)::value;
-    return launch_two_or_three(
-        spmm_ee_walk_kernel<BWD, HAS_EE, VEC, 2>,
-        spmm_ee_walk_kernel<BWD, HAS_EE, VEC, 3>, walk_smem(block_nodes, VEC),
-        N / block_nodes, F, AGG_FT * VEC, st, src, ee, snd, rcv, w, out, dmsg,
-        F, block_nodes, block_edges);
+    if constexpr (std::is_same<T, float>::value && !BF)
+      return launch_two_or_three(
+          spmm_ee_walk_kernel<BWD, HAS_EE, VEC, 2>,
+          spmm_ee_walk_kernel<BWD, HAS_EE, VEC, 3>,
+          walk_smem(block_nodes, VEC), N / block_nodes, F, AGG_FT * VEC, st,
+          src, ee, snd, rcv, w, out, dmsg, F, block_nodes, block_edges);
+    else
+      return launch_edge_aggr(
+          spmm_ee_walk_kernel<BWD, HAS_EE, VEC, 2, T, BF>,
+          walk_smem(block_nodes, VEC), N / block_nodes, F, AGG_FT * VEC, st,
+          src, ee, snd, rcv, w, out, dmsg, F, block_nodes, block_edges);
   });
 }
 
-int launch_dmsg(const float* g, const int* snd, const int* rcv,
-                const float* w, float* dmsg, int N, int F, int block_nodes,
-                int block_edges, cudaStream_t st) {
-  return with_vec(row_vec(F, {g, dmsg}, 4), [&](auto v) {
+template <typename T, bool BF>
+int launch_dmsg(const T* g, const int* snd, const int* rcv, const float* w,
+                T* dmsg, int N, int F, int block_nodes, int block_edges,
+                cudaStream_t st) {
+  return with_vec(row_vec(F, {g, dmsg}, 4, (int)sizeof(T)), [&](auto v) {
     constexpr int VEC = decltype(v)::value;
     const ll pieces = (ll)(N / block_nodes) * block_edges * (F / VEC);
     const unsigned ctas = (unsigned)((pieces + AGG_THREADS - 1) / AGG_THREADS);
-    spmm_ee_dmsg_kernel<VEC><<<ctas, AGG_THREADS, 0, st>>>(
+    spmm_ee_dmsg_kernel<VEC, T, BF><<<ctas, AGG_THREADS, 0, st>>>(
         g, snd, rcv, w, dmsg, F, block_nodes, block_edges, pieces);
     return (int)cudaGetLastError();
   });
 }
 
-// K7 with VEC features a lane (VEC = 2: F even, rows 8-byte aligned).
-template <bool HAS_EE, int VEC>
-int launch_sorted(const float* x, const float* ee, const int* snd,
-                  const int* rcv, const float* w, float* out, int N, int F,
-                  int block_nodes, int block_edges, cudaStream_t st) {
-  return launch_edge_aggr(spmm_sorted_fwd_kernel<HAS_EE, VEC>,
+// K7 with VEC features a lane (VEC = 2: F even, rows 2 * VEC-byte aligned).
+template <bool HAS_EE, int VEC, typename T, bool BF>
+int launch_sorted(const T* x, const T* ee, const int* snd, const int* rcv,
+                  const float* w, T* out, int N, int F, int block_nodes,
+                  int block_edges, cudaStream_t st) {
+  return launch_edge_aggr(spmm_sorted_fwd_kernel<HAS_EE, VEC, T, BF>,
                           sorted_smem(block_nodes, block_edges),
                           N / block_nodes, F, FT * VEC, st, x, ee, snd, rcv,
                           w, out, F, block_nodes, block_edges);
@@ -406,63 +443,92 @@ int pgt_spmm_sorted_smem(int block_nodes, int block_edges) {
   return sorted_smem(block_nodes, block_edges);
 }
 
+// Present since the entry points take (bf16_rows, bf16_compute).
+int pgt_spmm_ee_bf16_flags() { return 1; }
+
 // K6 forward: writes out [N, F] from x [N, F], ee [E, F] (read only with
 // has_ee), snd, rcv [E] (global row indices) and w [E];
-// E = (N / block_nodes) * block_edges. Returns the first CUDA error, 0 if
-// none.
-int pgt_spmm_ee_fwd(const float* x, const float* ee, const int* snd,
-                    const int* rcv, const float* w, float* out, int N, int F,
+// E = (N / block_nodes) * block_edges. x, ee and out are bfloat16 with
+// bf16_rows, else float; bf16_compute: the bfloat16 variant. Returns the
+// first CUDA error, 0 if none.
+int pgt_spmm_ee_fwd(const void* x, const void* ee, const int* snd,
+                    const int* rcv, const float* w, void* out, int N, int F,
                     int block_nodes, int block_edges, int has_ee,
-                    void* stream) {
+                    int bf16_rows, int bf16_compute, void* stream) {
   if (bad_shape(N, F, block_nodes, block_edges, walk_smem(block_nodes, 1)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (has_ee)
-    return launch_walk<false, true>(x, ee, snd, rcv, w, out, nullptr, N, F,
-                                    block_nodes, block_edges, st);
-  return launch_walk<false, false>(x, nullptr, snd, rcv, w, out, nullptr, N,
-                                   F, block_nodes, block_edges, st);
+  return with_types(bf16_rows, bf16_compute, [&](auto t, auto b) {
+    using T = typename decltype(t)::type;
+    constexpr bool BF = decltype(b)::value;
+    const T* xs = static_cast<const T*>(x);
+    T* o = static_cast<T*>(out);
+    if (has_ee)
+      return launch_walk<false, true, T, BF>(
+          xs, static_cast<const T*>(ee), snd, rcv, w, o, nullptr, N, F,
+          block_nodes, block_edges, st);
+    return launch_walk<false, false, T, BF>(xs, nullptr, snd, rcv, w, o,
+                                            nullptr, N, F, block_nodes,
+                                            block_edges, st);
+  });
 }
 
 // K6 backward from g [N, F]: writes every row of dx [N, F] (need_dx) and of
-// dmsg [E, F] (need_dmsg); at least one of the two.
-int pgt_spmm_ee_bwd(const float* g, const int* snd, const int* rcv,
-                    const float* w, float* dx, float* dmsg, int N, int F,
+// dmsg [E, F] (need_dmsg); at least one of the two. g, dx and dmsg are
+// bfloat16 with bf16_rows, else float; bf16_compute: the bfloat16 variant.
+int pgt_spmm_ee_bwd(const void* g, const int* snd, const int* rcv,
+                    const float* w, void* dx, void* dmsg, int N, int F,
                     int block_nodes, int block_edges, int need_dx,
-                    int need_dmsg, void* stream) {
+                    int need_dmsg, int bf16_rows, int bf16_compute,
+                    void* stream) {
   if (bad_shape(N, F, block_nodes, block_edges,
                 need_dx ? walk_smem(block_nodes, 1) : 0) ||
       !(need_dx || need_dmsg))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (!need_dx)
-    return launch_dmsg(g, snd, rcv, w, dmsg, N, F, block_nodes, block_edges,
-                       st);
-  return launch_walk<true, false>(g, nullptr, snd, rcv, w, dx,
-                                  need_dmsg ? dmsg : nullptr, N, F,
-                                  block_nodes, block_edges, st);
+  return with_types(bf16_rows, bf16_compute, [&](auto t, auto b) {
+    using T = typename decltype(t)::type;
+    constexpr bool BF = decltype(b)::value;
+    const T* gs = static_cast<const T*>(g);
+    T* dm = static_cast<T*>(dmsg);
+    if (!need_dx)
+      return launch_dmsg<T, BF>(gs, snd, rcv, w, dm, N, F, block_nodes,
+                                block_edges, st);
+    return launch_walk<true, false, T, BF>(
+        gs, nullptr, snd, rcv, w, static_cast<T*>(dx),
+        need_dmsg ? dm : nullptr, N, F, block_nodes, block_edges, st);
+  });
 }
 
 // K7 forward: as pgt_spmm_ee_fwd, for receivers that ascend within each
 // block of block_edges slots.
-int pgt_spmm_sorted_fwd(const float* x, const float* ee, const int* snd,
-                        const int* rcv, const float* w, float* out, int N,
+int pgt_spmm_sorted_fwd(const void* x, const void* ee, const int* snd,
+                        const int* rcv, const float* w, void* out, int N,
                         int F, int block_nodes, int block_edges, int has_ee,
-                        void* stream) {
+                        int bf16_rows, int bf16_compute, void* stream) {
   if (bad_shape(N, F, block_nodes, block_edges,
                 sorted_smem(block_nodes, block_edges)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool two = row_vec(F, {x, has_ee ? ee : nullptr, out}, 2) == 2;
-  if (has_ee)
-    return two ? launch_sorted<true, 2>(x, ee, snd, rcv, w, out, N, F,
-                                        block_nodes, block_edges, st)
-               : launch_sorted<true, 1>(x, ee, snd, rcv, w, out, N, F,
-                                        block_nodes, block_edges, st);
-  return two ? launch_sorted<false, 2>(x, ee, snd, rcv, w, out, N, F,
-                                       block_nodes, block_edges, st)
-             : launch_sorted<false, 1>(x, ee, snd, rcv, w, out, N, F,
-                                       block_nodes, block_edges, st);
+  return with_types(bf16_rows, bf16_compute, [&](auto t, auto b) {
+    using T = typename decltype(t)::type;
+    constexpr bool BF = decltype(b)::value;
+    const T* xs = static_cast<const T*>(x);
+    const T* es = has_ee ? static_cast<const T*>(ee) : nullptr;
+    T* o = static_cast<T*>(out);
+    const bool two = row_vec(F, {xs, es, o}, 2, (int)sizeof(T)) == 2;
+    if (has_ee)
+      return two ? launch_sorted<true, 2, T, BF>(xs, es, snd, rcv, w, o, N, F,
+                                                 block_nodes, block_edges, st)
+                 : launch_sorted<true, 1, T, BF>(xs, es, snd, rcv, w, o, N, F,
+                                                 block_nodes, block_edges, st);
+    return two ? launch_sorted<false, 2, T, BF>(xs, nullptr, snd, rcv, w, o,
+                                                N, F, block_nodes,
+                                                block_edges, st)
+               : launch_sorted<false, 1, T, BF>(xs, nullptr, snd, rcv, w, o,
+                                                N, F, block_nodes,
+                                                block_edges, st);
+  });
 }
 
 }  // extern "C"

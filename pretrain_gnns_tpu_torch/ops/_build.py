@@ -169,18 +169,6 @@ def check_compute_dtype(dtype: torch.dtype) -> bool:
     return dtype == torch.bfloat16
 
 
-def require_float32(kernel: str, compute_dtype: torch.dtype,
-                    *tensors: torch.Tensor) -> None:
-    """Raise ``ValueError`` naming ``kernel`` where its CUDA path would be
-    asked for bfloat16 (the compute dtype or a row tensor): its bfloat16
-    variant is not ported, and it must not run silently in float32."""
-    if compute_dtype == torch.bfloat16 or any(
-            t is not None and t.dtype == torch.bfloat16 for t in tensors):
-        raise ValueError(f"{kernel}: bf16 not ported (its kernel runs in "
-                         f"float32 only; set the kernel compute dtype and the "
-                         f"rows to float32)")
-
-
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
     """``t`` rounded to the nearest bfloat16 value (ties to even), as
     float32: the Pallas kernels' ``astype(bfloat16)`` of an operand."""

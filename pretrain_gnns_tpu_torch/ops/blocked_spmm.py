@@ -47,8 +47,14 @@ autograd asks for it. On a CUDA tensor :func:`blocked_spmm` launches the
 kernels of ``csrc/spmm_ee.cu`` or raises; on a CPU tensor it runs
 :func:`blocked_spmm_plain`. Its counters are
 ``blocked_spmm_ee_{fwd,bwd}[x+ee]`` and ``blocked_spmm_ee_{fwd,bwd}[x]``.
-K6 has no bfloat16 variant yet: on CUDA it raises ``ValueError`` under a
-bfloat16 compute dtype or rows.
+At ``compute_dtype=torch.bfloat16`` K6 computes the Pallas bodies' function
+at that dtype: ``out[r] = sum bf(w_e (bf(x[snd_e]) + ee_e))`` (``ee``
+unrounded), ``dmsg_e = w_e bf(g[rcv_e])`` in ``g``'s dtype and ``dx =
+sum bf(dmsg_e)``, every sum in float32; its plain version is
+:class:`_SpmmEePlainBf16`. ``x`` and ``edge_emb`` may be float32 or
+bfloat16: ``out`` comes out in ``x``'s dtype, ``dx`` and ``dmsg`` in the
+cotangent's; where the two differ, the kernels read both widened (exact)
+and ``out`` is rounded to ``x``'s dtype after.
 """
 
 from __future__ import annotations
@@ -320,11 +326,11 @@ def blocked_spmm_fused(x, ein, W, senders, receivers, w, block_nodes: int,
 @functools.cache
 def _ee_lib() -> ctypes.CDLL:
     lib = _build.load("spmm_ee")
-    lib.pgt_spmm_ee_fwd.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+    lib.pgt_spmm_ee_fwd.argtypes = [_P] * 6 + [_I] * 7 + [_P]
     lib.pgt_spmm_ee_fwd.restype = _I
-    lib.pgt_spmm_ee_bwd.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+    lib.pgt_spmm_ee_bwd.argtypes = [_P] * 6 + [_I] * 8 + [_P]
     lib.pgt_spmm_ee_bwd.restype = _I
-    lib.pgt_spmm_sorted_fwd.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+    lib.pgt_spmm_sorted_fwd.argtypes = [_P] * 6 + [_I] * 7 + [_P]
     lib.pgt_spmm_sorted_fwd.restype = _I
     lib.pgt_spmm_ee_smem.argtypes = [_I]
     lib.pgt_spmm_ee_smem.restype = _I
@@ -364,30 +370,36 @@ def check_ee_layout(dev, block_nodes: int, block_edges: int, N: int, E: int,
 
 
 def ee_fwd_tensors(x, ee, senders, receivers, w):
-    """The ``(tensor, name, shape, dtype)`` list of a K6 or K7 forward."""
+    """The ``(tensor, name, shape, dtype)`` list of a K6 or K7 forward: x
+    and ee in one dtype, float32 or bfloat16."""
     if x.dim() != 2:
         raise ValueError(f"x must be [N, F], got {tuple(x.shape)}")
     (N, F), E = x.shape, senders.shape[0]
-    tensors = [(x, "x", (N, F), _F32), (senders, "senders", (E,), _I32),
+    rows = _build.row_dtype(x, "x")
+    tensors = [(x, "x", (N, F), rows), (senders, "senders", (E,), _I32),
                (receivers, "receivers", (E,), _I32), (w, "w", (E,), _F32)]
     if ee is not None:
-        tensors.append((ee, "edge_emb", (E, F), _F32))
+        tensors.append((ee, "edge_emb", (E, F), rows))
     return tensors
 
 
 def spmm_ee_fwd(x, ee, senders, receivers, w, block_nodes: int,
-                block_edges: int) -> torch.Tensor:
-    """Launch K6's forward; returns ``out [N, F]``. ``ee`` may be None."""
+                block_edges: int, compute_dtype: torch.dtype = _F32
+                ) -> torch.Tensor:
+    """Launch K6's forward at ``compute_dtype``; returns ``out [N, F]`` in
+    the rows' dtype (``x`` and ``ee``, which may be None, share it)."""
     tensors = ee_fwd_tensors(x, ee, senders, receivers, w)
     (N, F), E = x.shape, senders.shape[0]
+    bf = _build.check_compute_dtype(compute_dtype)
     lib = check_ee_layout(x.device, block_nodes, block_edges, N, E,
                           lambda lib: lib.pgt_spmm_ee_smem(block_nodes),
                           tensors)
-    out = torch.empty((N, F), dtype=_F32, device=x.device)
+    out = torch.empty((N, F), dtype=x.dtype, device=x.device)
     err = lib.pgt_spmm_ee_fwd(
         x.data_ptr(), _ptr(ee), senders.data_ptr(), receivers.data_ptr(),
         w.data_ptr(), out.data_ptr(), N, F, block_nodes, block_edges,
-        int(ee is not None), _build.stream(x))
+        int(ee is not None), int(x.dtype == _BF16), int(bf),
+        _build.stream(x))
     if err:
         raise RuntimeError(
             f"blocked_spmm (edge_emb) forward launch failed (CUDA error "
@@ -397,30 +409,33 @@ def spmm_ee_fwd(x, ee, senders, receivers, w, block_nodes: int,
 
 
 def spmm_ee_bwd(g, senders, receivers, w, block_nodes: int, block_edges: int,
-                has_ee: bool, need_dx: bool = True, need_dmsg: bool = True
+                has_ee: bool, need_dx: bool = True, need_dmsg: bool = True,
+                compute_dtype: torch.dtype = _F32
                 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """Launch K6's backward from ``g [N, F]``; returns ``(dx [N, F],
-    dmsg [E, F])``, every row written, each None where not needed.
-    ``has_ee`` only names the counter."""
+    """Launch K6's backward at ``compute_dtype`` from ``g [N, F]``; returns
+    ``(dx [N, F], dmsg [E, F])`` in ``g``'s dtype, every row written, each
+    None where not needed. ``has_ee`` only names the counter."""
     if not (need_dx or need_dmsg):
         raise ValueError("need_dx and need_dmsg cannot both be false")
     if g.dim() != 2:
         raise ValueError(f"g must be [N, F], got {tuple(g.shape)}")
     (N, F), E = g.shape, senders.shape[0]
-    tensors = [(g, "g", (N, F), _F32), (senders, "senders", (E,), _I32),
+    rows = _build.row_dtype(g, "g")
+    bf = _build.check_compute_dtype(compute_dtype)
+    tensors = [(g, "g", (N, F), rows), (senders, "senders", (E,), _I32),
                (receivers, "receivers", (E,), _I32), (w, "w", (E,), _F32)]
     lib = check_ee_layout(
         g.device, block_nodes, block_edges, N, E,
         lambda lib: lib.pgt_spmm_ee_smem(block_nodes) if need_dx else 0,
         tensors)
-    dx = (torch.empty((N, F), dtype=_F32, device=g.device)
+    dx = (torch.empty((N, F), dtype=rows, device=g.device)
           if need_dx else None)
-    dmsg = (torch.empty((E, F), dtype=_F32, device=g.device)
+    dmsg = (torch.empty((E, F), dtype=rows, device=g.device)
             if need_dmsg else None)
     err = lib.pgt_spmm_ee_bwd(
         g.data_ptr(), senders.data_ptr(), receivers.data_ptr(), w.data_ptr(),
         _ptr(dx), _ptr(dmsg), N, F, block_nodes, block_edges, int(need_dx),
-        int(need_dmsg), _build.stream(g))
+        int(need_dmsg), int(rows == _BF16), int(bf), _build.stream(g))
     if err:
         raise RuntimeError(
             f"blocked_spmm (edge_emb) backward launch failed (CUDA error "
@@ -429,54 +444,100 @@ def spmm_ee_bwd(g, senders, receivers, w, block_nodes: int, block_edges: int,
     return dx, dmsg
 
 
+def common_rows(x, ee):
+    """``x`` and ``ee`` (or None) in one dtype for K6's and K7's kernels:
+    as given where they share it, else both widened to float32 (exact)."""
+    if ee is None or ee.dtype == x.dtype:
+        return x, ee
+    return seg.at_least_f32(x), seg.at_least_f32(ee)
+
+
 class _BlockedSpmm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ee, senders, receivers, w, block_nodes, block_edges):
-        out = spmm_ee_fwd(x, ee, senders, receivers, w, block_nodes,
-                          block_edges)
+    def forward(ctx, x, ee, senders, receivers, w, block_nodes, block_edges,
+                compute_dtype):
+        xk, eek = common_rows(x, ee)
+        out = spmm_ee_fwd(xk, eek, senders, receivers, w, block_nodes,
+                          block_edges, compute_dtype).to(x.dtype)
         ctx.save_for_backward(senders, receivers, w)
-        ctx.cfg = (block_nodes, block_edges, ee is not None)
+        ctx.cfg = (block_nodes, block_edges, ee is not None, compute_dtype)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         senders, receivers, w = ctx.saved_tensors
-        bn, be, has_ee = ctx.cfg
+        bn, be, has_ee, cdt = ctx.cfg
         need = ctx.needs_input_grad
         need_dx, need_dee = need[0], has_ee and need[1]
         dx = dee = None
         if need_dx or need_dee:
             dx, dee = spmm_ee_bwd(g.contiguous(), senders, receivers, w, bn,
-                                  be, has_ee, need_dx, need_dee)
+                                  be, has_ee, need_dx, need_dee, cdt)
         dw = torch.zeros_like(w) if need[4] else None  # as the JAX VJP
-        return dx, dee, None, None, dw, None, None
+        return dx, dee, None, None, dw, None, None, None
+
+
+class _SpmmEePlainBf16(torch.autograd.Function):
+    """K6's plain version at compute dtype bfloat16: the Pallas bodies
+    (``_fwd_kernel``, ``_bwd_kernel`` of ``pallas_spmm.py``) in torch,
+    rounding where they round; ``w`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, ee, senders, receivers, w):
+        r = _build.round_bf16
+        msg = r(x.float())[senders.long()]
+        if ee is not None:
+            msg = msg + ee.float()
+        msg = r(msg * w.float()[:, None])
+        out = seg.scatter_add_rows(x.new_zeros(x.shape, dtype=_F32),
+                                   receivers.long(), msg)
+        ctx.save_for_backward(senders, receivers, w)
+        ctx.x_like = (x.shape, ee is not None)
+        return out.to(x.dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        r = _build.round_bf16
+        senders, receivers, w = ctx.saved_tensors
+        dmsg = r(g.float())[receivers.long()] * w.float()[:, None]
+        x_shape, has_ee = ctx.x_like
+        dx = seg.scatter_add_rows(g.new_zeros(x_shape, dtype=_F32),
+                                  senders.long(), r(dmsg)).to(g.dtype)
+        return (dx, dmsg.to(g.dtype) if has_ee else None, None, None, None)
 
 
 def blocked_spmm_plain(x, edge_emb, senders, receivers, edge_weight,
-                       block_nodes: int = 0, block_edges: int = 0
-                       ) -> torch.Tensor:
-    """The plain PyTorch version of K6 (any layout; autograd gives the
-    backward): a gather, the sum with the edge embedding, a weighted
-    segment sum. ``edge_weight`` counts as data: it gets no gradient."""
-    msg = x.index_select(0, senders.long())
+                       block_nodes: int = 0, block_edges: int = 0,
+                       compute_dtype: torch.dtype = _F32) -> torch.Tensor:
+    """The plain PyTorch version of K6 (any layout). At float32 autograd
+    gives the backward: a gather, the sum with the edge embedding, a
+    weighted segment sum (in float32, returned in ``x``'s dtype); at
+    bfloat16 it is :class:`_SpmmEePlainBf16`.
+    ``edge_weight`` counts as data: it gets no gradient."""
+    if _build.check_compute_dtype(compute_dtype):
+        return _SpmmEePlainBf16.apply(x, edge_emb, senders, receivers,
+                                      edge_weight.detach())
+    # bfloat16 rows are widened, summed in float32 and the sum rounded to
+    # x's dtype, as the Pallas body at float32 (float32 rows: unchanged)
+    msg = seg.at_least_f32(x).index_select(0, senders.long())
     if edge_emb is not None:
-        msg = msg + edge_emb
+        msg = msg + seg.at_least_f32(edge_emb)
     return seg.segment_sum(msg, receivers, x.shape[0],
-                           mask=edge_weight.detach())
+                           mask=edge_weight.detach()).to(x.dtype)
 
 
 def blocked_spmm(x, edge_emb, senders, receivers, edge_weight,
                  block_nodes: int, block_edges: int,
                  compute_dtype: torch.dtype = _F32) -> torch.Tensor:
     """K6 on CUDA tensors (kernel forward and backward), the plain version
-    on CPU tensors. ``edge_emb`` is ``[E, F]`` or None; ``edge_weight`` is
-    the f32 edge weight with the mask folded in (0 on padded slots). On
-    CUDA a bfloat16 ``compute_dtype`` or rows raise ``ValueError`` (no
-    bfloat16 variant yet)."""
+    on CPU tensors, at ``compute_dtype`` (float32 or bfloat16).
+    ``edge_emb`` is ``[E, F]`` or None; ``edge_weight`` is the f32 edge
+    weight with the mask folded in (0 on padded slots)."""
     if x.is_cuda:
-        _build.require_float32("K6 blocked_spmm", compute_dtype, x, edge_emb)
         return _BlockedSpmm.apply(x, edge_emb, senders, receivers,
-                                  edge_weight, block_nodes, block_edges)
+                                  edge_weight, block_nodes, block_edges,
+                                  compute_dtype)
     return blocked_spmm_plain(x, edge_emb, senders, receivers, edge_weight,
-                              block_nodes, block_edges)
+                              block_nodes, block_edges, compute_dtype)

@@ -28,6 +28,21 @@ the blocked GAT attention (K5).
 
 Padded node rows get ``mean_h (bl_h + e_self_h) + bias``, not zero,
 exactly as the JAX kernel; the trunk masks them afterwards.
+
+``compute_dtype`` is the Pallas kernel's. At ``torch.bfloat16`` K4
+computes the Pallas bodies' function at that dtype: ``x = bf(h) @ bf(Wl) +
+bl`` and ``e = bf(ein) @ bf(We)`` with float32 sums; the logits and the
+self term from the float32 ``x``; each message ``p (bf(x)[snd] + e)``
+rounded before the receiver sum; the saved residual is ``bf(x)``, bfloat16,
+and the backward recomputes the softmax from it (nothing else is saved);
+there ``g / H`` is rounded where it is gathered, each ``alpha g_r`` before
+the sender sum and ``de`` per edge before ``dWe = bf(ein)^T bf(de)``;
+``dWl = bf(h)^T bf(dx)`` and ``dh = bf(dx) @ bf(Wl)^T``; ``dbl``,
+``de_self``, ``da_i`` and ``da_j`` are float32 sums of unrounded values.
+Its products run on the tensor cores (``csrc/gemm.cuh``'s ``gemm_bf16``).
+The plain version at bfloat16 is :class:`_GatConvPlainBf16`, the bodies
+written out in torch. ``h`` is read as float32 (the trunks pass it so, as
+the JAX trunks do).
 """
 
 from __future__ import annotations
@@ -37,6 +52,7 @@ from typing import Dict
 import torch
 
 from pretrain_gnns_tpu_torch.ops import _build, attention
+from pretrain_gnns_tpu_torch.ops import segment as seg
 
 launches: Dict[str, int] = {"gat_conv_fwd": 0, "gat_conv_bwd": 0}
 
@@ -86,26 +102,31 @@ def _check(h, dims, block_nodes: int, block_edges: int, tensors) -> None:
 
 def gat_conv_fwd(h, Wl, bl, ein, We, e_self, a_i, a_j, bias, senders,
                  receivers, w, block_nodes: int, block_edges: int,
-                 slope: float = 0.2):
-    """Launch K4's forward; returns ``(out [N, D], x [N, H*D], saved)`` with
-    ``saved = (alpha [E, H], aself [N, H], dlr [E, H], dls [N, H])``."""
+                 slope: float = 0.2, compute_dtype: torch.dtype = _F32):
+    """Launch K4's forward at ``compute_dtype``; returns ``(out [N, D], x
+    [N, H*D], saved)``: float32 ``x`` and ``saved = (alpha [E, H], aself
+    [N, H], dlr [E, H], dls [N, H])``, or at bfloat16 the bfloat16 ``x``
+    and ``saved = ()`` (the backward recomputes the softmax from ``x``)."""
     dims, tensors = _conv_tensors(h, Wl, ein, We, e_self, a_i, a_j, senders,
                                   receivers, w)
     N, E, Din, H, D, K = dims
     _check(h, dims, block_nodes, block_edges, tensors + [
         (bl, "bl", (H * D,), _F32, True), (bias, "bias", (D,), _F32, True)])
+    bf = _build.check_compute_dtype(compute_dtype)
     so = attention.lib()
     new = lambda *shape: torch.empty(shape, dtype=_F32, device=h.device)
-    out, x = new(N, D), new(N, H * D)
-    saved = (new(E, H), new(N, H), new(E, H), new(N, H))
-    work = new(so.pgt_gat_conv_fwd_workspace(N, H))
+    out = new(N, D)
+    x = torch.empty((N, H * D), dtype=compute_dtype, device=h.device)
+    saved = () if bf else (new(E, H), new(N, H), new(E, H), new(N, H))
+    ptrs = [t.data_ptr() for t in saved] if saved else [None] * 4
+    work = new(so.pgt_gat_conv_fwd_workspace(N, Din, H, D, int(bf)))
     err = so.pgt_gat_conv_fwd(
         h.data_ptr(), Wl.data_ptr(), Wl.stride(0), Wl.stride(1),
         bl.data_ptr(), ein.data_ptr(), We.data_ptr(), e_self.data_ptr(),
         a_i.data_ptr(), a_j.data_ptr(), bias.data_ptr(), senders.data_ptr(),
         receivers.data_ptr(), w.data_ptr(), out.data_ptr(), x.data_ptr(),
-        *(t.data_ptr() for t in saved), work.data_ptr(), N, E, Din, H, D, K,
-        block_nodes, block_edges, slope, _build.stream(h))
+        *ptrs, work.data_ptr(), N, E, Din, H, D, K, block_nodes, block_edges,
+        slope, int(bf), _build.stream(h))
     if err:
         raise RuntimeError(
             f"gat_conv forward launch failed (CUDA error {err})")
@@ -115,31 +136,35 @@ def gat_conv_fwd(h, Wl, bl, ein, We, e_self, a_i, a_j, bias, senders,
 
 def gat_conv_bwd(g, h, Wl, x, ein, We, e_self, a_i, a_j, senders, receivers,
                  w, saved, block_nodes: int, block_edges: int,
-                 slope: float = 0.2):
-    """Launch K4's backward from the cotangent ``g [N, D]``, the saved
-    ``x`` and the forward's ``saved``; returns ``(dh, dWl, dbl, dWe,
-    de_self, da_i, da_j, dbias)``."""
+                 slope: float = 0.2, compute_dtype: torch.dtype = _F32):
+    """Launch K4's backward at ``compute_dtype`` from the cotangent ``g [N,
+    D]``, the saved ``x`` and the forward's ``saved``; returns ``(dh, dWl,
+    dbl, dWe, de_self, da_i, da_j, dbias)``."""
     dims, tensors = _conv_tensors(h, Wl, ein, We, e_self, a_i, a_j, senders,
                                   receivers, w)
     N, E, Din, H, D, K = dims
+    bf = _build.check_compute_dtype(compute_dtype)
     _check(h, dims, block_nodes, block_edges,
-           tensors + attention.softmax_tensors(N, E, H, saved) + [
+           tensors + (attention.softmax_tensors(N, E, H, saved) if not bf
+                      else []) + [
                (g, "g", (N, D), _F32, True),
-               (x, "x", (N, H * D), _F32, True)])
+               (x, "x", (N, H * D), compute_dtype, True)])
     so = attention.lib()
     new = lambda *shape: torch.empty(shape, dtype=_F32, device=h.device)
     dh, dWl, dbl, dWe = new(N, Din), new(Din, H * D), new(H * D), new(K, H * D)
     dpar, dbias = new(3, H, D), new(D)
-    work = new(so.pgt_gat_conv_bwd_workspace(N, E, Din, H, D, K, block_nodes))
+    work = new(so.pgt_gat_conv_bwd_workspace(N, E, Din, H, D, K, block_nodes,
+                                             int(bf)))
+    ptrs = [t.data_ptr() for t in saved] if not bf else [None] * 4
     err = so.pgt_gat_conv_bwd(
         g.data_ptr(), h.data_ptr(), Wl.data_ptr(), Wl.stride(0),
         Wl.stride(1), x.data_ptr(), ein.data_ptr(), We.data_ptr(),
         e_self.data_ptr(), a_i.data_ptr(), a_j.data_ptr(),
         senders.data_ptr(), receivers.data_ptr(), w.data_ptr(),
-        *(t.data_ptr() for t in saved), dh.data_ptr(), dWl.data_ptr(),
+        *ptrs, dh.data_ptr(), dWl.data_ptr(),
         dbl.data_ptr(), dWe.data_ptr(), dpar.data_ptr(), dbias.data_ptr(),
         work.data_ptr(), N, E, Din, H, D, K, block_nodes, block_edges, slope,
-        _build.stream(h))
+        int(bf), _build.stream(h))
     if err:
         raise RuntimeError(
             f"gat_conv backward launch failed (CUDA error {err})")
@@ -150,35 +175,133 @@ def gat_conv_bwd(g, h, Wl, x, ein, We, e_self, a_i, a_j, senders, receivers,
 class _FusedGatConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, Wl, bl, ein, We, e_self, a_i, a_j, bias, senders,
-                receivers, w, block_nodes, block_edges, slope):
+                receivers, w, block_nodes, block_edges, slope, compute_dtype):
+        ctx.h_dtype = h.dtype
+        h = seg.at_least_f32(h)
         out, x, saved = gat_conv_fwd(h, Wl, bl, ein, We, e_self, a_i, a_j,
                                      bias, senders, receivers, w, block_nodes,
-                                     block_edges, slope)
+                                     block_edges, slope, compute_dtype)
         ctx.save_for_backward(h, Wl, x, ein, We, e_self, a_i, a_j, senders,
                               receivers, w, *saved)
-        ctx.cfg = (block_nodes, block_edges, slope)
+        ctx.cfg = (block_nodes, block_edges, slope, compute_dtype)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        *args, alpha, aself, dlr, dls = ctx.saved_tensors
+        args, saved = ctx.saved_tensors[:11], ctx.saved_tensors[11:]
         dh, dWl, dbl, dWe, des, dai, daj, dbias = gat_conv_bwd(
-            g.contiguous(), *args, (alpha, aself, dlr, dls), *ctx.cfg)
+            g.contiguous(), *args, saved, *ctx.cfg)
 
         def zero(i, t):
             return torch.zeros_like(t) if ctx.needs_input_grad[i] else None
 
-        return (dh, dWl, dbl, zero(3, args[3]), dWe, des, dai, daj, dbias,
-                None, None, zero(11, args[10]), None, None, None)
+        return (dh.to(ctx.h_dtype), dWl, dbl, zero(3, args[3]), dWe, des,
+                dai, daj, dbias, None, None, zero(11, args[10]), None, None,
+                None, None)
+
+
+def _k4_pieces(x, e, e_self, a_i, a_j, senders, receivers, w, slope):
+    """``_softmax_pieces`` of ``pallas_gat_conv.py`` on ``[N, H, D]`` x and
+    ``[E, H, D]`` e: ``(x_self, raw, sraw, p, p_self, den)``."""
+    x_self = x + e_self
+    ps = (x * a_i).sum(-1)
+    sraw = ps + (x_self * a_j).sum(-1)
+    raw, p, p_self, den = attention.softmax_pieces_bf16(
+        ps, (x * a_j).sum(-1), (e * a_j).sum(-1), sraw, senders, receivers, w,
+        slope)
+    return x_self, raw, sraw, p, p_self, den
+
+
+class _GatConvPlainBf16(torch.autograd.Function):
+    """K4's plain version at compute dtype bfloat16: the Pallas bodies
+    (``_fwd_kernel``, ``_bwd_kernel`` of ``pallas_gat_conv.py``) in torch,
+    rounding where they round. Returns ``(out, x)``, ``x`` the bfloat16
+    residual; ``ein`` and ``w`` get zero gradients, as the JAX VJP's."""
+
+    @staticmethod
+    def forward(ctx, h, Wl, bl, ein, We, e_self, a_i, a_j, bias, senders,
+                receivers, w, heads, slope):
+        r = _build.round_bf16
+        (N, _), (H, D) = h.shape, e_self.shape
+        x = r(h.float()) @ r(Wl) + bl
+        e = (r(ein.float()) @ r(We)).reshape(-1, H, D)
+        x3 = x.reshape(N, H, D)
+        x_self, _, _, p, p_self, den = _k4_pieces(
+            x3, e, e_self, a_i, a_j, senders, receivers, w, slope)
+        msg = r(x3)[senders.long()] + e
+        numer = seg.scatter_add_rows(torch.zeros_like(x3), receivers.long(),
+                                     r(p[..., None] * msg))
+        o = (numer + p_self[..., None] * x_self) / den[..., None]
+        x_res = x.to(torch.bfloat16)
+        ctx.save_for_backward(h, Wl, ein, We, e_self, a_i, a_j, x_res,
+                              senders, receivers, w)
+        ctx.cfg = (heads, slope)
+        ctx.mark_non_differentiable(x_res)
+        return o.sum(1) / H + bias, x_res
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g, _):
+        (h, Wl, ein, We, e_self, a_i, a_j, x_res, senders, receivers,
+         w) = ctx.saved_tensors
+        H, slope = ctx.cfg
+        r = _build.round_bf16
+        snd, rcv = senders.long(), receivers.long()
+        N, D = g.shape
+        g = g.float()
+        gH = (g / H)[:, None, :]
+        x = x_res.float().reshape(N, H, D)
+        eb = r(ein.float())
+        e = (eb @ r(We)).reshape(-1, H, D)
+        x_self, raw, sraw, p, p_self, den = _k4_pieces(
+            x, e, e_self, a_i, a_j, senders, receivers, w, slope)
+        alpha = p / torch.clamp(den[rcv], min=1e-30)
+        aself = p_self / den
+        g_r = r(gH)[rcv]
+        d_alpha = (g_r * (x[snd] + e)).sum(-1)
+        d_aself = (gH * x_self).sum(-1)
+        zeros = torch.zeros_like(aself)
+        c = seg.scatter_add_rows(zeros, rcv, alpha * d_alpha) \
+            + aself * d_aself
+        dz = alpha * (d_alpha - c[rcv]) * attention.leaky_slope(raw, slope)
+        dzs = aself * (d_aself - c) * attention.leaky_slope(sraw, slope)
+        dmsg = alpha[..., None] * g_r
+        dz_r = seg.scatter_add_rows(zeros, rcv, dz)
+        dz_s = seg.scatter_add_rows(zeros, snd, dz)
+        dx = (seg.scatter_add_rows(torch.zeros_like(x), snd, r(dmsg))
+              + aself[..., None] * gH + (dz_r + dzs)[..., None] * a_i
+              + (dz_s + dzs)[..., None] * a_j)
+        de = dmsg + dz[..., None] * a_j
+        dx2, dxb = dx.reshape(N, H * D), r(dx.reshape(N, H * D))
+        dWl = r(h.float()).t() @ dxb
+        dWe = eb.t() @ r(de.reshape(-1, H * D))
+        dh = dxb @ r(Wl).t()
+        des = (aself[..., None] * gH + dzs[..., None] * a_j).sum(0)
+        dai = (x * (dz_r + dzs)[..., None]).sum(0)
+        daj = ((x * (dz_s + dzs)[..., None] + dzs[..., None] * e_self).sum(0)
+               + (e * dz[..., None]).sum(0))
+        need = ctx.needs_input_grad
+        return (dh.to(h.dtype), dWl, dx2.sum(0),
+                torch.zeros_like(ein) if need[3] else None, dWe, des, dai,
+                daj, g.sum(0), None, None,
+                torch.zeros_like(w) if need[11] else None, None, None)
 
 
 def fused_gat_conv_plain(h, Wl, bl, ein, We, e_self, a_i, a_j, bias, senders,
                          receivers, w, heads: int, block_nodes: int = 0,
                          block_edges: int = 0, slope: float = 0.2,
-                         return_residuals: bool = False):
-    """The plain PyTorch version of K4 (any layout; autograd gives the
-    backward). With ``return_residuals`` returns ``(out, x)``."""
+                         return_residuals: bool = False,
+                         compute_dtype: torch.dtype = _F32):
+    """The plain PyTorch version of K4 (any layout). At float32 autograd
+    gives the backward; at bfloat16 it is :class:`_GatConvPlainBf16`. With
+    ``return_residuals`` returns ``(out, x)``, ``x`` the saved projection
+    (bfloat16 at bfloat16)."""
+    if _build.check_compute_dtype(compute_dtype):
+        out, x = _GatConvPlainBf16.apply(
+            h, Wl, bl, ein, We, e_self, a_i, a_j, bias, senders, receivers,
+            w.detach(), heads, float(slope))
+        return (out, x) if return_residuals else out
     D = e_self.shape[1]
     x = h @ Wl + bl
     e = (ein @ We).reshape(-1, heads, D)
@@ -198,16 +321,16 @@ def fused_gat_conv(h, Wl, bl, ein, We, e_self, a_i, a_j, bias, senders,
     on CPU tensors. ``e_self``, ``a_i`` and ``a_j`` are ``[H, D]`` (slices
     of one ``att`` parameter pass: they are made contiguous here and
     autograd joins their gradients); ``w`` is the f32 edge weight with the
-    mask folded in. K4 has no bfloat16 variant yet: on CUDA a bfloat16
-    ``compute_dtype`` or ``h`` raises ``ValueError``."""
+    mask folded in; ``compute_dtype`` is float32 or bfloat16."""
     if e_self.shape[0] != heads:
         raise ValueError(f"e_self is {tuple(e_self.shape)}, heads={heads}")
     if h.is_cuda:
-        _build.require_float32("K4 fused_gat_conv", compute_dtype, h, ein)
         return _FusedGatConv.apply(
             h.contiguous(), Wl, bl, ein, We.contiguous(),
             e_self.contiguous(), a_i.contiguous(), a_j.contiguous(), bias,
-            senders, receivers, w, block_nodes, block_edges, float(slope))
+            senders, receivers, w, block_nodes, block_edges, float(slope),
+            compute_dtype)
     return fused_gat_conv_plain(h, Wl, bl, ein, We, e_self, a_i, a_j, bias,
                                 senders, receivers, w, heads, block_nodes,
-                                block_edges, slope)
+                                block_edges, slope,
+                                compute_dtype=compute_dtype)

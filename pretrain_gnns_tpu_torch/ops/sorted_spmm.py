@@ -21,6 +21,11 @@ a register and written once; see the note there) or raises; on a CPU tensor it r
 path does not check it: the check would synchronise the device. Like the
 JAX function it has no backward: differentiating through it raises.
 ``launches`` counts the kernel launches: ``sorted_blocked_spmm_fwd``.
+
+At ``compute_dtype=torch.bfloat16`` K7 computes the Pallas body's function
+at that dtype: the gathered ``x`` rows rounded to bfloat16, each message
+``w_e (bf(x[snd_e]) + ee_e)`` summed unrounded in float32 (the body's
+prefix sums). Rows as K6's: ``out`` in ``x``'s dtype.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 
 from pretrain_gnns_tpu_torch.ops import _build
 from pretrain_gnns_tpu_torch.ops import blocked_spmm as bs
+from pretrain_gnns_tpu_torch.ops import segment as seg
 
 launches: Dict[str, int] = {"sorted_blocked_spmm_fwd": 0}
 
@@ -60,20 +66,24 @@ def sort_block_edges(senders, receivers, edge_weight, edge_emb,
 
 
 def sorted_spmm_fwd(x, ee, senders, receivers, w, block_nodes: int,
-                    block_edges: int) -> torch.Tensor:
-    """Launch K7's forward; returns ``out [N, F]``. ``ee`` may be None."""
+                    block_edges: int,
+                    compute_dtype: torch.dtype = torch.float32
+                    ) -> torch.Tensor:
+    """Launch K7's forward at ``compute_dtype``; returns ``out [N, F]`` in
+    the rows' dtype (``x`` and ``ee``, which may be None, share it)."""
     tensors = bs.ee_fwd_tensors(x, ee, senders, receivers, w)
     (N, F), E = x.shape, senders.shape[0]
+    bf = _build.check_compute_dtype(compute_dtype)
     lib = bs.check_ee_layout(
         x.device, block_nodes, block_edges, N, E,
         lambda lib: lib.pgt_spmm_sorted_smem(block_nodes, block_edges),
         tensors)
-    out = torch.empty((N, F), dtype=torch.float32, device=x.device)
+    out = torch.empty((N, F), dtype=x.dtype, device=x.device)
     err = lib.pgt_spmm_sorted_fwd(
         x.data_ptr(), None if ee is None else ee.data_ptr(),
         senders.data_ptr(), receivers.data_ptr(), w.data_ptr(),
         out.data_ptr(), N, F, block_nodes, block_edges, int(ee is not None),
-        _build.stream(x))
+        int(x.dtype == torch.bfloat16), int(bf), _build.stream(x))
     if err:
         raise RuntimeError(
             f"sorted_blocked_spmm forward launch failed (CUDA error {err})")
@@ -86,9 +96,15 @@ class _SortedBlockedSpmm(torch.autograd.Function):
     either way differentiating through the result raises."""
 
     @staticmethod
-    def forward(ctx, x, ee, senders, receivers, w, block_nodes, block_edges):
-        fn = sorted_spmm_fwd if x.is_cuda else sorted_blocked_spmm_plain
-        return fn(x, ee, senders, receivers, w, block_nodes, block_edges)
+    def forward(ctx, x, ee, senders, receivers, w, block_nodes, block_edges,
+                compute_dtype):
+        if not x.is_cuda:
+            return sorted_blocked_spmm_plain(x, ee, senders, receivers, w,
+                                             block_nodes, block_edges,
+                                             compute_dtype)
+        xk, eek = bs.common_rows(x, ee)
+        return sorted_spmm_fwd(xk, eek, senders, receivers, w, block_nodes,
+                               block_edges, compute_dtype).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -98,13 +114,25 @@ class _SortedBlockedSpmm(torch.autograd.Function):
 
 
 def sorted_blocked_spmm_plain(x, edge_emb, senders, receivers, edge_weight,
-                              block_nodes: int = 0, block_edges: int = 0
+                              block_nodes: int = 0, block_edges: int = 0,
+                              compute_dtype: torch.dtype = torch.float32
                               ) -> torch.Tensor:
-    """The plain PyTorch version of K7: K6's plain version (the function
-    does not depend on the slots' order), cut from the autograd graph."""
+    """The plain PyTorch version of K7, cut from the autograd graph: at
+    float32 K6's plain version (the function does not depend on the slots'
+    order); at bfloat16 the Pallas body's, ``sum w_e (bf(x[snd_e]) +
+    ee_e)`` in float32, returned in ``x``'s dtype."""
     with torch.no_grad():
-        return bs.blocked_spmm_plain(x, edge_emb, senders, receivers,
-                                     edge_weight, block_nodes, block_edges)
+        if not _build.check_compute_dtype(compute_dtype):
+            return bs.blocked_spmm_plain(x, edge_emb, senders, receivers,
+                                         edge_weight, block_nodes,
+                                         block_edges)
+        msg = _build.round_bf16(x.float())[senders.long()]
+        if edge_emb is not None:
+            msg = msg + edge_emb.float()
+        out = seg.scatter_add_rows(
+            x.new_zeros(x.shape, dtype=torch.float32), receivers.long(),
+            msg * edge_weight.float()[:, None])
+        return out.to(x.dtype)
 
 
 def _check_sorted(receivers, block_edges: int) -> None:
@@ -122,14 +150,11 @@ def sorted_blocked_spmm(x, edge_emb, senders, receivers, edge_weight,
                         compute_dtype: torch.dtype = torch.float32
                         ) -> torch.Tensor:
     """K7 on CUDA tensors, the plain version on CPU tensors (where the
-    sortedness of ``receivers`` is checked first). Forward only: calling
-    ``backward`` through the result raises ``NotImplementedError``. K7 has
-    no bfloat16 variant yet: on CUDA a bfloat16 ``compute_dtype`` or rows
-    raise ``ValueError``."""
-    if x.is_cuda:
-        _build.require_float32("K7 sorted_blocked_spmm", compute_dtype, x,
-                               edge_emb)
-    else:
+    sortedness of ``receivers`` is checked first), at ``compute_dtype``
+    (float32 or bfloat16). Forward only: calling ``backward`` through the
+    result raises ``NotImplementedError``."""
+    if not x.is_cuda:
         _check_sorted(receivers, block_edges)
     return _SortedBlockedSpmm.apply(x, edge_emb, senders, receivers,
-                                    edge_weight, block_nodes, block_edges)
+                                    edge_weight, block_nodes, block_edges,
+                                    compute_dtype)

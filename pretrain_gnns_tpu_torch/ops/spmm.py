@@ -29,12 +29,11 @@ own dispatch.
 The kernels' compute dtype is a knob, as the JAX package's
 (``PGT_SPMM_DTYPE``, :func:`set_compute_dtype`): ``"float32"`` or
 ``"bfloat16"``, where a kernel rounds its operands to bfloat16 at the
-points the Pallas kernel does and sums in float32. It reaches K1, K2 and K3
-on CUDA tensors only (:func:`kernel_dtype`); the plain path on the CPU
-ignores it and follows torch's dtype promotion, as the JAX package's XLA
-fallback does. K4-K7 have no bfloat16 variant yet and raise under it on
-CUDA. The port's default is ``"float32"``, where the JAX package's is
-``"bfloat16"``: it moves to ``"bfloat16"`` once K4-K7 have theirs."""
+points the Pallas kernel does and sums in float32. It reaches every kernel
+(K1-K7) on CUDA tensors only (:func:`kernel_dtype`); the plain path on the
+CPU ignores it and follows torch's dtype promotion, as the JAX package's
+XLA fallback does. The default is ``"bfloat16"``, the JAX package's;
+``PGT_SPMM_DTYPE=float32`` gives the float32 kernels."""
 
 from __future__ import annotations
 
@@ -57,7 +56,7 @@ def _checked(name: str) -> str:
     return name
 
 
-_DTYPE = _checked(os.environ.get("PGT_SPMM_DTYPE", "float32"))
+_DTYPE = _checked(os.environ.get("PGT_SPMM_DTYPE", "bfloat16"))
 
 
 def set_compute_dtype(name: str) -> None:

@@ -91,6 +91,13 @@ def main() -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         print("no CUDA device; pass --device cpu", file=sys.stderr)
         return 1
+    # both precision knobs from --dtype, as the bench sets them (float32
+    # by default, whatever PGT_SPMM_DTYPE says)
+    from pretrain_gnns_tpu_torch.models import inits
+    from pretrain_gnns_tpu_torch.ops import spmm
+
+    inits.set_compute_dtype(bench.DTYPES[args.dtype][0])
+    spmm.set_compute_dtype(bench.DTYPES[args.dtype][1])
     metric, cfg, make_graphs = bench.cells(args)[args.cell == "bio"]
     graphs = make_graphs()
     if args.gc == "off":

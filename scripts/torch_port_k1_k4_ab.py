@@ -14,8 +14,10 @@ Run from the repository root, with the other checkout's ``csrc`` directory
     python3 scripts/torch_port_k1_k4_ab.py --ref_csrc _archive/parent/pretrain_gnns_tpu_torch/csrc [--kernels k1,k4,k5,k2,k3,k6,k7]
 
 The libraries of both trees have the same C interfaces, but for K1's
-forward scratch and workspace flags (added with its tensor-core GEMM),
-which ``compat`` leaves out when calling an older library. It builds
+forward scratch and workspace flags (added with its tensor-core GEMM) and
+the compute-dtype flags of K4-K7 (added with their bfloat16 variants),
+which ``compat`` leaves out when calling an older library; a bfloat16 row
+that the older library cannot run reads "n/a" on its side. It builds
 the other sources with this tree's ``nvcc`` flags, then times each kernel
 (device ms a call, ``chip_smoke.time_ms``) in the order reference, this
 tree, this tree, reference, and prints each time beside the card's name
@@ -36,7 +38,10 @@ paths' first batches (fractional, partly negative edge weights), forward
 and backward (``dx`` and ``dmsg`` together, ``dx`` alone, ``dmsg`` alone),
 with K2 ``[x]`` on the same inputs beside it; K7 with and without an edge
 embedding on the same batches (the slots sorted by ``sort_block_edges``),
-with K6's forward ``[x+ee]`` on the unsorted slots timed beside it.
+with K6's forward ``[x+ee]`` on the unsorted slots timed beside it. K4-K7
+also at compute_dtype bfloat16 (rows ``[bf16]``: K4 on float32 h, K5 on
+float32 x and e, K6 and K7 on bfloat16 rows), on the same batches. Every
+float32 row pins compute_dtype float32, whatever ``PGT_SPMM_DTYPE`` says.
 Random inputs from a seed.
 """
 
@@ -69,6 +74,7 @@ from pretrain_gnns_tpu_torch.ops import gin_conv  # noqa: E402
 from pretrain_gnns_tpu_torch.ops import sorted_spmm as ss  # noqa: E402
 from pretrain_gnns_tpu_torch.train import pretrain  # noqa: E402
 
+BF = torch.bfloat16
 
 # Entry points that take (bf16_rows, bf16_compute) before the stream since
 # the bfloat16 variants; a library that has no ``pgt_bf16_flags`` predates
@@ -132,6 +138,15 @@ def _lacks_bf16_gemm():
     raise ValueError("this library has no tensor-core GEMM")
 
 
+def _zero_at(*idx):
+    """A check that the arguments at ``idx`` (flags the older library
+    lacks) are 0."""
+    def check(args):
+        if any(args[i] for i in idx):
+            raise ValueError("this library has float32 kernels only")
+    return check
+
+
 class _Older:
     """An older library with this tree's entry points' arguments."""
 
@@ -165,6 +180,24 @@ def compat(lib):
                                              {5, 6}),
             pgt_gin_conv_fwd_workspace=_Shim(None, missing=lambda: 0),
             pgt_gemm_bf16=_Shim(None, missing=_lacks_bf16_gemm))
+    # K4 and K5 before their bfloat16 variants: no compute-dtype flag
+    if hasattr(lib, "pgt_gat_conv_fwd") and not hasattr(
+            lib, "pgt_gat_bf16_flags"):
+        for name in ("pgt_gat_attn_fwd", "pgt_gat_attn_bwd",
+                     "pgt_gat_conv_fwd", "pgt_gat_conv_bwd"):
+            shims[name] = _Shim(getattr(lib, name), {-2}, _zero_at(-2))
+        shims.update(
+            pgt_gat_conv_fwd_workspace=_Shim(lib.pgt_gat_conv_fwd_workspace,
+                                             {1, 3, 4}, _zero_at(4)),
+            pgt_gat_conv_bwd_workspace=_Shim(lib.pgt_gat_conv_bwd_workspace,
+                                             {7}, _zero_at(7)))
+    # K6 and K7 before theirs: no rows or compute-dtype flag
+    if hasattr(lib, "pgt_spmm_ee_fwd") and not hasattr(
+            lib, "pgt_spmm_ee_bf16_flags"):
+        for name in ("pgt_spmm_ee_fwd", "pgt_spmm_ee_bwd",
+                     "pgt_spmm_sorted_fwd"):
+            shims[name] = _Shim(getattr(lib, name), {-3, -2},
+                                _zero_at(-3, -2))
     return _Older(lib, shims) if shims else lib
 
 
@@ -306,6 +339,14 @@ def k6_cases(dev):
         for tag, e_in in (("[x+ee]", ee), ("[x]", None)):
             out[f"blocked_spmm_ee_fwd{tag} {domain}"] = (
                 lambda x=x, e_in=e_in, e=e: bs.spmm_ee_fwd(x, e_in, *e))
+            # the bfloat16 variant on bfloat16 rows
+            xb, eb, gb = (x.to(BF), None if e_in is None else e_in.to(BF),
+                          g.to(BF))
+            out[f"blocked_spmm_ee_fwd{tag}[bf16] {domain}"] = (
+                lambda x=xb, e_in=eb, e=e: bs.spmm_ee_fwd(x, e_in, *e, BF))
+            out[f"blocked_spmm_ee_bwd{tag}[bf16] {domain}"] = (
+                lambda g=gb, e=e, has=e_in is not None: bs.spmm_ee_bwd(
+                    g, *e, has, True, has, BF))
         out[f"blocked_spmm_ee_bwd[x+ee] {domain}"] = (
             lambda g=g, e=e: bs.spmm_ee_bwd(g, *e, True))
         out[f"blocked_spmm_ee_bwd[x] {domain}"] = (
@@ -347,6 +388,9 @@ def k7_cases(dev):
             out[f"sorted_blocked_spmm_fwd{tag} {domain}"] = (
                 lambda x=x, e_in=e_in, e=(s2, r2, w2, bn, be):
                 ss.sorted_spmm_fwd(x, e_in, *e))
+            out[f"sorted_blocked_spmm_fwd{tag}[bf16] {domain}"] = (
+                lambda x=x.to(BF), e_in=None if e_in is None else e_in.to(BF),
+                e=(s2, r2, w2, bn, be): ss.sorted_spmm_fwd(x, e_in, *e, BF))
     return out
 
 
@@ -404,12 +448,37 @@ def gat_cases(dev, kernels):
             attention.gat_attn_bwd(g3, x5, e5, *par[1:], *graph,
                                    res["f5"][1], 0.2, bn, be)
 
+        def k4_fwd16(res=res, h=h, Wl=Wl, bl=bl, ein=ein, par=par,
+                     bias=bias, graph=graph, bn=bn, be=be):
+            res["fx16"] = gc.gat_conv_fwd(h, Wl, bl, ein, *par, bias, *graph,
+                                          bn, be, 0.2, BF)
+
+        def k4_bwd16(res=res, g=g, h=h, Wl=Wl, ein=ein, par=par, graph=graph,
+                     bn=bn, be=be):
+            _, xx, saved = res["fx16"]
+            gc.gat_conv_bwd(g, h, Wl, xx, ein, *par, *graph, saved, bn, be,
+                            0.2, BF)
+
+        def k5_fwd16(res=res, x5=x5, e5=e5, par=par, graph=graph, bn=bn,
+                     be=be):
+            res["f516"] = attention.gat_attn_fwd(x5, e5, *par[1:], *graph,
+                                                 0.2, bn, be, BF)
+
+        def k5_bwd16(res=res, g3=g3, x5=x5, e5=e5, par=par, graph=graph,
+                     bn=bn, be=be):
+            attention.gat_attn_bwd(g3, x5, e5, *par[1:], *graph,
+                                   res["f516"][1], 0.2, bn, be, BF)
+
         if "k4" in kernels:
             out[f"gat_conv_fwd {domain}"] = k4_fwd
             out[f"gat_conv_bwd {domain}"] = k4_bwd
+            out[f"gat_conv_fwd[bf16] {domain}"] = k4_fwd16
+            out[f"gat_conv_bwd[bf16] {domain}"] = k4_bwd16
         if "k5" in kernels:
             out[f"blocked_gat_attention_fwd {domain}"] = k5_fwd
             out[f"blocked_gat_attention_bwd {domain}"] = k5_bwd
+            out[f"blocked_gat_attention_fwd[bf16] {domain}"] = k5_fwd16
+            out[f"blocked_gat_attention_bwd[bf16] {domain}"] = k5_bwd16
     return out
 
 
@@ -493,16 +562,25 @@ def main() -> int:
             use(ref if tag == "ref" else {})
             with torch.no_grad():
                 for k, fn in fns.items():
-                    if k.startswith(("gin_conv_bwd", "gat_conv_bwd",
-                                     "blocked_gat_attention_bwd")):
-                        fns[k.replace("bwd", "fwd")]()  # its saved outputs
-                    times[k][tag].append(chip_smoke.time_ms(fn, torch))
+                    try:
+                        if k.startswith(("gin_conv_bwd", "gat_conv_bwd",
+                                         "blocked_gat_attention_bwd")):
+                            fns[k.replace("bwd", "fwd")]()  # its outputs
+                        times[k][tag].append(chip_smoke.time_ms(fn, torch))
+                    except ValueError:  # an older library's float32 only
+                        if tag == "tree":
+                            raise
         use({})
     print(f"card: {card}; device ms a call (chip_smoke.time_ms), reference "
           f"{args.ref_csrc} vs this tree, runs in the order ref, tree, tree, "
           "ref")
     for k, t in times.items():
-        r, n = statistics.mean(t["ref"]), statistics.mean(t["tree"])
+        n = statistics.mean(t["tree"])
+        if not t["ref"]:
+            print(f"  {k}: reference n/a, this tree {n:.4f} ms "
+                  f"{['%.4f' % v for v in t['tree']]}")
+            continue
+        r = statistics.mean(t["ref"])
         print(f"  {k}: reference {r:.4f} ms {['%.4f' % v for v in t['ref']]}"
               f", this tree {n:.4f} ms {['%.4f' % v for v in t['tree']]}: "
               f"{r / n:.2f}x")

@@ -7,10 +7,12 @@ Run from the repository root:
 
     python3 scripts/torch_port_kernel_micro.py [--block_nodes 128]
         [--block_edges 384] [--trials 20] [--reps 10]
+        [--dtype float32|bfloat16]
 
 Workload: the first batch of ``molecule_dataset(256, num_tasks=1, seed=0,
-mean_atoms=23)`` in blocks of 128 nodes / 384 edge slots, F = 300, float32,
-random features from a numpy seed. After the card's name and power limit
+mean_atoms=23)`` in blocks of 128 nodes / 384 edge slots, F = 300, float32
+rows, random features from a numpy seed; every kernel at the compute dtype
+``--dtype`` (float32 by default, whatever ``PGT_SPMM_DTYPE`` says). After the card's name and power limit
 it prints one line a row, with microseconds a call and millions of valid
 edges a second:
   - the fused edge-transform SpMM (K2, ``[x+ein]``, K = 9): forward, and
@@ -93,7 +95,10 @@ def main(argv=None):
     p.add_argument("--block_edges", type=int, default=384)
     p.add_argument("--trials", type=int, default=20)
     p.add_argument("--reps", type=int, default=10)
+    p.add_argument("--dtype", choices=("float32", "bfloat16"),
+                   default="float32")
     args = p.parse_args(argv)
+    cdt = getattr(torch, args.dtype)
     dev = resolve_device("cuda")
     bn, be = args.block_nodes, args.block_edges
 
@@ -106,7 +111,8 @@ def main(argv=None):
     valid = int(b.edge_mask.sum())
     print(card_line())
     print(f"N={N} E={E} blocks={n_blocks} x ({bn}, {be}) "
-          f"valid_edges={valid} F={F} float32")
+          f"valid_edges={valid} F={F} float32 rows, compute_dtype="
+          f"{args.dtype}")
 
     rng = np.random.default_rng(0)
     f32 = lambda *shape, scale=1.0: torch.from_numpy(
@@ -119,8 +125,9 @@ def main(argv=None):
     g = f32(N, F)
 
     def fused_fwd_bwd():  # the kernels' entry points, no autograd
-        blocked_spmm.spmm_fwd(x, ein, W, *edges)
-        blocked_spmm.spmm_bwd(g, ein, snd, rcv, w, K, bn, be)
+        blocked_spmm.spmm_fwd(x, ein, W, *edges, compute_dtype=cdt)
+        blocked_spmm.spmm_bwd(g, ein, snd, rcv, w, K, bn, be,
+                              compute_dtype=cdt)
 
     ee = f32(E, F)
     s2, r2, w2, ee2 = sorted_spmm.sort_block_edges(snd, rcv, w, ee, n_blocks,
@@ -129,7 +136,8 @@ def main(argv=None):
     def sorted_with_sort():
         ss, rr, ww, eee = sorted_spmm.sort_block_edges(snd, rcv, w, ee,
                                                        n_blocks, be)
-        return sorted_spmm.sorted_blocked_spmm(x, eee, ss, rr, ww, bn, be)
+        return sorted_spmm.sorted_blocked_spmm(x, eee, ss, rr, ww, bn, be,
+                                               cdt)
 
     xh, gh = f32(N, HEADS, F), f32(N, HEADS, F)
     eh = f32(E, HEADS, F, scale=0.3)
@@ -138,15 +146,21 @@ def main(argv=None):
 
     def gat_fwd_bwd():
         _, saved = attention.gat_attn_fwd(xh, eh, esh, aih, ajh, snd, rcv, w,
-                                          SLOPE, bn, be)
+                                          SLOPE, bn, be, cdt)
         attention.gat_attn_bwd(gh, xh, eh, esh, aih, ajh, snd, rcv, w, saved,
-                               SLOPE, bn, be)
+                               SLOPE, bn, be, cdt)
 
     with torch.no_grad():
         # the sorted kernel and the unsorted one compute the same function
-        ref = blocked_spmm.blocked_spmm(x, ee, *edges)
+        # (at bfloat16 K6 rounds each message and K7 does not: K7 is held
+        # against its plain version there)
+        ref = (blocked_spmm.blocked_spmm(x, ee, *edges)
+               if cdt == torch.float32 else
+               sorted_spmm.sorted_blocked_spmm_plain(x, ee, *edges[:3],
+                                                     compute_dtype=cdt))
         for got in (sorted_spmm.sorted_blocked_spmm(x, ee2, s2, r2, w2, bn,
-                                                    be), sorted_with_sort()):
+                                                    be, cdt),
+                    sorted_with_sort()):
             err = float((got - ref).abs().max()) / max(
                 1.0, float(ref.abs().max()))
             if not err <= 1e-5:
@@ -155,12 +169,12 @@ def main(argv=None):
 
     rows = [
         ("K2 fused [x+ein] fwd", lambda: blocked_spmm.blocked_spmm_fused(
-            x, ein, W, *edges)),
+            x, ein, W, *edges, compute_dtype=cdt)),
         ("K2 fused [x+ein] fwd+bwd", fused_fwd_bwd),
         ("K6 blocked_spmm [x+ee] fwd",
-         lambda: blocked_spmm.blocked_spmm(x, ee, *edges)),
+         lambda: blocked_spmm.blocked_spmm(x, ee, *edges, cdt)),
         ("K7 sorted fwd", lambda: sorted_spmm.sorted_blocked_spmm(
-            x, ee2, s2, r2, w2, bn, be)),
+            x, ee2, s2, r2, w2, bn, be, cdt)),
         ("K7 sorted + sort fwd", sorted_with_sort),
         ("K5 gat attention fwd+bwd", gat_fwd_bwd),
     ]

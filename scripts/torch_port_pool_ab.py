@@ -39,6 +39,7 @@ sys.path.insert(
 import torch  # noqa: E402
 
 from pretrain_gnns_tpu_torch.models import pools  # noqa: E402
+from pretrain_gnns_tpu_torch.ops import spmm  # noqa: E402
 from pretrain_gnns_tpu_torch.train import graphed, optim, pretrain  # noqa: E402,E501
 from pretrain_gnns_tpu_torch.train.state import TrainState  # noqa: E402
 from scripts.torch_port_profile import workload  # noqa: E402
@@ -112,6 +113,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"[card] {card}; torch {torch.__version__}", flush=True)
+    # the float32 paths, whatever PGT_SPMM_DTYPE says
+    spmm.set_compute_dtype("float32")
     out = {}
     for domain, objective in itertools.product(("chem", "bio"),
                                                ("supervised", "infomax")):

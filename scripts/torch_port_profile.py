@@ -13,7 +13,8 @@ process of its own, so that no measurement follows another path's in the
 same process (the profiler's and the caching allocator's state would
 carry over).
 
-Configurations (float32, 5 x 300, batch 256), the workloads of
+Configurations (float32, both precision knobs pinned whatever
+``PGT_SPMM_DTYPE`` says; 5 x 300, batch 256), the workloads of
 chip_smoke.py's main paths:
   - chem (default): synthetic molecules (23 atoms on average); masking
     runs with mask_edge off;
@@ -83,7 +84,8 @@ from pretrain_gnns_tpu_torch.data.synthetic import (  # noqa: E402
     bio_dataset, molecule_dataset,
 )
 from pretrain_gnns_tpu_torch.device import resolve_device  # noqa: E402
-from pretrain_gnns_tpu_torch.ops import gat_conv, gin_conv  # noqa: E402
+from pretrain_gnns_tpu_torch.models import inits  # noqa: E402
+from pretrain_gnns_tpu_torch.ops import gat_conv, gin_conv, spmm  # noqa: E402,E501
 from pretrain_gnns_tpu_torch.train import graphed, optim, pretrain  # noqa: E402,E501
 from pretrain_gnns_tpu_torch.train.state import TrainState  # noqa: E402
 
@@ -284,6 +286,8 @@ def main() -> int:
     p.add_argument("--scan_steps", type=int, default=0,
                    help="train steps a dispatch (0 = auto: 16 on CUDA)")
     args = p.parse_args()
+    inits.set_compute_dtype("float32")
+    spmm.set_compute_dtype("float32")
     gat_conv.set_fused(args.gat_fused)
     gin_conv.set_fused(args.gin_fused)
     dev = resolve_device("cuda")

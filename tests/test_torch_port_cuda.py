@@ -35,11 +35,17 @@ DIFF = ("x", "We", "e_self", "W1", "b1", "W2", "b2")
 
 @pytest.fixture
 def cuda_device():
+    """The card, with the kernels' knob (ops.spmm, bfloat16 by default)
+    pinned at float32 for the test, which passes a bfloat16 compute dtype
+    where it wants one, and restored after."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the gin_conv, blocked_spmm, "
                     "edge_dot and gat kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+    old = spmm.get_compute_dtype()
+    spmm.set_compute_dtype("float32")
+    yield torch.device("cuda")
+    spmm.set_compute_dtype(old)
 
 
 def _rel(a, b):
@@ -1311,10 +1317,10 @@ def _bf16_readings(got, want):
             float(d.mean()) / scale if scale else float(d.mean()))
 
 
-def _bf16_gate(tag, sound, control):
+def _bf16_gate(tag, sound, control, control_shows=True):
     """``sound`` and ``control`` map an output's name to (kernel, plain):
-    every sound reading within the limits, and the control's mean over
-    BF16_MEAN_TOL on some output."""
+    every sound reading within the limits, and (``control_shows``) the
+    control's mean over BF16_MEAN_TOL on some output."""
     got = {n: _bf16_readings(*ab) for n, ab in sound.items()}
     ctl = {n: _bf16_readings(*ab) for n, ab in control.items()}
     print(f"[bf16 readings] {tag} sound "
@@ -1323,7 +1329,8 @@ def _bf16_gate(tag, sound, control):
           f"{ {n: (f'{a:.2e}', f'{b:.2e}') for n, (a, b) in ctl.items()} }")
     for n, (mx, mean) in got.items():
         assert mx <= BF16_TOL and mean <= BF16_MEAN_TOL, (n, mx, mean)
-    assert max(mean for _, mean in ctl.values()) > BF16_MEAN_TOL, ctl
+    if control_shows:
+        assert max(mean for _, mean in ctl.values()) > BF16_MEAN_TOL, ctl
 
 
 @pytest.mark.cuda
@@ -1465,46 +1472,231 @@ def test_k3_bf16_matches_plain_version_and_repeats(cuda_device, rows, cdt,
     assert not out[w == 0].any()
 
 
+# K4 and K5 at the GAT paths' own shape (D = 300, blocks of 128 / 384), an
+# odd width, fractional edge weights and a width of two 320-feature chunks
+GAT_BF16_SHAPES = [(300, "onehot"), (45, "onehot"), (300, "frac"),
+                   (333, "K1")]
+
+
 @pytest.mark.cuda
-def test_unported_kernels_raise_under_bf16(cuda_device):
-    """K4, K5, K6 and K7 have no bfloat16 variant: on the card a bfloat16
-    compute dtype or bfloat16 rows raise ValueError naming the kernel,
-    before anything launches."""
-    t, ein, b, bn, be = _gat_case(cuda_device, "chem", 32, 128, 384)
-    D, blocks = 32, (None, bn, be)
-    before = (dict(gat_conv.launches), dict(attention.launches),
-              dict(blocked_spmm.launches), dict(sorted_spmm.launches))
-    conv_args = (t["h"], t["Wl"], t["bl"], ein, t["We"], t["e_self"],
-                 t["a_i"], t["a_j"], t["bias"], b.senders, b.receivers,
-                 t["w"], H, blocks[1], blocks[2])
-    with pytest.raises(ValueError, match="K4.*bf16 not ported"):
-        gat_conv.fused_gat_conv(*conv_args, compute_dtype=BF16)
-    with pytest.raises(ValueError, match="K4.*bf16 not ported"):
-        gat_conv.fused_gat_conv(t["h"].to(BF16), *conv_args[1:])
+@pytest.mark.parametrize("domain", ["chem", "bio"])
+@pytest.mark.parametrize("D,variant", GAT_BF16_SHAPES)
+def test_k4_bf16_matches_plain_version_and_repeats(cuda_device, domain, D,
+                                                   variant):
+    """K4's bfloat16 variant: out, the bfloat16 residual x and the eight
+    gradients against the plain version at compute_dtype=bfloat16, and the
+    control at float32 (``_bf16_gate``); two runs equal bit for bit;
+    nothing is NaN; padded slots get alpha 0 (in the float32 control)."""
+    t, ein, b, bn, be = _gat_case(cuda_device, domain, D, 128, 384,
+                                  variant=variant)
+    graph = (b.senders, b.receivers, t["w"])
+
+    def run(dt):
+        out, x, saved = gat_conv.gat_conv_fwd(
+            t["h"], t["Wl"], t["bl"], ein, t["We"], t["e_self"], t["a_i"],
+            t["a_j"], t["bias"], *graph, bn, be, compute_dtype=dt)
+        return (out, x) + gat_conv.gat_conv_bwd(
+            t["g"], t["h"], t["Wl"], x, ein, t["We"], t["e_self"], t["a_i"],
+            t["a_j"], *graph, saved, bn, be, compute_dtype=dt)
+
+    before = dict(gat_conv.launches)
+    runs = [run(BF16) for _ in range(2)]
+    control = run(torch.float32)
+    torch.cuda.synchronize()
+    assert gat_conv.launches == {k: v + 3 for k, v in before.items()}
+    names = ("out", "x") + GAT_GRADS
+    for n, a, c in zip(names, *runs):
+        assert torch.equal(a, c), n
+        assert torch.isfinite(a.float()).all(), n
+    assert runs[0][1].dtype == BF16 and runs[0][0].dtype == torch.float32
+    leaves = [t[k].detach().clone().requires_grad_(True) for k in GAT_DIFF]
+    lh, lWl, lbl, lWe, les, lai, laj, lbias = leaves
+    out_p, x_p = gat_conv.fused_gat_conv_plain(
+        lh, lWl, lbl, ein, lWe, les, lai, laj, lbias, *graph, H,
+        return_residuals=True, compute_dtype=BF16)
+    plain = (out_p.detach(), x_p) + torch.autograd.grad(out_p, leaves,
+                                                        t["g"])
+    _bf16_gate(f"K4 {domain} D={D} {variant}",
+               dict(zip(names, zip(runs[0], plain))),
+               dict(zip(names, zip(control, plain))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("erows", [torch.float32, BF16])
+@pytest.mark.parametrize("domain", ["chem", "bio"])
+@pytest.mark.parametrize("D,variant", GAT_BF16_SHAPES)
+def test_k5_bf16_matches_plain_version_and_repeats(cuda_device, domain, D,
+                                                   variant, erows):
+    """K5's bfloat16 variant on x (float32, as the unfused conv widens it)
+    and e (float32, or bfloat16 as the bio encoder gives it under
+    bfloat16_act) through its autograd Function: out and the five
+    gradients against the plain version at compute_dtype=bfloat16, and
+    the control at float32; two runs bit-equal; padded slots' de exactly
+    0."""
+    t, ein, b, bn, be = _gat_case(cuda_device, domain, D, 128, 384, seed=1,
+                                  variant=variant)
     x, e = _k5_inputs(t, ein, D)
-    attn = (x, e, t["e_self"], t["a_i"], t["a_j"], b.senders, b.receivers,
-            t["w"], 0.2, blocks[1], blocks[2])
-    with pytest.raises(ValueError, match="K5.*bf16 not ported"):
-        attention.blocked_gat_attention(*attn, compute_dtype=BF16)
-    with pytest.raises(ValueError, match="K5.*bf16 not ported"):
-        attention.blocked_gat_attention(x.to(BF16), *attn[1:])
-    xf = torch.randn(b.max_nodes, D, device=cuda_device)
-    ee = torch.randn(b.max_edges, D, device=cuda_device)
-    graph = (b.senders, b.receivers, t["w"], blocks[1], blocks[2])
-    with pytest.raises(ValueError, match="K6.*bf16 not ported"):
-        blocked_spmm.blocked_spmm(xf, ee, *graph, BF16)
-    with pytest.raises(ValueError, match="K6.*bf16 not ported"):
-        blocked_spmm.blocked_spmm(xf.to(BF16), ee, *graph)
-    with pytest.raises(ValueError, match="K7.*bf16 not ported"):
-        sorted_spmm.sorted_blocked_spmm(xf, ee, *graph, compute_dtype=BF16)
-    with pytest.raises(ValueError, match="K6.*bf16 not ported"):
-        spmm.set_compute_dtype("bfloat16")
-        try:
-            spmm.gather_scatter(xf, b.senders, b.receivers, b.edge_mask,
-                                b.max_nodes, block_nodes=blocks[1],
-                                block_edges=blocks[2], edge_emb=ee)
-        finally:
-            spmm.set_compute_dtype("float32")
-    after = (dict(gat_conv.launches), dict(attention.launches),
-             dict(blocked_spmm.launches), dict(sorted_spmm.launches))
-    assert after == before
+    e = e.to(erows)
+    par = (t["e_self"], t["a_i"], t["a_j"])
+    graph = (b.senders, b.receivers, t["w"])
+
+    def run(dt, fn=attention.blocked_gat_attention, **kw):
+        leaves = [v.detach().clone().requires_grad_(True)
+                  for v in (x, e, *par)]
+        out = fn(*leaves, *graph, 0.2, bn, be, **kw, compute_dtype=dt)
+        return (out.detach(),) + torch.autograd.grad(out, leaves, t["g3"])
+
+    before = dict(attention.launches)
+    runs = [run(BF16) for _ in range(2)]
+    control = run(torch.float32)
+    torch.cuda.synchronize()
+    assert attention.launches == {k: v + 3 for k, v in before.items()}
+    names = ("out", "dx", "de", "de_self", "da_i", "da_j")
+    for n, a, c in zip(names, *runs):
+        assert torch.equal(a, c), n
+    assert runs[0][2].dtype == erows
+    assert not runs[0][2][~b.edge_mask].any()
+    plain = run(BF16, attention.blocked_gat_attention_plain)
+    _bf16_gate(f"K5 {domain} D={D} {variant} e={erows}",
+               dict(zip(names, zip(runs[0], plain))),
+               dict(zip(names, zip(control, plain))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cdt", BF16_MODES)
+@pytest.mark.parametrize("has_ee", [True, False])
+@pytest.mark.parametrize("F,odd_offset", [(300, False), (45, False),
+                                          (300, True)])
+def test_k6_bf16_matches_plain_version_and_repeats(cuda_device, rows, cdt,
+                                                   has_ee, F, odd_offset):
+    """K6's bfloat16 variants with fractional and negative edge weights and
+    runs of 45 slots: out, dx and dmsg in the rows' dtype against the plain
+    version at the same compute dtype, and the control at the other
+    (``_bf16_gate``); two runs and dx and dmsg alone bit-equal; padded rows
+    and slots exactly 0."""
+    t, b, blocks = _k6_case(cuda_device, F, 128, 384)
+    b = _long_runs(b, 384, 45)
+    x, g = _in(t["x"], rows, odd_offset), _in(t["g"], rows, odd_offset)
+    ee = _in(t["ee"], rows, odd_offset) if has_ee else None
+    edges = (b.senders, b.receivers, t["w"], 128, 384)
+
+    def run(dt):
+        out = blocked_spmm.spmm_ee_fwd(x, ee, *edges, compute_dtype=dt)
+        return (out,) + blocked_spmm.spmm_ee_bwd(g, *edges, has_ee, True,
+                                                 has_ee, compute_dtype=dt)
+
+    runs = [run(cdt) for _ in range(2)]
+    control = run(_other(cdt))
+    dx_alone = blocked_spmm.spmm_ee_bwd(g, *edges, has_ee, True, False,
+                                        compute_dtype=cdt)[0]
+    torch.cuda.synchronize()
+    out, dx, dmsg = runs[0]
+    for a, c in zip(*runs):
+        assert (a is None and c is None) or torch.equal(a, c)
+    assert torch.equal(dx_alone, dx)
+    assert out.dtype == rows and dx.dtype == rows
+    assert not out[~b.node_mask].any() and not dx[~b.node_mask].any()
+    if has_ee:
+        dmsg_alone = blocked_spmm.spmm_ee_bwd(g, *edges, has_ee, False, True,
+                                              compute_dtype=cdt)[1]
+        assert torch.equal(dmsg_alone, dmsg) and dmsg.dtype == rows
+        assert not dmsg[~b.edge_mask].any()
+    xl = x.detach().clone().requires_grad_(True)
+    el = ee.detach().clone().requires_grad_(True) if has_ee else None
+    out_p = blocked_spmm.blocked_spmm_plain(xl, el, *edges[:3],
+                                            compute_dtype=cdt)
+    dx_p, dee_p = torch.autograd.grad(out_p, [xl, el] if has_ee else [xl],
+                                      g) + ((None,) if not has_ee else ())
+    names = ("out", "dx", "dmsg")
+    plain = (out_p.detach(), dx_p, dee_p)
+    keep = lambda o: {n: (a, p) for n, a, p in zip(names, o, plain)
+                      if p is not None}
+    _bf16_gate(f"K6 ee={has_ee} F={F} rows={rows} cdt={cdt} "
+               f"odd={odd_offset}", keep(runs[0]), keep(control))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cdt", BF16_MODES)
+@pytest.mark.parametrize("has_ee", [True, False])
+@pytest.mark.parametrize("F,odd_offset", [(300, False), (45, False),
+                                          (300, True)])
+def test_k7_bf16_matches_plain_version_and_repeats(cuda_device, rows, cdt,
+                                                   has_ee, F, odd_offset):
+    """K7's bfloat16 variants on the per-block sorted slots with fractional
+    and negative weights: out in the rows' dtype against the plain version
+    at the same compute dtype, the control at the other
+    (``_bf16_gate``), two runs bit-equal, padded rows exactly 0."""
+    t, b, blocks = _k6_case(cuda_device, F, 128, 384)
+    s2, r2, w2, ee2 = sorted_spmm.sort_block_edges(
+        b.senders, b.receivers, t["w"], t["ee"] if has_ee else None,
+        blocks[0], 384)
+    x = _in(t["x"], rows, odd_offset)
+    ee2 = None if ee2 is None else _in(ee2, rows, odd_offset)
+    run = lambda dt: sorted_spmm.sorted_blocked_spmm(
+        x, ee2, s2, r2, w2, 128, 384, compute_dtype=dt)
+    out, out2, control = run(cdt), run(cdt), run(_other(cdt))
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and out.dtype == rows
+    assert not out[~b.node_mask].any()
+    plain = sorted_spmm.sorted_blocked_spmm_plain(x, ee2, s2, r2, w2,
+                                                  compute_dtype=cdt)
+    # on bfloat16 rows K7's one rounding (of x) is a no-op, so its two
+    # compute dtypes give one function there: no control can show
+    _bf16_gate(f"K7 ee={has_ee} F={F} rows={rows} cdt={cdt} "
+               f"odd={odd_offset}", {"out": (out, plain)},
+               {"out": (control, plain)}, control_shows=rows != BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine", ["add", "concat"])
+def test_gather_scatter_edge_emb_runs_k6_bf16_under_the_knob(cuda_device,
+                                                             combine):
+    """With the kernels' knob at bfloat16, ``gather_scatter(edge_emb=)``
+    launches K6 (the concat form also K2 ``[x]``) at compute_dtype=bfloat16:
+    the result and its gradients equal the wrappers called with
+    compute_dtype=bfloat16, and differ from the float32 knob's."""
+    t, b, blocks = _k6_case(cuda_device, 32, 128, 384, seed=2)
+    graph = (b.senders, b.receivers, b.edge_mask, b.max_nodes)
+    ew = t["w"].abs() + 0.5
+    w = b.edge_mask.float() * ew
+    layout = dict(block_nodes=blocks[1], block_edges=blocks[2])
+
+    def run(fn):
+        x = t["x"].detach().clone().requires_grad_(True)
+        ee = t["ee"].detach().clone().requires_grad_(True)
+        out = fn(x, ee)
+        out.backward(torch.ones_like(out) * 0.5 + out.detach() * 0.1)
+        return out.detach(), x.grad, ee.grad
+
+    def via_knob(x, ee):
+        return spmm.gather_scatter(x, *graph, edge_emb=ee, combine=combine,
+                                   edge_weight=ew, **layout)
+
+    def direct(x, ee):
+        k6 = lambda a, e: blocked_spmm.blocked_spmm(
+            a, e, b.senders, b.receivers, w, blocks[1], blocks[2], BF16)
+        if combine == "add":
+            return k6(x, ee)
+        left = blocked_spmm.blocked_spmm_fused(
+            x, None, None, b.senders, b.receivers, w, blocks[1], blocks[2],
+            True, False, BF16)
+        return torch.cat([left, k6(x.new_zeros((x.shape[0], ee.shape[1])),
+                                   ee)], dim=-1)
+
+    spmm.set_compute_dtype("bfloat16")
+    try:
+        before = dict(blocked_spmm.launches)
+        got = run(via_knob)
+        moved = {k: v - before[k] for k, v in blocked_spmm.launches.items()
+                 if v != before[k]}
+    finally:
+        spmm.set_compute_dtype("float32")
+    want = {"blocked_spmm_ee_fwd[x+ee]": 1, "blocked_spmm_ee_bwd[x+ee]": 1}
+    if combine == "concat":
+        want.update({"blocked_spmm_fwd[x]": 1, "blocked_spmm_bwd[x]": 1})
+    assert moved == want
+    ref, f32 = run(direct), run(via_knob)
+    torch.cuda.synchronize()
+    for a, r, c in zip(got, ref, f32):
+        assert torch.equal(a, r)
+        assert not torch.equal(a, c)

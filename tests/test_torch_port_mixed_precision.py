@@ -100,22 +100,34 @@ def knobs(model: str, jax_spmm: str = "float32"):
 
 
 def test_knob_defaults_and_errors():
-    """The model knob defaults to float32, as the JAX package's; the kernel
-    knob to float32 where the JAX package's is bfloat16 (the port's K4-K7
-    have no bfloat16 variant yet); a CPU tensor's kernels get float32
+    """The model knob defaults to float32 and the kernel knob to bfloat16,
+    each as the JAX package's (read in a process without
+    ``PGT_SPMM_DTYPE``, which tests/conftest.py sets to float32 for the
+    JAX package's parity tests); a CPU tensor's kernels get float32
     whatever the knob; other names raise."""
     assert tinits.get_compute_dtype() == "float32"
     assert tinits.activation_dtype() == torch.float32
-    assert tspmm.get_compute_dtype() == "float32"
+    assert tspmm.get_compute_dtype() == os.environ.get("PGT_SPMM_DTYPE",
+                                                       "bfloat16")
+    code = ("from pretrain_gnns_tpu.ops import spmm as j\n"
+            "from pretrain_gnns_tpu_torch.ops import spmm as t\n"
+            "print(t.get_compute_dtype(), j._DTYPE)\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "PGT_SPMM_DTYPE")}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.split() == ["bfloat16",
+                                                      "bfloat16"], r.stderr
     with pytest.raises(ValueError):
         tinits.set_compute_dtype("float16")
     with pytest.raises(ValueError):
         tspmm.set_compute_dtype("bfloat16_act")
+    old = tspmm.get_compute_dtype()
     tspmm.set_compute_dtype("bfloat16")
     try:
         assert tspmm.kernel_dtype(torch.zeros(2)) == torch.float32
     finally:
-        tspmm.set_compute_dtype("float32")
+        tspmm.set_compute_dtype(old)
     with knobs("bfloat16_act"):
         assert tinits.activation_dtype() == torch.bfloat16
         assert tinits.downcast(torch.ones(2)).dtype == torch.bfloat16
@@ -280,12 +292,12 @@ def test_chem_trunk_bf16_close_to_f32_and_to_jax(gnn_type, chem_batch):
     assert _err(_np(hbf), jbf) < PORT_VS_JAX
 
 
-@pytest.mark.parametrize("gnn_type", ["gin", "gcn", "graphsage"])
+@pytest.mark.parametrize("gnn_type", ["gin", "gcn", "graphsage", "gat"])
 def test_bio_trunk_bf16_finite_and_close_to_jax(gnn_type, bio_batch):
     """The bio trunk under bfloat16_act: finite, activations in bfloat16
     (GIN's layers end in a dense layer), within 0.15 of float32 and 5e-2
     of the JAX trunk under the same knob (measured, the larger of the two:
-    gin 1.2e-2, gcn 1.8e-3, graphsage 1.7e-3)."""
+    gin 1.2e-2, gcn 1.8e-3, graphsage 1.7e-3, gat 2.0e-3)."""
     jmodel = jbio.GNN(num_layer=2, emb_dim=16, gnn_type=gnn_type)
     tmodel = tbio.GNN(num_layer=2, emb_dim=16, gnn_type=gnn_type)
     variables, tb = _trunk_pair(jmodel, tmodel, bio_batch)

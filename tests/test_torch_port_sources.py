@@ -123,3 +123,55 @@ def test_k1_bf16_products_run_on_the_tensor_cores():
     assert _calls(f32_fwd + f32_bwd, "gemm_bf16") == 0
     assert _calls(_body(gin, r"^int fwd_products\("), "gemm") == 2
     assert _calls(_body(gin, r"^int bwd_products\("), "gemm") == 4
+
+
+def _block(text, head):
+    """The brace-balanced block that opens at the first ``head`` (a plain
+    string ending in ``{``) and what follows it."""
+    i = text.index(head) + len(head) - 1
+    depth = 0
+    for j in range(i, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[j], 0)
+        if depth == 0:
+            return text[i:j + 1], text[j + 1:]
+    raise AssertionError(f"unbalanced braces after {head}")
+
+
+def test_k4_to_k7_bf16_routes_and_k4_products_on_the_tensor_cores():
+    """K4, K5, K6 and K7 have bfloat16 variants: their entry points take the
+    compute dtype (K6 and K7 also the rows' dtype) before the stream, each
+    library says so, and the bfloat16 instantiations are launched. Under
+    bf16_compute K4's three products (x, dWl, dh) go to gemm.cuh's
+    tensor-core GEMM alone; the float32 route keeps the float GEMM."""
+    gat = (_build.CSRC / "gat.cu").read_text()
+    ee = (_build.CSRC / "spmm_ee.cu").read_text()
+    assert "int pgt_gat_bf16_flags() { return 1; }" in gat
+    assert "int pgt_spmm_ee_bf16_flags() { return 1; }" in ee
+    for text, names, flags in (
+            (gat, ("gat_attn_fwd", "gat_attn_bwd", "gat_conv_fwd",
+                   "gat_conv_bwd"), r"int bf16_compute,\s+void\* stream$"),
+            (ee, ("spmm_ee_fwd", "spmm_ee_bwd", "spmm_sorted_fwd"),
+             r"int bf16_rows,\s+int bf16_compute,\s+void\* stream$")):
+        for name in names:
+            sig = re.search(rf"^int pgt_{name}\((.*?)\) \{{", text,
+                            re.MULTILINE | re.DOTALL)
+            assert sig and re.search(flags, sig.group(1)), name
+    # K5's entry points reach the bfloat16 walks; K4's its own
+    for fn, want in (("pgt_gat_attn_fwd", "attention_fwd<false, true, float>"),
+                     ("pgt_gat_attn_bwd", "attention_bwd<false, true, float>"),
+                     ("pgt_gat_conv_fwd", "attention_fwd<true, true, float>"),
+                     ("pgt_gat_conv_bwd", "attention_bwd<true, true, bf16>")):
+        assert want in _body(gat, rf"^int {fn}\("), fn
+    assert "gat_dwe_bf16_kernel<<<" in _body(gat, r"^int attention_bwd\(")
+    for fn, n_bf in (("pgt_gat_conv_fwd", 1), ("pgt_gat_conv_bwd", 2)):
+        f32, bf = _block(_body(gat, rf"^int {fn}\("),
+                         "if (!bf16_compute) {")
+        assert _calls(bf, "gemm_bf16") == n_bf and _calls(bf, "gemm") == 0, fn
+        assert _calls(f32, "gemm_bf16") == 0 and _calls(f32, "gemm") == n_bf, fn
+    # K6's and K7's kernels load their gathered rows through the rounding
+    # load of edge_aggr.cuh and dispatch on both flags
+    for head in (r"^spmm_ee_walk_kernel\(", r"^spmm_ee_dmsg_kernel\(",
+                 r"^spmm_sorted_fwd_kernel\("):
+        assert "ld_row_bf<VEC, BF>" in _body(ee, head), head
+    for fn in ("pgt_spmm_ee_fwd", "pgt_spmm_ee_bwd", "pgt_spmm_sorted_fwd"):
+        assert "with_types(bf16_rows, bf16_compute" in _body(ee, rf"^int {fn}\(")

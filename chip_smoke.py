@@ -187,16 +187,24 @@ Phases, in order (any failure exits non-zero):
      its launch counts and its edges/s beside its float32 twin's from
      earlier in the run, and its capture phase (the bfloat16
      instantiations of K1's to K5's kernels, K1's and K4's tensor-core
-     ``gemm_bf16_kernel`` and K4's per-slot ``gat_dwe_bf16_kernel`` among
-     the replay's kernels, the float ``gemm_kernel`` absent from K1's and
-     K4's paths, and the card's busy share of the replay); last, the bio
-     masking GAT step under the recipe (K4 at K = 10);
-  26. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
+     ``gemm_bf16_kernel``, K4's ``gat_proj16_kernel``,
+     ``gat_conv_fwd16_kernel`` and ``gat_dwe16_kernel`` among the replay's
+     kernels, the float ``gemm_kernel`` absent from K1's and K4's paths
+     and no K4 walk that recomputes the softmax, and the card's busy share
+     of the replay); last, the bio masking GAT step under the recipe (K4
+     at K = 10);
+  26. the knobs' own defaults (``models.inits`` at float32, ``ops.spmm``
+     at ``bfloat16``: float32 rows through the bfloat16 kernels, what a
+     run that sets no knob launches): the chem masking GIN path's
+     agreement step (as phase 25's), its 48 steps with their launch
+     counts and edges/s beside the same path's float32 and bfloat16_act
+     rates from earlier in the run, and its capture phase;
+  27. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
      defaults (chem masking GIN on 16,384 molecules and bio masking GIN,
      5 windows of 4 epochs each after 2 warm-up epochs), at
      ``--scan_steps 1`` (every step eager), then at its default (K =
-     16, CUDA-graph replays) and at ``--dtype bfloat16_act``, each its JSON
-     line.
+     16, CUDA-graph replays), at ``--dtype default`` and at ``--dtype
+     bfloat16_act``, each its JSON line.
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches``, the
 wrapper calls counted on the path that runs it at the entry's ``shape``,
 ``launches_per_step``, those calls over the steps that made them,
@@ -2447,15 +2455,14 @@ BF16_KERNEL_NAMES = {
                        ("x+ein", "true, true"))},
     "blocked_edge_dot_fwd": (r"edot_fwd_kernel<[^>]*, true>",),
     "blocked_edge_dot_bwd": (r"edot_bwd_kernel<[^>]*, true>",),
-    # K4: the forward walk on the float32 x, the backward's softmax walk
-    # and its walks on the bfloat16 residual, the per-slot dWe, and the
-    # products on the tensor cores; K5: its walks at BF
-    "gat_conv_fwd": (r"gat_fwd_kernel<true, [^>]*, true, float>",
+    # K4: the forward's logit scalars and walk (both softmaxes), the
+    # backward's walks on the saved softmax of the bfloat16 residual, dWe by
+    # node block, and the products on the tensor cores; K5: its walks at BF
+    "gat_conv_fwd": ("gat_proj16_kernel", "gat_conv_fwd16_kernel",
                      "gemm_bf16_kernel"),
-    "gat_conv_bwd": (r"gat_fwd_kernel<true, [^>]*, true, [^>]*bfloat16>",
-                     r"gat_bwd_rcv_kernel<true, [^>]*, true, [^>]*bfloat16>",
+    "gat_conv_bwd": (r"gat_bwd_rcv_kernel<true, [^>]*, true, [^>]*bfloat16>",
                      r"gat_bwd_snd_kernel<true, [^>]*, true, [^>]*bfloat16>",
-                     "gat_dwe_bf16_kernel", "gemm_bf16_kernel"),
+                     "gat_dwe16_kernel", "gemm_bf16_kernel"),
     "blocked_gat_attention_fwd": (r"gat_fwd_kernel<false, [^>]*, true, "
                                   r"float>",),
     "blocked_gat_attention_bwd": (
@@ -2463,10 +2470,11 @@ BF16_KERNEL_NAMES = {
         r"gat_bwd_snd_kernel<false, [^>]*, true, float>"),
 }
 # ... and the kernels it must not show: no K1 or K4 product on the CUDA
-# cores, no float32 dWe of K4
+# cores, no float32 dWe of K4, no walk of K4's recomputing its softmax
 BF16_ABSENT_NAMES = {"gin_conv_fwd": (r"gemm_kernel<",),
                      "gin_conv_bwd": (r"gemm_kernel<",),
-                     "gat_conv_fwd": (r"gemm_kernel<",),
+                     "gat_conv_fwd": (r"gemm_kernel<", r"gat_fwd_kernel<true",
+                                      "gat_proj_kernel", "gat_edge_vec"),
                      "gat_conv_bwd": (r"gemm_kernel<", "gat_dwe_kernel")}
 
 
@@ -2527,6 +2535,9 @@ def gat_bf16_phase(torch, batch, conv, ein, tag):
     with torch.no_grad():
         runs = [k4(bf) for _ in range(2)]
         control = k4(f32)
+        # the forward's saved softmax and rounded operands, for the timing
+        saved16 = gc.gat_conv_fwd(h, Wl, bl, ein, *par, bias, *graph, bn, be,
+                                  slope, bf)[2]
     torch.cuda.synchronize()
     leaves = [t.detach().clone().requires_grad_(True)
               for t in (h, Wl, bl, *par, bias)]
@@ -2562,16 +2573,20 @@ def gat_bf16_phase(torch, batch, conv, ein, tag):
                 time_ms(lambda: torch.matmul(hb, Wlb), torch)),
             "gat_conv_bwd": (
                 time_ms(lambda: gc.gat_conv_bwd(g, h, Wl, x16, ein, *par,
-                                                *graph, (), bn, be, slope,
-                                                bf), torch),
+                                                *graph, saved16, bn, be,
+                                                slope, bf), torch),
                 plain_bwd,
                 time_ms(lambda: (torch.matmul(hb.t(), dxb),
                                  torch.matmul(dxb, Wlb.t())), torch)),
         }
-    # forward: x = h @ Wl and each slot's e = ein @ We (the messages'
-    # rounding needs e a slot) on the tensor cores; backward: dWl, dh and
-    # dWe = ein^T de a slot, dalpha's edge term the cheaper of e a slot
-    # or q_r = We g_r a row; the softmax recomputed from the residual
+    # the bounds of the Pallas function's two directions, whatever the
+    # kernels hand from one to the other: forward: x = h @ Wl and each
+    # slot's e = ein @ We (the messages' rounding needs e a slot) on the
+    # tensor cores, one softmax, out and the residual bf(x) written;
+    # backward: dWl, dh and dWe = ein^T de a slot, dalpha's edge term the
+    # cheaper of e a slot or q_r = We g_r a row, the softmax recomputed from
+    # the residual (the forward's saved softmax and rounded h and Wl, which
+    # the kernels hand over instead, are not counted)
     e_dalpha = min(edge_ops * 2 * K, node_ops * 2 * K + Ev * H * 2 * K)
     fwd4 = bound(2 * (V + 1) * D * HD + edge_ops * 2 * K + f32_ops * (
         node_ops * 7 + edge_scalar_ops + edge_ops * 4 + N * D * 2),
@@ -2679,7 +2694,7 @@ def gat_bf16_entries(chem, bio):
              "blocked_gat_attention_bwd": ("pallas_attention.py", 389)}
     return [dict(
         name=f"{name}[bf16]", counter=name, route="cuda",
-        source="pretrain_gnns_tpu_torch/csrc/gat.cu",
+        source="pretrain_gnns_tpu_torch/csrc/gat_bf16.cu",
         replaces=f"pretrain_gnns_tpu/ops/{file}:{line}",
         tpu_counterpart=f"ops/{file} at compute_dtype=bfloat16",
         library="none: no single PyTorch call computes it",
@@ -2896,11 +2911,12 @@ def k2_bf16_cases(torch, chem_cfg, chem_first, bio_cfg, bio_first):
 
 
 def bf16_section(torch, card, chem_graphs, chem_first, bio_graphs, bio_first,
-                 edgepred_chem_first, f32_rates, gat_first, micro_main):
+                 edgepred_chem_first, f32_rates, gat_first, micro_main,
+                 bf16_rates):
     """The bfloat16 variants and paths under the JAX bench's recipe;
-    returns the ``kernels`` entries of the variants. ``gat_first`` holds
-    the GAT paths' first batches ("chem", "bio" masking and "chem
-    edgepred")."""
+    returns the ``kernels`` entries of the variants and puts each path's
+    rate into ``bf16_rates``. ``gat_first`` holds the GAT paths' first
+    batches ("chem", "bio" masking and "chem edgepred")."""
     from pretrain_gnns_tpu_torch.models import bio, chem
     from pretrain_gnns_tpu_torch.train import pretrain
 
@@ -2960,6 +2976,7 @@ def bf16_section(torch, card, chem_graphs, chem_first, bio_graphs, bio_first,
                              and k["counter"] not in recorded], launched)
             recorded.update(per_step)
             rate, f32 = launched[4], f32_rates.get(name)
+            bf16_rates[name] = rate
             print(f"[{name} bfloat16_act] {rate:.1f} valid edges/s against "
                   f"{f32:.1f} in float32 earlier in this run, "
                   f"{rate / f32:.3f}x, on {card}", flush=True)
@@ -2972,14 +2989,45 @@ def bf16_section(torch, card, chem_graphs, chem_first, bio_graphs, bio_first,
     return entries
 
 
+def default_section(torch, card, chem_graphs, chem_first, f32_rates,
+                    bf16_rates):
+    """The knobs' own defaults (the model's at float32, the kernels' at
+    bfloat16: float32 rows through the bfloat16 kernels, what a run that
+    sets no knob launches): the chem masking GIN path's agreement step with
+    the CPU, its 48 steps and its capture bits, its rate beside the
+    float32 and bfloat16_act rates of the same path earlier in this run.
+    The kernels' times on float32 rows are the bfloat16 section's (K1's
+    ``rows_float32``; K4 bfloat16 always takes float32 h, which its wrapper
+    widens under bfloat16_act)."""
+    from pretrain_gnns_tpu_torch.train import pretrain
+
+    cfg = pretrain.PretrainConfig(mask_edge=False, num_layer=LAYERS,
+                                  emb_dim=EMB, batch_size=BATCH, seed=0,
+                                  packing="auto")
+    name = path_name(cfg)
+    with precision("float32", "bfloat16"):
+        bf16_agreement(torch, chem_first, cfg)
+        rate = main_path_phase(torch, chem_graphs, cfg, card, K1,
+                               precision="default")[4]
+        capture_phase(torch, chem_graphs, cfg, K1,
+                      kernel_names=BF16_KERNEL_NAMES,
+                      absent_names=BF16_ABSENT_NAMES)
+    f32, bf = f32_rates[name], bf16_rates[name]
+    print(f"[{name} default] {rate:.1f} valid edges/s against {f32:.1f} in "
+          f"float32 ({rate / f32:.3f}x) and {bf:.1f} under bfloat16_act "
+          f"({rate / bf:.3f}x) earlier in this run, on {card} "
+          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+
+
 def bench_phase():
     """``python -m pretrain_gnns_tpu_torch.bench`` at ``--scan_steps 1``
-    (eager steps), at its defaults (K = 16, CUDA-graph replays) and at
-    ``--dtype bfloat16_act``, in turn, in this process; each prints its
-    JSON line."""
+    (eager steps), at its defaults (K = 16, CUDA-graph replays), at
+    ``--dtype default`` (the knobs' defaults) and at ``--dtype
+    bfloat16_act``, in turn, in this process; each prints its JSON line."""
     from pretrain_gnns_tpu_torch import bench
 
-    for argv in (["--scan_steps", "1"], [], ["--dtype", "bfloat16_act"]):
+    for argv in (["--scan_steps", "1"], [], ["--dtype", "default"],
+                 ["--dtype", "bfloat16_act"]):
         print(f"[bench] pretrain_gnns_tpu_torch.bench {' '.join(argv)}:",
               flush=True)
         if bench.main(argv) != 0:
@@ -3022,7 +3070,7 @@ def main() -> int:
     t0 = T0
     card = card_line()
     dev = resolve_device("cuda")
-    # every phase but the bfloat16 section runs with both precision knobs
+    # every phase but the bfloat16 and default sections runs with both knobs
     # at float32
     inits.set_compute_dtype("float32")
     spmm.set_compute_dtype("float32")
@@ -3257,9 +3305,13 @@ def main() -> int:
     # mixed precision: the bfloat16 variants of K1, K2 and K3, and four
     # paths under the JAX bench's recipe
     gat_first["chem edgepred"] = unfused_first
+    bf16_rates = {}
     bf16 = bf16_section(torch, card, chem_graphs, chem_first, bio_graphs,
                         bio_first, edgepred_chem_first, f32_rates, gat_first,
-                        micro_main)
+                        micro_main, bf16_rates)
+    # the knobs' defaults: float32 rows through the bfloat16 kernels
+    default_section(torch, card, chem_graphs, chem_first, f32_rates,
+                    bf16_rates)
 
     bench_phase()
     kernels += k2 + k3 + k45 + k67 + probe + bf16

@@ -27,11 +27,15 @@ the valid edges of exactly those epochs, each directed edge once a step.
 A cell reports the median window and the spread, (max - min) / median.
 
 ``--dtype`` sets both precision knobs for the run: ``float32`` (the
-default) the model's and the kernels' to float32; ``bfloat16_act`` the
-model's to ``bfloat16_act`` (activations in bfloat16; parameters, batch
-norm statistics, Adam state and losses in float32) and the kernels' to
-``bfloat16``, the recipe the JAX package's ``bench.py`` times as its
-headline (it leaves its kernel dtype at its default, ``bfloat16``).
+default) the model's and the kernels' to float32; ``default`` the knobs'
+own defaults, the model's at float32 and the kernels' at ``bfloat16``
+(float32 activations through the bfloat16 kernels: what a run that sets
+no knob launches, and the JAX ``bench.py``'s ``float32_value`` row);
+``bfloat16_act`` the model's to ``bfloat16_act`` (activations in
+bfloat16; parameters, batch norm statistics, Adam state and losses in
+float32) and the kernels' to ``bfloat16``, the recipe the JAX package's
+``bench.py`` times as its headline (it leaves its kernel dtype at its
+default, ``bfloat16``).
 
 Prints exactly one JSON line: each cell under its metric name (its value,
 windows, spread and loader), the dtype, and the card's name and power
@@ -84,6 +88,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 # --dtype: (models.inits knob, ops.spmm knob)
 DTYPES = {"float32": ("float32", "float32"),
+          "default": ("float32", "bfloat16"),
           "bfloat16_act": ("bfloat16_act", "bfloat16")}
 
 

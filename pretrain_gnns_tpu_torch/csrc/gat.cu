@@ -62,7 +62,7 @@
 //   the same bits on every run. A lane holds NV = 10 features of a row in
 //   registers, two adjacent ones (float2) where D is even, the row fits one
 //   chunk and the rows are 8-byte aligned. Staging loops issue all their
-//   loads before the first store (copy_batched, stage).
+//   loads before the first store (stage, stage_we).
 // - Forward, one kernel: for each row and head the warp forms x_r·a_i and
 //   the self logit, then walks the row's slots B at a time (the x[s] rows of
 //   a batch, and K5's e rows, loaded before any is used), takes the sender
@@ -121,1506 +121,32 @@
 //   saved residual; e_e = bf(ein_e) @ bf(We). Forward: the logits from the
 //   float32 x (the edge term bf(ein_e) · (bf(We_h) a_j)), out_n = mean_h
 //   (sum_{e -> n} bf(p_e (xb[s] + e_e)) + p_self_n (x_n + e_self)) / den_n
-//   + bias. Backward: alpha, aself and the LeakyReLU slopes recomputed from
-//   xb (gat_fwd_kernel without out: the body recomputes its softmax from
-//   the residual, not from the forward's float32 x); g_r = bf(g[r] / H);
-//   dalpha, c, dz, dzs as above with the unrounded g / H in daself and
+//   + bias. Backward: alpha, aself and the LeakyReLU slopes of the body's
+//   softmax recomputed from xb (the body recomputes it from the residual,
+//   not from the forward's float32 x; the kernel's forward computes it
+//   beside its own and saves it, with bf(h) and bf(Wl)); g_r = bf(g[r] /
+//   H); dalpha, c, dz, dzs as above with the unrounded g / H in daself and
 //   de_self; dx_n = sum bf(alpha_e g_r) + aself_n g_n / H + u a_i + v a_j,
 //   float32 and a bfloat16 copy; dWe = sum_e bf(ein_e)^T bf(de_e), de_e =
-//   alpha_e g_r + dz_e a_j formed and rounded per slot (gat_dwe_bf16_kernel:
-//   the rounding leaves no room for gat_dwe_kernel's row sums), da_j's e
-//   term (sum_e dz_e bf(ein_e)) @ bf(We); dWl = bf(h)^T bf(dx) and dh =
-//   bf(dx) @ bf(Wl)^T on the tensor cores, dbl the unrounded dx summed.
-//   h, Wl are rounded once a call into scratch.
+//   alpha_e g_r + dz_e a_j formed and rounded per slot (the rounding leaves
+//   no room for gat_dwe_kernel's row sums), da_j's e term (sum_e dz_e
+//   bf(ein_e)) @ bf(We); dWl = bf(h)^T bf(dx) and dh = bf(dx) @ bf(Wl)^T
+//   on the tensor cores, dbl the unrounded dx summed.
 // - The messages' rounding needs p_e at the row's final max, so the
-//   bfloat16 forward walks a row's slots twice: the logits, max and
-//   denominator first (the online softmax without the messages), then
-//   the rounded messages. K4's first walk reads no row: the logits' row
-//   scalars x·a_i, x·a_j and (x + e_self)·a_j come from gat_proj_kernel
-//   (one warp a row and head, over the float32 x or, for the backward's
-//   softmax, the residual). K4's message needs e_e a slot and feature: the
-//   rounded We of every head sits in shared memory, K FMAs a feature.
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
-#include <initializer_list>
-#include <type_traits>
-
-#include "gemm.cuh"
-
-namespace {
-
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int RPW = 2;                   // rows a warp owns
-constexpr int RPC = WARPS * RPW;         // rows a CTA owns
-constexpr int NV = 10;                   // features a lane holds
-constexpr int CH = 32 * NV;              // features a chunk
-constexpr int MAX_K = 16;                // edge input width (K4)
-static_assert(MAX_K == 16, "q_r's reduce-scatter halves 16 values");
-// partial rows a walk CTA: de_self, da_i, da_j by receiver, da_j by sender
-constexpr int NPART = 4;
-// walk CTAs an SM: at most 128 registers a thread
-constexpr int WALK_MIN_CTAS = 2;
-constexpr int DWE_ROWS = 64;             // rows a dWe partial sums
-constexpr int DWE_EDGES = 128;           // slots a bfloat16 dWe partial sums
-constexpr int DWE_THREADS = 128;         // columns of a dWe CTA
-constexpr int MAX_SMEM = 232448;         // 227 KB: a block's most on the H100
-constexpr int DEFAULT_SMEM = 48 * 1024;  // above this only after opting in
-constexpr unsigned FULL = 0xffffffffu;
-// K4's bfloat16 x: its roundings decided as the k-ordered float32 chain's
-// (gemm.cuh's ordered-tie fixup). The copy is the backward's residual: a
-// flipped rounding there moves a logit and, through dx, whole rows of dWl
-// and dh (PERF.md §6, K4 bf16).
-constexpr bool X16_EXACT = true;
-
-// Ar and Sr hold K values a row and head padded to KP, a multiple of 4, so
-// that gat_dwe_kernel reads them as float4.
-__host__ __device__ int padded_k(int K) { return (K + 3) / 4 * 4; }
-
-// What every kernel reads. x is [N, H*D], float or (K4's bfloat16
-// backward) bfloat16, as the kernel's TX says; xm the bfloat16 copy of x
-// that K4's bfloat16 forward takes its messages from, else null; e is
-// [E, H*D] (K5) or null; ein [E, K] and We [K, H*D] (K4) or null; es, ai,
-// aj are [H*D].
-struct Graph {
-  const void* x;
-  const float* e;
-  const float* ein;
-  const float* We;
-  const float* es;
-  const float* ai;
-  const float* aj;
-  const int* snd;
-  const int* rcv;
-  const float* w;
-  int N, E, H, D, K, bn, be;
-  float slope;
-  const bf16* xm;
-  // K4's bfloat16 walks: [N][H][3] = x·a_i, x·a_j, (x + e_self)·a_j
-  // (gat_proj_kernel), else null
-  const float* proj;
-};
-
-// The cotangent of a head's out: g[n * rs + h * hs + f] * scale.
-struct Cot {
-  const float* g;
-  ll rs, hs;
-  float scale;
-};
-
-__device__ __forceinline__ float warp_sum(float s) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
-  return s;  // the same bits in every lane
-}
-
-// v rounded to the nearest bfloat16 (ties to even), as a float: the Pallas
-// kernel's astype(bfloat16).
-__device__ __forceinline__ float rnd(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// NV features of one row, a lane's share of a chunk: with VEC = 2 the
-// pairs (c0 + 2 (lane + 32 j), + 1), else c0 + lane + 32 j.
-struct Chunk {
-  float v[NV];
-};
-
-template <int VEC>
-__device__ __forceinline__ int feat(int c0, int lane, int i) {
-  return c0 + (lane + 32 * (i / VEC)) * VEC + i % VEC;
-}
-
-// p is the row's first feature; zeros past D (VEC = 2 needs D even).
-template <int VEC>
-__device__ __forceinline__ Chunk ld(const float* p, int c0, int D, int lane,
-                                    float scale = 1.f) {
-  Chunk c;
-#pragma unroll
-  for (int j = 0; j < NV / VEC; ++j) {
-    const int f = c0 + (lane + 32 * j) * VEC;
-    if constexpr (VEC == 2) {
-      const float2 t = f < D ? *reinterpret_cast<const float2*>(p + f)
-                             : make_float2(0.f, 0.f);
-      c.v[2 * j] = t.x * scale;
-      c.v[2 * j + 1] = t.y * scale;
-    } else {
-      c.v[j] = f < D ? p[f] * scale : 0.f;
-    }
-  }
-  return c;
-}
-
-// The same from bfloat16 rows (VEC = 2: 4-byte pairs).
-template <int VEC>
-__device__ __forceinline__ Chunk ld(const bf16* p, int c0, int D, int lane,
-                                    float scale = 1.f) {
-  Chunk c;
-#pragma unroll
-  for (int j = 0; j < NV / VEC; ++j) {
-    const int f = c0 + (lane + 32 * j) * VEC;
-    if constexpr (VEC == 2) {
-      const float2 t =
-          f < D ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + f))
-                : make_float2(0.f, 0.f);
-      c.v[2 * j] = t.x * scale;
-      c.v[2 * j + 1] = t.y * scale;
-    } else {
-      c.v[j] = f < D ? __bfloat162float(p[f]) * scale : 0.f;
-    }
-  }
-  return c;
-}
-
-__device__ __forceinline__ Chunk rnd(Chunk c) {
-#pragma unroll
-  for (int i = 0; i < NV; ++i) c.v[i] = rnd(c.v[i]);
-  return c;
-}
-
-// ld, each value rounded to bfloat16 with R.
-template <int VEC, bool R, typename T>
-__device__ __forceinline__ Chunk ldr(const T* p, int c0, int D, int lane,
-                                     float scale = 1.f) {
-  const Chunk c = ld<VEC>(p, c0, D, lane, scale);
-  return R ? rnd(c) : c;
-}
-
-template <int VEC>
-__device__ __forceinline__ void st(float* p, const Chunk& c, int c0, int D,
-                                   int lane) {
-#pragma unroll
-  for (int j = 0; j < NV / VEC; ++j) {
-    const int f = c0 + (lane + 32 * j) * VEC;
-    if (f >= D) continue;
-    if constexpr (VEC == 2)
-      *reinterpret_cast<float2*>(p + f) = make_float2(c.v[2 * j], c.v[2 * j + 1]);
-    else
-      p[f] = c.v[j];
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void st(bf16* p, const Chunk& c, int c0, int D,
-                                   int lane) {
-#pragma unroll
-  for (int j = 0; j < NV / VEC; ++j) {
-    const int f = c0 + (lane + 32 * j) * VEC;
-    if (f >= D) continue;
-    if constexpr (VEC == 2)
-      *reinterpret_cast<__nv_bfloat162*>(p + f) =
-          __floats2bfloat162_rn(c.v[2 * j], c.v[2 * j + 1]);
-    else
-      p[f] = __float2bfloat16_rn(c.v[j]);
-  }
-}
-
-__device__ __forceinline__ Chunk zero() {
-  Chunk c;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) c.v[i] = 0.f;
-  return c;
-}
-
-__device__ __forceinline__ Chunk add(const Chunk& a, const Chunk& b) {
-  Chunk c;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) c.v[i] = a.v[i] + b.v[i];
-  return c;
-}
-
-__device__ __forceinline__ float dot(const Chunk& a, const Chunk& b) {
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) s = fmaf(a.v[i], b.v[i], s);
-  return s;
-}
-
-// c = c * s + p * m, elementwise
-__device__ __forceinline__ void rescale_add(Chunk& c, float s, float p,
-                                            const Chunk& m) {
-#pragma unroll
-  for (int i = 0; i < NV; ++i) c.v[i] = fmaf(p, m.v[i], c.v[i] * s);
-}
-
-__device__ __forceinline__ void axpy(Chunk& c, float p, const Chunk& m) {
-#pragma unroll
-  for (int i = 0; i < NV; ++i) c.v[i] = fmaf(p, m.v[i], c.v[i]);
-}
-
-// c += bf(p * m), elementwise: a bfloat16 message added to a float32 sum
-__device__ __forceinline__ void add_rounded(Chunk& c, float p, const Chunk& m) {
-#pragma unroll
-  for (int i = 0; i < NV; ++i) c.v[i] += rnd(__fmul_rn(p, m.v[i]));
-}
-
-// A lane's part of a whole-row dot product: ``cur`` is its part on this
-// CTA's chunk c0, ``part(cc)`` forms it on chunk cc from device memory the
-// same way. WIDE (D > CH): summed chunk by chunk in order, so that every
-// chunk's CTA gets the same bits.
-template <bool WIDE, typename Part>
-__device__ __forceinline__ float row_dot(int c0, int D, float cur, Part part) {
-  if constexpr (!WIDE) {
-    return cur;
-  } else {
-    float s = 0.f;
-    for (int cc = 0; cc < D; cc += CH) s += cc == c0 ? cur : part(cc);
-    return s;
-  }
-}
-
-// Shared memory of a walk CTA: the staged slots, each warp's per-row slot
-// lists, its per-slot scalars (one or, backward, two a slot) and,
-// backward, its share of the CTA's partial sums and a head's We chunk;
-// K4's bfloat16 forward, every head's rounded We chunk.
-struct Walk {
-  float* w;              // [be]
-  float* buf;            // [WARPS][be] (backward: [WARPS][2 be])
-  float* part;           // backward: [WARPS][2][NV][32]
-  float* We;             // backward: [MAX_K][NV][32]; forward [H][K][NV][32]
-  int* ls;               // [be] local sender, -1: skipped
-  int* lr;               // [be] local receiver, -1: skipped
-  unsigned short* list;  // [WARPS][RPW][be]
-};
-
-// ``we``: floats of the We tile (backward MAX_K * CH, K4's bfloat16
-// forward H * K * CH, else 0)
-__host__ __device__ int walk_floats(int be, bool backward, int we) {
-  return be + WARPS * (backward ? 2 * be + 2 * CH : be) + we;
-}
-
-int walk_smem(int be, bool backward, int we) {
-  return walk_floats(be, backward, we) * 4 + 2 * be * 4 + WARPS * RPW * be * 2;
-}
-
-int bwd_smem(int be) { return walk_smem(be, true, MAX_K * CH); }
-
-__device__ __forceinline__ Walk carve(float* smem, int be, bool backward,
-                                      int we) {
-  Walk s;
-  s.w = smem;
-  s.buf = smem + be;
-  s.part = s.buf + WARPS * 2 * be;  // backward only
-  s.We = backward ? s.part + WARPS * 2 * CH : s.buf + WARPS * be;
-  s.ls = (int*)(smem + walk_floats(be, backward, we));
-  s.lr = s.ls + be;
-  s.list = (unsigned short*)(s.lr + be);
-  return s;
-}
-
-// Copies n values, load(i) to store(i, v) for i = t, t + stride, ...: U
-// loads in flight a thread before the first store, so that a staging loop
-// costs one trip to device memory, not one an iteration.
-template <int U, typename Load, typename Store>
-__device__ __forceinline__ void copy_batched(int n, int t, int stride,
-                                             Load load, Store store) {
-  for (int i0 = t; i0 < n; i0 += U * stride) {
-    float v[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = i0 + u * stride;
-      v[u] = i < n ? load(i) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = i0 + u * stride;
-      if (i < n) store(i, v[u]);
-    }
-  }
-}
-
-// Heads h0 .. h0 + nh - 1 of We's chunk c0 into dst as the lanes hold them,
-// dst[((h - h0) * K + k) * CH + i * 32 + lane] = We[k, h*D + feat(c0, lane,
-// i)] (zeros past D), rounded to bfloat16 with BF; every thread of the CTA
-// takes part, and the caller's barrier follows.
-template <int VEC, bool BF>
-__device__ __forceinline__ void stage_we(float* dst, const Graph& a, int h0,
-                                         int nh, int c0) {
-  const ll HD = (ll)a.H * a.D;
-  copy_batched<8>(
-      nh * a.K * CH, threadIdx.x, THREADS,
-      [&](int t) {
-        const int hk = t / CH, h = h0 + hk / a.K, k = hk % a.K;
-        const int f = feat<VEC>(c0, t % 32, (t % CH) / 32);
-        const float v = f < a.D ? a.We[k * HD + (ll)h * a.D + f] : 0.f;
-        return BF ? rnd(v) : v;
-      },
-      [&](int t, float v) { dst[t] = v; });
-}
-
-// Stage block b's slots, STAGE_U a thread with every load issued before the
-// first store; returns after the CTA's barrier.
-constexpr int STAGE_U = 4;
-
-// The rule of a slot that counts: w > 0, both endpoints in the block.
-__host__ __device__ __forceinline__ bool counts(float w, ll ls, ll lr,
-                                                int bn) {
-  return w > 0.f && ls >= 0 && ls < bn && lr >= 0 && lr < bn;
-}
-
-__device__ __forceinline__ void stage(const Walk& s, const Graph& a, ll e0,
-                                      ll base) {
-  for (int q0 = threadIdx.x; q0 < a.be; q0 += STAGE_U * THREADS) {
-    float we[STAGE_U];
-    int sg[STAGE_U], rg[STAGE_U];
-#pragma unroll
-    for (int u = 0; u < STAGE_U; ++u) {
-      const int q = q0 + u * THREADS;
-      if (q >= a.be) break;
-      we[u] = a.w[e0 + q];
-      sg[u] = a.snd[e0 + q];
-      rg[u] = a.rcv[e0 + q];
-    }
-#pragma unroll
-    for (int u = 0; u < STAGE_U; ++u) {
-      const int q = q0 + u * THREADS;
-      if (q >= a.be) break;
-      const ll ls = sg[u] - base, lr = rg[u] - base;
-      const bool ok = counts(we[u], ls, lr, a.bn);
-      s.ls[q] = ok ? (int)ls : -1;
-      s.lr[q] = ok ? (int)lr : -1;
-      s.w[q] = we[u];
-    }
-  }
-  __syncthreads();
-}
-
-// The slots of each of the warp's rows r0 .. r0 + RPW - 1, by receiver or
-// (BY_SENDER) by sender, in slot order, into the warp's lists; cnt[j] gets
-// row r0 + j's count.
-template <bool BY_SENDER>
-__device__ __forceinline__ void list_rows(const Walk& s, int be, int r0,
-                                          int lane, int warp, int* cnt) {
-  unsigned short* list = s.list + warp * RPW * be;
-#pragma unroll
-  for (int j = 0; j < RPW; ++j) cnt[j] = 0;
-  const unsigned below = (1u << lane) - 1u;
-  for (int c = 0; c < be; c += 32) {
-    const int q = c + lane;
-    const int key = q < be ? (BY_SENDER ? s.ls[q] : s.lr[q]) - r0 : -1;
-#pragma unroll
-    for (int j = 0; j < RPW; ++j) {
-      const unsigned m = __ballot_sync(FULL, key == j);
-      if (key == j) list[j * be + cnt[j] + __popc(m & below)] = (unsigned short)q;
-      cnt[j] += __popc(m);
-    }
-  }
-  __syncwarp();
-}
-
-// One step of a reduce-scatter over the warp: lanes with bit O set keep
-// values M .. 2M - 1 of v, the others 0 .. M - 1, each added to its
-// partner's (lane ^ O) copy; the kept values move to 0 .. M - 1.
-template <int O, int M>
-__device__ __forceinline__ void halve(float* v, int lane) {
-  const bool up = lane & O;
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    const float send = up ? v[i] : v[i + M];
-    v[i] = (up ? v[i + M] : v[i]) + __shfl_xor_sync(FULL, send, O);
-  }
-}
-
-// This warp's share of partial row ``which`` (0 or 1): part += v.
-__device__ __forceinline__ void add_part(float* mine, int which,
-                                         const Chunk& v, int lane) {
-#pragma unroll
-  for (int i = 0; i < NV; ++i) mine[(which * NV + i) * 32 + lane] += v.v[i];
-}
-
-// The CTA's partial rows j0 and j1 of head h: the warps' shares summed in
-// warp order into part[cta][j][h*D + f]; then each warp zeroes its own
-// share (the entries its lanes add to) for the next head.
-template <int VEC>
-__device__ __forceinline__ void write_partials(float* shares, int j0, int j1,
-                                               float* __restrict__ part,
-                                               ll HD, int h, int D, int c0) {
-  __syncthreads();
-  const ll cta = (ll)blockIdx.x * gridDim.y + blockIdx.y;
-  for (int t = threadIdx.x; t < 2 * CH; t += THREADS) {
-    const int which = t / CH, i = (t % CH) / 32, l = t % 32;
-    const int f = feat<VEC>(c0, l, i);
-    if (f >= D) continue;
-    float v = 0.f;
-    for (int w = 0; w < WARPS; ++w) v += shares[w * 2 * CH + t];
-    part[(cta * NPART + (which ? j1 : j0)) * HD + (ll)h * D + f] = v;
-  }
-  __syncthreads();
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int t = lane; t < 2 * CH; t += 32) shares[warp * 2 * CH + t] = 0.f;
-}
-
-// va [H, K] = We_h a_j (bf: bf(We_h) a_j): the edge logit's ein_e · va_h
-// (K4). One warp an entry.
-__global__ void __launch_bounds__(THREADS)
-gat_edge_vec_kernel(const Graph a, float* __restrict__ va, bool bf) {
-  const int lane = threadIdx.x % 32;
-  const int i = blockIdx.x * WARPS + threadIdx.x / 32;
-  if (i >= a.H * a.K) return;  // the whole warp leaves together
-  const int h = i / a.K, k = i % a.K;
-  const ll HD = (ll)a.H * a.D;
-  const float* W = a.We + k * HD + (ll)h * a.D;
-  const float* aj = a.aj + (ll)h * a.D;
-  float s = 0.f;
-  for (int f = lane; f < a.D; f += 32) s = fmaf(bf ? rnd(W[f]) : W[f], aj[f], s);
-  s = warp_sum(s);
-  if (lane == 0) va[i] = s;
-}
-
-// K4's bfloat16 walks: proj [N, H, 3] = (x_n·a_i, x_n·a_j, (x_n + e_self)
-// ·a_j) of each row and head, x read as TX (the Pallas body's ps, pd and
-// the self logit's second term), so that a walk's first pass reads one
-// scalar a slot and no row. One warp an entry.
-template <typename TX>
-__global__ void __launch_bounds__(THREADS)
-gat_proj_kernel(const Graph a, float* __restrict__ proj) {
-  const int lane = threadIdx.x % 32;
-  const ll i = (ll)blockIdx.x * WARPS + threadIdx.x / 32;
-  if (i >= (ll)a.N * a.H) return;  // the whole warp leaves together
-  const int h = (int)(i % a.H);
-  const ll hD = (ll)h * a.D;
-  const TX* x = static_cast<const TX*>(a.x) + i / a.H * a.H * a.D + hD;
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-  for (int f = lane; f < a.D; f += 32) {
-    float v;
-    if constexpr (std::is_same<TX, float>::value) v = x[f];
-    else v = __bfloat162float(x[f]);
-    const float aj = a.aj[hD + f];
-    s0 = fmaf(v, a.ai[hD + f], s0);
-    s1 = fmaf(v, aj, s1);
-    s2 = fmaf(v + a.es[hD + f], aj, s2);
-  }
-  s0 = warp_sum(s0);
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
-  if (lane == 0) {
-    proj[i * 3] = s0;
-    proj[i * 3 + 1] = s1;
-    proj[i * 3 + 2] = s2;
-  }
-}
-
-// Forward: out (K5 [N, H*D]; K4 [N, D] = mean_h + bias), and, from the
-// first chunk's CTAs where ``alpha`` is given, alpha, dlr [E, H] and aself,
-// dls [N, H]. BF: the bfloat16 variant (see the note above); with out null
-// only the softmax scalars are written (K4's bfloat16 backward).
-template <bool FUSED, int VEC, bool WIDE, bool BF, typename TX>
-__global__ void __launch_bounds__(THREADS, WALK_MIN_CTAS)
-gat_fwd_kernel(const Graph a, const float* __restrict__ va,
-               const float* __restrict__ bias, float* __restrict__ out,
-               float* __restrict__ alpha, float* __restrict__ aself,
-               float* __restrict__ dlr, float* __restrict__ dls) {
-  static_assert(BF || std::is_same<TX, float>::value, "bfloat16 x is BF's");
-  // slots in flight a warp: K5 loads an e row beside each x row
-  constexpr int B = FUSED ? 4 : 2;
-  // K4 at BF: the logits from a.proj, no row read in the first pass
-  constexpr bool PRE = BF && FUSED;
-  extern __shared__ __align__(16) float smem[];
-  const int H = a.H, D = a.D, K = a.K, be = a.be;
-  const TX* X = static_cast<const TX*>(a.x);
-  const bool msgs = out != nullptr;
-  const bool we_tile = BF && FUSED && msgs;
-  const Walk s = carve(smem, be, false, we_tile ? H * K * CH : 0);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int c0 = blockIdx.z * CH;
-  // writes the softmax scalars
-  const bool first = blockIdx.z == 0 && alpha != nullptr;
-  const ll base = (ll)blockIdx.x * a.bn, e0 = (ll)blockIdx.x * be;
-  const ll HD = (ll)H * D;
-  if (we_tile) stage_we<VEC, true>(s.We, a, 0, H, c0);  // stage's barrier
-  stage(s, a, e0, base);
-  if (first && blockIdx.y == 0)  // skipped slots: alpha = dlr = 0
-    for (int i = threadIdx.x; i < be * H; i += THREADS)
-      if (s.ls[i / H] < 0) {
-        alpha[e0 * H + i] = 0.f;
-        dlr[e0 * H + i] = 0.f;
-      }
-  const int r0 = blockIdx.y * RPC + warp * RPW;
-  int cnt[RPW];
-  list_rows<false>(s, be, r0, lane, warp, cnt);
-  float* lg = s.buf + warp * be;  // the row's logits, in list order
-
-#pragma unroll
-  for (int j = 0; j < RPW; ++j) {
-    const int r = r0 + j;
-    if (r >= a.bn) break;  // warp-uniform
-    const ll n = base + r;
-    const unsigned short* L = s.list + (warp * RPW + j) * be;
-    const int nq = cnt[j];
-    Chunk o = zero();  // K4: the heads' sum
-    for (int h = 0; h < H; ++h) {
-      const ll hD = (ll)h * D;
-      const TX* xr_p = X + n * HD + hD;
-      const float* es_p = a.es + hD;
-      const float* ai_p = a.ai + hD;
-      const float* aj_p = a.aj + hD;
-      const Chunk xr = ld<VEC>(xr_p, c0, D, lane);
-      const Chunk aj = ld<VEC>(aj_p, c0, D, lane);
-      const Chunk xe = add(xr, ld<VEC>(es_p, c0, D, lane));
-      const float* pr = PRE ? a.proj + (n * H + h) * 3 : nullptr;
-      const float ps = PRE ? pr[0] : warp_sum(row_dot<WIDE>(
-          c0, D, dot(xr, ld<VEC>(ai_p, c0, D, lane)), [&](int cc) {
-            return dot(ld<VEC>(xr_p, cc, D, lane), ld<VEC>(ai_p, cc, D, lane));
-          }));
-      const float pself = PRE ? pr[2] : warp_sum(row_dot<WIDE>(
-          c0, D, dot(xe, aj), [&](int cc) {
-            return dot(add(ld<VEC>(xr_p, cc, D, lane),
-                           ld<VEC>(es_p, cc, D, lane)),
-                       ld<VEC>(aj_p, cc, D, lane));
-          }));
-      const float sraw = ps + pself;
-      const float ds = sraw >= 0.f ? 1.f : a.slope;
-      const float sl = sraw * ds;
-      // online softmax, started by the self loop (BF: the max and the
-      // denominator only; the messages follow in a second walk)
-      float m = sl, den = 1.f;
-      Chunk acc = xe;
-      float A = 0.f;  // K4, lane k < K: sum of p * ein[k]
-      const float vak = FUSED && lane < K ? va[h * K + lane] : 0.f;
-      for (int i0 = 0; i0 < nq; i0 += B) {
-        Chunk msg[B];
-        float ek[B], pdv[B];
-#pragma unroll
-        for (int u = 0; u < B; ++u) {
-          if (i0 + u >= nq) break;
-          const int q = L[i0 + u];
-          const TX* xs = X + (base + s.ls[q]) * HD + hD;
-          if (PRE)
-            pdv[u] = a.proj[((base + s.ls[q]) * H + h) * 3 + 1];
-          else
-            msg[u] = ld<VEC>(xs, c0, D, lane);
-          if (FUSED) {
-            ek[u] = lane < K ? a.ein[(e0 + q) * K + lane] : 0.f;
-            if (BF) ek[u] = rnd(ek[u]);
-          } else {
-            msg[u] = add(msg[u], ld<VEC>(a.e + (e0 + q) * HD + hD, c0, D, lane));
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < B; ++u) {
-          if (i0 + u >= nq) break;
-          const int q = L[i0 + u];
-          const TX* xs = X + (base + s.ls[q]) * HD + hD;
-          const float* es = FUSED ? nullptr : a.e + (e0 + q) * HD + hD;
-          float raw;
-          if constexpr (PRE) {  // the body's order: (ps + pd) + pe
-            raw = (ps + pdv[u]) + warp_sum(ek[u] * vak);
-          } else {
-            float part = row_dot<WIDE>(c0, D, dot(msg[u], aj), [&](int cc) {
-              Chunk t = ld<VEC>(xs, cc, D, lane);
-              if (!FUSED) t = add(t, ld<VEC>(es, cc, D, lane));
-              return dot(t, ld<VEC>(aj_p, cc, D, lane));
-            });
-            if (FUSED) part = fmaf(ek[u], vak, part);
-            raw = ps + warp_sum(part);
-          }
-          const float d = raw >= 0.f ? 1.f : a.slope;
-          const float l = raw * d;
-          const float wq = s.w[q];
-          float p, sc = 1.f;
-          if (l > m) {  // warp-uniform
-            sc = expf(m - l);
-            m = l;
-            p = wq;
-          } else {
-            p = expf(l - m) * wq;
-          }
-          den = fmaf(den, sc, p);
-          if (!BF) {
-            rescale_add(acc, sc, p, msg[u]);
-            if (FUSED) A = fmaf(p, ek[u], A * sc);
-          }
-          if (lane == 0) lg[i0 + u] = l;
-          if (first && lane == 0) dlr[(e0 + q) * H + h] = d;
-        }
-      }
-      __syncwarp();
-      if (BF) {  // the body's denominator: p summed in slot order, p_self
-        den = 0.f;
-        for (int i = 0; i < nq; ++i) den += expf(lg[i] - m) * s.w[L[i]];
-        den += expf(sl - m);
-      }
-      const float inv = 1.f / fmaxf(den, 1e-30f);
-      if (first) {
-        for (int i = lane; i < nq; i += 32) {
-          const int q = L[i];
-          const float p = expf(lg[i] - m) * s.w[q];
-          alpha[(e0 + q) * H + h] = BF ? p / fmaxf(den, 1e-30f) : p * inv;
-        }
-        if (lane == 0) {
-          aself[n * H + h] = BF ? expf(sl - m) / den : expf(sl - m) * inv;
-          dls[n * H + h] = ds;
-        }
-      }
-      if constexpr (BF) {
-        if (!msgs) {
-          __syncwarp();  // lg is rewritten by the next head
-          continue;
-        }
-        // the second walk: numer = sum bf(p_e msg_e), p_e = exp(l_e - m)
-        // w_e at the row's max; K4's msg_e = xb[s] + bf(ein_e) @ bf(We_h),
-        // K5's bf(x[s]) + bf(e_e)
-        // two slots in flight: K4's edge term holds registers
-        constexpr int B2 = 2;
-        Chunk nu = zero();
-        const float* W_s = s.We + h * K * CH;
-        for (int i0 = 0; i0 < nq; i0 += B2) {
-          Chunk msg[B2];
-          float ek[B2];
-#pragma unroll
-          for (int u = 0; u < B2; ++u) {
-            if (i0 + u >= nq) break;
-            const int q = L[i0 + u];
-            if (FUSED) {
-              msg[u] = ld<VEC>(a.xm + (base + s.ls[q]) * HD + hD, c0, D, lane);
-              ek[u] = lane < K ? rnd(a.ein[(e0 + q) * K + lane]) : 0.f;
-            } else {
-              msg[u] = add(ldr<VEC, true>(X + (base + s.ls[q]) * HD + hD, c0, D, lane),
-                           ldr<VEC, true>(a.e + (e0 + q) * HD + hD, c0, D, lane));
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < B2; ++u) {
-            if (i0 + u >= nq) break;
-            const int q = L[i0 + u];
-            if (FUSED) {
-              Chunk e = zero();
-#pragma unroll
-              for (int k = 0; k < MAX_K; ++k) {
-                if (k >= K) break;
-                const float ekk = __shfl_sync(FULL, ek[u], k);
-#pragma unroll
-                for (int i = 0; i < NV; ++i)
-                  e.v[i] = fmaf(ekk, W_s[(k * NV + i) * 32 + lane], e.v[i]);
-              }
-              msg[u] = add(msg[u], e);
-            }
-            add_rounded(nu, expf(lg[i0 + u] - m) * s.w[q], msg[u]);
-          }
-        }
-        __syncwarp();  // lg is rewritten by the next head
-        // the self message: K4's x + e_self unrounded, K5's rounded
-        const Chunk self = FUSED ? xe : rnd(xe);
-        const float p_self = expf(sl - m);
-#pragma unroll
-        for (int i = 0; i < NV; ++i)
-          acc.v[i] = fmaf(p_self, self.v[i], nu.v[i]) / den;
-      } else {
-        __syncwarp();  // lg is rewritten by the next head
-#pragma unroll
-        for (int i = 0; i < NV; ++i) acc.v[i] *= inv;
-        if (FUSED) {
-          // the edge term: (A_r / den) @ We_h on this lane's features
-#pragma unroll
-          for (int k = 0; k < MAX_K; ++k)
-            if (k < K)
-              axpy(acc, __shfl_sync(FULL, A, k) * inv,
-                   ld<VEC>(a.We + k * HD + hD, c0, D, lane));
-        }
-      }
-      if (FUSED)
-        o = add(o, acc);
-      else
-        st<VEC>(out + n * HD + hD, acc, c0, D, lane);
-    }
-    if (FUSED && msgs) {
-      const Chunk bs = ld<VEC>(bias, c0, D, lane);
-#pragma unroll
-      for (int i = 0; i < NV; ++i) o.v[i] = o.v[i] / (float)H + bs.v[i];
-      st<VEC>(out + n * D, o, c0, D, lane);
-    }
-  }
-}
-
-struct BwdOut {
-  float* dz;    // [E, H]
-  float* dzs;   // [N, H]
-  float* u;     // [N, H]
-  float* Ar;    // [N, H, K] (K4) sum_{e -> n} alpha_e ein_e
-  float* Sr;    // [N, H, K] (K4) sum_{e -> n} dz_e ein_e
-  float* part;  // [CTAs][NPART][H*D]
-};
-
-// Backward walk by receiver: dalpha, c, dz [E, H], dzs, u [N, H]; K5 de
-// [E, H*D]; K4 Ar, Sr (not under BF: its dWe takes each slot's de);
-// partial rows 0 (de_self) and 2 (da_j: dzs e_self and, K5, dz e). BF:
-// the bfloat16 variant (see the note above), x read as TX.
-template <bool FUSED, int VEC, bool WIDE, bool BF, typename TX>
-__global__ void __launch_bounds__(THREADS, WALK_MIN_CTAS)
-gat_bwd_rcv_kernel(const Graph a, const Cot c, const float* __restrict__ alpha,
-                   const float* __restrict__ aself,
-                   const float* __restrict__ dlr,
-                   const float* __restrict__ dls, float* __restrict__ de,
-                   const BwdOut o) {
-  static_assert(BF || std::is_same<TX, float>::value, "bfloat16 x is BF's");
-  // slots in flight a warp: K5 loads an e row beside each x row
-  constexpr int B = FUSED ? 4 : 2;
-  // K5 under BF rounds the gathered x and e rows and the self message
-  constexpr bool RX = BF && !FUSED;
-  extern __shared__ __align__(16) float smem[];
-  const int H = a.H, D = a.D, K = a.K, be = a.be;
-  const TX* X = static_cast<const TX*>(a.x);
-  const Walk s = carve(smem, be, true, MAX_K * CH);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int c0 = blockIdx.z * CH;
-  const bool first = blockIdx.z == 0;
-  const ll base = (ll)blockIdx.x * a.bn, e0 = (ll)blockIdx.x * be;
-  const ll HD = (ll)H * D;
-  for (int t = threadIdx.x; t < WARPS * 2 * CH; t += THREADS) s.part[t] = 0.f;
-  stage(s, a, e0, base);
-  // K5: skipped slots' de rows are exact zeros, shared out over the CTAs
-  if (!FUSED) {
-    for (int cq = (blockIdx.y * WARPS + warp) * 32; cq < be;
-         cq += gridDim.y * WARPS * 32) {
-      const int q = cq + lane;
-      unsigned m = __ballot_sync(FULL, q < be && s.ls[q] < 0);
-      while (m) {
-        const int src = __ffs(m) - 1;
-        m &= m - 1;
-        for (int h = 0; h < H; ++h)
-          st<VEC>(de + (e0 + cq + src) * HD + (ll)h * D, zero(), c0, D, lane);
-      }
-    }
-  }
-  const int r0 = blockIdx.y * RPC + warp * RPW;
-  int cnt[RPW];
-  list_rows<false>(s, be, r0, lane, warp, cnt);
-  float* dal = s.buf + warp * 2 * be;  // dalpha, then dz, in list order
-  float* adl = dal + be;  // alpha * LeakyReLU'(raw) (BF: LeakyReLU'(raw))
-  float* mine = s.part + warp * 2 * CH;
-
-  for (int h = 0; h < H; ++h) {
-    const ll hD = (ll)h * D;
-    const float* es_p = a.es + hD;
-    const float* aj_p = a.aj + hD;
-    if (FUSED) {  // We_h's chunk, as the lanes hold it; read after the barrier
-      stage_we<VEC, BF>(s.We, a, h, 1, c0);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < RPW; ++j) {
-      const int r = r0 + j;
-      if (r >= a.bn) break;  // warp-uniform
-      const ll n = base + r;
-      const unsigned short* L = s.list + (warp * RPW + j) * be;
-      const int nq = cnt[j];
-      const float* g_p = c.g + n * c.rs + h * c.hs;
-      const TX* xr_p = X + n * HD + hD;
-      const Chunk g = ld<VEC>(g_p, c0, D, lane, c.scale);
-      const Chunk gb = BF ? rnd(g) : g;  // the gathered g_r's rounding
-      // daself = g_n · (x_n + e_self); K5 under BF: both rounded
-      const float daself = warp_sum(row_dot<WIDE>(
-          c0, D,
-          dot(RX ? gb : g,
-              RX ? rnd(add(ld<VEC>(xr_p, c0, D, lane), ld<VEC>(es_p, c0, D, lane)))
-                 : add(ld<VEC>(xr_p, c0, D, lane), ld<VEC>(es_p, c0, D, lane))),
-          [&](int cc) {
-            const Chunk xe = add(ld<VEC>(xr_p, cc, D, lane),
-                                 ld<VEC>(es_p, cc, D, lane));
-            return dot(ldr<VEC, RX>(g_p, cc, D, lane, c.scale),
-                       RX ? rnd(xe) : xe);
-          }));
-      float qk = 0.f;  // K4, lane k < K: (We_h g_r)[k]
-      if (FUSED) {
-        float qp[MAX_K];  // the lane's parts of the K dot products
-#pragma unroll
-        for (int k = 0; k < MAX_K; ++k) {
-          float t = 0.f;
-          if (k < K) {
-#pragma unroll
-            for (int i = 0; i < NV; ++i)
-              t = fmaf(gb.v[i], s.We[(k * NV + i) * 32 + lane], t);
-            const float* W = a.We + k * HD + hD;
-            t = row_dot<WIDE>(c0, D, t, [&](int cc) {
-              return dot(ldr<VEC, BF>(g_p, cc, D, lane, c.scale),
-                         ldr<VEC, BF>(W, cc, D, lane));
-            });
-          }
-          qp[k] = t;
-        }
-        // reduce-scatter over the warp: lane l ends with the sum of
-        // qp[l >> 1]
-        halve<16, 8>(qp, lane);
-        halve<8, 4>(qp, lane);
-        halve<4, 2>(qp, lane);
-        halve<2, 1>(qp, lane);
-        const float q = qp[0] + __shfl_xor_sync(FULL, qp[0], 1);
-        qk = __shfl_sync(FULL, q, (2 * lane) & 31);
-      }
-      const float asr = aself[n * H + h], dlsr = dls[n * H + h];
-      // pass 1: dalpha_e = g_r · (x[s] + e_e), c_r = sum alpha_e dalpha_e
-      // (+ the self loop's), K4 A_r = sum alpha_e ein_e
-      float ar = 0.f, cr = 0.f;
-      for (int i0 = 0; i0 < nq; i0 += B) {
-        Chunk msg[B];
-        float ek[B], al[B], dl[B];
-#pragma unroll
-        for (int u = 0; u < B; ++u) {
-          if (i0 + u >= nq) break;
-          const int q = L[i0 + u];
-          msg[u] = ldr<VEC, RX>(X + (base + s.ls[q]) * HD + hD, c0, D, lane);
-          al[u] = alpha[(e0 + q) * H + h];
-          dl[u] = dlr[(e0 + q) * H + h];
-          if (FUSED) {
-            ek[u] = lane < K ? a.ein[(e0 + q) * K + lane] : 0.f;
-            if (BF) ek[u] = rnd(ek[u]);
-          } else {
-            msg[u] = add(msg[u], ldr<VEC, RX>(a.e + (e0 + q) * HD + hD, c0, D,
-                                             lane));
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < B; ++u) {
-          if (i0 + u >= nq) break;
-          const int q = L[i0 + u];
-          const TX* xs = X + (base + s.ls[q]) * HD + hD;
-          const float* ep = FUSED ? nullptr : a.e + (e0 + q) * HD + hD;
-          float part = row_dot<WIDE>(c0, D, dot(gb, msg[u]), [&](int cc) {
-            Chunk t = ldr<VEC, RX>(xs, cc, D, lane);
-            if (!FUSED) t = add(t, ldr<VEC, RX>(ep, cc, D, lane));
-            return dot(ldr<VEC, BF>(g_p, cc, D, lane, c.scale), t);
-          });
-          if (FUSED) {
-            part = fmaf(ek[u], qk, part);
-            ar = fmaf(al[u], ek[u], ar);
-          }
-          const float d = warp_sum(part);
-          // BF: the body's order, each product rounded, then summed
-          cr = BF ? cr + __fmul_rn(al[u], d) : fmaf(al[u], d, cr);
-          if (lane == 0) {
-            dal[i0 + u] = d;
-            adl[i0 + u] = BF ? dl[u] : al[u] * dl[u];  // BF: the slope alone
-          }
-        }
-      }
-      __syncwarp();
-      // dz, dzs and u, lane-parallel over the row's slots (BF: dz as
-      // alpha (dalpha - c) LeakyReLU' and u summed in slot order, the
-      // body's association)
-      cr = BF ? cr + __fmul_rn(asr, daself) : fmaf(asr, daself, cr);
-      const float dzs = asr * (daself - cr) * dlsr;
-      float up = 0.f;
-      for (int i = lane; i < nq; i += 32) {
-        const int q = L[i];
-        const float z = BF ? __fmul_rn(__fmul_rn(alpha[(e0 + q) * H + h],
-                                                 dal[i] - cr),
-                                       adl[i])
-                           : adl[i] * (dal[i] - cr);
-        dal[i] = z;
-        up += z;
-        if (first) o.dz[(e0 + q) * H + h] = z;
-      }
-      float uu;
-      if (BF) {
-        __syncwarp();
-        float sq = 0.f;
-        for (int i = 0; i < nq; ++i) sq += dal[i];
-        uu = sq + dzs;
-      } else {
-        uu = warp_sum(up) + dzs;
-      }
-      if (first && lane == 0) {
-        o.u[n * H + h] = uu;
-        o.dzs[n * H + h] = dzs;
-      }
-      __syncwarp();
-      if (FUSED) {
-        // S_r = sum dz_e ein_e, one add a slot; lanes K .. KP - 1 write 0
-        if (!BF && first && lane < padded_k(K)) {
-          float sr = 0.f;
-          for (int i0 = 0; i0 < nq; i0 += 8) {
-            float ev[8];
-#pragma unroll
-            for (int u = 0; u < 8; ++u)
-              ev[u] = i0 + u < nq && lane < K
-                          ? a.ein[(e0 + L[i0 + u]) * K + lane] : 0.f;
-#pragma unroll
-            for (int u = 0; u < 8; ++u)
-              if (i0 + u < nq) sr = fmaf(dal[i0 + u], ev[u], sr);
-          }
-          o.Ar[(n * H + h) * padded_k(K) + lane] = ar;
-          o.Sr[(n * H + h) * padded_k(K) + lane] = sr;
-        }
-      } else {
-        // pass 2: de_e = alpha_e g_r + dz_e a_j; da_j += dz_e e_e (e
-        // unrounded)
-        const Chunk aj = ld<VEC>(aj_p, c0, D, lane);
-        for (int i0 = 0; i0 < nq; i0 += B) {
-          Chunk ev[B];
-          float al[B];
-#pragma unroll
-          for (int u = 0; u < B; ++u)
-            if (i0 + u < nq) {
-              const int q = L[i0 + u];
-              ev[u] = ld<VEC>(a.e + (e0 + q) * HD + hD, c0, D, lane);
-              al[u] = alpha[(e0 + q) * H + h];
-            }
-#pragma unroll
-          for (int u = 0; u < B; ++u) {
-            if (i0 + u >= nq) break;
-            const int q = L[i0 + u];
-            const float z = dal[i0 + u];
-            Chunk dv;
-#pragma unroll
-            for (int i = 0; i < NV; ++i) {
-              dv.v[i] = fmaf(al[u], gb.v[i], z * aj.v[i]);
-              ev[u].v[i] *= z;
-            }
-            st<VEC>(de + (e0 + q) * HD + hD, dv, c0, D, lane);
-            add_part(mine, 1, ev[u], lane);
-          }
-        }
-      }
-      __syncwarp();  // the slot scalars are rewritten by the next row
-      const Chunk aj = ld<VEC>(aj_p, c0, D, lane);
-      const Chunk es = ld<VEC>(es_p, c0, D, lane);
-      Chunk t0, t1;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        t0.v[i] = fmaf(asr, g.v[i], dzs * aj.v[i]);
-        t1.v[i] = dzs * es.v[i];
-      }
-      add_part(mine, 0, t0, lane);
-      add_part(mine, 1, t1, lane);
-    }
-    write_partials<VEC>(s.part, 0, 2, o.part, HD, h, D, c0);
-  }
-}
-
-// Backward walk by sender: v_n and dx [N, H*D] (K4 under BF also its
-// bfloat16 copy dxb, pitch ldb); partial rows 1 (da_i) and 3 (da_j: v x).
-template <bool FUSED, int VEC, bool WIDE, bool BF, typename TX>
-__global__ void __launch_bounds__(THREADS, WALK_MIN_CTAS)
-gat_bwd_snd_kernel(const Graph a, const Cot c, const float* __restrict__ alpha,
-                   const float* __restrict__ aself,
-                   const float* __restrict__ dz, const float* __restrict__ dzs,
-                   const float* __restrict__ u, float* __restrict__ dx,
-                   bf16* __restrict__ dxb, ll ldb, float* __restrict__ part) {
-  static_assert(BF || std::is_same<TX, float>::value, "bfloat16 x is BF's");
-  constexpr int B = 4;
-  extern __shared__ __align__(16) float smem[];
-  const int H = a.H, D = a.D, be = a.be;
-  const TX* X = static_cast<const TX*>(a.x);
-  const Walk s = carve(smem, be, true, MAX_K * CH);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int c0 = blockIdx.z * CH;
-  const ll base = (ll)blockIdx.x * a.bn, e0 = (ll)blockIdx.x * be;
-  const ll HD = (ll)H * D;
-  for (int t = threadIdx.x; t < WARPS * 2 * CH; t += THREADS) s.part[t] = 0.f;
-  stage(s, a, e0, base);
-  const int r0 = blockIdx.y * RPC + warp * RPW;
-  int cnt[RPW];
-  list_rows<true>(s, be, r0, lane, warp, cnt);
-  float* mine = s.part + warp * 2 * CH;
-
-  for (int h = 0; h < H; ++h) {
-    const ll hD = (ll)h * D;
-#pragma unroll
-    for (int j = 0; j < RPW; ++j) {
-      const int r = r0 + j;
-      if (r >= a.bn) break;  // warp-uniform
-      const ll n = base + r;
-      const unsigned short* L = s.list + (warp * RPW + j) * be;
-      const int nq = cnt[j];
-      float vp = 0.f;  // BF: the sum in slot order, the body's
-      if (BF)
-        for (int i = 0; i < nq; ++i) vp += dz[(e0 + L[i]) * H + h];
-      else
-        for (int i = lane; i < nq; i += 32) vp += dz[(e0 + L[i]) * H + h];
-      const float v = (BF ? vp : warp_sum(vp)) + dzs[n * H + h];
-      const float uu = u[n * H + h];
-      const float asn = aself[n * H + h];
-      Chunk acc = zero();
-      for (int i0 = 0; i0 < nq; i0 += B) {
-        Chunk gr[B];
-        float al[B];
-#pragma unroll
-        for (int t = 0; t < B; ++t) {
-          if (i0 + t >= nq) break;
-          const int q = L[i0 + t];
-          gr[t] = ldr<VEC, BF>(c.g + (base + s.lr[q]) * c.rs + h * c.hs, c0,
-                               D, lane, c.scale);
-          al[t] = alpha[(e0 + q) * H + h];
-        }
-#pragma unroll
-        for (int t = 0; t < B; ++t)
-          if (i0 + t < nq) {
-            if (BF)  // the message gradient's rounding, bf(alpha_e g_r)
-              add_rounded(acc, al[t], gr[t]);
-            else
-              axpy(acc, al[t], gr[t]);
-          }
-      }
-      // the self term: K5 under BF takes the rounded g_n, K4 the unrounded
-      const Chunk gn = ldr<VEC, BF && !FUSED>(c.g + n * c.rs + h * c.hs, c0, D,
-                                              lane, c.scale);
-      const Chunk ai = ld<VEC>(a.ai + hD, c0, D, lane);
-      const Chunk aj = ld<VEC>(a.aj + hD, c0, D, lane);
-#pragma unroll
-      for (int i = 0; i < NV; ++i)  // BF: each product rounded, the body's
-        acc.v[i] = BF ? acc.v[i] + __fmul_rn(asn, gn.v[i])
-                          + __fmul_rn(uu, ai.v[i]) + __fmul_rn(v, aj.v[i])
-                      : fmaf(v, aj.v[i],
-                             fmaf(uu, ai.v[i], fmaf(asn, gn.v[i], acc.v[i])));
-      st<VEC>(dx + n * HD + hD, acc, c0, D, lane);
-      if (BF && FUSED) st<VEC>(dxb + n * ldb + hD, acc, c0, D, lane);
-      const Chunk xn = ld<VEC>(X + n * HD + hD, c0, D, lane);
-      Chunk t0, t1;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        t0.v[i] = uu * xn.v[i];
-        t1.v[i] = v * xn.v[i];
-      }
-      add_part(mine, 0, t0, lane);
-      add_part(mine, 1, t1, lane);
-    }
-    write_partials<VEC>(s.part, 1, 3, part, HD, h, D, c0);
-  }
-}
-// K4: dwe_part[chunk][k][c] = sum_n Ar[n, h, k] g_h[n, f] + S_chunk[h, k]
-// a_j[c] over the chunk's DWE_ROWS rows (S_chunk: Sr summed over them), and
-// row K: da_j's e term, sum_k S_chunk[h, k] We[k, c] (c = h*D + f). One
-// thread a column: a row's g entry and its Ar and Sr (float4s, the same
-// address across the warp) each row, several rows in flight. The rows'
-// loads, not the arithmetic, set the time, so a chunk is short: 64 rows
-// ran faster on the card than 32 (more partials) or 128 (longer chains).
-__global__ void __launch_bounds__(DWE_THREADS)
-gat_dwe_kernel(const Graph a, const Cot c, const float* __restrict__ Ar,
-               const float* __restrict__ Sr, float* __restrict__ dwe_part) {
-  const int H = a.H, D = a.D, K = a.K, KP = padded_k(a.K);
-  const ll HD = (ll)H * D;
-  const ll col = (ll)blockIdx.x * DWE_THREADS + threadIdx.x;
-  if (col >= HD) return;
-  const int h = (int)(col / D), f = (int)(col % D);
-  const int n0 = blockIdx.y * DWE_ROWS, n1 = min(a.N, n0 + DWE_ROWS);
-  float acc[MAX_K], sk[MAX_K];
-#pragma unroll
-  for (int k = 0; k < MAX_K; ++k) acc[k] = sk[k] = 0.f;
-#pragma unroll 4
-  for (int n = n0; n < n1; ++n) {
-    const float gv = c.g[(ll)n * c.rs + h * c.hs + f] * c.scale;
-    const float4* ar = reinterpret_cast<const float4*>(Ar + ((ll)n * H + h) * KP);
-    const float4* sr = reinterpret_cast<const float4*>(Sr + ((ll)n * H + h) * KP);
-#pragma unroll
-    for (int kq = 0; kq < MAX_K / 4; ++kq)
-      if (4 * kq < K) {
-        const float4 t = ar[kq], u = sr[kq];
-        acc[4 * kq] = fmaf(t.x, gv, acc[4 * kq]);
-        acc[4 * kq + 1] = fmaf(t.y, gv, acc[4 * kq + 1]);
-        acc[4 * kq + 2] = fmaf(t.z, gv, acc[4 * kq + 2]);
-        acc[4 * kq + 3] = fmaf(t.w, gv, acc[4 * kq + 3]);
-        sk[4 * kq] += u.x;
-        sk[4 * kq + 1] += u.y;
-        sk[4 * kq + 2] += u.z;
-        sk[4 * kq + 3] += u.w;
-      }
-  }
-  const float ajc = a.aj[col];
-  float* out = dwe_part + (ll)blockIdx.y * (K + 1) * HD + col;
-  float ej = 0.f;
-#pragma unroll
-  for (int k = 0; k < MAX_K; ++k) {
-    if (k >= K) break;
-    out[k * HD] = fmaf(sk[k], ajc, acc[k]);
-    ej = fmaf(sk[k], a.We[k * HD + col], ej);
-  }
-  out[K * HD] = ej;
-}
-
-constexpr int FIN_GROUPS = 32;  // a column's ranges of partials
-constexpr int FIN_BATCH = 8;    // partials in flight a thread
-
-// dpar [3, H*D] = de_self, da_i, da_j and (K4) dWe [K, H*D]: the walks'
-// partials (S CTAs) and the dWe partials (S3 chunks) summed in order, each
-// column by FIN_GROUPS contiguous ranges whose sums are added in range
-// order.
-__global__ void __launch_bounds__(32 * FIN_GROUPS)
-gat_finish_kernel(const float* __restrict__ part, int S,
-                  const float* __restrict__ dwe_part, int S3, int K, ll HD,
-                  float* __restrict__ dpar, float* __restrict__ dWe) {
-  __shared__ float red[FIN_GROUPS][32];
-  const int lane = threadIdx.x % 32, grp = threadIdx.x / 32;
-  const ll o = (ll)blockIdx.x * 32 + lane;
-  const int rows = 3 + (dwe_part ? K : 0);
-  const bool ok = o < rows * HD;
-  const int row = ok ? (int)(o / HD) : 0;
-  const ll col = ok ? o % HD : 0;
-  float s = 0.f;
-  if (ok && row < 3) {
-    const int a0 = (int)((ll)S * grp / FIN_GROUPS);
-    const int a1 = (int)((ll)S * (grp + 1) / FIN_GROUPS);
-    for (int i0 = a0; i0 < a1; i0 += FIN_BATCH) {
-      float v[FIN_BATCH];
-#pragma unroll
-      for (int t = 0; t < FIN_BATCH; ++t) {
-        const float* p = part + (ll)(i0 + t) * NPART * HD + col;
-        v[t] = i0 + t >= a1 ? 0.f
-               : row == 2   ? p[2 * HD] + p[3 * HD]
-                            : p[row * HD];
-      }
-#pragma unroll
-      for (int t = 0; t < FIN_BATCH; ++t)
-        if (i0 + t < a1) s += v[t];
-    }
-  }
-  if (ok && dwe_part && row >= 2) {
-    const int k = row == 2 ? K : row - 3;
-    const int a0 = (int)((ll)S3 * grp / FIN_GROUPS);
-    const int a1 = (int)((ll)S3 * (grp + 1) / FIN_GROUPS);
-    for (int i0 = a0; i0 < a1; i0 += FIN_BATCH) {
-      float v[FIN_BATCH];
-#pragma unroll
-      for (int t = 0; t < FIN_BATCH; ++t)
-        v[t] = i0 + t < a1 ? dwe_part[((ll)(i0 + t) * (K + 1) + k) * HD + col]
-                           : 0.f;
-#pragma unroll
-      for (int t = 0; t < FIN_BATCH; ++t)
-        if (i0 + t < a1) s += v[t];
-    }
-  }
-  red[grp][lane] = s;
-  __syncthreads();
-  if (grp != 0 || !ok) return;
-  float t = 0.f;
-  for (int g2 = 0; g2 < FIN_GROUPS; ++g2) t += red[g2][lane];
-  if (row < 3) dpar[row * HD + col] = t;
-  else dWe[(row - 3) * HD + col] = t;
-}
-
-
-// K4 under BF: dwe_part[chunk][k][c] = sum over the chunk's DWE_EDGES slots
-// e that count of bf(ein_ek) bf(de_e[c]), de_e[c] = alpha_eh g_r[c] + dz_eh
-// a_j[c] with g_r = bf(g[rcv_e] / H), each product and sum rounded as the
-// Pallas body's (c = h*D + f); row K: da_j's e term, sum_k (sum_e dz_eh
-// bf(ein_ek)) bf(We[k, c]). The CTA stages its slots' receiver rows (-1:
-// the slot adds nothing), alpha and dz of every head and rounded ein in
-// shared memory, coalesced; then one thread a column walks them in slot
-// order, DWE_U slots' g entries loaded before any is used.
-constexpr int DWE_U = 4;
-
-int dwe_bf16_smem(int H, int K) { return DWE_EDGES * (1 + 2 * H + K) * 4; }
-
-__global__ void __launch_bounds__(DWE_THREADS)
-gat_dwe_bf16_kernel(const Graph a, const Cot c, const float* __restrict__ alpha,
-                    const float* __restrict__ dz, float* __restrict__ dwe_part) {
-  extern __shared__ __align__(16) float sm[];
-  const int H = a.H, D = a.D, K = a.K;
-  const ll HD = (ll)H * D;
-  int* s_row = reinterpret_cast<int*>(sm);
-  float* s_al = sm + DWE_EDGES;
-  float* s_dz = s_al + DWE_EDGES * H;
-  float* s_ek = s_dz + DWE_EDGES * H;
-  const ll e0 = (ll)blockIdx.y * DWE_EDGES;
-  const int n = (int)min((ll)DWE_EDGES, (ll)a.E - e0);
-  for (int t = threadIdx.x; t < n; t += DWE_THREADS) {
-    const ll e = e0 + t, base = e / a.be * a.bn, lr = a.rcv[e] - base;
-    s_row[t] = counts(a.w[e], a.snd[e] - base, lr, a.bn) ? (int)(base + lr)
-                                                          : -1;
-  }
-  for (int t = threadIdx.x; t < n * H; t += DWE_THREADS) {
-    s_al[t] = alpha[e0 * H + t];
-    s_dz[t] = dz[e0 * H + t];  // read only for the slots that count
-  }
-  for (int t = threadIdx.x; t < n * K; t += DWE_THREADS)
-    s_ek[t] = rnd(a.ein[e0 * K + t]);
-  __syncthreads();
-  const ll col = (ll)blockIdx.x * DWE_THREADS + threadIdx.x;
-  if (col >= HD) return;
-  const int h = (int)(col / D), f = (int)(col % D);
-  const float ajc = a.aj[col];
-  float acc[MAX_K], sk[MAX_K];
-#pragma unroll
-  for (int k = 0; k < MAX_K; ++k) acc[k] = sk[k] = 0.f;
-  for (int i0 = 0; i0 < n; i0 += DWE_U) {
-    float gv[DWE_U];
-    int rw[DWE_U];
-#pragma unroll
-    for (int u = 0; u < DWE_U; ++u) {
-      rw[u] = i0 + u < n ? s_row[i0 + u] : -1;
-      gv[u] = rw[u] >= 0 ? c.g[(ll)rw[u] * c.rs + h * c.hs + f] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < DWE_U; ++u) {
-      if (rw[u] < 0) continue;  // the same slot in every thread
-      const int i = i0 + u;
-      const float al = s_al[i * H + h], z = s_dz[i * H + h];
-      const float de = rnd(__fadd_rn(__fmul_rn(al, rnd(gv[u] * c.scale)),
-                                     __fmul_rn(z, ajc)));
-#pragma unroll
-      for (int k = 0; k < MAX_K; ++k) {
-        if (k >= K) break;
-        const float ek = s_ek[i * K + k];
-        acc[k] = fmaf(ek, de, acc[k]);
-        sk[k] = fmaf(z, ek, sk[k]);
-      }
-    }
-  }
-  float* out = dwe_part + (ll)blockIdx.y * (K + 1) * HD + col;
-  float ej = 0.f;
-#pragma unroll
-  for (int k = 0; k < MAX_K; ++k) {
-    if (k >= K) break;
-    out[k * HD] = acc[k];
-    ej = fmaf(sk[k], rnd(a.We[k * HD + col]), ej);
-  }
-  out[K * HD] = ej;
-}
-
-template <typename Kern>
-int allow_smem(Kern kern, int bytes) {
-  if (bytes <= DEFAULT_SMEM) return 0;
-  return (int)cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-int max_smem(int bn, int be) {
-  (void)bn;  // a walk CTA holds slots, never rows
-  return bwd_smem(be);
-}
-
-// K4's bfloat16 forward holds every head's rounded We chunk beside its walk.
-int fwd_bf16_smem(const Graph& a) {
-  return walk_smem(a.be, false, a.H * a.K * CH);
-}
-
-bool bad_shape(const Graph& a, bool fused) {
-  return a.N <= 0 || a.H <= 0 || a.D <= 0 || a.bn <= 0 || a.be <= 0 ||
-         a.N % a.bn != 0 || (ll)a.E != (ll)(a.N / a.bn) * a.be ||
-         (fused && (a.K <= 0 || a.K > MAX_K)) ||
-         max_smem(a.bn, a.be) > MAX_SMEM;
-}
-
-int walk_ctas(const Graph& a) { return (a.N / a.bn) * ((a.bn + RPC - 1) / RPC); }
-
-dim3 walk_grid(const Graph& a) {
-  return dim3(a.N / a.bn, (a.bn + RPC - 1) / RPC, (a.D + CH - 1) / CH);
-}
-
-// The instantiation of a walk kernel for this row: two features a lane
-// (VEC = 2) where D is even, the row fits one chunk and every row the walks
-// read or write starts 8-byte aligned (4-byte for bfloat16 rows: x as TX,
-// the graph's float rows, those of ``ptrs`` and, bfloat16, ``ptrs16``);
-// else one, WIDE where a row spans more than one chunk.
-template <typename TX, typename Kern>
-Kern pick(const Graph& a, std::initializer_list<const float*> ptrs,
-          std::initializer_list<const bf16*> ptrs16, Kern k1, Kern k1_wide,
-          Kern k2) {
-  if (a.D > CH) return k1_wide;
-  if (a.D % 2) return k1;
-  if (reinterpret_cast<uintptr_t>(a.x) % (2 * sizeof(TX))) return k1;
-  for (const float* p : {a.e, a.We, a.es, a.ai, a.aj})
-    if (p && reinterpret_cast<uintptr_t>(p) % 8) return k1;
-  for (const float* p : ptrs)
-    if (p && reinterpret_cast<uintptr_t>(p) % 8) return k1;
-  for (const bf16* p : ptrs16)
-    if (p && reinterpret_cast<uintptr_t>(p) % 4) return k1;
-  return k2;
-}
-
-// The whole forward attention on a.x (read as TX): va [H, K] scratch for
-// K4, else null. BF with out null: the softmax scalars only, from the first
-// chunk's CTAs.
-template <bool FUSED, bool BF, typename TX>
-int attention_fwd(const Graph& a, const float* bias, float* va, float* alpha,
-                  float* aself, float* dlr, float* dls, float* out,
-                  cudaStream_t st) {
-  if (FUSED) {
-    const int blocks = (a.H * a.K + WARPS - 1) / WARPS;
-    gat_edge_vec_kernel<<<blocks, THREADS, 0, st>>>(a, va, BF);
-    int err = (int)cudaGetLastError();
-    if (err) return err;
-    if (BF) {  // a.proj: the walk's logit scalars
-      const ll warps = (ll)a.N * a.H;
-      gat_proj_kernel<TX><<<(unsigned)((warps + WARPS - 1) / WARPS), THREADS,
-                            0, st>>>(a, const_cast<float*>(a.proj));
-      err = (int)cudaGetLastError();
-      if (err) return err;
-    }
-  }
-  const bool msgs = out != nullptr;
-  const int smem = BF && FUSED && msgs ? fwd_bf16_smem(a)
-                                       : walk_smem(a.be, false, 0);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  auto kern = pick<TX>(a, {bias, out}, {a.xm},
-                       gat_fwd_kernel<FUSED, 1, false, BF, TX>,
-                       gat_fwd_kernel<FUSED, 1, true, BF, TX>,
-                       gat_fwd_kernel<FUSED, 2, false, BF, TX>);
-  const int err = allow_smem(kern, smem);
-  if (err) return err;
-  dim3 grid = walk_grid(a);
-  if (!msgs) grid.z = 1;
-  kern<<<grid, THREADS, smem, st>>>(a, va, bias, out, alpha, aself, dlr, dls);
-  return (int)cudaGetLastError();
-}
-
-struct AttnWork {  // scratch of attention_bwd
-  BwdOut o;
-  float* dwe_part;  // [S3][K + 1][H*D] (K4)
-};
-
-struct Carver {
-  float* base;
-  ll off = 0;
-  float* take(ll n) {
-    float* p = base ? base + off : nullptr;
-    off += (n + 3) / 4 * 4;
-    return p;
-  }
-  bf16* take16(ll n) { return reinterpret_cast<bf16*>(take((n + 1) / 2)); }
-};
-
-int dwe_chunks(int N) { return (N + DWE_ROWS - 1) / DWE_ROWS; }
-int dwe_bf16_chunks(int E) { return (E + DWE_EDGES - 1) / DWE_EDGES; }
-
-AttnWork carve_attn(Carver& cv, const Graph& a, bool fused, bool bf) {
-  AttnWork w{};
-  const ll NH = (ll)a.N * a.H, EH = (ll)a.E * a.H, HD = (ll)a.H * a.D;
-  w.o.dz = cv.take(EH);
-  w.o.dzs = cv.take(NH);
-  w.o.u = cv.take(NH);
-  w.o.part = cv.take((ll)walk_ctas(a) * NPART * HD);
-  if (fused && bf) {
-    w.dwe_part = cv.take((ll)dwe_bf16_chunks(a.E) * (a.K + 1) * HD);
-  } else if (fused) {
-    w.o.Ar = cv.take(NH * padded_k(a.K));
-    w.o.Sr = cv.take(NH * padded_k(a.K));
-    w.dwe_part = cv.take((ll)dwe_chunks(a.N) * (a.K + 1) * HD);
-  }
-  return w;
-}
-
-// The whole backward attention: dx (K4 under BF also its bfloat16 copy dxb,
-// pitch ldb), de (K5) or dWe (K4), and dpar [3, H*D] = de_self, da_i, da_j.
-template <bool FUSED, bool BF, typename TX>
-int attention_bwd(const Graph& a, const Cot& c, const float* alpha,
-                  const float* aself, const float* dlr, const float* dls,
-                  const AttnWork& w, float* dx, bf16* dxb, ll ldb, float* de,
-                  float* dWe, float* dpar, cudaStream_t st) {
-  const ll HD = (ll)a.H * a.D;
-  const int smem = bwd_smem(a.be);
-  auto rcv = pick<TX>(a, {c.g, dx, de}, {dxb},
-                      gat_bwd_rcv_kernel<FUSED, 1, false, BF, TX>,
-                      gat_bwd_rcv_kernel<FUSED, 1, true, BF, TX>,
-                      gat_bwd_rcv_kernel<FUSED, 2, false, BF, TX>);
-  auto snd = pick<TX>(a, {c.g, dx, de}, {dxb},
-                      gat_bwd_snd_kernel<FUSED, 1, false, BF, TX>,
-                      gat_bwd_snd_kernel<FUSED, 1, true, BF, TX>,
-                      gat_bwd_snd_kernel<FUSED, 2, false, BF, TX>);
-  int err = allow_smem(rcv, smem);
-  if (err) return err;
-  err = allow_smem(snd, smem);
-  if (err) return err;
-  rcv<<<walk_grid(a), THREADS, smem, st>>>(a, c, alpha, aself, dlr, dls, de, w.o);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  const unsigned cols = (unsigned)((HD + DWE_THREADS - 1) / DWE_THREADS);
-  int s3 = 0;
-  if (FUSED && BF) {
-    s3 = dwe_bf16_chunks(a.E);
-    gat_dwe_bf16_kernel<<<dim3(cols, s3), DWE_THREADS,
-                          dwe_bf16_smem(a.H, a.K), st>>>(a, c, alpha, w.o.dz,
-                                                         w.dwe_part);
-  } else if (FUSED) {
-    s3 = dwe_chunks(a.N);
-    gat_dwe_kernel<<<dim3(cols, s3), DWE_THREADS, 0, st>>>(a, c, w.o.Ar,
-                                                           w.o.Sr, w.dwe_part);
-  }
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  snd<<<walk_grid(a), THREADS, smem, st>>>(a, c, alpha, aself, w.o.dz,
-                                           w.o.dzs, w.o.u, dx, dxb, ldb,
-                                           w.o.part);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  const ll outs = (3 + (FUSED ? a.K : 0)) * HD;
-  gat_finish_kernel<<<(unsigned)((outs + 31) / 32), 32 * FIN_GROUPS, 0, st>>>(
-      w.o.part, walk_ctas(a), FUSED ? w.dwe_part : nullptr, s3, a.K, HD, dpar,
-      dWe);
-  return (int)cudaGetLastError();
-}
-
-// K4's scratch under BF besides the walks': h and Wl rounded (pitch pad8).
-struct Rounded {
-  bf16* h;   // [N, pad8(Din)]
-  bf16* Wl;  // [Din, HD] in Wl's orientation, see round_weight
-};
-
-Rounded carve_rounded(Carver& cv, int N, int Din, ll HD) {
-  return {cv.take16((ll)N * pad8(Din)), cv.take16(pad8(Din) * pad8(HD))};
-}
-
-// h rounded into r.h and Wl into r.Wl; *t0, *t1 receive r.Wl's strides.
-int round_operands(const float* h, const float* Wl, ll wls0, ll wls1, int N,
-                   int Din, ll HD, const Rounded& r, ll* t0, ll* t1,
-                   cudaStream_t st) {
-  const int err = convert(h, Din, 1, N, Din, r.h, pad8(Din), 1, st);
-  if (err) return err;
-  return round_weight(Wl, wls0, wls1, Din, (int)HD, r.Wl, t0, t1, st);
-}
-
-struct ConvFwdWork {
-  float* va;    // [H, MAX_K]
-  float* x;     // BF: the float32 x, [N, H*D]
-  float* proj;  // BF: [N, H, 3], see gat_proj_kernel
-  Rounded r16;  // BF
-  ll total;
-};
-
-ConvFwdWork carve_conv_fwd(float* base, int N, int Din, int H, int D,
-                           bool bf) {
-  Carver cv{base};
-  ConvFwdWork w{};
-  w.va = cv.take((ll)H * MAX_K);
-  if (bf) {
-    w.x = cv.take((ll)N * H * D);
-    w.proj = cv.take((ll)N * H * 3);
-    w.r16 = carve_rounded(cv, N, Din, (ll)H * D);
-  }
-  w.total = cv.off;
-  return w;
-}
-
-struct ConvBwdWork {
-  float* dx;     // [N, H*D]
-  AttnWork attn;
-  float* gpart;  // split-K partials of dWl
-  float* cpart;  // column-sum partials of dbias / dbl
-  // BF: dx rounded [N, pad8(H*D)], h and Wl rounded, the edge vector and
-  // the softmax scalars recomputed from the bfloat16 x
-  bf16* dxb;
-  Rounded r16;
-  float* va;
-  float* proj;  // [N, H, 3], see gat_proj_kernel
-  float *alpha, *aself, *dlr, *dls;
-  ll total;
-};
-
-ConvBwdWork carve_conv_bwd(float* base, const Graph& a, int Din, bool bf) {
-  Carver cv{base};
-  ConvBwdWork w{};
-  const ll HD = (ll)a.H * a.D;
-  w.dx = cv.take((ll)a.N * HD);
-  w.attn = carve_attn(cv, a, true, bf);
-  w.gpart = cv.take((ll)wgrad_splits(Din, (int)HD, a.N) * Din * HD);
-  w.cpart = cv.take((ll)((a.N + COLSUM_ROWS - 1) / COLSUM_ROWS) * HD);
-  if (bf) {
-    w.dxb = cv.take16((ll)a.N * pad8(HD));
-    w.r16 = carve_rounded(cv, a.N, Din, HD);
-    w.va = cv.take((ll)a.H * MAX_K);
-    w.proj = cv.take((ll)a.N * a.H * 3);
-    w.alpha = cv.take((ll)a.E * a.H);
-    w.aself = cv.take((ll)a.N * a.H);
-    w.dlr = cv.take((ll)a.E * a.H);
-    w.dls = cv.take((ll)a.N * a.H);
-  }
-  w.total = cv.off;
-  return w;
-}
-
-}  // namespace
+//   bfloat16 forwards take a row's logits, max and denominator before its
+//   rounded messages. K5 walks the slots twice. K4's design (gat_bf16.cu):
+//   no row read for the logits (their row scalars x·a_i, x·a_j and (x +
+//   e_self)·a_j, of x and of xb, come from one kernel), the slots' logits a
+//   lane a slot, the message's e_e a slot and feature from every head's
+//   rounded We in shared memory, K FMAs a feature but for the zero
+//   bf(ein_ek).
+
+// Sources: the walks and their helpers live in gat_walks.cuh; this file
+// instantiates the float32 kernels and holds the library's C interface,
+// gat_bf16.cu the bfloat16 variants behind it (two sources compiled in
+// parallel, linked into one library).
+
+#include "gat_walks.cuh"
 
 extern "C" {
 
@@ -1640,22 +166,31 @@ long long pgt_gat_attn_fwd_workspace(int N, int E, int H) {
 }
 long long pgt_gat_conv_fwd_workspace(int N, int Din, int H, int D,
                                      int bf16_compute) {
-  return carve_conv_fwd(nullptr, N, Din, H, D, bf16_compute).total;
+  if (bf16_compute) return pgt_gat_conv_fwd_workspace_bf16(N, Din, H, D);
+  return carve_conv_fwd(nullptr, H).total;
 }
 long long pgt_gat_attn_bwd_workspace(int N, int E, int H, int D,
                                      int block_nodes) {
   Graph a{};
   a.N = N; a.E = E; a.H = H; a.D = D; a.bn = block_nodes;
   Carver cv{nullptr};
-  carve_attn(cv, a, false, false);
+  carve_attn(cv, a, false);
   return cv.off;
 }
 long long pgt_gat_conv_bwd_workspace(int N, int E, int Din, int H, int D,
                                      int K, int block_nodes,
                                      int bf16_compute) {
+  if (bf16_compute)
+    return pgt_gat_conv_bwd_workspace_bf16(N, E, Din, H, D, K, block_nodes);
   Graph a{};
   a.N = N; a.E = E; a.H = H; a.D = D; a.K = K; a.bn = block_nodes;
-  return carve_conv_bwd(nullptr, a, Din, bf16_compute).total;
+  return carve_conv_bwd(nullptr, a, Din).total;
+}
+// bfloat16 elements of K4's saved rounded operands (``r16``): h and Wl
+// rounded by the bfloat16 forward for its backward; 0 at float32.
+long long pgt_gat_conv_r16_elems(int N, int Din, int H, int D,
+                                 int bf16_compute) {
+  return bf16_compute ? pgt_gat_conv_r16_elems_bf16(N, Din, H, D) : 0;
 }
 
 // K5 forward: out [N, H*D] from x [N, H*D], e [E, H*D], es, ai, aj [H*D],
@@ -1670,15 +205,15 @@ int pgt_gat_attn_fwd(const float* x, const float* e, const float* es,
                      int E, int H, int D, int block_nodes, int block_edges,
                      float slope, int bf16_compute, void* stream) {
   (void)work;
+  if (bf16_compute)
+    return pgt_gat_attn_fwd_bf16(x, e, es, ai, aj, snd, rcv, w, out, alpha,
+                                 aself, dlr, dls, N, E, H, D, block_nodes,
+                                 block_edges, slope, stream);
   const Graph a{x, e, nullptr, nullptr, es, ai, aj, snd, rcv, w,
                 N, E, H, D, 0, block_nodes, block_edges, slope, nullptr};
   if (bad_shape(a, false)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16_compute)
-    return attention_fwd<false, true, float>(a, nullptr, nullptr, alpha,
-                                             aself, dlr, dls, out, st);
-  return attention_fwd<false, false, float>(a, nullptr, nullptr, alpha, aself,
-                                            dlr, dls, out, st);
+  return attention_fwd<false, false>(a, nullptr, nullptr, alpha, aself, dlr,
+                                     dls, out, (cudaStream_t)stream);
 }
 
 // K5 backward from the cotangent g [N, H*D] and the forward's alpha, aself,
@@ -1692,133 +227,97 @@ int pgt_gat_attn_bwd(const float* g, const float* x, const float* e,
                      float* work, int N, int E, int H, int D, int block_nodes,
                      int block_edges, float slope, int bf16_compute,
                      void* stream) {
+  if (bf16_compute)
+    return pgt_gat_attn_bwd_bf16(g, x, e, es, ai, aj, snd, rcv, w, alpha,
+                                 aself, dlr, dls, dx, de, dpar, work, N, E, H,
+                                 D, block_nodes, block_edges, slope, stream);
   const Graph a{x, e, nullptr, nullptr, es, ai, aj, snd, rcv, w,
                 N, E, H, D, 0, block_nodes, block_edges, slope, nullptr};
   if (bad_shape(a, false)) return (int)cudaErrorInvalidValue;
   Carver cv{work};
-  const AttnWork wk = carve_attn(cv, a, false, false);
+  const AttnWork wk = carve_attn(cv, a, false);
   const Cot c{g, (ll)H * D, (ll)D, 1.f};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16_compute)
-    return attention_bwd<false, true, float>(a, c, alpha, aself, dlr, dls, wk,
-                                             dx, nullptr, 0, de, nullptr,
-                                             dpar, st);
-  return attention_bwd<false, false, float>(a, c, alpha, aself, dlr, dls, wk,
-                                            dx, nullptr, 0, de, nullptr, dpar,
-                                            st);
+  return attention_bwd<false, false>(a, c, alpha, aself, dlr, dls, wk, dx, de,
+                                     nullptr, dpar, (cudaStream_t)stream);
 }
 
 // K4 forward: out [N, D] and the saved projection x [N, H*D] from h
 // [N, Din], Wl [Din, H*D] (any strides), bl [H*D], ein [E, K], We
-// [K, H*D], es, ai, aj [H*D], bias [D]. Float32: x is float and alpha,
-// dlr [E, H] and aself, dls [N, H] are written for the backward.
-// bf16_compute: x is the bfloat16 residual bf(bf(h) @ bf(Wl) + bl), the
-// softmax scalars are not saved (may be null: the backward recomputes them
-// from x, as the Pallas body does). ``work`` holds
-// pgt_gat_conv_fwd_workspace floats.
+// [K, H*D], es, ai, aj [H*D], bias [D]; alpha, dlr [E, H] and aself, dls
+// [N, H] are written for the backward. Float32: x is float (r16 unused).
+// bf16_compute: gat_bf16.cu's pgt_gat_conv_fwd_bf16 (x the bfloat16
+// residual, the softmax scalars the residual's, h and Wl rounded into
+// r16). ``work`` holds pgt_gat_conv_fwd_workspace floats.
 int pgt_gat_conv_fwd(const float* h, const float* Wl, ll wls0, ll wls1,
                      const float* bl, const float* ein, const float* We,
                      const float* es, const float* ai, const float* aj,
                      const float* bias, const int* snd, const int* rcv,
                      const float* w, float* out, void* x, float* alpha,
-                     float* aself, float* dlr, float* dls, float* work, int N,
-                     int E, int Din, int H, int D, int K, int block_nodes,
-                     int block_edges, float slope, int bf16_compute,
-                     void* stream) {
-  Graph a{x, nullptr, ein, We, es, ai, aj, snd, rcv, w,
-          N, E, H, D, K, block_nodes, block_edges, slope, nullptr};
+                     float* aself, float* dlr, float* dls, void* r16,
+                     float* work, int N, int E, int Din, int H, int D, int K,
+                     int block_nodes, int block_edges, float slope,
+                     int bf16_compute, void* stream) {
+  if (bf16_compute)
+    return pgt_gat_conv_fwd_bf16(h, Wl, wls0, wls1, bl, ein, We, es, ai, aj,
+                                 bias, snd, rcv, w, out, x, alpha, aself, dlr,
+                                 dls, r16, work, N, E, Din, H, D, K,
+                                 block_nodes, block_edges, slope, stream);
+  const Graph a{x, nullptr, ein, We, es, ai, aj, snd, rcv, w,
+                N, E, H, D, K, block_nodes, block_edges, slope, nullptr};
   if (bad_shape(a, true) || Din <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const ConvFwdWork wk = carve_conv_fwd(work, N, Din, H, D, bf16_compute);
-  const ll HD = (ll)H * D;
-  if (!bf16_compute) {
-    const int err = gemm(h, Din, 1, Wl, wls0, wls1, static_cast<float*>(x),
-                         N, (int)HD, Din, 1, nullptr, bl, nullptr, 0, st);
-    if (err) return err;
-    return attention_fwd<true, false, float>(a, bias, wk.va, alpha, aself,
-                                             dlr, dls, out, st);
-  }
-  ll t0, t1;
-  int err = round_operands(h, Wl, wls0, wls1, N, Din, HD, wk.r16, &t0, &t1,
-                           st);
+  const ConvFwdWork wk = carve_conv_fwd(work, H);
+  const int err = gemm(h, Din, 1, Wl, wls0, wls1, static_cast<float*>(x), N,
+                       H * D, Din, 1, nullptr, bl, nullptr, 0, st);
   if (err) return err;
-  // x = bf(h) @ bf(Wl) + bl, float32 into scratch and its bfloat16 copy
-  // into the residual
-  err = gemm_bf16(wk.r16.h, pad8(Din), 1, wk.r16.Wl, t0, t1, wk.x, false,
-                  static_cast<bf16*>(x), HD, N, (int)HD, Din, 1, nullptr, bl,
-                  nullptr, 0, X16_EXACT, st);
-  if (err) return err;
-  a.x = wk.x;  // the logits from the float32 x, the messages from its copy
-  a.xm = static_cast<const bf16*>(x);
-  a.proj = wk.proj;
-  return attention_fwd<true, true, float>(a, bias, wk.va, nullptr, nullptr,
-                                          nullptr, nullptr, out, st);
+  return attention_fwd<true, false>(a, bias, wk.va, alpha, aself, dlr, dls,
+                                    out, st);
 }
 
-// K4 backward from g [N, D], the saved x and (float32) the forward's alpha,
-// aself, dlr, dls: writes dh [N, Din], dWl [Din, H*D], dbl [H*D], dWe
-// [K, H*D], dpar [3, H*D] = de_self, da_i, da_j, and dbias [D].
-// bf16_compute: x is the bfloat16 residual and the softmax scalars are
-// recomputed from it (alpha .. dls unused). ``work`` holds
+// K4 backward from g [N, D] and what the forward saved (x, alpha, aself,
+// dlr, dls and, bf16_compute, r16): writes dh [N, Din], dWl [Din, H*D],
+// dbl [H*D], dWe [K, H*D], dpar [3, H*D] = de_self, da_i, da_j, and dbias
+// [D]. bf16_compute: gat_bf16.cu's pgt_gat_conv_bwd_bf16. ``work`` holds
 // pgt_gat_conv_bwd_workspace floats.
 int pgt_gat_conv_bwd(const float* g, const float* h, const float* Wl, ll wls0,
                      ll wls1, const void* x, const float* ein,
                      const float* We, const float* es, const float* ai,
                      const float* aj, const int* snd, const int* rcv,
                      const float* w, const float* alpha, const float* aself,
-                     const float* dlr, const float* dls, float* dh,
-                     float* dWl, float* dbl, float* dWe, float* dpar,
-                     float* dbias, float* work, int N, int E, int Din, int H,
-                     int D, int K, int block_nodes, int block_edges,
-                     float slope, int bf16_compute, void* stream) {
-  Graph a{x, nullptr, ein, We, es, ai, aj, snd, rcv, w,
-          N, E, H, D, K, block_nodes, block_edges, slope, nullptr};
+                     const float* dlr, const float* dls, const void* r16,
+                     float* dh, float* dWl, float* dbl, float* dWe,
+                     float* dpar, float* dbias, float* work, int N, int E,
+                     int Din, int H, int D, int K, int block_nodes,
+                     int block_edges, float slope, int bf16_compute,
+                     void* stream) {
+  if (bf16_compute)
+    return pgt_gat_conv_bwd_bf16(g, h, Wl, wls0, wls1, x, ein, We, es, ai, aj,
+                                 snd, rcv, w, alpha, aself, dlr, dls, r16, dh,
+                                 dWl, dbl, dWe, dpar, dbias, work, N, E, Din,
+                                 H, D, K, block_nodes, block_edges, slope,
+                                 stream);
+  const Graph a{x, nullptr, ein, We, es, ai, aj, snd, rcv, w,
+                N, E, H, D, K, block_nodes, block_edges, slope, nullptr};
   if (bad_shape(a, true) || Din <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int HD = H * D;
-  const ConvBwdWork wk = carve_conv_bwd(work, a, Din, bf16_compute);
-  a.proj = wk.proj;  // BF: the softmax walk's logit scalars
+  const ConvBwdWork wk = carve_conv_bwd(work, a, Din);
   // dbias sums g over all rows, before the head mean's 1/H
   int err = colsum(g, N, D, wk.cpart, dbias, st);
   if (err) return err;
   const Cot c{g, (ll)D, 0, 1.f / (float)H};
-  if (!bf16_compute) {
-    err = attention_bwd<true, false, float>(a, c, alpha, aself, dlr, dls,
-                                            wk.attn, wk.dx, nullptr, 0,
-                                            nullptr, dWe, dpar, st);
-    if (err) return err;
-    // dWl = h^T dx: A(i = d, k = n) = h[n, d]
-    err = gemm(h, 1, Din, wk.dx, HD, 1, dWl, Din, HD, N,
-               wgrad_splits(Din, HD, N), wk.gpart, nullptr, nullptr, 0, st);
-    if (err) return err;
-    err = colsum(wk.dx, N, HD, wk.cpart, dbl, st);
-    if (err) return err;
-    // dh = dx @ Wl^T: B(k = c, j = d) = Wl[d, c]
-    return gemm(wk.dx, HD, 1, Wl, wls1, wls0, dh, N, Din, HD, 1, nullptr,
-                nullptr, nullptr, 0, st);
-  }
-  ll t0, t1;
-  err = round_operands(h, Wl, wls0, wls1, N, Din, HD, wk.r16, &t0, &t1, st);
+  err = attention_bwd<true, false>(a, c, alpha, aself, dlr, dls, wk.attn,
+                                   wk.dx, nullptr, dWe, dpar, st);
   if (err) return err;
-  // the softmax scalars from the bfloat16 residual
-  err = attention_fwd<true, true, bf16>(a, nullptr, wk.va, wk.alpha, wk.aself,
-                                        wk.dlr, wk.dls, nullptr, st);
-  if (err) return err;
-  const ll ldb = pad8(HD);
-  err = attention_bwd<true, true, bf16>(a, c, wk.alpha, wk.aself, wk.dlr,
-                                        wk.dls, wk.attn, wk.dx, wk.dxb, ldb,
-                                        nullptr, dWe, dpar, st);
-  if (err) return err;
-  // dWl = bf(h)^T bf(dx): A(i = d, k = n) = h16[n, d]
-  err = gemm_bf16(wk.r16.h, 1, pad8(Din), wk.dxb, ldb, 1, dWl, false, nullptr,
-                  0, Din, HD, N, wgrad_splits(Din, HD, N), wk.gpart, nullptr,
-                  nullptr, 0, false, st);
+  // dWl = h^T dx: A(i = d, k = n) = h[n, d]
+  err = gemm(h, 1, Din, wk.dx, HD, 1, dWl, Din, HD, N,
+             wgrad_splits(Din, HD, N), wk.gpart, nullptr, nullptr, 0, st);
   if (err) return err;
   err = colsum(wk.dx, N, HD, wk.cpart, dbl, st);
   if (err) return err;
-  // dh = bf(dx) @ bf(Wl)^T: B(k = c, j = d) = Wl16[d, c]
-  return gemm_bf16(wk.dxb, ldb, 1, wk.r16.Wl, t1, t0, dh, false, nullptr, 0,
-                   N, Din, HD, 1, nullptr, nullptr, nullptr, 0, false, st);
+  // dh = dx @ Wl^T: B(k = c, j = d) = Wl[d, c]
+  return gemm(wk.dx, HD, 1, Wl, wls1, wls0, dh, N, Din, HD, 1, nullptr,
+              nullptr, nullptr, 0, st);
 }
 
 }  // extern "C"

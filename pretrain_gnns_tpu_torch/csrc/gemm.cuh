@@ -352,8 +352,12 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, int S,
   }
 }
 
-// part[chunk, c] = sum of X[r, c] over the chunk's COLSUM_ROWS rows; X
-// stored as bfloat16 with bf, its entries rounded to bfloat16 with rnd
+// part[chunk, c] = sum of X[r, c] over the chunk's COLSUM_ROWS rows, in row
+// order; X stored as bfloat16 with bf, its entries rounded to bfloat16 with
+// rnd. COLSUM_U rows' loads are in flight before their adds: the loads'
+// latency, not the adds, sets the time.
+constexpr int COLSUM_U = 16;
+
 __global__ void colsum_partial_kernel(const void* __restrict__ X, int R,
                                       int Cc, float* __restrict__ part,
                                       bool bf, bool rnd) {
@@ -362,7 +366,15 @@ __global__ void colsum_partial_kernel(const void* __restrict__ X, int R,
   const int r0 = blockIdx.y * COLSUM_ROWS;
   const int r1 = min(R, r0 + COLSUM_ROWS);
   float s = 0.f;
-  for (int r = r0; r < r1; ++r) s += ld_elem(X, (ll)r * Cc + c, bf, rnd);
+  for (int r = r0; r < r1; r += COLSUM_U) {
+    float v[COLSUM_U];
+#pragma unroll
+    for (int u = 0; u < COLSUM_U; ++u)
+      v[u] = r + u < r1 ? ld_elem(X, (ll)(r + u) * Cc + c, bf, rnd) : 0.f;
+#pragma unroll
+    for (int u = 0; u < COLSUM_U; ++u)
+      if (r + u < r1) s += v[u];
+  }
   part[(ll)blockIdx.y * Cc + c] = s;
 }
 
@@ -914,10 +926,43 @@ __global__ void convert_kernel(const TI* __restrict__ X, ll s0, ll s1, int R,
   }
 }
 
+// The same for rows contiguous in both (s1 = t1 = 1) whose width and
+// pitches are multiples of 4: four elements a thread, 16-byte float and
+// 8-byte bfloat16 accesses (each element converted as above).
+template <typename TI, typename TO>
+__global__ void convert4_kernel(const TI* __restrict__ X, ll s0, int R, int C,
+                                TO* __restrict__ Y, ll t0) {
+  const ll C4 = C / 4, n = (ll)R * C4;
+  for (ll idx = blockIdx.x * (ll)blockDim.x + threadIdx.x; idx < n;
+       idx += (ll)gridDim.x * blockDim.x) {
+    const ll i = idx / C4, j = idx % C4 * 4;
+    if constexpr (std::is_same<TO, bf16>::value) {
+      const float4 v = *reinterpret_cast<const float4*>(X + i * s0 + j);
+      __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      uint2 o;
+      o.x = *reinterpret_cast<unsigned*>(&lo);
+      o.y = *reinterpret_cast<unsigned*>(&hi);
+      *reinterpret_cast<uint2*>(Y + i * t0 + j) = o;
+    } else {
+      uint2 u = *reinterpret_cast<const uint2*>(X + i * s0 + j);
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u.x));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u.y));
+      *reinterpret_cast<float4*>(Y + i * t0 + j) = make_float4(lo.x, lo.y, hi.x,
+                                                               hi.y);
+    }
+  }
+}
+
 template <typename TI, typename TO>
 int convert(const TI* X, ll s0, ll s1, int R, int C, TO* Y, ll t0, ll t1,
             cudaStream_t st) {
-  if (s0 == 1 && s1 != 1) {  // walk X's contiguous dimension
+  const bool rows4 = s1 == 1 && t1 == 1 && C % 4 == 0 && s0 % 4 == 0 &&
+                     t0 % 4 == 0 && (size_t)X % (4 * sizeof(TI)) == 0 &&
+                     (size_t)Y % (4 * sizeof(TO)) == 0;
+  if (rows4) {
+    convert4_kernel<TI, TO><<<NUM_SMS * 4, 256, 0, st>>>(X, s0, R, C, Y, t0);
+  } else if (s0 == 1 && s1 != 1) {  // walk X's contiguous dimension
     convert_kernel<TI, TO><<<NUM_SMS * 4, 256, 0, st>>>(X, s1, s0, C, R, Y,
                                                         t1, t0);
   } else {

@@ -1,10 +1,14 @@
 """Build the port's CUDA sources at first use and load them with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by its own
-``nvcc`` process into ``_build/lib<name>_<hash>.so`` inside the package
-(a directory that ``.gitignore`` lists); the hash covers the source, every
-header of ``csrc/`` it includes and the flags, so an unchanged source is
-not rebuilt and a changed header is. A failed build raises.
+Each library ``_build/lib<name>_<hash>.so`` inside the package (a
+directory that ``.gitignore`` lists) has a plain C interface. It is built
+from ``csrc/<name>.cu`` by its own ``nvcc`` process or, for a library that
+:data:`SOURCES` splits, from several sources, each compiled by its own
+``nvcc`` process into an object and the objects then linked; every
+process of a :func:`build` starts at once. The hash covers the sources,
+every header of ``csrc/`` they include and the flags, so an unchanged
+library is not rebuilt and a changed header rebuilds it. A failed build
+raises.
 :func:`check_tensors` and :func:`stream` serve the wrappers that hand
 tensors to those libraries.
 
@@ -39,6 +43,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Libraries built from more than one source, so that their parts compile in
+# parallel: the GAT kernels' float32 and bfloat16 instantiations.
+SOURCES = {"gat": ("gat", "gat_bf16")}
 
 PROBE_SHAPE = (8, 300)  # the TPU probe's: rows no multiple of 32 lanes wide
 
@@ -80,38 +87,82 @@ def _with_headers(src: Path) -> List[Path]:
     return files
 
 
-def _target(name: str) -> Tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
+def sources(name: str) -> List[Path]:
+    """The sources of library ``name`` in :data:`CSRC`."""
+    return [CSRC / f"{part}.cu" for part in SOURCES.get(name, (name,))]
+
+
+def _target(name: str) -> Tuple[List[Path], Path]:
+    srcs = sources(name)
     digest = hashlib.sha256()
-    for path in _with_headers(src):
-        digest.update(path.read_bytes())
+    for src in srcs:
+        for path in _with_headers(src):
+            digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return src, BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    return srcs, BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def _spawn(cmd: List[str]) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _start(srcs: Sequence[Path], out: Path):
+    """Start the ``nvcc`` processes of one library: one for a single source
+    (compiled and linked), one a source (objects) for several."""
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    if len(srcs) == 1:
+        return [(srcs[0], _spawn([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                                  str(srcs[0])]))], [], tmp, out
+    objs = [out.with_name(f"{out.stem}.{src.stem}.{os.getpid()}.o")
+            for src in srcs]
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    return [(src, _spawn([nvcc_path(), *flags, "-c", "-o", str(obj),
+                          str(src)])) for src, obj in zip(srcs, objs)], \
+        objs, tmp, out
+
+
+def _finish(started) -> str:
+    procs, objs, tmp, out = started
+    texts, failed = [], []
+    for src, proc in procs:
+        text, _ = proc.communicate()
+        texts.append(text)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src.name}:\n{text}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        if objs:  # link the parts
+            proc = _spawn([nvcc_path(), "-shared", "-o", str(tmp),
+                           *map(str, objs)])
+            text, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to link {out.name}:\n{text}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return "".join(texts)
 
 
 def build(names: Sequence[str]) -> Dict[str, str]:
-    """Compile the named sources, one ``nvcc`` each, all started together.
-    Returns each newly built source's compiler report (``-Xptxas -v``)."""
-    procs = {}
+    """Compile the named libraries, one ``nvcc`` a source, all started
+    together. Returns each newly built library's compiler report
+    (``-Xptxas -v``)."""
+    started = {}
     for name in names:
-        src, out = _target(name)
+        srcs, out = _target(name)
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    reports = {}
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{text}")
-            continue
-        os.replace(tmp, out)
-        reports[name] = text
+        started[name] = _start(srcs, out)
+    reports, failed = {}, []
+    for name, s in started.items():
+        try:
+            reports[name] = _finish(s)
+        except RuntimeError as e:
+            failed.append(str(e))
     if failed:
         raise RuntimeError("\n".join(failed))
     return reports

@@ -66,13 +66,14 @@ _F32, _I32 = torch.float32, torch.int32
 
 @functools.cache
 def lib() -> ctypes.CDLL:
-    """The library of ``csrc/gat.cu`` (K4 and K5), built at first use."""
+    """The library of ``csrc/gat.cu`` and ``csrc/gat_bf16.cu`` (K4 and K5),
+    built at first use."""
     so = _build.load("gat")
     so.pgt_gat_attn_fwd.argtypes = [_P] * 14 + [_I] * 6 + [_F, _I, _P]
     so.pgt_gat_attn_bwd.argtypes = [_P] * 17 + [_I] * 6 + [_F, _I, _P]
-    so.pgt_gat_conv_fwd.argtypes = ([_P, _P, _L, _L] + [_P] * 17 + [_I] * 8
+    so.pgt_gat_conv_fwd.argtypes = ([_P, _P, _L, _L] + [_P] * 18 + [_I] * 8
                                     + [_F, _I, _P])
-    so.pgt_gat_conv_bwd.argtypes = ([_P, _P, _P, _L, _L] + [_P] * 20
+    so.pgt_gat_conv_bwd.argtypes = ([_P, _P, _P, _L, _L] + [_P] * 21
                                     + [_I] * 8 + [_F, _I, _P])
     for fn in (so.pgt_gat_attn_fwd, so.pgt_gat_attn_bwd, so.pgt_gat_conv_fwd,
                so.pgt_gat_conv_bwd, so.pgt_gat_max_k, so.pgt_gat_max_smem,
@@ -83,8 +84,10 @@ def lib() -> ctypes.CDLL:
     so.pgt_gat_attn_bwd_workspace.argtypes = [_I] * 5
     so.pgt_gat_conv_fwd_workspace.argtypes = [_I] * 5
     so.pgt_gat_conv_bwd_workspace.argtypes = [_I] * 8
+    so.pgt_gat_conv_r16_elems.argtypes = [_I] * 5
     for fn in (so.pgt_gat_attn_fwd_workspace, so.pgt_gat_attn_bwd_workspace,
-               so.pgt_gat_conv_fwd_workspace, so.pgt_gat_conv_bwd_workspace):
+               so.pgt_gat_conv_fwd_workspace, so.pgt_gat_conv_bwd_workspace,
+               so.pgt_gat_conv_r16_elems):
         fn.restype = _L
     return so
 

@@ -34,8 +34,10 @@ computes the Pallas bodies' function at that dtype: ``x = bf(h) @ bf(Wl) +
 bl`` and ``e = bf(ein) @ bf(We)`` with float32 sums; the logits and the
 self term from the float32 ``x``; each message ``p (bf(x)[snd] + e)``
 rounded before the receiver sum; the saved residual is ``bf(x)``, bfloat16,
-and the backward recomputes the softmax from it (nothing else is saved);
-there ``g / H`` is rounded where it is gathered, each ``alpha g_r`` before
+and the backward's softmax is the one the Pallas backward recomputes from
+it, which the kernel's forward computes beside its own and saves (with
+the rounded ``h`` and ``Wl``); in the backward
+``g / H`` is rounded where it is gathered, each ``alpha g_r`` before
 the sender sum and ``de`` per edge before ``dWe = bf(ein)^T bf(de)``;
 ``dWl = bf(h)^T bf(dx)`` and ``dh = bf(dx) @ bf(Wl)^T``; ``dbl``,
 ``de_self``, ``da_i`` and ``da_j`` are float32 sums of unrounded values.
@@ -104,9 +106,11 @@ def gat_conv_fwd(h, Wl, bl, ein, We, e_self, a_i, a_j, bias, senders,
                  receivers, w, block_nodes: int, block_edges: int,
                  slope: float = 0.2, compute_dtype: torch.dtype = _F32):
     """Launch K4's forward at ``compute_dtype``; returns ``(out [N, D], x
-    [N, H*D], saved)``: float32 ``x`` and ``saved = (alpha [E, H], aself
-    [N, H], dlr [E, H], dls [N, H])``, or at bfloat16 the bfloat16 ``x``
-    and ``saved = ()`` (the backward recomputes the softmax from ``x``)."""
+    [N, H*D], saved)``: ``x`` in ``compute_dtype`` (at bfloat16 the
+    residual ``bf(x)``) and ``saved = (alpha [E, H], aself [N, H], dlr
+    [E, H], dls [N, H])``, at bfloat16 the softmax of the residual (as the
+    Pallas backward recomputes it) and a fifth entry, the rounded ``h`` and
+    ``Wl`` (bfloat16, ``pgt_gat_conv_r16_elems`` values)."""
     dims, tensors = _conv_tensors(h, Wl, ein, We, e_self, a_i, a_j, senders,
                                   receivers, w)
     N, E, Din, H, D, K = dims
@@ -117,8 +121,11 @@ def gat_conv_fwd(h, Wl, bl, ein, We, e_self, a_i, a_j, bias, senders,
     new = lambda *shape: torch.empty(shape, dtype=_F32, device=h.device)
     out = new(N, D)
     x = torch.empty((N, H * D), dtype=compute_dtype, device=h.device)
-    saved = () if bf else (new(E, H), new(N, H), new(E, H), new(N, H))
-    ptrs = [t.data_ptr() for t in saved] if saved else [None] * 4
+    saved = (new(E, H), new(N, H), new(E, H), new(N, H))
+    if bf:
+        saved += (torch.empty(so.pgt_gat_conv_r16_elems(N, Din, H, D, 1),
+                              dtype=torch.bfloat16, device=h.device),)
+    ptrs = [t.data_ptr() for t in saved] + [None] * (5 - len(saved))
     work = new(so.pgt_gat_conv_fwd_workspace(N, Din, H, D, int(bf)))
     err = so.pgt_gat_conv_fwd(
         h.data_ptr(), Wl.data_ptr(), Wl.stride(0), Wl.stride(1),
@@ -144,18 +151,23 @@ def gat_conv_bwd(g, h, Wl, x, ein, We, e_self, a_i, a_j, senders, receivers,
                                   receivers, w)
     N, E, Din, H, D, K = dims
     bf = _build.check_compute_dtype(compute_dtype)
+    so = attention.lib()
+    if len(saved) != 4 + bf:
+        raise ValueError(f"saved holds {len(saved)} tensors, expected "
+                         f"{4 + bf}")
+    r16 = [(saved[4], "r16",
+            (so.pgt_gat_conv_r16_elems(N, Din, H, D, 1),), torch.bfloat16,
+            True)] if bf else []
     _check(h, dims, block_nodes, block_edges,
-           tensors + (attention.softmax_tensors(N, E, H, saved) if not bf
-                      else []) + [
+           tensors + attention.softmax_tensors(N, E, H, saved[:4]) + r16 + [
                (g, "g", (N, D), _F32, True),
                (x, "x", (N, H * D), compute_dtype, True)])
-    so = attention.lib()
     new = lambda *shape: torch.empty(shape, dtype=_F32, device=h.device)
     dh, dWl, dbl, dWe = new(N, Din), new(Din, H * D), new(H * D), new(K, H * D)
     dpar, dbias = new(3, H, D), new(D)
     work = new(so.pgt_gat_conv_bwd_workspace(N, E, Din, H, D, K, block_nodes,
                                              int(bf)))
-    ptrs = [t.data_ptr() for t in saved] if not bf else [None] * 4
+    ptrs = [t.data_ptr() for t in saved] + [None] * (5 - len(saved))
     err = so.pgt_gat_conv_bwd(
         g.data_ptr(), h.data_ptr(), Wl.data_ptr(), Wl.stride(0),
         Wl.stride(1), x.data_ptr(), ein.data_ptr(), We.data_ptr(),
@@ -245,47 +257,57 @@ class _GatConvPlainBf16(torch.autograd.Function):
     def backward(ctx, g, _):
         (h, Wl, ein, We, e_self, a_i, a_j, x_res, senders, receivers,
          w) = ctx.saved_tensors
-        H, slope = ctx.cfg
-        r = _build.round_bf16
-        snd, rcv = senders.long(), receivers.long()
-        N, D = g.shape
-        g = g.float()
-        gH = (g / H)[:, None, :]
-        x = x_res.float().reshape(N, H, D)
-        eb = r(ein.float())
-        e = (eb @ r(We)).reshape(-1, H, D)
-        x_self, raw, sraw, p, p_self, den = _k4_pieces(
-            x, e, e_self, a_i, a_j, senders, receivers, w, slope)
-        alpha = p / torch.clamp(den[rcv], min=1e-30)
-        aself = p_self / den
-        g_r = r(gH)[rcv]
-        d_alpha = (g_r * (x[snd] + e)).sum(-1)
-        d_aself = (gH * x_self).sum(-1)
-        zeros = torch.zeros_like(aself)
-        c = seg.scatter_add_rows(zeros, rcv, alpha * d_alpha) \
-            + aself * d_aself
-        dz = alpha * (d_alpha - c[rcv]) * attention.leaky_slope(raw, slope)
-        dzs = aself * (d_aself - c) * attention.leaky_slope(sraw, slope)
-        dmsg = alpha[..., None] * g_r
-        dz_r = seg.scatter_add_rows(zeros, rcv, dz)
-        dz_s = seg.scatter_add_rows(zeros, snd, dz)
-        dx = (seg.scatter_add_rows(torch.zeros_like(x), snd, r(dmsg))
-              + aself[..., None] * gH + (dz_r + dzs)[..., None] * a_i
-              + (dz_s + dzs)[..., None] * a_j)
-        de = dmsg + dz[..., None] * a_j
-        dx2, dxb = dx.reshape(N, H * D), r(dx.reshape(N, H * D))
-        dWl = r(h.float()).t() @ dxb
-        dWe = eb.t() @ r(de.reshape(-1, H * D))
-        dh = dxb @ r(Wl).t()
-        des = (aself[..., None] * gH + dzs[..., None] * a_j).sum(0)
-        dai = (x * (dz_r + dzs)[..., None]).sum(0)
-        daj = ((x * (dz_s + dzs)[..., None] + dzs[..., None] * e_self).sum(0)
-               + (e * dz[..., None]).sum(0))
+        grads = gat_conv_bwd_plain(g, h, Wl, x_res, ein, We, e_self, a_i,
+                                   a_j, senders, receivers, w, *ctx.cfg)
         need = ctx.needs_input_grad
-        return (dh.to(h.dtype), dWl, dx2.sum(0),
-                torch.zeros_like(ein) if need[3] else None, dWe, des, dai,
-                daj, g.sum(0), None, None,
-                torch.zeros_like(w) if need[11] else None, None, None)
+        return (grads[:3] + (torch.zeros_like(ein) if need[3] else None,)
+                + grads[3:] + (None, None,
+                               torch.zeros_like(w) if need[11] else None,
+                               None, None))
+
+
+def gat_conv_bwd_plain(g, h, Wl, x, ein, We, e_self, a_i, a_j, senders,
+                       receivers, w, heads: int, slope: float = 0.2):
+    """The plain version of :func:`gat_conv_bwd` at compute dtype
+    bfloat16: the Pallas ``_bwd_kernel`` in torch, from the cotangent ``g``
+    and the bfloat16 residual ``x``, rounding where it rounds; returns
+    ``(dh, dWl, dbl, dWe, de_self, da_i, da_j, dbias)``."""
+    H = heads
+    r = _build.round_bf16
+    snd, rcv = senders.long(), receivers.long()
+    N, D = g.shape
+    g = g.float()
+    gH = (g / H)[:, None, :]
+    x = x.float().reshape(N, H, D)
+    eb = r(ein.float())
+    e = (eb @ r(We)).reshape(-1, H, D)
+    x_self, raw, sraw, p, p_self, den = _k4_pieces(
+        x, e, e_self, a_i, a_j, senders, receivers, w, slope)
+    alpha = p / torch.clamp(den[rcv], min=1e-30)
+    aself = p_self / den
+    g_r = r(gH)[rcv]
+    d_alpha = (g_r * (x[snd] + e)).sum(-1)
+    d_aself = (gH * x_self).sum(-1)
+    zeros = torch.zeros_like(aself)
+    c = seg.scatter_add_rows(zeros, rcv, alpha * d_alpha) + aself * d_aself
+    dz = alpha * (d_alpha - c[rcv]) * attention.leaky_slope(raw, slope)
+    dzs = aself * (d_aself - c) * attention.leaky_slope(sraw, slope)
+    dmsg = alpha[..., None] * g_r
+    dz_r = seg.scatter_add_rows(zeros, rcv, dz)
+    dz_s = seg.scatter_add_rows(zeros, snd, dz)
+    dx = (seg.scatter_add_rows(torch.zeros_like(x), snd, r(dmsg))
+          + aself[..., None] * gH + (dz_r + dzs)[..., None] * a_i
+          + (dz_s + dzs)[..., None] * a_j)
+    de = dmsg + dz[..., None] * a_j
+    dx2, dxb = dx.reshape(N, H * D), r(dx.reshape(N, H * D))
+    dWl = r(h.float()).t() @ dxb
+    dWe = eb.t() @ r(de.reshape(-1, H * D))
+    dh = dxb @ r(Wl).t()
+    des = (aself[..., None] * gH + dzs[..., None] * a_j).sum(0)
+    dai = (x * (dz_r + dzs)[..., None]).sum(0)
+    daj = ((x * (dz_s + dzs)[..., None] + dzs[..., None] * e_self).sum(0)
+           + (e * dz[..., None]).sum(0))
+    return (dh.to(h.dtype), dWl, dx2.sum(0), dWe, des, dai, daj, g.sum(0))
 
 
 def fused_gat_conv_plain(h, Wl, bl, ein, We, e_self, a_i, a_j, bias, senders,

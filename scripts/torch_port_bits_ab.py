@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Bit-for-bit A/B of the fused GIN conv (K1), the fused edge-transform
 SpMM (K2), the blocked SpMM on a precomputed edge embedding (K6), its
-receiver-sorted variant (K7) and the pair-dot head's backward (K3 ``dx``)
-between this tree's ``csrc/gin_conv.cu``, ``csrc/spmm.cu``,
-``csrc/spmm_ee.cu`` and ``csrc/edge_dot.cu`` (with the headers they
-include) and those of another checkout, on one GPU.
+receiver-sorted variant (K7), the pair-dot head's backward (K3 ``dx``),
+the fused GAT conv (K4) and the blocked GAT attention (K5) between this
+tree's ``csrc`` libraries (``gin_conv``, ``spmm``, ``spmm_ee``,
+``edge_dot`` and ``gat``, with the headers they include) and those of
+another checkout, on one GPU.
 
 Run from the repository root, with the other checkout's ``csrc`` directory
 (for example a ``git archive`` of the parent commit unpacked under
@@ -31,8 +32,13 @@ chem and bio edge-prediction paths' first batches, both heads, with the
 path's 0/1 pair weights and the cotangent the path gives it (0 on the
 positive head's odd slots) and with fractional, partly negative weights
 and a random cotangent on every pair. (K3's scores are summed in another
-order since the redesign, so they are not compared.) It prints whether every output is equal bit for bit and
-exits non-zero if one is not.
+order since the redesign, so they are not compared.) K4 and K5 on the chem
+and bio GAT masking paths' first batches with the first layer's
+parameters, at float32 (with K4's and K5's saved softmax scalars) and at
+compute dtype bfloat16 (``bf16:``; K4's ``out``, ``x`` and eight
+gradients, K5's every output). It prints whether every output is equal bit
+for bit, and how far each one that is not lies from the other tree's, and
+exits non-zero if one is not, but for K4 bfloat16's ``dWe`` (RESUMMED).
 """
 
 from __future__ import annotations
@@ -51,7 +57,10 @@ from pretrain_gnns_tpu_torch.data.synthetic import (  # noqa: E402
     bio_dataset, molecule_dataset,
 )
 from pretrain_gnns_tpu_torch.device import resolve_device  # noqa: E402
+from pretrain_gnns_tpu_torch.models import bio, chem  # noqa: E402
+from pretrain_gnns_tpu_torch.ops import attention  # noqa: E402
 from pretrain_gnns_tpu_torch.ops import blocked_spmm as bs  # noqa: E402
+from pretrain_gnns_tpu_torch.ops import gat_conv as gc  # noqa: E402
 from pretrain_gnns_tpu_torch.ops import edge_dot as ed  # noqa: E402
 from pretrain_gnns_tpu_torch.ops import gin_conv  # noqa: E402
 from pretrain_gnns_tpu_torch.ops import sorted_spmm as ss  # noqa: E402
@@ -60,6 +69,11 @@ from scripts.torch_port_k1_k4_ab import build, use  # noqa: E402
 
 F = 300
 BF16_ROWS = "K1 bf16 rows at float32 compute:"
+BF16 = "bf16:"  # K4's and K5's bfloat16 variants
+# K4 bfloat16's dWe is summed on the tensor cores (an older checkout may sum
+# it on the CUDA cores, slot by slot): its distance from the other tree's is
+# printed, its bits are not required equal.
+RESUMMED = ("bf16: chem K4 dWe", "bf16: bio K4 dWe")
 
 
 def config(domain: str):
@@ -187,6 +201,68 @@ def outputs(batch, seed: int):
     return out
 
 
+def gat_outputs(batch, conv, ein, seed: int, dt=torch.float32):
+    """K4's ``out``, ``x`` and eight gradients and K5's ``out``, softmax
+    scalars, ``dx``, ``de`` and ``dpar`` on a GAT ``batch`` through the
+    loaded library at compute dtype ``dt``, with the first layer's
+    parameters (``conv``) and edge inputs ``ein``. At bfloat16 K4's saved
+    softmax is not compared (an older library saved none)."""
+    gen = torch.Generator().manual_seed(seed)
+    dev = batch.node_mask.device
+    N, H, D = batch.max_nodes, conv.heads, conv.emb_dim
+    bn, be = batch.block_nodes, batch.block_edges
+    nm = batch.node_mask.to(torch.float32)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
+    h, g = rnd(N, D) * nm[:, None], rnd(N, D) * nm[:, None]
+    g3 = rnd(N, H, D) * nm[:, None, None]
+    graph = (batch.senders, batch.receivers, batch.edge_mask.float())
+    out = {}
+    with torch.no_grad():
+        We, e_self = conv.edge_kernel()
+        par = [We.contiguous(), e_self.reshape(H, D).contiguous(),
+               conv.att[0, :, :D].contiguous(),
+               conv.att[0, :, D:].contiguous()]
+        Wl, bl = conv.weight_linear.weight.t(), conv.weight_linear.bias
+        bias = rnd(D) * 0.1
+        o, x, saved = gc.gat_conv_fwd(h, Wl, bl, ein, *par, bias, *graph, bn,
+                                      be, 0.2, dt)
+        grads = gc.gat_conv_bwd(g, h, Wl, x, ein, *par, *graph, saved, bn,
+                                be, 0.2, dt)
+        names = ("out", "x", "dh", "dWl", "dbl", "dWe", "de_self", "da_i",
+                 "da_j", "dbias")
+        out.update({f"K4 {n}": t for n, t in zip(names, (o, x) + grads)})
+        if dt == torch.float32:
+            out.update({f"K4 {n}": t for n, t in zip(
+                ("alpha", "aself", "dlr", "dls"), saved)})
+        x5 = (h @ Wl + bl).reshape(N, H, D).contiguous()
+        e5 = (ein @ par[0]).reshape(-1, H, D).contiguous()
+        o5, saved5 = attention.gat_attn_fwd(x5, e5, *par[1:], *graph, 0.2, bn,
+                                            be, dt)
+        res5 = attention.gat_attn_bwd(g3, x5, e5, *par[1:], *graph, saved5,
+                                      0.2, bn, be, dt)
+        out.update({f"K5 {n}": t for n, t in zip(
+            ("out", "alpha", "aself", "dlr", "dls"), (o5,) + tuple(saved5))})
+        out.update({f"K5 bwd {i}": t for i, t in enumerate(res5)})
+    torch.cuda.synchronize()
+    return out
+
+
+def gat_batches(dev):
+    """``{domain: (first batch, first GAT layer, edge inputs)}`` of the chem
+    and bio GAT masking paths."""
+    out = {}
+    for d in ("chem", "bio"):
+        cfg = pretrain.PretrainConfig(domain=d, num_layer=5, emb_dim=F,
+                                      batch_size=256, mask_edge=False,
+                                      seed=0, packing="auto", gnn_type="gat")
+        b = first_batch(d, dev, cfg)
+        conv = pretrain.build_objective(cfg).to(dev).gnn.gnns[0]
+        ein = (bio.edge_inputs(b, torch.float32) if d == "bio"
+               else chem.bond_one_hot(b, torch.float32))
+        out[d] = b, conv, ein
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ref_csrc", required=True,
@@ -198,9 +274,10 @@ def main() -> int:
         objective="edgepred", domain=d, num_layer=5, emb_dim=F,
         batch_size=256, seed=0, packing="auto")) for d in ("chem", "bio")}
     conv = pretrain.build_objective(config("chem")).to(dev).gnn.gnns[0]
+    gat = gat_batches(dev)
     with tempfile.TemporaryDirectory() as tmp:
         ref = {name: build(args.ref_csrc, name, tmp)
-               for name in ("gin_conv", "spmm", "spmm_ee", "edge_dot")}
+               for name in ("gin_conv", "spmm", "spmm_ee", "edge_dot", "gat")}
         results = {}
         for tag in ("tree", "ref"):
             use(ref if tag == "ref" else {})
@@ -215,19 +292,31 @@ def main() -> int:
                 batches["bio"], seed=10).items()})
             results[tag].update({f"{d} {k}": v for d, b in edgepred.items()
                                  for k, v in k3_outputs(b, seed=9).items()})
+            for d, (b, cv, ein) in gat.items():
+                results[tag].update({f"{d} {k}": v for k, v in gat_outputs(
+                    b, cv, ein, seed=11).items()})
+                results[tag].update({f"{BF16} {d} {k}": v for k, v in
+                                     gat_outputs(b, cv, ein, seed=11,
+                                                 dt=torch.bfloat16).items()})
         use({})
     bad = [k for k in results["tree"]
            if not torch.equal(results["tree"][k], results["ref"][k])]
     groups = {"float32": [k for k in results["tree"]
-                          if not k.startswith(BF16_ROWS)],
+                          if not k.startswith((BF16_ROWS, BF16))],
               BF16_ROWS: [k for k in results["tree"]
-                          if k.startswith(BF16_ROWS)]}
-    print(f"card: {torch.cuda.get_device_name(0)}; K1/K2/K3/K6/K7 outputs of "
-          f"this tree vs {args.ref_csrc}, equal bit for bit: "
+                          if k.startswith(BF16_ROWS)],
+              "K4 and K5 at bfloat16 compute": [
+                  k for k in results["tree"] if k.startswith(BF16)]}
+    print(f"card: {torch.cuda.get_device_name(0)}; K1-K7 outputs of this "
+          f"tree vs {args.ref_csrc}, equal bit for bit: "
           + "; ".join(f"{g}: {len([k for k in ks if k not in bad])} of "
                       f"{len(ks)}" for g, ks in groups.items())
           + (f"; differ: {bad}" if bad else ""))
-    return 1 if bad else 0
+    for k in bad:
+        d = (results["tree"][k].float() - results["ref"][k].float()).abs()
+        print(f"  {k}: max |tree - ref| {float(d.max()):.3e}, "
+              f"{int((d > 0).sum())} of {d.numel()} entries differ")
+    return 1 if set(bad) - set(RESUMMED) else 0
 
 
 if __name__ == "__main__":

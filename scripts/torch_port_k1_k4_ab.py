@@ -14,9 +14,10 @@ Run from the repository root, with the other checkout's ``csrc`` directory
     python3 scripts/torch_port_k1_k4_ab.py --ref_csrc _archive/parent/pretrain_gnns_tpu_torch/csrc [--kernels k1,k4,k5,k2,k3,k6,k7]
 
 The libraries of both trees have the same C interfaces, but for K1's
-forward scratch and workspace flags (added with its tensor-core GEMM) and
-the compute-dtype flags of K4-K7 (added with their bfloat16 variants),
-which ``compat`` leaves out when calling an older library; a bfloat16 row
+forward scratch and workspace flags (added with its tensor-core GEMM), the
+compute-dtype flags of K4-K7 (added with their bfloat16 variants) and K4's
+saved rounded operands (``r16``), which ``compat`` leaves out when calling
+an older library; a bfloat16 row
 that the older library cannot run reads "n/a" on its side. It builds
 the other sources with this tree's ``nvcc`` flags, then times each kernel
 (device ms a call, ``chip_smoke.time_ms``) in the order reference, this
@@ -43,17 +44,31 @@ also at compute_dtype bfloat16 (rows ``[bf16]``: K4 on float32 h, K5 on
 float32 x and e, K6 and K7 on bfloat16 rows), on the same batches. Every
 float32 row pins compute_dtype float32, whatever ``PGT_SPMM_DTYPE`` says.
 Random inputs from a seed.
+
+``--parts`` splits K4's entry points (float32 and bfloat16, chem and bio
+GAT first batches) into their launches instead, for both trees in one
+call: each launch's device ms (the profiler's kernel records, the median
+over PARTS_TRIALS calls, each after a 2 ms spin of the card so that the
+host has enqueued the call's launches before the first one starts), by
+launch order and kernel name, beside the call's span on the card (first
+kernel's start to last kernel's end) and its event-pair time
+(``chip_smoke.time_ms``):
+
+    python3 scripts/torch_port_k1_k4_ab.py --ref_csrc DIR --parts
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
+from pathlib import Path
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -191,6 +206,16 @@ def compat(lib):
                                              {1, 3, 4}, _zero_at(4)),
             pgt_gat_conv_bwd_workspace=_Shim(lib.pgt_gat_conv_bwd_workspace,
                                              {7}, _zero_at(7)))
+    # K4 before its bfloat16 forward saved the rounded h and Wl: no r16
+    # argument (fwd: after dls, index 20; bwd: after dls, index 18)
+    if hasattr(lib, "pgt_gat_conv_fwd") and not hasattr(
+            lib, "pgt_gat_conv_r16_elems"):
+        for name, idx in (("pgt_gat_conv_fwd", 20), ("pgt_gat_conv_bwd", 18)):
+            old = shims.get(name)
+            shims[name] = _Shim(getattr(lib, name),
+                                (old.drop if old else set()) | {idx},
+                                old.check if old else None)
+        shims["pgt_gat_conv_r16_elems"] = _Shim(None, missing=lambda: 0)
     # K6 and K7 before theirs: no rows or compute-dtype flag
     if hasattr(lib, "pgt_spmm_ee_fwd") and not hasattr(
             lib, "pgt_spmm_ee_bf16_flags"):
@@ -202,14 +227,20 @@ def compat(lib):
 
 
 def build(srcdir: str, name: str, out_dir: str):
-    lib = os.path.join(out_dir, f"lib{name}_ref.so")
-    res = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib,
-                          os.path.join(srcdir, f"{name}.cu")],
-                         capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stdout}"
-                           f"{res.stderr}")
-    return compat(ctypes.CDLL(lib))
+    """Library ``name`` of the ``csrc`` directory ``srcdir``, built with
+    this tree's flags by one ``nvcc`` from the sources that directory has
+    of it (an older tree's ``gat`` is one source)."""
+    lib = Path(out_dir) / f"lib{name}_ref.so"
+    srcs = [Path(srcdir) / f"{part}.cu"
+            for part in _build.SOURCES.get(name, (name,))]
+    proc = subprocess.run(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
+         *(str(p) for p in srcs if p.exists())],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {srcdir}/{name}:\n"
+                           f"{proc.stdout}")
+    return compat(ctypes.CDLL(str(lib)))
 
 
 SOURCES = {"k1": "gin_conv", "k4": "gat", "k5": "gat", "k2": "spmm",
@@ -529,13 +560,111 @@ def cases(dev):
     return out
 
 
+PARTS_TRIALS = 20
+
+
+def _short(name: str) -> str:
+    """A kernel's name without its namespace and arguments."""
+    name = re.sub(r"\(anonymous namespace\)::", "", name)
+    return re.sub(r"\(.*$", "", name)[:72]
+
+
+def launch_parts(fn):
+    """``(parts, span_ms)`` of ``fn``'s calls on the card: ``parts`` the
+    median device ms of each of its launches, ``[(name, ms)]`` in launch
+    order, over PARTS_TRIALS calls (each after a 2 ms spin, whose kernel
+    also marks where a call's launches start), and the median of the
+    calls' spans from the first kernel's start to the last one's end."""
+    from torch.autograd import DeviceType
+
+    for _ in range(chip_smoke.WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(PARTS_TRIALS):
+            torch.cuda._sleep(chip_smoke.SPIN_CYCLES)
+            fn()
+        torch.cuda.synchronize()
+    calls = []
+    for start, end, name in sorted(
+            (e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events() if e.device_type == DeviceType.CUDA):
+        if "spin_kernel" in name:
+            calls.append([])
+        elif calls:
+            calls[-1].append((start, end, name))
+    # the profiler may miss a record (the first spin, a kernel): the calls
+    # with the most common count of kernels stand, at least half of them
+    n = statistics.mode(len(c) for c in calls)
+    calls = [c for c in calls if len(c) == n]
+    if len(calls) < PARTS_TRIALS // 2 or not n:
+        raise AssertionError(f"{len(calls)} whole calls of {n} kernels")
+    parts = [(_short(calls[0][i][2]), statistics.median(
+        (c[i][1] - c[i][0]) / 1e3 for c in calls)) for i in range(n)]
+    span = statistics.median((c[-1][1] - c[0][0]) / 1e3 for c in calls)
+    return parts, span
+
+
+def parts_main(ref_csrc: str, card: str, only: str = "") -> int:
+    """``--parts``: K4's launches, float32 and bfloat16 (the cases whose
+    name holds ``only``), both trees."""
+    dev = resolve_device("cuda")
+    fns = {k: fn for k, fn in gat_cases(dev, ["k4"]).items()
+           if only in k or only in k.replace("bwd", "fwd")}
+    out = collections.defaultdict(dict)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = {"gat": build(ref_csrc, "gat", tmp)}
+        for tag in ("ref", "tree"):
+            use(ref if tag == "ref" else {})
+            with torch.no_grad():
+                for k, fn in fns.items():
+                    if "bwd" in k:
+                        fns[k.replace("bwd", "fwd")]()  # its inputs
+                    parts, span = launch_parts(fn)
+                    out[k][tag] = parts, span, chip_smoke.time_ms(fn, torch)
+        use({})
+    # K4's x product alone at the chem batch's shape (this tree's gemm.cuh,
+    # through K1's library): with and without the ordered-tie fixup
+    gen = torch.Generator().manual_seed(4)
+    h16 = torch.randn(8192, 300, generator=gen).to(dev, BF)
+    w16 = torch.randn(600, 300, generator=gen).to(dev, BF).t()
+    bl = torch.randn(600, generator=gen).to(dev)
+    with torch.no_grad():
+        gemm = {tag: chip_smoke.time_ms(
+            lambda ties=ties: gin_conv.gemm_bf16(h16, w16, bl,
+                                                 ordered_ties=ties), torch)
+            for tag, ties in (("ordered ties", True), ("no fixup", False))}
+        gemm["torch.matmul"] = chip_smoke.time_ms(
+            lambda: torch.matmul(h16, w16), torch)
+    print(f"card: {card}; K4's launches, device ms a launch (profiler "
+          f"kernel records, median of {PARTS_TRIALS} calls after a 2 ms "
+          f"spin), reference {ref_csrc} and this tree")
+    print("  K4's x product alone, [8192, 300] @ [300, 600] bf16 (event "
+          "pairs): " + ", ".join(f"{k} {v:.4f} ms" for k, v in gemm.items()))
+    for k, trees in out.items():
+        for tag, (parts, span, ms) in trees.items():
+            print(f"  {k} [{tag}]: {len(parts)} launches, kernels "
+                  f"{sum(t for _, t in parts):.4f} ms, span {span:.4f} ms, "
+                  f"event pair {ms:.4f} ms")
+            for i, (name, t) in enumerate(parts):
+                print(f"    {i:2d} {t:.4f} {name}")
+    return 0
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ref_csrc", required=True,
                    help="the other checkout's pretrain_gnns_tpu_torch/csrc")
     p.add_argument("--kernels", default="k1,k4",
                    help="comma-separated, of k1, k4, k5, k2, k3, k6 and k7")
+    p.add_argument("--parts", action="store_true",
+                   help="time K4's launches one by one instead")
+    p.add_argument("--only", default="",
+                   help="--parts: the cases whose name holds this")
     args = p.parse_args()
+    if args.parts:
+        return parts_main(args.ref_csrc, chip_smoke.card_line(), args.only)
     kernels = args.kernels.split(",")
     if not set(kernels) <= set(SOURCES):
         p.error(f"--kernels takes {sorted(SOURCES)}")

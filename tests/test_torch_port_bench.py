@@ -2,8 +2,8 @@
 tiny size on the CPU it prints one JSON line with every field the GPU run
 prints (each cell's metric, windows, spread and loader; the dtype; the
 device); without CUDA and without ``--device cpu`` it exits non-zero and
-prints no result; ``--dtype bfloat16_act`` sets both precision knobs and
-restores them. About 15 s alone."""
+prints no result; ``--dtype bfloat16_act`` and ``--dtype default`` set
+both precision knobs for the run and restore them. About 20 s alone."""
 
 import json
 import os
@@ -73,3 +73,33 @@ def test_bench_bfloat16_act_sets_both_knobs_and_restores_them(capsys):
     assert inits.get_compute_dtype() == "float32"
     assert spmm.get_compute_dtype() == "float32"
 
+
+
+def test_bench_default_runs_at_the_knobs_defaults_and_restores_them(
+        capsys, monkeypatch):
+    """``--dtype default`` runs each cell with the model's knob at float32
+    and the kernels' at bfloat16 (the knobs' own defaults, the JAX bench's
+    ``float32_value`` row), names both in its line, and leaves the knobs
+    as it found them (tests/conftest.py pins the kernels' at float32)."""
+    from pretrain_gnns_tpu_torch.models import inits
+    from pretrain_gnns_tpu_torch.ops import spmm
+
+    seen = []
+    run_cell = bench.run_cell
+
+    def spy(cfg, graphs, args):
+        seen.append((inits.get_compute_dtype(), spmm.get_compute_dtype()))
+        return run_cell(cfg, graphs, args)
+
+    monkeypatch.setattr(bench, "run_cell", spy)
+    before = (inits.get_compute_dtype(), spmm.get_compute_dtype())
+    assert before != ("float32", "bfloat16")
+    assert bench.main(TINY + ["--windows", "1", "--dtype", "default"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (out["dtype"], out["kernel_dtype"]) == ("default", "bfloat16")
+    assert seen == [("float32", "bfloat16")] * 2
+    metric = "masking_pretrain_gin2_16_e2e_edges_per_sec_per_cpu"
+    for name in (metric, "bio_" + metric):
+        assert min(out[name]["windows"]) > 0
+        assert out[name]["final_loss"] > 0
+    assert (inits.get_compute_dtype(), spmm.get_compute_dtype()) == before

@@ -652,14 +652,14 @@ H = 2
 
 
 def _gat_case(dev, domain, D, block_nodes, block_edges, n_graphs=24, seed=0,
-              variant="onehot"):
+              variant="onehot", heads=H):
     """A blocked batch whose last two blocks are all padding, and the
     inputs of K4 (h, Wl as a transposed view, ein, We, ...) from which K5's
     x and e follow, with the edge weights ``t["w"]``. Chem: bond one-hots,
     K = 9; bio: [edge_feat | 1], K = 10. ``variant``: "onehot" (those),
     "K1" or "K16" (uniform random ein of that width), "dense" (normal
     random ein, the same width) or "frac" (one-hots, valid edge weights
-    drawn from [0.25, 1.25))."""
+    drawn from [0.25, 1.25)); ``heads`` attention heads."""
     if domain == "bio":
         graphs = bio_dataset(n_graphs, seed=seed)
         extra = {"center_node_idx": n_graphs}
@@ -685,11 +685,12 @@ def _gat_case(dev, domain, D, block_nodes, block_edges, n_graphs=24, seed=0,
         w = w * (0.25 + torch.rand(w.shape, generator=gen).to(dev))
     r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(dev)
     N, K = b.max_nodes, ein.shape[1]
+    Hh = heads
     t = dict(w=w, h=r(N, D) * b.node_mask[:, None],
-             Wl=r(H * D, D, scale=D ** -0.5).t(), bl=r(H * D, scale=0.1),
-             We=r(K, H * D, scale=0.5), e_self=r(H, D, scale=0.5),
-             a_i=r(H, D, scale=D ** -0.5), a_j=r(H, D, scale=D ** -0.5),
-             bias=r(D, scale=0.1), g=r(N, D), g3=r(N, H, D))
+             Wl=r(Hh * D, D, scale=D ** -0.5).t(), bl=r(Hh * D, scale=0.1),
+             We=r(K, Hh * D, scale=0.5), e_self=r(Hh, D, scale=0.5),
+             a_i=r(Hh, D, scale=D ** -0.5), a_j=r(Hh, D, scale=D ** -0.5),
+             bias=r(D, scale=0.1), g=r(N, D), g3=r(N, Hh, D))
     return t, ein, b, bn, be
 
 
@@ -1474,21 +1475,33 @@ def test_k3_bf16_matches_plain_version_and_repeats(cuda_device, rows, cdt,
 
 # K4 and K5 at the GAT paths' own shape (D = 300, blocks of 128 / 384), an
 # odd width, fractional edge weights and a width of two 320-feature chunks
+# (every case's last two blocks hold no valid slot, see _gat_case)
 GAT_BF16_SHAPES = [(300, "onehot"), (45, "onehot"), (300, "frac"),
                    (333, "K1")]
+# ... and for K4's bfloat16 walks, the widest edge input (K = MAX_K = 16,
+# dense) and one and three heads
+K4_BF16_SHAPES = ([(D, v, H) for D, v in GAT_BF16_SHAPES]
+                  + [(300, "K16", H), (300, "onehot", 1), (300, "onehot", 3)])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("domain", ["chem", "bio"])
-@pytest.mark.parametrize("D,variant", GAT_BF16_SHAPES)
+@pytest.mark.parametrize("D,variant,heads", K4_BF16_SHAPES)
 def test_k4_bf16_matches_plain_version_and_repeats(cuda_device, domain, D,
-                                                   variant):
+                                                   variant, heads):
     """K4's bfloat16 variant: out, the bfloat16 residual x and the eight
     gradients against the plain version at compute_dtype=bfloat16, and the
     control at float32 (``_bf16_gate``); two runs equal bit for bit;
-    nothing is NaN; padded slots get alpha 0 (in the float32 control)."""
+    nothing is NaN; padded slots get alpha 0 (in the float32 control).
+    Each direction is held against its plain version on the same inputs:
+    the gradients against ``gat_conv_bwd_plain`` on the kernel's residual.
+    The residual's float32 sums (the tie fixup's k-ordered chain, cuBLAS's
+    own order) round apart on a few dozen entries at some shapes, and a few
+    dozen such entries move the gradients' mean error by up to 9e-5
+    (scripts/torch_port_k4_bf16_witness.py: on its own residual the plain
+    version's reads up to 4e-5 against the same function in float64)."""
     t, ein, b, bn, be = _gat_case(cuda_device, domain, D, 128, 384,
-                                  variant=variant)
+                                  variant=variant, heads=heads)
     graph = (b.senders, b.receivers, t["w"])
 
     def run(dt):
@@ -1509,16 +1522,77 @@ def test_k4_bf16_matches_plain_version_and_repeats(cuda_device, domain, D,
         assert torch.equal(a, c), n
         assert torch.isfinite(a.float()).all(), n
     assert runs[0][1].dtype == BF16 and runs[0][0].dtype == torch.float32
-    leaves = [t[k].detach().clone().requires_grad_(True) for k in GAT_DIFF]
-    lh, lWl, lbl, lWe, les, lai, laj, lbias = leaves
-    out_p, x_p = gat_conv.fused_gat_conv_plain(
-        lh, lWl, lbl, ein, lWe, les, lai, laj, lbias, *graph, H,
-        return_residuals=True, compute_dtype=BF16)
-    plain = (out_p.detach(), x_p) + torch.autograd.grad(out_p, leaves,
-                                                        t["g"])
-    _bf16_gate(f"K4 {domain} D={D} {variant}",
+    args = (ein, t["We"], t["e_self"], t["a_i"], t["a_j"])
+    with torch.no_grad():
+        out_p, x_p = gat_conv.fused_gat_conv_plain(
+            t["h"], t["Wl"], t["bl"], *args, t["bias"], *graph, heads,
+            return_residuals=True, compute_dtype=BF16)
+        plain = (out_p, x_p) + gat_conv.gat_conv_bwd_plain(
+            t["g"], t["h"], t["Wl"], runs[0][1], *args, *graph, heads)
+    _bf16_gate(f"K4 {domain} D={D} {variant} H={heads}",
                dict(zip(names, zip(runs[0], plain))),
                dict(zip(names, zip(control, plain))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain", ["chem", "bio"])
+@pytest.mark.parametrize("D,variant,heads", [(300, "onehot", H),
+                                             (300, "frac", H),
+                                             (300, "onehot", 3),
+                                             (333, "K1", H)])
+def test_k4_bf16_saved_softmax_is_the_residuals(cuda_device, domain, D,
+                                                 variant, heads):
+    """K4's bfloat16 forward saves the softmax that the Pallas backward
+    recomputes from the residual bf(x): alpha and aself against the plain
+    version's p / den and p_self / den on the returned residual (float32
+    rounding apart), the LeakyReLU slopes dlr and dls exactly (but where
+    the logit lies within rounding of 0), padded slots' alpha and dlr
+    exactly 0; the backward reads them and the saved rounded h and Wl
+    (``saved[4]``: bf(h) then bf(Wl), as torch rounds them) and gives the
+    same bits twice. (scripts/torch_port_bits_ab.py holds the gradients bit
+    for bit against a checkout whose backward recomputes these scalars.)"""
+    t, ein, b, bn, be = _gat_case(cuda_device, domain, D, 128, 384,
+                                  variant=variant, heads=heads)
+    graph = (b.senders, b.receivers, t["w"])
+    args = (t["We"], t["e_self"], t["a_i"], t["a_j"])
+    out, x, saved = gat_conv.gat_conv_fwd(
+        t["h"], t["Wl"], t["bl"], ein, *args, t["bias"], *graph, bn, be,
+        compute_dtype=BF16)
+    alpha, aself, dlr, dls, r16 = saved
+    assert r16.dtype == BF16 and alpha.shape == (b.max_edges, heads)
+    N, Din = t["h"].shape
+    pad = lambda n: (n + 7) // 8 * 8
+    h16 = r16[:N * pad(Din)].reshape(N, pad(Din))[:, :Din]
+    assert torch.equal(h16, t["h"].to(BF16))
+    # the plain version's softmax on the residual, as its backward forms it
+    xr = x.float().reshape(N, heads, D)
+    e = (_build.round_bf16(ein) @ _build.round_bf16(t["We"])).reshape(
+        -1, heads, D)
+    _, raw, sraw, p, p_self, den = gat_conv._k4_pieces(
+        xr, e, t["e_self"], t["a_i"], t["a_j"], *graph, 0.2)
+    rcv = b.receivers.long()
+    want_alpha = p / torch.clamp(den[rcv], min=1e-30)
+    valid = t["w"] > 0
+    assert not alpha[~valid].any() and not dlr[~valid].any()
+    # the kernel sums each logit's edge term as ein . (We a_j), the plain
+    # version as (ein @ We) . a_j: float32 rounding apart, which exp
+    # magnifies by the logit's size
+    assert torch.allclose(alpha, want_alpha, rtol=1e-4, atol=1e-6)
+    assert torch.allclose(aself, p_self / den, rtol=1e-4, atol=1e-6)
+    near0 = raw.abs() <= 1e-5 * (1 + raw.abs())
+    slope = attention.leaky_slope(raw, 0.2)
+    assert torch.equal(dlr[valid & ~near0.any(1)],
+                       slope[valid & ~near0.any(1)])
+    snear0 = (sraw.abs() <= 1e-5 * (1 + sraw.abs())).any(1)
+    assert torch.equal(dls[~snear0],
+                       attention.leaky_slope(sraw, 0.2)[~snear0])
+    back = lambda: gat_conv.gat_conv_bwd(
+        t["g"], t["h"], t["Wl"], x, ein, *args, *graph, saved, bn, be,
+        compute_dtype=BF16)
+    first, second = back(), back()
+    torch.cuda.synchronize()
+    for n, a, c in zip(GAT_GRADS, first, second):
+        assert torch.equal(a, c), n
 
 
 @pytest.mark.cuda

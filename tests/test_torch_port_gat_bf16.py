@@ -141,6 +141,37 @@ def test_k4_plain_bf16_matches_pallas(gat_case):
     assert x_res.dtype == BF and torch.equal(x_res, x32.to(BF))
 
 
+def test_k4_plain_bwd_bf16_matches_pallas_from_the_residual(gat_case):
+    """``gat_conv_bwd_plain`` (the plain backward the card tests hold K4's
+    bfloat16 backward against, on the kernel's residual) from the plain
+    forward's residual: the eight gradients of the Pallas backward at
+    jnp.bfloat16 within the limit, and the plain version's own autograd
+    gradients bit for bit."""
+    t, g, _, b = gat_case
+    fixed = tuple(jnp.asarray(t[k]) for k in ("senders", "receivers", "w"))
+
+    def jf(*a):
+        return pallas_gat_conv.fused_gat_conv(
+            *a[:3], jnp.asarray(t["ein"]), *a[3:], *fixed, (H, D),
+            (b.block_nodes, b.block_edges), jnp.bfloat16, True)
+
+    _, vjp = jax.vjp(jf, *(jnp.asarray(t[k]) for k in K4_LEAVES))
+    grads_j = vjp(jnp.asarray(g))
+    lv = [torch.from_numpy(t[k]).requires_grad_(True) for k in K4_LEAVES]
+    ein = torch.from_numpy(t["ein"])
+    graph = [torch.from_numpy(t[k]) for k in ("senders", "receivers", "w")]
+    out_t, x_res = gat_conv.fused_gat_conv_plain(
+        *lv[:3], ein, *lv[3:], *graph, H, return_residuals=True,
+        compute_dtype=BF)
+    auto = torch.autograd.grad(out_t, lv, torch.from_numpy(g))
+    grads = gat_conv.gat_conv_bwd_plain(
+        torch.from_numpy(g), *(v.detach() for v in lv[:2]), x_res, ein,
+        *(v.detach() for v in lv[3:7]), *graph, H)
+    for name, gt, ga, gj in zip(K4_LEAVES, grads, auto, grads_j):
+        assert torch.equal(gt, ga), name
+        assert _err(_np(gt), gj) <= KERNEL_TOL, name
+
+
 def test_k4_control_reads_the_rounding(gat_case):
     """The float32 plain version against the same bfloat16 Pallas
     reference reads over a tenth of the limit on some output: the test

@@ -5,9 +5,11 @@ csrc/edge_aggr.cuh, which sums every row in a fixed order; K3's backward
 (csrc/edge_dot.cu) and K6 (csrc/spmm_ee.cu) walk their slots with the same
 staging and walk, and K7 (the same source) takes the header's row loads.
 No atomic add may come back into K1, K2, the header and the GEMM, K3, K6
-and K7, or the GAT attention (K4 and K5, csrc/gat.cu, whose walks are row-owned too): their
-outputs would change in their last bits from run to run. The build must
-rebuild every user's library when the header changes."""
+and K7, or the GAT attention (K4 and K5: csrc/gat.cu, csrc/gat_bf16.cu and
+the walks they share, csrc/gat_walks.cuh; row-owned too): their outputs
+would change in their last bits from run to run. The build must rebuild
+every user's library when the header changes, and the GAT library when
+any of its files does."""
 
 import re
 import shutil
@@ -29,9 +31,38 @@ def test_no_atomics_in_k2(name):
     assert not re.search(r"\batomic\w*\s*\(", text), name
 
 
-def test_no_atomics_in_gat():
-    text = (_build.CSRC / "gat.cu").read_text()
-    assert not re.search(r"\batomic\w*\s*\(", text)
+# the GAT library's two sources (float32 and bfloat16 instantiations) and
+# the walks they share
+GAT_FILES = ["gat.cu", "gat_bf16.cu", "gat_walks.cuh"]
+
+
+@pytest.mark.parametrize("name", GAT_FILES)
+def test_no_atomics_in_gat(name):
+    text = (_build.CSRC / name).read_text()
+    assert not re.search(r"\batomic\w*\s*\(", text), name
+
+
+def test_gat_library_is_built_from_both_sources():
+    """``_build`` compiles gat.cu and gat_bf16.cu in parallel, one ``nvcc``
+    each, and links them into one library; both include the shared
+    walks."""
+    srcs = _build.sources("gat")
+    assert [p.name for p in srcs] == ["gat.cu", "gat_bf16.cu"]
+    for src in srcs:
+        assert _build.CSRC / "gat_walks.cuh" in _build._with_headers(src)
+    assert _build._target("gat")[0] == srcs
+
+
+@pytest.mark.parametrize("name", GAT_FILES)
+def test_build_hash_covers_each_gat_source(name, tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    _, before = _build._target("gat")
+    with open(csrc / name, "a") as f:
+        f.write("\n// changed\n")
+    _, after = _build._target("gat")
+    assert before != after
 
 
 @pytest.mark.parametrize("name", USERS)
@@ -140,10 +171,14 @@ def _block(text, head):
 def test_k4_to_k7_bf16_routes_and_k4_products_on_the_tensor_cores():
     """K4, K5, K6 and K7 have bfloat16 variants: their entry points take the
     compute dtype (K6 and K7 also the rows' dtype) before the stream, each
-    library says so, and the bfloat16 instantiations are launched. Under
-    bf16_compute K4's three products (x, dWl, dh) go to gemm.cuh's
-    tensor-core GEMM alone; the float32 route keeps the float GEMM."""
+    library says so, and the bfloat16 instantiations are launched (K4's and
+    K5's from gat_bf16.cu, which the public entry points of gat.cu call
+    under bf16_compute). Under bf16_compute K4's three products (x, dWl,
+    dh) go to gemm.cuh's tensor-core GEMM alone; the float32 route keeps
+    the float GEMM. K4's bfloat16 backward recomputes nothing of its
+    forward: no softmax walk, no logit scalars, no rounding of h or Wl."""
     gat = (_build.CSRC / "gat.cu").read_text()
+    gat16 = (_build.CSRC / "gat_bf16.cu").read_text()
     ee = (_build.CSRC / "spmm_ee.cu").read_text()
     assert "int pgt_gat_bf16_flags() { return 1; }" in gat
     assert "int pgt_spmm_ee_bf16_flags() { return 1; }" in ee
@@ -156,18 +191,29 @@ def test_k4_to_k7_bf16_routes_and_k4_products_on_the_tensor_cores():
             sig = re.search(rf"^int pgt_{name}\((.*?)\) \{{", text,
                             re.MULTILINE | re.DOTALL)
             assert sig and re.search(flags, sig.group(1)), name
-    # K5's entry points reach the bfloat16 walks; K4's its own
-    for fn, want in (("pgt_gat_attn_fwd", "attention_fwd<false, true, float>"),
-                     ("pgt_gat_attn_bwd", "attention_bwd<false, true, float>"),
-                     ("pgt_gat_conv_fwd", "attention_fwd<true, true, float>"),
-                     ("pgt_gat_conv_bwd", "attention_bwd<true, true, bf16>")):
-        assert want in _body(gat, rf"^int {fn}\("), fn
-    assert "gat_dwe_bf16_kernel<<<" in _body(gat, r"^int attention_bwd\(")
-    for fn, n_bf in (("pgt_gat_conv_fwd", 1), ("pgt_gat_conv_bwd", 2)):
-        f32, bf = _block(_body(gat, rf"^int {fn}\("),
-                         "if (!bf16_compute) {")
-        assert _calls(bf, "gemm_bf16") == n_bf and _calls(bf, "gemm") == 0, fn
-        assert _calls(f32, "gemm_bf16") == 0 and _calls(f32, "gemm") == n_bf, fn
+    # each public entry point hands bf16_compute to gat_bf16.cu's
+    for name in ("gat_attn_fwd", "gat_attn_bwd", "gat_conv_fwd",
+                 "gat_conv_bwd"):
+        body = _body(gat, rf"^int pgt_{name}\(")
+        assert re.search(rf"if \(bf16_compute\)\s+return pgt_{name}_bf16\(",
+                         body), name
+    # K5's bfloat16 entry points reach the bfloat16 walks; K4's its own
+    for fn, want in (("pgt_gat_attn_fwd_bf16", "attention_fwd<false, true>"),
+                     ("pgt_gat_attn_bwd_bf16", "attention_bwd<false, true>")):
+        assert want in _body(gat16, rf"^int {fn}\("), fn
+    fwd16 = _body(gat16, r"^int pgt_gat_conv_fwd_bf16\(")
+    bwd16 = _body(gat16, r"^int pgt_gat_conv_bwd_bf16\(")
+    assert "gat_proj16_kernel<<<" in fwd16 and "gat_conv_fwd16_kernel<" in fwd16
+    assert "gat_dwe16_kernel<<<" in bwd16
+    assert "gat_bwd_rcv_kernel<true, 2, false, true, bf16>" in bwd16
+    for absent in ("gat_proj", "gat_conv_fwd16_kernel", "gat_fwd_kernel",
+                   "gat_edge_vec_kernel", "convert(", "round_weight("):
+        assert absent not in bwd16, absent
+    for body, n_bf in ((fwd16, 1), (bwd16, 2)):
+        assert _calls(body, "gemm_bf16") == n_bf and _calls(body, "gemm") == 0
+    for fn, n in (("pgt_gat_conv_fwd", 1), ("pgt_gat_conv_bwd", 2)):
+        body = _body(gat, rf"^int {fn}\(")
+        assert _calls(body, "gemm_bf16") == 0 and _calls(body, "gemm") == n, fn
     # K6's and K7's kernels load their gathered rows through the rounding
     # load of edge_aggr.cuh and dispatch on both flags
     for head in (r"^spmm_ee_walk_kernel\(", r"^spmm_ee_dmsg_kernel\(",

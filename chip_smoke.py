@@ -167,7 +167,8 @@ Phases, in order (any failure exits non-zero):
      and bio masking first batches, bfloat16 and float32 rows, fractional
      and negative weights: each against its plain version at that dtype
      and beside the control, the same wrapper at float32
-     (BF16_KERNEL_TOL, BF16_KERNEL_MEAN_TOL), bit-equal between two runs, timed beside the plain version, the library
+     (BF16_KERNEL_TOL, BF16_KERNEL_MEAN_TOL), bit-equal between two runs, timed beside the plain version (K2's also
+     beside the float32 K2 on float32 rows at the same batch), the library
      (``torch.matmul`` in bfloat16 on K1's and K4's products,
      ``torch.sparse.mm`` in bfloat16 for K2 ``[x]``, K6 and K7) and the
      bound (the stored widths' bytes, products at the bfloat16 tensor
@@ -195,7 +196,8 @@ Phases, in order (any failure exits non-zero):
      at K = 10);
   26. the knobs' own defaults (``models.inits`` at float32, ``ops.spmm``
      at ``bfloat16``: float32 rows through the bfloat16 kernels, what a
-     run that sets no knob launches): the chem masking GIN path's
+     run that sets no knob launches): the chem masking GIN path (K1) and
+     the bio masking GIN path (K2 ``[x]`` and ``[ein]``), each its
      agreement step (as phase 25's), its 48 steps with their launch
      counts and edges/s beside the same path's float32 and bfloat16_act
      rates from earlier in the run, and its capture phase;
@@ -2228,7 +2230,9 @@ def k2_bf16_phase(torch, cases):
     batch with fractional edge weights, where every rounding shows (the
     control must show in some case of each variant and rows). The
     library's yardstick is ``torch.sparse.mm`` in bfloat16 for the ``[x]``
-    variant (no single call computes the others)."""
+    variant (no single call computes the others); its floor, the float32
+    K2 on float32 rows at the same batch, stands beside each entry
+    (``float32_ms``)."""
     from pretrain_gnns_tpu_torch.ops import blocked_spmm as bs
 
     bf = torch.bfloat16
@@ -2259,6 +2263,7 @@ def k2_bf16_phase(torch, cases):
                          if not has_ein else
                          "none: no single PyTorch call computes it"),
                 shape=f"{variant_cases[0][0]}, bfloat16 rows",
+                float32_ms=res[d, bf]["float32_ms"],
                 **_rows_entry({r: res[d, r] for r in (bf, torch.float32)},
                               bf, torch.float32)))
     return entries
@@ -2315,10 +2320,16 @@ def _k2_bf16_case(torch, batch, ein, W, w, has_x, has_ein, rows, tag,
     fwd_args = (x, ein, W, snd, rcv, w, bn, be, has_x, has_ein, bf)
     plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
         out_p, leaves, g, retain_graph=True), torch)
+    x32, g32 = x.float(), g.float()
     with torch.no_grad():
         fwd_ms = time_ms(lambda: bs.spmm_fwd(*fwd_args), torch)
         bwd_ms = time_ms(lambda: bs.spmm_bwd(g, ein, snd, rcv, w, K, bn, be,
                                              has_x, has_ein, bf), torch)
+        f32_ms = (time_ms(lambda: bs.spmm_fwd(x32, *fwd_args[1:-1],
+                                              torch.float32), torch),
+                  time_ms(lambda: bs.spmm_bwd(g32, ein, snd, rcv, w, K, bn,
+                                              be, has_x, has_ein,
+                                              torch.float32), torch))
         plain_fwd_ms = time_ms(lambda: bs.blocked_spmm_fused_plain(
             *fwd_args), torch)
         lib = (None, None)
@@ -2346,15 +2357,18 @@ def _k2_bf16_case(torch, batch, ein, W, w, has_x, has_ein, rows, tag,
     bwd_b = bound(bwd_ops, n_rcv * F * rs + e_bytes
                   + sum(nbytes(t) for t in grads_k), PEAK_BF16_FLOPS)
     res = {}
-    for d, ms, pms, b, lms in (("fwd", fwd_ms, plain_fwd_ms, fwd_b, lib[0]),
-                               ("bwd", bwd_ms, plain_bwd_ms, bwd_b, lib[1])):
+    for d, ms, pms, b, lms, fms in (
+            ("fwd", fwd_ms, plain_fwd_ms, fwd_b, lib[0], f32_ms[0]),
+            ("bwd", bwd_ms, plain_bwd_ms, bwd_b, lib[1], f32_ms[1])):
         res[d] = dict(max_abs_err=max_abs, ms=ms, plain_ms=pms,
-                      bound_ms=b[0], bound_by=b[1], library_ms=lms)
+                      bound_ms=b[0], bound_by=b[1], library_ms=lms,
+                      float32_ms=fms)
         lms_s = "none" if lms is None else f"{lms:.4f} ms"
         print(f"[kernels bf16] blocked_spmm_{d}[{bs.variant(has_x, has_ein)}]"
               f" rows {str(rows)[6:]}: kernel {ms:.4f} ms, plain {pms:.4f} "
-              f"ms, library {lms_s}, bound {b[0]:.4f} ms ({b[1]})",
-              flush=True)
+              f"ms, library {lms_s}, bound {b[0]:.4f} ms ({b[1]}); the "
+              f"float32 K2 on float32 rows {fms:.4f} ms ({fms / ms:.2f}x "
+              f"this kernel's time)", flush=True)
     return res, mean
 
 
@@ -2441,16 +2455,20 @@ def k3_bf16_phase(torch, batch):
 
 
 # the device kernels a bfloat16 replay must show: the bfloat16
-# instantiations (the last template argument, BF, true) of K1's, K2's and
-# K3's walks, and K1's products on the tensor cores (gemm_bf16_kernel) ...
+# instantiations (the last template argument, BF, true) of K1's and K3's
+# walks, K2's bfloat16 kernels (spmm_bf16.cu), K1's products on the tensor
+# cores (gemm_bf16_kernel) ...
 BF16_KERNEL_NAMES = {
     "gin_conv_fwd": (r"edge_aggr_fwd_kernel<true, true, true, [^>]*, true>",
                      "gemm_bf16_kernel"),
     "gin_conv_bwd": (r"edge_aggr_bwd_kernel<true, true, true, [^>]*, true>",
                      "gemm_bf16_kernel"),
-    **{f"blocked_spmm_{d}[{v}]":
-       (f"edge_aggr_{d}_kernel<{args}, false, [^>]*, true>",)
-       for d in ("fwd", "bwd")
+    # K2's: the x walk, the edge terms on the tensor cores, the backward
+    **{f"blocked_spmm_fwd[{v}]": (pattern,) for v, pattern in (
+        ("x", "spmm16_x_fwd_kernel<"),
+        ("ein", "spmm16_edge_fwd_kernel<false, "),
+        ("x+ein", "spmm16_edge_fwd_kernel<true, "))},
+    **{f"blocked_spmm_bwd[{v}]": (f"spmm16_bwd_kernel<{args}, ",)
        for v, args in (("x", "true, false"), ("ein", "false, true"),
                        ("x+ein", "true, true"))},
     "blocked_edge_dot_fwd": (r"edot_fwd_kernel<[^>]*, true>",),
@@ -2989,34 +3007,39 @@ def bf16_section(torch, card, chem_graphs, chem_first, bio_graphs, bio_first,
     return entries
 
 
-def default_section(torch, card, chem_graphs, chem_first, f32_rates,
-                    bf16_rates):
+def default_section(torch, card, chem_graphs, chem_first, bio_graphs,
+                    bio_first, f32_rates, bf16_rates):
     """The knobs' own defaults (the model's at float32, the kernels' at
     bfloat16: float32 rows through the bfloat16 kernels, what a run that
-    sets no knob launches): the chem masking GIN path's agreement step with
-    the CPU, its 48 steps and its capture bits, its rate beside the
+    sets no knob launches): the chem masking GIN path (K1) and the bio
+    masking GIN path (K2 ``[x]`` and ``[ein]``), each its agreement step
+    with the CPU, its 48 steps and its capture bits, its rate beside the
     float32 and bfloat16_act rates of the same path earlier in this run.
     The kernels' times on float32 rows are the bfloat16 section's (K1's
-    ``rows_float32``; K4 bfloat16 always takes float32 h, which its wrapper
-    widens under bfloat16_act)."""
+    and K2's ``rows_float32``; K4 bfloat16 always takes float32 h, which
+    its wrapper widens under bfloat16_act)."""
     from pretrain_gnns_tpu_torch.train import pretrain
 
-    cfg = pretrain.PretrainConfig(mask_edge=False, num_layer=LAYERS,
-                                  emb_dim=EMB, batch_size=BATCH, seed=0,
-                                  packing="auto")
-    name = path_name(cfg)
-    with precision("float32", "bfloat16"):
-        bf16_agreement(torch, chem_first, cfg)
-        rate = main_path_phase(torch, chem_graphs, cfg, card, K1,
-                               precision="default")[4]
-        capture_phase(torch, chem_graphs, cfg, K1,
-                      kernel_names=BF16_KERNEL_NAMES,
-                      absent_names=BF16_ABSENT_NAMES)
-    f32, bf = f32_rates[name], bf16_rates[name]
-    print(f"[{name} default] {rate:.1f} valid edges/s against {f32:.1f} in "
-          f"float32 ({rate / f32:.3f}x) and {bf:.1f} under bfloat16_act "
-          f"({rate / bf:.3f}x) earlier in this run, on {card} "
-          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+    base = dict(num_layer=LAYERS, emb_dim=EMB, batch_size=BATCH, seed=0,
+                packing="auto")
+    for graphs, first, cfg, per_step in (
+            (chem_graphs, chem_first,
+             pretrain.PretrainConfig(mask_edge=False, **base), K1),
+            (bio_graphs, bio_first,
+             pretrain.PretrainConfig(domain="bio", **base), BIO_K2)):
+        name = path_name(cfg)
+        with precision("float32", "bfloat16"):
+            bf16_agreement(torch, first, cfg)
+            rate = main_path_phase(torch, graphs, cfg, card, per_step,
+                                   precision="default")[4]
+            capture_phase(torch, graphs, cfg, per_step,
+                          kernel_names=BF16_KERNEL_NAMES,
+                          absent_names=BF16_ABSENT_NAMES)
+        f32, bf = f32_rates[name], bf16_rates[name]
+        print(f"[{name} default] {rate:.1f} valid edges/s against {f32:.1f} "
+              f"in float32 ({rate / f32:.3f}x) and {bf:.1f} under "
+              f"bfloat16_act ({rate / bf:.3f}x) earlier in this run, on "
+              f"{card} [{time.perf_counter() - T0:.0f} s]", flush=True)
 
 
 def bench_phase():
@@ -3310,8 +3333,8 @@ def main() -> int:
                         bio_first, edgepred_chem_first, f32_rates, gat_first,
                         micro_main, bf16_rates)
     # the knobs' defaults: float32 rows through the bfloat16 kernels
-    default_section(torch, card, chem_graphs, chem_first, f32_rates,
-                    bf16_rates)
+    default_section(torch, card, chem_graphs, chem_first, bio_graphs,
+                    bio_first, f32_rates, bf16_rates)
 
     bench_phase()
     kernels += k2 + k3 + k45 + k67 + probe + bf16

@@ -1,10 +1,10 @@
 // Row-owned edge aggregation on the block-diagonal batch, forward and
 // backward, shared by the fused GIN conv (gin_conv.cu, K1) and the fused
-// edge-transform SpMM (spmm.cu, K2); the pair-dot head's backward
-// (edge_dot.cu, K3) and the blocked SpMM on a precomputed edge embedding
-// (spmm_ee.cu, K6) walk their slots with the same staging and walk, and
-// the receiver-sorted SpMM (spmm_ee.cu, K7) takes its row accesses and
-// launch. One template, three flags:
+// edge-transform SpMM (spmm.cu, K2); K2's bfloat16 variant (spmm_bf16.cu),
+// the pair-dot head's backward (edge_dot.cu, K3) and the blocked SpMM on a
+// precomputed edge embedding (spmm_ee.cu, K6) walk their slots with the
+// same staging and walk, and the receiver-sorted SpMM (spmm_ee.cu, K7)
+// takes its row accesses and launch. One template, three flags:
 //
 //   out_r = sum_{rcv_e = r} w_e * (x[snd_e] [HAS_X] + ein_e @ W [HAS_EIN])
 //           + (x_r + e_self) * nm_r                                  [SELF]
@@ -48,22 +48,19 @@
 //   add nothing, so a padded slot's global index 0 never reaches a row of
 //   another block. Every row of out and dx is written, so padded rows come
 //   out exactly 0 (K1: its self term, which the node mask zeroes).
-// bfloat16 (BF = true): the rows may be stored as float or bfloat16 (TI
-// the rows read, TO the rows written), and with BF the walk rounds its
-// operands to bfloat16 where the Pallas kernel at compute_dtype = bfloat16
-// does, every product and sum in float32:
+// bfloat16 (BF = true, K1's: with the self term): the rows may be stored
+// as float or bfloat16 (TI the rows read, TO the rows written), and with
+// BF the walk rounds its operands to bfloat16 where the Pallas kernel at
+// compute_dtype = bfloat16 does, every product and sum in float32:
 // - forward, each slot's message m_e = bf(w_e) bf(x[snd_e]) + sum_k
-//   bf(w_e ein_ek) bf(W_k), then out_r = sum bf(m_e) (+ the self term,
-//   unrounded). The rounding of each message leaves no room for the row
+//   bf(w_e ein_ek) bf(W_k), then out_r = sum bf(m_e) + the self term,
+//   unrounded. The rounding of each message leaves no room for the row
 //   sums A, so the edge term is formed per slot from W's tile in shared
-//   memory (K FMAs a feature and slot) and the block's message sums sit
-//   in the shared tile even without x;
-// - backward without the self term (K2): dmsg_e = bf(bf(w_e) bf(g[rcv_e])),
-//   dx_n = sum dmsg_e, and dW = sum_e bf(ein_e)^T dmsg_e, summed per slot
-//   by the receiver walk into each warp's registers;
-// - backward with it (K1): dx_n = sum bf(w_e) bf(g[rcv_e]) + g_n nm_n and
+//   memory (K FMAs a feature and slot);
+// - backward: dx_n = sum bf(w_e) bf(g[rcv_e]) + g_n nm_n and
 //   dW = sum_r A_r^T bf(g_r) with A_r = sum bf(w_e ein_e), as the Pallas
 //   kernel's one-hot products give it.
+// K2's bfloat16 variant (no self term, each dmsg rounded) is spmm_bf16.cu's.
 // Products of two bfloat16 values are exact in float32, so only the order
 // of the sums differs from the Pallas kernel. The float instantiations
 // (TI = TO = float, BF = false) are the code above, the same bits.
@@ -293,12 +290,11 @@ __device__ __forceinline__ void stage_slots(
 }
 
 // Under BF, rounds the staged ein rows of slots 0 .. n - 1 in place to
-// bf(w_e ein_e) (MUL_W) or bf(ein_e), one entry a thread. Between two
-// __syncthreads of the caller.
-template <bool MUL_W>
+// bf(w_e ein_e), one entry a thread. Between two __syncthreads of the
+// caller.
 __device__ __forceinline__ void round_staged(const Staged& s, int n, int K) {
   for (int i = threadIdx.x; i < n * K; i += AGG_THREADS)
-    s.ein[i] = round_bf16(MUL_W ? s.ein[i] * s.w[i / K] : s.ein[i]);
+    s.ein[i] = round_bf16(s.ein[i] * s.w[i / K]);
 }
 
 // Visits, in slot order, the staged slots 0 .. n - 1 whose sender
@@ -405,7 +401,7 @@ edge_aggr_fwd_kernel(const TI* __restrict__ x, const float* __restrict__ ein,
                 HAS_EIN ? K : 0);
     __syncthreads();
     if (BF && HAS_EIN) {
-      round_staged<true>(st, n, K);
+      round_staged(st, n, K);
       __syncthreads();
     }
     walk_staged<false>(
@@ -502,6 +498,7 @@ edge_aggr_bwd_kernel(const TI* __restrict__ g, const float* __restrict__ ein,
   static_assert(HAS_X || HAS_EIN, "nothing to aggregate");
   static_assert(!SELF || HAS_X, "the self term writes dx");
   static_assert(!SELF || HAS_EIN, "de_self shares the dW reduction's space");
+  static_assert(!BF || SELF, "K2's bfloat16 backward is spmm_bf16.cu's");
   constexpr int FTV = AGG_FT * VEC;
   extern __shared__ float smem[];
   float *acc, *asum, *unused;  // acc by sender, asum (A) by receiver
@@ -518,12 +515,10 @@ edge_aggr_bwd_kernel(const TI* __restrict__ g, const float* __restrict__ ein,
     if (HAS_X) st_row(acc + r * FTV + c, zero_row<VEC>());
     if (HAS_EIN && lane < K) asum[r * K + lane] = 0.f;
   }
-  // sum over the warp's rows of A_r[k] * g_r[f] (under BF without the self
-  // term: over the warp's slots of bf(ein_e)[k] * dmsg_e[f])
+  // sum over the warp's rows of A_r[k] * g_r[f]
   Row<VEC> dwe[AGG_MAX_K];
 #pragma unroll
   for (int k = 0; k < AGG_MAX_K; ++k) dwe[k] = zero_row<VEC>();
-  constexpr bool SLOT_DW = BF && !SELF && HAS_EIN;
 
   const ll base = (ll)b * block_nodes;
   const ll e0 = (ll)b * block_edges;
@@ -534,7 +529,7 @@ edge_aggr_bwd_kernel(const TI* __restrict__ g, const float* __restrict__ ein,
                 HAS_EIN ? K : 0);
     __syncthreads();
     if (BF && HAS_EIN) {
-      round_staged<SELF>(st, n, K);
+      round_staged(st, n, K);
       __syncthreads();
     }
     if (HAS_X)
@@ -550,34 +545,11 @@ edge_aggr_bwd_kernel(const TI* __restrict__ g, const float* __restrict__ ein,
               Row<VEC> a = ld_row<VEC>(acc + s * FTV + c);
               const float wq = BF ? round_bf16(st.w[q]) : st.w[q];
 #pragma unroll
-              for (int j = 0; j < VEC; ++j)
-                a.v[j] = BF && !SELF ? a.v[j] + round_bf16(wq * gr.v[j])
-                                     : fmaf(wq, gr.v[j], a.v[j]);
+              for (int j = 0; j < VEC; ++j) a.v[j] = fmaf(wq, gr.v[j], a.v[j]);
               st_row(acc + s * FTV + c, a);
             }
           });
-    if (SLOT_DW)
-      walk_staged<false>(
-          st, n, lane, warp,
-          [&](int q) {
-            return fok ? ld_row_bf<VEC, BF>(g + (base + st.lr[q]) * F + f)
-                       : zero_row<VEC>();
-          },
-          [&](int q, const Row<VEC>& gr) {
-            const float wq = round_bf16(st.w[q]);
-            Row<VEC> dm;
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) dm.v[j] = round_bf16(wq * gr.v[j]);
-#pragma unroll
-            for (int k = 0; k < AGG_MAX_K; ++k)
-              if (k < K) {
-                const float ek = st.ein[q * K + k];
-#pragma unroll
-                for (int j = 0; j < VEC; ++j)
-                  dwe[k].v[j] = fmaf(ek, dm.v[j], dwe[k].v[j]);
-              }
-          });
-    else if (HAS_EIN)
+    if (HAS_EIN)
       walk_staged<false>(
           st, n, lane, warp, [](int) { return 0.f; },
           [&](int q, float) {
@@ -594,7 +566,7 @@ edge_aggr_bwd_kernel(const TI* __restrict__ g, const float* __restrict__ ein,
   for (int r = warp; r < block_nodes; r += AGG_WARPS) {
     const ll nr = base + r;
     Row<VEC> d = zero_row<VEC>();
-    if ((SELF || (HAS_EIN && !SLOT_DW)) && fok) d = ld_row<VEC>(g + nr * F + f);
+    if ((SELF || HAS_EIN) && fok) d = ld_row<VEC>(g + nr * F + f);
     if (SELF) {
       Row<VEC> o;
 #pragma unroll
@@ -609,7 +581,7 @@ edge_aggr_bwd_kernel(const TI* __restrict__ g, const float* __restrict__ ein,
     }
 #pragma unroll
     for (int k = 0; k < AGG_MAX_K; ++k)
-      if (HAS_EIN && !SLOT_DW && k < K)
+      if (HAS_EIN && k < K)
 #pragma unroll
         for (int j = 0; j < VEC; ++j)
           dwe[k].v[j] = fmaf(asum[r * K + k], BF ? round_bf16(d.v[j]) : d.v[j],

@@ -33,10 +33,10 @@
 //
 // bfloat16: x, out, g and dx may be stored as bfloat16 (bf16_rows, two
 // features a lane in 4-byte accesses where F is even and the rows 4-byte
-// aligned), and with bf16_compute the walk rounds as the Pallas kernel at
-// compute_dtype = bfloat16 does (edge_aggr.cuh's BF: each message rounded
-// before the receiver sum, the edge term per slot; dmsg = bf(bf(w) bf(g))
-// and dW = sum bf(ein)^T dmsg per slot); dW stays float32.
+// aligned), the float32 walk above on the stored values. With
+// bf16_compute the entry points hand over to spmm_bf16.cu, which rounds as
+// the Pallas kernel at compute_dtype = bfloat16 does (its note); dW stays
+// float32 and its partials are summed here.
 
 #include <cuda_runtime.h>
 
@@ -69,8 +69,8 @@ int bwd_smem(int block_nodes, int K, int vec, bool has_x, bool has_ein) {
                         true);
 }
 
-// Rows stored as T, rounding under BF.
-template <bool HAS_X, bool HAS_EIN, typename T, bool BF>
+// Rows stored as T.
+template <bool HAS_X, bool HAS_EIN, typename T>
 int launch_fwd_t(const void* x_, const float* ein, const float* W,
                  const int* snd, const int* rcv, const float* w, void* out_,
                  int N, int F, int K, int block_nodes, int block_edges,
@@ -82,10 +82,10 @@ int launch_fwd_t(const void* x_, const float* ein, const float* W,
   const int vec = std::is_same<T, float>::value
       ? row_vec(F, {x, W, out}, 2) : row_vec(F, {x, out}, 2, sizeof(T));
   if (vec == 2)
-    return edge_aggr_fwd<HAS_X, HAS_EIN, false, 2, T, T, BF>(
+    return edge_aggr_fwd<HAS_X, HAS_EIN, false, 2, T, T>(
         x, ein, W, nullptr, snd, rcv, w, nullptr, out, n_blocks, F, K,
         block_nodes, block_edges, st);
-  return edge_aggr_fwd<HAS_X, HAS_EIN, false, 1, T, T, BF>(
+  return edge_aggr_fwd<HAS_X, HAS_EIN, false, 1, T, T>(
       x, ein, W, nullptr, snd, rcv, w, nullptr, out, n_blocks, F, K,
       block_nodes, block_edges, st);
 }
@@ -94,16 +94,14 @@ template <bool HAS_X, bool HAS_EIN>
 int launch_fwd(const void* x, const float* ein, const float* W,
                const int* snd, const int* rcv, const float* w, void* out,
                int N, int F, int K, int block_nodes, int block_edges,
-               bool rows, bool c, cudaStream_t st) {
-  auto fn = rows ? (c ? launch_fwd_t<HAS_X, HAS_EIN, bf16, true>
-                      : launch_fwd_t<HAS_X, HAS_EIN, bf16, false>)
-                 : (c ? launch_fwd_t<HAS_X, HAS_EIN, float, true>
-                      : launch_fwd_t<HAS_X, HAS_EIN, float, false>);
+               bool rows, cudaStream_t st) {
+  auto fn = rows ? launch_fwd_t<HAS_X, HAS_EIN, bf16>
+                 : launch_fwd_t<HAS_X, HAS_EIN, float>;
   return fn(x, ein, W, snd, rcv, w, out, N, F, K, block_nodes, block_edges,
             st);
 }
 
-template <bool HAS_X, bool HAS_EIN, typename T, bool BF>
+template <bool HAS_X, bool HAS_EIN, typename T>
 int launch_bwd_t(const void* g_, const float* ein, const int* snd,
                  const int* rcv, const float* w, void* dx_, float* dW_part,
                  int N, int F, int K, int block_nodes, int block_edges,
@@ -112,28 +110,28 @@ int launch_bwd_t(const void* g_, const float* ein, const int* snd,
   T* dx = static_cast<T*>(dx_);
   const int n_blocks = N / block_nodes;
   return row_vec(F, {g, dx}, 2, sizeof(T)) == 2
-      ? edge_aggr_bwd<HAS_X, HAS_EIN, false, 2, T, T, BF>(
+      ? edge_aggr_bwd<HAS_X, HAS_EIN, false, 2, T, T>(
             g, ein, snd, rcv, w, nullptr, dx, dW_part, nullptr, n_blocks, F,
             K, block_nodes, block_edges, st)
-      : edge_aggr_bwd<HAS_X, HAS_EIN, false, 1, T, T, BF>(
+      : edge_aggr_bwd<HAS_X, HAS_EIN, false, 1, T, T>(
             g, ein, snd, rcv, w, nullptr, dx, dW_part, nullptr, n_blocks, F,
             K, block_nodes, block_edges, st);
 }
 
 template <bool HAS_X, bool HAS_EIN>
 int launch_bwd(const void* g, const float* ein, const int* snd,
-               const int* rcv, const float* w, void* dx, float* dW,
-               float* dW_part, int N, int F, int K, int block_nodes,
-               int block_edges, bool rows, bool c, cudaStream_t st) {
-  const int n_blocks = N / block_nodes;
-  K = HAS_EIN ? K : 0;
-  auto fn = rows ? (c ? launch_bwd_t<HAS_X, HAS_EIN, bf16, true>
-                      : launch_bwd_t<HAS_X, HAS_EIN, bf16, false>)
-                 : (c ? launch_bwd_t<HAS_X, HAS_EIN, float, true>
-                      : launch_bwd_t<HAS_X, HAS_EIN, float, false>);
-  int err = fn(g, ein, snd, rcv, w, dx, dW_part, N, F, K, block_nodes,
-               block_edges, st);
-  if (err || !HAS_EIN) return err;
+               const int* rcv, const float* w, void* dx, float* dW_part,
+               int N, int F, int K, int block_nodes, int block_edges,
+               bool rows, cudaStream_t st) {
+  auto fn = rows ? launch_bwd_t<HAS_X, HAS_EIN, bf16>
+                 : launch_bwd_t<HAS_X, HAS_EIN, float>;
+  return fn(g, ein, snd, rcv, w, dx, dW_part, N, F, K, block_nodes,
+            block_edges, st);
+}
+
+// dW [K, F] = the sum of the blocks' partials, in block order.
+int sum_dw(const float* dW_part, float* dW, int n_blocks, int F, int K,
+           cudaStream_t st) {
   const ll MN = (ll)K * F;
   const ll want = (MN + 255) / 256;
   const int blocks = (int)(want < 4 * NUM_SMS ? want : 4 * NUM_SMS);
@@ -152,18 +150,30 @@ bool bad_shape(int N, int F, int K, int block_nodes, int block_edges,
 
 extern "C" {
 
+// The bfloat16 variant (spmm_bf16.cu): the same arguments, checked here.
+int pgt_spmm_fwd_bf16(const void* x, const float* ein, const float* W,
+                      const int* snd, const int* rcv, const float* w,
+                      void* out, int N, int F, int K, int block_nodes,
+                      int block_edges, int has_x, int has_ein, int bf16_rows,
+                      void* stream);
+int pgt_spmm_bwd_bf16(const void* g, const float* ein, const int* snd,
+                      const int* rcv, const float* w, void* dx,
+                      float* dW_part, int N, int F, int K, int block_nodes,
+                      int block_edges, int has_x, int has_ein, int bf16_rows,
+                      void* stream);
+
 // Present since the entry points take (bf16_rows, bf16_compute).
 int pgt_bf16_flags() { return 1; }
 
 int pgt_spmm_max_k() { return MAX_K; }
 int pgt_spmm_max_smem() { return MAX_SMEM; }
 // Shared bytes of a forward launch at most (with x's tile, two features a
-// lane).
+// lane; the bfloat16 variant's are fewer).
 int pgt_spmm_fwd_smem(int block_nodes, int K, int has_ein) {
   return fwd_smem(block_nodes, K, 2, true, has_ein != 0);
 }
 // Shared bytes of a backward launch at most (at K = MAX_K, two features a
-// lane).
+// lane; the bfloat16 variant's are fewer).
 int pgt_spmm_bwd_smem(int block_nodes, int has_x, int has_ein) {
   return bwd_smem(block_nodes, MAX_K, 2, has_x != 0, has_ein != 0);
 }
@@ -181,13 +191,17 @@ int pgt_spmm_fwd(const void* x, const float* ein, const float* W,
                 fwd_smem(block_nodes, K, 2, has_x || bf16_compute,
                          has_ein != 0)))
     return (int)cudaErrorInvalidValue;
+  if (bf16_compute)
+    return pgt_spmm_fwd_bf16(x, ein, W, snd, rcv, w, out, N, F, K,
+                             block_nodes, block_edges, has_x, has_ein,
+                             bf16_rows, stream);
   cudaStream_t st = (cudaStream_t)stream;
-  const bool r = bf16_rows, c = bf16_compute;
+  const bool r = bf16_rows;
   if (has_x && has_ein)
-    return launch_fwd<true, true>(x, ein, W, snd, rcv, w, out, N, F, K, block_nodes, block_edges, r, c, st);
+    return launch_fwd<true, true>(x, ein, W, snd, rcv, w, out, N, F, K, block_nodes, block_edges, r, st);
   if (has_x)
-    return launch_fwd<true, false>(x, ein, W, snd, rcv, w, out, N, F, K, block_nodes, block_edges, r, c, st);
-  return launch_fwd<false, true>(x, ein, W, snd, rcv, w, out, N, F, K, block_nodes, block_edges, r, c, st);
+    return launch_fwd<true, false>(x, ein, W, snd, rcv, w, out, N, F, K, block_nodes, block_edges, r, st);
+  return launch_fwd<false, true>(x, ein, W, snd, rcv, w, out, N, F, K, block_nodes, block_edges, r, st);
 }
 
 // Backward from g [N, F]: writes dx [N, F] (has_x) and dW [K, F] (has_ein),
@@ -202,12 +216,21 @@ int pgt_spmm_bwd(const void* g, const float* ein, const int* snd,
                 bwd_smem(block_nodes, K, 2, has_x != 0, has_ein != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool r = bf16_rows, c = bf16_compute;
-  if (has_x && has_ein)
-    return launch_bwd<true, true>(g, ein, snd, rcv, w, dx, dW, dW_part, N, F, K, block_nodes, block_edges, r, c, st);
-  if (has_x)
-    return launch_bwd<true, false>(g, ein, snd, rcv, w, dx, dW, dW_part, N, F, K, block_nodes, block_edges, r, c, st);
-  return launch_bwd<false, true>(g, ein, snd, rcv, w, dx, dW, dW_part, N, F, K, block_nodes, block_edges, r, c, st);
+  const bool r = bf16_rows;
+  K = has_ein ? K : 0;
+  int err;
+  if (bf16_compute)
+    err = pgt_spmm_bwd_bf16(g, ein, snd, rcv, w, dx, dW_part, N, F, K,
+                            block_nodes, block_edges, has_x, has_ein,
+                            bf16_rows, stream);
+  else if (has_x && has_ein)
+    err = launch_bwd<true, true>(g, ein, snd, rcv, w, dx, dW_part, N, F, K, block_nodes, block_edges, r, st);
+  else if (has_x)
+    err = launch_bwd<true, false>(g, ein, snd, rcv, w, dx, dW_part, N, F, K, block_nodes, block_edges, r, st);
+  else
+    err = launch_bwd<false, true>(g, ein, snd, rcv, w, dx, dW_part, N, F, K, block_nodes, block_edges, r, st);
+  if (err || !has_ein) return err;
+  return sum_dw(dW_part, dW, N / block_nodes, F, K, st);
 }
 
 }  // extern "C"

@@ -44,8 +44,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # Libraries built from more than one source, so that their parts compile in
-# parallel: the GAT kernels' float32 and bfloat16 instantiations.
-SOURCES = {"gat": ("gat", "gat_bf16")}
+# parallel: the GAT kernels' and K2's float32 and bfloat16 instantiations.
+SOURCES = {"gat": ("gat", "gat_bf16"), "spmm": ("spmm", "spmm_bf16")}
 
 PROBE_SHAPE = (8, 300)  # the TPU probe's: rows no multiple of 32 lanes wide
 

@@ -15,8 +15,9 @@ gradients for ``ein`` and ``w``, as the JAX custom VJP does. Padded node
 rows come out 0.
 
 On a CUDA tensor :func:`blocked_spmm_fused` launches the hand-written
-kernels of ``csrc/spmm.cu`` (see the note there for what bounds them on
-the card and how they are built) or raises; on a CPU tensor it runs the
+kernels of ``csrc/spmm.cu`` and, at ``compute_dtype=torch.bfloat16``,
+``csrc/spmm_bf16.cu`` (see the notes there for what bounds them on the
+card and how they are built) or raises; on a CPU tensor it runs the
 plain PyTorch version :func:`blocked_spmm_fused_plain`. ``launches``
 counts the kernel launches by direction and variant, e.g.
 ``blocked_spmm_fwd[x]``, ``blocked_spmm_bwd[x+ein]``.

@@ -19,10 +19,13 @@ K1 on the chem masking path's first batch (the first layer's weights and
 bond one-hots, random x and cotangent; the path's 0/1 edge weights and
 fractional, partly negative ones): ``out``, ``aggr``, ``z`` and the seven
 gradients; the same with ``x`` and the cotangent in bfloat16 at float32
-compute (the float32 kernels on the stored values). K2's three variants
-on the bio masking path's first batch
+compute (the float32 kernels on the stored values), and at compute dtype
+bfloat16 on bfloat16 and on float32 rows (``K1 bf16:``). K2's three
+variants on the bio masking path's first batch
 (random x, cotangent, K = 10 edge inputs and edge kernel, fractional and
-partly negative edge weights): ``out``, ``dx`` and ``dW``. K6 and K7 on
+partly negative edge weights): ``out``, ``dx`` and ``dW``, at float32 and
+at compute dtype bfloat16 on bfloat16 and float32 rows (``K2 bf16:``, with
+the path's 0/1 edge weights too). K6 and K7 on
 the chem and bio masking paths' first batches (256 graphs, F = 300, a
 random edge embedding, fractional and partly negative edge weights): K6
 forward with and without the edge embedding, K6 backward (``dx`` and
@@ -38,7 +41,9 @@ parameters, at float32 (with K4's and K5's saved softmax scalars) and at
 compute dtype bfloat16 (``bf16:``; K4's ``out``, ``x`` and eight
 gradients, K5's every output). It prints whether every output is equal bit
 for bit, and how far each one that is not lies from the other tree's, and
-exits non-zero if one is not, but for K4 bfloat16's ``dWe`` (RESUMMED).
+exits non-zero if one is not, but for K4 bfloat16's ``dWe`` and K2
+bfloat16's ``dW`` and forward with ``ein`` (``resummed``: summed on the
+tensor cores in one tree, by the CUDA cores in an older one).
 """
 
 from __future__ import annotations
@@ -70,10 +75,18 @@ from scripts.torch_port_k1_k4_ab import build, use  # noqa: E402
 F = 300
 BF16_ROWS = "K1 bf16 rows at float32 compute:"
 BF16 = "bf16:"  # K4's and K5's bfloat16 variants
-# K4 bfloat16's dWe is summed on the tensor cores (an older checkout may sum
-# it on the CUDA cores, slot by slot): its distance from the other tree's is
-# printed, its bits are not required equal.
+K1_BF16, K2_BF16 = "K1 bf16:", "K2 bf16:"
+# K4 bfloat16's dWe, and K2 bfloat16's dW and its edge terms (the forward
+# with ein), are summed on the tensor cores (an older checkout may sum them
+# on the CUDA cores, slot by slot): their distance from the other tree's is
+# printed, their bits are not required equal.
 RESUMMED = ("bf16: chem K4 dWe", "bf16: bio K4 dWe")
+
+
+def resummed(key: str) -> bool:
+    return key in RESUMMED or (key.startswith(K2_BF16) and (
+        key.endswith(" dW") or "K2 fwd[ein]" in key
+        or "K2 fwd[x+ein]" in key))
 
 
 def config(domain: str):
@@ -121,10 +134,11 @@ def k3_outputs(batch, seed: int):
     return out
 
 
-def k1_outputs(batch, conv, seed: int, rows=torch.float32):
+def k1_outputs(batch, conv, seed: int, rows=torch.float32,
+               cdt=torch.float32):
     """K1's ``out``, ``aggr``, ``z`` and seven gradients on ``batch``
-    through the loaded library at float32 compute, with the path's edge
-    weights and with fractional ones; ``x`` and the cotangent in
+    through the loaded library at compute dtype ``cdt``, with the path's
+    edge weights and with fractional ones; ``x`` and the cotangent in
     ``rows``."""
     gen = torch.Generator().manual_seed(seed)
     dev = batch.node_mask.device
@@ -141,35 +155,47 @@ def k1_outputs(batch, conv, seed: int, rows=torch.float32):
         (_, ein, _, _, W1, _, W2, _, snd, rcv, w, _, bn, be) = args
         for tag, ww in (("", w), (" fractional w", w * rnd(w.shape[0]))):
             a = args[:10] + (ww,) + args[11:]
-            res = gin_conv.gin_conv_fwd(*a)
+            res = gin_conv.gin_conv_fwd(*a, compute_dtype=cdt)
             res += gin_conv.gin_conv_bwd(g, res[1], res[2], ein, W1, W2, snd,
-                                         rcv, ww, nm, bn, be)
+                                         rcv, ww, nm, bn, be, cdt)
             out.update({f"K1 {n}{tag}": t for n, t in zip(names, res)})
     torch.cuda.synchronize()
     return out
 
 
-def k2_outputs(batch, seed: int):
+def k2_outputs(batch, seed: int, cdt=torch.float32):
     """K2's ``out``, ``dx`` and ``dW`` in its three variants on ``batch``
-    through the loaded library."""
+    through the loaded library at compute dtype ``cdt`` (at bfloat16 on
+    bfloat16 and float32 rows, with the fractional edge weights and the
+    path's 0/1 ones)."""
     gen = torch.Generator().manual_seed(seed)
     dev = batch.node_mask.device
     N, E, K = batch.max_nodes, batch.max_edges, 10
     rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
     x, g = rnd(N, F) * batch.node_mask[:, None], rnd(N, F)
     ein, W = rnd(E, K), rnd(K, F)
-    w = batch.edge_mask.float() * rnd(E)
-    edges = (batch.senders, batch.receivers, w)
+    mask = batch.edge_mask.float()
+    weights = {"": mask * rnd(E)}
+    cases = [("", torch.float32)]
+    if cdt == torch.bfloat16:
+        weights[" 0/1 w"] = mask
+        cases = [(f" rows {str(r)[6:]}", r)
+                 for r in (torch.bfloat16, torch.float32)]
     blocks = (batch.block_nodes, batch.block_edges)
     out = {}
     with torch.no_grad():
-        for flags in ((True, False), (False, True), (True, True)):
-            v = bs.variant(*flags)
-            out[f"K2 fwd[{v}]"] = bs.spmm_fwd(x, ein, W, *edges, *blocks,
-                                              *flags)
-            dx, dW = bs.spmm_bwd(g, ein, *edges, K, *blocks, *flags)
-            out.update({f"K2 bwd[{v}] {n}": t for n, t in
-                        (("dx", dx), ("dW", dW)) if t is not None})
+        for wtag, w in weights.items():
+            edges = (batch.senders, batch.receivers, w)
+            for rtag, rows in cases:
+                xr, gr = x.to(rows), g.to(rows)
+                for flags in ((True, False), (False, True), (True, True)):
+                    v, tag = bs.variant(*flags), f"{rtag}{wtag}"
+                    out[f"K2 fwd[{v}]{tag}"] = bs.spmm_fwd(
+                        xr, ein, W, *edges, *blocks, *flags, cdt)
+                    dx, dW = bs.spmm_bwd(gr, ein, *edges, K, *blocks, *flags,
+                                         cdt)
+                    out.update({f"K2 bwd[{v}]{tag} {n}": t for n, t in
+                                (("dx", dx), ("dW", dW)) if t is not None})
     torch.cuda.synchronize()
     return out
 
@@ -290,6 +316,15 @@ def main() -> int:
                                             rows=torch.bfloat16).items()})
             results[tag].update({f"bio {k}": v for k, v in k2_outputs(
                 batches["bio"], seed=10).items()})
+            results[tag].update({f"{K2_BF16} bio {k}": v for k, v in
+                                 k2_outputs(batches["bio"], seed=10,
+                                            cdt=torch.bfloat16).items()})
+            for rows in (torch.bfloat16, torch.float32):
+                results[tag].update({
+                    f"{K1_BF16} rows {str(rows)[6:]} chem {k}": v
+                    for k, v in k1_outputs(batches["chem"], conv, seed=8,
+                                           rows=rows,
+                                           cdt=torch.bfloat16).items()})
             results[tag].update({f"{d} {k}": v for d, b in edgepred.items()
                                  for k, v in k3_outputs(b, seed=9).items()})
             for d, (b, cv, ein) in gat.items():
@@ -301,12 +336,13 @@ def main() -> int:
         use({})
     bad = [k for k in results["tree"]
            if not torch.equal(results["tree"][k], results["ref"][k])]
+    prefixes = {BF16_ROWS: BF16_ROWS, "K1 at bfloat16 compute": K1_BF16,
+                "K2 at bfloat16 compute": K2_BF16,
+                "K4 and K5 at bfloat16 compute": BF16}
     groups = {"float32": [k for k in results["tree"]
-                          if not k.startswith((BF16_ROWS, BF16))],
-              BF16_ROWS: [k for k in results["tree"]
-                          if k.startswith(BF16_ROWS)],
-              "K4 and K5 at bfloat16 compute": [
-                  k for k in results["tree"] if k.startswith(BF16)]}
+                          if not k.startswith(tuple(prefixes.values()))]}
+    groups.update({g: [k for k in results["tree"] if k.startswith(p)]
+                   for g, p in prefixes.items()})
     print(f"card: {torch.cuda.get_device_name(0)}; K1-K7 outputs of this "
           f"tree vs {args.ref_csrc}, equal bit for bit: "
           + "; ".join(f"{g}: {len([k for k in ks if k not in bad])} of "
@@ -316,7 +352,7 @@ def main() -> int:
         d = (results["tree"][k].float() - results["ref"][k].float()).abs()
         print(f"  {k}: max |tree - ref| {float(d.max()):.3e}, "
               f"{int((d > 0).sum())} of {d.numel()} entries differ")
-    return 1 if set(bad) - set(RESUMMED) else 0
+    return 1 if [k for k in bad if not resummed(k)] else 0
 
 
 if __name__ == "__main__":

@@ -31,7 +31,11 @@ as ``chip_smoke.py`` times it); K2 ``[x]``, ``[ein]`` and
 ``[edge_feat | 1]`` edge inputs and edge kernel, K = 10) and ``[x+ein]``
 on the chem edge-prediction path's first batch with the GCN trunk's bond
 one-hots (K = 9) and symmetric-normalised edge weights, as
-``chip_smoke.py`` times them; K3 on the chem and bio edge-prediction
+``chip_smoke.py`` times them, and at compute_dtype bfloat16 on bfloat16
+and float32 rows ``[x]`` and ``[ein]`` on the bio masking first batch and
+``[x+ein]`` on the chem masking one with the paths' 0/1 edge weights (the
+float32 K2 on the same batches beside them); K3 on the chem and bio
+edge-prediction
 paths' first batches, both heads, the backward with the cotangent the path
 gives it (0 on the positive head's odd slots), as ``chip_smoke.py`` times
 it; K6 with and without an edge embedding on the chem and bio masking
@@ -46,15 +50,15 @@ float32 row pins compute_dtype float32, whatever ``PGT_SPMM_DTYPE`` says.
 Random inputs from a seed.
 
 ``--parts`` splits K4's entry points (float32 and bfloat16, chem and bio
-GAT first batches) into their launches instead, for both trees in one
-call: each launch's device ms (the profiler's kernel records, the median
+GAT first batches), or with ``--kernels k2`` K2's cases, into their
+launches instead, for both trees in one call: each launch's device ms (the profiler's kernel records, the median
 over PARTS_TRIALS calls, each after a 2 ms spin of the card so that the
 host has enqueued the call's launches before the first one starts), by
 launch order and kernel name, beside the call's span on the card (first
 kernel's start to last kernel's end) and its event-pair time
 (``chip_smoke.time_ms``):
 
-    python3 scripts/torch_port_k1_k4_ab.py --ref_csrc DIR --parts
+    python3 scripts/torch_port_k1_k4_ab.py --ref_csrc DIR --parts [--kernels k2]
 """
 
 from __future__ import annotations
@@ -271,20 +275,26 @@ _tree_gin_lib = gin_conv._lib
 
 
 def k2_cases(dev):
-    """``{kernel: callable}`` for K2's six rows: the bio masking path's
-    first batch and, for ``[x+ein]``, the chem GCN edge-prediction one."""
+    """``{kernel: callable}`` for K2: at float32 its six rows on the bio
+    masking path's first batch and, for ``[x+ein]``, the chem GCN
+    edge-prediction one (GCN's edge weights) and the chem masking one; at
+    compute_dtype bfloat16 (rows ``[bf16]``, on bfloat16 rows, and ``[bf16,
+    f32 rows]``) ``[x]`` and ``[ein]`` on the bio masking first batch and
+    ``[x+ein]`` on the chem masking one (the unfused GIN path's), each with
+    the path's 0/1 edge weights, beside the float32 rows on the same
+    batch."""
     gen = torch.Generator().manual_seed(2)
     out = {}
-    bio_cfg = pretrain.PretrainConfig(domain="bio", num_layer=5, emb_dim=300,
-                                      batch_size=256, seed=0,
-                                      packing="auto")
+    base = dict(num_layer=5, emb_dim=300, batch_size=256, seed=0,
+                packing="auto")
+    bio_cfg = pretrain.PretrainConfig(domain="bio", **base)
     gcn_cfg = pretrain.PretrainConfig(objective="edgepred", gnn_type="gcn",
-                                      num_layer=5, emb_dim=300,
-                                      batch_size=256, seed=0,
-                                      packing="auto")
+                                      **base)
+    chem_cfg = pretrain.PretrainConfig(mask_edge=False, **base)
     chem_graphs, _ = molecule_dataset(4096, seed=0, mean_atoms=23)
     for tag, cfg, graphs in (("bio", bio_cfg, bio_dataset(4096, seed=0)),
-                             ("chem GCN", gcn_cfg, chem_graphs)):
+                             ("chem GCN", gcn_cfg, chem_graphs),
+                             ("chem masking", chem_cfg, chem_graphs)):
         b = next(iter(pretrain.build_loader(cfg, graphs, dev))).to(dev)
         conv = pretrain.build_objective(cfg).to(dev).gnn.gnns[0]
         W = conv.edge_kernel()[0].detach().contiguous()
@@ -295,11 +305,14 @@ def k2_cases(dev):
         if tag == "bio":
             ein = bio.edge_inputs(b, torch.float32)
             variants = ((True, False), (False, True), (True, True))
+            bf16_variants = ((True, False), (False, True))
         else:
             ein = chem.bond_one_hot(b, torch.float32)
+            variants, bf16_variants = ((True, True),), ((True, True),)
+        if tag == "chem GCN":
             dis = chem.inv_sqrt_degree(b)
             w = w * dis[b.receivers.long()] * dis[b.senders.long()]
-            variants = ((True, True),)
+            bf16_variants = ()
         edges = (b.senders, b.receivers, w)
         for has_x, has_ein in variants:
             flags = (b.block_nodes, b.block_edges, has_x, has_ein)
@@ -310,6 +323,18 @@ def k2_cases(dev):
             out[f"{name} bwd"] = (
                 lambda g=g, ein=ein, K=W.shape[0], edges=edges, flags=flags:
                 bs.spmm_bwd(g, ein, *edges, K, *flags))
+        for has_x, has_ein in bf16_variants:
+            flags = (b.block_nodes, b.block_edges, has_x, has_ein, BF)
+            for rows, rtag in ((BF, "bf16"), (torch.float32, "bf16, f32 rows")):
+                name = f"K2[{bs.variant(has_x, has_ein)}] {tag}"
+                xr, gr = x.to(rows), g.to(rows)
+                out[f"{name} fwd[{rtag}]"] = (
+                    lambda x=xr, ein=ein, W=W, edges=edges, flags=flags:
+                    bs.spmm_fwd(x, ein, W, *edges, *flags))
+                out[f"{name} bwd[{rtag}]"] = (
+                    lambda g=gr, ein=ein, K=W.shape[0], edges=edges,
+                    flags=flags: bs.spmm_bwd(g, ein, *edges, K, *flags[:4],
+                                             BF))
     return out
 
 
@@ -606,15 +631,18 @@ def launch_parts(fn):
     return parts, span
 
 
-def parts_main(ref_csrc: str, card: str, only: str = "") -> int:
-    """``--parts``: K4's launches, float32 and bfloat16 (the cases whose
-    name holds ``only``), both trees."""
+def parts_main(ref_csrc: str, card: str, only: str = "",
+               kernels=("k4",)) -> int:
+    """``--parts``: the launches of K4 (float32 and bfloat16) or K2's
+    cases (``--kernels k2``), those whose name holds ``only``, both
+    trees."""
     dev = resolve_device("cuda")
-    fns = {k: fn for k, fn in gat_cases(dev, ["k4"]).items()
+    cases = gat_cases(dev, ["k4"]) if "k4" in kernels else k2_cases(dev)
+    fns = {k: fn for k, fn in cases.items()
            if only in k or only in k.replace("bwd", "fwd")}
     out = collections.defaultdict(dict)
     with tempfile.TemporaryDirectory() as tmp:
-        ref = {"gat": build(ref_csrc, "gat", tmp)}
+        ref = {SOURCES[k]: build(ref_csrc, SOURCES[k], tmp) for k in kernels}
         for tag in ("ref", "tree"):
             use(ref if tag == "ref" else {})
             with torch.no_grad():
@@ -624,8 +652,24 @@ def parts_main(ref_csrc: str, card: str, only: str = "") -> int:
                     parts, span = launch_parts(fn)
                     out[k][tag] = parts, span, chip_smoke.time_ms(fn, torch)
         use({})
-    # K4's x product alone at the chem batch's shape (this tree's gemm.cuh,
-    # through K1's library): with and without the ordered-tie fixup
+    print(f"card: {card}; the launches, device ms a launch (profiler "
+          f"kernel records, median of {PARTS_TRIALS} calls after a 2 ms "
+          f"spin), reference {ref_csrc} and this tree")
+    if "k4" in kernels:
+        k4_product_alone(dev)
+    for k, trees in out.items():
+        for tag, (parts, span, ms) in trees.items():
+            print(f"  {k} [{tag}]: {len(parts)} launches, kernels "
+                  f"{sum(t for _, t in parts):.4f} ms, span {span:.4f} ms, "
+                  f"event pair {ms:.4f} ms")
+            for i, (name, t) in enumerate(parts):
+                print(f"    {i:2d} {t:.4f} {name}")
+    return 0
+
+
+def k4_product_alone(dev) -> None:
+    """K4's x product alone at the chem batch's shape (this tree's gemm.cuh,
+    through K1's library): with and without the ordered-tie fixup."""
     gen = torch.Generator().manual_seed(4)
     h16 = torch.randn(8192, 300, generator=gen).to(dev, BF)
     w16 = torch.randn(600, 300, generator=gen).to(dev, BF).t()
@@ -637,19 +681,8 @@ def parts_main(ref_csrc: str, card: str, only: str = "") -> int:
             for tag, ties in (("ordered ties", True), ("no fixup", False))}
         gemm["torch.matmul"] = chip_smoke.time_ms(
             lambda: torch.matmul(h16, w16), torch)
-    print(f"card: {card}; K4's launches, device ms a launch (profiler "
-          f"kernel records, median of {PARTS_TRIALS} calls after a 2 ms "
-          f"spin), reference {ref_csrc} and this tree")
     print("  K4's x product alone, [8192, 300] @ [300, 600] bf16 (event "
           "pairs): " + ", ".join(f"{k} {v:.4f} ms" for k, v in gemm.items()))
-    for k, trees in out.items():
-        for tag, (parts, span, ms) in trees.items():
-            print(f"  {k} [{tag}]: {len(parts)} launches, kernels "
-                  f"{sum(t for _, t in parts):.4f} ms, span {span:.4f} ms, "
-                  f"event pair {ms:.4f} ms")
-            for i, (name, t) in enumerate(parts):
-                print(f"    {i:2d} {t:.4f} {name}")
-    return 0
 
 
 def main() -> int:
@@ -659,13 +692,15 @@ def main() -> int:
     p.add_argument("--kernels", default="k1,k4",
                    help="comma-separated, of k1, k4, k5, k2, k3, k6 and k7")
     p.add_argument("--parts", action="store_true",
-                   help="time K4's launches one by one instead")
+                   help="time K4's (or with --kernels k2, K2's) launches "
+                        "one by one instead")
     p.add_argument("--only", default="",
                    help="--parts: the cases whose name holds this")
     args = p.parse_args()
-    if args.parts:
-        return parts_main(args.ref_csrc, chip_smoke.card_line(), args.only)
     kernels = args.kernels.split(",")
+    if args.parts:
+        return parts_main(args.ref_csrc, chip_smoke.card_line(), args.only,
+                          ["k2"] if kernels == ["k2"] else ["k4"])
     if not set(kernels) <= set(SOURCES):
         p.error(f"--kernels takes {sorted(SOURCES)}")
     dev = resolve_device("cuda")

@@ -1385,28 +1385,38 @@ def test_k1_bf16_matches_plain_version_and_repeats(cuda_device, rows, cdt,
                dict(zip(outs, zip(control[:1] + control[3:], plain))))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,cdt", BF16_MODES)
-@pytest.mark.parametrize("has_x,has_ein", K2_VARIANTS)
-@pytest.mark.parametrize("F,odd_offset", [(300, False), (45, False),
-                                          (300, True)])
-def test_k2_bf16_matches_plain_version_and_repeats(cuda_device, rows, cdt,
-                                                   has_x, has_ein, F,
-                                                   odd_offset):
-    """K2's bfloat16 variants with fractional, partly negative (GCN-like)
-    edge weights: out, dx and dW against the plain version at the same
-    compute dtype, and the control at the other (``_bf16_gate``),
-    bit-equal between two runs, padded rows exactly 0."""
-    t, b, blocks = _k2_case(cuda_device, F, 128, 384)
+def _k2_bf16_check(dev, rows, cdt, has_x, has_ein, F, odd_offset,
+                   ein_kind="bio", w01=False, bn=128, be=384):
+    """K2 at ``cdt`` on ``rows``: out, dx and dW against the plain version
+    at the same compute dtype, and the control at the other
+    (``_bf16_gate``), bit-equal between two runs, padded rows exactly 0.
+    ``ein_kind``: the bio batch's ``[edge_feat | 1]`` (K = 10), or K = 16
+    edge inputs with 30% of the entries set (``k16``), with 5% set and
+    every third slot's row all 0 (``sparse``), or all 0 (``zero``);
+    ``w01``: the path's 0/1 edge weights instead of fractional, partly
+    negative ones; ``bn``, ``be``: the blocks' nodes and edge slots."""
+    t, b, blocks = _k2_case(dev, F, bn, be)
     x, g = _in(t["x"], rows, odd_offset), _in(t["g"], rows, odd_offset)
+    ein, W, w = t["ein"], t["W"], t["w"]
+    if ein_kind != "bio":
+        gen = torch.Generator().manual_seed(5)
+        E = ein.shape[0]
+        share = {"k16": 0.3, "sparse": 0.05, "zero": 0.0}[ein_kind]
+        ein = ((torch.rand(E, 16, generator=gen) < share).float()
+               * torch.randn(E, 16, generator=gen))
+        if ein_kind == "sparse":
+            ein[::3] = 0
+        ein = ein.to(dev)
+        W = torch.randn(16, F, generator=gen).to(dev)
+    if w01:
+        w = b.edge_mask.float()
 
     def run(dt):
-        out = blocked_spmm.spmm_fwd(x, t["ein"], t["W"], b.senders,
-                                    b.receivers, t["w"], 128, 384, has_x,
-                                    has_ein, dt)
-        dx, dW = blocked_spmm.spmm_bwd(g, t["ein"], b.senders, b.receivers,
-                                       t["w"], t["W"].shape[0], 128, 384,
-                                       has_x, has_ein, dt)
+        out = blocked_spmm.spmm_fwd(x, ein, W, b.senders, b.receivers, w,
+                                    bn, be, has_x, has_ein, dt)
+        dx, dW = blocked_spmm.spmm_bwd(g, ein, b.senders, b.receivers, w,
+                                       W.shape[0], bn, be, has_x, has_ein,
+                                       dt)
         return out, dx, dW
 
     runs = [run(cdt) for _ in range(2)]
@@ -1417,10 +1427,9 @@ def test_k2_bf16_matches_plain_version_and_repeats(cuda_device, rows, cdt,
     out, dx, dW = runs[0]
     assert out.dtype == rows and not out[~b.node_mask].any()
     xl = x.detach().clone().requires_grad_(True)
-    Wl = t["W"].detach().clone().requires_grad_(True)
+    Wl = W.detach().clone().requires_grad_(True)
     out_p = blocked_spmm.blocked_spmm_fused_plain(
-        xl, t["ein"], Wl, b.senders, b.receivers, t["w"], 128, 384, has_x,
-        has_ein, cdt)
+        xl, ein, Wl, b.senders, b.receivers, w, bn, be, has_x, has_ein, cdt)
     dx_p, dW_p = torch.autograd.grad(out_p, [xl, Wl], g, allow_unused=True)
     if has_x:
         assert dx.dtype == rows
@@ -1429,12 +1438,62 @@ def test_k2_bf16_matches_plain_version_and_repeats(cuda_device, rows, cdt,
     outs = [n for n, f in (("out", True), ("dx", has_x), ("dW", has_ein))
             if f]
     plain = dict(zip(("out", "dx", "dW"), (out_p.detach(), dx_p, dW_p)))
+    # the two compute dtypes agree where nothing is rounded: a 0/1 weight
+    # times a bfloat16 row, or no edge input and no x
+    shows = not ((w01 and rows == BF16 and not has_ein)
+                 or (ein_kind == "zero" and not has_x))
     _bf16_gate(f"K2 x={has_x} ein={has_ein} F={F} rows={rows} cdt={cdt} "
-               f"odd={odd_offset}",
+               f"odd={odd_offset} ein={ein_kind} w01={w01}",
                {n: (k, plain[n]) for n, k in zip(("out", "dx", "dW"),
                                                   runs[0]) if n in outs},
                {n: (k, plain[n]) for n, k in zip(("out", "dx", "dW"),
-                                                  control) if n in outs})
+                                                  control) if n in outs},
+               control_shows=shows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cdt", BF16_MODES)
+@pytest.mark.parametrize("has_x,has_ein", K2_VARIANTS)
+@pytest.mark.parametrize("F,odd_offset", [(300, False), (45, False),
+                                          (300, True), (302, False)])
+def test_k2_bf16_matches_plain_version_and_repeats(cuda_device, rows, cdt,
+                                                   has_x, has_ein, F,
+                                                   odd_offset):
+    """K2's bfloat16 variants with fractional, partly negative (GCN-like)
+    edge weights: out, dx and dW against the plain version at the same
+    compute dtype, and the control at the other (``_bf16_gate``),
+    bit-equal between two runs, padded rows exactly 0. F = 300 takes four
+    features a lane (its last 128-wide tile partial), 302 two, 45 one."""
+    _k2_bf16_check(cuda_device, rows, cdt, has_x, has_ein, F, odd_offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cdt", BF16_MODES)
+@pytest.mark.parametrize("has_x,has_ein", K2_VARIANTS)
+@pytest.mark.parametrize("ein_kind,w01", [("k16", False), ("sparse", False),
+                                          ("zero", False), ("bio", True),
+                                          ("sparse", True)])
+def test_k2_bf16_edge_inputs_and_weights(cuda_device, rows, cdt, has_x,
+                                         has_ein, ein_kind, w01):
+    """K2's bfloat16 variants at F = 300 at the redesign's edges: K = 16
+    (AGG_MAX_K) edge inputs, mostly or wholly zero ones with all-zero rows
+    (the forward skips the zero bf(w ein_k)), and the masking paths' 0/1
+    edge weights beside fractional, negative ones; as
+    ``test_k2_bf16_matches_plain_version_and_repeats`` checks them."""
+    _k2_bf16_check(cuda_device, rows, cdt, has_x, has_ein, 300, False,
+                   ein_kind, w01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cdt", BF16_MODES)
+@pytest.mark.parametrize("has_x,has_ein", K2_VARIANTS)
+def test_k2_bf16_large_blocks(cuda_device, rows, cdt, has_x, has_ein):
+    """K2's bfloat16 variants on blocks of 512 nodes and 1,536 edge slots:
+    six staged passes a block, 64 rows a warp, and four features a lane
+    where shared memory allows; as
+    ``test_k2_bf16_matches_plain_version_and_repeats`` checks them."""
+    _k2_bf16_check(cuda_device, rows, cdt, has_x, has_ein, 300, False,
+                   bn=512, be=1536)
 
 
 @pytest.mark.cuda

@@ -341,12 +341,13 @@ def test_gat_on_cpu_launches_no_kernel(batches):
 
 def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     """A changed header changes the library's name, so a stale build is
-    never loaded; the sources of gin_conv and gat share gemm.cuh."""
+    never loaded; the sources of gin_conv and gat share gemm.cuh, and so
+    does K2's bfloat16 source (its tensor-core fragments)."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
     names = ("gin_conv", "gat", "spmm", "edge_dot")
-    for name in ("gin_conv", "gat"):
+    for name in ("gin_conv", "gat", "spmm_bf16"):
         assert csrc / "gemm.cuh" in _build._with_headers(csrc / f"{name}.cu")
     # spmm.cu shares K1's aggregation header, not the GEMM
     assert _build._with_headers(csrc / "spmm.cu") == [
@@ -358,7 +359,7 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     after = {n: _build._target(n)[1].name for n in names}
     assert after["gin_conv"] != before["gin_conv"]
     assert after["gat"] != before["gat"]
-    assert after["spmm"] == before["spmm"]
+    assert after["spmm"] != before["spmm"]  # through spmm_bf16.cu
     assert after["edge_dot"] == before["edge_dot"]
     # a header reached only through another header counts too
     (csrc / "inner.cuh").write_text("// inner\n")

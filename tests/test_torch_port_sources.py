@@ -22,10 +22,12 @@ HEADER = "edge_aggr.cuh"
 USERS = ["gin_conv", "spmm", "edge_dot", "spmm_ee"]
 
 
-# K2, its header, and the kernels built on the header's walk and rows (K3,
-# K6 and K7); since the bfloat16 variants K1 and its GEMM too
-@pytest.mark.parametrize("name", ["spmm.cu", HEADER, "edge_dot.cu",
-                                  "spmm_ee.cu", "gin_conv.cu", "gemm.cuh"])
+# K2 (its float32 and bfloat16 sources), its header, and the kernels built
+# on the header's walk and rows (K3, K6 and K7); since the bfloat16
+# variants K1 and its GEMM too
+@pytest.mark.parametrize("name", ["spmm.cu", "spmm_bf16.cu", HEADER,
+                                  "edge_dot.cu", "spmm_ee.cu", "gin_conv.cu",
+                                  "gemm.cuh"])
 def test_no_atomics_in_k2(name):
     text = (_build.CSRC / name).read_text()
     assert not re.search(r"\batomic\w*\s*\(", text), name
@@ -63,6 +65,58 @@ def test_build_hash_covers_each_gat_source(name, tmp_path, monkeypatch):
         f.write("\n// changed\n")
     _, after = _build._target("gat")
     assert before != after
+
+
+def test_spmm_library_is_built_from_both_sources():
+    """``_build`` compiles K2's float32 (spmm.cu) and bfloat16
+    (spmm_bf16.cu) sources in parallel, one ``nvcc`` each, and links them
+    into one library; both include the shared walk, and the hash covers
+    the new source."""
+    srcs = _build.sources("spmm")
+    assert [p.name for p in srcs] == ["spmm.cu", "spmm_bf16.cu"]
+    for src in srcs:
+        assert _build.CSRC / HEADER in _build._with_headers(src)
+    assert _build._target("spmm")[0] == srcs
+
+
+def test_spmm_bf16_hash_covers_its_source(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    _, before = _build._target("spmm")
+    with open(csrc / "spmm_bf16.cu", "a") as f:
+        f.write("\n// changed\n")
+    _, after = _build._target("spmm")
+    assert before != after
+
+
+def test_k2_bf16_route_puts_edge_terms_and_dw_on_tensor_cores():
+    """Under bf16_compute both K2 entry points hand over to spmm_bf16.cu.
+    Its forward walks x alone (no edge term) or forms the edge terms of 16
+    slots at a time on the tensor cores (mma.sync), W's fragments held in
+    registers; its backward sums dW on the tensor cores, not slot by slot
+    in registers. Every walk sums a row's slots in slot order in a run
+    (walk_rows, or the edge kernel's own). The shared header keeps K1's
+    bfloat16 walk and no K2 branch (the per-slot dW, SLOT_DW, is gone)."""
+    spmm = (_build.CSRC / "spmm.cu").read_text()
+    k2 = (_build.CSRC / "spmm_bf16.cu").read_text()
+    header = (_build.CSRC / HEADER).read_text()
+    for d in ("fwd", "bwd"):
+        body = _body(spmm, rf"^int pgt_spmm_{d}\(")
+        assert re.search(rf"if \(bf16_compute\)\s+(?:return|err =) "
+                         rf"pgt_spmm_{d}_bf16\(", body), d
+        assert re.search(rf'^extern "C" int pgt_spmm_{d}_bf16\(', k2,
+                         re.MULTILINE), d
+    xfwd = _body(k2, r"^spmm16_x_fwd_kernel\(")
+    edge = _body(k2, r"^spmm16_edge_fwd_kernel\(")
+    bwd = _body(k2, r"^spmm16_bwd_kernel\(")
+    assert "walk_rows<" in xfwd and "mma_bf16" not in xfwd
+    assert _calls(edge, "mma_bf16") == 1 and "fmaf" not in edge
+    assert _calls(bwd, "mma_bf16") == 1 and "fmaf" not in bwd
+    assert "walk_rows<" in bwd and "round_staged" not in k2
+    assert "SLOT_DW" not in header
+    assert 'static_assert(!BF || SELF, "K2\'s bfloat16 backward is ' \
+        'spmm_bf16.cu\'s");' in header
 
 
 @pytest.mark.parametrize("name", USERS)

@@ -152,9 +152,23 @@ Phases, in order (any failure exits non-zero):
      48 steps each of ``run_pretrain(objective="infomax")``:
      chem K1 at 5 a step each way, bio K2's ``[x]`` and ``[ein]`` at 5 a
      step, every other count 0;
-  25. mixed precision, under the JAX bench's recipe (``models.inits`` at
+  25. context prediction (``objective="contextpred"``: two trunks, the
+     substructure's 5 layers and the context's 3, on two blocked streams,
+     each its own block geometry), chem (cbow, csize 3, on
+     ``molecule_dataset(4400, ...)``: 6% of the molecules have no context,
+     and 4,096 pairs make 16 batches) and bio (l1 1, center): the
+     presampling's host time and each stream's geometry, the blocked
+     first batch's loss on the CPU against the standard layout's on the
+     same pairs, each trunk's launches counted apart, the float32
+     agreement step refereed by a float64 CPU step (chem also in
+     skipgram), 48 steps with K1 (chem) or K2 ``[x]`` and ``[ein]`` (bio)
+     at 5 + 3 a step each way, the capture phase, then at the knobs'
+     defaults the bfloat16 agreement step, 48 steps and the capture
+     phase, the rate printed beside float32's;
+  26. mixed precision, under the JAX bench's recipe (``models.inits`` at
      ``bfloat16_act``, ``ops.spmm`` at ``bfloat16``, the JAX package's
-     default; every phase before runs with both knobs pinned at float32,
+     default; every phase before runs with both knobs pinned at float32
+     but phase 25's runs at the knobs' defaults,
      and ``precision`` restores them after the block): K1 on the chem
      masking first batch, K2 ``[x]`` and ``[ein]`` on the bio masking
      first batch, K2 ``[x+ein]`` on the chem masking first batch (the
@@ -194,14 +208,14 @@ Phases, in order (any failure exits non-zero):
      and no K4 walk that recomputes the softmax, and the card's busy share
      of the replay); last, the bio masking GAT step under the recipe (K4
      at K = 10);
-  26. the knobs' own defaults (``models.inits`` at float32, ``ops.spmm``
+  27. the knobs' own defaults (``models.inits`` at float32, ``ops.spmm``
      at ``bfloat16``: float32 rows through the bfloat16 kernels, what a
      run that sets no knob launches): the chem masking GIN path (K1) and
      the bio masking GIN path (K2 ``[x]`` and ``[ein]``), each its
-     agreement step (as phase 25's), its 48 steps with their launch
+     agreement step (as phase 26's), its 48 steps with their launch
      counts and edges/s beside the same path's float32 and bfloat16_act
      rates from earlier in the run, and its capture phase;
-  27. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
+  28. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
      defaults (chem masking GIN on 16,384 molecules and bio masking GIN,
      5 windows of 4 epochs each after 2 warm-up epochs), at
      ``--scan_steps 1`` (every step eager), then at its default (K =
@@ -566,7 +580,8 @@ def unfused_layer_ms(torch, conv, x, batch, g, k1_out):
 
 def path_name(cfg, fused="on") -> str:
     unfused = " unfused" * (fused == "off")
-    return f"{cfg.domain} {cfg.objective} {cfg.gnn_type}{unfused}"
+    mode = f" {cfg.mode}" * (cfg.objective == "contextpred")
+    return f"{cfg.domain} {cfg.objective} {cfg.gnn_type}{mode}{unfused}"
 
 
 @contextlib.contextmanager
@@ -584,15 +599,18 @@ def fused_as(mode):
         gin_conv.set_fused("on")
 
 
-def agreement_phase(torch, batch, cfg, referee=False, fused="on"):
+def agreement_phase(torch, batch, cfg, referee=False, fused="on",
+                    noise_samples=NOISE_SAMPLES):
     """One train-mode step of ``cfg``'s objective on the card and on the
     CPU. With ``referee``, a float64 step on the CPU and the measured
-    float32 noise set the gradients' limit (see REFEREE_K)."""
+    float32 noise (1 + ``noise_samples`` CPU steps) set the gradients'
+    limit (see REFEREE_K)."""
     with fused_as(fused):
-        _agreement(torch, batch, cfg, referee, path_name(cfg, fused))
+        _agreement(torch, batch, cfg, referee, path_name(cfg, fused),
+                   noise_samples)
 
 
-def _agreement(torch, batch, cfg, referee, name):
+def _agreement(torch, batch, cfg, referee, name, noise_samples):
     tag = f"[{name} agreement]"
     from pretrain_gnns_tpu_torch.models import inits
     from pretrain_gnns_tpu_torch.train.pretrain import build_objective
@@ -635,7 +653,7 @@ def _agreement(torch, batch, cfg, referee, name):
         card_err = statistics.median(card)
         noise = [grad_err(gp, g64)] + [
             grad_err(step("cpu", noise_seed=i)[1], g64)
-            for i in range(NOISE_SAMPLES)]
+            for i in range(noise_samples)]
         limit = max(STEP_GRAD_TOL, REFEREE_K * max(noise))
         fmt = lambda errs: " ".join(f"{e:.3e}" for e in errs)
         print(f"{tag} float64 referee on the CPU: loss {l64:.9f}; max grad "
@@ -853,8 +871,9 @@ def capture_phase(torch, graphs, cfg, per_step, fused="on",
     dev = torch.device("cuda")
     W, K = graphed.WARMUP_STEPS, CAPTURE_K
     n = W + K * CAPTURE_GROUPS
+    loader = pretrain.build_loader(cfg, graphs, dev)
     host = [b.pin_memory() for b in itertools.islice(
-        pretrain.build_loader(cfg, graphs, dev), n + K)]
+        (b for _ in range(2) for b in loader), n + K)]
 
     def fresh():
         model = pretrain.build_objective(cfg).to(dev)
@@ -3042,6 +3061,167 @@ def default_section(torch, card, chem_graphs, chem_first, bio_graphs,
               f"{card} [{time.perf_counter() - T0:.0f} s]", flush=True)
 
 
+# --- context prediction: two trunks on two blocked streams ------------------
+
+# launches a step: the substructure trunk's LAYERS and the context trunk's
+# CONTEXT_LAYERS (csize 3 in chem, 3 in bio), each way
+CONTEXT_LAYERS = 3
+CP_K1 = {k: v + CONTEXT_LAYERS for k, v in K1.items()}
+CP_BIO_K2 = {k: v + CONTEXT_LAYERS for k, v in BIO_K2.items()}
+# The contextpred agreement steps' float32 noise from 1 + CP_NOISE_SAMPLES
+# CPU steps: the unscaled step, always among them, reads most of the
+# largest distance (on an H100 host: bio 3.17e-3 of the 17 steps' 3.19e-3;
+# chem skipgram 5.4e-3 and chem cbow 8.9e-4, their scaled samples up to
+# 1.4e-2 and 2.4e-2), fewer samples can only lower the limit, and a bio
+# CPU step at full width takes about 6 s.
+CP_NOISE_SAMPLES = 4
+# chem: about 6% of the molecules have no context (nothing 4 to 7 hops
+# from the root), so the chem path takes more molecules than MAIN_GRAPHS:
+# at least 4,096 pairs a variant, 16 batches an epoch, one replay of K = 16
+CP_CHEM_GRAPHS = 4400
+
+
+def describe_pair(tag, pair):
+    """Each stream of a pair batch: its graphs, valid nodes and edges, the
+    valid rows no edge reaches, its blocks and those without a valid
+    edge."""
+    import numpy as np
+
+    for name, g in (("substructure", pair.substruct),
+                    ("context", pair.context)):
+        deg = np.bincount(np.asarray(g.receivers)[np.asarray(g.edge_mask)],
+                          minlength=g.max_nodes)
+        nm = np.asarray(g.node_mask)
+        idle = int((np.asarray(g.edge_mask).reshape(
+            -1, g.block_edges).sum(axis=1) == 0).sum())
+        print(f"[{tag}] first batch, {name} stream: "
+              f"{int(np.asarray(g.graph_mask).sum())} graphs, {int(nm.sum())} "
+              f"nodes ({int(((deg == 0) & nm).sum())} without a message), "
+              f"{int(np.asarray(g.edge_mask).sum())} valid edges; blocks "
+              f"{g.max_nodes // g.block_nodes} x ({g.block_nodes}, "
+              f"{g.block_edges}), {idle} without a valid edge", flush=True)
+    ov = np.asarray(pair.context.extras["overlap_context_substruct_idx_mask"])
+    print(f"[{tag}] first batch: {int(ov.sum())} overlap rows of "
+          f"{ov.shape[0]}", flush=True)
+
+
+def pair_loader_phase(torch, pairs, cfg, dev):
+    """The presampling's time and each stream's geometry; the blocked
+    loader's first epoch on the host (the joint walk and both streams'
+    packing, ms a batch); on the CPU the blocked first batch's loss equals
+    the standard layout's on the same pairs (FWD_TOL)."""
+    import dataclasses
+
+    from pretrain_gnns_tpu_torch.train import pretrain
+
+    tag = f"[{path_name(cfg)} loader]"
+    blocked = pretrain.build_loader(cfg, pairs, dev)
+    standard = pretrain.build_loader(
+        dataclasses.replace(cfg, packing="standard"), pairs, dev)
+    if blocked.blocks is None or standard.blocks is not None:
+        raise AssertionError(f"{tag} layouts {blocked.blocks}, "
+                             f"{standard.blocks}")
+    print(f"{tag} presampled {pairs.variants} variants of "
+          f"{len(pairs.graphs)} graphs in {pairs.seconds:.2f} s on the host "
+          f"({[len(f) for f in pairs.sub]} pairs); geometry (n_blocks, "
+          f"block_nodes, block_edges): substructures {blocked.blocks[0]}, "
+          f"contexts {blocked.blocks[1]}", flush=True)
+    t = time.perf_counter()
+    first = list(blocked)
+    ms = (time.perf_counter() - t) * 1e3 / len(first)
+    v, ids, placement = next(blocked._iter_blocked())
+    model = pretrain.build_objective(cfg)
+    with torch.no_grad():
+        a = float(model(blocked._batch_blocked(v, ids, placement).to("cpu"),
+                        train=True)[0])
+        b = float(model(standard._batch(v, ids).to("cpu"), train=True)[0])
+    err = abs(a - b) / max(1.0, abs(b))
+    print(f"{tag} {len(first)} blocked batches an epoch, "
+          f"{blocked.last_epoch_stats['edges']} valid edges (both streams), "
+          f"host ms a batch (walk and pack) {ms:.3f}; the first batch's "
+          f"loss on the CPU blocked {a:.6f}, standard {b:.6f}, rel err "
+          f"{err:.3e} (limit {FWD_TOL:.0e}) "
+          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+    if not err <= FWD_TOL:
+        raise AssertionError(f"{tag} the blocked batch's loss differs from "
+                             "the standard layout's")
+    return first[0]
+
+
+def trunk_launches(torch, pair, cfg, per_step):
+    """Each trunk's launches, counted apart on the card (not part of a
+    path's run): the substructure trunk's forward and backward on its
+    stream, then the context trunk's on its own, must launch each kernel
+    of ``per_step`` LAYERS and CONTEXT_LAYERS times."""
+    from pretrain_gnns_tpu_torch.train import pretrain
+
+    model = pretrain.build_objective(cfg).to("cuda")
+    on_card = pair.to("cuda")
+    modules = counted_modules()
+    seen = {}
+    for name, trunk, g, layers in (
+            ("substructure", model.gnn_substruct, on_card.substruct, LAYERS),
+            ("context", model.gnn_context, on_card.context, CONTEXT_LAYERS)):
+        for m in modules:
+            m.reset_launches()
+        trunk(g, train=True).sum().backward()
+        counts = read_counts(modules)
+        # the probe runs once a process, at the first library's load
+        seen[name] = {k: v for k, v in counts.items()
+                      if v and k != "probe_scale2"}
+        if seen[name] != {k: layers for k in per_step}:
+            raise AssertionError(f"{path_name(cfg)}: the {name} trunk "
+                                 f"launched {seen[name]}")
+    print(f"[{path_name(cfg)} trunks] launches of one forward and backward "
+          f"each, counted apart: {seen}", flush=True)
+
+
+def contextpred_section(torch, card, chem_graphs_of, bio_graphs):
+    """Context prediction in chem (cbow; a skipgram agreement step) and in
+    bio (l1 1, center): the presampled pairs, the pair loader's phase, a
+    float32 agreement step refereed by a float64 CPU step (the scores are
+    300-term dot products, as edge prediction's), the 48-step path with
+    both trunks' launches counted, its capture phase, and the same at the
+    knobs' defaults (the bfloat16 kernels on float32 rows): agreement,
+    path with its rate beside float32, capture."""
+    import dataclasses
+
+    from pretrain_gnns_tpu_torch.train import pretrain
+
+    dev = torch.device("cuda")
+    base = dict(objective="contextpred", num_layer=LAYERS, emb_dim=EMB,
+                batch_size=BATCH, seed=0, packing="auto", csize=3,
+                mode="cbow", l1=1, center=True)
+    for domain, per_step in (("chem", CP_K1), ("bio", CP_BIO_K2)):
+        cfg = pretrain.PretrainConfig(domain=domain, **base)
+        graphs = (chem_graphs_of(CP_CHEM_GRAPHS) if domain == "chem"
+                  else bio_graphs)
+        pairs = pretrain.presample_context(cfg, graphs)
+        first = pair_loader_phase(torch, pairs, cfg, dev)
+        describe_pair(f"data {path_name(cfg)}", first)
+        trunk_launches(torch, first, cfg, per_step)
+        agreement_phase(torch, first, cfg, referee=True,
+                        noise_samples=CP_NOISE_SAMPLES)
+        if domain == "chem":
+            agreement_phase(torch, first,
+                            dataclasses.replace(cfg, mode="skipgram"),
+                            referee=True, noise_samples=CP_NOISE_SAMPLES)
+        rate = main_path_phase(torch, pairs, cfg, card, per_step)[4]
+        capture_phase(torch, pairs, cfg, per_step)
+        with precision("float32", "bfloat16"):
+            bf16_agreement(torch, first, cfg)
+            default = main_path_phase(torch, pairs, cfg, card, per_step,
+                                      precision="default")[4]
+            capture_phase(torch, pairs, cfg, per_step,
+                          kernel_names=BF16_KERNEL_NAMES,
+                          absent_names=BF16_ABSENT_NAMES)
+        print(f"[{path_name(cfg)}] {LAYERS} + {CONTEXT_LAYERS} layers a "
+              f"step: {per_step} launches a step; {default:.1f} valid "
+              f"edges/s (both streams) at the knobs' defaults against "
+              f"{rate:.1f} in float32 ({default / rate:.3f}x), on {card} "
+              f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+
+
 def bench_phase():
     """``python -m pretrain_gnns_tpu_torch.bench`` at ``--scan_steps 1``
     (eager steps), at its defaults (K = 16, CUDA-graph replays), at
@@ -3324,6 +3504,13 @@ def main() -> int:
             cfg, graphs, dev))), cfg, referee=True)
         main_path_phase(torch, graphs, cfg, card, per_step)
         capture_phase(torch, graphs, cfg, per_step)
+
+    # context prediction: the substructure and the context trunk (5 + 3
+    # layers) on two blocked streams, through K1 (chem) and K2 (bio)
+    contextpred_section(
+        torch, card,
+        lambda n: molecule_dataset(n, seed=0, mean_atoms=MEAN_ATOMS)[0],
+        bio_graphs)
 
     # mixed precision: the bfloat16 variants of K1, K2 and K3, and four
     # paths under the JAX bench's recipe

@@ -1,7 +1,7 @@
 """Pretraining CLI of the port: attribute masking, edge prediction, Deep
-Graph Infomax and supervised pretraining in the chem and bio domains, on a
-GIN, GCN, GAT or GraphSAGE trunk, with the flag names of the JAX package's
-CLI plus ``--device``.
+Graph Infomax, supervised pretraining and context prediction in the chem
+and bio domains, on a GIN, GCN, GAT or GraphSAGE trunk, with the flag
+names of the JAX package's CLI plus ``--device``.
 
 Examples:
   python -m pretrain_gnns_tpu_torch.cli.pretrain --dataset synthetic \
@@ -16,6 +16,8 @@ Examples:
       --domain bio --epochs 5 --output_model_file gat_trunk
   python -m pretrain_gnns_tpu_torch.cli.pretrain --objective supervised \
       --graph_pooling attention --epochs 5 --output_model_file sup_trunk
+  python -m pretrain_gnns_tpu_torch.cli.pretrain --objective contextpred \
+      --mode skipgram --epochs 5 --output_model_file cp_trunk
 
 With ``--dataset synthetic``, chem trains on ``n_synthetic`` molecules
 and bio on ``max(n_synthetic // 4, 64)`` ego-networks, as the JAX CLI.
@@ -28,6 +30,14 @@ pretrain set of ``--split`` (:func:`bio_supervised_pretrain_indices`):
 ``species`` (the default) keeps the seven train/valid species and the easy
 half of the human graphs, ``random`` the train and valid parts of a seeded
 random split, as the JAX CLI. ``--input_model_file`` is not ported.
+
+Context prediction (``--objective contextpred``) takes the JAX CLI's
+flags: ``--csize`` (the chem context trunk's depth and ring width; bio's
+trunk has 3 layers), ``--mode cbow|skipgram``, ``--neg_samples``,
+``--context_pooling mean|sum``, and for bio ``--l1`` and ``--center``;
+each graph's contexts are presampled (8 draws, cycled by epoch) before the
+first epoch, and the saved trunk is the substructure trunk,
+``gnn_substruct``.
 
 ``--scan_steps K`` runs K train steps a dispatch, as the JAX CLI's flag:
 on CUDA one CUDA-graph replay of K captured steps a group of K batches (0,
@@ -86,6 +96,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "(0 = auto: 16 on accelerators)")
     p.add_argument("--mask_rate", type=float, default=0.15)
     p.add_argument("--mask_edge", type=int, default=0)
+    p.add_argument("--csize", type=int, default=3)
+    p.add_argument("--mode", default="cbow", choices=["cbow", "skipgram"])
+    p.add_argument("--neg_samples", type=int, default=1)
+    p.add_argument("--context_pooling", default="mean",
+                   help="contextpred cbow: mean | sum")
+    p.add_argument("--l1", type=int, default=1)
+    p.add_argument("--center", type=int, default=1)
     p.add_argument("--output_model_file", default="")
     p.add_argument("--n_synthetic", type=int, default=2000)
     p.add_argument("--device", default="cuda",
@@ -104,11 +121,6 @@ def resolve_dropout(args) -> float:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     args.dropout_ratio = resolve_dropout(args)
-    if args.objective == "contextpred":
-        raise SystemExit(
-            f"--objective {args.objective} is not ported yet; this CLI runs "
-            "--objective masking, edgepred, infomax or supervised"
-        )
     if args.gnn_type not in ("gin", "gcn", "gat", "graphsage"):
         raise SystemExit(f"--gnn_type {args.gnn_type} is not ported yet")
     if args.input_model_file:
@@ -143,6 +155,9 @@ def main(argv=None):
         lr=args.lr, decay=args.decay, batch_size=args.batch_size,
         epochs=args.epochs, seed=args.seed, mask_rate=args.mask_rate,
         mask_edge=bool(args.mask_edge), num_tasks=num_tasks,
+        csize=args.csize, mode=args.mode, neg_samples=args.neg_samples,
+        context_pooling=args.context_pooling, l1=args.l1,
+        center=bool(args.center),
         graph_pooling=args.graph_pooling, packing=args.packing,
         scan_steps=args.scan_steps,
     )
@@ -150,7 +165,9 @@ def main(argv=None):
         cfg, graphs, log=lambda s: print(s, flush=True), device=args.device)
     if args.output_model_file:
         path = args.output_model_file + ".pth"
-        save_trunk(res["model"].gnn, path)
+        model = res["model"]
+        save_trunk(model.gnn_substruct if args.objective == "contextpred"
+                   else model.gnn, path)
         print(f"saved trunk -> {path}")
     return res["history"]
 

@@ -14,7 +14,8 @@ keep their own names, and so does ``InfomaxObjective``'s
 ``[D, D]`` layout (``summary @ W`` in both), so it is neither renamed to
 ``.weight`` nor transposed. The variables of a ``SupervisedObjective``
 map the same way (``pred.gnn.*``, ``pred.pool.*``,
-``pred.graph_pred_linear.*``).
+``pred.graph_pred_linear.*``), and so do a ``ContextPredObjective``'s two
+trunks (``gnn_substruct.*``, ``gnn_context.*``).
 It is the port's own copy of the mapping the JAX package's trunk export
 applies."""
 

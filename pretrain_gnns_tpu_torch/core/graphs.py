@@ -147,6 +147,43 @@ class PackedGraphs:
         """Every array leaf as a page-locked host tensor (needs CUDA)."""
         return self._map(lambda t: t.pin_memory())
 
+    @property
+    def layout(self) -> tuple:
+        """The block layout of each stream: ``((block_nodes,
+        block_edges),)``."""
+        return ((self.block_nodes, self.block_edges),)
+
+
+@dataclasses.dataclass
+class PackedPair:
+    """Context prediction's batch: two independent streams aligned by
+    graph slot, each a :class:`PackedGraphs` with its own buffers and
+    block layout. ``substruct`` carries ``center_substruct_idx`` [G] (a
+    node row of its stream), ``context`` the overlap rows
+    ``overlap_context_substruct_idx`` and their mask."""
+
+    substruct: PackedGraphs
+    context: PackedGraphs
+
+    def leaves(self) -> Dict[str, Any]:
+        """Both streams' leaves, named ``substruct/<leaf>`` and
+        ``context/<leaf>``."""
+        return {f"{name}/{k}": v for name in ("substruct", "context")
+                for k, v in getattr(self, name).leaves().items()}
+
+    def _map(self, fn) -> "PackedPair":
+        return PackedPair(self.substruct._map(fn), self.context._map(fn))
+
+    def to(self, device, non_blocking: bool = False) -> "PackedPair":
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "PackedPair":
+        return self._map(lambda t: t.pin_memory())
+
+    @property
+    def layout(self) -> tuple:
+        return self.substruct.layout + self.context.layout
+
 
 def _pad_rows(a: np.ndarray, n: int, fill=0) -> np.ndarray:
     if a.shape[0] > n:

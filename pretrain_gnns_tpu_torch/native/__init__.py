@@ -1,6 +1,7 @@
 """Host-side C++ of the port, loaded with ctypes: the batch packer
-(``pack_batch``, ``pack_batch_blocked``), the epoch planner
-(``plan_epoch``) and the block-aligned NegativeEdge rejection sampler
+(``pack_batch``, ``pack_batch_blocked``), the epoch planners
+(``plan_epoch``; ``plan_pair_epoch``, context prediction's two streams)
+and the block-aligned NegativeEdge rejection sampler
 (``sample_negatives_blocked``), all in ``packer.cpp``.
 
 The source is compiled at first use with ``g++ -O3 -shared -fPIC`` into
@@ -45,6 +46,10 @@ _SIGNATURES = {
     # lens_n, lens_e, order, n, batch_size, n_blocks, block_nodes,
     # block_edges, out_batch, out_nstart, out_estart
     "plan_epoch": ([_P] * 3 + [_I64] * 5 + [_P] * 3, _I64),
+    # lens_n_s, lens_e_s, lens_n_c, lens_e_c, order, n, batch_size, the
+    # two streams' (n_blocks, block_nodes, block_edges), out_batch,
+    # out_start
+    "plan_pair_epoch": ([_P] * 5 + [_I64] * 8 + [_P] * 2, _I64),
     # send, recv, edge_off, graph_ids, n_graphs, lens_n, nstarts, estarts,
     # block_edges, n_blocks, seed, out_pairs, out_mask
     "sample_negatives_blocked": ([_P] * 4 + [_I64, _P, _P, _P, _I64, _I64,
@@ -206,6 +211,39 @@ def plan_epoch(lens_n, lens_e, order, batch_size: int, n_blocks: int,
         raise ValueError("batch exceeds packed buffers: a graph is larger "
                          f"than a block of ({block_nodes}, {block_edges})")
     return batch, nstart, estart, int(r)
+
+
+def plan_pair_epoch(lens_sub, lens_ctx, order, batch_size: int,
+                    geometry_sub, geometry_ctx):
+    """Context prediction's joint first-fit of the graphs ``order`` over
+    two streams: ``lens_sub`` and ``lens_ctx`` are each ``(lens_n,
+    lens_e)``, indexed by graph id, and ``geometry_*`` each ``(n_blocks,
+    block_nodes, block_edges)``. A graph goes into the first block of each
+    stream with room for it; one that fits no block of a stream starts the
+    next batch, as does the graph after ``batch_size``. Returns ``(batch,
+    starts, n_batches)``: each ordered graph's batch and its ``[4]``
+    starts (substructure node row and edge slot, then the context's).
+    Raises ``ValueError`` if a graph fits no empty block of a stream."""
+    n_s = _vec(lens_sub[0], np.int64, "lens_n_sub")
+    e_s = _vec(lens_sub[1], np.int64, "lens_e_sub", len(n_s))
+    n_c = _vec(lens_ctx[0], np.int64, "lens_n_ctx", len(n_s))
+    e_c = _vec(lens_ctx[1], np.int64, "lens_e_ctx", len(n_s))
+    order = _vec(order, np.int64, "order")
+    if len(order) and (order.min() < 0 or order.max() >= len(n_s)):
+        raise ValueError("order holds a graph outside the lengths")
+    if batch_size < 1 or geometry_sub[0] < 1 or geometry_ctx[0] < 1:
+        raise ValueError(f"batch_size={batch_size}, geometry "
+                         f"{geometry_sub}, {geometry_ctx}")
+    n = len(order)
+    batch = np.empty(n, np.int32)
+    starts = np.empty((n, 4), np.int32)
+    r = load().plan_pair_epoch(
+        _ptr(n_s), _ptr(e_s), _ptr(n_c), _ptr(e_c), _ptr(order), n,
+        batch_size, *map(int, geometry_sub), *map(int, geometry_ctx),
+        _ptr(batch), _ptr(starts))
+    if r < 0:
+        raise ValueError("pair exceeds blocked buffers")
+    return batch, starts, int(r)
 
 
 def _graph_arrays(send, recv, edge_off, lens_n, nstarts):

@@ -2,7 +2,8 @@
 // planner and the block-aligned NegativeEdge rejection sampler. The port's
 // own copy of pack_batch, pack_batch_blocked, plan_epoch, splitmix64 and
 // sample_negatives_blocked of pretrain_gnns_tpu/native/packer.cpp, with the
-// same outputs.
+// same outputs, and plan_pair_epoch, context prediction's two-stream walk
+// (the JAX package walks it in Python, DeviceContextLoader._iter_blocked).
 //
 // The dataset is stored flat: graph i's nodes are rows [node_off[i],
 // node_off[i + 1]) of the node arrays and its edges rows [edge_off[i],
@@ -247,6 +248,78 @@ int64_t plan_epoch(const int64_t* lens_n, const int64_t* lens_e,
     out_estart[i] = (int32_t)(placed * block_edges + fill_e[placed]);
     fill_n[placed] += nn;
     fill_e[placed] += ne;
+    if (++in_batch == batch_size) {
+      ++batch;
+      in_batch = 0;
+      reset();
+    }
+  }
+  return in_batch ? batch + 1 : batch;
+}
+
+// Context prediction's joint first-fit over two streams (substructures and
+// contexts), each with its own blocks: graph order[i] goes into the first
+// block of each stream with room for it; when either stream has none, it
+// starts the next batch (and a batch closes at batch_size graphs). lens_*
+// are indexed by graph id; out_start holds, per ordered graph, its first
+// node row and edge slot in the substructure stream, then in the context
+// stream (4 values). Returns the number of batches, or -1 if a graph fits
+// no empty block of a stream.
+int64_t plan_pair_epoch(const int64_t* lens_n_s, const int64_t* lens_e_s,
+                        const int64_t* lens_n_c, const int64_t* lens_e_c,
+                        const int64_t* order, int64_t n, int64_t batch_size,
+                        int64_t n_blocks_s, int64_t block_nodes_s,
+                        int64_t block_edges_s, int64_t n_blocks_c,
+                        int64_t block_nodes_c, int64_t block_edges_c,
+                        int32_t* out_batch, int32_t* out_start) {
+  struct Stream {
+    const int64_t *lens_n, *lens_e;
+    int64_t block_nodes, block_edges;
+    std::vector<int64_t> fill_n, fill_e;
+    int64_t fit(int64_t g) const {
+      for (std::size_t b = 0; b < fill_n.size(); ++b)
+        if (fill_n[b] + lens_n[g] <= block_nodes &&
+            fill_e[b] + lens_e[g] <= block_edges)
+          return (int64_t)b;
+      return -1;
+    }
+  };
+  Stream st[2] = {
+      {lens_n_s, lens_e_s, block_nodes_s, block_edges_s,
+       std::vector<int64_t>((std::size_t)n_blocks_s, 0),
+       std::vector<int64_t>((std::size_t)n_blocks_s, 0)},
+      {lens_n_c, lens_e_c, block_nodes_c, block_edges_c,
+       std::vector<int64_t>((std::size_t)n_blocks_c, 0),
+       std::vector<int64_t>((std::size_t)n_blocks_c, 0)}};
+  auto reset = [&]() {
+    for (Stream& s : st) {
+      std::fill(s.fill_n.begin(), s.fill_n.end(), 0);
+      std::fill(s.fill_e.begin(), s.fill_e.end(), 0);
+    }
+  };
+  int64_t batch = 0, in_batch = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t g = order[i];
+    int64_t b[2] = {st[0].fit(g), st[1].fit(g)};
+    if (b[0] < 0 || b[1] < 0) {  // the graph starts the next batch
+      if (in_batch == 0) return -1;
+      ++batch;
+      in_batch = 0;
+      reset();
+      b[0] = st[0].fit(g);
+      b[1] = st[1].fit(g);
+      if (b[0] < 0 || b[1] < 0) return -1;
+    }
+    out_batch[i] = (int32_t)batch;
+    for (int k = 0; k < 2; ++k) {
+      Stream& s = st[k];
+      out_start[4 * i + 2 * k] =
+          (int32_t)(b[k] * s.block_nodes + s.fill_n[(std::size_t)b[k]]);
+      out_start[4 * i + 2 * k + 1] =
+          (int32_t)(b[k] * s.block_edges + s.fill_e[(std::size_t)b[k]]);
+      s.fill_n[(std::size_t)b[k]] += s.lens_n[g];
+      s.fill_e[(std::size_t)b[k]] += s.lens_e[g];
+    }
     if (++in_batch == batch_size) {
       ++batch;
       in_batch = 0;

@@ -4,8 +4,10 @@ K train steps. Here one CUDA-graph replay runs K whole train steps
 (forward, backward, Adam and the batch-norm statistics) on K batches.
 
 A :class:`ScanStep` holds K static input slots, each a device copy of a
-batch with the layout's fixed shapes. A call copies K batches into the
-slots and runs the K steps on them:
+batch with the layout's fixed shapes: a ``PackedGraphs``, or context
+prediction's ``PackedPair`` of two streams, each with its own block
+layout. A call copies K batches into the slots and runs the K steps on
+them:
 
 - on CUDA, by one replay of a graph that captured the K steps. The graph is
   captured at the first call, after at least one eager step (:meth:`step`)
@@ -35,11 +37,11 @@ each of its K steps once and a replay counts nothing."""
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
 
-from pretrain_gnns_tpu_torch.core.graphs import PackedGraphs
+from pretrain_gnns_tpu_torch.core.graphs import PackedGraphs, PackedPair
 from pretrain_gnns_tpu_torch.models.chem import TrunkDropout
 
 # eager steps before the capture: the run's first batches (torch's recipe
@@ -47,18 +49,20 @@ from pretrain_gnns_tpu_torch.models.chem import TrunkDropout
 WARMUP_STEPS = 3
 
 StepFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+# one stream, or context prediction's two
+Batch = Union[PackedGraphs, PackedPair]
 
 
-def as_tensors(batch: PackedGraphs) -> PackedGraphs:
+def as_tensors(batch: Batch) -> Batch:
     """``batch`` with every leaf a torch tensor (numpy leaves are wrapped,
     not copied)."""
     return batch._map(lambda t: t)
 
 
-def signature(batch: PackedGraphs) -> tuple:
-    """What a capture fixes of a batch of tensors: the block layout and
-    each leaf's name, shape and dtype."""
-    return (batch.block_nodes, batch.block_edges) + tuple(
+def signature(batch: Batch) -> tuple:
+    """What a capture fixes of a batch of tensors: the block layout of
+    each stream and each leaf's name, shape and dtype."""
+    return batch.layout + tuple(
         (name, tuple(v.shape), v.dtype)
         for name, v in batch.leaves().items())
 
@@ -69,7 +73,7 @@ class ScanStep:
     device and returns its detached loss and metrics; ``state.step``
     counts here."""
 
-    def __init__(self, state, example_batch: PackedGraphs, k: int,
+    def __init__(self, state, example_batch: Batch, k: int,
                  step_fn: StepFn, device: torch.device):
         if k < 1:
             raise ValueError(f"k must be positive, got {k}")
@@ -86,7 +90,7 @@ class ScanStep:
         self.replays = 0  # calls; on the CPU, groups run in turn
         self.eager_steps = 0
 
-    def _checked(self, batch: PackedGraphs) -> PackedGraphs:
+    def _checked(self, batch: Batch) -> Batch:
         batch = as_tensors(batch)
         sig = signature(batch)
         if sig != self.signature:
@@ -109,7 +113,7 @@ class ScanStep:
             yield
         caller.wait_stream(self.stream)
 
-    def step(self, batch: PackedGraphs):
+    def step(self, batch: Batch):
         """One eager step on ``batch`` (the run's first steps, which warm
         the capture up, and the epochs' short tails)."""
         batch = self._checked(batch)
@@ -120,7 +124,7 @@ class ScanStep:
         self.eager_steps += 1
         return out
 
-    def __call__(self, batches: Sequence[PackedGraphs]):
+    def __call__(self, batches: Sequence[Batch]):
         """K steps on ``batches``, in order; their losses ``[K]`` and
         metrics ``{name: [K]}``, fresh tensors on the device."""
         if len(batches) != self.k:

@@ -2,8 +2,10 @@
 attribute masking, chem ``MaskingObjective`` and bio
 ``BioMaskEdgeObjective``, for edge prediction, ``EdgePredObjective`` on
 either trunk, for Deep Graph Infomax, ``InfomaxObjective`` on either
-trunk, and for supervised pretraining, ``SupervisedObjective`` with the
-domain's graph-level head).
+trunk, for supervised pretraining, ``SupervisedObjective`` with the
+domain's graph-level head, and for context prediction,
+``ContextPredObjective``'s two trunks on ``PackedPair`` batches of
+presampled pairs, ``data.context_loader``).
 
 The loop follows the reference's {chem,bio}/pretrain_{masking,edgepred,
 deepgraphinfomax}.py: a seeded model, one Adam over every parameter,
@@ -30,8 +32,12 @@ import torch
 from torch import nn
 
 from pretrain_gnns_tpu_torch.core.graphs import Graph
+from pretrain_gnns_tpu_torch.data import transforms
 from pretrain_gnns_tpu_torch.data.batch_transforms import (
     BatchMaskAtom, BatchMaskEdge, BatchNegativeEdge, NativeNegativeEdge,
+)
+from pretrain_gnns_tpu_torch.data.context_loader import (
+    ContextPairs, PresampledContextLoader,
 )
 from pretrain_gnns_tpu_torch.data.packing import (
     buffer_sizes, choose_blocks, make_loader,
@@ -40,6 +46,9 @@ from pretrain_gnns_tpu_torch.data.prefetch import chunked, prefetch
 from pretrain_gnns_tpu_torch.device import resolve_device
 from pretrain_gnns_tpu_torch.models import bio as bio_models
 from pretrain_gnns_tpu_torch.models.inits import init_parameters
+from pretrain_gnns_tpu_torch.objectives.contextpred import (
+    ContextPredObjective,
+)
 from pretrain_gnns_tpu_torch.objectives.edgepred import EdgePredObjective
 from pretrain_gnns_tpu_torch.objectives.infomax import InfomaxObjective
 from pretrain_gnns_tpu_torch.objectives.masking import (
@@ -53,8 +62,8 @@ from pretrain_gnns_tpu_torch.train.telemetry import ThroughputMeter
 
 @dataclasses.dataclass
 class PretrainConfig:
-    """The masking, edge-prediction, infomax and supervised subset of the
-    JAX package's ``PretrainConfig``."""
+    """The masking, edge-prediction, infomax, supervised and
+    context-prediction subset of the JAX package's ``PretrainConfig``."""
 
     objective: str = "masking"
     domain: str = "chem"
@@ -75,6 +84,19 @@ class PretrainConfig:
     # supervised: the width of the labels y and the head's readout
     num_tasks: int = 1
     graph_pooling: str = "mean"
+    # contextpred: the context trunk's depth (chem; bio's is 3), cbow or
+    # skipgram, negatives a positive, the pooling of cbow's overlap rows
+    csize: int = 3
+    mode: str = "cbow"
+    neg_samples: int = 1
+    context_pooling: str = "mean"
+    # bio contextpred: the context lies outside the l1-hop ball around the
+    # centre node (a random node without center)
+    l1: int = 1
+    center: bool = True
+    # presampled (root, context) draws a graph, cycled by epoch
+    # (data/context_loader.ContextPairs)
+    context_variants: int = 8
     # batch layout: auto = block-diagonal (what the kernels take) on CUDA
     packing: str = "auto"  # auto | standard | blocked
     # train steps a dispatch: one CUDA-graph replay runs this many steps
@@ -82,7 +104,8 @@ class PretrainConfig:
     scan_steps: int = 0
 
 
-PORTED_OBJECTIVES = ("masking", "edgepred", "infomax", "supervised")
+PORTED_OBJECTIVES = ("masking", "edgepred", "infomax", "supervised",
+                     "contextpred")
 
 
 def _check_ported(cfg: PretrainConfig) -> None:
@@ -90,8 +113,8 @@ def _check_ported(cfg: PretrainConfig) -> None:
             or cfg.domain not in ("chem", "bio")):
         raise NotImplementedError(
             f"objective={cfg.objective!r} domain={cfg.domain!r} is not "
-            "ported; this port runs masking, edgepred, infomax and "
-            "supervised in the chem and bio domains"
+            "ported; this port runs masking, edgepred, infomax, "
+            "supervised and contextpred in the chem and bio domains"
         )
 
 
@@ -106,6 +129,13 @@ def build_objective(cfg: PretrainConfig) -> nn.Module:
         model = SupervisedObjective(
             num_tasks=cfg.num_tasks, graph_pooling=cfg.graph_pooling,
             domain=cfg.domain, **common)
+    elif cfg.objective == "contextpred":
+        # bio's context trunk has 3 layers (bio/pretrain_contextpred.py)
+        model = ContextPredObjective(
+            csize=3 if cfg.domain == "bio" else cfg.csize, mode=cfg.mode,
+            neg_samples=cfg.neg_samples,
+            context_pooling=cfg.context_pooling, **common,
+            **({"trunk": bio_models.GNN} if cfg.domain == "bio" else {}))
     elif cfg.objective in ("edgepred", "infomax"):
         cls = (EdgePredObjective if cfg.objective == "edgepred"
                else InfomaxObjective)
@@ -119,8 +149,35 @@ def build_objective(cfg: PretrainConfig) -> nn.Module:
     init_parameters(model, gen)
     if cfg.objective == "infomax":
         model.reset_discriminator(gen)  # after the trunk's draws
-    model.gnn.seed_dropout(cfg.seed)
+    if cfg.objective == "contextpred":
+        model.gnn_substruct.seed_dropout(cfg.seed)
+        model.gnn_context.seed_dropout(cfg.seed + 1)
+    else:
+        model.gnn.seed_dropout(cfg.seed)
     return model
+
+
+def context_transform(cfg: PretrainConfig):
+    """The domain's context extraction: chem's substructure is the
+    ``num_layer``-hop ball and its context the ring between ``num_layer -
+    1`` and ``num_layer - 1 + csize`` hops; bio's substructure is the whole
+    ego-network and its context lies outside the ``l1``-hop ball."""
+    if cfg.domain == "bio":
+        return transforms.BioExtractSubstructureContextPair(cfg.l1,
+                                                            cfg.center)
+    l1 = cfg.num_layer - 1
+    return transforms.ExtractSubstructureContextPair(cfg.num_layer, l1,
+                                                     l1 + cfg.csize)
+
+
+def presample_context(cfg: PretrainConfig,
+                      graphs: Sequence[Graph]) -> ContextPairs:
+    """The presampled context pairs of ``graphs`` under ``cfg`` (its
+    transform, seed and ``context_variants``): what :func:`build_loader`
+    and :func:`run_pretrain` take in place of the graphs, so that several
+    runs share one presampling."""
+    return ContextPairs(graphs, context_transform(cfg), cfg.seed,
+                        cfg.context_variants)
 
 
 def build_loader(cfg: PretrainConfig, graphs: Sequence[Graph],
@@ -134,8 +191,25 @@ def build_loader(cfg: PretrainConfig, graphs: Sequence[Graph],
     (``NativeNegativeEdge``), which the pair-dot kernel takes, a standard
     one the compact ``BatchNegativeEdge``. Infomax and the supervised
     objective have no transform; supervised batches carry the graphs'
-    labels ``y [G, T]`` (see :func:`supervised_graphs` for bio)."""
+    labels ``y [G, T]`` (see :func:`supervised_graphs` for bio).
+
+    Context prediction gets a ``PresampledContextLoader`` of ``PackedPair``
+    batches: ``graphs`` may be the graphs or their
+    :func:`presample_context`. Where ``choose_blocks`` would block, each
+    stream gets its own block geometry and the joint first-fit walk
+    (``native.plan_pair_epoch``); else both streams take the standard
+    layout's buffers."""
     _check_ported(cfg)
+    if cfg.objective == "contextpred":
+        pairs = (graphs if isinstance(graphs, ContextPairs)
+                 else presample_context(cfg, graphs))
+        mn, me = buffer_sizes(pairs.graphs, cfg.batch_size)
+        blocked = choose_blocks(pairs.graphs, cfg.batch_size, cfg.packing,
+                                device) is not None
+        return PresampledContextLoader(
+            pairs, cfg.batch_size, context_transform(cfg), mn, me,
+            seed=cfg.seed, drop_last=drop_last,
+            variants=cfg.context_variants, blocked=blocked)
     mn, me = buffer_sizes(graphs, cfg.batch_size)
     blocks = choose_blocks(graphs, cfg.batch_size, cfg.packing, device)
     if blocks is not None:
@@ -186,7 +260,8 @@ def supervised_graphs(graphs: Sequence[Graph], domain: str):
 
 def step_body(state: TrainState, batch):
     """One forward, backward and optimizer step, not counted in
-    ``state.step``; returns the detached loss and metrics (no host
+    ``state.step``, on a ``PackedGraphs`` or, for context prediction, a
+    ``PackedPair``; returns the detached loss and metrics (no host
     synchronisation). What a CUDA graph captures K times."""
     loss, metrics = state.model(batch, train=True)
     state.optimizer.zero_grad(set_to_none=True)
@@ -232,7 +307,9 @@ def _run_batches(loader, epochs: int, k: int, pin: bool):
     the ``ScanStep``, ``("step", item)`` for one eager step (the run's
     first ``graphed.WARMUP_STEPS`` batches and each epoch's short tail,
     every batch when ``k`` is 1), and ``("end", stats)`` after each epoch,
-    with the loader's statistics of that epoch."""
+    with the loader's statistics of that epoch. A batch is a
+    ``PackedGraphs`` or, for context prediction, a ``PackedPair``: both
+    pin and count alike (both streams' edges)."""
     warm = graphed.WARMUP_STEPS if k > 1 else 0
     for _ in range(epochs):
         items = ((b.pin_memory() if pin else b,
@@ -258,7 +335,8 @@ def run_pretrain(
 ) -> Dict[str, Any]:
     """Train ``cfg.objective`` in ``cfg.domain``. ``device`` defaults
     to ``"cuda"``; without CUDA that raises ``RuntimeError`` unless
-    ``device="cpu"``.
+    ``device="cpu"``. For context prediction ``graphs`` may be the
+    graphs' :func:`presample_context`.
     History rows: ``epoch``, ``loss`` and the metrics (means over the
     epoch's steps), ``edges`` (valid edges, each directed edge once per
     step) and ``steps``. The result also names ``scan_steps`` (the

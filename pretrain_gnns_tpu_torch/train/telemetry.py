@@ -19,6 +19,8 @@ from typing import Dict
 
 import numpy as np
 
+from pretrain_gnns_tpu_torch.core.graphs import PackedPair
+
 
 class ThroughputMeter:
     def __init__(self):
@@ -33,6 +35,16 @@ class ThroughputMeter:
 
     @staticmethod
     def counts_of(batch) -> Dict[str, int]:
+        """A batch's valid edges and nodes and its valid graph slots. A
+        context-prediction ``PackedPair`` counts the edges and nodes of
+        both streams and its graphs once: the JAX loader's
+        ``last_epoch_stats["edges"]``."""
+        if isinstance(batch, PackedPair):
+            sub, ctx = (ThroughputMeter.counts_of(g)
+                        for g in (batch.substruct, batch.context))
+            return {"edges": sub["edges"] + ctx["edges"],
+                    "nodes": sub["nodes"] + ctx["nodes"],
+                    "graphs": sub["graphs"]}
         return {
             "edges": int(np.asarray(batch.edge_mask).sum()),
             "nodes": int(np.asarray(batch.node_mask).sum()),

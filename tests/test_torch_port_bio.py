@@ -273,12 +273,19 @@ def test_state_dict_from_jax_matches_bio_trunk_export(batches):
 
 
 def test_unported_bio_options_raise():
+    # context prediction is ported in bio (GIN and GAT, a 3-layer context
+    # trunk); what stays unported raises
+    for gnn_type in ("gin", "gat"):
+        model = tpretrain.build_objective(tpretrain.PretrainConfig(
+            domain="bio", objective="contextpred", gnn_type=gnn_type,
+            num_layer=2, emb_dim=16))
+        assert isinstance(model.gnn_context, tbio.GNN)
+        assert model.gnn_context.num_layer == 3
     with pytest.raises(NotImplementedError):
-        tpretrain.build_objective(tpretrain.PretrainConfig(
-            domain="bio", objective="contextpred", gnn_type="gat"))
+        tbio.GNN(num_layer=2, emb_dim=16, gnn_type="gine")
     with pytest.raises(NotImplementedError):
         tpretrain.build_objective(
-            tpretrain.PretrainConfig(domain="bio", objective="contextpred"))
+            tpretrain.PretrainConfig(domain="dna", objective="contextpred"))
     with pytest.raises(ValueError, match="JK"):
         tbio.GNN(num_layer=2, emb_dim=16, jk="concat")
 

@@ -1282,6 +1282,78 @@ def test_captured_steps_equal_eager_steps_bit_for_bit(cuda_device,
                 assert torch.equal(opt.state[p][key], v), key
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain,gnn_type,mode", [("chem", "gin", "cbow"),
+                                                  ("chem", "gin", "skipgram"),
+                                                  ("chem", "gat", "cbow"),
+                                                  ("bio", "gin", "cbow")])
+def test_contextpred_step_on_card_matches_cpu(cuda_device, domain, gnn_type,
+                                              mode):
+    """One train-mode step of a small context-prediction model on a blocked
+    pair batch: card (K1, K2 or K4 in both trunks, each stream its own
+    block geometry, the context stream with rows no edge reaches and
+    blocks without a valid edge) vs CPU; both trunks' launches counted."""
+    graphs = (bio_dataset(64, seed=2) if domain == "bio"
+              else molecule_dataset(80, seed=2)[0])
+    cfg = pretrain.PretrainConfig(objective="contextpred", domain=domain,
+                                  gnn_type=gnn_type, mode=mode, num_layer=3,
+                                  csize=2, emb_dim=48, batch_size=32,
+                                  packing="blocked", context_variants=1)
+    batch = next(iter(pretrain.build_loader(cfg, graphs, cuda_device)))
+    ctx = batch.context
+    reached = np.bincount(ctx.receivers[ctx.edge_mask],
+                          minlength=ctx.max_nodes) > 0
+    assert (ctx.node_mask & ~reached).any()
+    assert (ctx.edge_mask.reshape(-1, ctx.block_edges).sum(1) == 0).any()
+    out = {}
+    counted, keys = ((gat_conv, ("gat_conv_fwd", "gat_conv_bwd"))
+                     if gnn_type == "gat" else
+                     (blocked_spmm, [f"blocked_spmm_{d}[{v}]"
+                                     for d in ("fwd", "bwd")
+                                     for v in ("x", "ein")])
+                     if domain == "bio" else
+                     (gin_conv, ("gin_conv_fwd", "gin_conv_bwd")))
+    for dev in (cuda_device, torch.device("cpu")):
+        model = pretrain.build_objective(cfg).to(dev)
+        counted.reset_launches()
+        loss, _ = model(batch.to(dev), train=True)
+        loss.backward()
+        out[dev.type] = (float(loss.detach()),
+                         {n: p.grad.cpu() for n, p in
+                          model.named_parameters()},
+                         dict(counted.launches))
+    layers = 3 + (3 if domain == "bio" else 2)  # both trunks, each way
+    assert out["cuda"][2] == {k: layers if k in keys else 0
+                              for k in out["cuda"][2]}
+    assert not any(out["cpu"][2].values())
+    assert np.isclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for n, gc in out["cuda"][1].items():
+        assert torch.isfinite(gc).all(), n
+        assert _rel(gc, out["cpu"][1][n]) <= 1e-3, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain", ["chem", "bio"])
+def test_contextpred_captured_steps_equal_eager_steps(cuda_device, domain):
+    """run_pretrain of context prediction at scan_steps=2 (the graph's
+    slots hold pair batches) against scan_steps=1, from the same seed: the
+    history and every parameter and buffer bit for bit."""
+    graphs = (bio_dataset(160, seed=2) if domain == "bio"
+              else molecule_dataset(200, seed=2)[0])
+    runs = []
+    for k in (1, 2):
+        cfg = pretrain.PretrainConfig(
+            objective="contextpred", domain=domain, num_layer=3, csize=2,
+            emb_dim=48, batch_size=32, packing="blocked", scan_steps=k,
+            context_variants=2)
+        runs.append(pretrain.run_pretrain(cfg, graphs, log=None, epochs=3,
+                                          device=cuda_device))
+    assert runs[1]["replays"] > 0
+    assert runs[1]["history"] == runs[0]["history"]
+    for name, v in runs[0]["model"].state_dict().items():
+        assert torch.equal(runs[1]["model"].state_dict()[name], v), name
+
 # --- bfloat16: K1, K2 and K3 at compute_dtype bfloat16 and bfloat16 rows ---
 
 # Two readings of |kernel - plain| for each output: the largest over

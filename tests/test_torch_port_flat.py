@@ -123,7 +123,10 @@ def test_flat_loader_matches_jax_and_packed_loader(domain, layout,
 def test_build_loader_is_flat_for_every_objective(domain, objective):
     """``build_loader`` gives a FlatLoader on the synthetic datasets, and
     its batches, the objective's transform applied, equal PackedLoader's
-    with the same transform and seed for two epochs."""
+    with the same transform and seed for two epochs. Context prediction's
+    loader packs its two streams from flat datasets through the C++
+    packer: each stream of each batch equals the plain packer's
+    (``pack_plain``) on the batch's pairs."""
     graphs = _graphs(domain, supervised=objective == "supervised")
     cfg = tpretrain.PretrainConfig(
         objective=objective, domain=domain, num_layer=2, emb_dim=16,
@@ -131,6 +134,9 @@ def test_build_loader_is_flat_for_every_objective(domain, objective):
         num_tasks=1 if objective != "supervised" else
         np.asarray(graphs[0].y).shape[0])
     loader = tpretrain.build_loader(cfg, graphs, CPU)
+    if objective == "contextpred":
+        _assert_pair_streams_flat(cfg, loader)
+        return
     assert type(loader).__name__ == "FlatLoader"
     assert (loader.post_transform is None) == (
         objective in ("infomax", "supervised"))
@@ -143,6 +149,26 @@ def test_build_loader_is_flat_for_every_objective(domain, objective):
         assert len(pb) == len(rb) == N_GRAPHS[domain] // BATCH
         for p, r in zip(pb, rb):
             _assert_same(p, r)
+
+
+def _assert_pair_streams_flat(cfg, loader):
+    twin = tpretrain.build_loader(cfg, loader.pairs, CPU)
+    assert type(loader).__name__ == "PresampledContextLoader"
+    for _ in range(2):
+        pb, walk = list(loader), list(twin._iter_blocked())
+        assert len(pb) == len(walk) >= 2
+        for pair, (v, ids, _) in zip(pb, walk):
+            for flat, got, blocks, pad in (
+                    (loader._sub[v], pair.substruct, loader.blocks[0],
+                     {"center_substruct_idx": BATCH}),
+                    (loader._ctx[v], pair.context, loader.blocks[1], None)):
+                assert isinstance(flat, tflat.FlatGraphs)
+                want = tflat.pack_plain(flat, ids, 0, 0, BATCH, blocks=blocks,
+                                        extra_pad=pad)
+                got = got.replace(extras={
+                    k: x for k, x in got.extras.items()
+                    if not k.startswith("overlap")})
+                _assert_same(got, want)
 
 
 def _lens(seed, n):

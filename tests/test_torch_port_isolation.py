@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of pretrain_gnns_tpu_torch and
 not chip_smoke.py imports jax, flax, optax, orbax or pretrain_gnns_tpu;
 its entry points run on CUDA unless asked for the CPU; its CLI trains and
-saves a reference-layout trunk."""
+saves a reference-layout trunk (for context prediction the substructure
+trunk, ``gnn_substruct``)."""
 
 import ast
 import os
@@ -15,7 +16,11 @@ import torch
 
 from pretrain_gnns_tpu_torch.cli import pretrain as cli
 from pretrain_gnns_tpu_torch.data.synthetic import molecule_dataset
+from pretrain_gnns_tpu_torch.models import bio
 from pretrain_gnns_tpu_torch.models.chem import GNN
+from pretrain_gnns_tpu_torch.objectives.contextpred import (
+    ContextPredObjective,
+)
 from pretrain_gnns_tpu_torch.train import pretrain
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -95,15 +100,20 @@ def test_standard_packing_and_unported_options():
     batch = next(iter(pretrain.build_loader(cfg, graphs,
                                             torch.device("cpu"))))
     assert batch.block_nodes == 0
-    with pytest.raises(NotImplementedError):
-        pretrain.build_objective(
-            pretrain.PretrainConfig(objective="contextpred", gnn_type="gcn"))
-    with pytest.raises(NotImplementedError):
-        pretrain.build_objective(
-            pretrain.PretrainConfig(objective="contextpred"))
-    with pytest.raises(NotImplementedError):
-        pretrain.build_objective(
-            pretrain.PretrainConfig(domain="bio", objective="contextpred"))
+    # context prediction builds in both domains: two trunks, the context
+    # trunk csize deep in chem and 3 deep in bio
+    for domain, gnn_type, depth in (("chem", "gcn", 2), ("chem", "gin", 2),
+                                    ("bio", "gin", 3)):
+        model = pretrain.build_objective(pretrain.PretrainConfig(
+            objective="contextpred", domain=domain, gnn_type=gnn_type,
+            num_layer=3, emb_dim=16, csize=2))
+        assert isinstance(model, ContextPredObjective)
+        assert isinstance(model.gnn_substruct,
+                          bio.GNN if domain == "bio" else GNN)
+        assert (model.gnn_substruct.num_layer,
+                model.gnn_context.num_layer) == (3, depth)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        pretrain.build_objective(pretrain.PretrainConfig(domain="dna"))
 
 
 def test_cli_trains_one_epoch_on_cpu(tmp_path):
@@ -119,14 +129,33 @@ def test_cli_trains_one_epoch_on_cpu(tmp_path):
     GNN(num_layer=2, emb_dim=32).load_state_dict(trunk, strict=True)
 
 
-@pytest.mark.parametrize("flags", [["--objective", "contextpred"],
-                                   ["--domain", "bio", "--objective", "contextpred"],
-                                   ["--dataset", "bbbp"],
+@pytest.mark.parametrize("flags", [["--dataset", "bbbp"],
                                    ["--objective", "supervised",
                                     "--input_model_file", "trunk.pth"]])
 def test_cli_rejects_what_is_not_ported(flags):
     with pytest.raises(SystemExit, match="not ported"):
         cli.main(["--device", "cpu", "--epochs", "1", *flags])
+
+
+@pytest.mark.parametrize("domain,mode", [("chem", "cbow"),
+                                         ("chem", "skipgram"),
+                                         ("bio", "cbow"),
+                                         ("bio", "skipgram")])
+def test_cli_trains_contextpred_on_cpu(tmp_path, domain, mode):
+    """One CPU epoch of ``--objective contextpred``; the saved trunk is
+    ``gnn_substruct`` and loads strictly into the domain's trunk."""
+    out = tmp_path / "trunk"
+    history = cli.main([
+        "--objective", "contextpred", "--domain", domain, "--mode", mode,
+        "--device", "cpu", "--epochs", "1", "--num_layer", "3",
+        "--csize", "2", "--emb_dim", "16", "--batch_size", "16",
+        "--n_synthetic", "64", "--output_model_file", str(out)])
+    assert len(history) == 1 and np.isfinite(history[0]["loss"])
+    assert history[0]["steps"] >= 2 and history[0]["edges"] > 0
+    assert 0.0 <= history[0]["acc"] <= 1.0
+    trunk = torch.load(str(out) + ".pth")
+    (bio.GNN if domain == "bio" else GNN)(
+        num_layer=3, emb_dim=16).load_state_dict(trunk, strict=True)
 
 
 def test_chip_smoke_fails_without_cuda_or_package(tmp_path):

@@ -215,7 +215,23 @@ Phases, in order (any failure exits non-zero):
      agreement step (as phase 26's), its 48 steps with their launch
      counts and edges/s beside the same path's float32 and bfloat16_act
      rates from earlier in the run, and its capture phase;
-  28. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
+  28. fine-tuning from a pretrained trunk (``cli.finetune``): the chem and
+     bio masking GIN paths of phases 4 and 7 wrote their trained trunks
+     through the port's writer; in float32 at dropout 0 one fine-tune
+     train step (loss, gradients, batch-norm statistics) and one eval pass
+     over the partly empty last validation batch (its valid slots'
+     logits), card against CPU, for chem GIN and bio GIN from those trunks
+     and chem GAT (K4) from seeded weights, each launch counted; then
+     ``cli.finetune.main`` from each trunk at full width (GIN 5 x 300,
+     batch 32, dropout 0.5, 3 epochs, the knobs' defaults): chem on 4,000
+     synthetic molecules, bio on 4,096 ego-networks (species split), the
+     grafted trunk checked equal to the file before the first step, K1 or
+     K2 ``[x]`` and ``[ein]`` at 5 a train step each way and 5 forwards an
+     eval batch (eager steps, eval under ``torch.no_grad()``), the curves
+     finite; printed: valid edges/s of epochs 2-3, eval graphs/s, the
+     per-epoch AUCs, and the card's busy share of profiled train steps and
+     of a validation pass;
+  29. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
      defaults (chem masking GIN on 16,384 molecules and bio masking GIN,
      5 windows of 4 epochs each after 2 warm-up epochs), at
      ``--scan_steps 1`` (every step eager), then at its default (K =
@@ -224,8 +240,9 @@ Phases, in order (any failure exits non-zero):
 Then one ``{"kernels": [...]}`` line (each kernel's ``launches``, the
 wrapper calls counted on the path that runs it at the entry's ``shape``,
 ``launches_per_step``, those calls over the steps that made them,
-``replays``, the CUDA-graph replays of the run, and ``launches_counted``:
-how the count was read), the card
+``replays``, the CUDA-graph replays of the run, ``launches_counted``:
+how the count was read, and ``finetune``: the fine-tune runs' calls, their
+train steps and eval batches), the card
 line and, last, the result line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this script, it exits non-zero and prints no result.
@@ -241,6 +258,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 BATCH = 256
@@ -703,7 +721,8 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
     the GIN library's handle are forgotten first, so the run's first kernel
     launch must load the library anew and launch the probe: exactly once in
     the run. Returns (the counts, the steps that made them, how each count
-    was read, the run's replays, its edges/s after the capture).
+    was read, the run's replays, its edges/s after the capture, the trained
+    objective).
     ``precision`` names the knobs' setting in the printed line."""
     from pretrain_gnns_tpu_torch.ops import _build, gin_conv
     from pretrain_gnns_tpu_torch.train import pretrain
@@ -764,7 +783,7 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
           f"on {card}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
           f"[{time.perf_counter() - T0:.0f} s]", flush=True)
-    return counts, counted, how, replays, rate
+    return counts, counted, how, replays, rate, res["model"]
 
 
 def record_launches(entries, launched, names=None):
@@ -843,6 +862,20 @@ def _max_diff(a, b):
             for group in a}
 
 
+def busy_ms(prof) -> float:
+    """The card's busy ms in a ``torch.profiler`` run: the union of its
+    device activities' intervals."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in spans:  # the union of the intervals
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return busy_us / 1e3
+
+
 def capture_phase(torch, graphs, cfg, per_step, fused="on",
                   kernel_names=None, absent_names=None):
     """Captured steps against eager steps on the path's first batches at
@@ -910,12 +943,7 @@ def capture_phase(torch, graphs, cfg, per_step, fused="on",
     present = sorted({nm[:80] for key in per_step
                       for frag in (absent_names or {}).get(key, ())
                       for nm in ran if re.search(frag, nm)})
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, reach = 0.0, float("-inf")
-    for start, end in spans:  # the union of the intervals
-        busy_us += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
+    busy_us = busy_ms(prof) * 1e3
     own = collections.Counter()
     for nm, times in ran.items():
         if any(re.search(frag, nm) for frags in names.values()
@@ -3222,6 +3250,317 @@ def contextpred_section(torch, card, chem_graphs_of, bio_graphs):
               f"[{time.perf_counter() - T0:.0f} s]", flush=True)
 
 
+# --- fine-tuning from a pretrained trunk -------------------------------------
+
+FT_EPOCHS = 3
+# the CLI runs at full width (GIN 5 x 300, the protocol's batch of 32 graphs,
+# dropout 0.5, the CLI's split seed 42): chem on 4,000 synthetic molecules
+# (scaffold split), bio on 16,384 // 4 = 4,096 ego-networks (species split)
+FT_RUNS = {"chem": ["--dataset", "synthetic", "--n_synthetic", "4000"],
+           "bio": ["--domain", "bio", "--dataset", "synthetic_bio",
+                   "--n_synthetic", "16384"]}
+# train steps a profiled call runs, after the run, for the busy share
+FT_PROFILED_STEPS = 16
+
+
+def fwd_only(per_step):
+    """The forward counters of ``per_step``: what an eval batch launches."""
+    return {k: v for k, v in per_step.items() if "_fwd" in k}
+
+
+def write_trunk(model, directory, name):
+    """The path's trained trunk through the port's writer; returns the
+    file."""
+    import pathlib
+
+    from pretrain_gnns_tpu_torch.train.checkpoints import (
+        save_trunk_reference_format,
+    )
+
+    path = pathlib.Path(directory) / f"{name}.pth"
+    save_trunk_reference_format(model.gnn, path)
+    print(f"[trunk] the {name} path's trunk, "
+          f"{len(model.gnn.state_dict())} tensors, written in the legacy "
+          "format", flush=True)
+    return path
+
+
+def finetune_data(domain):
+    """The CLI's flags, task count and splits for ``FT_RUNS[domain]``:
+    ``(args, num_tasks, (train, valid, test, extra test sets))``."""
+    from pretrain_gnns_tpu_torch.cli import finetune as ft_cli
+    from pretrain_gnns_tpu_torch.data.synthetic import load_dataset
+
+    args = ft_cli.build_parser().parse_args(FT_RUNS[domain])
+    graphs, scaffolds, meta = load_dataset(args.dataset, args.n_synthetic,
+                                           args.seed)
+    if args.domain == "bio":
+        args.split = "species"
+    return args, meta["num_tasks"], ft_cli.split_dataset(args, graphs,
+                                                         scaffolds)
+
+
+def describe_finetune(tag, first, last):
+    """The first train batch's valid nodes, edges and blocks; the last
+    eval batch's empty graph slots and blocks without a valid node."""
+    import numpy as np
+
+    nm = np.asarray(last.node_mask).reshape(-1, last.block_nodes)
+    gm = np.asarray(last.graph_mask)
+    print(f"{tag} first train batch: {int(np.asarray(first.graph_mask).sum())}"
+          f" graphs, N = {int(np.asarray(first.node_mask).sum())} valid rows "
+          f"of {first.max_nodes}, E = {int(np.asarray(first.edge_mask).sum())}"
+          f" valid edges of {first.max_edges}, "
+          f"{first.max_nodes // first.block_nodes} blocks of "
+          f"({first.block_nodes}, {first.block_edges}); last validation "
+          f"batch: {int(gm.sum())} graphs, {int((~gm).sum())} empty graph "
+          f"slots, {int((~nm.any(axis=1)).sum())} of {nm.shape[0]} blocks "
+          "without a valid node", flush=True)
+
+
+def finetune_agreement(torch, domain, gnn_type, num_tasks, splits, trunk):
+    """Float32 at dropout 0, from the same weights (the trunk ``trunk``
+    grafted where given, else the seeded draws) and batches: one
+    fine-tune train step on the first train batch (loss, every gradient,
+    the batch-norm statistics) and one eval pass over the partly empty
+    last validation batch (the valid slots' logits), on the card
+    (kernels) against the CPU (plain versions), at the masking steps'
+    limits; each launch counted, the step's and the pass's apart."""
+    from pretrain_gnns_tpu_torch.train import finetune
+
+    tag = f"[{domain} {gnn_type} finetune agreement]"
+    cfg = finetune.FinetuneConfig(
+        domain=domain, num_tasks=num_tasks, num_layer=LAYERS, emb_dim=EMB,
+        dropout_ratio=0.0, gnn_type=gnn_type)
+    train_loader, evals = finetune.build_loaders(cfg, *splits[:3], splits[3],
+                                                 "cuda")
+    first, last = next(iter(train_loader)), list(evals["val"])[-1]
+    describe_finetune(tag, first, last)
+    if last.graph_mask.all():
+        raise AssertionError(f"{tag} the last validation batch is full")
+    modules = counted_modules()
+
+    def run(dev):
+        counts = []
+        for m in modules:
+            m.reset_launches()
+        st = finetune.init_state(cfg, finetune.build_model(cfg), trunk, dev)
+        loss = finetune.make_train_step(cfg.loss_kind)(st, first.to(dev))
+        counts.append(read_counts(modules))
+        st_eval = finetune.init_state(cfg, finetune.build_model(cfg), trunk,
+                                      dev)
+        out = finetune.make_eval_step()(st_eval, last.to(dev))
+        counts.append(read_counts(modules))
+        return (float(loss),
+                {n: p.grad.detach().cpu()
+                 for n, p in st.model.named_parameters()},
+                {n: b.detach().cpu().float()
+                 for n, b in st.model.named_buffers()},
+                out.cpu()[torch.as_tensor(last.graph_mask)], counts)
+
+    (lc, gc, bc, oc, (tc, ec)), (lp, gp, bp, op, _) = run("cuda"), run("cpu")
+    per_step = {"gin": BIO_K2 if domain == "bio" else K1, "gat": K4}[gnn_type]
+    ec = {k: v - tc[k] for k, v in ec.items()}
+    for counts, want in ((tc, per_step), (ec, fwd_only(per_step))):
+        got = {k: v for k, v in counts.items() if v and k != "probe_scale2"}
+        if got != want:
+            raise AssertionError(f"{tag} launched {got}, not {want}")
+    loss_err = abs(lc - lp) / max(1.0, abs(lp))
+    grad_err = max(rel_err(gc[n], gp[n]) for n in gp)
+    stat_err = max(rel_err(bc[n], bp[n]) for n in bp)
+    out_err = rel_err(oc, op)
+    print(f"{tag} train step: loss cuda={lc:.6f} cpu={lp:.6f} rel err "
+          f"{loss_err:.3e}; max grad rel err {grad_err:.3e} (limit "
+          f"{STEP_GRAD_TOL:.0e}); max BN stat rel err {stat_err:.3e}; eval "
+          f"pass over the last validation batch: {oc.shape[0]} valid "
+          f"slots' logits rel err {out_err:.3e} (limit "
+          f"{STEP_LOSS_TOL:.0e}); launches: train step "
+          f"{ {k: v for k, v in tc.items() if v} }, eval pass "
+          f"{ {k: v for k, v in ec.items() if v} } "
+          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+    if not (loss_err <= STEP_LOSS_TOL and grad_err <= STEP_GRAD_TOL
+            and stat_err <= STEP_GRAD_TOL and out_err <= STEP_LOSS_TOL
+            and math.isfinite(lc)):
+        raise AssertionError(f"{tag} the card disagrees with the CPU")
+    return {"run": f"{domain} {gnn_type} fine-tune agreement (one train "
+                   "step and one eval pass, float32, eager)",
+            "precision": "float32",
+            "counts": {k: v + ec[k] for k, v in tc.items()},
+            "per_train_step": per_step, "per_eval_batch": fwd_only(per_step),
+            "train_steps": 1, "eval_batches": 1}
+
+
+def finetune_cli_phase(torch, card, domain, trunk, run_dir):
+    """``cli.finetune.main`` on the card from the written ``trunk``: 3
+    epochs at full width and the knobs' defaults, every launch counted
+    (K1 or K2 at 5 a train step each way and 5 forwards an eval batch);
+    the grafted trunk equals the file before the first step; the curves
+    are finite. Then, on the run's final state, FT_PROFILED_STEPS train
+    steps and one validation pass under ``torch.profiler``: the card's
+    busy share of each."""
+    import itertools
+
+    from pretrain_gnns_tpu_torch.cli import finetune as ft_cli
+    from pretrain_gnns_tpu_torch.train import finetune
+
+    tag = f"[{domain} finetune]"
+    per_step = BIO_K2 if domain == "bio" else K1
+    seen = {}
+    real_init, real_run = finetune.init_state, finetune.run_finetune
+
+    def init_state(*args, **kw):
+        st = real_init(*args, **kw)
+        want = torch.load(trunk, map_location="cpu", weights_only=True)
+        got = {k: v.cpu() for k, v in st.model.gnn.state_dict().items()}
+        same = sorted(got) == sorted(want) and all(
+            got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+            for k in want)
+        print(f"{tag} trunk before the first step: {len(got)} tensors, "
+              f"{'equal to' if same else 'NOT equal to'} the file's "
+              f"{len(want)}", flush=True)
+        if not same:
+            raise AssertionError(f"{tag} the grafted trunk is not the file")
+        seen["trunk"] = len(want)
+        return st
+
+    def run_finetune(*args, **kw):
+        seen["args"], seen["kw"] = args, kw
+        seen["res"] = real_run(*args, **kw)
+        return seen["res"]
+
+    modules = counted_modules()
+    finetune.init_state, finetune.run_finetune = init_state, run_finetune
+    try:
+        for m in modules:
+            m.reset_launches()
+        with precision("float32", "bfloat16"):
+            out = ft_cli.main([*FT_RUNS[domain], "--epochs", str(FT_EPOCHS),
+                               "--input_model_file", str(trunk),
+                               "--run_dir", str(run_dir), "--device", "cuda"])
+        counts = read_counts(modules)
+    finally:
+        finetune.init_state, finetune.run_finetune = real_init, real_run
+    res, hist = seen["res"], seen["res"]["history"]
+    steps = sum(h["steps"] for h in hist)
+    evals = sum(h["eval_batches"] for h in hist)
+    want = {k: per_step.get(k, 0) * steps
+            + fwd_only(per_step).get(k, 0) * evals for k in counts}
+    if counts != want or "trunk" not in seen:
+        raise AssertionError(f"{tag} launches {counts} != {want} ({steps} "
+                             f"train steps, {evals} eval batches)")
+    curves = {k: v for k, v in res["curves"].items()}
+    if not all(math.isfinite(v) for c in curves.values() for v in c):
+        raise AssertionError(f"{tag} non-finite curves {curves}")
+    if not (1 <= out["best_epoch"] <= FT_EPOCHS
+            and 0.0 <= out["test_auc"] <= 1.0):
+        raise AssertionError(f"{tag} result {out}")
+    later = hist[1:]
+    rate = sum(h["edges"] for h in later) / sum(h["train_seconds"]
+                                                for h in later)
+    eval_rate = sum(h["eval_graphs"] for h in later) / sum(
+        h["eval_seconds"] for h in later)
+    fmt = lambda c: " ".join(f"{v:.4f}" for v in c)  # noqa: E731
+    print(f"{tag} cli.finetune {' '.join(FT_RUNS[domain])} --epochs "
+          f"{FT_EPOCHS} --input_model_file <trunk> (knobs' defaults: "
+          f"float32 model, bfloat16 kernels): per epoch "
+          f"{[h['steps'] for h in hist]} train steps and "
+          f"{[h['eval_batches'] for h in hist]} eval batches "
+          f"({[h['eval_graphs'] for h in hist]} graphs); "
+          + "; ".join(f"{k} {fmt(v)}" for k, v in curves.items())
+          + f"; best epoch {out['best_epoch']}, test AUC "
+          f"{out['test_auc']:.4f}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }: a train step "
+          f"{per_step}, an eval batch {fwd_only(per_step)}; "
+          f"{rate:.1f} valid edges/s and {eval_rate:.1f} eval graphs/s over "
+          f"epochs 2-{FT_EPOCHS} on {card} "
+          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+
+    # the card's busy share of eager fine-tune steps and of an eval pass
+    cfg, state = seen["args"][0], res["state"]
+    train_loader, evals_of = finetune.build_loaders(
+        cfg, *seen["args"][1:4], seen["kw"].get("extra_test"), "cuda")
+    dev = torch.device("cuda")
+    host = [b.pin_memory() for b in itertools.islice(
+        train_loader, FT_PROFILED_STEPS + 1)]
+    step = finetune.make_train_step(cfg.loss_kind)
+    shares = {}
+    with precision("float32", "bfloat16"):
+        step(state, host[0].to(dev))
+        for name, fn, n in (
+                ("train steps", lambda: [step(state, b.to(
+                    dev, non_blocking=True)) for b in host[1:]],
+                 FT_PROFILED_STEPS),
+                ("validation batches (one pass)", lambda: finetune.evaluate(
+                    finetune.make_eval_step(), state, evals_of["val"],
+                    "bio_auc" if domain == "bio" else "chem_auc"),
+                 len(evals_of["val"]))):
+            torch.cuda.synchronize()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                t = time.perf_counter() - t
+            shares[name] = (busy_ms(p), t * 1e3, n)
+    print(f"{tag} profiled on the run's final state: " + "; ".join(
+        f"{n} {name}: the card busy {b:.3f} ms of {w:.3f} ms "
+        f"({100 * b / w:.1f}%), {w / n:.3f} ms each"
+        for name, (b, w, n) in shares.items())
+        + f" [{time.perf_counter() - T0:.0f} s]", flush=True)
+    return {"run": f"{domain} gin cli.finetune ({FT_EPOCHS} epochs, knobs' "
+                   "defaults, eager)",
+            "precision": "default", "counts": counts,
+            "per_train_step": per_step, "per_eval_batch": fwd_only(per_step),
+            "train_steps": steps, "eval_batches": evals}
+
+
+def finetune_section(torch, card, trunks, run_dir):
+    """Fine-tuning from the masking paths' trunks: the float32 agreement of
+    chem GIN and bio GIN (from the trunks) and chem GAT (K4, seeded
+    weights), then ``cli.finetune`` in chem and bio at the knobs'
+    defaults. Returns each run's launches for the ``kernels`` line."""
+    from pretrain_gnns_tpu_torch.train.checkpoints import load_trunk_any
+
+    runs = []
+    for domain in ("chem", "bio"):
+        args, tasks, splits = finetune_data(domain)
+        print(f"[{domain} finetune data] {args.dataset}, {tasks} tasks, "
+              f"{args.split} split: {[len(s) for s in splits[:3]]} "
+              "train/valid/test graphs"
+              + (f", {[len(v) for v in splits[3].values()]} hard test"
+                 if splits[3] else ""), flush=True)
+        trunk = load_trunk_any(trunks[domain])
+        runs.append(finetune_agreement(torch, domain, "gin", tasks, splits,
+                                       trunk))
+        if domain == "chem":
+            runs.append(finetune_agreement(torch, domain, "gat", tasks,
+                                           splits, None))
+    for domain in ("chem", "bio"):
+        runs.append(finetune_cli_phase(torch, card, domain, trunks[domain],
+                                       run_dir))
+    return runs
+
+
+def record_finetune(entries, runs):
+    """Adds each fine-tune run's launches to the ``kernels`` entries of the
+    variants it ran (the bfloat16 ones at the knobs' defaults), under
+    ``finetune``: the calls counted, the train steps and eval batches
+    that made them and the calls each of those makes."""
+    for run in runs:
+        for k in entries:
+            key = k.get("counter", k["name"])
+            if (run["counts"].get(key) and ("[bf16]" in k["name"])
+                    == (run["precision"] == "default")):
+                k.setdefault("finetune", []).append({
+                    "run": run["run"], "launches": run["counts"][key],
+                    "train_steps": run["train_steps"],
+                    "eval_batches": run["eval_batches"],
+                    "launches_per_train_step":
+                        run["per_train_step"].get(key, 0),
+                    "launches_per_eval_batch":
+                        run["per_eval_batch"].get(key, 0)})
+
+
 def bench_phase():
     """``python -m pretrain_gnns_tpu_torch.bench`` at ``--scan_steps 1``
     (eager steps), at its defaults (K = 16, CUDA-graph replays), at
@@ -3305,8 +3644,12 @@ def main() -> int:
     kernels = kernel_phase(torch, batch.to(dev), model)
     probe = probe_phase(torch)
     agreement_phase(torch, batch, cfg)
-    record_launches(kernels, rated(cfg, main_path_phase(torch, graphs, cfg,
-                                                        card, K1)))
+    launched = rated(cfg, main_path_phase(torch, graphs, cfg, card, K1))
+    record_launches(kernels, launched)
+    # the trained trunks, for the fine-tuning section
+    trunk_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    trunks = {"chem": write_trunk(launched[5], trunk_dir.name,
+                                  "chem masking gin")}
     capture_phase(torch, graphs, cfg, K1)
     # the same path on the unfused GIN route: K2 [x+ein], no K1
     agreement_phase(torch, batch, cfg, fused="off")
@@ -3333,8 +3676,10 @@ def main() -> int:
                   ((True, False), (False, True), (True, True)),
                   "bio masking first batch")
     agreement_phase(torch, batch, cfg)
-    record_launches(k2, rated(cfg, main_path_phase(torch, graphs, cfg, card,
-                                                   BIO_K2)))
+    launched = rated(cfg, main_path_phase(torch, graphs, cfg, card, BIO_K2))
+    record_launches(k2, launched)
+    trunks["bio"] = write_trunk(launched[5], trunk_dir.name,
+                                "bio masking gin")
     capture_phase(torch, graphs, cfg, BIO_K2)
     bio_graphs, bio_first = graphs, batch
 
@@ -3523,8 +3868,13 @@ def main() -> int:
     default_section(torch, card, chem_graphs, chem_first, bio_graphs,
                     bio_first, f32_rates, bf16_rates)
 
+    # fine-tuning from the masking paths' trunks, through cli.finetune
+    finetuned = finetune_section(torch, card, trunks, trunk_dir.name)
+    trunk_dir.cleanup()
+
     bench_phase()
     kernels += k2 + k3 + k45 + k67 + probe + bf16
+    record_finetune(kernels, finetuned)
     missing = [k["name"] for k in kernels if not k.get("launches")]
     if missing:
         raise AssertionError(f"no path launched {missing}")

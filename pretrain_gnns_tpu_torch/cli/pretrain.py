@@ -20,7 +20,8 @@ Examples:
       --mode skipgram --epochs 5 --output_model_file cp_trunk
 
 With ``--dataset synthetic``, chem trains on ``n_synthetic`` molecules
-and bio on ``max(n_synthetic // 4, 64)`` ego-networks, as the JAX CLI.
+and bio on ``max(n_synthetic // 4, 64)`` ego-networks
+(``data.synthetic.load_dataset``), as the JAX CLI.
 The supervised objective trains the domain's graph-level head
 (``--graph_pooling sum|mean|max|attention|set2setN``, the last for chem
 only) on the dataset's labels: the molecules' two synthetic tasks, as the
@@ -29,7 +30,14 @@ JAX package's ``synthetic`` dataset has them, or the ego-networks'
 pretrain set of ``--split`` (:func:`bio_supervised_pretrain_indices`):
 ``species`` (the default) keeps the seven train/valid species and the easy
 half of the human graphs, ``random`` the train and valid parts of a seeded
-random split, as the JAX CLI. ``--input_model_file`` is not ported.
+random split, as the JAX CLI.
+
+``--input_model_file T.pth`` loads a reference trunk (the reference's, the
+JAX package's or this CLI's export) in place of the seeded trunk before
+the first step: the reference's two stages, self-supervised pretraining
+then ``--objective supervised`` from its trunk. The JAX CLI loads it for
+the supervised objective; this CLI for every objective, at the
+objective's trunk (``train.pretrain.trunk_path``).
 
 Context prediction (``--objective contextpred``) takes the JAX CLI's
 flags: ``--csize`` (the chem context trunk's depth and ring width; bio's
@@ -46,7 +54,8 @@ means 1 there).
 
 Saves the trunk ``state_dict`` (reference key layout) to
 ``<output_model_file>.pth`` in torch's legacy (pre-zip) format, which the
-reference's torch 1.0.1 reads, as the JAX package's CLI writes it.
+reference's torch 1.0.1 reads, as the JAX package's CLI writes it
+(``train.checkpoints.save_trunk_reference_format``).
 """
 
 from __future__ import annotations
@@ -55,8 +64,6 @@ import argparse
 from typing import List
 
 import numpy as np
-import torch
-from torch import nn
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -77,7 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--graph_pooling", default="mean",
                    help="supervised: sum | mean | max | attention | set2setN")
     p.add_argument("--input_model_file", default="",
-                   help="not ported yet")
+                   help="reference .pth trunk to start from")
     p.add_argument("--split", default="species",
                    choices=["species", "random"],
                    help="bio supervised pretrain-set construction "
@@ -123,22 +130,20 @@ def main(argv=None):
     args.dropout_ratio = resolve_dropout(args)
     if args.gnn_type not in ("gin", "gcn", "gat", "graphsage"):
         raise SystemExit(f"--gnn_type {args.gnn_type} is not ported yet")
-    if args.input_model_file:
-        raise SystemExit("--input_model_file is not ported yet")
-    if args.dataset != "synthetic":
-        raise SystemExit(
-            f"--dataset {args.dataset} is not ported yet; use synthetic"
-        )
 
     from pretrain_gnns_tpu_torch.data import synthetic
     from pretrain_gnns_tpu_torch.train import pretrain
+    from pretrain_gnns_tpu_torch.train.checkpoints import (
+        load_trunk_any, save_trunk_reference_format,
+    )
 
-    if args.domain == "bio":
-        graphs = synthetic.bio_dataset(max(args.n_synthetic // 4, 64),
-                                       seed=args.seed)
-    else:
-        graphs, _ = synthetic.molecule_dataset(args.n_synthetic, num_tasks=2,
-                                               seed=args.seed)
+    if args.domain == "bio" and args.dataset == "synthetic":
+        args.dataset = "synthetic_bio"
+    if args.dataset not in synthetic.DATASETS:
+        raise SystemExit(f"--dataset {args.dataset} is not ported yet; use "
+                         "synthetic")
+    graphs, _, _ = synthetic.load_dataset(args.dataset, args.n_synthetic,
+                                          args.seed)
     num_tasks = 1
     if args.objective == "supervised":
         if args.domain == "bio":
@@ -161,13 +166,16 @@ def main(argv=None):
         graph_pooling=args.graph_pooling, packing=args.packing,
         scan_steps=args.scan_steps,
     )
+    trunk = (load_trunk_any(args.input_model_file)
+             if args.input_model_file else None)
     res = pretrain.run_pretrain(
-        cfg, graphs, log=lambda s: print(s, flush=True), device=args.device)
+        cfg, graphs, log=lambda s: print(s, flush=True), device=args.device,
+        pretrained_trunk=trunk)
     if args.output_model_file:
         path = args.output_model_file + ".pth"
-        model = res["model"]
-        save_trunk(model.gnn_substruct if args.objective == "contextpred"
-                   else model.gnn, path)
+        save_trunk_reference_format(
+            pretrain.trunk_module(res["model"], pretrain.trunk_path(cfg)),
+            path)
         print(f"saved trunk -> {path}")
     return res["history"]
 
@@ -191,13 +199,6 @@ def bio_supervised_pretrain_indices(species: np.ndarray, split: str,
     easy_idx, _, _ = splitters.random_split(
         len(te), frac_train=0.5, frac_valid=0.5, frac_test=0.0, seed=seed)
     return list(tv) + [te[i] for i in easy_idx]
-
-
-def save_trunk(trunk: nn.Module, path: str) -> None:
-    """``trunk.state_dict()`` on the CPU, written in the legacy non-zip
-    format that torch 1.0.1's ``torch.load`` reads."""
-    state = {k: v.detach().cpu() for k, v in trunk.state_dict().items()}
-    torch.save(state, path, _use_new_zipfile_serialization=False)
 
 
 if __name__ == "__main__":

@@ -277,15 +277,18 @@ def pack_plain(flat: FlatGraphs, graph_ids, max_nodes: int, max_edges: int,
 
 
 class FlatLoader:
-    """Shuffled batches of a ``FlatGraphs``, with ``PackedLoader``'s
-    semantics: the order shuffled from ``default_rng((seed, epoch))``, a
+    """Batches of a ``FlatGraphs``, with ``PackedLoader``'s semantics:
+    the order shuffled from ``default_rng((seed, epoch))`` (the graphs'
+    own order with ``shuffle=False``; that generator still feeds
+    ``post_transform``), a
     batch closed early when the next graph does not fit (first-fit over the
     blocks), ``drop_last``, ``post_transform(batch, rng)`` with the epoch's
     generator, and ``last_epoch_stats``. Each epoch is planned with one
     ``native.plan_epoch`` call; each batch gets buffers of its own."""
 
     def __init__(self, flat: FlatGraphs, batch_size: int,
-                 max_nodes: int = 0, max_edges: int = 0, seed: int = 0,
+                 max_nodes: int = 0, max_edges: int = 0,
+                 shuffle: bool = True, seed: int = 0,
                  drop_last: bool = False,
                  blocks: Optional[Tuple[int, int, int]] = None,
                  extra_pad: Optional[Mapping[str, int]] = None,
@@ -298,7 +301,7 @@ class FlatLoader:
             n_blocks, bn, be = blocks
             max_nodes, max_edges = n_blocks * bn, n_blocks * be
         self.max_nodes, self.max_edges = max_nodes, max_edges
-        self.seed, self.drop_last = seed, drop_last
+        self.shuffle, self.seed, self.drop_last = shuffle, seed, drop_last
         self.extra_pad = extra_pad
         self._epoch = 0
         self.last_epoch_stats: Dict[str, float] = {}
@@ -311,7 +314,8 @@ class FlatLoader:
     def __iter__(self) -> Iterator[PackedGraphs]:
         order = np.arange(len(self.flat))
         rng = np.random.default_rng((self.seed, self._epoch))
-        rng.shuffle(order)
+        if self.shuffle:
+            rng.shuffle(order)
         self._epoch += 1
         # the standard layout is one block of the whole buffers
         layout = self.blocks or (1, self.max_nodes, self.max_edges)

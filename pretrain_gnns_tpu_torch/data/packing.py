@@ -87,6 +87,7 @@ def make_loader(
     batch_size: int,
     max_nodes: Optional[int] = None,
     max_edges: Optional[int] = None,
+    shuffle: bool = True,
     drop_last: bool = False,
     seed: int = 0,
     extra_pad=None,
@@ -95,8 +96,10 @@ def make_loader(
 ):
     """A ``FlatLoader`` when the graphs flatten (fixed-shape NODE_IDX and
     GRAPH extras only), else a ``PackedLoader``, with a warning that says
-    why. Both iterate alike: seeded shuffle, early flush, ``drop_last``,
-    ``post_transform`` with the epoch's generator, ``last_epoch_stats``.
+    why. Both iterate alike: seeded shuffle (or the graphs' order with
+    ``shuffle=False``, as the fine-tuning eval loaders take them), early
+    flush, ``drop_last``, ``post_transform`` with the epoch's generator,
+    ``last_epoch_stats``.
     Any other fault of the graphs (an endpoint outside its graph, labels
     that do not stack) raises, as the packers trust their indices."""
     from pretrain_gnns_tpu_torch.data.flat import (
@@ -114,10 +117,11 @@ def make_loader(
                       "graph by graph with PackedLoader", stacklevel=2)
     else:
         return FlatLoader(flat, batch_size, max_nodes or 0, max_edges or 0,
-                          seed=seed, drop_last=drop_last, blocks=blocks,
+                          shuffle=shuffle, seed=seed, drop_last=drop_last,
+                          blocks=blocks,
                           extra_pad=extra_pad, post_transform=post_transform)
     return PackedLoader(graphs, batch_size, max_nodes, max_edges,
-                        drop_last=drop_last, seed=seed,
+                        shuffle=shuffle, drop_last=drop_last, seed=seed,
                         extra_pad=extra_pad, blocks=blocks,
                         post_transform=post_transform)
 

@@ -12,20 +12,23 @@ deepgraphinfomax}.py: a seeded model, one Adam over every parameter,
 shuffled batches of ``batch_size`` graphs with the objective's transform
 (masking or negative sampling; none for infomax and the supervised
 objective, whose batches carry the labels ``y``) applied per batch, the
-trunk saved at the end. The loader is ``data.packing.make_loader``'s: the
-flat dataset and the C++ packer (``data.flat.FlatLoader``) when the graphs
-flatten. Packing and the transform run in a prefetch thread, one for the
-run, while the GPU runs the previous steps; the loss is read back once per
-epoch. With ``scan_steps`` K > 1 (the default on CUDA, 16) each group of K
-consecutive batches of an epoch is one CUDA-graph replay of K train steps
+trunk saved at the end (and, with ``pretrained_trunk``, a trunk loaded
+at the start: :func:`graft_trunk` at :func:`trunk_path`). The loader is
+``data.packing.make_loader``'s: the flat dataset and the C++ packer
+(``data.flat.FlatLoader``) when the graphs flatten. Packing and the
+transform run in a prefetch thread, one for the run, while the GPU runs
+the previous steps; the loss is read back once per epoch. With
+``scan_steps`` K > 1 (the default on CUDA, 16) each group of K consecutive
+batches of an epoch is one CUDA-graph replay of K train steps
 (``train/graphed.py``), as the JAX package's ``make_scan_pretrain_step``
 runs K steps in one ``lax.scan`` dispatch."""
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,8 +57,9 @@ from pretrain_gnns_tpu_torch.objectives.infomax import InfomaxObjective
 from pretrain_gnns_tpu_torch.objectives.masking import (
     BioMaskEdgeObjective, MaskingObjective,
 )
+from pretrain_gnns_tpu_torch.objectives import supervised
 from pretrain_gnns_tpu_torch.objectives.supervised import SupervisedObjective
-from pretrain_gnns_tpu_torch.train import graphed, optim
+from pretrain_gnns_tpu_torch.train import checkpoints, graphed, optim
 from pretrain_gnns_tpu_torch.train.state import TrainState
 from pretrain_gnns_tpu_torch.train.telemetry import ThroughputMeter
 
@@ -332,18 +336,26 @@ def run_pretrain(
     log: Optional[Callable[[str], None]] = print,
     epochs: Optional[int] = None,
     device=None,
+    pretrained_trunk: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> Dict[str, Any]:
     """Train ``cfg.objective`` in ``cfg.domain``. ``device`` defaults
     to ``"cuda"``; without CUDA that raises ``RuntimeError`` unless
     ``device="cpu"``. For context prediction ``graphs`` may be the
-    graphs' :func:`presample_context`.
+    graphs' :func:`presample_context`. ``pretrained_trunk``, a reference
+    trunk's state dict (``train.checkpoints.load_trunk_any``), replaces
+    the seeded trunk at :func:`trunk_path` before the first step, the
+    heads keeping their seeded draws: the reference's two stages,
+    self-supervised then supervised (chem/pretrain_supervised.py:132-133).
     History rows: ``epoch``, ``loss`` and the metrics (means over the
     epoch's steps), ``edges`` (valid edges, each directed edge once per
     step) and ``steps``. The result also names ``scan_steps`` (the
     resolved K), the run's ``replays`` and its ``eager_steps``."""
     dev = resolve_device(device)
     k = resolve_scan_steps(cfg.scan_steps, dev)
-    model = build_objective(cfg).to(dev)
+    model = build_objective(cfg)
+    if pretrained_trunk is not None:
+        graft_trunk(model, pretrained_trunk, trunk_path(cfg))
+    model = model.to(dev)
     loader = build_loader(cfg, graphs, dev)
     state = TrainState(model, optim.adam(model.parameters(), cfg.lr,
                                          cfg.decay))
@@ -408,3 +420,29 @@ def run_pretrain(
             "loader": loader, "scan_steps": k,
             "replays": scan.replays if scan else 0,
             "eager_steps": scan.eager_steps if scan else state.step}
+
+
+def trunk_path(cfg: PretrainConfig) -> Tuple[str, ...]:
+    """Where the objective keeps its trunk: ``pred.gnn`` (supervised),
+    ``gnn_substruct`` (context prediction) or ``gnn``."""
+    if cfg.objective == "supervised":
+        return supervised.TRUNK_PATH
+    if cfg.objective == "contextpred":
+        return ("gnn_substruct",)
+    return ("gnn",)
+
+
+def trunk_module(model: nn.Module, path: Sequence[str]) -> nn.Module:
+    """The submodule of ``model`` at ``path``."""
+    return functools.reduce(getattr, path, model)
+
+
+def graft_trunk(model: nn.Module, trunk: Mapping[str, torch.Tensor],
+                path: Sequence[str]) -> nn.Module:
+    """Load the reference trunk state dict ``trunk`` into ``model``'s
+    submodule at ``path`` (``load_state_dict(strict=True)``, a missing
+    ``num_batches_tracked`` read as 0); every other parameter keeps its
+    value: the reference's checkpoint contract, heads freshly drawn.
+    Returns ``model``."""
+    checkpoints.graft(trunk_module(model, path), trunk)
+    return model

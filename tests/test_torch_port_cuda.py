@@ -8,6 +8,7 @@ not installed:
 
 (``--noconftest`` keeps the JAX package's tests/conftest.py out.)"""
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -1905,3 +1906,106 @@ def test_gather_scatter_edge_emb_runs_k6_bf16_under_the_knob(cuda_device,
     for a, r, c in zip(got, ref, f32):
         assert torch.equal(a, r)
         assert not torch.equal(a, c)
+
+
+# --- fine-tuning: forwards under no_grad, eval batches with empty blocks -------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad", ["no_grad", "no_input_needs_grad"])
+def test_k1_k4_forward_alone_where_autograd_records_nothing(cuda_device,
+                                                            grad):
+    """Under ``torch.no_grad()``, or with no input that needs a gradient,
+    K1's and K4's autograd Functions launch their forward alone (no
+    backward count, an output without ``grad_fn``) and give the output of
+    a call that records a gradient bit for bit."""
+    t, ein, b, nm, blocks = _case(cuda_device, 40, 64, 192, seed=3)
+    args = (t["x"], ein, t["We"], t["e_self"], t["W1"], t["b1"], t["W2"],
+            t["b2"], b.senders, b.receivers, b.edge_mask.float(), nm,
+            blocks[1], blocks[2])
+    g, gein, gb, gbn, gbe = _gat_case(cuda_device, "chem", 45, 128, 384)
+    gargs = (g["h"], g["Wl"], g["bl"], gein, g["We"], g["e_self"],
+             g["a_i"], g["a_j"], g["bias"], *_graph(gb), H, gbn, gbe)
+    with_grad = [fn(*(a.detach().clone().requires_grad_(True)
+                      if i == 0 else a for i, a in enumerate(xs)))
+                 for fn, xs in ((gin_conv.fused_gin_conv, args),
+                                (gat_conv.fused_gat_conv, gargs))]
+    gin_conv.reset_launches()
+    gat_conv.reset_launches()
+    ctx = torch.no_grad() if grad == "no_grad" else contextlib.nullcontext()
+    with ctx:
+        alone = [gin_conv.fused_gin_conv(*args),
+                 gat_conv.fused_gat_conv(*gargs)]
+    assert gin_conv.launches["gin_conv_fwd"] == 1
+    assert gin_conv.launches["gin_conv_bwd"] == 0
+    assert gat_conv.launches["gat_conv_fwd"] == 1
+    assert gat_conv.launches["gat_conv_bwd"] == 0
+    for a, w in zip(alone, with_grad):
+        assert a.grad_fn is None and not a.requires_grad
+        assert torch.equal(a, w.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain,gnn_type", [("chem", "gin"), ("bio", "gin"),
+                                             ("chem", "gat")])
+def test_finetune_step_and_eval_on_card_match_cpu(cuda_device, domain,
+                                                  gnn_type):
+    """A small fine-tune model (dropout 0) on blocked batches of 16
+    graphs: one train step (loss, gradients, batch-norm statistics) and
+    an eval pass (the initial weights, the step's statistics) over a
+    loader whose last batch is partly empty and holds blocks without a
+    node, card vs CPU; the eval pass launches forwards only."""
+    from pretrain_gnns_tpu_torch.train import finetune
+
+    if domain == "bio":
+        graphs = bio_dataset(60, seed=4, mean_nodes=20)
+    else:
+        graphs, _ = molecule_dataset(60, num_tasks=3, seed=4,
+                                     missing_frac=0.2)
+    cfg = finetune.FinetuneConfig(
+        domain=domain, num_tasks=int(np.asarray(graphs[0].y).shape[0]),
+        num_layer=3, emb_dim=48, dropout_ratio=0.0, gnn_type=gnn_type,
+        batch_size=16, packing="blocked")
+    train_loader, evals = finetune.build_loaders(
+        cfg, graphs[:40], graphs[40:], graphs[40:], None, cuda_device)
+    first, val = next(iter(train_loader)), list(evals["val"])
+    last = val[-1]
+    assert not last.graph_mask.all()
+    assert not last.node_mask.reshape(-1, last.block_nodes).any(1).all()
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        for m in (gin_conv, blocked_spmm, gat_conv):
+            m.reset_launches()
+        st = finetune.init_state(cfg, finetune.build_model(cfg), None, dev)
+        loss = finetune.make_train_step(cfg.loss_kind)(st, first.to(dev))
+        step_counts = {**gin_conv.launches, **blocked_spmm.launches,
+                       **gat_conv.launches}
+        # the eval pass: the initial weights (the step's Adam update moves
+        # a parameter by lr times the sign of a gradient that may be ~0,
+        # so updated weights differ by ~lr) and the step's batch-norm
+        # statistics
+        st_eval = finetune.init_state(cfg, finetune.build_model(cfg), None,
+                                      dev)
+        st_eval.model.load_state_dict(dict(st.model.named_buffers()),
+                                      strict=False)
+        logits = [finetune.make_eval_step()(st_eval, b.to(dev)).cpu()
+                  for b in val]
+        eval_counts = {k: v - step_counts[k] for k, v in {
+            **gin_conv.launches, **blocked_spmm.launches,
+            **gat_conv.launches}.items()}
+        out.append((float(loss),
+                    {n: p.grad.cpu() for n, p in st.model.named_parameters()},
+                    {n: x.cpu().float() for n, x in st.model.named_buffers()},
+                    torch.cat(logits), step_counts, eval_counts))
+    (lc, gc, bc, oc, sc, ec), (lp, gp, bp, op, _, _) = out
+    assert np.isclose(lc, lp, rtol=1e-5), (lc, lp)
+    errs = {n: _rel(gc[n], gp[n]) for n in gp}
+    assert max(errs.values()) <= 1e-3, errs
+    errs = {n: _rel(bc[n], bp[n]) for n in bp}
+    assert max(errs.values()) <= 1e-3, errs
+    mask = torch.cat([torch.as_tensor(b.graph_mask).cpu() for b in val])
+    assert _rel(oc[mask], op[mask]) <= 1e-4, _rel(oc[mask], op[mask])
+    per = 3 * (2 if domain == "bio" else 1)
+    assert sum(sc.values()) == 2 * per, sc
+    assert sum(ec.values()) == len(val) * per, (len(val), ec)
+    assert all(v == 0 for k, v in ec.items() if "_bwd" in k), ec

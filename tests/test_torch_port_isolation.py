@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: no module of pretrain_gnns_tpu_torch and
-not chip_smoke.py imports jax, flax, optax, orbax or pretrain_gnns_tpu;
-its entry points run on CUDA unless asked for the CPU; its CLI trains and
-saves a reference-layout trunk (for context prediction the substructure
-trunk, ``gnn_substruct``)."""
+not chip_smoke.py imports jax, flax, optax, orbax, pretrain_gnns_tpu or
+sklearn (the splitters keep their own copy of its stratified folds);
+its entry points (pretraining and fine-tuning, each function and CLI) run
+on CUDA unless asked for the CPU; its CLI trains and saves a
+reference-layout trunk (for context prediction the substructure trunk,
+``gnn_substruct``)."""
 
 import ast
 import os
@@ -25,7 +27,8 @@ from pretrain_gnns_tpu_torch.train import pretrain
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "pretrain_gnns_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "pretrain_gnns_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "pretrain_gnns_tpu",
+             "sklearn"}
 
 
 def _sources():
@@ -56,6 +59,11 @@ def test_no_forbidden_imports_in_sources():
             "pretrain_gnns_tpu_torch/ops/sorted_spmm.py",
             "pretrain_gnns_tpu_torch/models/pools.py",
             "pretrain_gnns_tpu_torch/objectives/supervised.py",
+            "pretrain_gnns_tpu_torch/data/splitters.py",
+            "pretrain_gnns_tpu_torch/train/metrics.py",
+            "pretrain_gnns_tpu_torch/train/finetune.py",
+            "pretrain_gnns_tpu_torch/train/checkpoints.py",
+            "pretrain_gnns_tpu_torch/cli/finetune.py",
             "scripts/torch_port_kernel_micro.py",
             "scripts/torch_port_profile.py",
             "chip_smoke.py"} <= scanned
@@ -91,6 +99,25 @@ def test_run_pretrain_defaults_to_cuda():
     cfg = pretrain.PretrainConfig(num_layer=2, emb_dim=16, batch_size=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         pretrain.run_pretrain(cfg, graphs, log=None, epochs=1)
+
+
+def test_finetuning_defaults_to_cuda():
+    """``run_finetune`` and ``cli.finetune`` without ``device`` (the CLI's
+    default ``--device cuda``) raise where CUDA is absent."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the CUDA-less behaviour")
+    from pretrain_gnns_tpu_torch.cli import finetune as ft_cli
+    from pretrain_gnns_tpu_torch.train import finetune
+
+    graphs, _ = molecule_dataset(24, num_tasks=2)
+    cfg = finetune.FinetuneConfig(num_tasks=2, num_layer=2, emb_dim=16,
+                                  epochs=1, batch_size=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        finetune.run_finetune(cfg, graphs[:16], graphs[16:20], graphs[20:],
+                              log=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ft_cli.main(["--num_layer", "2", "--emb_dim", "16", "--epochs", "1",
+                     "--n_synthetic", "32"])
 
 
 def test_standard_packing_and_unported_options():
@@ -131,7 +158,7 @@ def test_cli_trains_one_epoch_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--dataset", "bbbp"],
                                    ["--objective", "supervised",
-                                    "--input_model_file", "trunk.pth"]])
+                                    "--gnn_type", "gine"]])
 def test_cli_rejects_what_is_not_ported(flags):
     with pytest.raises(SystemExit, match="not ported"):
         cli.main(["--device", "cpu", "--epochs", "1", *flags])

@@ -5,7 +5,8 @@
   while their weights keep 1/sqrt(in_features); under JK last the seeded
   initial state dict is what it was.
 - F8: the CLI writes its trunk in torch's legacy non-zip format, as the JAX
-  CLI does, which the reference's torch 1.0.1 reads.
+  CLI does, which the reference's torch 1.0.1 reads (through the port's
+  one trunk writer, ``train.checkpoints.save_trunk_reference_format``).
 - F4 (``--split``): the CLI's bio supervised pretraining trains on the
   species split by default, as the JAX CLI's does; its pretrain set equals
   the JAX CLI's index for index under ``species`` and ``random``.
@@ -37,6 +38,7 @@ from pretrain_gnns_tpu_torch.compat.from_jax import state_dict_from_jax
 from pretrain_gnns_tpu_torch.models import bio as tbio
 from pretrain_gnns_tpu_torch.models import chem as tchem
 from pretrain_gnns_tpu_torch.models.inits import init_parameters
+from pretrain_gnns_tpu_torch.train import checkpoints
 from pretrain_gnns_tpu_torch.train import pretrain as tpretrain
 
 LAYERS, EMB = 2, 300
@@ -142,7 +144,7 @@ def test_cli_trunk_export_is_legacy_and_equals_jax(tmp_path, domain):
         host["params"], host.get("batch_stats", {})), strict=True)
 
     ours, theirs = tmp_path / "port.pth", tmp_path / "jax.pth"
-    cli.save_trunk(trunk, str(ours))
+    checkpoints.save_trunk_reference_format(trunk, str(ours))
     save_trunk_reference_format(variables, str(theirs))
     assert not zipfile.is_zipfile(ours) and not zipfile.is_zipfile(theirs)
     back = import_params.load_trunk(str(ours))

@@ -559,6 +559,9 @@ def test_cli_dropout_default_and_unported_flags():
     assert cli.resolve_dropout(parse(["--objective", "supervised",
                                       "--dropout_ratio", "0.4"])) == 0.4
     assert parse([]).split == "species"  # ported: the JAX CLI's default
+    # ported: --input_model_file (tests/test_torch_port_trunk_io.py)
+    assert parse(["--input_model_file", "t.pth"]).input_model_file == \
+        "t.pth"
     with pytest.raises(SystemExit, match="not ported"):
         cli.main(["--objective", "supervised", "--device", "cpu",
-                  "--input_model_file", "t.pth"])
+                  "--dataset", "chembl_filtered"])

@@ -71,11 +71,11 @@ Phases, in order (any failure exits non-zero):
      deg^-1/2[s]``), against its plain version, timed, with its bound;
   10. edge-prediction agreement, for each trunk that a path below drives
      (chem GIN, chem GCN, bio GIN, bio GraphSAGE): one train-mode step at
-     full width on the card, on the CPU in float32 and on the CPU in
-     float64; the card's gradients must lie no further from the float64
-     ones than REFEREE_K times the float32 noise measured on the CPU
-     (the median of three steps on the card, 1 + NOISE_SAMPLES on the
-     CPU);
+     full width (the bio trunks at BIO_REFEREE_LAYERS layers) on the
+     card, on the CPU in float32 and on the CPU in float64; the card's
+     gradients must lie no further from the float64 ones than REFEREE_K
+     times the float32 noise measured on the CPU (the median of three
+     steps on the card, 1 + NOISE_SAMPLES on the CPU);
   11. edge-prediction main path: ``run_pretrain(objective="edgepred")`` on
      ``cuda`` at full width (chem GIN 5 x 300, batch 256) for 48 steps:
      K1 at 5 a step and K3 at 2 a step in each direction, every other
@@ -146,8 +146,8 @@ Phases, in order (any failure exits non-zero):
      batch of each (pack and transform, one thread) and the ms of planning
      the epoch with ``native.plan_epoch`` and with the Python walk;
   24. infomax agreement and paths: one train-mode Deep Graph Infomax step
-     at full width, card vs CPU, chem and bio, refereed by a float64 CPU
-     step as edge prediction's (the float32 CPU step alone can lie
+     at full width (bio at BIO_REFEREE_LAYERS layers), card vs CPU, chem
+     and bio, refereed by a float64 CPU step as edge prediction's (the float32 CPU step alone can lie
      further from float64 than the masking steps' gradient limit); then
      48 steps each of ``run_pretrain(objective="infomax")``:
      chem K1 at 5 a step each way, bio K2's ``[x]`` and ``[ein]`` at 5 a
@@ -231,7 +231,26 @@ Phases, in order (any failure exits non-zero):
      finite; printed: valid edges/s of epochs 2-3, eval graphs/s, the
      per-epoch AUCs, and the card's busy share of profiled train steps and
      of a validation pass;
-  29. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
+  29. step checkpoints with resume, on the dataset store: the chem
+     masking path's 4,096 molecules (with their scaffolds) and the bio
+     masking path's 4,096 ego-networks (with their extras) written to a
+     temporary ``--data_root`` by the port's ``save_graphs`` and read back
+     equal (``load_graphs`` timed); then ``cli.pretrain.main --dataset
+     <name> --data_root <root>`` at full width and the knobs' defaults,
+     K = 16 (chem masking GIN on K1, bio masking GIN on K2 ``[x]`` and
+     ``[ein]``): uninterrupted (chem 3 epochs, bio 2) with a checkpoint
+     each epoch, then one epoch less in another directory and a fresh
+     call to the full count there, which must log ``resumed from step S
+     (epoch E)``; each call's launches counted; the resumed run's
+     parameters, batch-norm statistics, Adam's moments and steps, dropout
+     generators, history and written trunk equal the uninterrupted run's
+     bit for bit; printed: checkpoint bytes, save and restore ms, the
+     resumed epoch's edges/s beside the uninterrupted one's; last,
+     ``cli.finetune.main`` on the stored chem dataset from the resumed
+     trunk (1 epoch at phase 28's settings, the scaffold split of the
+     stored scaffolds.txt, K1 at 5 a train step each way and 5 forwards
+     an eval batch);
+  30. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
      defaults (chem masking GIN on 16,384 molecules and bio masking GIN,
      5 windows of 4 epochs each after 2 warm-up epochs), at
      ``--scan_steps 1`` (every step eager), then at its default (K =
@@ -254,6 +273,7 @@ import collections
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -326,6 +346,11 @@ STEP_GRAD_TOL = 2e-3
 REFEREE_K = 4.0
 NOISE_SAMPLES = 16
 NOISE_EPS = 1e-7
+# The bio edge-prediction and infomax agreement steps, refereed so, take
+# BIO_REFEREE_LAYERS layers of the path's trunk: at 5 their float64 and 17
+# float32 CPU steps on the bio first batch took 77-86 s each; the paths
+# themselves run all 5 layers on the card after them.
+BIO_REFEREE_LAYERS = 2
 # bfloat16 (the JAX bench's recipe: the model's knob at bfloat16_act, the
 # kernels' at bfloat16). A bfloat16 variant against its plain version at
 # compute_dtype=bfloat16, read twice an output (``bf16_readings``): both
@@ -690,6 +715,16 @@ def _agreement(torch, batch, cfg, referee, name, noise_samples):
             and stat_err <= STEP_GRAD_TOL and math.isfinite(lc)):
         raise AssertionError(f"{name} step on the card disagrees with "
                              "the CPU reference")
+
+
+def referee_depth(cfg):
+    """``cfg`` with BIO_REFEREE_LAYERS layers in the bio domain, as it is
+    in chem."""
+    import dataclasses
+
+    if cfg.domain != "bio":
+        return cfg
+    return dataclasses.replace(cfg, num_layer=BIO_REFEREE_LAYERS)
 
 
 def counted_modules():
@@ -3289,11 +3324,11 @@ def finetune_data(domain):
     """The CLI's flags, task count and splits for ``FT_RUNS[domain]``:
     ``(args, num_tasks, (train, valid, test, extra test sets))``."""
     from pretrain_gnns_tpu_torch.cli import finetune as ft_cli
-    from pretrain_gnns_tpu_torch.data.synthetic import load_dataset
+    from pretrain_gnns_tpu_torch.data.datasets import load_dataset
 
     args = ft_cli.build_parser().parse_args(FT_RUNS[domain])
-    graphs, scaffolds, meta = load_dataset(args.dataset, args.n_synthetic,
-                                           args.seed)
+    graphs, scaffolds, meta = load_dataset(args.dataset, args.data_root,
+                                           args.n_synthetic, args.seed)
     if args.domain == "bio":
         args.split = "species"
     return args, meta["num_tasks"], ft_cli.split_dataset(args, graphs,
@@ -3561,6 +3596,289 @@ def record_finetune(entries, runs):
                         run["per_eval_batch"].get(key, 0)})
 
 
+# --- step checkpoints with resume, on the dataset store ----------------------
+
+# the uninterrupted run's epochs; the interrupted run stops one epoch
+# before and a fresh run resumes it to the same end
+RESUME_EPOCHS = {"chem": 3, "bio": 2}
+RESUME_DATASETS = {"chem": "chem_masking_4096", "bio": "bio_masking_4096"}
+
+
+class _Tee:
+    """Standard output that also keeps its lines."""
+
+    def __init__(self, out):
+        self.out, self.lines, self._part = out, [], ""
+
+    def write(self, text):
+        self.out.write(text)
+        self._part += text
+        *done, self._part = self._part.split("\n")
+        self.lines += done
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def store_dataset(root, domain, graphs, scaffolds):
+    """The path's graphs (and scaffolds) written under ``root`` with the
+    port's ``save_graphs``, read back with ``load_graphs`` (timed) and
+    checked equal, every array and extra."""
+    import numpy as np
+
+    from pretrain_gnns_tpu_torch.data import datasets
+
+    name = RESUME_DATASETS[domain]
+    d = datasets.processed_dir(root, name)
+    t = time.perf_counter()
+    datasets.save_graphs(graphs, d, scaffolds=scaffolds,
+                         meta={"dataset": name, "domain": domain})
+    t_save = time.perf_counter() - t
+    t = time.perf_counter()
+    back, back_scaffolds, meta = datasets.load_graphs(d)
+    t_load = time.perf_counter() - t
+    same = len(back) == len(graphs) and back_scaffolds == scaffolds and all(
+        np.array_equal(getattr(a, f), getattr(b, f))
+        for a, b in zip(graphs, back)
+        for f in ("node_feat", "edge_index", "edge_feat", "y"))
+    same = same and all(
+        a.extras.keys() == b.extras.keys() and all(
+            a.extras[k][1] == b.extras[k][1]
+            and np.array_equal(a.extras[k][0], b.extras[k][0])
+            for k in a.extras)
+        for a, b in zip(graphs, back))
+    size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    print(f"[{domain} store] {len(graphs)} graphs, extras "
+          f"{meta['extra_kinds']}, written in {t_save:.3f} s, "
+          f"{size} bytes; load_graphs {t_load:.3f} s; read back "
+          f"{'equal' if same else 'NOT equal'}", flush=True)
+    if not same:
+        raise AssertionError(f"[{domain} store] the graphs read back differ")
+    return name, t_load
+
+
+def resume_phase(torch, card, domain, root, per_step):
+    """``cli.pretrain.main`` on the stored dataset at full width and the
+    knobs' defaults: once uninterrupted for RESUME_EPOCHS[domain] epochs
+    with a checkpoint each epoch, once for one epoch less in another
+    directory, then a fresh call to the full count in that directory,
+    which must resume. Each call's launches counted; the resumed run's
+    state (parameters, batch-norm statistics, Adam's moments and steps,
+    the step, the dropout generators) and trunk file must equal the
+    uninterrupted run's bit for bit. Returns the resumed trunk's file."""
+    import re
+
+    from pretrain_gnns_tpu_torch.cli import pretrain as pt_cli
+    from pretrain_gnns_tpu_torch.train import checkpoints, pretrain
+
+    tag = f"[{domain} resume]"
+    epochs = RESUME_EPOCHS[domain]
+    name = RESUME_DATASETS[domain]
+    mgr_cls = checkpoints.CheckpointManager
+    real_run, real_save, real_restore = (pretrain.run_pretrain,
+                                         mgr_cls.save, mgr_cls.restore)
+    saves, restores = [], []
+
+    def timed(fn, into):
+        def call(self, *args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(self, *args, **kw)
+            into.append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    modules = counted_modules()
+
+    def run(label, ck, n_epochs):
+        seen = {}
+
+        def run_pretrain(*args, **kw):
+            seen["res"] = real_run(*args, **kw)
+            return seen["res"]
+
+        trunk = os.path.join(root, f"{domain}_{label}")
+        argv = ["--domain", domain, "--dataset", name, "--data_root", root,
+                "--epochs", str(n_epochs), "--checkpoint_dir", ck,
+                "--checkpoint_every", "1", "--output_model_file", trunk,
+                "--device", "cuda"]
+        for m in modules:
+            m.reset_launches()
+        tee = _Tee(sys.stdout)
+        pretrain.run_pretrain = run_pretrain
+        mgr_cls.save = timed(real_save, saves)
+        mgr_cls.restore = timed(real_restore, restores)
+        try:
+            with precision("float32", "bfloat16"), \
+                    contextlib.redirect_stdout(tee):
+                pt_cli.main(argv)
+        finally:
+            pretrain.run_pretrain = real_run
+            mgr_cls.save, mgr_cls.restore = real_save, real_restore
+        counts = read_counts(modules)
+        res = seen["res"]
+        counted = res["eager_steps"] + res["scan_steps"] * bool(
+            res["replays"])
+        want = {k: per_step.get(k, 0) * counted for k in counts}
+        want["probe_scale2"] = counts.get("probe_scale2", 0)
+        if counts != want:
+            raise AssertionError(f"{tag} {label}: launches {counts} != "
+                                 f"{want}")
+        # the last epoch's edges/s and replays, from its log line
+        last = [m.groups() for line in tee.lines for m in [re.search(
+            r"edges/s=([0-9.]+) replays=([0-9]+)", line)] if m][-1]
+        return (res, trunk + ".pth", (float(last[0]), int(last[1])),
+                tee.lines, counted)
+
+    whole_dir, part_dir = (os.path.join(root, f"{domain}_ck_{k}")
+                           for k in ("whole", "part"))
+    t0 = time.perf_counter()
+    whole, whole_trunk, whole_last, _, _ = run("whole", whole_dir, epochs)
+    part, _, _, _, _ = run("part", part_dir, epochs - 1)
+    n_saves = len(saves)
+    resumed, resumed_trunk, last, lines, counted = run("resumed", part_dir,
+                                                       epochs)
+    seconds = time.perf_counter() - t0
+    steps_before = part["state"].step
+    note = f"resumed from step {steps_before} (epoch {epochs})"
+    if note not in lines or resumed["start_epoch"] != epochs:
+        raise AssertionError(f"{tag} the resumed run did not log '{note}'")
+    a, b = whole["state"].state_dict(), resumed["state"].state_dict()
+    diffs = []
+    if (a["step"], a["epoch"]) != (b["step"], b["epoch"]):
+        diffs.append(("step, epoch", (a["step"], a["epoch"]),
+                      (b["step"], b["epoch"])))
+    diffs += [n for n, v in a["model"].items()
+              if not torch.equal(v, b["model"][n])]
+    sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+    diffs += [f"adam {i}.{k}" for i in sa for k, v in sa[i].items()
+              if not torch.equal(v, sb[i][k])]
+    diffs += [f"dropout {n}" for n, st in a["dropout"].items()
+              if st.keys() != b["dropout"][n].keys() or not all(
+                  torch.equal(v, b["dropout"][n][dev])
+                  for dev, v in st.items())]
+    ta, tb = (checkpoints.load_trunk_any(p) for p in (whole_trunk,
+                                                      resumed_trunk))
+    diffs += [f"trunk {k}" for k in ta if not torch.equal(ta[k], tb[k])]
+    if resumed["history"] != whole["history"][epochs - 1:]:
+        diffs.append("history")
+    latest = checkpoints.CheckpointManager(part_dir)
+    size = os.path.getsize(latest.path(latest.latest_step()))
+    print(f"{tag} cli.pretrain --dataset {name} --data_root <root> "
+          f"(knobs' defaults): {epochs} epochs uninterrupted, {epochs - 1} "
+          f"then a fresh call resumed to {epochs} ({note}); resumed state "
+          f"{len(a['model'])} tensors, {sum(len(m) for m in sa.values())} "
+          f"Adam tensors, step {b['step']}, trunk {len(tb)} tensors: "
+          + ("bit-equal to the uninterrupted run's" if not diffs else
+             f"DIFFERENT in {diffs[:8]}")
+          + f"; launches a step {per_step} ({counted} counted steps in the "
+          f"resumed call: {resumed['eager_steps']} eager, "
+          f"{resumed['replays']} replays); checkpoint {size} bytes, "
+          f"save {statistics.median(saves):.1f} ms (median of {len(saves)}; "
+          f"{n_saves} before the resume), restore {restores[0]:.1f} ms; "
+          f"resumed epoch {last[0]:.1f} valid edges/s ({last[1]} replays) "
+          f"against {whole_last[0]:.1f} in the uninterrupted run's epoch "
+          f"{epochs} ({whole_last[1]} replays); "
+          f"{seconds:.1f} s on {card} [{time.perf_counter() - T0:.0f} s]",
+          flush=True)
+    if diffs:
+        raise AssertionError(f"{tag} the resumed run differs: {diffs}")
+    return resumed_trunk
+
+
+def finetune_stored(torch, card, root, trunk):
+    """``cli.finetune.main`` on the stored chem dataset from the resumed
+    trunk: 1 epoch at the phase-28 settings (full width, batch 32, dropout
+    0.5, the knobs' defaults), the scaffold split of the stored
+    scaffolds.txt, K1 at 5 a train step each way and 5 forwards an eval
+    batch, the curves finite."""
+    from pretrain_gnns_tpu_torch.cli import finetune as ft_cli
+    from pretrain_gnns_tpu_torch.data import datasets, splitters
+    from pretrain_gnns_tpu_torch.train import finetune
+
+    tag = "[chem stored finetune]"
+    name = RESUME_DATASETS["chem"]
+    with open(os.path.join(datasets.processed_dir(root, name),
+                           "scaffolds.txt")) as f:
+        stored = f.read().split("\n")
+    seen = {}
+    real_split, real_run = ft_cli.split_dataset, finetune.run_finetune
+
+    def split_dataset(args, graphs, scaffolds):
+        seen["scaffolds"] = scaffolds
+        seen["splits"] = real_split(args, graphs, scaffolds)
+        return seen["splits"]
+
+    def run_finetune(*args, **kw):
+        seen["res"] = real_run(*args, **kw)
+        return seen["res"]
+
+    modules = counted_modules()
+    for m in modules:
+        m.reset_launches()
+    ft_cli.split_dataset, finetune.run_finetune = split_dataset, run_finetune
+    t = time.perf_counter()
+    try:
+        with precision("float32", "bfloat16"):
+            out = ft_cli.main(["--dataset", name, "--data_root", root,
+                               "--input_model_file", str(trunk), "--epochs",
+                               "1", "--run_dir", os.path.join(root, "ft"),
+                               "--device", "cuda"])
+    finally:
+        ft_cli.split_dataset, finetune.run_finetune = real_split, real_run
+    seconds = time.perf_counter() - t
+    counts = read_counts(modules)
+    sizes = [len(g) for g in seen["splits"][:3]]
+    if seen["scaffolds"] != stored or [
+            len(i) for i in splitters.scaffold_split(stored)] != sizes:
+        raise AssertionError(f"{tag} the split is not the scaffold split of "
+                             "the stored scaffolds")
+    hist = seen["res"]["history"]
+    steps = sum(h["steps"] for h in hist)
+    evals = sum(h["eval_batches"] for h in hist)
+    want = {k: K1.get(k, 0) * steps + fwd_only(K1).get(k, 0) * evals
+            for k in counts}
+    want["probe_scale2"] = counts.get("probe_scale2", 0)
+    if counts != want:
+        raise AssertionError(f"{tag} launches {counts} != {want} ({steps} "
+                             f"train steps, {evals} eval batches)")
+    curves = [out["val"], out["test"], out["train_loss"]]
+    if not all(math.isfinite(v) for c in curves for v in c) or not (
+            0.0 <= out["test_auc"] <= 1.0):
+        raise AssertionError(f"{tag} result {out}")
+    print(f"{tag} cli.finetune --dataset {name} --data_root <root> "
+          f"--input_model_file <resumed trunk> --epochs 1: scaffold split "
+          f"{sizes} of the stored scaffolds.txt; launches "
+          f"{ {k: v for k, v in counts.items() if v} } ({steps} train "
+          f"steps, {evals} eval batches); val AUC {out['val'][0]:.4f}, test "
+          f"AUC {out['test_auc']:.4f}; {seconds:.1f} s on {card} "
+          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+
+
+def resume_section(torch, card, chem_graphs, chem_scaffolds, bio_graphs):
+    """The chem and bio masking paths' graphs written to a temporary
+    ``--data_root`` with the port's store; ``cli.pretrain`` on them with
+    step checkpoints, interrupted and resumed (chem: 3 epochs against 2 +
+    1, K1; bio: 2 against 1 + 1, K2 ``[x]`` and ``[ein]``; the knobs'
+    defaults), bit-equal to the uninterrupted runs; ``cli.finetune`` from
+    the resumed chem trunk on the stored chem dataset."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as root:
+        loads = {}
+        for domain, graphs, scaffolds in (
+                ("chem", chem_graphs, chem_scaffolds),
+                ("bio", bio_graphs, None)):
+            loads[domain] = store_dataset(root, domain, graphs,
+                                          scaffolds)[1]
+        trunk = resume_phase(torch, card, "chem", root, K1)
+        resume_phase(torch, card, "bio", root, BIO_K2)
+        finetune_stored(torch, card, root, trunk)
+    print(f"[resume] load_graphs chem {loads['chem']:.3f} s, bio "
+          f"{loads['bio']:.3f} s; section {time.perf_counter() - t0:.1f} s "
+          f"on {card} [{time.perf_counter() - T0:.0f} s]", flush=True)
+
+
 def bench_phase():
     """``python -m pretrain_gnns_tpu_torch.bench`` at ``--scan_steps 1``
     (eager steps), at its defaults (K = 16, CUDA-graph replays), at
@@ -3631,7 +3949,8 @@ def main() -> int:
         print(f"[build] {name}.cu:\n{text.strip()}", flush=True)
 
     # chem: K1 on the masking path (mask_edge off, as the JAX bench)
-    graphs, _ = molecule_dataset(MAIN_GRAPHS, seed=0, mean_atoms=MEAN_ATOMS)
+    graphs, chem_scaffolds = molecule_dataset(MAIN_GRAPHS, seed=0,
+                                              mean_atoms=MEAN_ATOMS)
     cfg = pretrain.PretrainConfig(
         num_layer=LAYERS, emb_dim=EMB, batch_size=BATCH, mask_edge=False,
         seed=0, packing="auto",
@@ -3726,7 +4045,8 @@ def main() -> int:
         ("chem", "gin"), ("chem", "gcn"), ("bio", "gin"),
         ("bio", "graphsage"))}
     for (domain, _), (_, cfg) in paths.items():
-        agreement_phase(torch, first[domain], cfg, referee=True)
+        agreement_phase(torch, first[domain], referee_depth(cfg),
+                        referee=True)
     graphs, cfg = paths["chem", "gin"]
     record_launches(k3, rated(cfg, main_path_phase(torch, graphs, cfg, card,
                                                    {**K1, **K3})))
@@ -3846,7 +4166,7 @@ def main() -> int:
         # as edge prediction's, the step is ill-conditioned at its random
         # start: a float64 step on the CPU referees (see REFEREE_K)
         agreement_phase(torch, next(iter(pretrain.build_loader(
-            cfg, graphs, dev))), cfg, referee=True)
+            cfg, graphs, dev))), referee_depth(cfg), referee=True)
         main_path_phase(torch, graphs, cfg, card, per_step)
         capture_phase(torch, graphs, cfg, per_step)
 
@@ -3871,6 +4191,10 @@ def main() -> int:
     # fine-tuning from the masking paths' trunks, through cli.finetune
     finetuned = finetune_section(torch, card, trunks, trunk_dir.name)
     trunk_dir.cleanup()
+
+    # step checkpoints with resume on the dataset store, then fine-tuning
+    # on the stored chem dataset
+    resume_section(torch, card, chem_graphs, chem_scaffolds, bio_graphs)
 
     bench_phase()
     kernels += k2 + k3 + k45 + k67 + probe + bf16

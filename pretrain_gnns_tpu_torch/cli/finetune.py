@@ -11,11 +11,19 @@ Examples:
   python -m pretrain_gnns_tpu_torch.cli.finetune --device cpu \
       --num_layer 2 --emb_dim 16 --epochs 2
 
-``--dataset`` takes ``synthetic`` (``n_synthetic`` molecules with two
-tasks and pseudo-scaffolds) and ``synthetic_bio`` (``max(n_synthetic // 4,
-64)`` ego-networks, 40 tasks; ``data.synthetic.load_dataset``), generated
-from ``--seed`` as the JAX package's ``datasets.load_dataset`` makes them;
-real datasets are not ported yet. ``--split`` is the JAX CLI's (bio's default is ``species``:
+``--dataset`` names a processed dataset under ``--data_root``
+(``<data_root>/<dataset>/processed_tpu``, written by ``cli.featurize`` of
+either package; its task count from its ``meta.json``, else the
+reference's; the scaffold splits read its ``scaffolds.txt``), or
+``synthetic`` (``n_synthetic`` molecules with two tasks and
+pseudo-scaffolds) and ``synthetic_bio`` (``max(n_synthetic // 4, 64)``
+ego-networks, 40 tasks), generated from ``--seed`` as the JAX package's
+(``data.datasets.load_dataset``):
+
+  python -m pretrain_gnns_tpu_torch.cli.finetune --dataset tox21 \
+      --data_root dataset --input_model_file trunk.pth
+
+``--split`` is the JAX CLI's (bio's default is ``species``:
 the seven species train and validate, 85/15, and the human graphs make the
 easy ``test`` and the hard ``test_hard`` halves). ``--cv_fold F`` runs
 fold F of the 10-fold accuracy protocol of mutag and ptc_mr instead.
@@ -38,6 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--domain", default="chem", choices=["chem", "bio"])
     p.add_argument("--dataset", default="synthetic")
+    p.add_argument("--data_root", default="dataset")
     p.add_argument("--batch_size", type=int, default=0,
                    help="0 = protocol default: 32 (chem/finetune.py:87), "
                         "8 under --cv_fold (finetune_mutag_ptc.py:87); "
@@ -113,17 +122,14 @@ def split_dataset(args, graphs, scaffolds):
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
-    from pretrain_gnns_tpu_torch.data import synthetic
+    from pretrain_gnns_tpu_torch.data import datasets
     from pretrain_gnns_tpu_torch.device import resolve_device
     from pretrain_gnns_tpu_torch.train import finetune
     from pretrain_gnns_tpu_torch.train.checkpoints import load_trunk_any
 
     resolve_device(args.device)  # no CUDA: raise before any work
-    if args.dataset not in synthetic.DATASETS:
-        raise SystemExit(f"--dataset {args.dataset} is not ported yet; use "
-                         f"one of {', '.join(synthetic.DATASETS)}")
-    graphs, scaffolds, meta = synthetic.load_dataset(
-        args.dataset, args.n_synthetic, args.seed)
+    graphs, scaffolds, meta = datasets.load_dataset(
+        args.dataset, args.data_root, args.n_synthetic, seed=args.seed)
     num_tasks = meta.get("num_tasks") or finetune.NUM_TASKS.get(
         args.dataset, 1)
     if args.domain == "bio" and args.split == "scaffold":

@@ -19,9 +19,12 @@ Examples:
   python -m pretrain_gnns_tpu_torch.cli.pretrain --objective contextpred \
       --mode skipgram --epochs 5 --output_model_file cp_trunk
 
-With ``--dataset synthetic``, chem trains on ``n_synthetic`` molecules
-and bio on ``max(n_synthetic // 4, 64)`` ego-networks
-(``data.synthetic.load_dataset``), as the JAX CLI.
+``--dataset`` names a processed dataset under ``--data_root``
+(``<data_root>/<dataset>/processed_tpu``, written by ``cli.featurize`` of
+either package, ``data.datasets.load_dataset``) or a synthetic stand-in:
+with ``synthetic`` chem trains on ``n_synthetic`` molecules and bio (where
+``synthetic`` means ``synthetic_bio``) on ``max(n_synthetic // 4, 64)``
+ego-networks, as the JAX CLI.
 The supervised objective trains the domain's graph-level head
 (``--graph_pooling sum|mean|max|attention|set2setN``, the last for chem
 only) on the dataset's labels: the molecules' two synthetic tasks, as the
@@ -52,6 +55,17 @@ on CUDA one CUDA-graph replay of K captured steps a group of K batches (0,
 the default, means 16 there), on the CPU the K steps of a group in turn (0
 means 1 there).
 
+``--checkpoint_dir D`` saves the whole train state (model, Adam's moments,
+step, epoch, the dropout generators) to ``D`` every ``--checkpoint_every``
+epochs (0: at the end only) and at the end, the newest three kept; a run
+started again with the same ``D`` resumes from the latest one (``resumed
+from step S (epoch E)``) and trains epochs ``E..--epochs``, bit for bit as
+the uninterrupted run (``train.checkpoints.CheckpointManager``):
+
+  python -m pretrain_gnns_tpu_torch.cli.pretrain --dataset zinc_standard_agent \
+      --data_root dataset --checkpoint_dir ck --checkpoint_every 1 \
+      --epochs 100 --output_model_file trunk
+
 Saves the trunk ``state_dict`` (reference key layout) to
 ``<output_model_file>.pth`` in torch's legacy (pre-zip) format, which the
 reference's torch 1.0.1 reads, as the JAX package's CLI writes it
@@ -73,6 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
                             "supervised"])
     p.add_argument("--domain", default="chem", choices=["chem", "bio"])
     p.add_argument("--dataset", default="synthetic")
+    p.add_argument("--data_root", default="dataset")
     p.add_argument("--batch_size", type=int, default=256)
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--lr", type=float, default=1e-3)
@@ -111,6 +126,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--l1", type=int, default=1)
     p.add_argument("--center", type=int, default=1)
     p.add_argument("--output_model_file", default="")
+    p.add_argument("--checkpoint_dir", default="")
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help="step checkpoint every N epochs (0 = end only)")
     p.add_argument("--n_synthetic", type=int, default=2000)
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (cuda or cpu)")
@@ -131,7 +149,7 @@ def main(argv=None):
     if args.gnn_type not in ("gin", "gcn", "gat", "graphsage"):
         raise SystemExit(f"--gnn_type {args.gnn_type} is not ported yet")
 
-    from pretrain_gnns_tpu_torch.data import synthetic
+    from pretrain_gnns_tpu_torch.data import datasets
     from pretrain_gnns_tpu_torch.train import pretrain
     from pretrain_gnns_tpu_torch.train.checkpoints import (
         load_trunk_any, save_trunk_reference_format,
@@ -139,11 +157,8 @@ def main(argv=None):
 
     if args.domain == "bio" and args.dataset == "synthetic":
         args.dataset = "synthetic_bio"
-    if args.dataset not in synthetic.DATASETS:
-        raise SystemExit(f"--dataset {args.dataset} is not ported yet; use "
-                         "synthetic")
-    graphs, _, _ = synthetic.load_dataset(args.dataset, args.n_synthetic,
-                                          args.seed)
+    graphs, _, _ = datasets.load_dataset(args.dataset, args.data_root,
+                                         args.n_synthetic, seed=args.seed)
     num_tasks = 1
     if args.objective == "supervised":
         if args.domain == "bio":
@@ -170,7 +185,8 @@ def main(argv=None):
              if args.input_model_file else None)
     res = pretrain.run_pretrain(
         cfg, graphs, log=lambda s: print(s, flush=True), device=args.device,
-        pretrained_trunk=trunk)
+        pretrained_trunk=trunk, checkpoint_dir=args.checkpoint_dir or None,
+        checkpoint_every=args.checkpoint_every)
     if args.output_model_file:
         path = args.output_model_file + ".pth"
         save_trunk_reference_format(

@@ -58,6 +58,17 @@ _LEAVES = ("node_feat", "edge_feat", "senders", "receivers", "node_graph",
            "node_mask", "edge_mask", "graph_mask", "y")
 
 
+def _to(device, non_blocking: bool):
+    """A leaf's move to ``device``; on the CPU always a copy into torch's
+    own allocation. A leaf that wraps a numpy array keeps numpy's
+    alignment, which varies with the host's allocation history, and MKL's
+    float products on such rows vary in their last bits with it: a run
+    would not repeat bit for bit (a resumed run would not equal the
+    uninterrupted one)."""
+    copy = torch.device(device).type == "cpu"
+    return lambda t: t.to(device, non_blocking=non_blocking, copy=copy)
+
+
 @dataclasses.dataclass
 class PackedGraphs:
     """Fixed-shape batch of graphs; leaves are numpy arrays on the host and
@@ -140,8 +151,9 @@ class PackedGraphs:
     def to(self, device, non_blocking: bool = False) -> "PackedGraphs":
         """Every array leaf as a torch tensor on ``device``. With
         ``non_blocking``, copies from pinned leaves do not wait for the
-        device."""
-        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+        device. On the CPU every leaf is copied into torch's own memory
+        (:func:`_to`)."""
+        return self._map(_to(device, non_blocking))
 
     def pin_memory(self) -> "PackedGraphs":
         """Every array leaf as a page-locked host tensor (needs CUDA)."""
@@ -175,7 +187,7 @@ class PackedPair:
         return PackedPair(self.substruct._map(fn), self.context._map(fn))
 
     def to(self, device, non_blocking: bool = False) -> "PackedPair":
-        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+        return self._map(_to(device, non_blocking))
 
     def pin_memory(self) -> "PackedPair":
         return self._map(lambda t: t.pin_memory())

@@ -210,6 +210,11 @@ class PresampledContextLoader:
                               batch_size)
                 for flats in (self._sub, self._ctx))
 
+    def set_epoch(self, epoch: int) -> None:
+        """Make the next pass the loader's pass ``epoch`` (from 0): its
+        order and variant as in a run that made every pass before it."""
+        self._epoch = int(epoch)
+
     def __len__(self) -> int:
         n = min(len(f) for f in self._sub)
         return (n // self.batch_size if self.drop_last

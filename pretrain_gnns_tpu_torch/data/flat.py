@@ -306,6 +306,12 @@ class FlatLoader:
         self._epoch = 0
         self.last_epoch_stats: Dict[str, float] = {}
 
+    def set_epoch(self, epoch: int) -> None:
+        """Make the next pass the loader's pass ``epoch`` (from 0): its
+        order and transform generator as in a run that made every pass
+        before it."""
+        self._epoch = int(epoch)
+
     def __len__(self) -> int:
         n = len(self.flat)
         return (n // self.batch_size if self.drop_last

@@ -175,6 +175,12 @@ class PackedLoader:
         # packing statistics of the last completed epoch
         self.last_epoch_stats: dict = {}
 
+    def set_epoch(self, epoch: int) -> None:
+        """Make the next pass the loader's pass ``epoch`` (from 0): its
+        order and transform generator as in a run that made every pass
+        before it."""
+        self._epoch = int(epoch)
+
     def __len__(self) -> int:
         n = len(self.graphs)
         return (n // self.batch_size if self.drop_last

@@ -1,7 +1,7 @@
 """Synthetic datasets (port of ``molecule_dataset`` and ``bio_dataset`` of
 ``pretrain_gnns_tpu.data.synthetic``; the same seed gives the same graphs
-and extras), and :func:`load_dataset`, the synthetic stand-ins of the JAX
-package's ``datasets.load_dataset`` that the CLIs take.
+and extras). ``data.datasets.load_dataset`` serves them to the CLIs as
+``synthetic`` and ``synthetic_bio``.
 
 Molecules follow the chem featurization schema: int64 ``x[N, 2]`` (atom
 type, chirality), both directions of every bond, int64 ``edge_attr[E, 2]``
@@ -142,23 +142,3 @@ def bio_dataset(
         graphs.append(g)
     return graphs
 
-
-DATASETS = ("synthetic", "synthetic_bio")
-
-
-def load_dataset(name: str, n_synthetic: int, seed: int = 0):
-    """``(graphs, scaffolds or None, {"num_tasks": T})`` as the JAX
-    package's ``datasets.load_dataset`` gives its synthetic stand-ins:
-    ``synthetic`` is ``n_synthetic`` molecules with two tasks and their
-    pseudo-scaffolds, ``synthetic_bio`` ``max(n_synthetic // 4, 64)``
-    ego-networks with 40 tasks. Real datasets are not ported yet: another
-    name raises ``ValueError``."""
-    if name == "synthetic":
-        graphs, scaffolds = molecule_dataset(n_synthetic, num_tasks=2,
-                                             seed=seed)
-        return graphs, scaffolds, {"num_tasks": 2}
-    if name == "synthetic_bio":
-        return (bio_dataset(max(n_synthetic // 4, 64), seed=seed), None,
-                {"num_tasks": 40})
-    raise ValueError(f"dataset {name!r} is not ported yet; the port has "
-                     f"{', '.join(DATASETS)}")

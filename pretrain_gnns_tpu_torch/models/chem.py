@@ -37,6 +37,8 @@ seed fixes them on a given device."""
 
 from __future__ import annotations
 
+from typing import Dict, Mapping
+
 import torch
 from torch import nn
 
@@ -320,6 +322,28 @@ class TrunkDropout:
             gen.manual_seed(self._dropout_seed)
             self._dropout_generators[device] = gen
         return gen
+
+    def dropout_states(self) -> Dict[str, torch.Tensor]:
+        """The state of each mask generator made so far, by device
+        (``"cpu"``, ``"cuda:0"``); a generator that a CUDA graph registered
+        gives its state after the graph's replays."""
+        return {str(dev): gen.get_state()
+                for dev, gen in self._dropout_generators.items()}
+
+    def load_dropout_states(self, states: Mapping[str, torch.Tensor],
+                            device) -> None:
+        """Restart the masks from the seed, then set the generators of
+        ``device``'s type from ``states`` (:meth:`dropout_states`). Another
+        type's generator draws other masks from the same state, so a state
+        of another type is left out: such a device's masks start from the
+        seed. A state read onto the card goes back to the host, where a
+        generator keeps it."""
+        self.seed_dropout(self._dropout_seed)
+        kind = torch.device(device).type
+        for name, state in states.items():
+            if torch.device(name).type == kind:
+                self.dropout_generator(torch.device(name)).set_state(
+                    state.cpu())
 
     def dropout(self, h: torch.Tensor, train: bool) -> torch.Tensor:
         p = self.drop_ratio

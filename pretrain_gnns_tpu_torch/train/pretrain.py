@@ -337,6 +337,8 @@ def run_pretrain(
     epochs: Optional[int] = None,
     device=None,
     pretrained_trunk: Optional[Mapping[str, torch.Tensor]] = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
 ) -> Dict[str, Any]:
     """Train ``cfg.objective`` in ``cfg.domain``. ``device`` defaults
     to ``"cuda"``; without CUDA that raises ``RuntimeError`` unless
@@ -346,10 +348,20 @@ def run_pretrain(
     the seeded trunk at :func:`trunk_path` before the first step, the
     heads keeping their seeded draws: the reference's two stages,
     self-supervised then supervised (chem/pretrain_supervised.py:132-133).
+    With ``checkpoint_dir``, the whole train state is saved there
+    (``train.checkpoints.CheckpointManager``) every ``checkpoint_every``
+    epochs (0: none but the last) and at the end, and a run resumes from
+    the latest checkpoint there, restored before the first step: it logs
+    ``resumed from step S (epoch E)`` and trains epochs ``E..epochs``. The
+    loader then starts at pass E - 1, so that the resumed epochs see the
+    order, the transforms' draws and the context variants of an
+    uninterrupted run (which the JAX package's resume does not), and the
+    run equals the uninterrupted one bit for bit wherever its steps repeat.
     History rows: ``epoch``, ``loss`` and the metrics (means over the
     epoch's steps), ``edges`` (valid edges, each directed edge once per
-    step) and ``steps``. The result also names ``scan_steps`` (the
-    resolved K), the run's ``replays`` and its ``eager_steps``."""
+    step) and ``steps``, one for each epoch this call trained. The result
+    also names ``scan_steps`` (the resolved K), the run's ``replays``, its
+    ``eager_steps`` and ``start_epoch``."""
     dev = resolve_device(device)
     k = resolve_scan_steps(cfg.scan_steps, dev)
     model = build_objective(cfg)
@@ -359,14 +371,28 @@ def run_pretrain(
     loader = build_loader(cfg, graphs, dev)
     state = TrainState(model, optim.adam(model.parameters(), cfg.lr,
                                          cfg.decay))
+    # restore before the first step: a capture holds the optimizer's state
+    # tensors by address
+    mgr, start = None, 1
+    if checkpoint_dir:
+        mgr = checkpoints.CheckpointManager(checkpoint_dir)
+        latest = mgr.latest_step()
+        if latest is not None:
+            mgr.restore(state, latest)
+            start = state.epoch + 1
+            if log:
+                log(f"resumed from step {latest} (epoch {start})")
+    loader.set_epoch(start - 1)
+    first_step = state.step
     meter = ThroughputMeter()
     pin = dev.type == "cuda"
     n_epochs = epochs or cfg.epochs
-    batches = prefetch(_run_batches(loader, n_epochs, k, pin), depth=2)
+    batches = prefetch(_run_batches(loader, max(n_epochs - start + 1, 0), k,
+                                    pin), depth=2)
     scan = None
 
     history = []
-    for epoch in range(1, n_epochs + 1):
+    for epoch in range(start, n_epochs + 1):
         meter.reset()
         parts, agg = [], {}
         replays = eager = 0
@@ -404,7 +430,7 @@ def run_pretrain(
         row["steps"] = meter.steps
         history.append(row)
         if log:
-            if epoch == 1:
+            if epoch == start:
                 log(f"loader: {type(loader).__name__}, {stats['batches']} "
                     "batches, "
                     f"{stats['graphs_per_batch']:.1f} graphs/batch "
@@ -416,10 +442,19 @@ def run_pretrain(
                          f"{key}={v}" for key, v in row.items())
                 + f" edges/s={meter.edges_per_sec():.1f}"
                 f" replays={replays} eager_steps={eager}")
+        state.epoch = epoch
+        if mgr and checkpoint_every and epoch % checkpoint_every == 0:
+            mgr.save(state.step, state)
+    if mgr:
+        if mgr.latest_step() != state.step:
+            mgr.save(state.step, state)
+        mgr.close()
     return {"state": state, "model": model, "history": history,
             "loader": loader, "scan_steps": k,
             "replays": scan.replays if scan else 0,
-            "eager_steps": scan.eager_steps if scan else state.step}
+            "eager_steps": (scan.eager_steps if scan
+                            else state.step - first_step),
+            "start_epoch": start}
 
 
 def trunk_path(cfg: PretrainConfig) -> Tuple[str, ...]:

@@ -2009,3 +2009,83 @@ def test_finetune_step_and_eval_on_card_match_cpu(cuda_device, domain,
     assert sum(sc.values()) == 2 * per, sc
     assert sum(ec.values()) == len(val) * per, (len(val), ec)
     assert all(v == 0 for k, v in ec.items() if "_bwd" in k), ec
+
+
+def _equal_states(a, b):
+    """Two ``TrainState.state_dict()``s bit for bit: the parameters and
+    batch-norm statistics, Adam's moments and steps, the step, the epoch
+    and the dropout generators' states."""
+    assert (a["step"], a["epoch"]) == (b["step"], b["epoch"])
+    for name, v in a["model"].items():
+        assert torch.equal(b["model"][name], v), name
+    sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+    assert sa.keys() == sb.keys()
+    for i in sa:
+        for key, v in sa[i].items():
+            assert torch.equal(sb[i][key], v), (i, key)
+    assert a["dropout"].keys() == b["dropout"].keys()
+    for name, states in a["dropout"].items():
+        assert states.keys() == b["dropout"][name].keys()
+        for dev, v in states.items():
+            assert torch.equal(b["dropout"][name][dev], v), (name, dev)
+
+
+def _supervised_run(graphs, T, dev, epochs, **kw):
+    cfg = pretrain.PretrainConfig(
+        objective="supervised", num_layer=3, emb_dim=48, batch_size=32,
+        packing="blocked", scan_steps=4, num_tasks=T, graph_pooling="mean",
+        dropout_ratio=0.2)
+    return pretrain.run_pretrain(cfg, graphs, log=kw.pop("log", None),
+                                 epochs=epochs, device=dev, **kw)
+
+
+@pytest.mark.cuda
+def test_resume_under_replays_equals_the_uninterrupted_run(cuda_device,
+                                                           tmp_path):
+    """Chem supervised GIN at dropout 0.2, scan_steps 4, 8 batches an
+    epoch: 3 epochs in one run against 2 epochs with a checkpoint each
+    epoch and a fresh run to 3 from the same directory. Both parts capture
+    and replay, so the dropout generator's saved state is its state after
+    replays, and the resumed run registers the restored generator with its
+    own capture. Everything bit for bit, the history of epoch 3 too."""
+    graphs, _ = molecule_dataset(256, num_tasks=5, seed=2, missing_frac=0.2)
+    graphs, T = pretrain.supervised_graphs(graphs, "chem")
+    whole = _supervised_run(graphs, T, cuda_device, 3)
+    ck = str(tmp_path / "ck")
+    first = _supervised_run(graphs, T, cuda_device, 2, checkpoint_dir=ck,
+                            checkpoint_every=1)
+    logs = []
+    resumed = _supervised_run(graphs, T, cuda_device, 3, checkpoint_dir=ck,
+                              checkpoint_every=1, log=logs.append)
+    assert first["replays"] and resumed["replays"]
+    assert "resumed from step 16 (epoch 3)" in logs
+    assert resumed["history"] == whole["history"][2:]
+    _equal_states(whole["state"].state_dict(), resumed["state"].state_dict())
+    assert whole["state"].state_dict()["dropout"]["pred.gnn"]
+
+
+@pytest.mark.cuda
+def test_a_card_checkpoint_continues_on_the_cpu(cuda_device, tmp_path):
+    """Two epochs on the card with a checkpoint, then a CPU run to epoch 3
+    from the same directory: the card's capturable Adam groups do not come
+    along (capturable Adam raises on CPU parameters), the moments and the
+    steps do, and the run trains on."""
+    graphs, _ = molecule_dataset(256, num_tasks=5, seed=2, missing_frac=0.2)
+    graphs, T = pretrain.supervised_graphs(graphs, "chem")
+    ck = str(tmp_path / "ck")
+    card = _supervised_run(graphs, T, cuda_device, 2, checkpoint_dir=ck)
+    assert all(g["capturable"] for g in card["state"].optimizer.param_groups)
+    saved = card["state"].state_dict()
+    logs = []
+    cpu = _supervised_run(graphs, T, "cpu", 3, checkpoint_dir=ck,
+                          log=logs.append)
+    assert "resumed from step 16 (epoch 3)" in logs
+    assert not any(g["capturable"] for g in cpu["state"].optimizer.param_groups)
+    assert cpu["state"].step == 24 and [h["epoch"]
+                                       for h in cpu["history"]] == [3]
+    assert np.isfinite(cpu["history"][0]["loss"])
+    # the CPU run started from the card's moments and parameters
+    restored = torch.load(f"{ck}/step_{16:09d}.pt", map_location="cpu",
+                          weights_only=True)
+    for name, v in saved["model"].items():
+        assert torch.equal(restored["model"][name], v.cpu()), name

@@ -46,6 +46,7 @@ from pretrain_gnns_tpu_torch.cli import finetune as cli
 from pretrain_gnns_tpu_torch.cli import pretrain as pcli
 from pretrain_gnns_tpu_torch.compat.from_jax import state_dict_from_jax
 from pretrain_gnns_tpu_torch.core.graphs import NODE_IDX
+from pretrain_gnns_tpu_torch.data import datasets as tdatasets
 from pretrain_gnns_tpu_torch.data import packing as tpk
 from pretrain_gnns_tpu_torch.data import splitters as tsplit
 from pretrain_gnns_tpu_torch.data import synthetic as tsyn
@@ -129,8 +130,10 @@ def test_cv_folds_equal_jax(labels, seed):
 @pytest.mark.parametrize("name", ["synthetic", "synthetic_bio"])
 def test_synthetic_datasets_equal_jax(name):
     """The CLIs' datasets are the JAX ``load_dataset``'s: graphs, labels,
-    scaffolds and task counts; a real dataset's name raises."""
-    graphs, scaffolds, meta = tsyn.load_dataset(name, 96, seed=42)
+    scaffolds and task counts; a dataset that is not stored raises, naming
+    the port's featurizer."""
+    graphs, scaffolds, meta = tdatasets.load_dataset(name, "unused", 96,
+                                                     seed=42)
     ref, ref_scaffolds, ref_meta = jdatasets.load_dataset(name, "unused", 96,
                                                           seed=42)
     assert meta == ref_meta and scaffolds == ref_scaffolds
@@ -139,8 +142,9 @@ def test_synthetic_datasets_equal_jax(name):
         np.testing.assert_array_equal(a.node_feat, b.node_feat)
         np.testing.assert_array_equal(a.edge_index, b.edge_index)
         np.testing.assert_array_equal(a.y, b.y)
-    with pytest.raises(ValueError, match="not ported"):
-        tsyn.load_dataset("tox21", 96)
+    with pytest.raises(FileNotFoundError,
+                       match="pretrain_gnns_tpu_torch.cli.featurize"):
+        tdatasets.load_dataset("tox21", "unused", 96)
 
 
 # --- metrics -----------------------------------------------------------------
@@ -570,7 +574,8 @@ def test_cli_finetune_writes_the_jax_result(domain, tmp_path, monkeypatch):
 
 def test_cli_finetune_cv_and_unported(tmp_path):
     """``--cv_fold``: batch 8 by default and a ``result.json`` with the
-    JAX CLI's keys; an unported dataset exits."""
+    JAX CLI's keys; a dataset that is not stored under ``--data_root``
+    raises, naming the port's featurizer."""
     out = cli.main(["--device", "cpu", "--num_layer", "2", "--emb_dim", "16",
                     "--epochs", "1", "--n_synthetic", "64", "--cv_fold", "2",
                     "--run_dir", str(tmp_path)])
@@ -580,12 +585,13 @@ def test_cli_finetune_cv_and_unported(tmp_path):
     assert sorted(res) == ["best_epoch", "config", "dataset", "fold",
                            "metric", "test", "val"]
     assert res["metric"] == "accuracy" and res["val"] == res["test"]
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.main(["--device", "cpu", "--dataset", "bbbp"])
+    with pytest.raises(FileNotFoundError,
+                       match="pretrain_gnns_tpu_torch.cli.featurize"):
+        cli.main(["--device", "cpu", "--dataset", "bbbp",
+                  "--data_root", str(tmp_path)])
     jflags = {a.dest: a.default for a in jcli.build_parser()._actions}
     mine = {a.dest: a.default for a in cli.build_parser()._actions}
-    # every flag of the JAX CLI with its default, but the halo's and the
-    # real datasets' root, which wait for their modules; plus --device
-    assert {k: v for k, v in jflags.items()
-            if k not in ("halo_devices", "data_root")} == {
+    # every flag of the JAX CLI with its default, but the halo's, which
+    # waits for its module; plus --device
+    assert {k: v for k, v in jflags.items() if k != "halo_devices"} == {
                 k: v for k, v in mine.items() if k != "device"}

@@ -159,9 +159,18 @@ def test_cli_trains_one_epoch_on_cpu(tmp_path):
 @pytest.mark.parametrize("flags", [["--dataset", "bbbp"],
                                    ["--objective", "supervised",
                                     "--gnn_type", "gine"]])
-def test_cli_rejects_what_is_not_ported(flags):
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.main(["--device", "cpu", "--epochs", "1", *flags])
+def test_cli_rejects_what_is_not_ported(flags, tmp_path):
+    """A conv family the port lacks exits; a dataset name that is not
+    stored under ``--data_root`` raises, naming the port's featurizer."""
+    argv = ["--device", "cpu", "--epochs", "1", "--data_root",
+            str(tmp_path), *flags]
+    if flags[0] == "--dataset":
+        with pytest.raises(FileNotFoundError,
+                           match="pretrain_gnns_tpu_torch.cli.featurize"):
+            cli.main(argv)
+    else:
+        with pytest.raises(SystemExit, match="not ported"):
+            cli.main(argv)
 
 
 @pytest.mark.parametrize("domain,mode", [("chem", "cbow"),

@@ -552,7 +552,7 @@ def test_cli_supervised_one_epoch_on_cpu(tmp_path, flags, trunk):
     trunk(num_layer=2, emb_dim=32).load_state_dict(saved, strict=True)
 
 
-def test_cli_dropout_default_and_unported_flags():
+def test_cli_dropout_default_and_unported_flags(tmp_path):
     parse = cli.build_parser().parse_args
     assert cli.resolve_dropout(parse(["--objective", "supervised"])) == 0.2
     assert cli.resolve_dropout(parse(["--objective", "masking"])) == 0.0
@@ -562,6 +562,9 @@ def test_cli_dropout_default_and_unported_flags():
     # ported: --input_model_file (tests/test_torch_port_trunk_io.py)
     assert parse(["--input_model_file", "t.pth"]).input_model_file == \
         "t.pth"
-    with pytest.raises(SystemExit, match="not ported"):
+    # real datasets come from the store under --data_root
+    with pytest.raises(FileNotFoundError,
+                       match="pretrain_gnns_tpu_torch.cli.featurize"):
         cli.main(["--objective", "supervised", "--device", "cpu",
-                  "--dataset", "chembl_filtered"])
+                  "--dataset", "chembl_filtered", "--data_root",
+                  str(tmp_path)])

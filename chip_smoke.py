@@ -161,7 +161,8 @@ Phases, in order (any failure exits non-zero):
      first batch's loss on the CPU against the standard layout's on the
      same pairs, each trunk's launches counted apart, the float32
      agreement step refereed by a float64 CPU step (chem also in
-     skipgram), 48 steps with K1 (chem) or K2 ``[x]`` and ``[ein]`` (bio)
+     skipgram; bio at BIO_REFEREE_LAYERS layers of the substructure
+     trunk), 48 steps with K1 (chem) or K2 ``[x]`` and ``[ein]`` (bio)
      at 5 + 3 a step each way, the capture phase, then at the knobs'
      defaults the bfloat16 agreement step, 48 steps and the capture
      phase, the rate printed beside float32's;
@@ -230,7 +231,11 @@ Phases, in order (any failure exits non-zero):
      eval batch (eager steps, eval under ``torch.no_grad()``), the curves
      finite; printed: valid edges/s of epochs 2-3, eval graphs/s, the
      per-epoch AUCs, and the card's busy share of profiled train steps and
-     of a validation pass;
+     of a validation pass; then the study tools at the knobs' defaults:
+     ``cli.sweep`` cut to 1 seed x 2 configs (``nopretrain`` and
+     ``masking`` from the chem masking trunk) x 1 epoch on the synthetic
+     molecules at full width, its launches counted, and ``cli.aggregate``
+     on its results (one row a config, the test AUCs in [0, 1]);
   29. step checkpoints with resume, on the dataset store: the chem
      masking path's 4,096 molecules (with their scaffolds) and the bio
      masking path's 4,096 ego-networks (with their extras) written to a
@@ -250,7 +255,24 @@ Phases, in order (any failure exits non-zero):
      trunk (1 epoch at phase 28's settings, the scaffold split of the
      stored scaffolds.txt, K1 at 5 a train step each way and 5 forwards
      an eval batch);
-  30. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
+  30. the reference's per-graph transforms in the loader
+     (``transform_device="host"``: ``MaskAtom``, ``NegativeEdge`` with its
+     pairs moved into the block slots, ``ContextPairLoader`` drawing every
+     pair anew each epoch on the graphs' block geometry), float32 at full
+     width, K = 16: chem masking GIN (K1), bio edge prediction GIN (K2
+     ``[x]``, ``[ein]`` and K3) and chem context prediction GIN (K1, both
+     trunks), each the host loader's first epoch on one thread (ms a
+     batch, one layout, the negatives in the block slots only), the
+     float32 agreement step on its first batch (edge and context
+     prediction refereed as in phase 25), the 48-step path with
+     every launch count checked, and its edges/s beside the same path
+     under "batch" from earlier in the run, with the card's busy share of
+     the timed epoch and its ms a replayed step (``torch.profiler`` over
+     the epoch) beside the loader's ms a batch (at 16 batches an epoch the
+     prefetch queue's two groups, made during epochs 1 and 2, feed the
+     timed epoch; the loader's ms a batch against the card's ms a step
+     bounds a longer run);
+  31. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
      defaults (chem masking GIN on 16,384 molecules and bio masking GIN,
      5 windows of 4 epochs each after 2 warm-up epochs), at
      ``--scan_steps 1`` (every step eager), then at its default (K =
@@ -260,8 +282,9 @@ Then one ``{"kernels": [...]}`` line (each kernel's ``launches``, the
 wrapper calls counted on the path that runs it at the entry's ``shape``,
 ``launches_per_step``, those calls over the steps that made them,
 ``replays``, the CUDA-graph replays of the run, ``launches_counted``:
-how the count was read, and ``finetune``: the fine-tune runs' calls, their
-train steps and eval batches), the card
+how the count was read, ``finetune``: the fine-tune runs' calls, their
+train steps and eval batches, ``sweep``: the sweep's calls, and
+``host_paths``: each host path's calls), the card
 line and, last, the result line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this script, it exits non-zero and prints no result.
@@ -346,10 +369,11 @@ STEP_GRAD_TOL = 2e-3
 REFEREE_K = 4.0
 NOISE_SAMPLES = 16
 NOISE_EPS = 1e-7
-# The bio edge-prediction and infomax agreement steps, refereed so, take
-# BIO_REFEREE_LAYERS layers of the path's trunk: at 5 their float64 and 17
-# float32 CPU steps on the bio first batch took 77-86 s each; the paths
-# themselves run all 5 layers on the card after them.
+# The bio edge-prediction, infomax and context-prediction float32 agreement
+# steps, refereed so, take BIO_REFEREE_LAYERS layers of the path's trunk:
+# at 5 their float64 and float32 CPU steps on the bio first batch took
+# 77-86 s (17 float32 steps) and 40 s (5); the paths themselves run all 5
+# layers on the card after them.
 BIO_REFEREE_LAYERS = 2
 # bfloat16 (the JAX bench's recipe: the model's knob at bfloat16_act, the
 # kernels' at bfloat16). A bfloat16 variant against its plain version at
@@ -624,7 +648,9 @@ def unfused_layer_ms(torch, conv, x, batch, g, k1_out):
 def path_name(cfg, fused="on") -> str:
     unfused = " unfused" * (fused == "off")
     mode = f" {cfg.mode}" * (cfg.objective == "contextpred")
-    return f"{cfg.domain} {cfg.objective} {cfg.gnn_type}{mode}{unfused}"
+    host = " host" * (cfg.transform_device == "host")
+    return (f"{cfg.domain} {cfg.objective} {cfg.gnn_type}{mode}{unfused}"
+            f"{host}")
 
 
 @contextlib.contextmanager
@@ -744,7 +770,7 @@ def read_counts(modules):
 
 def main_path_phase(torch, graphs, cfg, card, per_step,
                     epochs=MAIN_EPOCHS, fused="on", reprobe=False,
-                    precision="float32"):
+                    precision="float32", profile=False):
     """``run_pretrain`` on the card at the resolved default ``scan_steps``
     K (16): after the run's first eager steps each group of K batches is
     one CUDA-graph replay. Every launch count is set to 0 just before and
@@ -757,7 +783,10 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
     launch must load the library anew and launch the probe: exactly once in
     the run. Returns (the counts, the steps that made them, how each count
     was read, the run's replays, its edges/s after the capture, the trained
-    objective).
+    objective, and with ``profile`` the card's busy share of the timed
+    epoch and its busy ms a step: ``torch.profiler`` runs from the log
+    line of the epoch before it to its own, and the union of the device
+    activities' intervals is taken over that wall time; else None, None).
     ``precision`` names the knobs' setting in the printed line."""
     from pretrain_gnns_tpu_torch.ops import _build, gin_conv
     from pretrain_gnns_tpu_torch.train import pretrain
@@ -765,12 +794,20 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
     name = path_name(cfg, fused)
     tag = f"[{name}{' ' + precision if precision != 'float32' else ''} path]"
     stamps, replayed = [], []
+    prof = []
 
     def log(msg):
         print(f"{tag} {msg}", flush=True)
         if msg.startswith("epoch="):
             stamps.append(time.perf_counter())
             replayed.append(" replays=0 " not in msg)
+            # the epoch's loss was read back: its device work is done
+            if profile and len(stamps) == epochs - 1:
+                prof.append(torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]))
+                prof[0].__enter__()
+            elif prof and len(stamps) == epochs:
+                prof[0].__exit__(None, None, None)
 
     modules = counted_modules()
     torch.cuda.reset_peak_memory_stats()
@@ -809,6 +846,13 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
         raise AssertionError(f"{name} path: no epoch after the capture's")
     edges = sum(h["edges"] for h in hist[first:])
     rate = edges / (stamps[-1] - stamps[first - 1])
+    busy = step_ms = None
+    if profile:
+        if first != epochs - 1:
+            raise AssertionError(f"{name} path: the capture was not in "
+                                 "the epoch before the last")
+        busy = busy_ms(prof[0]) / 1e3 / (stamps[-1] - stamps[-2])
+        step_ms = busy_ms(prof[0]) / hist[-1]["steps"]
     print(f"{tag} K = {k}: {replays} replays and {eager} eager steps, "
           f"{steps} steps; launches counted "
           f"{ {key: v for key, v in counts.items() if v} }; "
@@ -816,9 +860,12 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
           f"over epochs {first + 1}-{epochs} "
           f"({sum(h['steps'] for h in hist[first:])} steps, {precision}) "
           f"on {card}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
-          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
-    return counts, counted, how, replays, rate, res["model"]
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB"
+          + (f"; the card busy {100 * busy:.1f}% of epoch {epochs}'s wall "
+             f"time, {step_ms:.3f} ms a step (profiled)" if profile else "")
+          + f" [{time.perf_counter() - T0:.0f} s]", flush=True)
+    return (counts, counted, how, replays, rate, res["model"], busy,
+            step_ms)
 
 
 def record_launches(entries, launched, names=None):
@@ -3246,7 +3293,10 @@ def contextpred_section(torch, card, chem_graphs_of, bio_graphs):
     300-term dot products, as edge prediction's), the 48-step path with
     both trunks' launches counted, its capture phase, and the same at the
     knobs' defaults (the bfloat16 kernels on float32 rows): agreement,
-    path with its rate beside float32, capture."""
+    path with its rate beside float32, capture. The bio float32 agreement
+    step takes BIO_REFEREE_LAYERS layers of the substructure trunk (its
+    float64 referee at 5 took 40 s); the bfloat16 one, which holds a
+    control, all 5. Returns each path's float32 rate by name."""
     import dataclasses
 
     from pretrain_gnns_tpu_torch.train import pretrain
@@ -3255,6 +3305,7 @@ def contextpred_section(torch, card, chem_graphs_of, bio_graphs):
     base = dict(objective="contextpred", num_layer=LAYERS, emb_dim=EMB,
                 batch_size=BATCH, seed=0, packing="auto", csize=3,
                 mode="cbow", l1=1, center=True)
+    rates = {}
     for domain, per_step in (("chem", CP_K1), ("bio", CP_BIO_K2)):
         cfg = pretrain.PretrainConfig(domain=domain, **base)
         graphs = (chem_graphs_of(CP_CHEM_GRAPHS) if domain == "chem"
@@ -3263,13 +3314,14 @@ def contextpred_section(torch, card, chem_graphs_of, bio_graphs):
         first = pair_loader_phase(torch, pairs, cfg, dev)
         describe_pair(f"data {path_name(cfg)}", first)
         trunk_launches(torch, first, cfg, per_step)
-        agreement_phase(torch, first, cfg, referee=True,
+        agreement_phase(torch, first, referee_depth(cfg), referee=True,
                         noise_samples=CP_NOISE_SAMPLES)
         if domain == "chem":
             agreement_phase(torch, first,
                             dataclasses.replace(cfg, mode="skipgram"),
                             referee=True, noise_samples=CP_NOISE_SAMPLES)
-        rate = main_path_phase(torch, pairs, cfg, card, per_step)[4]
+        rate = rates[path_name(cfg)] = main_path_phase(
+            torch, pairs, cfg, card, per_step)[4]
         capture_phase(torch, pairs, cfg, per_step)
         with precision("float32", "bfloat16"):
             bf16_agreement(torch, first, cfg)
@@ -3283,6 +3335,7 @@ def contextpred_section(torch, card, chem_graphs_of, bio_graphs):
               f"edges/s (both streams) at the knobs' defaults against "
               f"{rate:.1f} in float32 ({default / rate:.3f}x), on {card} "
               f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+    return rates
 
 
 # --- fine-tuning from a pretrained trunk -------------------------------------
@@ -3879,6 +3932,168 @@ def resume_section(torch, card, chem_graphs, chem_scaffolds, bio_graphs):
           f"on {card} [{time.perf_counter() - T0:.0f} s]", flush=True)
 
 
+# --- the per-graph host transforms (transform_device="host") ---------------
+
+# (domain, objective, launches a step): chem masking GIN on K1, bio edge
+# prediction GIN on K2 [x], [ein] and K3 (on the per-graph negatives moved
+# into the block slots), chem context prediction GIN on K1 (both trunks,
+# every pair drawn anew each epoch)
+HOST_PATHS = (("chem", "masking", K1), ("bio", "edgepred", {**BIO_K2, **K3}),
+              ("chem", "contextpred", CP_K1))
+
+
+def host_loader_phase(torch, cfg, graphs, dev):
+    """The host loader's first epoch on one thread (the per-graph
+    transform and the packing, ms a batch), each batch blocked on one
+    layout; the edge-prediction batches carry their negatives in the
+    block slots only. Returns the first batch and the ms a batch."""
+    from pretrain_gnns_tpu_torch.train import pretrain
+
+    tag = f"[{path_name(cfg)} loader]"
+    loader = pretrain.build_loader(cfg, graphs, dev)
+    t = time.perf_counter()
+    batches = list(loader)
+    ms = (time.perf_counter() - t) * 1e3 / len(batches)
+    layouts = {b.layout for b in batches}
+    streams = ((batches[0].substruct, batches[0].context)
+               if cfg.objective == "contextpred" else (batches[0],))
+    if len(layouts) != 1 or not all(g.block_nodes > 0 for g in streams):
+        raise AssertionError(f"{tag} layouts {layouts}")
+    if cfg.objective == "edgepred":
+        for b in batches:
+            ex = b.extras
+            if "negative_edges" in ex or not ex[
+                    "negative_edges_blocked_mask"].any():
+                raise AssertionError(f"{tag} the negatives are not in the "
+                                     "block slots")
+    print(f"{tag} {type(loader).__name__}: {len(batches)} batches, "
+          f"{loader.last_epoch_stats['edges']} valid edges, blocks "
+          f"{loader.blocks}; host ms a batch (the per-graph transform and "
+          f"the packing, one thread) {ms:.3f} "
+          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+    return batches[0], ms
+
+
+def record_host(entries, name, launched):
+    """Adds a host path's launches to the float32 ``kernels`` entries of
+    the kernels it ran, under ``host_paths``."""
+    counts, steps = launched[:2]
+    for k in entries:
+        key = k.get("counter", k["name"])
+        if counts.get(key) and "[bf16]" not in k["name"]:
+            k.setdefault("host_paths", []).append({
+                "path": name, "launches": counts[key],
+                "launches_per_step": counts[key] // steps,
+                "replays": launched[3]})
+
+
+def host_section(torch, card, chem_graphs_of, bio_graphs, batch_rates,
+                 entries):
+    """``transform_device="host"`` at full width, float32, K = 16 (the
+    reference's per-graph transforms in the loader's prefetch thread): for
+    each of HOST_PATHS the host loader's first epoch, the float32
+    agreement step on its first batch (edge and context prediction
+    refereed by a float64 CPU step, bio at BIO_REFEREE_LAYERS layers, the
+    float32 noise from 1 + CP_NOISE_SAMPLES CPU steps: fewer samples can
+    only lower the limit), the
+    48-step path with its launches counted, its edges/s beside the same
+    path's under "batch" from earlier in the run and the card's busy share
+    of the timed epoch."""
+    import dataclasses
+
+    from pretrain_gnns_tpu_torch.train import pretrain
+
+    dev = torch.device("cuda")
+    for domain, objective, per_step in HOST_PATHS:
+        cfg = pretrain.PretrainConfig(
+            objective=objective, domain=domain, num_layer=LAYERS,
+            emb_dim=EMB, batch_size=BATCH, mask_edge=False, seed=0,
+            packing="auto", csize=3, transform_device="host")
+        graphs = (bio_graphs if domain == "bio" else chem_graphs_of(
+            CP_CHEM_GRAPHS if objective == "contextpred" else MAIN_GRAPHS))
+        first, host_ms = host_loader_phase(torch, cfg, graphs, dev)
+        if objective == "contextpred":
+            describe_pair(f"data {path_name(cfg)}", first)
+        else:
+            describe(f"data {path_name(cfg)}", first)
+        agreement_phase(torch, first, referee_depth(cfg),
+                        referee=objective != "masking",
+                        noise_samples=CP_NOISE_SAMPLES)
+        launched = main_path_phase(torch, graphs, cfg, card, per_step,
+                                   profile=True)
+        record_host(entries, path_name(cfg), launched)
+        rate, busy, step_ms = launched[4], launched[6], launched[7]
+        batch = batch_rates[path_name(dataclasses.replace(
+            cfg, transform_device="auto"))]
+        # the prefetch queue holds two groups of K batches: at 16 batches
+        # an epoch, what the thread made during the eager epoch and the
+        # capture feeds the timed epoch, so its rate is the card's; the
+        # loader's ms a batch against the card's ms a step bounds a long
+        # run's
+        print(f"[{path_name(cfg)}] {rate:.1f} valid edges/s under host "
+              f"against {batch:.1f} under batch ({rate / batch:.3f}x), the "
+              f"card busy {100 * busy:.1f}% of the timed epoch, fed from "
+              f"the prefetch queue; the loader's {host_ms:.3f} ms a batch "
+              f"on one thread against the card's {step_ms:.3f} ms a "
+              f"replayed step bounds a long run at "
+              f"{min(1.0, step_ms / host_ms):.3f} of the card's rate; on "
+              f"{card} [{time.perf_counter() - T0:.0f} s]", flush=True)
+
+
+# --- the study tools: cli.sweep and cli.aggregate ---------------------------
+
+
+def sweep_phase(torch, card, trunk, entries):
+    """``cli.sweep`` on the card at the knobs' defaults, the protocol's
+    first block cut to 1 seed x 2 configs (``nopretrain`` and ``masking``,
+    the chem masking path's trunk) x 1 epoch on the synthetic molecules at
+    full width, each run a ``cli.finetune``; then ``cli.aggregate`` on its
+    results. The runs' launches are counted and added to the bfloat16
+    ``kernels`` entries under ``sweep``."""
+    import shutil
+
+    from pretrain_gnns_tpu_torch.cli import aggregate, sweep
+
+    tag = "[sweep]"
+    modules = counted_modules()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as d:
+        os.makedirs(os.path.join(d, "models"))
+        shutil.copy(trunk, os.path.join(d, "models", "masking.pth"))
+        results = os.path.join(d, "runs")
+        for m in modules:
+            m.reset_launches()
+        t = time.perf_counter()
+        with precision("float32", "bfloat16"):
+            sweep.main(["--datasets", "synthetic", "--seeds", "0",
+                        "--configs", "nopretrain", "masking", "--epochs", "1",
+                        "--model_dir", os.path.join(d, "models"),
+                        "--result_dir", results, "--device", "cuda"])
+        seconds = time.perf_counter() - t
+        counts = {k: v for k, v in read_counts(modules).items() if v}
+        with open(os.path.join(results, "sweep_summary.json")) as f:
+            summary = json.load(f)
+        table = aggregate.main(["--result_dir", results,
+                                "--out", os.path.join(d, "agg.json")])
+    rows = {(t["dataset"], t["config"]): t for t in table}
+    if (len(summary) != 2 or sorted(rows) != [("synthetic", "masking"),
+                                             ("synthetic", "nopretrain")]
+            or not all(0.0 <= r["test_auc"] <= 1.0 for r in summary)
+            or not all(t["n_seeds"] == 1 for t in table)
+            or not counts.get("gin_conv_fwd")):
+        raise AssertionError(f"{tag} summary {summary}, table {table}, "
+                             f"launches {counts}")
+    for k in entries:
+        key = k.get("counter", k["name"])
+        if counts.get(key) and "[bf16]" in k["name"]:
+            k["sweep"] = {"runs": len(summary), "launches": counts[key]}
+    print(f"{tag} cli.sweep: {len(summary)} cli.finetune runs in "
+          f"{seconds:.1f} s (1 epoch each, GIN {LAYERS} x {EMB}, the knobs' "
+          f"defaults); launches {counts}; cli.aggregate: "
+          + "; ".join(f"{c} test AUC {t['mean_test_auc']:.4f}"
+                      for (_, c), t in sorted(rows.items()))
+          + f" [{time.perf_counter() - T0:.0f} s]", flush=True)
+
+
 def bench_phase():
     """``python -m pretrain_gnns_tpu_torch.bench`` at ``--scan_steps 1``
     (eager steps), at its defaults (K = 16, CUDA-graph replays), at
@@ -4058,7 +4273,8 @@ def main() -> int:
     capture_phase(torch, graphs, cfg, {**GCN_K2, **K3})
     for path, per_step in ((("bio", "gin"), {**BIO_K2, **K3}),
                            (("bio", "graphsage"), {**GCN_K2, **K3})):
-        main_path_phase(torch, *paths[path], card, per_step)
+        rated(paths[path][1], main_path_phase(torch, *paths[path], card,
+                                              per_step))
         capture_phase(torch, *paths[path], per_step)
 
     # GAT: K4 (the fused conv) and K5 (the attention of the unfused conv)
@@ -4172,10 +4388,11 @@ def main() -> int:
 
     # context prediction: the substructure and the context trunk (5 + 3
     # layers) on two blocked streams, through K1 (chem) and K2 (bio)
-    contextpred_section(
-        torch, card,
-        lambda n: molecule_dataset(n, seed=0, mean_atoms=MEAN_ATOMS)[0],
-        bio_graphs)
+    chem_graphs_of = (
+        lambda n: chem_graphs if n == MAIN_GRAPHS else
+        molecule_dataset(n, seed=0, mean_atoms=MEAN_ATOMS)[0])
+    f32_rates.update(contextpred_section(torch, card, chem_graphs_of,
+                                         bio_graphs))
 
     # mixed precision: the bfloat16 variants of K1, K2 and K3, and four
     # paths under the JAX bench's recipe
@@ -4190,11 +4407,19 @@ def main() -> int:
 
     # fine-tuning from the masking paths' trunks, through cli.finetune
     finetuned = finetune_section(torch, card, trunks, trunk_dir.name)
+    # the study tools: a cut sweep from the chem masking trunk, aggregated
+    sweep_phase(torch, card, trunks["chem"], kernels + k2 + k3 + bf16)
     trunk_dir.cleanup()
 
     # step checkpoints with resume on the dataset store, then fine-tuning
     # on the stored chem dataset
     resume_section(torch, card, chem_graphs, chem_scaffolds, bio_graphs)
+
+    # the reference's per-graph transforms in the loader: chem masking,
+    # bio edge prediction (K3 on the negatives moved into the block slots)
+    # and chem context prediction (every pair drawn anew each epoch)
+    host_section(torch, card, chem_graphs_of, bio_graphs, f32_rates,
+                 kernels + k2 + k3)
 
     bench_phase()
     kernels += k2 + k3 + k45 + k67 + probe + bf16

@@ -55,6 +55,14 @@ on CUDA one CUDA-graph replay of K captured steps a group of K batches (0,
 the default, means 16 there), on the CPU the K steps of a group in turn (0
 means 1 there).
 
+``--transform_device host`` runs the reference's per-graph transforms in
+the loader (``MaskAtom``, ``MaskEdge``, ``NegativeEdge``, and every
+context pair drawn anew each epoch) in place of the one vectorized pass a
+batch (``batch``, what the default ``auto`` means) and the presampled
+contexts; ``device`` (chem masking inside the step) is not ported and
+exits with ``NotImplementedError``; elsewhere it reads as ``batch``, as in
+the JAX CLI without its device-resident dataset.
+
 ``--checkpoint_dir D`` saves the whole train state (model, Adam's moments,
 step, epoch, the dropout generators) to ``D`` every ``--checkpoint_every``
 epochs (0: at the end only) and at the end, the newest three kept; a run
@@ -116,6 +124,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scan_steps", type=int, default=0,
                    help="train steps fused per device dispatch "
                         "(0 = auto: 16 on accelerators)")
+    p.add_argument("--transform_device", default="auto",
+                   choices=["auto", "host", "batch", "device"],
+                   help="SSL transform placement: per graph in the loader "
+                        "(host, the reference's), one vectorized pass per "
+                        "batch (batch, what auto means), or inside the "
+                        "step (device: chem masking's is not ported)")
     p.add_argument("--mask_rate", type=float, default=0.15)
     p.add_argument("--mask_edge", type=int, default=0)
     p.add_argument("--csize", type=int, default=3)
@@ -179,7 +193,7 @@ def main(argv=None):
         context_pooling=args.context_pooling, l1=args.l1,
         center=bool(args.center),
         graph_pooling=args.graph_pooling, packing=args.packing,
-        scan_steps=args.scan_steps,
+        scan_steps=args.scan_steps, transform_device=args.transform_device,
     )
     trunk = (load_trunk_any(args.input_model_file)
              if args.input_model_file else None)

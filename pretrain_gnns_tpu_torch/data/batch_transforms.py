@@ -15,6 +15,8 @@ pairs that are not self-loops, existing directed edges or repeats.
 sampler of ``pretrain_gnns_tpu_torch.native``, which on a blocked batch
 writes each graph's pairs into its block's region of ``block_edges // 2``
 slots (``negative_edges_blocked``), the layout the pair-dot kernel takes.
+:class:`BlockAlignNegatives` moves the per-graph ``NegativeEdge``'s flat
+pairs of a blocked batch into that layout, drawing nothing.
 
 Every transform runs in the prefetch thread."""
 
@@ -371,4 +373,51 @@ class NativeNegativeEdge:
         extras = dict(p.extras or {})
         extras["negative_edges_blocked"] = pairs
         extras["negative_edges_blocked_mask"] = m
+        return p.replace(extras=extras)
+
+
+@dataclasses.dataclass
+class BlockAlignNegatives:
+    """The per-graph ``NegativeEdge``'s pairs of a blocked batch moved
+    into the block-aligned layout that the pair-dot kernel takes: the
+    flat ``negative_edges`` ``[K, 2]`` (and its mask) become
+    ``negative_edges_blocked`` ``[n_blocks * block_edges // 2, 2]`` (and
+    ``negative_edges_blocked_mask``), each graph's pairs in its block's
+    region of ``block_edges // 2`` slots, the graphs in batch order from
+    the region's start, as ``NativeNegativeEdge`` lays them out. It draws
+    nothing: the pairs and their order within a block are the per-graph
+    sampler's. Raises ``ValueError`` for a standard batch, a pair whose
+    ends lie in different blocks, or a block with more pairs than slots (a
+    graph has at most ``E_g // 2`` negatives, so a block holds at most
+    ``block_edges // 2``, but for a graph of a single directed edge, which
+    keeps every valid candidate as the reference does)."""
+
+    def __call__(self, p: PackedGraphs,
+                 rng: np.random.Generator = None) -> PackedGraphs:
+        if not (p.block_nodes > 0 and p.block_edges > 0):
+            raise ValueError("BlockAlignNegatives needs a blocked batch")
+        extras = dict(p.extras or {})
+        m = np.asarray(extras.pop("negative_edges_mask"), bool)
+        pairs = np.asarray(extras.pop("negative_edges"))[m]
+        half = p.block_edges // 2
+        n_blocks = p.max_nodes // p.block_nodes
+        blk = pairs[:, 0] // p.block_nodes
+        if (pairs[:, 1] // p.block_nodes != blk).any():
+            raise ValueError("a negative pair crosses its block")
+        counts = np.bincount(blk, minlength=n_blocks)
+        if (counts > half).any():
+            raise ValueError(
+                f"{int(counts.max())} negative pairs in one block exceed "
+                f"its {half} slots")
+        # a stable sort by block keeps each block's pairs in batch order
+        order = np.argsort(blk, kind="stable")
+        first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        b = blk[order]
+        slot = b * half + np.arange(len(order)) - first[b]
+        out = np.zeros((n_blocks * half, 2), np.int32)
+        out[slot] = pairs[order]
+        mask = np.zeros(n_blocks * half, bool)
+        mask[slot] = True
+        extras["negative_edges_blocked"] = out
+        extras["negative_edges_blocked_mask"] = mask
         return p.replace(extras=extras)

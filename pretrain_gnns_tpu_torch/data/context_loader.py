@@ -22,10 +22,17 @@ Two layouts:
   device-resident loader, over lengths rounded up to its 8-row chunks; the
   port packs the graphs unrounded, so it walks their own lengths.
 
-Documented deviation of the JAX package kept here: the reference redraws
-each graph's root every epoch; here a graph has ``variants`` (default 8)
-presampled contexts, epoch ``e`` using variant ``e % variants`` (the draw
-is the same per sample; the batches still change every epoch)."""
+Documented deviation of the JAX package kept by
+:class:`PresampledContextLoader`: the reference redraws each graph's root
+every epoch; there a graph has ``variants`` (default 8) presampled
+contexts, epoch ``e`` using variant ``e % variants`` (the draw is the same
+per sample; the batches still change every epoch).
+:class:`ContextPairLoader` is the reference's own per-epoch resampling
+(``transform_device="host"``): every graph's pair drawn anew each epoch,
+in the epoch's order, from the epoch's generator; standard, it is the JAX
+``ContextPairLoader``; blocked, it draws the epoch's pairs first and walks
+and packs them as the presampled loader does, on one geometry a stream
+fixed for the run."""
 
 from __future__ import annotations
 
@@ -36,8 +43,9 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from pretrain_gnns_tpu_torch import native
-from pretrain_gnns_tpu_torch.core.graphs import Graph, PackedPair
+from pretrain_gnns_tpu_torch.core.graphs import Graph, PackedPair, pack_graphs
 from pretrain_gnns_tpu_torch.data.flat import FlatGraphs
+from pretrain_gnns_tpu_torch.data.transforms import SubstructContextPair
 
 Geometry = Tuple[int, int, int]  # (n_blocks, block_nodes, block_edges)
 
@@ -68,24 +76,29 @@ class ContextPairs:
         self.ov_flat: List[np.ndarray] = []
         self.ov_off: List[np.ndarray] = []
         for _ in range(variants):
-            subs, ctxs, ovs = [], [], []
-            for g in self.graphs:
-                pair = transform(g, rng)
-                if pair is None:
-                    continue
-                c = pair.context
-                ovs.append(np.asarray(
-                    c.extras["overlap_context_substruct_idx"][0], np.int64))
-                subs.append(pair.substruct)
-                ctxs.append(Graph(c.node_feat, c.edge_index, c.edge_feat))
-            if not subs:
-                raise ValueError("no valid context pairs in dataset")
-            self.sub.append(FlatGraphs.from_graphs(subs))
-            self.ctx.append(FlatGraphs.from_graphs(ctxs))
-            self.ov_flat.append(np.concatenate(ovs))
-            self.ov_off.append(np.concatenate(
-                [[0], np.cumsum([len(o) for o in ovs])]).astype(np.int64))
+            pairs = [pair for pair in (transform(g, rng) for g in self.graphs)
+                     if pair is not None]
+            for dst, part in zip((self.sub, self.ctx, self.ov_flat,
+                                  self.ov_off), flatten_pairs(pairs)):
+                dst.append(part)
         self.seconds = time.perf_counter() - t0
+
+
+def flatten_pairs(pairs: Sequence[SubstructContextPair]):
+    """One draw of pairs, flat: the substructures and the contexts (their
+    overlap extra taken out) as ``FlatGraphs``, and the overlap indices,
+    ragged, as one array and its offsets. Raises ``ValueError`` when there
+    is no pair."""
+    if not pairs:
+        raise ValueError("no valid context pairs in dataset")
+    ovs = [np.asarray(p.context.extras["overlap_context_substruct_idx"][0],
+                      np.int64) for p in pairs]
+    ctxs = [Graph(p.context.node_feat, p.context.edge_index,
+                  p.context.edge_feat) for p in pairs]
+    return (FlatGraphs.from_graphs([p.substruct for p in pairs]),
+            FlatGraphs.from_graphs(ctxs), np.concatenate(ovs),
+            np.concatenate([[0], np.cumsum([len(o) for o in ovs])]
+                           ).astype(np.int64))
 
 
 def stream_layout(lens_n: np.ndarray, lens_e: np.ndarray,
@@ -166,7 +179,95 @@ def blocked_pair_walk(order, lens, geometry, batch_size: int,
         yield flush(batch, starts)
 
 
-class PresampledContextLoader:
+class _PairBatches:
+    """What the two pair loaders share: the epoch counter, the blocked
+    walk and batch of flat pairs (draw ``v`` of ``_sub``, ``_ctx``,
+    ``_ov_flat``, ``_ov_off``, on the geometries ``blocks``) and the
+    epoch's statistics."""
+
+    def set_epoch(self, epoch: int) -> None:
+        """Make the next pass the loader's pass ``epoch`` (from 0): its
+        order and its pairs (the variant, or the draw) as in a run that
+        made every pass before it."""
+        self._epoch = int(epoch)
+
+    def _overlap_padded(self, v: int, ids: np.ndarray,
+                        ctx_starts: np.ndarray, pad_len: int):
+        """The graphs' ragged overlap indices, each offset by its graph's
+        first context row, in one array padded to ``pad_len`` (int32),
+        and its mask."""
+        off = self._ov_off[v]
+        lens = off[ids + 1] - off[ids]
+        tot = int(lens.sum())
+        within = np.arange(tot) - np.repeat(np.cumsum(lens) - lens, lens)
+        src = np.repeat(off[ids], lens) + within
+        vals = self._ov_flat[v][src] + np.repeat(ctx_starts, lens)
+        pad = np.zeros(pad_len, np.int32)
+        pad[:tot] = vals
+        m = np.zeros(pad_len, bool)
+        m[:tot] = True
+        return pad, m
+
+    def _pair(self, v, ids, sub, ctx, ctx_starts) -> PackedPair:
+        pad, m = self._overlap_padded(v, ids, ctx_starts, ctx.max_nodes)
+        extras = dict(ctx.extras or {})
+        extras["overlap_context_substruct_idx"] = pad
+        extras["overlap_context_substruct_idx_mask"] = m
+        return PackedPair(sub, ctx.replace(extras=extras))
+
+    def _batch_blocked(self, v: int, ids: np.ndarray,
+                       placement) -> PackedPair:
+        """The blocked layout's batch of the pairs ``ids`` of variant
+        ``v`` at ``placement`` (from :func:`blocked_pair_walk`): each
+        stream packed into its blocks, ``center_substruct_idx`` offset by
+        the substructures' node starts and the overlap rows by the
+        contexts'."""
+        (ns_sub, _), (ns_ctx, _) = placement
+        sub = self._sub[v].pack(
+            ids, 0, 0, self.batch_size, blocks=self.blocks[0],
+            extra_pad={"center_substruct_idx": self.batch_size},
+            nstart=ns_sub)
+        ctx = self._ctx[v].pack(ids, 0, 0, self.batch_size,
+                                blocks=self.blocks[1], nstart=ns_ctx)
+        return self._pair(v, ids, sub, ctx, ns_ctx)
+
+    def _walk_blocked(self, v: int, order: np.ndarray):
+        """The blocked layout's batches of the pairs of draw ``v`` in
+        ``order``, planned by one ``native.plan_pair_epoch`` call: yields
+        ``(graph ids, placement)``, ``placement`` as
+        :func:`blocked_pair_walk` gives it; with ``drop_last`` the
+        trailing partial batch is left out."""
+        batch, starts, n_batches = native.plan_pair_epoch(
+            (self._sub[v].lens_n, self._sub[v].lens_e),
+            (self._ctx[v].lens_n, self._ctx[v].lens_e), order,
+            self.batch_size, *self.blocks)
+        bounds = np.searchsorted(batch, np.arange(n_batches + 1))
+        if (self.drop_last and n_batches
+                and bounds[-1] - bounds[-2] < self.batch_size):
+            n_batches -= 1  # the trailing partial batch
+        for b in range(n_batches):
+            st = starts[bounds[b]:bounds[b + 1]].astype(np.int64)
+            yield (order[bounds[b]:bounds[b + 1]],
+                   ((st[:, 0], st[:, 1]), (st[:, 2], st[:, 3])))
+
+    def _stats(self, v, batches):
+        """Wraps an epoch's ``(ids, ...)`` batches, counting them into
+        ``last_epoch_stats`` as they pass."""
+        se, ce = self._sub[v].lens_e, self._ctx[v].lens_e
+        n_batches = n_graphs = n_edges = 0
+        for item in batches:
+            ids = item[0]
+            n_batches += 1
+            n_graphs += len(ids)
+            n_edges += int(se[ids].sum() + ce[ids].sum())
+            yield item
+        self.last_epoch_stats = {
+            "batches": n_batches, "graphs": n_graphs, "edges": n_edges,
+            "graphs_per_batch": n_graphs / max(n_batches, 1),
+        }
+
+
+class PresampledContextLoader(_PairBatches):
     """Shuffled ``PackedPair`` batches of presampled context pairs (see the
     module docstring), the order from ``default_rng((seed, epoch))``. ``graphs`` is the dataset or its
     :class:`ContextPairs` (made with this ``transform``, ``seed`` and
@@ -210,39 +311,10 @@ class PresampledContextLoader:
                               batch_size)
                 for flats in (self._sub, self._ctx))
 
-    def set_epoch(self, epoch: int) -> None:
-        """Make the next pass the loader's pass ``epoch`` (from 0): its
-        order and variant as in a run that made every pass before it."""
-        self._epoch = int(epoch)
-
     def __len__(self) -> int:
         n = min(len(f) for f in self._sub)
         return (n // self.batch_size if self.drop_last
                 else math.ceil(n / self.batch_size))
-
-    def _overlap_padded(self, v: int, ids: np.ndarray,
-                        ctx_starts: np.ndarray, pad_len: int):
-        """The graphs' ragged overlap indices, each offset by its graph's
-        first context row, in one array padded to ``pad_len`` (int32),
-        and its mask."""
-        off = self._ov_off[v]
-        lens = off[ids + 1] - off[ids]
-        tot = int(lens.sum())
-        within = np.arange(tot) - np.repeat(np.cumsum(lens) - lens, lens)
-        src = np.repeat(off[ids], lens) + within
-        vals = self._ov_flat[v][src] + np.repeat(ctx_starts, lens)
-        pad = np.zeros(pad_len, np.int32)
-        pad[:tot] = vals
-        m = np.zeros(pad_len, bool)
-        m[:tot] = True
-        return pad, m
-
-    def _pair(self, v, ids, sub, ctx, ctx_starts) -> PackedPair:
-        pad, m = self._overlap_padded(v, ids, ctx_starts, ctx.max_nodes)
-        extras = dict(ctx.extras or {})
-        extras["overlap_context_substruct_idx"] = pad
-        extras["overlap_context_substruct_idx_mask"] = m
-        return PackedPair(sub, ctx.replace(extras=extras))
 
     def _batch(self, v: int, ids: np.ndarray) -> PackedPair:
         """The standard layout's batch of the pairs ``ids`` of variant
@@ -255,22 +327,6 @@ class PresampledContextLoader:
         cn = self._ctx[v].lens_n[ids]
         return self._pair(v, ids, sub, ctx, np.cumsum(cn) - cn)
 
-    def _batch_blocked(self, v: int, ids: np.ndarray,
-                       placement) -> PackedPair:
-        """The blocked layout's batch of the pairs ``ids`` of variant
-        ``v`` at ``placement`` (from :func:`blocked_pair_walk`): each
-        stream packed into its blocks, ``center_substruct_idx`` offset by
-        the substructures' node starts and the overlap rows by the
-        contexts'."""
-        (ns_sub, _), (ns_ctx, _) = placement
-        sub = self._sub[v].pack(
-            ids, 0, 0, self.batch_size, blocks=self.blocks[0],
-            extra_pad={"center_substruct_idx": self.batch_size},
-            nstart=ns_sub)
-        ctx = self._ctx[v].pack(ids, 0, 0, self.batch_size,
-                                blocks=self.blocks[1], nstart=ns_ctx)
-        return self._pair(v, ids, sub, ctx, ns_ctx)
-
     def _epoch_order(self):
         v = self._epoch % self.variants
         rng = np.random.default_rng((self.seed, self._epoch))
@@ -278,22 +334,6 @@ class PresampledContextLoader:
         order = np.arange(len(self._sub[v]))
         rng.shuffle(order)
         return v, order
-
-    def _stats(self, v, batches):
-        """Wraps an epoch's ``(ids, ...)`` batches, counting them into
-        ``last_epoch_stats`` as they pass."""
-        se, ce = self._sub[v].lens_e, self._ctx[v].lens_e
-        n_batches = n_graphs = n_edges = 0
-        for item in batches:
-            ids = item[0]
-            n_batches += 1
-            n_graphs += len(ids)
-            n_edges += int(se[ids].sum() + ce[ids].sum())
-            yield item
-        self.last_epoch_stats = {
-            "batches": n_batches, "graphs": n_graphs, "edges": n_edges,
-            "graphs_per_batch": n_graphs / max(n_batches, 1),
-        }
 
     def _iter_ids(self) -> Iterator[Tuple[int, np.ndarray]]:
         """The standard layout's greedy walk over one epoch: yields
@@ -328,22 +368,7 @@ class PresampledContextLoader:
         placement)`` per batch, ``placement`` as
         :func:`blocked_pair_walk` gives it."""
         v, order = self._epoch_order()
-        batch, starts, n_batches = native.plan_pair_epoch(
-            (self._sub[v].lens_n, self._sub[v].lens_e),
-            (self._ctx[v].lens_n, self._ctx[v].lens_e), order,
-            self.batch_size, *self.blocks)
-        bounds = np.searchsorted(batch, np.arange(n_batches + 1))
-        if (self.drop_last and n_batches
-                and bounds[-1] - bounds[-2] < self.batch_size):
-            n_batches -= 1  # the trailing partial batch
-
-        def batches():
-            for b in range(n_batches):
-                st = starts[bounds[b]:bounds[b + 1]].astype(np.int64)
-                yield (order[bounds[b]:bounds[b + 1]],
-                       ((st[:, 0], st[:, 1]), (st[:, 2], st[:, 3])))
-
-        for ids, placement in self._stats(v, batches()):
+        for ids, placement in self._stats(v, self._walk_blocked(v, order)):
             yield v, ids, placement
 
     def __iter__(self) -> Iterator[PackedPair]:
@@ -353,3 +378,122 @@ class PresampledContextLoader:
         else:
             for v, ids in self._iter_ids():
                 yield self._batch(v, ids)
+
+
+class ContextPairLoader(_PairBatches):
+    """The reference's context pipeline (the JAX ``ContextPairLoader``,
+    ``transform_device="host"``): every epoch, the graphs shuffled by
+    ``default_rng((seed, epoch))`` and each graph's pair drawn anew by
+    ``transform`` from that generator, in that order, the graphs without
+    a context skipped. Yields ``PackedPair`` batches.
+
+    Standard layout (``blocks`` None): the JAX loader batch for batch, the
+    pairs drawn as the batches are made, each stream packed into buffers
+    of ``max_nodes`` / ``max_edges``, a batch closed at ``batch_size``
+    pairs or when either stream of the next pair no longer fits.
+
+    Blocked (``blocks``, the graphs' own ``(n_blocks, block_nodes,
+    block_edges)``, which the kernels take): the epoch's pairs drawn first
+    (nothing else draws from the generator, so the draws are the JAX
+    loader's), then walked in draw order by ``native.plan_pair_epoch`` and
+    packed as :class:`PresampledContextLoader` packs a variant. Both
+    streams take the graphs' geometry for the whole run: a substructure or
+    a context is an induced subgraph of its graph, so it fits a block of
+    the graph's, and a batch of them fits the graph batch's blocks; the
+    shapes stay static for the CUDA-graph replays.
+
+    ``last_epoch_stats["edges"]`` counts the valid edges of both
+    streams."""
+
+    def __init__(self, graphs: Sequence[Graph], batch_size: int, transform,
+                 max_nodes: int, max_edges: int, shuffle: bool = True,
+                 seed: int = 0, drop_last: bool = True,
+                 blocks: Optional[Geometry] = None):
+        self.graphs = list(graphs)
+        self.batch_size = batch_size
+        self.transform = transform
+        self.max_nodes, self.max_edges = max_nodes, max_edges
+        self.shuffle, self.seed, self.drop_last = shuffle, seed, drop_last
+        self.blocks = None if blocks is None else (tuple(blocks),
+                                                   tuple(blocks))
+        self._epoch = 0
+        self.last_epoch_stats: dict = {}
+
+    def _draws(self) -> Iterator[SubstructContextPair]:
+        """This pass's pairs in draw order (the pass counter advanced)."""
+        order = np.arange(len(self.graphs))
+        rng = np.random.default_rng((self.seed, self._epoch))
+        if self.shuffle:
+            rng.shuffle(order)
+        self._epoch += 1
+        for idx in order:
+            pair = self.transform(self.graphs[idx], rng)
+            if pair is not None:
+                yield pair
+
+    def pack_standard(self, pairs: Sequence[SubstructContextPair]
+                      ) -> PackedPair:
+        """The standard layout's batch of ``pairs`` (the JAX loader's
+        ``flush``)."""
+        sub = pack_graphs([p.substruct for p in pairs], self.max_nodes,
+                          self.max_edges, self.batch_size,
+                          extra_pad={"center_substruct_idx":
+                                     self.batch_size})
+        ctx = pack_graphs([p.context for p in pairs], self.max_nodes,
+                          self.max_edges, self.batch_size,
+                          extra_pad={"overlap_context_substruct_idx":
+                                     self.max_nodes})
+        return PackedPair(sub, ctx)
+
+    def _iter_standard(self) -> Iterator[PackedPair]:
+        batch: List[SubstructContextPair] = []
+        n_s = e_s = n_c = e_c = 0
+        n_batches = n_graphs = n_edges = 0
+
+        def flush():
+            nonlocal n_batches, n_graphs, n_edges
+            n_batches += 1
+            n_graphs += len(batch)
+            n_edges += e_s + e_c
+            return self.pack_standard(batch)
+
+        for pair in self._draws():
+            s, c = pair.substruct, pair.context
+            if batch and (n_s + s.num_nodes > self.max_nodes
+                          or e_s + s.num_edges > self.max_edges
+                          or n_c + c.num_nodes > self.max_nodes
+                          or e_c + c.num_edges > self.max_edges):
+                yield flush()
+                batch, n_s, e_s, n_c, e_c = [], 0, 0, 0, 0
+            batch.append(pair)
+            n_s += s.num_nodes
+            e_s += s.num_edges
+            n_c += c.num_nodes
+            e_c += c.num_edges
+            if len(batch) == self.batch_size:
+                yield flush()
+                batch, n_s, e_s, n_c, e_c = [], 0, 0, 0, 0
+        if batch and not self.drop_last:
+            yield flush()
+        self.last_epoch_stats = {
+            "batches": n_batches, "graphs": n_graphs, "edges": n_edges,
+            "graphs_per_batch": n_graphs / max(n_batches, 1),
+        }
+
+    def iter_blocked(self) -> Iterator[Tuple[np.ndarray, PackedPair]]:
+        """The blocked layout's pass: yields ``(ids, batch)``, ``ids`` the
+        batch's pairs as positions in the pass's draw order, which
+        :attr:`pairs` holds until the next pass."""
+        self.pairs = list(self._draws())
+        self._sub, self._ctx, self._ov_flat, self._ov_off = (
+            [part] for part in flatten_pairs(self.pairs))
+        order = np.arange(len(self.pairs))
+        for ids, placement in self._stats(0, self._walk_blocked(0, order)):
+            yield ids, self._batch_blocked(0, ids, placement)
+
+    def __iter__(self) -> Iterator[PackedPair]:
+        if self.blocks is None:
+            yield from self._iter_standard()
+        else:
+            for _, batch in self.iter_blocked():
+                yield batch

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import math
 import warnings
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -135,7 +135,12 @@ class PackedLoader:
       max_nodes/max_edges: buffer sizes (default: :func:`buffer_sizes`).
       shuffle: reshuffle each epoch from ``(seed, epoch)``.
       drop_last: drop the final partial batch.
-      extra_pad: padded lengths of the graphs' per-graph extras.
+      transform: ``(graph, rng) -> graph`` applied to each graph in the
+        epoch's order with the epoch's generator, before the fit check
+        (``data.transforms.MaskAtom`` etc.: the reference's per-graph
+        placement, ``transform_device="host"``).
+      extra_pad: padded lengths of the graphs' per-graph extras (and of
+        the transform's).
       blocks: ``(n_blocks, block_nodes, block_edges)`` for the blocked
         layout, or None.
       post_transform: ``(batch, rng) -> batch`` applied to each packed
@@ -151,6 +156,8 @@ class PackedLoader:
         shuffle: bool = True,
         drop_last: bool = False,
         seed: int = 0,
+        transform: Optional[Callable[[Graph, np.random.Generator],
+                                     Graph]] = None,
         extra_pad=None,
         blocks: Optional[Tuple[int, int, int]] = None,
         post_transform=None,
@@ -170,6 +177,7 @@ class PackedLoader:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.transform = transform
         self.extra_pad = extra_pad
         self._epoch = 0
         # packing statistics of the last completed epoch
@@ -231,6 +239,8 @@ class PackedLoader:
         fills = new_fills()
         for idx in order:
             g = self.graphs[idx]
+            if self.transform is not None:
+                g = self.transform(g, rng)
             if batch and not fits(g, fills):
                 yield _pack(batch)  # buffer overflow: flush early
                 n_batches += 1

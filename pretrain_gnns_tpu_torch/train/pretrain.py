@@ -15,7 +15,9 @@ objective, whose batches carry the labels ``y``) applied per batch, the
 trunk saved at the end (and, with ``pretrained_trunk``, a trunk loaded
 at the start: :func:`graft_trunk` at :func:`trunk_path`). The loader is
 ``data.packing.make_loader``'s: the flat dataset and the C++ packer
-(``data.flat.FlatLoader``) when the graphs flatten. Packing and the
+(``data.flat.FlatLoader``) when the graphs flatten; under
+``transform_device="host"`` the reference's per-graph transforms run in a
+``PackedLoader`` instead (:func:`build_loader`). Packing and the
 transform run in a prefetch thread, one for the run, while the GPU runs
 the previous steps; the loss is read back once per epoch. With
 ``scan_steps`` K > 1 (the default on CUDA, 16) each group of K consecutive
@@ -37,13 +39,14 @@ from torch import nn
 from pretrain_gnns_tpu_torch.core.graphs import Graph
 from pretrain_gnns_tpu_torch.data import transforms
 from pretrain_gnns_tpu_torch.data.batch_transforms import (
-    BatchMaskAtom, BatchMaskEdge, BatchNegativeEdge, NativeNegativeEdge,
+    BatchMaskAtom, BatchMaskEdge, BatchNegativeEdge, BlockAlignNegatives,
+    NativeNegativeEdge,
 )
 from pretrain_gnns_tpu_torch.data.context_loader import (
-    ContextPairs, PresampledContextLoader,
+    ContextPairLoader, ContextPairs, PresampledContextLoader,
 )
 from pretrain_gnns_tpu_torch.data.packing import (
-    buffer_sizes, choose_blocks, make_loader,
+    PackedLoader, buffer_sizes, choose_blocks, make_loader,
 )
 from pretrain_gnns_tpu_torch.data.prefetch import chunked, prefetch
 from pretrain_gnns_tpu_torch.device import resolve_device
@@ -67,7 +70,9 @@ from pretrain_gnns_tpu_torch.train.telemetry import ThroughputMeter
 @dataclasses.dataclass
 class PretrainConfig:
     """The masking, edge-prediction, infomax, supervised and
-    context-prediction subset of the JAX package's ``PretrainConfig``."""
+    context-prediction subset of the JAX package's ``PretrainConfig``,
+    with ``transform_device`` (where the transforms run; see
+    :func:`build_loader`)."""
 
     objective: str = "masking"
     domain: str = "chem"
@@ -106,10 +111,34 @@ class PretrainConfig:
     # train steps a dispatch: one CUDA-graph replay runs this many steps
     # (0 = auto: 16 on CUDA, 1 on the CPU; see resolve_scan_steps)
     scan_steps: int = 0
+    # where the SSL transforms run (the JAX package's choices):
+    #   "host"   per graph in the loader, the reference's placement
+    #            (MaskAtom, MaskEdge, NegativeEdge, ContextPairLoader)
+    #   "batch"  one vectorized pass over each packed batch
+    #            (data/batch_transforms.py); for context prediction the
+    #            presampled pairs
+    #   "device" chem masking: inside the step (FusedMaskingObjective, not
+    #            ported); elsewhere read as "batch", as the JAX package
+    #            reads it without its device-resident dataset
+    #   "auto"   "batch" for chem masking; see masking_mode
+    transform_device: str = "auto"
 
 
 PORTED_OBJECTIVES = ("masking", "edgepred", "infomax", "supervised",
                      "contextpred")
+TRANSFORM_DEVICES = ("auto", "host", "batch", "device")
+
+
+def masking_mode(cfg: PretrainConfig) -> str:
+    """The chem masking transform's placement, as the JAX package's
+    ``masking_mode`` resolves it: ``transform_device`` with "auto" read as
+    "batch"; every other objective and domain reads "host" here, and
+    :func:`build_loader` tests ``transform_device == "host"`` itself
+    there, as the JAX ``build_loader`` does."""
+    if cfg.objective != "masking" or cfg.domain != "chem":
+        return "host"
+    mode = cfg.transform_device
+    return "batch" if mode == "auto" else mode
 
 
 def _check_ported(cfg: PretrainConfig) -> None:
@@ -120,6 +149,15 @@ def _check_ported(cfg: PretrainConfig) -> None:
             "ported; this port runs masking, edgepred, infomax, "
             "supervised and contextpred in the chem and bio domains"
         )
+    if cfg.transform_device not in TRANSFORM_DEVICES:
+        raise ValueError(f"transform_device={cfg.transform_device!r}: "
+                         f"one of {TRANSFORM_DEVICES}")
+    if masking_mode(cfg) == "device":
+        raise NotImplementedError(
+            "transform_device='device' for chem masking masks inside the "
+            "step (the JAX package's FusedMaskingObjective), which comes "
+            "with the device-resident dataset (ROADMAP Queue 1) and is "
+            "not ported; use 'batch' or 'host'")
 
 
 def build_objective(cfg: PretrainConfig) -> nn.Module:
@@ -186,61 +224,106 @@ def presample_context(cfg: PretrainConfig,
 
 def build_loader(cfg: PretrainConfig, graphs: Sequence[Graph],
                  device: torch.device, drop_last: bool = True):
-    """``data.packing.make_loader``'s loader (a ``FlatLoader`` when the
-    graphs flatten, else a ``PackedLoader``) with the objective's
+    """The objective's loader, as the JAX ``build_loader`` builds it
+    without its device-resident dataset. Where ``choose_blocks`` would
+    block (on CUDA), every batch is blocked, the layout the kernels take.
+
+    Under ``transform_device`` "batch" ("auto"; "device" but for chem
+    masking): ``data.packing.make_loader``'s loader (a ``FlatLoader`` when
+    the graphs flatten, else a ``PackedLoader``) with the objective's
     vectorized pass applied to each batch: masking (``BatchMaskAtom`` for
     chem, ``BatchMaskEdge`` for bio) or negative sampling for edge
     prediction, where the batch's layout picks the sampler: a blocked
     batch gets the C++ sampler's block-aligned pairs
     (``NativeNegativeEdge``), which the pair-dot kernel takes, a standard
-    one the compact ``BatchNegativeEdge``. Infomax and the supervised
-    objective have no transform; supervised batches carry the graphs'
-    labels ``y [G, T]`` (see :func:`supervised_graphs` for bio).
-
-    Context prediction gets a ``PresampledContextLoader`` of ``PackedPair``
-    batches: ``graphs`` may be the graphs or their
-    :func:`presample_context`. Where ``choose_blocks`` would block, each
+    one the compact ``BatchNegativeEdge``. Context prediction gets a
+    ``PresampledContextLoader`` of ``PackedPair`` batches: ``graphs`` may
+    be the graphs or their :func:`presample_context`; blocked, each
     stream gets its own block geometry and the joint first-fit walk
-    (``native.plan_pair_epoch``); else both streams take the standard
-    layout's buffers."""
+    (``native.plan_pair_epoch``).
+
+    Under "host" the reference's per-graph transforms run in the loader,
+    a ``PackedLoader(transform=...)``, with the JAX package's budgets:
+    ``MaskAtom`` (chem masking), ``MaskEdge`` (bio masking) and
+    ``NegativeEdge`` (edge prediction; on a blocked batch
+    ``BlockAlignNegatives`` then moves its flat pairs into the
+    block-aligned layout, drawing nothing, since the pair-dot kernel takes
+    no flat list); context prediction gets a ``ContextPairLoader``, every
+    pair drawn anew each epoch, blocked on the graphs' own geometry. Chem
+    masking under "device" raises ``NotImplementedError``.
+
+    Infomax and the supervised objective have no transform; supervised
+    batches carry the graphs' labels ``y [G, T]`` (see
+    :func:`supervised_graphs` for bio)."""
     _check_ported(cfg)
+    host = cfg.transform_device == "host"
     if cfg.objective == "contextpred":
-        pairs = (graphs if isinstance(graphs, ContextPairs)
-                 else presample_context(cfg, graphs))
-        mn, me = buffer_sizes(pairs.graphs, cfg.batch_size)
-        blocked = choose_blocks(pairs.graphs, cfg.batch_size, cfg.packing,
-                                device) is not None
+        pairs = (graphs if isinstance(graphs, ContextPairs) else None)
+        graphs = pairs.graphs if pairs is not None else graphs
+        mn, me = buffer_sizes(graphs, cfg.batch_size)
+        blocks = choose_blocks(graphs, cfg.batch_size, cfg.packing, device)
+        if host:
+            return ContextPairLoader(
+                graphs, cfg.batch_size, context_transform(cfg), mn, me,
+                seed=cfg.seed, drop_last=drop_last, blocks=blocks)
         return PresampledContextLoader(
-            pairs, cfg.batch_size, context_transform(cfg), mn, me,
-            seed=cfg.seed, drop_last=drop_last,
-            variants=cfg.context_variants, blocked=blocked)
+            pairs if pairs is not None else presample_context(cfg, graphs),
+            cfg.batch_size,
+            context_transform(cfg), mn, me, seed=cfg.seed,
+            drop_last=drop_last, variants=cfg.context_variants,
+            blocked=blocks is not None)
     mn, me = buffer_sizes(graphs, cfg.batch_size)
     blocks = choose_blocks(graphs, cfg.batch_size, cfg.packing, device)
     if blocks is not None:
         n_blocks, bn, be = blocks
         mn, me = n_blocks * bn, n_blocks * be
     # bio graphs carry a per-graph center_node_idx (a node index)
-    extra_pad = ({"center_node_idx": cfg.batch_size}
-                 if cfg.domain == "bio" else None)
+    base_pad = ({"center_node_idx": cfg.batch_size}
+                if cfg.domain == "bio" else {})
+    per_graph = dict(seed=cfg.seed, blocks=blocks, drop_last=drop_last)
     if cfg.objective in ("infomax", "supervised"):
         post = None
     elif cfg.objective == "edgepred":
+        if host:
+            return PackedLoader(
+                graphs, cfg.batch_size, mn, me,
+                transform=transforms.NegativeEdge(),
+                extra_pad={"negative_edges": me // 2, **base_pad},
+                post_transform=(BlockAlignNegatives() if blocks is not None
+                                else None), **per_graph)
         post = (NativeNegativeEdge() if blocks is not None
                 else BatchNegativeEdge(edge_budget=me // 2))
     elif cfg.domain == "bio":
-        post = BatchMaskEdge(
-            cfg.mask_rate,
-            budget=int(me // 2 * cfg.mask_rate) + cfg.batch_size + 8)
+        n_masked = int(me // 2 * cfg.mask_rate) + cfg.batch_size + 8
+        if host:
+            return PackedLoader(
+                graphs, cfg.batch_size, mn, me,
+                transform=transforms.MaskEdge(cfg.mask_rate),
+                extra_pad={"masked_edge_idx": n_masked,
+                           "mask_edge_label": n_masked, **base_pad},
+                **per_graph)
+        post = BatchMaskEdge(cfg.mask_rate, budget=n_masked)
     else:
+        n_masked = int(mn * cfg.mask_rate) + cfg.batch_size + 8
+        if masking_mode(cfg) == "host":
+            return PackedLoader(
+                graphs, cfg.batch_size, mn, me,
+                transform=transforms.MaskAtom(
+                    cfg.num_atom_type, cfg.num_edge_type, cfg.mask_rate,
+                    cfg.mask_edge),
+                extra_pad={"masked_atom_indices": n_masked,
+                           "mask_node_label": n_masked,
+                           "connected_edge_indices": me // 2,
+                           "mask_edge_label": me // 2},
+                **per_graph)
         post = BatchMaskAtom(
             num_atom_type=cfg.num_atom_type,
             num_edge_type=cfg.num_edge_type, mask_rate=cfg.mask_rate,
-            mask_edge=cfg.mask_edge,
-            node_budget=int(mn * cfg.mask_rate) + cfg.batch_size + 8,
+            mask_edge=cfg.mask_edge, node_budget=n_masked,
             edge_budget=me // 2,
         )
     return make_loader(graphs, cfg.batch_size, mn, me, seed=cfg.seed,
-                       extra_pad=extra_pad, blocks=blocks,
+                       extra_pad=base_pad or None, blocks=blocks,
                        drop_last=drop_last, post_transform=post)
 
 

@@ -1355,6 +1355,128 @@ def test_contextpred_captured_steps_equal_eager_steps(cuda_device, domain):
     for name, v in runs[0]["model"].state_dict().items():
         assert torch.equal(runs[1]["model"].state_dict()[name], v), name
 
+# --- transform_device="host": the per-graph transforms' batches ------------
+
+def _host_cfg(objective, domain, **kw):
+    return pretrain.PretrainConfig(
+        objective=objective, domain=domain, num_layer=3, csize=2,
+        emb_dim=48, batch_size=32, packing="blocked", mask_edge=False,
+        transform_device="host", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("domain", ["chem", "bio"])
+def test_host_negatives_through_k3(cuda_device, domain):
+    """The per-graph NegativeEdge's pairs, moved into the block slots
+    (BlockAlignNegatives), through K3 on the card against its plain
+    version (scores and dx; padded slots exactly 0), then one train-mode
+    edge-prediction step card vs CPU, K3 launched twice each way; the
+    card's loss equals the flat list's on the CPU."""
+    graphs = (bio_dataset(64, seed=2) if domain == "bio"
+              else molecule_dataset(64, seed=2)[0])
+    cfg = _host_cfg("edgepred", domain)
+    loader = pretrain.build_loader(cfg, graphs, cuda_device)
+    batch = next(iter(loader))
+    ex = batch.extras
+    assert "negative_edges" not in ex and ex[
+        "negative_edges_blocked_mask"].any()
+    on_card = batch.to(cuda_device)
+    neg = on_card.extras["negative_edges_blocked"]
+    m = on_card.extras["negative_edges_blocked_mask"]
+    gen = torch.Generator().manual_seed(0)
+    h0 = torch.randn(batch.max_nodes, 300, generator=gen)
+    g = torch.randn(m.shape[0], generator=gen)
+    out = {}
+    edge_dot.reset_launches()
+    for dev in (cuda_device, torch.device("cpu")):
+        h = h0.to(dev).requires_grad_(True)
+        s = spmm.edge_dot(h, neg[:, 0].contiguous().to(dev),
+                          neg[:, 1].contiguous().to(dev), m.to(dev),
+                          batch.block_nodes, batch.block_edges // 2)
+        (s * g.to(dev)).sum().backward()
+        out[dev.type] = s.detach().cpu(), h.grad.cpu()
+    assert dict(edge_dot.launches) == {"blocked_edge_dot_fwd": 1,
+                                       "blocked_edge_dot_bwd": 1}
+    assert _rel(out["cuda"][0], out["cpu"][0]) <= FWD_TOL
+    assert _rel(out["cuda"][1], out["cpu"][1]) <= GRAD_TOL
+    assert not out["cuda"][0][~m.cpu()].any()
+    res = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = pretrain.build_objective(cfg).to(dev)
+        edge_dot.reset_launches()
+        loss, _ = model(batch.to(dev), train=True)
+        loss.backward()
+        res[dev.type] = (float(loss.detach()),
+                         {n: p.grad.cpu() for n, p in
+                          model.named_parameters()},
+                         dict(edge_dot.launches))
+    assert res["cuda"][2] == {"blocked_edge_dot_fwd": 2,
+                              "blocked_edge_dot_bwd": 2}
+    assert not any(res["cpu"][2].values())
+    assert np.isclose(res["cuda"][0], res["cpu"][0], rtol=1e-5)
+    for n, gc in res["cuda"][1].items():
+        assert torch.isfinite(gc).all(), n
+        assert _rel(gc, res["cpu"][1][n]) <= 1e-3, n
+    loader.set_epoch(0)
+    loader.post_transform = None  # the flat list, on the CPU
+    flat = next(iter(loader))
+    assert "negative_edges" in flat.extras
+    with torch.no_grad():
+        model = pretrain.build_objective(cfg)
+        lf = float(model(flat.to("cpu"), train=True)[0])
+    assert np.isclose(res["cuda"][0], lf, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_host_context_pair_batch_through_k1(cuda_device):
+    """A blocked ContextPairLoader batch (pairs drawn anew, both streams on
+    the graphs' geometry): one train-mode step card (K1 in both trunks)
+    vs CPU."""
+    graphs = molecule_dataset(80, seed=2)[0]
+    cfg = _host_cfg("contextpred", "chem")
+    loader = pretrain.build_loader(cfg, graphs, cuda_device)
+    assert type(loader).__name__ == "ContextPairLoader"
+    batch = next(iter(loader))
+    assert batch.substruct.layout == batch.context.layout
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = pretrain.build_objective(cfg).to(dev)
+        gin_conv.reset_launches()
+        loss, _ = model(batch.to(dev), train=True)
+        loss.backward()
+        out[dev.type] = (float(loss.detach()),
+                         {n: p.grad.cpu() for n, p in
+                          model.named_parameters()},
+                         dict(gin_conv.launches))
+    assert out["cuda"][2]["gin_conv_fwd"] == out["cuda"][2][
+        "gin_conv_bwd"] == 3 + 2  # both trunks
+    assert not any(out["cpu"][2].values())
+    assert np.isclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for n, gc in out["cuda"][1].items():
+        assert torch.isfinite(gc).all(), n
+        assert _rel(gc, out["cpu"][1][n]) <= 1e-3, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective,domain", [("masking", "chem"),
+                                              ("edgepred", "bio"),
+                                              ("contextpred", "chem")])
+def test_host_captured_steps_equal_eager_steps(cuda_device, objective,
+                                               domain):
+    """run_pretrain under transform_device="host" at scan_steps=2 (every
+    host batch keeps the captured slots' shapes) against scan_steps=1:
+    the history and every parameter and buffer bit for bit."""
+    graphs = (bio_dataset(160, seed=2) if domain == "bio"
+              else molecule_dataset(200, seed=2)[0])
+    runs = [pretrain.run_pretrain(_host_cfg(objective, domain, scan_steps=k),
+                                  graphs, log=None, epochs=3,
+                                  device=cuda_device) for k in (1, 2)]
+    assert runs[1]["replays"] > 0
+    assert runs[1]["history"] == runs[0]["history"]
+    for name, v in runs[0]["model"].state_dict().items():
+        assert torch.equal(runs[1]["model"].state_dict()[name], v), name
+
+
 # --- bfloat16: K1, K2 and K3 at compute_dtype bfloat16 and bfloat16 rows ---
 
 # Two readings of |kernel - plain| for each output: the largest over

@@ -272,9 +272,29 @@ Phases, in order (any failure exits non-zero):
      prefetch queue's two groups, made during epochs 1 and 2, feed the
      timed epoch; the loader's ms a batch against the card's ms a step
      bounds a longer run);
-  31. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
+  31. the device-resident dataset (``device_dataset="on"``: the dataset
+     on the card in 8-row chunks, each batch built there from a
+     descriptor of a few kilobytes inside the step, the epoch trainer at
+     K = 16), float32 at full width: chem masking
+     GIN (K1), the device loader's first epoch (descriptor ms a batch) and
+     its first descriptor's batch built on the card equal to
+     ``materialize`` on the CPU bit for bit, float32 agreement steps on
+     its first two descriptors' batches, the path with the dataset on
+     (384 steps, the epoch trainer at its default group of 8 epochs) and
+     off (160) in float32 and at the knobs' defaults (launches, edges/s
+     and the card's busy share over 128 timed steps on the card's clock,
+     side by side); the mask
+     stream under ``transform_device="device"`` (at lr 0, two replays of
+     one captured group on the same descriptors draw different masks, and
+     a rerun from the seed repeats them bit for bit); bio edge prediction
+     GIN with its negatives drawn in the step and laid out in the block
+     slots (the sampler's properties on the card on the first batch, then
+     the path: K2 ``[x]``, ``[ein]`` and K3 counted) and chem context
+     prediction GIN through ``DeviceContextLoader`` (K1 on both trunks),
+     both at one epoch a group;
+  32. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
      defaults (chem masking GIN on 16,384 molecules and bio masking GIN,
-     5 windows of 4 epochs each after 2 warm-up epochs), at
+     8 warm-up epochs) but BENCH_WINDOWS windows of 8 epochs, at
      ``--scan_steps 1`` (every step eager), then at its default (K =
      16, CUDA-graph replays), at ``--dtype default`` and at ``--dtype
      bfloat16_act``, each its JSON line.
@@ -283,8 +303,9 @@ wrapper calls counted on the path that runs it at the entry's ``shape``,
 ``launches_per_step``, those calls over the steps that made them,
 ``replays``, the CUDA-graph replays of the run, ``launches_counted``:
 how the count was read, ``finetune``: the fine-tune runs' calls, their
-train steps and eval batches, ``sweep``: the sweep's calls, and
-``host_paths``: each host path's calls), the card
+train steps and eval batches, ``sweep``: the sweep's calls,
+``host_paths``: each host path's calls, and ``device_paths``: each
+device-resident path's calls), the card
 line and, last, the result line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this script, it exits non-zero and prints no result.
@@ -645,12 +666,24 @@ def unfused_layer_ms(torch, conv, x, batch, g, k1_out):
     return fwd_ms, bwd_ms
 
 
+def host_config(**kw):
+    """A ``PretrainConfig`` of the host-packed pipeline (``device_dataset``
+    "off" unless given), which every phase but the device-resident
+    section drives: on CUDA "auto" now keeps the dataset on the card, and
+    that section runs it on and off itself."""
+    from pretrain_gnns_tpu_torch.train import pretrain
+
+    return pretrain.PretrainConfig(**{"device_dataset": "off", **kw})
+
+
 def path_name(cfg, fused="on") -> str:
     unfused = " unfused" * (fused == "off")
     mode = f" {cfg.mode}" * (cfg.objective == "contextpred")
     host = " host" * (cfg.transform_device == "host")
+    drawn = " in-step draws" * (cfg.transform_device == "device")
+    resident = " resident" * (cfg.device_dataset == "on")
     return (f"{cfg.domain} {cfg.objective} {cfg.gnn_type}{mode}{unfused}"
-            f"{host}")
+            f"{host}{drawn}{resident}")
 
 
 @contextlib.contextmanager
@@ -770,7 +803,7 @@ def read_counts(modules):
 
 def main_path_phase(torch, graphs, cfg, card, per_step,
                     epochs=MAIN_EPOCHS, fused="on", reprobe=False,
-                    precision="float32", profile=False):
+                    precision="float32", profile=False, profile_from=None):
     """``run_pretrain`` on the card at the resolved default ``scan_steps``
     K (16): after the run's first eager steps each group of K batches is
     one CUDA-graph replay. Every launch count is set to 0 just before and
@@ -782,32 +815,47 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
     the GIN library's handle are forgotten first, so the run's first kernel
     launch must load the library anew and launch the probe: exactly once in
     the run. Returns (the counts, the steps that made them, how each count
-    was read, the run's replays, its edges/s after the capture, the trained
-    objective, and with ``profile`` the card's busy share of the timed
-    epoch and its busy ms a step: ``torch.profiler`` runs from the log
-    line of the epoch before it to its own, and the union of the device
-    activities' intervals is taken over that wall time; else None, None).
-    ``precision`` names the knobs' setting in the printed line."""
+    was read, the run's replays, its edges/s over the timed window, the
+    trained objective, and with ``profile`` the card's busy share of that
+    window and its busy ms a step; else None, None). ``precision`` names
+    the knobs' setting in the printed line.
+
+    The timed window runs between two of the run's marks
+    (``run_pretrain``'s ``marks``: one after each epoch's steps, or after
+    each group's in the epoch trainer) on the card's clock
+    (``telemetry.seconds_between``, the idle gaps included), over the
+    valid edges of the epochs between them; it ends at the run's last
+    mark. Without ``profile`` it starts at the first mark after a replay
+    (so after the capture). With ``profile``, at the log line of epoch
+    ``profile_from`` (default: the epoch before the last) the card is
+    synchronized and ``torch.profiler`` starts; it records every launch
+    from there to the run's end, and the window starts at the last mark
+    made before it. The epoch trainer logs a group's epochs after it has
+    queued the next group, so there the window is the groups after
+    that one. The busy share is the union of the recorded device
+    activities' intervals over the window's time; the window must not
+    hold the capture."""
     from pretrain_gnns_tpu_torch.ops import _build, gin_conv
     from pretrain_gnns_tpu_torch.train import pretrain
 
     name = path_name(cfg, fused)
     tag = f"[{name}{' ' + precision if precision != 'float32' else ''} path]"
-    stamps, replayed = [], []
-    prof = []
+    from pretrain_gnns_tpu_torch.train.telemetry import seconds_between
+
+    logged, prof = [], []
+    if profile_from is None:
+        profile_from = epochs - 1
 
     def log(msg):
         print(f"{tag} {msg}", flush=True)
         if msg.startswith("epoch="):
-            stamps.append(time.perf_counter())
-            replayed.append(" replays=0 " not in msg)
-            # the epoch's loss was read back: its device work is done
-            if profile and len(stamps) == epochs - 1:
+            logged.append(msg)
+            if profile and len(logged) == profile_from:
+                torch.cuda.synchronize()  # nothing queued is left unrecorded
                 prof.append(torch.profiler.profile(
                     activities=[torch.profiler.ProfilerActivity.CUDA]))
                 prof[0].__enter__()
-            elif prof and len(stamps) == epochs:
-                prof[0].__exit__(None, None, None)
+                prof.append(time.perf_counter())
 
     modules = counted_modules()
     torch.cuda.reset_peak_memory_stats()
@@ -817,9 +865,15 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
     with fused_as(fused):
         for m in modules:
             m.reset_launches()
+        t_run = time.perf_counter()
         res = pretrain.run_pretrain(cfg, graphs, log=log, epochs=epochs,
                                     device="cuda")
         counts = read_counts(modules)
+        t_run = time.perf_counter() - t_run
+        if prof:
+            t = time.perf_counter()
+            prof[0].__exit__(None, None, None)
+            prof.append(time.perf_counter() - t)
     hist = res["history"]
     steps = sum(h["steps"] for h in hist)
     k, replays, eager = res["scan_steps"], res["replays"], res["eager_steps"]
@@ -840,29 +894,41 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
                 f"{eager} eager steps and the {k} steps of one capture; "
                 f"the run replayed that capture {replays} times as one "
                 f"CUDA graph, which counts nothing" for key in per_step}
-    # the rate over the epochs after the one that captured
-    first = replayed.index(True) + 1
-    if first >= epochs:
-        raise AssertionError(f"{name} path: no epoch after the capture's")
-    edges = sum(h["edges"] for h in hist[first:])
-    rate = edges / (stamps[-1] - stamps[first - 1])
+    marks = res["marks"]
+    if profile:
+        if len(prof) != 3:
+            raise AssertionError(f"{name} path: no log line of epoch "
+                                 f"{profile_from} to profile from")
+        start = [m for m in marks if m.at < prof[1]][-1]
+    else:
+        start = next((m for m in marks if m.replays), None)
+    if start is None or start is marks[-1] or not start.replays:
+        raise AssertionError(f"{name} path: no epoch to time after the "
+                             f"capture's (marks after epochs "
+                             f"{[m.epoch for m in marks]})")
+    timed = [h for h in hist if h["epoch"] > start.epoch]
+    seconds = seconds_between(start, marks[-1])
+    rate = sum(h["edges"] for h in timed) / seconds
+    timed_steps = sum(h["steps"] for h in timed)
     busy = step_ms = None
     if profile:
-        if first != epochs - 1:
-            raise AssertionError(f"{name} path: the capture was not in "
-                                 "the epoch before the last")
-        busy = busy_ms(prof[0]) / 1e3 / (stamps[-1] - stamps[-2])
-        step_ms = busy_ms(prof[0]) / hist[-1]["steps"]
+        t = time.perf_counter()
+        step_ms = busy_ms(prof[0]) / timed_steps
+        busy = step_ms * timed_steps / 1e3 / seconds
+        prof[2] += time.perf_counter() - t
     print(f"{tag} K = {k}: {replays} replays and {eager} eager steps, "
-          f"{steps} steps; launches counted "
+          f"{steps} steps in {t_run:.1f} s; launches counted "
           f"{ {key: v for key, v in counts.items() if v} }; "
           f"{rate:.1f} valid edges/s "
-          f"over epochs {first + 1}-{epochs} "
-          f"({sum(h['steps'] for h in hist[first:])} steps, {precision}) "
-          f"on {card}; peak device memory "
+          f"over epochs {start.epoch + 1}-{marks[-1].epoch} "
+          f"({timed_steps} steps, {precision}, "
+          + (f"{res['epoch_group']} epochs a group"
+             if res["epoch_group"] else "one epoch at a time")
+          + f") on {card}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB"
-          + (f"; the card busy {100 * busy:.1f}% of epoch {epochs}'s wall "
-             f"time, {step_ms:.3f} ms a step (profiled)" if profile else "")
+          + (f"; the card busy {100 * busy:.1f}% of those epochs' time on "
+             f"its clock, {step_ms:.3f} ms a step (profiled; the profile "
+             f"read in {prof[2]:.1f} s)" if profile else "")
           + f" [{time.perf_counter() - T0:.0f} s]", flush=True)
     return (counts, counted, how, replays, rate, res["model"], busy,
             step_ms)
@@ -946,16 +1012,18 @@ def _max_diff(a, b):
 
 def busy_ms(prof) -> float:
     """The card's busy ms in a ``torch.profiler`` run: the union of its
-    device activities' intervals."""
+    device activities' intervals, read from the profiler's raw records
+    (building its event list takes seconds for a few hundred steps)."""
     from torch.autograd import DeviceType
 
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, reach = 0.0, float("-inf")
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy_ns, reach = 0, float("-inf")
     for start, end in spans:  # the union of the intervals
-        busy_us += max(0.0, end - max(start, reach))
+        busy_ns += max(0, end - max(start, reach))
         reach = max(reach, end)
-    return busy_us / 1e3
+    return busy_ns / 1e6
 
 
 def capture_phase(torch, graphs, cfg, per_step, fused="on",
@@ -3070,13 +3138,13 @@ def bf16_section(torch, card, chem_graphs, chem_first, bio_graphs, bio_first,
     dev = torch.device("cuda")
     base = dict(num_layer=LAYERS, emb_dim=EMB, batch_size=BATCH, seed=0,
                 packing="auto")
-    chem_cfg = pretrain.PretrainConfig(mask_edge=False, **base)
-    bio_cfg = pretrain.PretrainConfig(domain="bio", **base)
-    ep_cfg = pretrain.PretrainConfig(objective="edgepred", **base)
-    gat_cfg = {d: pretrain.PretrainConfig(
+    chem_cfg = host_config(mask_edge=False, **base)
+    bio_cfg = host_config(domain="bio", **base)
+    ep_cfg = host_config(objective="edgepred", **base)
+    gat_cfg = {d: host_config(
         domain=d, gnn_type="gat", mask_edge=False, **base)
         for d in ("chem", "bio")}
-    gat_ep_cfg = pretrain.PretrainConfig(objective="edgepred",
+    gat_ep_cfg = host_config(objective="edgepred",
                                          gnn_type="gat", **base)
     with precision("bfloat16_act", "bfloat16"):
         entries = k1_bf16_phase(torch, chem_first.to(dev),
@@ -3153,9 +3221,9 @@ def default_section(torch, card, chem_graphs, chem_first, bio_graphs,
                 packing="auto")
     for graphs, first, cfg, per_step in (
             (chem_graphs, chem_first,
-             pretrain.PretrainConfig(mask_edge=False, **base), K1),
+             host_config(mask_edge=False, **base), K1),
             (bio_graphs, bio_first,
-             pretrain.PretrainConfig(domain="bio", **base), BIO_K2)):
+             host_config(domain="bio", **base), BIO_K2)):
         name = path_name(cfg)
         with precision("float32", "bfloat16"):
             bf16_agreement(torch, first, cfg)
@@ -3307,7 +3375,7 @@ def contextpred_section(torch, card, chem_graphs_of, bio_graphs):
                 mode="cbow", l1=1, center=True)
     rates = {}
     for domain, per_step in (("chem", CP_K1), ("bio", CP_BIO_K2)):
-        cfg = pretrain.PretrainConfig(domain=domain, **base)
+        cfg = host_config(domain=domain, **base)
         graphs = (chem_graphs_of(CP_CHEM_GRAPHS) if domain == "chem"
                   else bio_graphs)
         pairs = pretrain.presample_context(cfg, graphs)
@@ -4005,7 +4073,7 @@ def host_section(torch, card, chem_graphs_of, bio_graphs, batch_rates,
 
     dev = torch.device("cuda")
     for domain, objective, per_step in HOST_PATHS:
-        cfg = pretrain.PretrainConfig(
+        cfg = host_config(
             objective=objective, domain=domain, num_layer=LAYERS,
             emb_dim=EMB, batch_size=BATCH, mask_edge=False, seed=0,
             packing="auto", csize=3, transform_device="host")
@@ -4038,6 +4106,255 @@ def host_section(torch, card, chem_graphs_of, bio_graphs, batch_rates,
               f"replayed step bounds a long run at "
               f"{min(1.0, step_ms / host_ms):.3f} of the card's rate; on "
               f"{card} [{time.perf_counter() - T0:.0f} s]", flush=True)
+
+
+# --- the device-resident dataset ---------------------------------------------
+
+# the device paths' float32 agreement steps: one on each of the first
+# descriptors' batches
+DEVICE_AGREE_DESCS = 2
+
+
+# chem masking GIN on and off the card's dataset: (the epochs of a run,
+# the epoch whose log line main_path_phase profiles from). On: the epoch
+# trainer's default group, 8 epochs at 16 steps an epoch; group 1 logs
+# after group 2 is queued, so group 3 is timed. Off: epochs 3-10. Both
+# time 128 steps.
+RESIDENT_RUNS = {"on": (24, 8), "off": (10, 2)}
+
+
+def resident(cfg, **changes):
+    """``cfg`` on the device-resident dataset, its epoch trainer at one
+    epoch a group unless ``changes`` say otherwise (so that a run of
+    MAIN_EPOCHS epochs has a mark after the capture's epoch and an epoch
+    to time after it)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, **{"device_dataset": "on",
+                                       "epoch_group": 1, **changes})
+
+
+def leaves_equal(torch, a, b):
+    """The leaves of two batches that differ (by name), bit for bit."""
+    la, lb = a.leaves(), b.leaves()
+    return sorted(set(la) ^ set(lb)) + [
+        n for n in la if n in lb and not (
+            la[n].dtype == lb[n].dtype and la[n].shape == lb[n].shape
+            and torch.equal(la[n].cpu(), lb[n].cpu()))]
+
+
+def resident_loader_phase(torch, cfg, graphs):
+    """The device loader's first epoch (descriptor ms a batch on one
+    thread), its first descriptor's batch built on the card against
+    ``materialize`` of the same descriptor on the CPU (every leaf and
+    extra, bit for bit) and every batch blocked on chunk multiples.
+    Returns the loader and the CPU batches of its first descriptors."""
+    import copy
+
+    from pretrain_gnns_tpu_torch.train import pretrain
+
+    tag = f"[{path_name(cfg)} loader]"
+    dev = torch.device("cuda")
+    loader = pretrain.build_loader(cfg, graphs, dev)
+    t = time.perf_counter()
+    descs = list(loader)
+    ms = (time.perf_counter() - t) * 1e3 / len(descs)
+    twin = copy.copy(loader)  # the same loader, its resident arrays on the CPU
+    twin.dev = {k: v.cpu() for k, v in loader.dev.items()}
+    cpu = [twin.prepare(d.to("cpu")) for d in descs[:DEVICE_AGREE_DESCS]]
+    card = loader.prepare(descs[0].to(dev))
+    differ = leaves_equal(torch, card, cpu[0])
+    blocks = loader.blocks if cfg.objective != "contextpred" else None
+    print(f"{tag} {type(loader).__name__}: {len(descs)} descriptors of "
+          f"{sum(v.nbytes for v in descs[0].values())} bytes, "
+          f"{loader.last_epoch_stats['edges']} valid edges, "
+          f"{loader.last_epoch_stats['graphs_per_batch']:.1f} graphs a "
+          f"batch, blocks {loader.blocks}; descriptor ms a batch (one "
+          f"thread) {ms:.3f}; resident arrays "
+          f"{sum(v.nbytes for v in loader.dev.values()) / 2**20:.1f} MiB; "
+          f"the first batch built on the card against the CPU's: "
+          f"{len(card.leaves())} leaves, differing {differ} "
+          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+    if differ:
+        raise AssertionError(f"{tag} the card's batch differs in {differ}")
+    if not type(loader).__name__.startswith("Device") or (
+            blocks is not None and (blocks[1] % 8 or blocks[2] % 8)):
+        raise AssertionError(f"{tag} {type(loader).__name__}, {blocks}")
+    return loader, cpu
+
+
+def mask_stream_phase(torch, graphs, cfg, per_step):
+    """``transform_device="device"`` (the atoms masked inside the step,
+    ``FusedMaskingObjective``) at lr 0, so that only the masks move a
+    step's loss: after ``graphed.WARMUP_STEPS`` eager steps, two replays
+    of one captured group of CAPTURE_K steps on the same descriptors must
+    give different losses (each replay draws new masks from the
+    registered mask stream), and the same run again from the same seed
+    the same losses bit for bit; the group's launches counted."""
+    from pretrain_gnns_tpu_torch.train import graphed, optim, pretrain
+    from pretrain_gnns_tpu_torch.train.state import TrainState
+
+    cfg = resident(cfg, transform_device="device", lr=0.0)
+    tag = f"[{path_name(cfg)} mask stream]"
+    dev = torch.device("cuda")
+    loader = pretrain.build_loader(cfg, graphs, dev)
+    descs = [d.to(dev) for d, _ in zip(loader, range(CAPTURE_K))]
+    W = graphed.WARMUP_STEPS
+
+    def run():
+        model = pretrain.build_objective(cfg).to(dev)
+        st = TrainState(model, optim.adam(model.parameters(), 0.0, 0.0))
+        scan = pretrain.make_scan_pretrain_step(st, descs[0], CAPTURE_K,
+                                                loader.prepare)
+        for d in descs[:W]:
+            scan.step(d)
+        return [scan(descs)[0].cpu() for _ in range(2)]
+
+    modules = counted_modules()
+    for m in modules:
+        m.reset_launches()
+    first, again = run(), run()
+    counts = {k: v for k, v in read_counts(modules).items() if v}
+    print(f"{tag} {type(pretrain.build_objective(cfg)).__name__}: two "
+          f"replays of {CAPTURE_K} steps on the same descriptors at lr 0: "
+          f"losses {first[0].tolist()} and {first[1].tolist()}; the rerun "
+          f"from the seed equal bit for bit: "
+          f"{all(torch.equal(a, b) for a, b in zip(first, again))}; "
+          f"launches (two runs) {counts} "
+          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+    if torch.equal(first[0], first[1]) or not all(
+            torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"{tag} the replays' masks do not move, or "
+                             "do not repeat from the seed")
+    want = {k: 2 * v * (W + CAPTURE_K) for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"{tag} launches {counts} != {want}")
+
+
+def negatives_phase(torch, loader):
+    """Edge prediction's negatives drawn on the card
+    (``objectives.edgepred.sample_negative_edges``) on the first blocked
+    batch, held to the sampler's properties: no self-loop, no existing
+    directed edge, no repeat, both ends valid nodes of one graph, at most
+    ``E_g // 2`` pairs a graph, each pair in its own block's slots."""
+    import numpy as np
+
+    from pretrain_gnns_tpu_torch.objectives.edgepred import (
+        sample_negative_edges,
+    )
+
+    dev = torch.device("cuda")
+    batch = loader.prepare(next(iter(loader)).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pairs, mask = (t.cpu().numpy() for t in sample_negative_edges(batch,
+                                                                  gen))
+    b = batch._map(lambda t: t.cpu())
+    a_, b_ = pairs[mask, 0].astype(np.int64), pairs[mask, 1].astype(np.int64)
+    N, half = b.max_nodes, b.block_edges // 2
+    ng, nm = b.node_graph.numpy(), b.node_mask.numpy()
+    em = b.edge_mask.numpy()
+    edges = set((b.senders.numpy()[em].astype(np.int64) * N
+                 + b.receivers.numpy()[em]).tolist())
+    keys = a_ * N + b_
+    per_graph = np.bincount(ng[a_], minlength=b.max_graphs)
+    quota = np.bincount(ng[b.senders.numpy()[em]],
+                        minlength=b.max_graphs) // 2
+    block = np.nonzero(mask)[0] // half
+    faults = {
+        "self-loop": int((a_ == b_).sum()),
+        "existing edge": sum(k in edges for k in keys.tolist()),
+        "repeat": len(keys) - len(set(keys.tolist())),
+        "padded node": int((~nm[a_] | ~nm[b_]).sum()),
+        "two graphs": int((ng[a_] != ng[b_]).sum()),
+        "over quota": int((per_graph > quota).sum()),
+        "outside its block": int(((a_ // b.block_nodes != block)
+                                  | (b_ // b.block_nodes != block)).sum()),
+    }
+    print(f"[negatives on the card] {int(mask.sum())} pairs drawn in the "
+          f"step on the first batch ({int(em.sum()) // 2} bonds, "
+          f"{pairs.shape[0]} slots in {b.max_edges // b.block_edges} "
+          f"blocks); faults {faults} "
+          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+    if any(faults.values()) or not mask.any():
+        raise AssertionError(f"negatives drawn on the card: {faults}")
+
+
+def record_device(entries, name, launched):
+    """Adds a device path's launches to the float32 ``kernels`` entries of
+    the kernels it ran, under ``device_paths``."""
+    counts, steps = launched[:2]
+    for k in entries:
+        key = k.get("counter", k["name"])
+        if counts.get(key) and "[bf16]" not in k["name"]:
+            k.setdefault("device_paths", []).append({
+                "path": name, "launches": counts[key],
+                "launches_per_step": counts[key] // steps,
+                "replays": launched[3]})
+
+
+def device_section(torch, card, chem_graphs, chem_graphs_of, bio_graphs,
+                   entries):
+    """The device-resident dataset (``device_dataset="on"``, batches built
+    on the card from descriptors; the epoch trainer, K = 16): chem masking
+    GIN at full width, its first batch built on the card against the
+    CPU's, float32 agreement steps on the first DEVICE_AGREE_DESCS
+    descriptors' batches, then the path with the dataset on (the epoch
+    trainer at its default group) and off (RESIDENT_RUNS) in float32 and
+    at the knobs' defaults, each with its launches, edges/s and the card's
+    busy share over 128 timed steps on the card's clock (see
+    main_path_phase); the mask stream under ``transform_device="device"``,
+    and the paths below at one epoch a group; bio edge
+    prediction GIN with its negatives drawn in the step (the sampler's
+    properties on the card, then the path through K2 and K3); chem context
+    prediction GIN through ``DeviceContextLoader`` (K1 on both trunks)."""
+    from pretrain_gnns_tpu_torch.train import pretrain
+
+    t0 = time.perf_counter()
+    cfg = resident(host_config(
+        num_layer=LAYERS, emb_dim=EMB, batch_size=BATCH, mask_edge=False,
+        seed=0, packing="auto"))
+    _, cpu = resident_loader_phase(torch, cfg, chem_graphs)
+    for batch in cpu:
+        agreement_phase(torch, batch, cfg)
+    rates = {}
+    for prec, kernels in (("float32", "float32"), ("default", "bfloat16")):
+        with precision("float32", kernels):
+            for mode in ("on", "off"):
+                c = resident(cfg, device_dataset=mode, epoch_group=0)
+                epochs, profile_from = RESIDENT_RUNS[mode]
+                launched = main_path_phase(
+                    torch, chem_graphs, c, card, K1, epochs, profile=True,
+                    profile_from=profile_from, precision=prec)
+                if prec == "float32":
+                    record_device(entries, path_name(c), launched)
+                rates[prec, mode] = launched[4], launched[6]
+    for prec in ("float32", "default"):
+        (on, busy_on), (off, busy_off) = rates[prec, "on"], rates[prec, "off"]
+        print(f"[{path_name(cfg)}] {prec}: {on:.1f} valid edges/s with the "
+              f"dataset on the card against {off:.1f} off ({on / off:.3f}x)"
+              f"; the card busy {100 * busy_on:.1f}% and "
+              f"{100 * busy_off:.1f}% of the timed steps' time; on {card}",
+              flush=True)
+    mask_stream_phase(torch, chem_graphs, cfg, K1)
+
+    cfg = resident(host_config(
+        objective="edgepred", domain="bio", num_layer=LAYERS, emb_dim=EMB,
+        batch_size=BATCH, seed=0, packing="auto",
+        transform_device="device"))
+    loader, _ = resident_loader_phase(torch, cfg, bio_graphs)
+    negatives_phase(torch, loader)
+    record_device(entries, path_name(cfg), main_path_phase(
+        torch, bio_graphs, cfg, card, {**BIO_K2, **K3}))
+
+    cfg = resident(host_config(
+        objective="contextpred", num_layer=LAYERS, emb_dim=EMB,
+        batch_size=BATCH, seed=0, packing="auto", csize=3))
+    pairs = pretrain.presample_context(cfg, chem_graphs_of(CP_CHEM_GRAPHS))
+    resident_loader_phase(torch, cfg, pairs)
+    record_device(entries, path_name(cfg), main_path_phase(
+        torch, pairs, cfg, card, CP_K1))
+    print(f"[device section] {time.perf_counter() - t0:.1f} s on {card} "
+          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
 
 
 # --- the study tools: cli.sweep and cli.aggregate ---------------------------
@@ -4094,15 +4411,22 @@ def sweep_phase(torch, card, trunk, entries):
           + f" [{time.perf_counter() - T0:.0f} s]", flush=True)
 
 
+# the bench's timed windows in this script (its own default is 5): the
+# device-resident section's time came out of them
+BENCH_WINDOWS = 2
+
+
 def bench_phase():
     """``python -m pretrain_gnns_tpu_torch.bench`` at ``--scan_steps 1``
     (eager steps), at its defaults (K = 16, CUDA-graph replays), at
     ``--dtype default`` (the knobs' defaults) and at ``--dtype
-    bfloat16_act``, in turn, in this process; each prints its JSON line."""
+    bfloat16_act``, in turn, in this process, each with BENCH_WINDOWS
+    timed windows; each prints its JSON line."""
     from pretrain_gnns_tpu_torch import bench
 
     for argv in (["--scan_steps", "1"], [], ["--dtype", "default"],
                  ["--dtype", "bfloat16_act"]):
+        argv = argv + ["--windows", str(BENCH_WINDOWS)]
         print(f"[bench] pretrain_gnns_tpu_torch.bench {' '.join(argv)}:",
               flush=True)
         if bench.main(argv) != 0:
@@ -4166,7 +4490,7 @@ def main() -> int:
     # chem: K1 on the masking path (mask_edge off, as the JAX bench)
     graphs, chem_scaffolds = molecule_dataset(MAIN_GRAPHS, seed=0,
                                               mean_atoms=MEAN_ATOMS)
-    cfg = pretrain.PretrainConfig(
+    cfg = host_config(
         num_layer=LAYERS, emb_dim=EMB, batch_size=BATCH, mask_edge=False,
         seed=0, packing="auto",
     )
@@ -4194,7 +4518,7 @@ def main() -> int:
 
     # bio: K2 on the bio masking path
     graphs = bio_dataset(MAIN_GRAPHS, seed=0)
-    cfg = pretrain.PretrainConfig(
+    cfg = host_config(
         domain="bio", num_layer=LAYERS, emb_dim=EMB, batch_size=BATCH,
         seed=0, packing="auto",
     )
@@ -4220,7 +4544,7 @@ def main() -> int:
     # edge prediction: K3 in both scoring heads, K1 or K2 in the trunk
     def edgepred(domain, gnn_type="gin"):
         graphs = bio_graphs if domain == "bio" else chem_graphs
-        cfg = pretrain.PretrainConfig(
+        cfg = host_config(
             objective="edgepred", domain=domain, gnn_type=gnn_type,
             num_layer=LAYERS, emb_dim=EMB, batch_size=BATCH, seed=0,
             packing="auto")
@@ -4280,7 +4604,7 @@ def main() -> int:
     # GAT: K4 (the fused conv) and K5 (the attention of the unfused conv)
     def gat_path(domain, objective="masking"):
         graphs = bio_graphs if domain == "bio" else chem_graphs
-        cfg = pretrain.PretrainConfig(
+        cfg = host_config(
             objective=objective, domain=domain, gnn_type="gat",
             num_layer=LAYERS, emb_dim=EMB, batch_size=BATCH, mask_edge=False,
             seed=0, packing="auto")
@@ -4350,7 +4674,7 @@ def main() -> int:
             graphs, _ = molecule_dataset(MAIN_GRAPHS, num_tasks=CHEM_TASKS,
                                          seed=0, mean_atoms=MEAN_ATOMS)
         graphs, tasks = pretrain.supervised_graphs(graphs, domain)
-        return graphs, pretrain.PretrainConfig(
+        return graphs, host_config(
             objective="supervised", domain=domain, num_layer=LAYERS,
             emb_dim=EMB, batch_size=BATCH, num_tasks=tasks,
             graph_pooling="mean", dropout_ratio=dropout, seed=0,
@@ -4363,7 +4687,7 @@ def main() -> int:
         describe(f"data {domain} supervised, {cfg.num_tasks} tasks", first)
         loader_phase(graphs, cfg, dev)
         agreement_phase(torch, first, cfg)
-        sup[domain] = graphs, pretrain.PretrainConfig(
+        sup[domain] = graphs, host_config(
             **{**cfg.__dict__, "dropout_ratio": 0.2})
     record_launches(probe, main_path_phase(torch, *sup["chem"], card, K1,
                                            reprobe=True))
@@ -4375,7 +4699,7 @@ def main() -> int:
     # (chem) and K2 (bio); no transform
     for domain, graphs, per_step in (("chem", chem_graphs, K1),
                                      ("bio", bio_graphs, BIO_K2)):
-        cfg = pretrain.PretrainConfig(
+        cfg = host_config(
             objective="infomax", domain=domain, num_layer=LAYERS,
             emb_dim=EMB, batch_size=BATCH, seed=0, packing="auto")
         loader_phase(graphs, cfg, dev)
@@ -4420,6 +4744,11 @@ def main() -> int:
     # and chem context prediction (every pair drawn anew each epoch)
     host_section(torch, card, chem_graphs_of, bio_graphs, f32_rates,
                  kernels + k2 + k3)
+
+    # the device-resident dataset: batches built on the card from
+    # descriptors, the epoch trainer, the draws inside the step
+    device_section(torch, card, chem_graphs, chem_graphs_of, bio_graphs,
+                   kernels + k2 + k3)
 
     bench_phase()
     kernels += k2 + k3 + k45 + k67 + probe + bf16

@@ -13,18 +13,23 @@ Cells (seed 0 for the data and the weights):
     ``bio/pretrain_masking.py`` defaults (batch 256, 5 x 300, mask rate
     0.15).
 Each cell runs ``run_pretrain(..., device="cuda")`` with its default
-pipeline (``build_loader``: the flat dataset and the C++ packer, the
-masking pass on the prefetch thread) and ``--scan_steps`` train steps a
-dispatch (0, the default, resolves to 16 on CUDA: one CUDA-graph replay a
-group of 16 batches; 1 runs every step eagerly). Epochs 1 and 2 warm up
-(the first eager steps and the capture, which falls in epoch 1 or 2 at the
-cells' 64 and 16 steps an epoch; both sides of a comparison warm up alike);
-then ``--windows``
-windows of ``--window_epochs`` whole epochs each are timed in the same
-run: the wall time between the epoch log stamps (``run_pretrain`` reads the
-loss back at each epoch's end, so a stamp follows the card's work) and
-the valid edges of exactly those epochs, each directed edge once a step.
-A cell reports the median window and the spread, (max - min) / median.
+pipeline (``device_dataset="auto"``: on CUDA the device-resident dataset,
+each batch built on the card from a descriptor, and at K > 1 the epoch
+trainer at its default group, 4 epochs at the chem cell's 64 steps an
+epoch and 8 at the bio cell's 16; on the CPU the flat dataset and the C++
+packer, the masking pass on the prefetch thread) and ``--scan_steps``
+train steps a dispatch (0, the default, resolves to 16 on CUDA: one
+CUDA-graph replay a group of 16 batches; 1 runs every step eagerly, one
+epoch at a time). The run's first epochs warm up (the first eager steps
+and the capture, which falls in epoch 1 or 2 at the cells' sizes): the
+least multiple of ``--window_epochs`` that is at least 2. Then
+``--windows`` windows of ``--window_epochs`` whole epochs each are timed
+in the same run, between the run's marks (``run_pretrain``'s ``marks``,
+one after each epoch's steps or each group's, so a window holds whole
+groups: ``--window_epochs`` must be a multiple of the group) on the
+card's clock, the idle gaps included, and the valid edges of exactly
+those epochs, each directed edge once a step. A cell reports the median
+window and the spread, (max - min) / median.
 
 ``--dtype`` sets both precision knobs for the run: ``float32`` (the
 default) the model's and the kernels' to float32; ``default`` the knobs'
@@ -74,8 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--emb_dim", type=int, default=300)
     p.add_argument("--batch_size", type=int, default=256)
     p.add_argument("--windows", type=int, default=5)
-    p.add_argument("--window_epochs", type=int, default=4,
-                   help="whole epochs in one timed window")
+    p.add_argument("--window_epochs", type=int, default=8,
+                   help="whole epochs in one timed window: a multiple of "
+                        "the epoch trainer's group (at most 8)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--scan_steps", type=int, default=0,
                    help="train steps a dispatch (0 = auto: 16 on CUDA, 1 "
@@ -92,17 +98,42 @@ DTYPES = {"float32": ("float32", "float32"),
           "bfloat16_act": ("bfloat16_act", "bfloat16")}
 
 
+# the epochs the capture may fall in: the warm-up covers at least these
 WARMUP_EPOCHS = 2
 
 
+def window_rates(res, first: int, k: int, n: int):
+    """Valid edges/s of ``n`` windows of ``k`` epochs after epoch
+    ``first`` of a ``run_pretrain`` result, each from the mark that ends
+    its first epoch's predecessor to the mark that ends its last epoch
+    (``telemetry.seconds_between``)."""
+    from pretrain_gnns_tpu_torch.train.telemetry import seconds_between
+
+    marks = {m.epoch: m for m in res["marks"]}
+    edges = {h["epoch"]: h["edges"] for h in res["history"]}
+    rates = []
+    for w in range(n):
+        a, b = first + w * k, first + (w + 1) * k
+        if a not in marks or b not in marks:
+            raise ValueError(
+                f"no mark after epoch {a} or {b}: a window of {k} epochs "
+                f"is not a multiple of the epoch group "
+                f"({res['epoch_group']})")
+        rates.append(sum(edges[e] for e in range(a + 1, b + 1))
+                     / seconds_between(marks[a], marks[b]))
+    return rates
+
+
 def run_cell(cfg, graphs, args):
-    """``run_pretrain`` for WARMUP_EPOCHS + windows * window_epochs epochs;
-    the timed windows' rates and the run's facts."""
+    """``run_pretrain`` for the warm-up and ``windows`` windows of
+    ``window_epochs`` epochs; the timed windows' rates and the run's
+    facts."""
     import torch
 
     from pretrain_gnns_tpu_torch.train import pretrain
 
     k = args.window_epochs
+    warm = k * -(-WARMUP_EPOCHS // k)
     stamps = []
 
     def log(msg):
@@ -113,27 +144,22 @@ def run_cell(cfg, graphs, args):
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = pretrain.run_pretrain(cfg, graphs, log=log,
-                                epochs=WARMUP_EPOCHS + args.windows * k,
+                                epochs=warm + args.windows * k,
                                 device=args.device)
     hist = res["history"]
     if not all(math.isfinite(h["loss"]) for h in hist):
         raise RuntimeError(f"non-finite loss: {hist}")
-    windows = []
-    for w in range(args.windows):
-        # stamps[i] closes epoch i + 1; window w is the k epochs after
-        # epoch WARMUP_EPOCHS + w * k
-        a = WARMUP_EPOCHS + w * k
-        edges = sum(h["edges"] for h in hist[a: a + k])
-        windows.append(edges / (stamps[a + k - 1] - stamps[a - 1]))
+    windows = window_rates(res, warm, k, args.windows)
     med = statistics.median(windows)
     out = {
         "value": med, "unit": "valid edges/s", "windows": windows,
         "spread": (max(windows) - min(windows)) / med,
         "epochs_per_window": k, "steps_per_epoch": hist[-1]["steps"],
         "edges_per_epoch": hist[-1]["edges"],
-        "warmup_epochs": WARMUP_EPOCHS,
-        "warmup_s": stamps[WARMUP_EPOCHS - 1] - t0,
-        "epoch_s": [b - a for a, b in zip(stamps, stamps[1:])],
+        "epoch_group": res["epoch_group"],
+        "warmup_epochs": warm,
+        # the warm-up's last epoch logs once its work is done
+        "warmup_s": stamps[warm - 1] - t0,
         "final_loss": hist[-1]["loss"],
         "loader": type(res["loader"]).__name__,
         "replays": res["replays"], "eager_steps": res["eager_steps"],

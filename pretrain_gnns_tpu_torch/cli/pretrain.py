@@ -59,9 +59,16 @@ means 1 there).
 the loader (``MaskAtom``, ``MaskEdge``, ``NegativeEdge``, and every
 context pair drawn anew each epoch) in place of the one vectorized pass a
 batch (``batch``, what the default ``auto`` means) and the presampled
-contexts; ``device`` (chem masking inside the step) is not ported and
-exits with ``NotImplementedError``; elsewhere it reads as ``batch``, as in
-the JAX CLI without its device-resident dataset.
+contexts; ``device`` masks chem atoms inside the step
+(``FusedMaskingObjective``) and, on the device-resident dataset, draws
+edge prediction's negatives inside the step; elsewhere it reads as
+``batch``.
+
+``--device_dataset on`` keeps the whole dataset on the device and builds
+each batch there from a small descriptor (``data/device_pack.py``; with K >
+1 the epoch trainer); ``auto``, the default, means on with CUDA (where
+chem and bio masking GIN ran at least as fast with it on the H100:
+``train.pretrain.use_device_dataset``) and off on the CPU; ``off`` never.
 
 ``--checkpoint_dir D`` saves the whole train state (model, Adam's moments,
 step, epoch, the dropout generators) to ``D`` every ``--checkpoint_every``
@@ -129,7 +136,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="SSL transform placement: per graph in the loader "
                         "(host, the reference's), one vectorized pass per "
                         "batch (batch, what auto means), or inside the "
-                        "step (device: chem masking's is not ported)")
+                        "step (device)")
+    p.add_argument("--device_dataset", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="keep the whole flat dataset on the device and "
+                        "build batches there (auto: see "
+                        "train.pretrain.use_device_dataset)")
     p.add_argument("--mask_rate", type=float, default=0.15)
     p.add_argument("--mask_edge", type=int, default=0)
     p.add_argument("--csize", type=int, default=3)
@@ -194,6 +206,7 @@ def main(argv=None):
         center=bool(args.center),
         graph_pooling=args.graph_pooling, packing=args.packing,
         scan_steps=args.scan_steps, transform_device=args.transform_device,
+        device_dataset=args.device_dataset,
     )
     trunk = (load_trunk_any(args.input_model_file)
              if args.input_model_file else None)

@@ -1,5 +1,5 @@
-"""Context prediction's input pipeline (port of ``PresampledContextLoader``
-and of the blocked walk of ``DeviceContextLoader`` in
+"""Context prediction's input pipeline (port of ``PresampledContextLoader``,
+``ContextPairLoader`` and ``DeviceContextLoader`` of
 ``pretrain_gnns_tpu.data.context_loader``).
 
 Each sample is two independent graphs, its substructure and its context
@@ -20,7 +20,9 @@ Two layouts:
   its plain version, the JAX package's Python walk, which the tests hold
   it against. The JAX package walks this layout only on its
   device-resident loader, over lengths rounded up to its 8-row chunks; the
-  port packs the graphs unrounded, so it walks their own lengths.
+  port's :class:`PresampledContextLoader` packs the graphs unrounded, so it
+  walks their own lengths, and its :class:`DeviceContextLoader` walks the
+  rounded ones, as the JAX loader does.
 
 Documented deviation of the JAX package kept by
 :class:`PresampledContextLoader`: the reference redraws each graph's root
@@ -41,9 +43,11 @@ import time
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from pretrain_gnns_tpu_torch import native
 from pretrain_gnns_tpu_torch.core.graphs import Graph, PackedPair, pack_graphs
+from pretrain_gnns_tpu_torch.data import device_pack
 from pretrain_gnns_tpu_torch.data.flat import FlatGraphs
 from pretrain_gnns_tpu_torch.data.transforms import SubstructContextPair
 
@@ -497,3 +501,159 @@ class ContextPairLoader(_PairBatches):
         else:
             for _, batch in self.iter_blocked():
                 yield batch
+
+
+class DeviceContextLoader(device_pack.EpochStackMixin,
+                          PresampledContextLoader):
+    """Context prediction on the device-resident dataset (the JAX
+    ``DeviceContextLoader``): every variant's presampled substructures and
+    contexts live on ``device`` as chunked resident arrays
+    (``data.device_pack``), concatenated variant-major so that one set of
+    shapes covers all variants (each variant's chunk base rides the
+    descriptor's gather plan). Iteration yields descriptors of a few
+    kilobytes; :meth:`prepare` builds the ``PackedPair`` on the device.
+
+    Both layouts walk the 8-padded lengths, which chunk alignment takes:
+    standard, the larger of a pair's two streams against buffers rounded
+    up to 8; blocked (``blocked=True``), each stream its own geometry
+    (:func:`stream_layout` of the padded lengths) and the joint first-fit
+    ``native.plan_pair_epoch`` over them. The descriptor carries each
+    stream's slot masks and gather plan (``s_*``, ``c_*``),
+    ``center_slots`` and the overlap rows ``overlap_slots`` with their
+    ``overlap_mask``. Device memory: ``variants`` copies of the
+    substructures and contexts."""
+
+    def __init__(self, *args, blocked: bool = False, device=None, **kw):
+        super().__init__(*args, **kw)
+        ceil8 = device_pack._ceil8
+        self.max_nodes = int(ceil8(self.max_nodes))
+        self.max_edges = int(ceil8(self.max_edges))
+        self.device = torch.device(device or "cpu")
+        self._aux_s, self._aux_c = [], []
+        self._base = []  # per variant: (sub_n, sub_e, ctx_n, ctx_e) rows
+        cat = {"s_node8": [], "s_edge8": [], "c_node8": [], "c_edge8": []}
+        rows = dict.fromkeys(cat, 0)
+        self._center_local = []
+        for v in range(self.variants):
+            base = []
+            for p, flat, auxes in (("s_", self._sub[v], self._aux_s),
+                                   ("c_", self._ctx[v], self._aux_c)):
+                dev, aux = device_pack.build_device_flat(flat, as_numpy=True)
+                auxes.append(aux)
+                for name in ("node8", "edge8"):
+                    base.append(rows[p + name])
+                    cat[p + name].append(dev[name])
+                    rows[p + name] += dev[name].shape[0]
+            self._base.append(tuple(base))
+            self._center_local.append(np.asarray(
+                self._sub[v].extras["center_substruct_idx"][0]
+            ).reshape(-1).astype(np.int64))
+            # chunk-aligned capacity accounting for the standard walk
+            self._eff_n[v] = np.maximum(self._aux_s[v]["lens_n8"],
+                                        self._aux_c[v]["lens_n8"])
+            self._eff_e[v] = np.maximum(self._aux_s[v]["lens_e8"],
+                                        self._aux_c[v]["lens_e8"])
+        self.dev = {k: torch.from_numpy(np.concatenate(v)).to(self.device)
+                    for k, v in cat.items()}
+        if blocked:
+            self.blocks = tuple(
+                stream_layout(np.concatenate([a["lens_n8"] for a in auxes]),
+                              np.concatenate([a["lens_e8"] for a in auxes]),
+                              self.batch_size)
+                for auxes in (self._aux_s, self._aux_c))
+            (nb_s, bn_s, be_s), (nb_c, bn_c, be_c) = self.blocks
+            self._streams = ((nb_s * bn_s, nb_s * be_s, bn_s, be_s),
+                             (nb_c * bn_c, nb_c * be_c, bn_c, be_c))
+        else:
+            self._streams = ((self.max_nodes, self.max_edges, 0, 0),) * 2
+
+    # the device side --------------------------------------------------
+    def prepare(self, desc) -> PackedPair:
+        """The ``PackedPair`` of ``desc`` (tensors on the resident arrays'
+        device), both streams built there by ``device_pack.materialize``."""
+        def stream(p, aux, geometry):
+            d = {k[2:]: v for k, v in desc.items() if k.startswith(p)}
+            d["gid"], d["gmask"] = desc["gid"], desc["gmask"]
+            mn, me, bn, be = geometry
+            return device_pack.materialize(
+                {"node8": self.dev[p + "node8"],
+                 "edge8": self.dev[p + "edge8"]}, d, mn, me,
+                fn=aux["fn"], fe=aux["fe"], with_y=False,
+                block_nodes=bn, block_edges=be,
+                node_dtype=aux["node_dtype"], edge_dtype=aux["edge_dtype"])
+
+        sub = stream("s_", self._aux_s[0], self._streams[0])
+        ctx = stream("c_", self._aux_c[0], self._streams[1])
+        sub = sub.replace(extras={
+            "center_substruct_idx": desc["center_slots"]})
+        ctx = ctx.replace(extras={
+            "overlap_context_substruct_idx": desc["overlap_slots"],
+            "overlap_context_substruct_idx_mask": desc["overlap_mask"]})
+        return PackedPair(sub, ctx)
+
+    # host-side descriptors -------------------------------------------
+    def _descriptor(self, v: int, ids: np.ndarray,
+                    placement=None) -> device_pack.Descriptor:
+        G = self.batch_size
+        bases = self._base[v]
+
+        def stream(flat, aux, base_n, base_e, geometry, starts):
+            lens_n = flat.lens_n[ids]
+            lens_e = flat.lens_e[ids]
+            if starts is None:
+                n8 = aux["lens_n8"][ids]
+                e8 = aux["lens_e8"][ids]
+                nstarts = np.concatenate([[0], np.cumsum(n8)[:-1]])
+                estarts = np.concatenate([[0], np.cumsum(e8)[:-1]])
+            else:
+                nstarts, estarts = starts
+            d = device_pack.stream_descriptor(
+                aux, lens_n, lens_e, ids, nstarts, estarts,
+                geometry[0], geometry[1], G,
+                chunk_base_n=base_n, chunk_base_e=base_e)
+            return d, nstarts
+
+        ps, pc = placement if placement is not None else (None, None)
+        ds, ns_sub = stream(self._sub[v], self._aux_s[v], bases[0],
+                            bases[1], self._streams[0], ps)
+        dc, ns_ctx = stream(self._ctx[v], self._aux_c[v], bases[2],
+                            bases[3], self._streams[1], pc)
+        desc = device_pack.Descriptor(gid=ds.pop("gid"),
+                                      gmask=ds.pop("gmask"))
+        dc.pop("gid"), dc.pop("gmask")
+        desc.update({f"s_{k}": a for k, a in ds.items()})
+        desc.update({f"c_{k}": a for k, a in dc.items()})
+
+        # center slot per graph slot (padding graphs -> 0, masked by gmask)
+        center = np.zeros(G, np.int32)
+        center[: len(ids)] = ns_sub + self._center_local[v][ids]
+        desc["center_slots"] = center
+
+        # ragged overlap indices offset into the packed context slots
+        pad, m = self._overlap_padded(v, ids, ns_ctx, self._streams[1][0])
+        desc["overlap_slots"] = pad
+        desc["overlap_mask"] = m
+        return desc
+
+    def _walk_blocked(self, v: int, order: np.ndarray):
+        """As the presampled loader's walk, over the 8-padded lengths."""
+        a_s, a_c = self._aux_s[v], self._aux_c[v]
+        batch, starts, n_batches = native.plan_pair_epoch(
+            (a_s["lens_n8"], a_s["lens_e8"]), (a_c["lens_n8"], a_c["lens_e8"]),
+            order, self.batch_size, *self.blocks)
+        bounds = np.searchsorted(batch, np.arange(n_batches + 1))
+        if (self.drop_last and n_batches
+                and bounds[-1] - bounds[-2] < self.batch_size):
+            n_batches -= 1  # the trailing partial batch
+        for b in range(n_batches):
+            st = starts[bounds[b]:bounds[b + 1]].astype(np.int64)
+            yield (order[bounds[b]:bounds[b + 1]],
+                   ((st[:, 0], st[:, 1]), (st[:, 2], st[:, 3])))
+
+    def __iter__(self) -> Iterator[device_pack.Descriptor]:
+        if self.blocks is not None:
+            for v, ids, placement in self._iter_blocked():
+                yield self._descriptor(v, ids, placement)
+        else:
+            for v, ids in self._iter_ids():
+                yield self._descriptor(v, ids)

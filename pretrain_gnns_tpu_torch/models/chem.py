@@ -345,6 +345,11 @@ class TrunkDropout:
                 self.dropout_generator(torch.device(name)).set_state(
                     state.cpu())
 
+    def draws(self) -> bool:
+        """Whether a captured step draws from this generator, so that a
+        CUDA graph must register it."""
+        return self.drop_ratio > 0
+
     def dropout(self, h: torch.Tensor, train: bool) -> torch.Tensor:
         p = self.drop_ratio
         if not train or p <= 0:
@@ -354,6 +359,24 @@ class TrunkDropout:
         gen = self.dropout_generator(h.device)
         keep = torch.rand(h.shape, generator=gen, device=h.device) >= p
         return torch.where(keep, h / (1.0 - p), 0.0)
+
+
+class MaskStream(TrunkDropout):
+    """An objective's ``mask`` stream: the generator of what its step
+    draws on the device (the masked atoms, the negative pairs), one a
+    device, made from the seed at first use. It is kept, checkpointed and
+    registered with a CUDA graph as a trunk's dropout generator is; it
+    draws no dropout (its rate stays 0). :meth:`seed_masks` seeds it."""
+
+    def seed_masks(self, seed: int) -> None:
+        self.seed_dropout(seed)
+
+    def mask_generator(self, device) -> torch.Generator:
+        return self.dropout_generator(torch.device(device))
+
+    def draws(self) -> bool:
+        # made by an eager step before any capture, if the step draws
+        return bool(self._dropout_generators)
 
 
 class GNN(nn.Module, TrunkDropout):

@@ -1,8 +1,9 @@
 """Host-side C++ of the port, loaded with ctypes: the batch packer
 (``pack_batch``, ``pack_batch_blocked``), the epoch planners
 (``plan_epoch``; ``plan_pair_epoch``, context prediction's two streams)
-and the block-aligned NegativeEdge rejection sampler
-(``sample_negatives_blocked``), all in ``packer.cpp``.
+and the NegativeEdge rejection sampler, block-aligned
+(``sample_negatives_blocked``) or compact (``sample_negatives``), all in
+``packer.cpp``.
 
 The source is compiled at first use with ``g++ -O3 -shared -fPIC`` into
 ``pretrain_gnns_tpu_torch/_build/libpacker_<hash>.so`` (a directory that
@@ -54,6 +55,10 @@ _SIGNATURES = {
     # block_edges, n_blocks, seed, out_pairs, out_mask
     "sample_negatives_blocked": ([_P] * 4 + [_I64, _P, _P, _P, _I64, _I64,
                                              _U64, _P, _P], _I64),
+    # send, recv, edge_off, graph_ids, n_graphs, lens_n, nstarts, seed,
+    # budget, out_pairs, out_mask
+    "sample_negatives": ([_P] * 4 + [_I64, _P, _P, _U64, _I64, _P, _P],
+                         _I64),
 }
 
 
@@ -294,6 +299,58 @@ def sample_negatives_blocked(send, recv, edge_off, lens_n, nstarts, estarts,
         _ptr(send), _ptr(recv), _ptr(edge_off), _ptr(ids), len(ids),
         _ptr(lens_n), _ptr(nstarts), _ptr(estarts), block_edges, n_blocks,
         seed, _ptr(pairs), _ptr(m))
+    if r < 0:
+        raise ValueError("blocked negative sampling overflowed a block")
+    return pairs, m.view(np.bool_)
+
+
+class DatasetEdges:
+    """A flat dataset's edges as the samplers take them: the graph-local
+    endpoints ``send``/``recv`` [E], graph ``g``'s at ``[edge_off[g],
+    edge_off[g+1])``, and each graph's node count ``lens_n`` [G], checked
+    against each other once, here, so that a batch's draw
+    (:func:`sample_negatives`) checks only its own graph ids."""
+
+    def __init__(self, send, recv, edge_off, lens_n):
+        (self.send, self.recv, self.edge_off, _, self.lens_n,
+         _) = _graph_arrays(send, recv, edge_off, lens_n,
+                            np.zeros(len(lens_n), np.int64))
+
+
+def sample_negatives(edges: DatasetEdges, graph_ids, nstarts, seed: int,
+                     budget: int = 0, estarts=None,
+                     blocks: Optional[Tuple[int, int, int]] = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """NegativeEdge for the graphs ``graph_ids`` of ``edges`` (the JAX
+    ``DeviceBatchLoader``'s draw), each graph's pairs offset by its first
+    batch row ``nstarts``. Compact (``blocks`` None): the pairs in list
+    order, ``(pairs [budget, 2] int32, mask bool)``, ``ValueError`` if
+    they overflow the budget. Block-aligned (``blocks = (n_blocks,
+    block_nodes, block_edges)``, ``estarts`` each graph's first edge
+    slot): as :func:`sample_negatives_blocked`."""
+    ids = _vec(graph_ids, np.int64, "graph_ids")
+    if len(ids) and (ids.min() < 0 or ids.max() >= len(edges.lens_n)):
+        raise ValueError("a graph id is outside the dataset")
+    lens_n = np.ascontiguousarray(edges.lens_n[ids])
+    nstarts = _vec(nstarts, np.int64, "nstarts", len(ids))
+    data = (_ptr(edges.send), _ptr(edges.recv), _ptr(edges.edge_off),
+            _ptr(ids), len(ids), _ptr(lens_n), _ptr(nstarts))
+    if blocks is None:
+        pairs = np.zeros((budget, 2), np.int32)
+        m = np.zeros(budget, np.uint8)
+        r = load().sample_negatives(*data, seed, budget, _ptr(pairs),
+                                    _ptr(m))
+        if r < 0:
+            raise ValueError(f"negative edges > budget {budget}")
+        return pairs, m.view(np.bool_)
+    n_blocks, _, block_edges = blocks
+    estarts = _vec(estarts, np.int64, "estarts", len(ids))
+    half = block_edges // 2
+    pairs = np.zeros((n_blocks * half, 2), np.int32)
+    m = np.zeros(n_blocks * half, np.uint8)
+    r = load().sample_negatives_blocked(
+        *data, _ptr(estarts), block_edges, n_blocks, seed, _ptr(pairs),
+        _ptr(m))
     if r < 0:
         raise ValueError("blocked negative sampling overflowed a block")
     return pairs, m.view(np.bool_)

@@ -1,8 +1,8 @@
 // Host-side C++ of the port's input pipeline: the batch packer, the epoch
 // planner and the block-aligned NegativeEdge rejection sampler. The port's
-// own copy of pack_batch, pack_batch_blocked, plan_epoch, splitmix64 and
-// sample_negatives_blocked of pretrain_gnns_tpu/native/packer.cpp, with the
-// same outputs, and plan_pair_epoch, context prediction's two-stream walk
+// own copy of pack_batch, pack_batch_blocked, plan_epoch, splitmix64,
+// sample_negatives and sample_negatives_blocked of
+// pretrain_gnns_tpu/native/packer.cpp, with the same outputs, and plan_pair_epoch, context prediction's two-stream walk
 // (the JAX package walks it in Python, DeviceContextLoader._iter_blocked).
 //
 // The dataset is stored flat: graph i's nodes are rows [node_off[i],
@@ -327,6 +327,34 @@ int64_t plan_pair_epoch(const int64_t* lens_n_s, const int64_t* lens_e_s,
     }
   }
   return in_batch ? batch + 1 : batch;
+}
+
+// The compact layout: the pairs of every listed graph, in list order, into
+// out_pairs [budget, 2] and out_mask [budget], which the caller zeroes.
+// send/recv/edge_off/graph_ids/lens_n/nstarts as for the block-aligned
+// layout below. Returns the number of pairs, or -1 when they overflow the
+// budget.
+int64_t sample_negatives(
+    const int32_t* send, const int32_t* recv, const int64_t* edge_off,
+    const int64_t* graph_ids, int64_t n_graphs, const int64_t* lens_n,
+    const int64_t* nstarts, uint64_t seed, int64_t budget,
+    int32_t* out_pairs, uint8_t* out_mask) {
+  KeySet set;
+  int64_t out = 0;
+  auto emit = [&](int64_t a, int64_t b) {
+    if (out >= budget) return false;
+    out_pairs[2 * out] = (int32_t)a;
+    out_pairs[2 * out + 1] = (int32_t)b;
+    out_mask[out] = 1;
+    ++out;
+    return true;
+  };
+  for (int64_t i = 0; i < n_graphs; ++i) {
+    if (sample_graph(send, recv, edge_off, graph_ids[i], lens_n[i],
+                     nstarts[i], seed, &set, emit) < 0)
+      return -1;
+  }
+  return out;
 }
 
 // The block-aligned layout: the pairs of graph i go to the region of

@@ -16,9 +16,12 @@ eval batches too, so that every conv runs on the port's kernels: K1 for the
 chem GIN, K2 for the bio GIN and the chem GCN and GraphSAGE, K4 for GAT, in
 their training form in a train step and forward only under
 ``torch.no_grad()`` in an eval pass. Steps run eagerly, one a batch, and
-the loss is read back once an epoch, as the JAX ``run_finetune`` does. The
-halo execution (``make_halo_steps``) and the scan trainer
-(``make_scan_train_step``, ``stack_batches``) are not ported yet."""
+the loss is read back once an epoch, as the JAX ``run_finetune`` does.
+``make_scan_train_step`` runs K train steps a call (a ``graphed.ScanStep``,
+one CUDA-graph replay on the card) and ``stack_batches`` stacks K batches'
+leaves, as the JAX package's do; like the JAX ``run_finetune``,
+``run_finetune`` calls neither. The halo execution (``make_halo_steps``)
+is not ported yet."""
 
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ from pretrain_gnns_tpu_torch.models import bio as bio_models
 from pretrain_gnns_tpu_torch.models import chem as chem_models
 from pretrain_gnns_tpu_torch.models.inits import init_parameters
 from pretrain_gnns_tpu_torch.objectives import losses
-from pretrain_gnns_tpu_torch.train import checkpoints, metrics, optim
+from pretrain_gnns_tpu_torch.train import checkpoints, graphed, metrics, optim
 from pretrain_gnns_tpu_torch.train.state import TrainState
 
 # the reference's task counts (chem/finetune.py:125-144)
@@ -99,19 +102,55 @@ def make_train_step(loss_kind: str = "chem"):
     batch, dropout on), the ``loss_kind`` BCE over the valid graph slots,
     backward and optimizer step, counted in ``state.step``; returns the
     detached loss (no host synchronisation)."""
-    loss_of = LOSSES[loss_kind]
+    body = _train_body(loss_kind)
 
     def step(state: TrainState, batch: PackedGraphs) -> torch.Tensor:
+        loss, _ = body(state, batch)
+        state.step += 1
+        return loss
+
+    return step
+
+
+def _train_body(loss_kind: str):
+    """One train step, not counted in ``state.step``: the detached loss
+    and no metrics."""
+    loss_of = LOSSES[loss_kind]
+
+    def body(state: TrainState, batch: PackedGraphs):
         model = state.model
         model.train()
         loss = loss_of(model(batch, train=True), batch.y, batch.graph_mask)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
-        state.step += 1
-        return loss.detach()
+        return loss.detach(), {}
 
-    return step
+    return body
+
+
+def make_scan_train_step(state: TrainState, example_batch: PackedGraphs,
+                         k: int, loss_kind: str = "chem") -> graphed.ScanStep:
+    """K train steps of :func:`make_train_step`'s a call (the JAX
+    ``make_scan_train_step``), on K batches of ``example_batch``'s
+    signature: a ``graphed.ScanStep`` on the parameters' device, one
+    replay of a captured graph on CUDA (after an eager ``.step(batch)``),
+    the K steps in turn on the CPU. A call returns the losses ``[K]``."""
+    dev = next(state.model.parameters()).device
+    return graphed.ScanStep(state, example_batch, k, _train_body(loss_kind),
+                            dev)
+
+
+def stack_batches(batches: Sequence[PackedGraphs]) -> PackedGraphs:
+    """[K] batches of one layout -> one ``PackedGraphs`` whose leaves are
+    theirs stacked on a new first axis (numpy)."""
+    leaves = [b.leaves() for b in batches]
+    stacked = {name: np.stack([np.asarray(lv[name]) for lv in leaves])
+               for name in leaves[0]}
+    first = batches[0]
+    return dataclasses.replace(
+        first, **{f: stacked[f] for f in stacked if "/" not in f},
+        extras={k: stacked[f"extras/{k}"] for k in first.extras})
 
 
 def make_eval_step():

@@ -23,9 +23,10 @@ them:
 Captured steps compute what eager steps compute, bit for bit where the
 eager steps are repeatable: the same kernels on the same addresses'
 contents, the optimizer ``capturable`` on both sides (``train/optim.adam``
-makes it so for CUDA parameters), and the dropout generators registered with the
-graph, so that each replay draws the masks that eager steps would draw
-next.
+makes it so for CUDA parameters), and the dropout generators and the
+objective's ``mask`` stream (``models.chem.MaskStream``: the atoms masked
+and the negative pairs drawn inside the step) registered with the graph,
+so that each replay draws what eager steps would draw next.
 
 The capture runs with ``capture_error_mode="thread_local"``: the prefetch
 thread pins host memory (``cudaHostAlloc``) while the launching thread
@@ -156,7 +157,7 @@ class ScanStep:
         dev = next(self.state.model.parameters()).device
         return [m.dropout_generator(dev)
                 for m in self.state.model.modules()
-                if isinstance(m, TrunkDropout) and m.drop_ratio > 0]
+                if isinstance(m, TrunkDropout) and m.draws()]
 
     def _capture(self) -> None:
         if not self.eager_steps:
@@ -167,7 +168,8 @@ class ScanStep:
         if gens and not hasattr(graph, "register_generator_state"):
             raise RuntimeError(
                 f"torch {torch.__version__} cannot register the dropout "
-                "generators with a CUDA graph; run with scan_steps=1")
+                "and mask generators with a CUDA graph; run with "
+                "scan_steps=1")
         for gen in gens:
             graph.register_generator_state(gen)
         # the captured backward allocates the gradients in the graph's pool

@@ -9,7 +9,8 @@ Run from the repository root:
 
 It runs the cell of ``python -m pretrain_gnns_tpu_torch.bench`` (its
 options set the sizes; the defaults are the bench's workload) through
-``run_pretrain`` for 1 + N epochs, and records for each epoch after the
+``run_pretrain`` on the host-packed path (``device_dataset="off"``) for
+1 + N epochs, and records for each epoch after the
 first:
   - wall s between the epoch log stamps, and the valid edges;
   - CPU s of the launching (main) thread and of the whole process;
@@ -35,6 +36,7 @@ gives them), a table, and one JSON line last.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -99,6 +101,9 @@ def main() -> int:
     inits.set_compute_dtype(bench.DTYPES[args.dtype][0])
     spmm.set_compute_dtype(bench.DTYPES[args.dtype][1])
     metric, cfg, make_graphs = bench.cells(args)[args.cell == "bio"]
+    # the host-packed path this study was made for: each epoch logs after
+    # its own steps (the epoch trainer logs a group after the next one)
+    cfg = dataclasses.replace(cfg, device_dataset="off")
     graphs = make_graphs()
     if args.gc == "off":
         gc.collect()

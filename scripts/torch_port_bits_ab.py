@@ -90,7 +90,8 @@ def resummed(key: str) -> bool:
 
 
 def config(domain: str):
-    return pretrain.PretrainConfig(domain=domain, num_layer=5, emb_dim=F,
+    return pretrain.PretrainConfig(device_dataset="off",
+                                   domain=domain, num_layer=5, emb_dim=F,
                                    batch_size=256, mask_edge=False, seed=0,
                                    packing="auto")
 
@@ -278,7 +279,8 @@ def gat_batches(dev):
     and bio GAT masking paths."""
     out = {}
     for d in ("chem", "bio"):
-        cfg = pretrain.PretrainConfig(domain=d, num_layer=5, emb_dim=F,
+        cfg = pretrain.PretrainConfig(device_dataset="off",
+                                      domain=d, num_layer=5, emb_dim=F,
                                       batch_size=256, mask_edge=False,
                                       seed=0, packing="auto", gnn_type="gat")
         b = first_batch(d, dev, cfg)
@@ -297,6 +299,7 @@ def main() -> int:
     dev = resolve_device("cuda")
     batches = {d: first_batch(d, dev) for d in ("chem", "bio")}
     edgepred = {d: first_batch(d, dev, pretrain.PretrainConfig(
+        device_dataset="off",
         objective="edgepred", domain=d, num_layer=5, emb_dim=F,
         batch_size=256, seed=0, packing="auto")) for d in ("chem", "bio")}
     conv = pretrain.build_objective(config("chem")).to(dev).gnn.gnns[0]

@@ -287,10 +287,13 @@ def k2_cases(dev):
     out = {}
     base = dict(num_layer=5, emb_dim=300, batch_size=256, seed=0,
                 packing="auto")
-    bio_cfg = pretrain.PretrainConfig(domain="bio", **base)
-    gcn_cfg = pretrain.PretrainConfig(objective="edgepred", gnn_type="gcn",
+    bio_cfg = pretrain.PretrainConfig(device_dataset="off",
+                                      domain="bio", **base)
+    gcn_cfg = pretrain.PretrainConfig(device_dataset="off",
+                                      objective="edgepred", gnn_type="gcn",
                                       **base)
-    chem_cfg = pretrain.PretrainConfig(mask_edge=False, **base)
+    chem_cfg = pretrain.PretrainConfig(device_dataset="off",
+                                       mask_edge=False, **base)
     chem_graphs, _ = molecule_dataset(4096, seed=0, mean_atoms=23)
     for tag, cfg, graphs in (("bio", bio_cfg, bio_dataset(4096, seed=0)),
                              ("chem GCN", gcn_cfg, chem_graphs),
@@ -344,7 +347,8 @@ def k3_cases(dev):
     gen = torch.Generator().manual_seed(3)
     out = {}
     for domain in ("chem", "bio"):
-        cfg = pretrain.PretrainConfig(objective="edgepred", domain=domain,
+        cfg = pretrain.PretrainConfig(device_dataset="off",
+                                      objective="edgepred", domain=domain,
                                       num_layer=5, emb_dim=300,
                                       batch_size=256, seed=0, packing="auto")
         graphs = (bio_dataset(4096, seed=0) if domain == "bio"
@@ -380,7 +384,8 @@ def k6_cases(dev):
     gen = torch.Generator().manual_seed(6)
     out = {}
     for domain in ("chem", "bio"):
-        cfg = pretrain.PretrainConfig(domain=domain, num_layer=5, emb_dim=300,
+        cfg = pretrain.PretrainConfig(device_dataset="off",
+                                      domain=domain, num_layer=5, emb_dim=300,
                                       batch_size=256, mask_edge=False,
                                       seed=0, packing="auto")
         graphs = (bio_dataset(4096, seed=0) if domain == "bio"
@@ -424,7 +429,8 @@ def k7_cases(dev):
     gen = torch.Generator().manual_seed(6)
     out = {}
     for domain in ("chem", "bio"):
-        cfg = pretrain.PretrainConfig(domain=domain, num_layer=5, emb_dim=300,
+        cfg = pretrain.PretrainConfig(device_dataset="off",
+                                      domain=domain, num_layer=5, emb_dim=300,
                                       batch_size=256, mask_edge=False,
                                       seed=0, packing="auto")
         graphs = (bio_dataset(4096, seed=0) if domain == "bio"
@@ -457,7 +463,8 @@ def gat_cases(dev, kernels):
     out = {}
     gen = torch.Generator().manual_seed(4)
     for domain in ("chem", "bio"):
-        cfg = pretrain.PretrainConfig(domain=domain, num_layer=5, emb_dim=300,
+        cfg = pretrain.PretrainConfig(device_dataset="off",
+                                      domain=domain, num_layer=5, emb_dim=300,
                                       batch_size=256, mask_edge=False,
                                       seed=0, packing="auto", gnn_type="gat")
         graphs = (bio_dataset(4096, seed=0) if domain == "bio"
@@ -546,7 +553,8 @@ def cases(dev):
     graphs, _ = molecule_dataset(4096, seed=0, mean_atoms=23)
     gen = torch.Generator().manual_seed(1)
     rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)
-    cfg = pretrain.PretrainConfig(num_layer=5, emb_dim=300, batch_size=256,
+    cfg = pretrain.PretrainConfig(device_dataset="off",
+                                  num_layer=5, emb_dim=300, batch_size=256,
                                   mask_edge=False, seed=0, packing="auto")
     b = next(iter(pretrain.build_loader(cfg, graphs, dev))).to(dev)
     conv = pretrain.build_objective(cfg).to(dev).gnn.gnns[0]

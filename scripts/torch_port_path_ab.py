@@ -86,6 +86,7 @@ def main() -> int:
                                   mean_atoms=23)[0]
     # the bench's cells: chem with mask_edge off, bio at the default
     cfg = pretrain.PretrainConfig(
+        device_dataset="off",
         domain=args.domain, gnn_type=args.gnn_type, num_layer=5, emb_dim=300,
         batch_size=256, seed=0,
         **({} if args.domain == "bio" else {"mask_edge": False}))

@@ -270,6 +270,7 @@ def workload(domain: str, objective: str, gnn_type: str):
         extra = dict(num_tasks=tasks, graph_pooling="mean",
                      dropout_ratio=0.2)
     return graphs, pretrain.PretrainConfig(
+        device_dataset="off",
         objective=objective, domain=domain, gnn_type=gnn_type, num_layer=5,
         emb_dim=300, batch_size=256, mask_edge=False, seed=0, **extra)
 

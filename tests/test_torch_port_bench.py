@@ -103,3 +103,20 @@ def test_bench_default_runs_at_the_knobs_defaults_and_restores_them(
         assert min(out[name]["windows"]) > 0
         assert out[name]["final_loss"] > 0
     assert (inits.get_compute_dtype(), spmm.get_compute_dtype()) == before
+
+
+def test_bench_windows_hold_whole_groups():
+    """A window runs from the mark that closes the epoch before it to the
+    mark that closes its last epoch (on the CPU, the host's seconds
+    between them) over its epochs' valid edges; a window that does not
+    end on a mark (a group that its epochs split) raises."""
+    from pretrain_gnns_tpu_torch.train.telemetry import Mark
+
+    res = {"marks": [Mark(e, 1, at) for e, at in ((2, 0.0), (4, 1.0),
+                                                  (6, 3.0))],
+           "history": [{"epoch": e, "edges": 10} for e in range(1, 7)],
+           "epoch_group": 2}
+    assert bench.window_rates(res, 2, 2, 2) == [20.0, 10.0]
+    assert bench.window_rates(res, 2, 4, 1) == [40 / 3]
+    with pytest.raises(ValueError, match="not a multiple"):
+        bench.window_rates(res, 2, 1, 1)

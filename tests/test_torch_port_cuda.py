@@ -49,6 +49,13 @@ def cuda_device():
     spmm.set_compute_dtype(old)
 
 
+def _packed_cfg(**kw):
+    """A config of the host-packed pipeline, ``device_dataset`` "off"
+    unless given: on CUDA "auto" keeps the dataset on the card, and the
+    tests written for batches packed on the host keep to them."""
+    return pretrain.PretrainConfig(**{"device_dataset": "off", **kw})
+
+
 def _rel(a, b):
     return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
 
@@ -259,7 +266,7 @@ def test_autograd_function_matches_plain_version(cuda_device):
 def test_masking_step_on_card_matches_cpu(cuda_device):
     """One train-mode step of a small masking model: card vs CPU."""
     graphs, _ = molecule_dataset(64, seed=2)
-    cfg = pretrain.PretrainConfig(num_layer=3, emb_dim=48, batch_size=32,
+    cfg = _packed_cfg(num_layer=3, emb_dim=48, batch_size=32,
                                   mask_edge=True, packing="blocked")
     batch = next(iter(pretrain.build_loader(cfg, graphs, cuda_device)))
     out = {}
@@ -281,7 +288,7 @@ def test_unfused_gin_masking_step_on_card_matches_cpu(cuda_device):
     ``[x+ein]`` variant (once a layer each way) and no K1: one train-mode
     step on the card against the CPU."""
     graphs, _ = molecule_dataset(64, seed=2)
-    cfg = pretrain.PretrainConfig(num_layer=3, emb_dim=48, batch_size=32,
+    cfg = _packed_cfg(num_layer=3, emb_dim=48, batch_size=32,
                                   mask_edge=True, packing="blocked")
     batch = next(iter(pretrain.build_loader(cfg, graphs, cuda_device)))
     out = {}
@@ -464,7 +471,7 @@ def test_gather_scatter_dispatch_on_cuda(cuda_device):
 def test_bio_masking_step_on_card_matches_cpu(cuda_device):
     """One train-mode step of a small bio masking model: card vs CPU."""
     graphs = bio_dataset(64, seed=2)
-    cfg = pretrain.PretrainConfig(domain="bio", num_layer=3, emb_dim=48,
+    cfg = _packed_cfg(domain="bio", num_layer=3, emb_dim=48,
                                   batch_size=32, packing="blocked")
     batch = next(iter(pretrain.build_loader(cfg, graphs, cuda_device)))
     out = {}
@@ -627,7 +634,7 @@ def test_edgepred_step_on_card_matches_cpu(cuda_device, domain, gnn_type):
     K2 in the trunk, K3 in both heads) vs CPU."""
     graphs = (bio_dataset(64, seed=2) if domain == "bio"
               else molecule_dataset(64, seed=2)[0])
-    cfg = pretrain.PretrainConfig(objective="edgepred", domain=domain,
+    cfg = _packed_cfg(objective="edgepred", domain=domain,
                                   gnn_type=gnn_type, num_layer=3, emb_dim=48,
                                   batch_size=32, packing="blocked")
     batch = next(iter(pretrain.build_loader(cfg, graphs, cuda_device)))
@@ -925,7 +932,7 @@ def test_gat_masking_step_on_card_matches_cpu(cuda_device, domain, fused):
     under set_fused("off")) vs CPU; an unblocked batch on CUDA raises."""
     graphs = (bio_dataset(64, seed=2) if domain == "bio"
               else molecule_dataset(64, seed=2)[0])
-    cfg = pretrain.PretrainConfig(domain=domain, gnn_type="gat", num_layer=3,
+    cfg = _packed_cfg(domain=domain, gnn_type="gat", num_layer=3,
                                   emb_dim=48, batch_size=32,
                                   packing="blocked")
     batch = next(iter(pretrain.build_loader(cfg, graphs, cuda_device)))
@@ -942,7 +949,7 @@ def test_gat_masking_step_on_card_matches_cpu(cuda_device, domain, fused):
                              {n: p.grad.cpu() for n, p in
                               model.named_parameters()})
         assert mod.launches == {k: v + 3 for k, v in before.items()}
-        std = pretrain.PretrainConfig(domain=domain, gnn_type="gat",
+        std = _packed_cfg(domain=domain, gnn_type="gat",
                                       num_layer=3, emb_dim=48, batch_size=32,
                                       packing="standard")
         flat = next(iter(pretrain.build_loader(std, graphs, cuda_device)))
@@ -1216,7 +1223,7 @@ def test_supervised_step_on_card_matches_cpu(cuda_device, domain, pooling):
         graphs, _ = molecule_dataset(64, num_tasks=5, seed=2,
                                      missing_frac=0.2)
     graphs, T = pretrain.supervised_graphs(graphs, domain)
-    cfg = pretrain.PretrainConfig(
+    cfg = _packed_cfg(
         objective="supervised", domain=domain, num_layer=3, emb_dim=48,
         batch_size=32, packing="blocked", num_tasks=T,
         graph_pooling=pooling)
@@ -1266,7 +1273,7 @@ def test_captured_steps_equal_eager_steps_bit_for_bit(cuda_device,
         extra = dict(num_tasks=T, graph_pooling="mean", dropout_ratio=0.2)
     runs = []
     for k in (1, 4, 1):
-        cfg = pretrain.PretrainConfig(
+        cfg = _packed_cfg(
             objective=objective, num_layer=3, emb_dim=48, batch_size=32,
             packing="blocked", scan_steps=k, **extra)
         runs.append(pretrain.run_pretrain(cfg, graphs, log=None, epochs=3,
@@ -1297,7 +1304,7 @@ def test_contextpred_step_on_card_matches_cpu(cuda_device, domain, gnn_type,
     blocks without a valid edge) vs CPU; both trunks' launches counted."""
     graphs = (bio_dataset(64, seed=2) if domain == "bio"
               else molecule_dataset(80, seed=2)[0])
-    cfg = pretrain.PretrainConfig(objective="contextpred", domain=domain,
+    cfg = _packed_cfg(objective="contextpred", domain=domain,
                                   gnn_type=gnn_type, mode=mode, num_layer=3,
                                   csize=2, emb_dim=48, batch_size=32,
                                   packing="blocked", context_variants=1)
@@ -1344,7 +1351,7 @@ def test_contextpred_captured_steps_equal_eager_steps(cuda_device, domain):
               else molecule_dataset(200, seed=2)[0])
     runs = []
     for k in (1, 2):
-        cfg = pretrain.PretrainConfig(
+        cfg = _packed_cfg(
             objective="contextpred", domain=domain, num_layer=3, csize=2,
             emb_dim=48, batch_size=32, packing="blocked", scan_steps=k,
             context_variants=2)
@@ -1358,7 +1365,7 @@ def test_contextpred_captured_steps_equal_eager_steps(cuda_device, domain):
 # --- transform_device="host": the per-graph transforms' batches ------------
 
 def _host_cfg(objective, domain, **kw):
-    return pretrain.PretrainConfig(
+    return _packed_cfg(
         objective=objective, domain=domain, num_layer=3, csize=2,
         emb_dim=48, batch_size=32, packing="blocked", mask_edge=False,
         transform_device="host", **kw)
@@ -2153,7 +2160,7 @@ def _equal_states(a, b):
 
 
 def _supervised_run(graphs, T, dev, epochs, **kw):
-    cfg = pretrain.PretrainConfig(
+    cfg = _packed_cfg(
         objective="supervised", num_layer=3, emb_dim=48, batch_size=32,
         packing="blocked", scan_steps=4, num_tasks=T, graph_pooling="mean",
         dropout_ratio=0.2)
@@ -2211,3 +2218,145 @@ def test_a_card_checkpoint_continues_on_the_cpu(cuda_device, tmp_path):
                           weights_only=True)
     for name, v in saved["model"].items():
         assert torch.equal(restored["model"][name], v.cpu()), name
+
+# --- the device-resident dataset ---------------------------------------------
+
+def _resident_cfg(objective="masking", domain="chem", **kw):
+    return _packed_cfg(
+        objective=objective, domain=domain, num_layer=2, emb_dim=32,
+        batch_size=16, seed=0, packing="auto", csize=2, device_dataset="on",
+        **kw)
+
+
+def _resident_graphs(domain, n=96):
+    if domain == "bio":
+        return bio_dataset(n, seed=1)
+    return molecule_dataset(n, seed=1)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective,domain,kw", [
+    ("masking", "chem", dict(mask_edge=True)),
+    ("masking", "bio", {}),
+    ("edgepred", "chem", {}),
+    ("supervised", "bio", {}),
+    ("contextpred", "chem", {}),
+])
+def test_materialize_on_card_equals_cpu(cuda_device, objective, domain, kw):
+    """Each descriptor of an epoch, built into its batch on the card and by
+    ``materialize`` on the CPU from the same resident arrays: every leaf
+    and extra equal bit for bit, blocked on chunk multiples."""
+    import copy
+
+    graphs = _resident_graphs(domain)
+    if objective == "supervised":
+        graphs, tasks = pretrain.supervised_graphs(graphs, domain)
+        kw = dict(kw, num_tasks=tasks)
+    loader = pretrain.build_loader(_resident_cfg(objective, domain, **kw),
+                                   graphs, cuda_device)
+    assert type(loader).__name__.startswith("Device")
+    twin = copy.copy(loader)
+    twin.dev = {k: v.cpu() for k, v in loader.dev.items()}
+    n = 0
+    for desc in loader:
+        card = loader.prepare(desc.to(cuda_device)).leaves()
+        cpu = twin.prepare(desc.to("cpu")).leaves()
+        assert sorted(card) == sorted(cpu)
+        for name, v in card.items():
+            assert v.is_cuda and v.dtype == cpu[name].dtype, name
+            assert torch.equal(v.cpu(), cpu[name]), name
+        n += 1
+    assert n > 1
+
+
+@pytest.mark.cuda
+def test_mask_stream_advances_across_replays(cuda_device):
+    """``FusedMaskingObjective`` under a capture at lr 0 (only the masks
+    move the loss): two replays on the same descriptors draw different
+    masks, and a rerun from the same seed repeats both bit for bit."""
+    from pretrain_gnns_tpu_torch.train import graphed, optim
+    from pretrain_gnns_tpu_torch.train.state import TrainState
+
+    cfg = _resident_cfg(transform_device="device", lr=0.0)
+    loader = pretrain.build_loader(cfg, _resident_graphs("chem"),
+                                   cuda_device)
+    descs = [d.to(cuda_device) for d, _ in zip(loader, range(4))]
+
+    def run():
+        model = pretrain.build_objective(cfg).to(cuda_device)
+        st = TrainState(model, optim.adam(model.parameters(), 0.0, 0.0))
+        scan = pretrain.make_scan_pretrain_step(st, descs[0], 4,
+                                                loader.prepare)
+        for d in descs[:graphed.WARMUP_STEPS]:
+            scan.step(d)
+        return [scan(descs)[0].cpu() for _ in range(2)]
+
+    first, again = run(), run()
+    assert not torch.equal(first[0], first[1])
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_device_drawn_negatives_go_through_k3(cuda_device):
+    """Bio edge prediction with the negatives drawn in the step: the batch
+    carries none, the pairs lie in their blocks' slots with the sampler's
+    properties, and a step launches K3 on both heads."""
+    from pretrain_gnns_tpu_torch.objectives.edgepred import (
+        sample_negative_edges,
+    )
+
+    cfg = _resident_cfg("edgepred", "bio", transform_device="device")
+    loader = pretrain.build_loader(cfg, _resident_graphs("bio"), cuda_device)
+    batch = loader.prepare(next(iter(loader)).to(cuda_device))
+    assert not {"negative_edges", "negative_edges_blocked"} & set(
+        batch.extras)
+    pairs, mask = sample_negative_edges(
+        batch, torch.Generator(device=cuda_device).manual_seed(0))
+    pairs, mask = pairs.cpu().numpy(), mask.cpu().numpy()
+    b = batch._map(lambda t: t.cpu())
+    a_, b_ = (pairs[mask, i].astype(np.int64) for i in (0, 1))
+    ng = b.node_graph.numpy()
+    em = b.edge_mask.numpy()
+    N, half = b.max_nodes, b.block_edges // 2
+    keys = a_ * N + b_
+    edges = set((b.senders.numpy()[em].astype(np.int64) * N
+                 + b.receivers.numpy()[em]).tolist())
+    block = np.nonzero(mask)[0] // half
+    assert mask.any() and (a_ != b_).all() and (ng[a_] == ng[b_]).all()
+    assert b.node_mask.numpy()[a_].all() and b.node_mask.numpy()[b_].all()
+    assert len(set(keys.tolist())) == len(keys)
+    assert not edges & set(keys.tolist())
+    assert (a_ // b.block_nodes == block).all()
+    assert (b_ // b.block_nodes == block).all()
+    quota = np.bincount(ng[b.senders.numpy()[em]],
+                        minlength=b.max_graphs) // 2
+    assert (np.bincount(ng[a_], minlength=b.max_graphs) <= quota).all()
+    model = pretrain.build_objective(cfg).to(cuda_device)
+    edge_dot.reset_launches()
+    loss, _ = model(batch, train=True)
+    loss.backward()
+    assert edge_dot.launches["blocked_edge_dot_fwd"] == 2
+    assert edge_dot.launches["blocked_edge_dot_bwd"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective,domain,kw", [
+    ("masking", "chem", {}),
+    ("masking", "chem", dict(transform_device="device")),
+    ("edgepred", "bio", dict(transform_device="device")),
+    ("contextpred", "chem", {}),
+])
+def test_epoch_trainer_on_card_equals_per_step(cuda_device, objective,
+                                               domain, kw):
+    """``run_pretrain`` on the device-resident dataset: the epoch trainer
+    (K = 4, two epochs a group, CUDA-graph replays) equals per-step mode
+    (K = 1, eager steps) bit for bit: history, parameters and statistics."""
+    graphs = _resident_graphs(domain)
+    runs = [pretrain.run_pretrain(
+        _resident_cfg(objective, domain, scan_steps=k, epoch_group=2, **kw),
+        graphs, log=None, epochs=3, device="cuda") for k in (1, 4)]
+    assert runs[1]["replays"] > 0
+    assert runs[0]["history"] == runs[1]["history"]
+    ref = runs[0]["model"].state_dict()
+    for name, v in runs[1]["model"].state_dict().items():
+        assert torch.equal(v, ref[name]), name

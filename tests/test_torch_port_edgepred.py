@@ -431,11 +431,24 @@ def test_trunk_forward_matches_jax(batches, domain, gnn_type):
 
 
 def test_batch_without_negatives_raises(batches):
+    """A batch without negatives raised until the step could draw them; it
+    now draws them from the objective's mask stream
+    (``transform_device="device"``): the same seed gives the same loss,
+    another seed another, and a batch with half of a negative extra still
+    raises."""
     b = batches["chem", "blocked"][0]
-    clean = b.replace(extras={})
+    clean = b.replace(extras={}).to("cpu")
     tm = EdgePredObjective(num_layer=LAYERS, emb_dim=EMB)
-    with pytest.raises(ValueError, match="no negative edges"):
-        tm(clean.to("cpu"), train=True)
+    losses = []
+    for seed in (0, 0, 1):
+        tm.seed_masks(seed)
+        losses.append(float(tm(clean, train=True)[0].detach()))
+    assert np.isfinite(losses).all()
+    assert losses[0] == losses[1] != losses[2]
+    half = b.replace(extras={"negative_edges_blocked":
+                             b.extras["negative_edges_blocked"]})
+    with pytest.raises(KeyError):
+        tm(half.to("cpu"), train=True)
 
 
 @pytest.mark.parametrize("flags,metric_steps", [

@@ -491,9 +491,11 @@ def test_build_loader_host_matches_jax(objective, domain):
 
 def test_transform_device_resolution_matches_jax():
     """``masking_mode`` over every (objective, domain, choice); "device"
-    on chem masking raises ``NotImplementedError`` naming the missing
-    module, and elsewhere builds the "batch" loader, as the JAX package
-    does without its device-resident dataset; an unknown choice raises."""
+    on chem masking builds the JAX package's ``FusedMaskingObjective`` on
+    the clean batches of its loader (it raised ``NotImplementedError``
+    until the port had that objective), and elsewhere builds the "batch"
+    loader, as the JAX package does without its device-resident dataset;
+    an unknown choice raises."""
     for objective in tpretrain.PORTED_OBJECTIVES:
         for domain in DOMAINS:
             for choice in tpretrain.TRANSFORM_DEVICES:
@@ -503,12 +505,16 @@ def test_transform_device_resolution_matches_jax():
                          transform_device=choice)
                 assert tpretrain.masking_mode(t) == jpretrain.masking_mode(j)
     cfg = _cfg(tpretrain, "masking", "chem", transform_device="device")
-    for fn in (tpretrain.build_objective,
-               lambda c: tpretrain.build_loader(c, _graphs("chem", tsyn),
-                                                CPU)):
-        with pytest.raises(NotImplementedError,
-                           match="FusedMaskingObjective.*device-resident"):
-            fn(cfg)
+    jcfg = _cfg(jpretrain, "masking", "chem", transform_device="device")
+    assert (type(tpretrain.build_objective(cfg)).__name__
+            == type(jpretrain.build_objective(jcfg)).__name__
+            == "FusedMaskingObjective")
+    clean = list(tpretrain.build_loader(cfg, _graphs("chem", tsyn), CPU))
+    jclean = list(jpretrain.build_loader(jcfg, _graphs("chem", jsyn)))
+    assert len(clean) == len(jclean) > 1
+    for t, j in zip(clean, jclean):
+        assert not t.extras
+        _assert_same_batch(t, j)
     for objective, domain in (("edgepred", "chem"), ("masking", "bio")):
         graphs = _graphs(domain, tsyn)
         dev = tpretrain.build_loader(

@@ -292,7 +292,17 @@ Phases, in order (any failure exits non-zero):
      the path: K2 ``[x]``, ``[ein]`` and K3 counted) and chem context
      prediction GIN through ``DeviceContextLoader`` (K1 on both trunks),
      both at one epoch a group;
-  32. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
+  32. data parallelism at a world of one (``parallel``; ``dp_section``):
+     an NCCL group of one rank from a ``file://`` store, chem masking GIN
+     at full width, each path alone and in the group, bit for bit equal:
+     the per-step path (48 eager steps, each all-reduce eager; float32;
+     run alone, twice in the group and alone again, its edges/s pooled)
+     and the epoch trainer (384 steps at K = 16, each step's all-reduce
+     issued under the capture and replayed) in float32 and at the knobs'
+     defaults, with launches, edges/s and the card's busy share beside
+     the runs alone; a step's all-reduce (``WorldMean``) and the bare
+     ``all_reduce`` of its flat buffer timed; the group left after;
+  33. the port's benchmark, ``pretrain_gnns_tpu_torch.bench`` at its
      defaults (chem masking GIN on 16,384 molecules and bio masking GIN,
      8 warm-up epochs) but BENCH_WINDOWS windows of 8 epochs, at
      ``--scan_steps 1`` (every step eager), then at its default (K =
@@ -304,8 +314,9 @@ wrapper calls counted on the path that runs it at the entry's ``shape``,
 ``replays``, the CUDA-graph replays of the run, ``launches_counted``:
 how the count was read, ``finetune``: the fine-tune runs' calls, their
 train steps and eval batches, ``sweep``: the sweep's calls,
-``host_paths``: each host path's calls, and ``device_paths``: each
-device-resident path's calls), the card
+``host_paths``: each host path's calls, ``device_paths``: each
+device-resident path's calls, and ``dp_paths``: each data-parallel path's
+calls at a world of one), the card
 line and, last, the result line
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside this script, it exits non-zero and prints no result.
@@ -816,8 +827,9 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
     launch must load the library anew and launch the probe: exactly once in
     the run. Returns (the counts, the steps that made them, how each count
     was read, the run's replays, its edges/s over the timed window, the
-    trained objective, and with ``profile`` the card's busy share of that
-    window and its busy ms a step; else None, None). ``precision`` names
+    trained objective, with ``profile`` the card's busy share of that
+    window and its busy ms a step, else None, None, and the history).
+    ``precision`` names
     the knobs' setting in the printed line.
 
     The timed window runs between two of the run's marks
@@ -931,7 +943,7 @@ def main_path_phase(torch, graphs, cfg, card, per_step,
              f"read in {prof[2]:.1f} s)" if profile else "")
           + f" [{time.perf_counter() - T0:.0f} s]", flush=True)
     return (counts, counted, how, replays, rate, res["model"], busy,
-            step_ms)
+            step_ms, hist)
 
 
 def record_launches(entries, launched, names=None):
@@ -4357,6 +4369,200 @@ def device_section(torch, card, chem_graphs, chem_graphs_of, bio_graphs,
           f"[{time.perf_counter() - T0:.0f} s]", flush=True)
 
 
+# --- data parallelism at a world of one --------------------------------------
+
+# the per-step path's eager steps (3 epochs of 16) and the epoch trainer's
+# run (RESIDENT_RUNS["on"]: 24 epochs, its default group of 8, groups 3
+# timed)
+DP_PER_STEP_EPOCHS = 3
+
+
+def record_dp(entries, name, launched):
+    """Adds a data-parallel path's launches to the float32 ``kernels``
+    entries of the kernels it ran, under ``dp_paths``."""
+    counts, steps = launched[:2]
+    for k in entries:
+        key = k.get("counter", k["name"])
+        if counts.get(key) and "[bf16]" not in k["name"]:
+            k.setdefault("dp_paths", []).append({
+                "path": name, "world": 1, "launches": counts[key],
+                "launches_per_step": counts[key] // steps,
+                "replays": launched[3]})
+
+
+def same_run(torch, a, b):
+    """The names of the state entries (and ``history``) in which two runs
+    differ, bit for bit."""
+    sa, sb = a[0].state_dict(), b[0].state_dict()
+    return (["history"] if a[1] != b[1] else []) + [
+        n for n in sa if not torch.equal(sa[n], sb[n])]
+
+
+def dp_per_step_phase(torch, graphs, cfg):
+    """The per-step path (host batches, eager steps: K = 1, as the JAX run
+    under a mesh; data-parallel when a group is initialized): launches
+    checked and edges/s over epochs 2-3 on the card's clock, in
+    main_path_phase's tuple (no profile)."""
+    from pretrain_gnns_tpu_torch.train import pretrain
+    from pretrain_gnns_tpu_torch.train.telemetry import seconds_between
+
+    modules = counted_modules()
+    for m in modules:
+        m.reset_launches()
+    res = pretrain.run_pretrain(cfg, graphs, log=None,
+                                epochs=DP_PER_STEP_EPOCHS, device="cuda")
+    # the probe launches where the GIN library is first loaded
+    counts = {k: v for k, v in read_counts(modules).items()
+              if v and k != "probe_scale2"}
+    hist, marks = res["history"], res["marks"]
+    rate = sum(h["edges"] for h in hist[1:]) / seconds_between(marks[0],
+                                                               marks[-1])
+    steps = sum(h["steps"] for h in hist)
+    want = {key: n * steps for key, n in K1.items()}
+    if counts != want or res["replays"] or res["scan_steps"] != 1:
+        raise AssertionError(f"[dp per-step] launches {counts} != {want}, "
+                             f"K {res['scan_steps']}, {res['replays']} "
+                             "replays")
+    return (counts, steps, {}, 0, rate, res["model"], None, None, hist)
+
+
+def dp_section(torch, card, chem_graphs, entries):
+    """Data parallelism (``parallel``: one process a device, the process
+    group's world the JAX mesh's ``data`` axis) at a world of one: an NCCL
+    group from a ``file://`` store in a temporary directory, left at the
+    end. Chem masking GIN at full width, each path without the group and
+    in it, the two runs equal bit for bit (history, parameters, batch-norm
+    statistics): the per-step path (host batches, 48 eager steps, every
+    step's all-reduce eager) in float32, run alone, twice in the group and
+    alone again (eager rates spread between runs), and the epoch trainer (the
+    dataset on the card, K = 16, RESIDENT_RUNS["on"]) in float32 and at
+    the knobs' defaults, through main_path_phase (launches, edges/s and
+    the card's busy share over the timed groups) with each step's
+    all-reduce issued under the capture (``WorldMean`` calls counted
+    while the stream captures: K a capture) and replayed. Then the
+    all-reduce of a step alone (``WorldMean``: the gradients, statistics,
+    loss and metrics into one flat buffer, ``all_reduce``, the division
+    and the copies back) and the bare ``all_reduce`` of that buffer, timed
+    on the card's clock."""
+    import dataclasses
+
+    from pretrain_gnns_tpu_torch.parallel import dp, multihost
+    from pretrain_gnns_tpu_torch.train import pretrain
+
+    t0 = time.perf_counter()
+    tag = "[dp world of one]"
+    cfg = resident(host_config(
+        num_layer=LAYERS, emb_dim=EMB, batch_size=BATCH, mask_edge=False,
+        seed=0, packing="auto"), epoch_group=0)
+    per_step = dataclasses.replace(cfg, device_dataset="off", scan_steps=1)
+    epochs, profile_from = RESIDENT_RUNS["on"]
+    captured = []
+    call = dp.WorldMean.__call__
+
+    def spy(self, loss, metrics):
+        captured.append(torch.cuda.is_current_stream_capturing())
+        return call(self, loss, metrics)
+
+    def paths(grouped):
+        out = {"per-step": dp_per_step_phase(torch, chem_graphs, per_step)}
+        for prec, kernels in (("float32", "float32"),
+                              ("default", "bfloat16")):
+            with precision("float32", kernels):
+                captured.clear()
+                out[prec] = main_path_phase(
+                    torch, chem_graphs, cfg, card, K1, epochs, profile=True,
+                    profile_from=profile_from, precision=prec)
+                if grouped and sum(captured) != pretrain.resolve_scan_steps(
+                        0, "cuda"):
+                    raise AssertionError(
+                        f"{tag} {sum(captured)} all-reduces under the "
+                        f"capture of {prec}")
+        return out
+
+    alone = paths(False)
+    # eager steps are host-bound and their rate spreads between runs: the
+    # per-step path runs alone, in the group twice, then alone again
+    eager = [alone["per-step"][4]]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as d:
+        multihost.init_group(f"file://{d}/store", 1, 0, "cuda")
+        dp.WorldMean.__call__ = spy
+        try:
+            print(f"{tag} NCCL group: world {multihost.process_count()}, "
+                  f"rank {multihost.process_index()}, backend "
+                  f"{torch.distributed.get_backend()}, NCCL "
+                  f"{torch.cuda.nccl.version()} "
+                  f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+            grouped = paths(True)
+            eager.append(grouped["per-step"][4])
+            eager.append(dp_per_step_phase(torch, chem_graphs, per_step)[4])
+            allreduce_ms = dp_allreduce_phase(torch, cfg)
+        finally:
+            dp.WorldMean.__call__ = call
+            multihost.shutdown()
+    eager.append(dp_per_step_phase(torch, chem_graphs, per_step)[4])
+    print(f"{tag} per-step edges/s alone, in the group, in the group, "
+          f"alone: {', '.join(f'{r:.1f}' for r in eager)}; in the group / "
+          f"alone {(eager[1] + eager[2]) / (eager[0] + eager[3]):.3f}x "
+          f"on {card}", flush=True)
+    for name, a in alone.items():
+        b = grouped[name]
+        differ = same_run(torch, (a[5], a[8]), (b[5], b[8]))
+        busy = (f"; the card busy {100 * a[6]:.1f}% alone, "
+                f"{100 * b[6]:.1f}% in the group, {a[7]:.3f} and "
+                f"{b[7]:.3f} ms a step" if a[6] is not None else "")
+        print(f"{tag} {name}: {b[4]:.1f} valid edges/s in the group of one "
+              f"against {a[4]:.1f} alone ({b[4] / a[4]:.3f}x){busy}; "
+              f"launches in the group "
+              f"{ {k: v for k, v in b[0].items() if v} }, alone "
+              f"{ {k: v for k, v in a[0].items() if v} }; the runs "
+              f"differ in {differ or 'nothing'} (bit for bit); on {card}",
+              flush=True)
+        if differ or a[0] != b[0]:
+            raise AssertionError(f"{tag} {name}: the run in the group "
+                                 f"differs from the run alone in {differ}"
+                                 f" or its launches")
+        if name == "per-step":
+            record_dp(entries, path_name(per_step) + " per-step", b)
+        elif name == "float32":
+            record_dp(entries, path_name(cfg), b)
+    print(f"{tag} section {time.perf_counter() - t0:.1f} s; a step's "
+          f"all-reduce {allreduce_ms} on {card} "
+          f"[{time.perf_counter() - T0:.0f} s]", flush=True)
+
+
+def dp_allreduce_phase(torch, cfg):
+    """A step's ``WorldMean`` on the full-width objective (random
+    gradients) and the bare ``all_reduce`` of its flat buffer: device ms a
+    call (time_ms) and the launching thread's ms a call (100 calls, not
+    waited for), with the buffer's bytes."""
+    import torch.distributed as dist
+
+    from pretrain_gnns_tpu_torch.parallel import dp
+    from pretrain_gnns_tpu_torch.train import pretrain
+
+    model = pretrain.build_objective(cfg).to("cuda")
+    for p in model.parameters():
+        p.grad = torch.randn_like(p)
+    wm = dp.WorldMean(model)
+    loss = torch.ones((), device="cuda")
+    metrics = {"acc_node": torch.ones((), device="cuda")}
+    wm(loss, metrics)
+    (buf,) = wm.buffers
+    out = {}
+    for name, fn in (("WorldMean", lambda: wm(loss, metrics)),
+                     ("all_reduce", lambda: dist.all_reduce(buf))):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(100):
+            fn()
+        out[f"{name} host ms"] = round((time.perf_counter() - t) * 10, 4)
+        torch.cuda.synchronize()
+        out[f"{name} device ms"] = round(time_ms(fn, torch), 4)
+    out["buffer bytes"] = buf.numel() * buf.element_size()
+    out["parameters"] = sum(p.numel() for p in model.parameters())
+    return out
+
+
 # --- the study tools: cli.sweep and cli.aggregate ---------------------------
 
 
@@ -4749,6 +4955,10 @@ def main() -> int:
     # descriptors, the epoch trainer, the draws inside the step
     device_section(torch, card, chem_graphs, chem_graphs_of, bio_graphs,
                    kernels + k2 + k3)
+
+    # data parallelism at a world of one: an NCCL group, the per-step path
+    # and the epoch trainer's replays against the runs without it
+    dp_section(torch, card, chem_graphs, kernels)
 
     bench_phase()
     kernels += k2 + k3 + k45 + k67 + probe + bf16

@@ -122,12 +122,26 @@ def split_dataset(args, graphs, scaffolds):
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
-    from pretrain_gnns_tpu_torch.data import datasets
     from pretrain_gnns_tpu_torch.device import resolve_device
+    from pretrain_gnns_tpu_torch.parallel import multihost
+
+    resolve_device(args.device)  # no CUDA: raise before any work
+    # the multi-process bootstrap: a no-op unless the PGT_* variables are
+    # set (fine-tuning itself runs on each rank alone); a group made here
+    # is left at the end
+    joined = multihost.initialize(device=args.device)
+    try:
+        return _main(args)
+    finally:
+        if joined:
+            multihost.shutdown()
+
+
+def _main(args):
+    from pretrain_gnns_tpu_torch.data import datasets
     from pretrain_gnns_tpu_torch.train import finetune
     from pretrain_gnns_tpu_torch.train.checkpoints import load_trunk_any
 
-    resolve_device(args.device)  # no CUDA: raise before any work
     graphs, scaffolds, meta = datasets.load_dataset(
         args.dataset, args.data_root, args.n_synthetic, seed=args.seed)
     num_tasks = meta.get("num_tasks") or finetune.NUM_TASKS.get(

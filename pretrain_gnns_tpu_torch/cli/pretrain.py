@@ -81,6 +81,18 @@ the uninterrupted run (``train.checkpoints.CheckpointManager``):
       --data_root dataset --checkpoint_dir ck --checkpoint_every 1 \
       --epochs 100 --output_model_file trunk
 
+Data parallelism: N processes, one a device, each run with the
+``PGT_COORDINATOR=HOST:PORT PGT_NUM_PROCESSES=N PGT_PROCESS_ID=i``
+variables (or under ``torchrun`` with ``PGT_NUM_PROCESSES=auto``) and
+``--dp_devices N``, train one run together: NCCL between the cards, gloo
+with ``--device cpu`` (``parallel.multihost``, ``parallel.dp``). Rank 0
+logs and writes the trunk and the checkpoints:
+
+  PGT_COORDINATOR=127.0.0.1:29500 PGT_NUM_PROCESSES=2 PGT_PROCESS_ID=0 \
+      python -m pretrain_gnns_tpu_torch.cli.pretrain --dp_devices 2 ... &
+  PGT_COORDINATOR=127.0.0.1:29500 PGT_NUM_PROCESSES=2 PGT_PROCESS_ID=1 \
+      python -m pretrain_gnns_tpu_torch.cli.pretrain --dp_devices 2 ...
+
 Saves the trunk ``state_dict`` (reference key layout) to
 ``<output_model_file>.pth`` in torch's legacy (pre-zip) format, which the
 reference's torch 1.0.1 reads, as the JAX package's CLI writes it
@@ -123,6 +135,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["last", "concat", "max", "sum"])
     p.add_argument("--gnn_type", default="gin")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dp_devices", type=int, default=1,
+                   help="data-parallel devices, one process each "
+                        "(default 1; 0 = the world of the process group, "
+                        "see parallel.multihost.initialize)")
     p.add_argument("--packing", default="auto",
                    choices=["auto", "standard", "blocked"],
                    help="batch layout: auto = block-diagonal on CUDA")
@@ -175,7 +191,21 @@ def main(argv=None):
     if args.gnn_type not in ("gin", "gcn", "gat", "graphsage"):
         raise SystemExit(f"--gnn_type {args.gnn_type} is not ported yet")
 
+    from pretrain_gnns_tpu_torch.parallel import multihost
+
+    # the multi-process bootstrap: a no-op unless the PGT_* variables are
+    # set; a group made here is left at the end
+    joined = multihost.initialize(device=args.device)
+    try:
+        return _main(args)
+    finally:
+        if joined:
+            multihost.shutdown()
+
+
+def _main(args):
     from pretrain_gnns_tpu_torch.data import datasets
+    from pretrain_gnns_tpu_torch.parallel import multihost
     from pretrain_gnns_tpu_torch.train import pretrain
     from pretrain_gnns_tpu_torch.train.checkpoints import (
         load_trunk_any, save_trunk_reference_format,
@@ -206,7 +236,7 @@ def main(argv=None):
         center=bool(args.center),
         graph_pooling=args.graph_pooling, packing=args.packing,
         scan_steps=args.scan_steps, transform_device=args.transform_device,
-        device_dataset=args.device_dataset,
+        device_dataset=args.device_dataset, dp_devices=args.dp_devices,
     )
     trunk = (load_trunk_any(args.input_model_file)
              if args.input_model_file else None)
@@ -214,7 +244,8 @@ def main(argv=None):
         cfg, graphs, log=lambda s: print(s, flush=True), device=args.device,
         pretrained_trunk=trunk, checkpoint_dir=args.checkpoint_dir or None,
         checkpoint_every=args.checkpoint_every)
-    if args.output_model_file:
+    if args.output_model_file and multihost.is_main():
+        # rank 0 only: every rank holds the same trunk
         path = args.output_model_file + ".pth"
         save_trunk_reference_format(
             pretrain.trunk_module(res["model"], pretrain.trunk_path(cfg)),

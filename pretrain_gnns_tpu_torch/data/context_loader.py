@@ -650,10 +650,19 @@ class DeviceContextLoader(device_pack.EpochStackMixin,
             yield (order[bounds[b]:bounds[b + 1]],
                    ((st[:, 0], st[:, 1]), (st[:, 2], st[:, 3])))
 
+    # data parallelism: the columns this loader makes descriptors for
+    # (device_pack.owns_column; the others' batches yield stubs)
+    shard_cols = None
+
     def __iter__(self) -> Iterator[device_pack.Descriptor]:
         if self.blocks is not None:
-            for v, ids, placement in self._iter_blocked():
-                yield self._descriptor(v, ids, placement)
+            walk = self._iter_blocked()
         else:
-            for v, ids in self._iter_ids():
-                yield self._descriptor(v, ids)
+            walk = ((v, ids, None) for v, ids in self._iter_ids())
+        for b, (v, ids, placement) in enumerate(walk):
+            if not device_pack.owns_column(self.shard_cols, b):
+                edges = (self._sub[v].lens_e[ids].sum()
+                         + self._ctx[v].lens_e[ids].sum())
+                yield {"_stub": (len(ids), int(edges))}
+                continue
+            yield self._descriptor(v, ids, placement)

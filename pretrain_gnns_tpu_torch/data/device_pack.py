@@ -337,6 +337,21 @@ def stream_descriptor(
     }
 
 
+def owns_column(shard_cols: Optional[Tuple[int, int, int]],
+                b: int) -> bool:
+    """Whether batch ``b`` of an epoch lies in the columns
+    ``shard_cols = (n_dev, lo, hi)`` (a data-parallel rank's, ``(world,
+    rank, rank + 1)``; batch ``b`` is column ``b % n_dev``); every batch
+    does without ``shard_cols``. A device-resident loader yields
+    ``{"_stub": (graphs, edges)}`` for a batch it does not own: its counts
+    keep the epoch's statistics those of all columns, and no descriptor is
+    made."""
+    if shard_cols is None:
+        return True
+    n_dev, lo, hi = shard_cols
+    return lo <= b % n_dev < hi
+
+
 class EpochStackMixin:
     """Whole-epoch descriptor stacking for the device-resident loaders
     (the epoch trainer's input, ``train.pretrain.run_epoch_mode``).
@@ -478,6 +493,10 @@ class DeviceBatchLoader(EpochStackMixin):
             # the C++ sampler's view of the dataset, checked once
             self._edges = native.DatasetEdges(flat.send, flat.recv,
                                               flat.edge_off, flat.lens_n)
+        # data parallelism: (n_dev, lo, hi) makes descriptors only for
+        # the batches of columns lo..hi-1 (batch b is column b % n_dev)
+        # and count-only stubs for the others (shard_cols)
+        self.shard_cols: Optional[Tuple[int, int, int]] = None
         self._epoch = 0
         self.last_epoch_stats: Dict[str, float] = {}
         self._lens_n = np.diff(flat.node_off).astype(np.int64)
@@ -714,9 +733,14 @@ class DeviceBatchLoader(EpochStackMixin):
             ids = order[sl]
             n_batches += 1
             n_graphs += len(ids)
-            n_edges += int(self._lens_e[ids].sum())
+            ne = int(self._lens_e[ids].sum())
+            n_edges += ne
+            if not owns_column(self.shard_cols, b):
+                yield {"_stub": (len(ids), ne)}
+                continue
             # per-batch keyed rng: draws depend only on
-            # (seed, epoch, batch_index)
+            # (seed, epoch, batch_index), so a rank's descriptors equal
+            # the single-process loader's for its columns
             brng = np.random.default_rng((self.seed, ep, b))
             yield self._descriptor(ids, ns[sl], es[sl], brng)
         self.last_epoch_stats = {

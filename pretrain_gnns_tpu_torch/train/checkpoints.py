@@ -74,14 +74,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state: TrainState) -> None:
-        """Write ``state`` as step ``step``, then drop all but the newest
-        ``max_to_keep`` checkpoints."""
+    def save(self, step: int, state: TrainState,
+             extra: Optional[Mapping] = None) -> None:
+        """Write ``state`` (with the entries of ``extra``, such as
+        ``TrainState``'s optional ``rank_dropout``) as step ``step``, then
+        drop all but the newest ``max_to_keep`` checkpoints."""
         fd, tmp = tempfile.mkstemp(dir=self.directory, prefix=".step_",
                                    suffix=".tmp")
         try:
             with os.fdopen(fd, "wb") as f:
-                torch.save(state.state_dict(), f)
+                torch.save({**state.state_dict(), **(extra or {})}, f)
                 f.flush()
                 os.fsync(f.fileno())
             os.replace(tmp, self.path(step))
@@ -92,19 +94,20 @@ class CheckpointManager:
         for old in self.all_steps()[:-self.max_to_keep]:
             os.unlink(self.path(old))
 
-    def restore(self, state: TrainState,
-                step: Optional[int] = None) -> TrainState:
+    def restore(self, state: TrainState, step: Optional[int] = None,
+                rank: int = 0) -> TrainState:
         """Fill ``state`` in place from step ``step`` (default: the latest)
-        and return it. The file is read with ``weights_only=True`` onto
-        the device of ``state``'s parameters; ``TrainState.load_state_dict``
-        raises on a missing or unexpected key or a wrong shape."""
+        as data-parallel rank ``rank`` and return it. The file is read with
+        ``weights_only=True`` onto the device of ``state``'s parameters;
+        ``TrainState.load_state_dict`` raises on a missing or unexpected
+        key or a wrong shape."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         device = next(state.model.parameters()).device
         saved = torch.load(self.path(step), map_location=device,
                            weights_only=True)
-        state.load_state_dict(saved)
+        state.load_state_dict(saved, rank=rank)
         return state
 
     def close(self) -> None:

@@ -45,6 +45,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from pretrain_gnns_tpu_torch.core.graphs import Graph
@@ -78,6 +79,7 @@ from pretrain_gnns_tpu_torch.objectives.masking import (
 )
 from pretrain_gnns_tpu_torch.objectives import supervised
 from pretrain_gnns_tpu_torch.objectives.supervised import SupervisedObjective
+from pretrain_gnns_tpu_torch.parallel import dp
 from pretrain_gnns_tpu_torch.train import checkpoints, graphed, optim
 from pretrain_gnns_tpu_torch.train.state import TrainState
 from pretrain_gnns_tpu_torch.train.telemetry import (
@@ -148,6 +150,9 @@ class PretrainConfig:
     # epochs a group of the epoch trainer (one copy of their descriptors);
     # 0 = auto (resolve_epoch_group)
     epoch_group: int = 0
+    # data parallelism: devices of the mesh's "data" axis, one process
+    # each (0 = the process group's world; see dp_world)
+    dp_devices: int = 1
 
 
 PORTED_OBJECTIVES = ("masking", "edgepred", "infomax", "supervised",
@@ -174,18 +179,56 @@ def masking_mode(cfg: PretrainConfig) -> str:
     return "batch" if mode == "auto" else mode
 
 
+def data_parallel(cfg: PretrainConfig) -> bool:
+    """Whether a run of ``cfg`` is data-parallel: a process group is
+    initialized (``parallel.multihost.initialize``), or ``dp_devices`` asks
+    for other than one device (:func:`dp_world` checks the two agree)."""
+    return cfg.dp_devices != 1 or (dist.is_available()
+                                   and dist.is_initialized())
+
+
+def dp_world(cfg: PretrainConfig) -> int:
+    """The data-parallel width of a run of ``cfg``: 0 when it is not
+    data-parallel, else the process group's world size W (each rank one
+    column of the JAX mesh's ``data`` axis, world 1 included). Raises
+    ``RuntimeError`` for ``dp_devices > 1`` without a process group, and
+    ``ValueError`` when ``dp_devices`` (0 meaning the world) is not the
+    world size, as the JAX ``run_pretrain`` raises in a multi-process
+    run."""
+    group = dist.is_available() and dist.is_initialized()
+    if not group:
+        if cfg.dp_devices > 1:
+            raise RuntimeError(
+                f"dp_devices={cfg.dp_devices} needs {cfg.dp_devices} "
+                "processes, one a device: launch them with PGT_COORDINATOR"
+                "=HOST:PORT PGT_NUM_PROCESSES=N PGT_PROCESS_ID=i (or "
+                "torchrun --nproc_per_node N with PGT_NUM_PROCESSES=auto) "
+                "and call parallel.multihost.initialize(), as the CLIs do")
+        return 0
+    world = dist.get_world_size()
+    n_dev = cfg.dp_devices if cfg.dp_devices > 0 else world
+    if n_dev != world:
+        raise ValueError(f"multi-process runs span all {world} processes' "
+                         f"devices (got dp_devices={cfg.dp_devices})")
+    return world
+
+
 def use_device_dataset(cfg: PretrainConfig, device) -> bool:
     """Whether the run keeps its dataset on the device (the JAX
-    ``use_device_dataset``; its data-parallel branch waits for the port's
-    data parallelism): never with "off" or under ``transform_device=
-    "host"``, whose transforms run per graph in the loader; for the
-    objectives the device-resident loaders cover, with "on", and with
-    "auto" on CUDA: chem and bio masking GIN at full width ran at least
-    as fast with it as without on the H100, in float32 and at the knobs'
-    defaults (PERF.md, scripts/torch_port_objective_bench.py with
+    ``use_device_dataset``): never with "off" or under ``transform_device=
+    "host"``, whose transforms run per graph in the loader, nor in a
+    data-parallel run (:func:`data_parallel`) at one step a dispatch,
+    whose per-step path takes host-packed batches; for the objectives the
+    device-resident loaders cover, with "on", and with "auto" on CUDA:
+    chem and bio masking GIN at full width ran at least as fast with it
+    as without on the H100, in float32 and at the knobs' defaults
+    (PERF.md, scripts/torch_port_objective_bench.py with
     DEVICE_DATASET="off on"). "auto" stays off on the CPU, as the JAX
     package's does."""
     if cfg.device_dataset == "off" or cfg.transform_device == "host":
+        return False
+    if data_parallel(cfg) and resolve_scan_steps(cfg.scan_steps,
+                                                 device) <= 1:
         return False
     if cfg.objective not in DEVICE_DATASET_OBJECTIVES.get(cfg.domain, ()):
         return False
@@ -471,21 +514,29 @@ def supervised_graphs(graphs: Sequence[Graph], domain: str):
     return graphs, int(np.asarray(graphs[0].y).shape[0])
 
 
-def step_body(state: TrainState, batch):
+def step_body(state: TrainState, batch, sync=None):
     """One forward, backward and optimizer step, not counted in
     ``state.step``, on a ``PackedGraphs`` or, for context prediction, a
     ``PackedPair``; returns the detached loss and metrics (no host
-    synchronisation). What a CUDA graph captures K times."""
+    synchronisation). What a CUDA graph captures K times. With ``sync`` (a
+    data-parallel run's ``parallel.dp.WorldMean``) the gradients, the
+    batch-norm statistics, the loss and the metrics are the world's means
+    before the optimizer step."""
     loss, metrics = state.model(batch, train=True)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    loss, metrics = loss.detach(), {k: v.detach()
+                                    for k, v in metrics.items()}
+    if sync is not None:
+        loss, metrics = sync(loss, metrics)
     state.optimizer.step()
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+    return loss, metrics
 
 
-def train_step(state: TrainState, batch):
-    """One train step (:func:`step_body`), counted in ``state.step``."""
-    out = step_body(state, batch)
+def train_step(state: TrainState, batch, body=step_body):
+    """One train step (``body``, :func:`step_body` by default), counted in
+    ``state.step``."""
+    out = body(state, batch)
     state.step += 1
     return out
 
@@ -502,7 +553,8 @@ def resolve_scan_steps(scan_steps: int, device) -> int:
 
 
 def make_scan_pretrain_step(state: TrainState, example_batch,
-                            k: int, prepare=None) -> graphed.ScanStep:
+                            k: int, prepare=None,
+                            body=step_body) -> graphed.ScanStep:
     """K train steps a call on K batches with ``example_batch``'s leaf
     shapes and dtypes (a ``graphed.ScanStep`` on the parameters' device):
     on CUDA one replay of a graph that captures the K steps at the first
@@ -510,11 +562,13 @@ def make_scan_pretrain_step(state: TrainState, example_batch,
     in turn. A call returns the losses ``[K]`` and metrics ``{name: [K]}``;
     a batch of another signature raises ``ValueError``. With ``prepare``
     (a device-resident loader's) the batches are descriptors, and each
-    step builds its batch from one first, inside the capture too."""
+    step builds its batch from one first, inside the capture too. ``body``
+    is the step: :func:`step_body`, or a data-parallel run's (with its
+    ``sync``), whose all-reduce the capture holds."""
     dev = next(state.model.parameters()).device
-    body = step_body if prepare is None else (
-        lambda st, desc: step_body(st, prepare(desc)))
-    return graphed.ScanStep(state, example_batch, k, body, dev)
+    fn = body if prepare is None else (
+        lambda st, desc: body(st, prepare(desc)))
+    return graphed.ScanStep(state, example_batch, k, fn, dev)
 
 
 def resolve_epoch_group(epoch_group: int, steps_cap: int, device) -> int:
@@ -528,7 +582,8 @@ def resolve_epoch_group(epoch_group: int, steps_cap: int, device) -> int:
     return max(1, min(8, 256 // max(steps_cap, 1)))
 
 
-def _run_batches(loader, epochs: int, k: int, pin: bool):
+def _run_batches(loader, epochs: int, k: int, pin: bool, world: int = 1,
+                 rank: int = 0):
     """The run's batches, made on the prefetch thread, one for the whole
     run (an epoch's end does not drain the queue), each with its counts
     and, for the card, pinned: ``("group", [k items])`` for one call of
@@ -537,11 +592,15 @@ def _run_batches(loader, epochs: int, k: int, pin: bool):
     every batch when ``k`` is 1), and ``("end", stats)`` after each epoch,
     with the loader's statistics of that epoch. A batch is a
     ``PackedGraphs`` or, for context prediction, a ``PackedPair``: both
-    pin and count alike (both streams' edges)."""
+    pin and count alike (both streams' edges). With ``world`` > 1 (a
+    data-parallel rank) an item is rank ``rank``'s batch of each group of
+    ``world`` (``parallel.dp.own_column``) with the group's counts."""
     warm = graphed.WARMUP_STEPS if k > 1 else 0
     for _ in range(epochs):
-        items = ((b.pin_memory() if pin else b,
-                  ThroughputMeter.counts_of(b)) for b in loader)
+        items = ((b, ThroughputMeter.counts_of(b)) for b in loader)
+        if world > 1:
+            items = dp.own_column(items, world, rank)
+        items = ((b.pin_memory() if pin else b, c) for b, c in items)
         for item in itertools.islice(items, warm):
             warm -= 1
             yield "step", item
@@ -555,7 +614,7 @@ def _run_batches(loader, epochs: int, k: int, pin: bool):
 
 
 def _epoch_groups(loader, first: int, last: int, steps_cap: int,
-                  group_e: int, pin: bool):
+                  group_e: int, pin: bool, world: int = 1):
     """The epoch trainer's groups, made on the prefetch thread: for each
     group of ``group_e`` epochs (fewer at the run's end or before an epoch
     without a batch), ``[(epoch, pack)]`` (``epoch_stack``'s pack, with
@@ -565,7 +624,10 @@ def _epoch_groups(loader, first: int, last: int, steps_cap: int,
     ``group_e * steps_cap`` steps, or one an epoch where an epoch overflows
     its ``steps_cap`` (the JAX trainer's per-epoch dispatch). An epoch
     without a batch comes alone as ``[(epoch, None)], []``. With ``pin``
-    the host arrays are page-locked."""
+    the host arrays are page-locked. With ``world`` > 1 (a data-parallel
+    rank, the loader's ``shard_cols`` its column) ``epoch_stack(n_dev=
+    world)`` keeps whole groups of ``world`` batches and the rank's own
+    column of each."""
     def host(d):
         d = Descriptor(d)
         return d.pin_memory() if pin else d
@@ -592,7 +654,11 @@ def _epoch_groups(loader, first: int, last: int, steps_cap: int,
 
     group = []
     for ep in range(first, last + 1):
-        pack = loader.epoch_stack(steps_cap=steps_cap)
+        pack = loader.epoch_stack(steps_cap=steps_cap, n_dev=world)
+        if pack is not None and world > 1:  # [steps, 1 column, ...]
+            pack["stacked"] = {k: v[:, 0] for k, v in pack["stacked"].items()}
+            pack["overflow"] = [{k: v[0] for k, v in o.items()}
+                                for o in pack["overflow"]]
         if pack is None:
             if group:
                 yield emit(group)
@@ -610,7 +676,8 @@ def _epoch_groups(loader, first: int, last: int, steps_cap: int,
 def run_epoch_mode(state: TrainState, loader, k: int, dev: torch.device,
                    first: int, last: int, group_e: int,
                    log: Optional[Callable[[str], None]] = None,
-                   mgr=None, checkpoint_every: int = 0):
+                   mgr=None, checkpoint_every: int = 0, world: int = 1,
+                   body=step_body):
     """The epoch trainer (the JAX ``_run_epoch_mode``) over epochs
     ``first..last`` of a device-resident ``loader``, K = ``k`` steps a
     replay: for each group of ``group_e`` epochs (``run_pretrain``'s
@@ -629,10 +696,15 @@ def run_epoch_mode(state: TrainState, loader, k: int, dev: torch.device,
     that copy, and its epochs log edges/s from the previous group's mark
     to its own. Checkpoints fall at group ends.
     The steps are the per-step run's, in its order, so the two runs are
-    equal bit for bit where the steps repeat. Returns the history rows (as
-    ``run_pretrain``'s), the ``ScanStep`` and the groups' marks."""
+    equal bit for bit where the steps repeat. A data-parallel rank
+    (``world`` > 1, ``body`` the data-parallel step with its ``sync``, the
+    JAX
+    ``make_epoch_dp_pretrain_step``) runs ``steps_cap = len(loader) //
+    world`` steps an epoch on its own column; its rows count the edges and
+    steps of all columns. Returns the history rows (as ``run_pretrain``'s),
+    the ``ScanStep`` and the groups' marks."""
     pin = dev.type == "cuda"
-    steps_cap = max(len(loader), 1)
+    steps_cap = max(len(loader) // world, 1)
     scan = None
     warm = graphed.WARMUP_STEPS
     history, marks, pending = [], [], None
@@ -657,7 +729,8 @@ def run_epoch_mode(state: TrainState, loader, k: int, dev: torch.device,
                 out.update({key: float(sums[j + 1 + m]) / nb
                             for m, key in enumerate(keys)})
                 j += 1 + len(keys)
-            out["edges"], out["steps"] = row["edges"], row["steps"]
+            # a data-parallel step trains on every column's batch
+            out["edges"], out["steps"] = row["edges"], row["steps"] * world
             history.append(out)
             if not log:
                 continue
@@ -668,15 +741,17 @@ def run_epoch_mode(state: TrainState, loader, k: int, dev: torch.device,
                     f"blocks={loader.blocks}); epoch trainer: {steps_cap} "
                     f"steps/epoch, {group_e} epochs/group, {k} "
                     "steps/dispatch " + ("(CUDA-graph replays)" if pin
-                                         else "(steps in turn)"))
+                                         else "(steps in turn)")
+                    + (f"; data parallel over {world} ranks" if world > 1
+                       else ""))
             log(" ".join(f"{key}={v:.4f}" if isinstance(v, float) else
                          f"{key}={v}" for key, v in out.items())
                 + f" edges/s={rate:.1f} replays={counts[0]} "
                 f"eager_steps={counts[1]}")
 
     for epochs, copies in prefetch(
-            _epoch_groups(loader, first, last, steps_cap, group_e, pin),
-            depth=2):
+            _epoch_groups(loader, first, last, steps_cap, group_e, pin,
+                          world), depth=2):
         seq = []  # (index of the epoch in the group, descriptor, counts)
         e = 0
         for stack, packs in copies:
@@ -696,7 +771,7 @@ def run_epoch_mode(state: TrainState, loader, k: int, dev: torch.device,
         while i < len(seq):
             if scan is None:
                 scan = make_scan_pretrain_step(state, seq[0][1], k,
-                                               loader.prepare)
+                                               loader.prepare, body)
             if warm > 0 or len(seq) - i < k:
                 loss, metrics = scan.step(seq[i][1])
                 warm = max(warm - 1, 0)
@@ -722,8 +797,10 @@ def run_epoch_mode(state: TrainState, loader, k: int, dev: torch.device,
                 # copied out in order: the vectors the per-step loop sums
                 sums += [v[sl].clone().sum()
                          for v in (losses, *metrics.values())]
-            rows.append(({"epoch": ep,
-                          "edges": sum(c["edges"] for c in counts),
+            edges = sum(c["edges"] for c in counts)
+            if world > 1 and pack is not None:  # every column's
+                edges = pack["stats"]["edges"]
+            rows.append(({"epoch": ep, "edges": edges,
                           "steps": len(counts)},
                          pack["stats"] if pack is not None else None,
                          tally[e]))
@@ -781,10 +858,34 @@ def run_pretrain(
     points between which a caller times the run
     (``telemetry.seconds_between``). A device-resident loader
     (:func:`use_device_dataset`) at K > 1 trains through
-    :func:`run_epoch_mode`."""
+    :func:`run_epoch_mode`.
+
+    Data parallelism (the JAX ``run_pretrain`` under a mesh): whenever a
+    process group is initialized or ``dp_devices > 1`` (:func:`dp_world`),
+    this process is rank r of W, each rank one device. Every step is a
+    data-parallel step (``parallel.dp``: the world's mean gradients,
+    batch-norm statistics, loss and metrics, one all-reduce); rank r trains
+    on batch ``g * W + r`` of each group of W, a short last group dropped.
+    A device-resident loader at K > 1 takes the epoch trainer at
+    ``len(loader) // W`` steps an epoch (its ``shard_cols`` the rank's
+    column, each step's all-reduce inside the CUDA-graph replays);
+    otherwise the steps are eager, one a batch (K = 1, as the JAX run
+    under a mesh). The rank's random streams are its own, rank 0's the
+    single-process ones; rank 0's parameters and buffers are broadcast
+    before the first step. Only rank 0 logs and writes checkpoints (then
+    a barrier; every rank restores). History rows hold the world's mean
+    loss and metrics, and the ``edges`` and ``steps`` of all columns. A
+    world of one equals the run without data parallelism bit for bit."""
     dev = resolve_device(device)
+    world = dp_world(cfg)
+    rank = dist.get_rank() if world else 0
+    width = max(world, 1)  # the batches a step trains on, every rank's
     k = resolve_scan_steps(cfg.scan_steps, dev)
     model = build_objective(cfg)
+    if world:
+        dp.seed_rank_streams(model, rank)
+        if rank:
+            log = None  # rank 0 logs
     if pretrained_trunk is not None:
         graft_trunk(model, pretrained_trunk, trunk_path(cfg))
     model = model.to(dev)
@@ -796,6 +897,8 @@ def run_pretrain(
     mgr, start = None, 1
     if checkpoint_dir:
         mgr = checkpoints.CheckpointManager(checkpoint_dir)
+        if world:
+            mgr = dp.RankCheckpoints(mgr)
         latest = mgr.latest_step()
         if latest is not None:
             mgr.restore(state, latest)
@@ -806,19 +909,27 @@ def run_pretrain(
     first_step = state.step
     n_epochs = epochs or cfg.epochs
     prepare = getattr(loader, "prepare", None)
+    body = step_body
+    if world:
+        dp.broadcast_state(model)
+        body = functools.partial(step_body, sync=dp.WorldMean(model))
     group = None
     if isinstance(loader, EpochStackMixin) and k > 1:
-        group = resolve_epoch_group(cfg.epoch_group, max(len(loader), 1),
-                                    dev)
+        if world:
+            loader.shard_cols = (world, rank, rank + 1)
+        group = resolve_epoch_group(
+            cfg.epoch_group, max(len(loader) // width, 1), dev)
         if checkpoint_every:
             group = min(group, checkpoint_every)
         history, scan, marks = run_epoch_mode(
             state, loader, k, dev, start, n_epochs, group, log, mgr,
-            checkpoint_every)
+            checkpoint_every, width, body)
     else:
+        if world:
+            k = 1  # eager data-parallel steps
         history, scan, marks = _run_per_step(
             state, loader, k, dev, start, n_epochs, prepare, cfg, log, mgr,
-            checkpoint_every)
+            checkpoint_every, width, rank, body)
     if mgr:
         if mgr.latest_step() != state.step:
             mgr.save(state.step, state)
@@ -832,15 +943,17 @@ def run_pretrain(
 
 
 def _run_per_step(state, loader, k, dev, start, n_epochs, prepare, cfg, log,
-                  mgr, checkpoint_every):
+                  mgr, checkpoint_every, world=1, rank=0, body=step_body):
     """``run_pretrain``'s loop over whole batches (or, for a
     device-resident loader at K = 1, descriptors, each built into its
     batch first): epochs ``start..n_epochs``; returns the history rows and
-    the ``ScanStep`` (None at K = 1) and the epochs' marks."""
+    the ``ScanStep`` (None at K = 1) and the epochs' marks. A
+    data-parallel rank (``world`` > 1) takes its own batch of each group
+    of ``world`` (``_run_batches``) through ``body``."""
     meter = ThroughputMeter()
     pin = dev.type == "cuda"
     batches = prefetch(_run_batches(loader, max(n_epochs - start + 1, 0), k,
-                                    pin), depth=2)
+                                    pin, world, rank), depth=2)
     scan = None
     history, marks = [], []
     for epoch in range(start, n_epochs + 1):
@@ -853,7 +966,7 @@ def _run_per_step(state, loader, k, dev, start, n_epochs, prepare, cfg, log,
                 break
             if k > 1 and scan is None:
                 first = item[0][0] if kind == "group" else item[0]
-                scan = make_scan_pretrain_step(state, first, k, prepare)
+                scan = make_scan_pretrain_step(state, first, k, prepare, body)
             if kind == "group":
                 loss, metrics = scan([b for b, _ in item])
                 replays += 1
@@ -865,7 +978,8 @@ def _run_per_step(state, loader, k, dev, start, n_epochs, prepare, cfg, log,
                 else:
                     batch = batch.to(dev, non_blocking=pin)
                     loss, metrics = train_step(
-                        state, batch if prepare is None else prepare(batch))
+                        state, batch if prepare is None else prepare(batch),
+                        body)
                 eager += 1
             # each step's loss and metrics in order: the epoch's mean sums
             # one vector, whatever the grouping
@@ -882,7 +996,7 @@ def _run_per_step(state, loader, k, dev, start, n_epochs, prepare, cfg, log,
                "loss": float(loss) / nb if parts else 0.0}
         row.update({key: float(v) / nb for key, v in sums.items()})
         row["edges"] = meter.edges
-        row["steps"] = meter.steps
+        row["steps"] = meter.steps * world  # every column's
         history.append(row)
         if log:
             if epoch == start:
@@ -892,7 +1006,9 @@ def _run_per_step(state, loader, k, dev, start, n_epochs, prepare, cfg, log,
                     f"(batch_size={cfg.batch_size}, blocks={loader.blocks}); "
                     f"{k} steps/dispatch "
                     + ("(CUDA-graph replays)" if k > 1 and pin else
-                       "(steps in turn)" if k > 1 else "(eager steps)"))
+                       "(steps in turn)" if k > 1 else "(eager steps)")
+                    + (f"; data parallel over {world} ranks" if world > 1
+                       else ""))
             log(" ".join(f"{key}={v:.4f}" if isinstance(v, float) else
                          f"{key}={v}" for key, v in row.items())
                 + f" edges/s={meter.edges_per_sec():.1f}"

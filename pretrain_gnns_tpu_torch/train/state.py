@@ -17,6 +17,8 @@ import torch
 from pretrain_gnns_tpu_torch.models.chem import TrunkDropout
 
 KEYS = ("model", "optimizer", "step", "epoch", "dropout")
+# a data-parallel checkpoint's every rank's dropout states
+OPTIONAL_KEYS = ("rank_dropout",)
 
 
 @dataclasses.dataclass
@@ -30,28 +32,36 @@ class TrainState:
         return {name: m for name, m in self.model.named_modules()
                 if isinstance(m, TrunkDropout)}
 
+    def dropout_states(self) -> Dict[str, Any]:
+        """Each trunk's dropout generator states by device
+        (``TrunkDropout.dropout_states``), by module name."""
+        return {name: m.dropout_states()
+                for name, m in self._dropout_modules().items()}
+
     def state_dict(self) -> Dict[str, Any]:
         """The whole state: the model's and the optimizer's state dicts,
-        ``step``, ``epoch`` and each trunk's dropout generator states by
-        device (``TrunkDropout.dropout_states``)."""
+        ``step``, ``epoch`` and :meth:`dropout_states`."""
         return {"model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict(),
                 "step": self.step, "epoch": self.epoch,
-                "dropout": {name: m.dropout_states()
-                            for name, m in self._dropout_modules().items()}}
+                "dropout": self.dropout_states()}
 
-    def load_state_dict(self, saved: Dict[str, Any]) -> None:
+    def load_state_dict(self, saved: Dict[str, Any], rank: int = 0) -> None:
         """Fill this state in place from ``saved`` (:meth:`state_dict`'s
         form, possibly of another device). The model loads strictly. The
         optimizer takes the saved moments and step counts, and keeps its
         own parameter groups: their flags (``capturable`` on CUDA, not on
         the CPU) belong to the device this run built. The dropout
-        generators of this run's device type take the saved states. Raises
+        generators of this run's device type take the saved states. A
+        data-parallel checkpoint (``parallel.dp.RankCheckpoints``) also
+        holds every rank's generator states under ``rank_dropout``, and
+        rank ``rank`` takes its own; a rank above 0 keeps its seeded
+        streams where the checkpoint has none of its own. Raises
         ``KeyError`` on a missing or unexpected entry, ``RuntimeError``
         (``load_state_dict``) on a model key or shape that differs, and
         ``ValueError`` on another parameter grouping or a moment of the
         wrong shape."""
-        if set(saved) != set(KEYS):
+        if set(saved) - set(OPTIONAL_KEYS) != set(KEYS):
             raise KeyError(f"a train state has the entries {KEYS}, not "
                            f"{sorted(saved)}")
         dropout = self._dropout_modules()
@@ -77,6 +87,14 @@ class TrainState:
         self.optimizer.load_state_dict(
             {"state": opt["state"], "param_groups": own["param_groups"]})
         device = next(self.model.parameters()).device
+        states = saved["dropout"]
+        if rank:
+            ranks = saved.get("rank_dropout")
+            if ranks is not None and len(ranks) <= rank:
+                raise ValueError(f"the checkpoint holds the streams of "
+                                 f"{len(ranks)} ranks, not of rank {rank}")
+            states = ranks[rank] if ranks is not None else None
         for name, m in dropout.items():
-            m.load_dropout_states(saved["dropout"][name], device)
+            if states is not None:
+                m.load_dropout_states(states[name], device)
         self.step, self.epoch = int(saved["step"]), int(saved["epoch"])

@@ -2037,7 +2037,7 @@ def test_gather_scatter_edge_emb_runs_k6_bf16_under_the_knob(cuda_device,
         assert not torch.equal(a, c)
 
 
-# --- fine-tuning: forwards under no_grad, eval batches with empty blocks -------
+# --- fine-tuning: forwards under no_grad, eval batches with empty blocks -----
 
 
 @pytest.mark.cuda
@@ -2360,3 +2360,64 @@ def test_epoch_trainer_on_card_equals_per_step(cuda_device, objective,
     ref = runs[0]["model"].state_dict()
     for name, v in runs[1]["model"].state_dict().items():
         assert torch.equal(v, ref[name]), name
+
+
+# --- data parallelism at a world of one (NCCL) -------------------------------
+
+@contextlib.contextmanager
+def _nccl_world_of_one(tmp_path):
+    """An NCCL process group of one rank on the card, from a ``file://``
+    store, left at the end."""
+    from pretrain_gnns_tpu_torch.parallel import multihost
+
+    multihost.init_group(f"file://{tmp_path}/store", 1, 0, "cuda")
+    try:
+        yield
+    finally:
+        multihost.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(device_dataset="off", scan_steps=1),
+    dict(scan_steps=4, epoch_group=2),
+    dict(scan_steps=4, transform_device="device", dropout_ratio=0.2),
+], ids=["per_step", "epoch_trainer", "epoch_trainer_device_draws"])
+def test_dp_world_of_one_on_card_equals_run_without(cuda_device, tmp_path,
+                                                    monkeypatch, kw):
+    """Chem masking GIN in an NCCL group of one against the same run
+    without a group: history, parameters and statistics bit for bit, K1
+    launched; in the epoch trainer the replays run steps whose all-reduce
+    was issued under the capture (NCCL captured with the step)."""
+    from pretrain_gnns_tpu_torch.parallel import dp
+
+    graphs = _resident_graphs("chem")
+    cfg = dataclasses.replace(_resident_cfg("masking", "chem"), **kw)
+    alone = pretrain.run_pretrain(cfg, graphs, log=None, epochs=3,
+                                  device="cuda")
+    captured = []
+    call = dp.WorldMean.__call__
+
+    def spy(self, loss, metrics):
+        captured.append(torch.cuda.is_current_stream_capturing())
+        return call(self, loss, metrics)
+
+    monkeypatch.setattr(dp.WorldMean, "__call__", spy)
+    gin_conv.reset_launches()
+    with _nccl_world_of_one(tmp_path):
+        res = pretrain.run_pretrain(cfg, graphs, log=None, epochs=3,
+                                    device="cuda")
+    assert gin_conv.launches["gin_conv_fwd"] > 0
+    assert gin_conv.launches["gin_conv_bwd"] > 0
+    assert res["history"] == alone["history"]
+    ref = alone["model"].state_dict()
+    for name, v in res["model"].state_dict().items():
+        assert torch.equal(v, ref[name]), name
+    steps = sum(h["steps"] for h in res["history"])
+    if kw["scan_steps"] == 1:
+        assert res["replays"] == 0 and not any(captured)
+        assert len(captured) == steps
+    else:
+        k = res["scan_steps"]
+        assert res["replays"] > 0 and sum(captured) == k
+        assert len(captured) == res["eager_steps"] + k

@@ -300,13 +300,15 @@ def test_unflattened_graphs_fall_back_and_say_why(capsys):
 
 
 def test_cli_flags_match_jax():
-    """``--device_dataset`` and ``--transform_device``: the JAX CLI's
-    choices and defaults."""
-    for dest in ("device_dataset", "transform_device"):
+    """``--device_dataset``, ``--transform_device`` and ``--dp_devices``:
+    the JAX CLI's types, choices and defaults."""
+    for dest in ("device_dataset", "transform_device", "dp_devices"):
         t, j = (next(a for a in p._actions if a.dest == dest)
                 for p in (tcli.build_parser(), jcli.build_parser()))
-        assert (t.default, list(t.choices)) == (j.default, list(j.choices))
+        assert (t.default, t.type, t.choices and list(t.choices)) == (
+            j.default, j.type, j.choices and list(j.choices))
     assert tcli.build_parser().parse_args([]).device_dataset == "auto"
+    assert tcli.build_parser().parse_args([]).dp_devices == 1
     with pytest.raises(SystemExit):
         tcli.build_parser().parse_args(["--device_dataset", "maybe"])
 
